@@ -1,0 +1,1 @@
+"""models — counterpart of the JAX package's sub-package of the same name."""

@@ -1,0 +1,228 @@
+"""Static sparse operators fixed by the mesh, and their application.
+
+Counterpart of `gen_fvgn_tpu/ops/blocksparse.py`. Every graph operation
+(neighbour aggregation, edge↔node transfers, WLSQ gradients, FV
+interpolation and flux accumulation) is a static sparse linear operator.
+The JAX package stores each as 256×256 dense tiles along its band, which is
+what a matrix unit wants; on a GPU the operators have a few to a few tens
+of non-zeros a row and the apply is a gather-accumulate bounded by bytes, so
+the port stores each direction as CSR (row pointers, column indices,
+values), with the transpose built explicitly from the same COO triplets.
+
+`apply_linop(op, x)` keeps three behaviours of the JAX `_apply_block_op`:
+
+* a pure row-gather operator (`take_idx`) applied to rows of at least 256
+  bytes is a row gather in the operand's own type; its padded output rows
+  read row 0 and are NOT zero;
+* an operator stored in bfloat16 casts its operand to bfloat16 first;
+* the output is bfloat16 only for a bfloat16 operand and a bfloat16
+  operator, float32 otherwise.
+
+Applies whose feature width is a multiple of 128 (and that do not take the
+row-gather route) go to the `spmm` CUDA kernel (ops/spmm.py) — the JAX
+dispatch rule for its Pallas kernels. Narrower applies (edge_diff at 12
+channels, the float32 FV/WLSQ streams) are outside any kernel in the JAX
+package as well; here they are one `torch.sparse` CSR product.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+@dataclass
+class CsrOp:
+    """One direction of a static sparse operator [n_out, n_in] in CSR.
+
+    dtype is the operator's storage type in the sense of the JAX package:
+    torch.bfloat16 for the structural message-passing operators (entries are
+    small integers, exact in bf16), torch.float32 for the FV/WLSQ operators.
+    The values themselves are kept in float32 (for a bf16 operator they are
+    rounded through bf16 first): the kernel and the plain version both
+    accumulate in float32.
+
+    take_idx: for pure row-gather operators the row indices [n_out] (padded
+    rows index 0).
+    """
+    crow: torch.Tensor            # [n_out + 1] int32
+    col: torch.Tensor             # [nnz] int32
+    val: torch.Tensor             # [nnz] float32
+    n_out: int
+    n_in: int
+    dtype: torch.dtype
+    take_idx: Optional[torch.Tensor] = None   # [n_out] int64
+    _csr: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
+
+    @property
+    def nnz(self) -> int:
+        return int(self.col.shape[0])
+
+    def to(self, device) -> "CsrOp":
+        return CsrOp(
+            crow=self.crow.to(device), col=self.col.to(device),
+            val=self.val.to(device), n_out=self.n_out, n_in=self.n_in,
+            dtype=self.dtype,
+            take_idx=None if self.take_idx is None
+            else self.take_idx.to(device))
+
+    def csr(self) -> torch.Tensor:
+        """The operator as a float32 torch sparse CSR tensor (cached)."""
+        if self._csr is None:
+            with warnings.catch_warnings():
+                # torch announces once that sparse CSR support is in beta
+                warnings.filterwarnings("ignore", message="Sparse CSR")
+                self._csr = torch.sparse_csr_tensor(
+                    self.crow, self.col, self.val,
+                    size=(self.n_out, self.n_in), check_invariants=False)
+        return self._csr
+
+    def to_dense(self) -> torch.Tensor:
+        return self.csr().to_dense()
+
+
+@dataclass
+class LinOp:
+    """A sparse operator with its explicit transpose (the backward of a
+    later training slice applies `bwd`, never a scatter)."""
+    fwd: CsrOp
+    bwd: CsrOp
+
+    def to(self, device) -> "LinOp":
+        return LinOp(fwd=self.fwd.to(device), bwd=self.bwd.to(device))
+
+
+def _resolve_dtype(dtype) -> torch.dtype:
+    if dtype in (torch.bfloat16, "bfloat16"):
+        return torch.bfloat16
+    if dtype in (torch.float32, np.float32, "float32"):
+        return torch.float32
+    raise ValueError(f"operator dtype must be float32 or bfloat16, got {dtype!r}")
+
+
+def build_csr_op(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+                 n_out: int, n_in: int, dtype=np.float32,
+                 take_idx: Optional[np.ndarray] = None) -> CsrOp:
+    """Assemble CSR from COO triplets (duplicates accumulate, in float64).
+
+    n_out / n_in are the PADDED sizes; rows without entries (the padding)
+    stay empty, so they come out exactly zero."""
+    tdtype = _resolve_dtype(dtype)
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    vals = np.asarray(vals, np.float64)
+    key = rows * n_in + cols
+    uniq, inverse = np.unique(key, return_inverse=True)
+    acc = np.zeros(uniq.shape[0], np.float64)
+    np.add.at(acc, inverse.reshape(-1), vals)
+    r = uniq // n_in                                  # ascending (row-major)
+    c = uniq % n_in
+    counts = np.bincount(r, minlength=n_out)
+    crow = np.zeros(n_out + 1, np.int64)
+    np.cumsum(counts, out=crow[1:])
+    val = torch.from_numpy(acc.astype(np.float32))
+    if tdtype == torch.bfloat16:
+        val = val.to(torch.bfloat16).to(torch.float32)
+    return CsrOp(
+        crow=torch.from_numpy(crow.astype(np.int32)),
+        col=torch.from_numpy(c.astype(np.int32)),
+        val=val, n_out=int(n_out), n_in=int(n_in), dtype=tdtype,
+        take_idx=None if take_idx is None
+        else torch.from_numpy(np.asarray(take_idx, np.int64)))
+
+
+def build_linop(rows, cols, vals, n_out: int, n_in: int,
+                dtype=np.float32,
+                fwd_take: Optional[np.ndarray] = None) -> LinOp:
+    """fwd_take: explicit row-gather indices [n_out] (pad rows 0) enabling
+    the row-gather route on the forward direction; the transpose stays a
+    sparse product."""
+    return LinOp(
+        fwd=build_csr_op(rows, cols, vals, n_out, n_in, dtype,
+                         take_idx=fwd_take),
+        bwd=build_csr_op(cols, rows, vals, n_in, n_out, dtype))
+
+
+def _out_dtype(op: CsrOp, x: torch.Tensor) -> torch.dtype:
+    """bf16 operand AND bf16 operator (the model message-passing path):
+    emit bf16. FV/WLSQ operators are float32, so numerical paths still
+    accumulate and emit float32."""
+    return (torch.bfloat16
+            if (x.dtype == torch.bfloat16 and op.dtype == torch.bfloat16)
+            else torch.float32)
+
+
+def csr_matmul(op: CsrOp, x: torch.Tensor) -> torch.Tensor:
+    """The apply as one `torch.sparse` CSR product, on any device: the
+    operand is cast to bfloat16 when the operator is stored bfloat16, the
+    product accumulates in float32, and the output type follows
+    `_out_dtype`. x: [n_in, F] or [B, n_in, F] (the batch is folded into the
+    columns, so the operator is read once).
+
+    This is the route of the narrow and float32 applies (edge_diff at 12
+    channels, the FV/WLSQ streams), which are outside any kernel in the JAX
+    package too; it is also the arithmetic the spmm kernel's plain version
+    states (ops/spmm.py::spmm_reference)."""
+    out_dtype = _out_dtype(op, x)
+    xin = x.to(torch.bfloat16) if op.dtype == torch.bfloat16 else x
+    xf = xin.to(torch.float32).contiguous()
+    a = op.csr()
+    if x.ndim == 2:
+        out = torch.sparse.mm(a, xf)
+    else:
+        b, n_in, f = xf.shape
+        flat = xf.permute(1, 0, 2).reshape(n_in, b * f)
+        out = torch.sparse.mm(a, flat).reshape(op.n_out, b, f).permute(1, 0, 2)
+    return out.to(out_dtype).contiguous()
+
+
+def _apply_csr_op(op: CsrOp, x: torch.Tensor) -> torch.Tensor:
+    """x [n_in, F] or batch-major [B, n_in, F] -> [(B,) n_out, F]."""
+    from gen_fvgn_tpu_torch.ops import plain_versions_active
+    from gen_fvgn_tpu_torch.ops.spmm import spmm, spmm_reference
+    if x.ndim not in (2, 3):
+        raise ValueError(f"apply expects [n_in, F] or [B, n_in, F], got "
+                         f"{tuple(x.shape)}")
+    if x.shape[-2] != op.n_in:
+        raise ValueError(f"operand has {x.shape[-2]} rows, operator takes "
+                         f"{op.n_in}")
+    f = x.shape[-1]
+    if op.take_idx is not None and f * x.element_size() >= 256:
+        # a row gather is exact in the operand type — no bf16 round trip
+        # even when the (structural) operator is stored bf16
+        return torch.index_select(x, x.ndim - 2, op.take_idx)
+    if f % 128 == 0:
+        # the JAX dispatch rule of the Pallas spmm kernels
+        return (spmm_reference if plain_versions_active() else spmm)(op, x)
+    return csr_matmul(op, x)
+
+
+def apply_linop(op: LinOp, x: torch.Tensor) -> torch.Tensor:
+    """out = A @ x. x is [n_in, F] or batch-major [B, n_in, F]. Forward
+    only in this slice (the rollout runs under torch.no_grad())."""
+    return _apply_csr_op(op.fwd, x)
+
+
+# ---------- host-side COO triplets of the standard mesh operators ----------
+
+
+def gather_coo(idx: np.ndarray):
+    """out[e] = x[idx[e]] — one-hot rows."""
+    e = np.arange(idx.shape[0])
+    return e, idx, np.ones(idx.shape[0], np.float32)
+
+
+def signed_diff_coo(face_node: np.ndarray):
+    """out[e] = x[s_e] − x[r_e] (relative edge features)."""
+    s, r = face_node[0], face_node[1]
+    e = np.arange(s.shape[0])
+    rows = np.concatenate([e, e])
+    cols = np.concatenate([s, r])
+    vals = np.concatenate([np.ones_like(s, np.float32),
+                           -np.ones_like(r, np.float32)])
+    return rows, cols, vals

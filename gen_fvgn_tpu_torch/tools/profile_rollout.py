@@ -1,0 +1,138 @@
+"""Where a rollout step's time goes on the card.
+
+    python -m gen_fvgn_tpu_torch.tools.profile_rollout [--steps 20]
+
+Sets up the port's main path (FVGN, hidden 128, 3 blocks, bf16 stream,
+batch 8, 101x101-node synthetic cavity, seeded random weights), then prints
+
+  * the card's name and power limit;
+  * ms per step on the host clock (ending in a synchronize) for
+    `rollout_block_scan` (state stays on the device) and `rollout_block`
+    (records copied to the host each step);
+  * from torch.profiler over one more such window: device-busy ms per step
+    (device kernels only), the device's idle share (1 - busy / unprofiled
+    wall), and the device time by kernel name, largest first;
+  * peak device memory.
+
+Needs one CUDA card. If the profiler reports no device time the idle share
+is printed as "not measured".
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+
+def build_main_path(batch: int = 8, mesh_n: int = 100, device="cuda",
+                    seed: int = 0):
+    """(cfg, pool, static, dyn, simulator, norm_state) of the main path at
+    full width: the Config defaults apart from net="FVGN"."""
+    from gen_fvgn_tpu_torch import Config
+    from gen_fvgn_tpu_torch.meshes.synthetic import (cavity_quad_mesh,
+                                                     synthetic_case)
+    from gen_fvgn_tpu_torch.models.simulator_block import make_simulator_block
+    from gen_fvgn_tpu_torch.training.normalizer import init_normalizer
+    from gen_fvgn_tpu_torch.training.pool import EnvPool
+    cfg = Config(net="FVGN", hidden_size=128, message_passing_num=3,
+                 mxu_dtype="bfloat16", node_agg="composed",
+                 edge_gather="take", fv_packed=True, order="2nd",
+                 integrator="imex", batch_size=batch, dataset_size=batch)
+    case = synthetic_case(cavity_quad_mesh(mesh_n), continuity=1,
+                          convection=1, grad_p=1, mu=0.05, sigma=(1, 1, 1))
+    pool = EnvPool([], cfg, seed=seed, cases=[case], dataset_size=batch,
+                   device=device)
+    dyn = pool.gather_block(np.arange(batch))
+    sim = make_simulator_block(cfg, device=device, seed=seed)
+    norm_state = init_normalizer(cfg.node_input_size - cfg.node_phi_size,
+                                 device=device)
+    return cfg, pool, pool.statics[0], dyn, sim, norm_state
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--top", type=int, default=25)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_rollout needs one CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from gen_fvgn_tpu_torch.solve.rollout_block import (rollout_block,
+                                                        rollout_block_scan)
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    print(f"card: {card}")
+    cfg, pool, static, dyn, sim, ns = build_main_path(batch=args.batch)
+    n = args.steps
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    rollout_block_scan(cfg, sim, ns, dyn, static, 3)        # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    scan_ms = [timed(lambda: rollout_block_scan(cfg, sim, ns, dyn, static, n))
+               for _ in range(3)]
+    host_ms = [timed(lambda: rollout_block(cfg, sim, ns, dyn, static, n))
+               for _ in range(3)]
+    print(f"rollout_block_scan: {min(scan_ms):.3f} ms/step (best of 3 runs "
+          f"of {n} steps: {[round(v, 3) for v in scan_ms]})")
+    print(f"rollout_block:      {min(host_ms):.3f} ms/step (best of 3 runs "
+          f"of {n} steps: {[round(v, 3) for v in host_ms]})")
+    print(f"peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
+
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        rollout_block_scan(cfg, sim, ns, dyn, static, n)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    # device kernels only: the operator rows of key_averages() repeat their
+    # kernels' device time
+    from torch.autograd import DeviceType
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0 and ev.device_type == DeviceType.CUDA:
+            rows.append((dev_us / 1e3 / n, ev.count / n, ev.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    wall = min(scan_ms)
+    print(f"profiled window: {wall_ms:.3f} ms/step wall with the profiler "
+          f"on (its start-up included); idle share is taken against the "
+          f"unprofiled {wall:.3f} ms/step")
+    if busy <= 0:
+        print("device busy: not measured (the profiler reported no device "
+              "time); idle share: not measured")
+        return 0
+    ours = sum(r[0] for r in rows
+               if "spmm_csr_kernel" in r[2] or "fused_mlp_kernel" in r[2])
+    print(f"device busy: {busy:.3f} ms/step ({ours:.3f} in the port's three "
+          f"kernels); idle share {1 - busy / wall:.3f}; "
+          f"{sum(r[1] for r in rows):.0f} device kernels/step")
+    print(f"{'ms/step':>9} {'calls/step':>10}  kernel")
+    for ms, calls, key in rows[: args.top]:
+        print(f"{ms:9.4f} {calls:10.1f}  {key[:110]}")
+    rest = rows[args.top:]
+    if rest:
+        print(f"{sum(r[0] for r in rest):9.4f} "
+              f"{sum(r[1] for r in rest):10.1f}  ({len(rest)} more)")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

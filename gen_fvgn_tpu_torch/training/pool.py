@@ -1,0 +1,191 @@
+"""Environment pool: the (mesh × boundary-condition) environments of the
+block engine.
+
+Counterpart of `gen_fvgn_tpu/training/pool.py`, cut to `engine="block"`
+with in-memory `cases=[...]`: environments hold an autoregressive uvp state;
+every environment is a padded `MeshSample`, so a batch is a stack and
+boundary-condition re-rolls change only values, never shapes. Stencils and
+WLSQ moments are computed once per mesh.
+
+Waiting for later slices: `load_case` from a directory, payback, the
+oldest-environment re-roll and the wave sources.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from gen_fvgn_tpu_torch.config import Config
+from gen_fvgn_tpu_torch.graph.physics import init_environment, theta_vector
+from gen_fvgn_tpu_torch.graph.sample import (MeshSample, PadSizes,
+                                             pad_mesh_to_sample)
+from gen_fvgn_tpu_torch.meshes.bc import ThetaSample
+from gen_fvgn_tpu_torch.meshes.geometry import build_stencil, compile_mesh
+from gen_fvgn_tpu_torch.utils.device import resolve_device
+
+
+def prepare_mesh_statics(mesh: Dict[str, np.ndarray], order: str,
+                         k_hop: int = 2) -> Dict[str, np.ndarray]:
+    """Attach the WLSQ stencil and precomputed moments (once per mesh)."""
+    from gen_fvgn_tpu_torch.ops.wlsq import wlsq_moments, wlsq_solve_matrix
+    if "stencil" in mesh:
+        return mesh
+    n_nodes = mesh["node|pos"].shape[0]
+    stencil = build_stencil(mesh["face|face_node"].astype(np.int64),
+                            mesh["face_node_x"].astype(np.int64),
+                            n_nodes, k_hop=k_hop)
+    mesh["stencil"] = stencil
+    A, wB, colscale = wlsq_moments(
+        mesh["node|pos"].astype(np.float32), stencil.astype(np.int32), order)
+    mesh["wlsq_S"] = wlsq_solve_matrix(A, colscale, order=order)
+    mesh["wlsq_B"] = np.asarray(wB, dtype=np.float32)
+    mesh["wlsq_scale"] = np.asarray(colscale, dtype=np.float32)
+    return mesh
+
+
+def ensure_rcm(mesh: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Re-derive a compiled mesh with RCM node ordering (banded operators)."""
+    from gen_fvgn_tpu_torch.graph.operators import rcm_reorder
+    raw = {
+        "node|pos": mesh["node|pos"],
+        "node|node_type": np.asarray(mesh["node|node_type"]).reshape(-1),
+        "node|surf_mask": np.asarray(
+            mesh.get("node|surf_mask",
+                     np.zeros(mesh["node|pos"].shape[0], bool))).reshape(-1),
+        "cells_node": mesh["cells_node"],
+        "cells_index": mesh["cells_index"],
+    }
+    return compile_mesh(rcm_reorder(raw))
+
+
+@dataclass
+class Environment:
+    case: Dict                       # shared per-case statics
+    sample: MeshSample               # padded arrays (NumPy), mutable uvp
+    theta_sample: ThetaSample
+    case_idx: int = 0
+    age: int = 0
+
+
+class EnvPool:
+    """Pool of padded environments for the block engine.
+
+    Per case one `StaticPack` on `device`; per case one stacked
+    `DynamicPack` on `device`, from which `gather_block` takes a batch
+    without touching the host. device="cuda" without a card raises."""
+
+    def __init__(self, case_dirs: Sequence[str], cfg: Config,
+                 seed: int = 0, pad_multiple: int = 128,
+                 dataset_size: Optional[int] = None,
+                 cases: Optional[List[Dict]] = None,
+                 engine: str = "block",
+                 tile: int = 256,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        if engine != "block":
+            raise NotImplementedError(
+                f"engine={engine!r}: only the block engine is ported")
+        if cases is None:
+            raise NotImplementedError(
+                "loading cases from directories (load_case and the mesh "
+                "readers) belongs to a later slice of the port; pass "
+                "cases=[...]")
+        self.cfg = cfg
+        self.engine = engine
+        self.tile = tile
+        self.rng = np.random.default_rng(seed)
+        pad_multiple = max(pad_multiple, tile)
+        self.cases = [dict(c) for c in cases]
+        for c in self.cases:
+            mesh = ensure_rcm(dict(c["mesh"]))
+            c["mesh"] = prepare_mesh_statics(
+                mesh, cfg.order, k_hop=int(c["bc"].get("stencil|khops", 2)))
+
+        size = dataset_size if dataset_size is not None else cfg.dataset_size
+        size = max(size, cfg.batch_size)
+
+        self.sizes = PadSizes.for_meshes([c["mesh"] for c in self.cases],
+                                         multiple=pad_multiple)
+        # per-case buckets: batches are single-case, so every case uses its
+        # own minimal padded shape
+        self.case_sizes = [
+            PadSizes.for_meshes([c["mesh"]], multiple=pad_multiple)
+            for c in self.cases]
+        self.envs: List[Environment] = []
+        i = 0
+        while len(self.envs) < size:
+            ci = i % len(self.cases)
+            self.envs.append(self._make_env(self.cases[ci], ci))
+            i += 1
+        self._init_block_pool()
+
+    # ---- per-case StaticPacks + device dynamic pool ----
+
+    def _init_block_pool(self) -> None:
+        from gen_fvgn_tpu_torch.graph.packs import (DynamicPack,
+                                                    build_static_pack,
+                                                    dynamic_from_sample)
+        self.statics = [
+            build_static_pack(
+                c["mesh"], self.cfg.order, self.case_sizes[ci], self.tile,
+                wlsq_rows=self.cfg.wlsq_block_rows,
+                node_agg=self.cfg.node_agg,
+                edge_gather=self.cfg.edge_gather, device=self.device)
+            for ci, c in enumerate(self.cases)]
+
+        # one device dynamic pool per case (shapes differ across cases)
+        self._env_local: List[int] = [0] * len(self.envs)
+        per_case: Dict[int, list] = {}
+        for i, env in enumerate(self.envs):
+            self._env_local[i] = len(per_case.setdefault(env.case_idx, []))
+            per_case[env.case_idx].append(i)
+        self._dyn_pools = {}
+        for ci, env_ids in per_case.items():
+            dyns = [dynamic_from_sample(self.envs[i].sample) for i in env_ids]
+            self._dyn_pools[ci] = DynamicPack(**{
+                f.name: torch.stack([getattr(d, f.name) for d in dyns])
+                .to(self.device)
+                for f in dataclasses.fields(DynamicPack)})
+
+    def gather_block(self, idxs: np.ndarray):
+        """The stacked DynamicPack [B, ...] of environments `idxs` (all of
+        one case), gathered on the device."""
+        from gen_fvgn_tpu_torch.graph.packs import DynamicPack
+        ci = self.envs[int(idxs[0])].case_idx
+        local = torch.as_tensor(
+            [self._env_local[int(i)] for i in idxs], dtype=torch.int64,
+            device=self.device)
+        pool = self._dyn_pools[ci]
+        return DynamicPack(**{
+            f.name: getattr(pool, f.name).index_select(0, local)
+            for f in dataclasses.fields(DynamicPack)})
+
+    # ---- environment construction ----
+
+    def _make_env(self, case: Dict, case_idx: int = 0) -> Environment:
+        ts = case["combos"][self.rng.integers(len(case["combos"]))]
+        mesh = case["mesh"]
+        vals = theta_vector(case["bc"]["theta_PDE"], ts)
+        uvp, target = init_environment(
+            mesh["node|pos"].astype(np.float32),
+            mesh["node|node_type"].reshape(-1), ts,
+            inlet_type=case["bc"].get("inlet_type", "uniform"),
+            init_field_type=case["bc"].get("init_field_type", "uniform"))
+        prepared = dict(mesh)
+        prepared.update(vals)
+        prepared["uvp"] = uvp
+        prepared["target|uvp"] = target
+        prepared["sigma"] = np.asarray(case["bc"]["sigma"], dtype=np.float32)
+        sample = pad_mesh_to_sample(prepared, self.case_sizes[case_idx],
+                                    self.cfg.order)
+        return Environment(case=case, sample=sample, theta_sample=ts,
+                           case_idx=case_idx)
+
+    def __len__(self) -> int:
+        return len(self.envs)
+

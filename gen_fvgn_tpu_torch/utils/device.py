@@ -1,0 +1,17 @@
+"""Device resolution for the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The torch.device an entry point runs on. "cuda" without a card raises:
+    the port never moves work to the CPU on its own — a caller that wants
+    the CPU (the tests) says device="cpu"."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} was requested but torch.cuda.is_available() "
+            "is False; pass device='cpu' explicitly to run on the CPU")
+    return dev

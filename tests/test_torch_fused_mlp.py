@@ -1,0 +1,136 @@
+"""PyTorch port, kernels K2/K4f's module: the plain versions
+`fused_mlp_ln_reference` (three variants) and `fused_mlp_noln_reference`
+against the JAX package's `fused_mlp_ln_parts` / `fused_mlp_noln_parts`,
+which run their Pallas kernels in interpret mode on the CPU (as
+tests/test_fused_mlp.py does). bf16 stream; tolerance 2 bf16 ulps of the
+output scale: both sides round h1, h2 and the output to bf16 at the same
+points, but accumulate their float32 sums in a different order, which can
+move such a rounding by one step."""
+
+import numpy as np
+import torch
+
+import jax.numpy as jnp
+
+torch.set_num_threads(1)
+
+M, H = 300, 128          # M deliberately not a multiple of the JAX row tile
+
+
+def _ulps(ref, n=2):
+    scale = float(np.abs(ref).max())
+    return n * 2.0 ** (np.floor(np.log2(scale)) - 7)
+
+
+def _weights(seed, k_total, d_out=H):
+    rng = np.random.default_rng(seed)
+    g = lambda *s: rng.normal(size=s).astype(np.float32)
+    return dict(
+        w1=g(k_total, H) / np.sqrt(max(k_total, 1)), b1=0.1 * g(H),
+        w2=g(H, H) / np.sqrt(H), b2=0.1 * g(H),
+        w3=g(H, d_out) / np.sqrt(H), b3=0.1 * g(d_out),
+        gamma=1.0 + 0.1 * g(d_out), beta=0.1 * g(d_out))
+
+
+def _run_both(parts, pres, w, w1_rows, res_idx, res_dual):
+    from gen_fvgn_tpu.ops.fused_mlp import fused_mlp_ln_parts as jfn
+    from gen_fvgn_tpu_torch.ops.fused_mlp import fused_mlp_ln_parts as tfn
+    order = ("w1", "b1", "w2", "b2", "w3", "b3", "gamma", "beta")
+    jout = jfn([jnp.asarray(p) for p in parts],
+               *[jnp.asarray(w[k]) for k in order], dtype=jnp.bfloat16,
+               pres=tuple(jnp.asarray(p, jnp.bfloat16) for p in pres),
+               w1_rows=w1_rows, res_idx=res_idx, res_dual=res_dual)
+    tout = tfn([torch.from_numpy(p) for p in parts],
+               *[torch.from_numpy(w[k]) for k in order], dtype=torch.bfloat16,
+               pres=tuple(torch.from_numpy(p).to(torch.bfloat16)
+                          for p in pres),
+               w1_rows=w1_rows, res_idx=res_idx, res_dual=res_dual)
+    as_list = lambda o: list(o) if isinstance(o, tuple) else [o]
+    return ([np.asarray(o, np.float32) for o in as_list(jout)],
+            [o.float().numpy() for o in as_list(tout)])
+
+
+def _compare(jouts, touts):
+    assert len(jouts) == len(touts)
+    for ref, got in zip(jouts, touts):
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got, ref, rtol=0, atol=_ulps(ref))
+        # and nearly all entries agree to the bit
+        assert (got == ref).mean() > 0.98
+
+
+def test_pres_only_variant_matches_jax():
+    """The encoders' form: no parts, one pre-projected input."""
+    rng = np.random.default_rng(0)
+    pre = rng.normal(size=(M, H)).astype(np.float32)
+    w = _weights(1, 12)
+    _compare(*_run_both([], [pre], w, [], None, False))
+
+
+def test_edge_variant_matches_jax():
+    """The edge MLP: part (edge_attr,) whose W1 rows are the last 128 of a
+    384-row kernel, one pre, residual on part 0, dual output."""
+    rng = np.random.default_rng(2)
+    edge = rng.normal(size=(M, H)).astype(np.float32)
+    pre = rng.normal(size=(M, H)).astype(np.float32)
+    w = _weights(3, 3 * H)
+    jouts, touts = _run_both([edge], [pre], w, [(2 * H, 3 * H)], 0, True)
+    assert len(touts) == 2
+    _compare(jouts, touts)
+
+
+def test_node_variant_matches_jax():
+    """The node MLP: parts (nbr_avg [64], node_x [128]), residual on part 1,
+    one output out + node_x."""
+    rng = np.random.default_rng(4)
+    nbr = rng.normal(size=(M, H // 2)).astype(np.float32)
+    node = rng.normal(size=(M, H)).astype(np.float32)
+    w = _weights(5, H // 2 + H)
+    _compare(*_run_both([nbr, node], [], w, None, 1, False))
+
+
+def test_noln_matches_jax():
+    """The decoder chain: [M, 128] bf16 -> [M, 3] bf16."""
+    from gen_fvgn_tpu.ops.fused_mlp import fused_mlp_noln_parts as jfn
+    from gen_fvgn_tpu_torch.ops.fused_mlp import fused_mlp_noln_parts as tfn
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(M, H)).astype(np.float32)
+    w = _weights(7, H, d_out=3)
+    order = ("w1", "b1", "w2", "b2", "w3", "b3")
+    ref = np.asarray(jfn(jnp.asarray(x), *[jnp.asarray(w[k]) for k in order],
+                         dtype=jnp.bfloat16), np.float32)
+    got = tfn(torch.from_numpy(x), *[torch.from_numpy(w[k]) for k in order],
+              dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (M, 3)
+    _compare([ref], [got.float().numpy()])
+
+
+def test_residual_is_added_after_the_bf16_rounding():
+    """out + res is a bf16 add of the ROUNDED out (dual outputs differ by
+    exactly that add)."""
+    from gen_fvgn_tpu_torch.ops.fused_mlp import fused_mlp_ln_parts
+    rng = np.random.default_rng(8)
+    edge = torch.from_numpy(rng.normal(size=(64, H)).astype(np.float32))
+    w = {k: torch.from_numpy(v) for k, v in _weights(9, H).items()}
+    out, summed = fused_mlp_ln_parts(
+        [edge], w["w1"], w["b1"], w["w2"], w["b2"], w["w3"], w["b3"],
+        w["gamma"], w["beta"], res_idx=0, res_dual=True)
+    assert torch.equal(summed, out + edge.to(torch.bfloat16))
+
+
+def test_wrappers_on_cpu_are_the_references_and_count_nothing():
+    from gen_fvgn_tpu_torch.ops import fused_mlp as mod
+    rng = np.random.default_rng(10)
+    bf = lambda *s: torch.from_numpy(
+        rng.normal(size=s).astype(np.float32)).to(torch.bfloat16)
+    f32 = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    x, w1, w2, w3 = bf(32, H), bf(H, H), bf(H, H), bf(H, H)
+    b1, b2, b3, ga, be = f32(H), f32(H), f32(H), f32(H), f32(H)
+    before = (mod.LAUNCHES_LN, mod.LAUNCHES_NOLN)
+    a = mod.fused_mlp_ln([x], [w1], b1, w2, b2, w3, b3, ga, be)
+    b = mod.fused_mlp_noln(x, w1, b1, w2, b2, w3[:, :3].contiguous(), b3[:3])
+    assert (mod.LAUNCHES_LN, mod.LAUNCHES_NOLN) == before
+    assert torch.equal(a, mod.fused_mlp_ln_reference(
+        [x], [w1], b1, w2, b2, w3, b3, ga, be))
+    assert torch.equal(b, mod.fused_mlp_noln_reference(
+        x, w1, b1, w2, b2, w3[:, :3].contiguous(), b3[:3]))
