@@ -1,12 +1,15 @@
 """Converts a flax parameter tree (as nested dicts of NumPy arrays) into a
-state_dict of the port's `FVGNSimulatorB`, and NumPy normalizer statistics
-into a `NormalizerState`.
+state_dict of the port's block simulators (`FVGNSimulatorB`,
+`TransFVGNv1B`, `TransFVGNv2B`), and NumPy normalizer statistics into a
+`NormalizerState`.
 
 The port's modules keep the flax layout (`kernel` stored [in, out], names
-`hidden_{0,1}`, `out`, `ln`), so the conversion is a renaming: the path
-`params/encoder/node_encoder/hidden_0/kernel` becomes the key
-`encoder.node_encoder.hidden_0.kernel`. Only NumPy arrays come in; the
-caller (a test, or a checkpoint reader of a later slice) makes them.
+`hidden_{0,1}`, `out`, `ln`, the Transolver's `attn`, `ln_2`, `mlp_pre`,
+`mlp_post`, `graph_temperature` of shape [1, H, 1], bias-less `to_q`/`to_k`/
+`to_v`, and the nesting `processor_{i}.gn_{j}`), so the conversion is a
+renaming: the path `params/processor_0/transolver/attn/to_q/kernel` becomes
+the key `processor_0.transolver.attn.to_q.kernel`. Only NumPy arrays come
+in; the caller (a test, or a checkpoint reader of a later slice) makes them.
 """
 
 from __future__ import annotations
@@ -31,8 +34,8 @@ def _flatten(tree: Mapping, prefix: str, out: Dict[str, np.ndarray]) -> None:
 
 def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """tree: the flax variables ({"params": {...}}) or the params subtree,
-    every leaf a NumPy array. Returns a state_dict for
-    `FVGNSimulatorB.load_state_dict` (float32 tensors on the host)."""
+    every leaf a NumPy array. Returns a state_dict for the simulator's
+    `load_state_dict` (float32 tensors on the host)."""
     if "params" in tree and isinstance(tree["params"], Mapping):
         tree = tree["params"]
     flat: Dict[str, np.ndarray] = {}

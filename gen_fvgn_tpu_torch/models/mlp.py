@@ -48,14 +48,21 @@ def _trunc_normal(shape, generator: Optional[torch.Generator]) -> torch.Tensor:
 
 
 class _DenseParams(nn.Module):
-    """Parameters of one dense layer: kernel [in, out], bias [out]."""
+    """Parameters of one dense layer: kernel [in, out] (truncated normal, or
+    orthogonal as flax's `initializers.orthogonal()`), bias [out] unless
+    use_bias is False."""
 
     def __init__(self, in_features: int, features: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 use_bias: bool = True, orthogonal: bool = False):
         super().__init__()
-        self.kernel = nn.Parameter(
-            _trunc_normal((in_features, features), generator))
-        self.bias = nn.Parameter(torch.zeros(features))
+        if orthogonal:
+            kernel = torch.empty((in_features, features))
+            nn.init.orthogonal_(kernel, generator=generator)
+        else:
+            kernel = _trunc_normal((in_features, features), generator)
+        self.kernel = nn.Parameter(kernel)
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
 
 class _LnParams(nn.Module):

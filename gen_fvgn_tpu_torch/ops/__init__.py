@@ -2,9 +2,10 @@
 
 `plain_versions()` is the one switch between the kernels and their plain
 PyTorch versions: inside it the dispatching callers (`apply_linop`,
-`fused_mlp_ln_parts`, `fused_mlp_noln_parts`) call `spmm_reference`,
-`fused_mlp_ln_reference` and `fused_mlp_noln_reference` on whatever device
-the data is on. It is entered only by the eval step's `plain_kernels=True`
+`fused_mlp_ln_parts`, `fused_mlp_noln_parts`, `fused_premlp_res_parts`,
+`fused_slice_pool`) call `spmm_reference`, `fused_mlp_ln_reference`,
+`fused_mlp_noln_reference`, `fused_premlp_res_reference` and
+`fused_slice_pool_reference` on whatever device the data is on. It is entered only by the eval step's `plain_kernels=True`
 argument (the on-card comparison of a kernel step with a plain step) and by
 tests. The kernel wrappers themselves never consult it: on a CUDA tensor
 they launch their kernel or raise.

@@ -24,7 +24,8 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("spmm.cu", "fused_mlp.cu")
+SOURCES = ("spmm.cu", "fused_mlp.cu", "fused_premlp.cu",
+           "fused_slice_pool.cu")
 # -fmad=false: no silent a*b+c contraction, so the kernels' float32
 # elementwise steps round where the plain PyTorch versions round (the sparse
 # apply asks for its fused multiply-adds explicitly).
@@ -110,6 +111,21 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp,                # out0, out1
         ci, ci, ci, ci, ci,    # M, res_idx, res_dual, layer_norm, d_out
         ci,                    # n_sm
+        vp]                    # stream
+    lib.gfvgn_fused_premlp.restype = ci
+    lib.gfvgn_fused_premlp.argtypes = [
+        vp, vp, vp,            # x [M, 128] bf16, gamma, beta
+        vp, vp, vp, vp,        # w1 [128, 256] bf16, b1, w2 [256, 128] bf16, b2
+        vp,                    # out [M, 128] bf16
+        ci, ci,                # M, n_sm
+        vp]                    # stream
+    lib.gfvgn_fused_slice_pool.restype = ci
+    lib.gfvgn_fused_slice_pool.argtypes = [
+        vp, vp, ci,            # x [B, N, 128] bf16, mask f32, mask batch stride
+        vp, vp, vp, vp,        # wfx, bfx, wx, bx
+        vp, vp, vp,            # wsl [16, 32] bf16, bsl [32], inv_temp [8]
+        vp, vp, vp, vp,        # slice_w, partials, tokens, norm
+        ci, ci, ci, ci,        # B, N, rows_per_chunk, n_chunks
         vp]                    # stream
 
 

@@ -1,4 +1,4 @@
-"""Kernels K2 and K4f: the fused 2-hidden-layer GELU MLP chains, forward.
+"""Kernels K2, K4f and K5f: the fused GELU MLP chains, forward.
 
 K2 `fused_mlp_ln` replaces the TPU kernel `_make_fwd_kernel`
 (`gen_fvgn_tpu/ops/fused_mlp.py:98-126`, called at :385):
@@ -32,6 +32,17 @@ next product; biases, pres, GELU (tanh form) and LayerNorm statistics (fast
 variance clamped at 0, eps 1e-6) in float32; `out` rounded to bf16 BEFORE
 the residual add, which is a bf16 add.
 
+K5f `fused_premlp_res` replaces `_premlp_fwd_kernel` (:691-711, called at
+:747), the Transolver block's pre-LN MLP branch with its residual:
+
+    out = x + W2·gelu(W1·(LN(x)·γ + β) + b1) + b2,   hidden width 256
+
+in its own kernel (csrc/fused_premlp.cu): K2's template holds a 128-wide
+hidden layer only. Its rounding points differ from K2's: u = LN(x)·γ + β is
+rounded to bf16 before W1, h before W2, and the residual x is added in
+float32 BEFORE the one final bf16 rounding (K2 rounds first and adds in
+bf16).
+
 Tolerance kernel vs plain version: the float32 sums are taken in another
 order (tensor-core fragments vs a library GEMM) and tanhf/sqrtf differ in
 the last bit from PyTorch's, which can move a bf16 rounding of h1, h2 or
@@ -51,6 +62,7 @@ _GELU_C = 0.044715
 # incremented once per kernel launch, and nowhere else
 LAUNCHES_LN = 0
 LAUNCHES_NOLN = 0
+LAUNCHES_PREMLP = 0
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -107,10 +119,12 @@ def fused_mlp_noln_reference(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
 
 
 def _check(t: torch.Tensor, shape: Tuple[int, ...], dtype, name: str):
-    if tuple(t.shape) != shape or t.dtype != dtype or not t.is_cuda:
+    """The operand `name` of a kernel, contiguous; raises unless it is a
+    CUDA tensor of this shape and type."""
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype or not t.is_cuda:
         raise ValueError(
-            f"fused MLP kernel: {name} must be a CUDA {dtype} tensor of shape "
-            f"{shape}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+            f"kernel operand {name} must be a CUDA {dtype} tensor of shape "
+            f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     return t.contiguous()
 
 
@@ -251,3 +265,70 @@ def fused_mlp_noln_parts(x, w1, b1, w2, b2, w3, b3,
           else fused_mlp_noln)
     return fn(x.to(dtype), w1.to(dtype), b1, w2.to(dtype), b2, w3.to(dtype),
               b3)
+
+
+def fused_premlp_res_reference(x, gamma, beta, w1, b1, w2, b2) -> torch.Tensor:
+    """Plain PyTorch version of K5f on prepared operands: x [M, C] and
+    w1 [C, Hd], w2 [Hd, C] in the stream type; γ, β, b1, b2 float32."""
+    f32, dt = torch.float32, x.dtype
+    x32 = x.to(f32)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = torch.clamp((x32 * x32).mean(dim=-1, keepdim=True) - mu * mu,
+                      min=0.0)
+    xhat = (x32 - mu) * torch.rsqrt(var + LN_EPS)
+    u16 = (xhat * gamma.to(f32) + beta.to(f32)).to(dt)
+    h = _gelu_tanh(_dot_f32(u16, w1) + b1.to(f32))
+    # the residual joins in float32, before the one rounding of the output
+    y = _dot_f32(h.to(dt), w2) + b2.to(f32) + x32
+    return y.to(dt)
+
+
+def fused_premlp_res(x, gamma, beta, w1, b1, w2, b2) -> torch.Tensor:
+    """K5f on prepared operands: x [M, 128] bf16, w1 [128, 256] and
+    w2 [256, 128] bf16, γ, β, b1, b2 float32. Returns [M, 128] bf16.
+
+    CUDA operands launch the kernel (or raise); CPU operands take
+    `fused_premlp_res_reference`."""
+    global LAUNCHES_PREMLP
+    if x.device.type != "cuda":
+        return fused_premlp_res_reference(x, gamma, beta, w1, b1, w2, b2)
+    from gen_fvgn_tpu_torch.ops._cuda_build import load_library
+    bf16, f32 = torch.bfloat16, torch.float32
+    c, hd = 128, 256
+    if x.ndim != 2 or x.shape[1] != c or tuple(w1.shape) != (c, hd):
+        raise NotImplementedError(
+            f"fused_premlp_res kernel is built for x [M, {c}] and a hidden "
+            f"width of {hd}, got x {tuple(x.shape)}, w1 {tuple(w1.shape)}")
+    m = x.shape[0]
+    x = _check(x, (m, c), bf16, "x")
+    w1 = _check(w1, (c, hd), bf16, "w1")
+    w2 = _check(w2, (hd, c), bf16, "w2")
+    vec = lambda v, n, name: _check(v.reshape(-1), (n,), f32, name)
+    gamma, beta = vec(gamma, c, "gamma"), vec(beta, c, "beta")
+    b1, b2 = vec(b1, hd, "b1"), vec(b2, c, "b2")
+    out = torch.empty((m, c), dtype=bf16, device=x.device)
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    err = load_library().gfvgn_fused_premlp(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), m, n_sm,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_premlp_res kernel launch failed: CUDA error {err}")
+    LAUNCHES_PREMLP += 1
+    return out
+
+
+def fused_premlp_res_parts(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                           dtype=torch.bfloat16) -> torch.Tensor:
+    """Dispatch wrapper for the Transolver block (counterpart of the JAX
+    function of the same name): casts the stream and the weights and runs
+    K5f over the rows of x [..., C]. The kernel masks its ragged tile, so
+    no row padding is needed."""
+    from gen_fvgn_tpu_torch.ops import plain_versions_active
+    fn = (fused_premlp_res_reference if plain_versions_active()
+          else fused_premlp_res)
+    lead = x.shape[:-1]
+    out = fn(x.reshape(-1, x.shape[-1]).to(dtype), ln_scale, ln_bias,
+             w1.to(dtype), b1, w2.to(dtype), b2)
+    return out.reshape(lead + (out.shape[-1],))

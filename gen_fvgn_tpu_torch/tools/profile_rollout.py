@@ -1,9 +1,12 @@
 """Where a rollout step's time goes on the card.
 
-    python -m gen_fvgn_tpu_torch.tools.profile_rollout [--steps 20]
+    python -m gen_fvgn_tpu_torch.tools.profile_rollout [--net TransFVGN_v2]
+        [--steps 20] [--batch 8]
 
-Sets up the port's main path (FVGN, hidden 128, 3 blocks, bf16 stream,
-batch 8, 101x101-node synthetic cavity, seeded random weights), then prints
+Sets up the port's main path (the Config defaults: TransFVGN_v2, hidden
+128, 2 processors of 3 blocks and a Transolver block, 8 heads, 32 slices,
+bf16 stream; or --net FVGN / TransFVGN_v1 at the same widths; batch 8,
+101x101-node synthetic cavity, seeded random weights), then prints
 
   * the card's name and power limit;
   * ms per step on the host clock (ending in a synchronize) for
@@ -29,16 +32,17 @@ import torch
 
 
 def build_main_path(batch: int = 8, mesh_n: int = 100, device="cuda",
-                    seed: int = 0):
+                    seed: int = 0, net: str = "TransFVGN_v2"):
     """(cfg, pool, static, dyn, simulator, norm_state) of the main path at
-    full width: the Config defaults apart from net="FVGN"."""
+    full width: the Config defaults (net "TransFVGN_v2"), or another net
+    at the same widths."""
     from gen_fvgn_tpu_torch import Config
     from gen_fvgn_tpu_torch.meshes.synthetic import (cavity_quad_mesh,
                                                      synthetic_case)
     from gen_fvgn_tpu_torch.models.simulator_block import make_simulator_block
     from gen_fvgn_tpu_torch.training.normalizer import init_normalizer
     from gen_fvgn_tpu_torch.training.pool import EnvPool
-    cfg = Config(net="FVGN", hidden_size=128, message_passing_num=3,
+    cfg = Config(net=net, hidden_size=128, message_passing_num=3,
                  mxu_dtype="bfloat16", node_agg="composed",
                  edge_gather="take", fv_packed=True, order="2nd",
                  integrator="imex", batch_size=batch, dataset_size=batch)
@@ -55,6 +59,8 @@ def build_main_path(batch: int = 8, mesh_n: int = 100, device="cuda",
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--net", default="TransFVGN_v2",
+                    choices=["TransFVGN_v2", "TransFVGN_v1", "FVGN"])
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--top", type=int, default=25)
@@ -70,7 +76,10 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
     print(f"card: {card}")
-    cfg, pool, static, dyn, sim, ns = build_main_path(batch=args.batch)
+    cfg, pool, static, dyn, sim, ns = build_main_path(batch=args.batch,
+                                                      net=args.net)
+    print(f"net {cfg.net}, batch {args.batch}, {static.pos.shape[0]} padded "
+          f"nodes")
     n = args.steps
 
     def timed(fn):
@@ -119,9 +128,10 @@ def main(argv=None) -> int:
         print("device busy: not measured (the profiler reported no device "
               "time); idle share: not measured")
         return 0
-    ours = sum(r[0] for r in rows
-               if "spmm_csr_kernel" in r[2] or "fused_mlp_kernel" in r[2])
-    print(f"device busy: {busy:.3f} ms/step ({ours:.3f} in the port's three "
+    ours = sum(r[0] for r in rows if any(
+        k in r[2] for k in ("spmm_csr_kernel", "fused_mlp_kernel",
+                            "premlp_kernel", "slice_pool_")))
+    print(f"device busy: {busy:.3f} ms/step ({ours:.3f} in the port's "
           f"kernels); idle share {1 - busy / wall:.3f}; "
           f"{sum(r[1] for r in rows):.0f} device kernels/step")
     print(f"{'ms/step':>9} {'calls/step':>10}  kernel")

@@ -7,7 +7,8 @@ test, never while the module is imported). Run them on the card with
 
 `chip_smoke.py` makes the same comparisons at the main path's full shapes;
 these cover the edges: ragged row counts, every operand/output type of the
-sparse apply, unbatched operands."""
+sparse apply, unbatched operands, all-zero and partial node masks, shared
+and per-lane masks, and the bitwise repeatability of the slice pool."""
 
 import numpy as np
 import pytest
@@ -142,3 +143,114 @@ def test_fused_mlp_kernel_refuses_what_it_does_not_take():
     args[0] = [torch.zeros(64, 40, device="cuda", dtype=torch.bfloat16)]
     with pytest.raises(NotImplementedError):
         mod.fused_mlp_ln(*args)
+
+
+def _premlp_args(m, seed):
+    g = torch.Generator("cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    bf = torch.bfloat16
+    return ((2 * rnd(m, 128) + 0.5).to(bf), 1 + 0.1 * rnd(128),
+            0.1 * rnd(128), (rnd(128, 256) / 128 ** 0.5).to(bf),
+            0.1 * rnd(256), (rnd(256, 128) / 256 ** 0.5).to(bf),
+            0.1 * rnd(128))
+
+
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 1000, 8 * 1251])
+def test_fused_premlp_res_kernel_matches_plain_version(m):
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import fused_mlp as mod
+    args = _premlp_args(m, seed=m)
+    before = mod.LAUNCHES_PREMLP
+    out = mod.fused_premlp_res(*args)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES_PREMLP == before + 1
+    ref = mod.fused_premlp_res_reference(*args)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape == (m, 128)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=_ulps(ref))
+
+
+def test_fused_premlp_res_kernel_refuses_what_it_does_not_take():
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import fused_mlp as mod
+    x, ga, be, w1, b1, w2, b2 = _premlp_args(64, seed=0)
+    with pytest.raises(ValueError):
+        mod.fused_premlp_res(x.float(), ga, be, w1, b1, w2, b2)
+    with pytest.raises(NotImplementedError):
+        mod.fused_premlp_res(x, ga, be, w1[:, :128], b1[:128],
+                             w2[:128], b2)
+
+
+def _pool_args(b, n, mask, seed, shared=False):
+    g = torch.Generator("cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    bf = torch.bfloat16
+    shape = (n,) if shared else (b, n)
+    if mask == "partial":
+        m = (torch.rand(*shape, device="cuda", generator=g) > 0.3).float()
+    elif mask == "zero":
+        m = torch.zeros(*shape, device="cuda")
+    else:
+        m = torch.ones(*shape, device="cuda")
+    return (rnd(b, n, 128).to(bf), m, (0.1 * rnd(128, 128)).to(bf),
+            0.1 * rnd(128), (0.1 * rnd(128, 128)).to(bf), 0.1 * rnd(128),
+            (rnd(16, 32) / 4).to(bf), 0.1 * rnd(32),
+            1 + torch.rand(8, device="cuda", generator=g))
+
+
+def _check_pool(args, outs, refs):
+    """slice_w within `slice_w_tolerance` (a flipped logit rounding), and
+    all but a few in 10^4 within 2^-7; tokens and norm within 1e-3 of
+    their scale."""
+    from gen_fvgn_tpu_torch.ops import fused_slice_attn as mod
+    (w, tok, norm), (rw, rtok, rnorm) = outs, refs
+    assert w.dtype == torch.bfloat16 and w.shape == rw.shape
+    assert tok.shape == rtok.shape and norm.shape == rnorm.shape
+    x, _, _, _, wx, bx, wsl, bsl, it = args
+    l_max = float(mod.slice_logits(x, wx, bx, wsl, bsl).float().abs().max())
+    tol = mod.slice_w_tolerance(l_max, float(it.max()))
+    diff = (w.float() - rw.float()).abs()
+    assert float(diff.max()) <= tol
+    assert float((diff > 2 ** -7).float().mean()) < 1e-4
+    for a, r in ((tok, rtok), (norm, rnorm)):
+        scale = max(float(r.abs().max()), 1e-6)
+        torch.testing.assert_close(a, r, rtol=0, atol=1e-3 * scale)
+
+
+@pytest.mark.parametrize("b,n", [(1, 1), (2, 63), (3, 256), (8, 1337),
+                                 (2, 10240)])
+@pytest.mark.parametrize("mask", ["partial", "zero", "ones"])
+def test_fused_slice_pool_kernel_matches_plain_version(b, n, mask):
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import fused_slice_attn as mod
+    args = _pool_args(b, n, mask, seed=b * n)
+    before = mod.LAUNCHES
+    outs = mod.fused_slice_pool_kernel(*args)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == before + 1
+    _check_pool(args, outs, mod.fused_slice_pool_reference(*args))
+    if mask == "zero":
+        assert not outs[1].any() and not outs[2].any()
+
+
+def test_fused_slice_pool_kernel_shared_mask_and_repeatable_bits():
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import fused_slice_attn as mod
+    args = _pool_args(4, 3000, "partial", seed=7, shared=True)
+    a = mod.fused_slice_pool_kernel(*args)
+    b = mod.fused_slice_pool_kernel(*args)
+    _check_pool(args, a, mod.fused_slice_pool_reference(*args))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)            # no atomics: the same bits
+
+
+def test_fused_slice_pool_kernel_refuses_what_it_does_not_take():
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import fused_slice_attn as mod
+    args = list(_pool_args(2, 256, "ones", seed=0))
+    with pytest.raises(ValueError):
+        mod.fused_slice_pool_kernel(args[0].float(), *args[1:])
+    bad = list(args)
+    bad[6] = torch.zeros(32, 32, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        mod.fused_slice_pool_kernel(*bad)

@@ -7,8 +7,8 @@ torch_port_common.f32_operator_statics: with the default bf16-stored
 operators a last-bit difference can flip an operand's bf16 rounding).
 
 bfloat16 (hidden 128, the widths where both fused dispatches fire) with
-use_fused_mlp(True) and use_pallas_spmm(True) on the JAX side, i.e. its
-Pallas kernels in interpret mode. Measured gap of the simulator's output:
+the JAX side's Pallas kernels on (torch_port_common.jax_kernels_on), in
+interpret mode. Measured gap of the simulator's output:
 one bf16 ulp of the output scale (0.0156 at scale 2), median 6e-4; the
 tolerance is 4 ulps, and 3 ulps for one block."""
 
@@ -20,7 +20,8 @@ import jax
 import jax.numpy as jnp
 
 from torch_port_common import (both_sides, f32_operator_statics,
-                               numpy_params, to_plain_dict, torch_simulator)
+                               jax_kernels_on, numpy_params, to_plain_dict,
+                               torch_simulator)
 
 
 def _inputs(tstatic, seed, batch=2, h=None):
@@ -34,24 +35,6 @@ def _inputs(tstatic, seed, batch=2, h=None):
 def _ulps(ref, n):
     scale = float(np.abs(ref).max())
     return n * 2.0 ** (np.floor(np.log2(scale)) - 7)
-
-
-class _PallasOn:
-    """use_fused_mlp(True) + use_pallas_spmm(True) on the JAX side, restored
-    on exit."""
-
-    def __enter__(self):
-        from gen_fvgn_tpu.models import mlp as jmlp
-        from gen_fvgn_tpu.ops import blocksparse as jbs
-        self.saved = (jmlp._FUSED_ENABLED, jbs._USE_PALLAS, jbs._PALLAS_MODE)
-        jmlp.use_fused_mlp(True)
-        jbs.use_pallas_spmm(True)
-
-    def __exit__(self, *exc):
-        from gen_fvgn_tpu.models import mlp as jmlp
-        from gen_fvgn_tpu.ops import blocksparse as jbs
-        jmlp.use_fused_mlp(self.saved[0])
-        jbs.use_pallas_spmm(self.saved[1], self.saved[2])
 
 
 def _setup(mxu):
@@ -84,7 +67,7 @@ def test_mlp_matches_flax(mxu, which):
         width = 12 if which == "node_encoder" else 15
     x = np.random.default_rng(11).normal(size=(2, 200, width)).astype(
         np.float32)
-    with _PallasOn():
+    with jax_kernels_on():
         ref = np.asarray(jm.apply({"params": sub}, jnp.asarray(x)), np.float32)
     with torch.no_grad():
         got = tm(torch.from_numpy(x)).float().numpy()
@@ -106,7 +89,7 @@ def test_gn_block_matches_flax(mxu):
     jgn = JGn(h, jdt, "composed")
     sub = tree["params"]["gn_0"]
     cast = (lambda a: jnp.asarray(a, jdt)) if jdt else jnp.asarray
-    with _PallasOn():
+    with jax_kernels_on():
         jn, je = jax.vmap(lambda a, b: jgn.apply({"params": sub}, a, b, js))(
             cast(node), cast(edge))
     tdt = torch.bfloat16 if mxu == "bfloat16" else torch.float32
@@ -135,7 +118,7 @@ def test_simulator_matches_flax(mxu):
     sim = torch_simulator(tc, tree)
     node, edge = _inputs(ts, 13)
     jt = jax.tree_util.tree_map(jnp.asarray, tree)
-    with _PallasOn():
+    with jax_kernels_on():
         ref = np.asarray(jax.vmap(lambda a, b: apply_fn(jt, a, b, js))(
             jnp.asarray(node), jnp.asarray(edge)), np.float32)
     with torch.no_grad():

@@ -49,6 +49,8 @@ def test_importing_the_port_loads_no_jax_module():
             for p in sorted(PORT.rglob("*.py"))]
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
             for m in mods]
+    assert {"gen_fvgn_tpu_torch.models.transolver",
+            "gen_fvgn_tpu_torch.ops.fused_slice_attn"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -137,11 +139,32 @@ def test_config_round_trips_and_matches_the_jax_fields():
 
 
 @pytest.mark.parametrize("net", ["TransFVGN_v1", "TransFVGN_v2", "TransFVGN"])
-def test_transolver_nets_name_the_later_slice(net):
+def test_transolver_net_builds_with_the_flax_paths(net):
+    """Each Transolver net builds on the CPU, and its state_dict has exactly
+    the flax parameter paths of the JAX package's net, with the same shapes
+    (`graph_temperature` [1, H, 1] and the `processor_{i}.gn_{j}` nesting
+    included), so a converted tree loads key by key."""
     from gen_fvgn_tpu_torch.config import Config
+    from gen_fvgn_tpu_torch.convert import params_from_flax
     from gen_fvgn_tpu_torch.models.simulator_block import make_simulator_block
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make_simulator_block(Config(net=net), device="cpu")
+    from torch_port_common import both_sides, numpy_params
+    (jc, _, js, jd), (tc, _, _, _) = both_sides(6, 32, 1, "float32", 1, net)
+    tree, _ = numpy_params(jc, js, jd)
+    sd = params_from_flax(tree)
+    sim = make_simulator_block(Config(net=net, hidden_size=32,
+                                      message_passing_num=1), device="cpu")
+    mine = sim.state_dict()
+    assert set(sd) == set(mine)
+    assert {k: tuple(v.shape) for k, v in sd.items()} == \
+        {k: tuple(v.shape) for k, v in mine.items()}
+    sim.load_state_dict(sd, strict=True)
+    prefix = "transolver." if net == "TransFVGN_v1" \
+        else "processor_1.transolver."
+    assert tuple(mine[prefix + "attn.graph_temperature"].shape) == (1, 8, 1)
+    assert prefix + "attn.to_q.kernel" in mine
+    assert prefix + "attn.to_q.bias" not in mine
+    if net != "TransFVGN_v1":
+        assert "processor_0.gn_0.edge_block.edge_mlp.ln.scale" in mine
 
 
 def test_unknown_net_and_unported_options_raise():

@@ -22,9 +22,9 @@ import jax
 import jax.numpy as jnp
 
 from torch_port_common import (both_sides, f32_operator_statics,
-                               jax_norm_state, numpy_norm_stats,
-                               numpy_params, random_state, torch_norm_state,
-                               torch_simulator)
+                               jax_kernels_on, jax_norm_state,
+                               numpy_norm_stats, numpy_params, random_state,
+                               torch_norm_state, torch_simulator)
 
 LOSSES = ("loss_cont", "loss_mom_x", "loss_mom_y", "loss_press")
 ARGS = (6, 32, 2, "float32", 2)
@@ -79,17 +79,9 @@ def test_rollout_three_steps_matches_jax_bf16():
     interpret mode. Per-step states agree to a few bf16 roundings of the
     backbone output (scale 1: 2^-8 = 0.004 each), carried over 3 steps:
     measured max gap 0.0094, median 1e-3, losses within 2e-2."""
-    from gen_fvgn_tpu.models import mlp as jmlp
-    from gen_fvgn_tpu.ops import blocksparse as jbs
-    saved = (jmlp._FUSED_ENABLED, jbs._USE_PALLAS, jbs._PALLAS_MODE)
-    jmlp.use_fused_mlp(True)
-    jbs.use_pallas_spmm(True)
-    try:
+    with jax_kernels_on():
         jh, th, real = _rollouts(f32_ops=False,
                                  mxu_args=(6, 128, 2, "bfloat16", 2))
-    finally:
-        jmlp.use_fused_mlp(saved[0])
-        jbs.use_pallas_spmm(saved[1], saved[2])
     for a, b in zip(jh, th):
         gap = np.abs(b["uvp_node"][:, real] - a["uvp_node"][:, real])
         assert gap.max() < 0.1 and np.median(gap) < 5e-3

@@ -3,6 +3,7 @@ synthetic cavity built once by the JAX package and once by the PyTorch port,
 with weights, normalizer statistics and states made with NumPy from a seed
 and handed to both sides."""
 
+import contextlib
 import functools
 
 import numpy as np
@@ -31,11 +32,11 @@ def _with_outflow(mesh):
     return mesh
 
 
-def jax_side(n, hidden, mp, mxu, batch):
+def jax_side(n, hidden, mp, mxu, batch, net="FVGN"):
     from gen_fvgn_tpu.config import Config
     from gen_fvgn_tpu.meshes.synthetic import cavity_quad_mesh, synthetic_case
     from gen_fvgn_tpu.training.pool import EnvPool
-    cfg = Config(net="FVGN", batch_size=batch, dataset_size=batch,
+    cfg = Config(net=net, batch_size=batch, dataset_size=batch,
                  mxu_dtype=mxu, hidden_size=hidden, message_passing_num=mp,
                  engine="block")
     case = synthetic_case(_with_outflow(cavity_quad_mesh(n)), **CASE_KW)
@@ -44,12 +45,12 @@ def jax_side(n, hidden, mp, mxu, batch):
     return cfg, pool, pool.statics[0], dyn
 
 
-def torch_side(n, hidden, mp, mxu, batch):
+def torch_side(n, hidden, mp, mxu, batch, net="FVGN"):
     from gen_fvgn_tpu_torch.config import Config
     from gen_fvgn_tpu_torch.meshes.synthetic import (cavity_quad_mesh,
                                                      synthetic_case)
     from gen_fvgn_tpu_torch.training.pool import EnvPool
-    cfg = Config(net="FVGN", batch_size=batch, dataset_size=batch,
+    cfg = Config(net=net, batch_size=batch, dataset_size=batch,
                  mxu_dtype=mxu, hidden_size=hidden, message_passing_num=mp,
                  engine="block")
     case = synthetic_case(_with_outflow(cavity_quad_mesh(n)), **CASE_KW)
@@ -59,13 +60,14 @@ def torch_side(n, hidden, mp, mxu, batch):
 
 
 @functools.lru_cache(maxsize=None)
-def both_sides(n=6, hidden=32, mp=1, mxu="float32", batch=2):
+def both_sides(n=6, hidden=32, mp=1, mxu="float32", batch=2, net="FVGN"):
     """((jcfg, jpool, jstatic, jdyn), (tcfg, tpool, tstatic, tdyn))."""
-    return jax_side(n, hidden, mp, mxu, batch), \
-        torch_side(n, hidden, mp, mxu, batch)
+    return jax_side(n, hidden, mp, mxu, batch, net), \
+        torch_side(n, hidden, mp, mxu, batch, net)
 
 
-def f32_operator_statics(n=6, hidden=32, mp=1, mxu="float32", batch=2):
+def f32_operator_statics(n=6, hidden=32, mp=1, mxu="float32", batch=2,
+                         net="FVGN"):
     """Both StaticPacks with the structural operators stored float32, so
     that no operand is rounded to bfloat16 inside an apply. With the default
     bf16-stored operators a last-bit float32 difference between the two
@@ -76,7 +78,8 @@ def f32_operator_statics(n=6, hidden=32, mp=1, mxu="float32", batch=2):
     from gen_fvgn_tpu.graph.operators import build_mesh_operators as jbuild
     from gen_fvgn_tpu_torch.graph.operators import \
         build_mesh_operators as tbuild
-    (jc, jp, js, _), (tc, tp, ts, _) = both_sides(n, hidden, mp, mxu, batch)
+    (jc, jp, js, _), (tc, tp, ts, _) = both_sides(n, hidden, mp, mxu, batch,
+                                                  net)
     jops = jbuild(jp.cases[0]["mesh"], jc.order, jp.case_sizes[0], 256,
                   model_ops_bf16=False, node_agg="composed")
     tops = tbuild(tp.cases[0]["mesh"], tc.order, tp.case_sizes[0], 256,
@@ -84,12 +87,11 @@ def f32_operator_statics(n=6, hidden=32, mp=1, mxu="float32", batch=2):
     return js.replace(ops=jops), dataclasses.replace(ts, ops=tops)
 
 
-def numpy_params(jcfg, jstatic, jdyn, seed=0):
-    """A flax parameter tree of FVGNSimulatorB as nested dicts of NumPy
-    arrays: shapes from the JAX package's own init, values from a NumPy
-    seed (non-zero biases, non-trivial LayerNorm scale/bias)."""
-    from gen_fvgn_tpu.training.train_block import init_train_state_block
-    state, apply_fn = init_train_state_block(jcfg, jdyn, jstatic, seed=0)
+def numpy_tree(params, seed=0):
+    """The flax parameter tree `params` with every leaf redrawn from a NumPy
+    seed (kernels normal / sqrt(fan-in), non-zero biases, non-trivial
+    LayerNorm scale/bias, attention temperatures in [0.3, 1.0]), as nested
+    dicts of NumPy arrays."""
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
@@ -100,10 +102,20 @@ def numpy_params(jcfg, jstatic, jdyn, seed=0):
                     ).astype(np.float32)
         if name == "scale":
             return (1.0 + 0.1 * rng.normal(size=shape)).astype(np.float32)
+        if name == "graph_temperature":
+            return rng.uniform(0.3, 1.0, size=shape).astype(np.float32)
         return (0.1 * rng.normal(size=shape)).astype(np.float32)
 
-    tree = jax.tree_util.tree_map_with_path(fill, state.params)
-    return jax.tree_util.tree_map(np.asarray, tree), apply_fn
+    tree = jax.tree_util.tree_map_with_path(fill, params)
+    return to_plain_dict(jax.tree_util.tree_map(np.asarray, tree))
+
+
+def numpy_params(jcfg, jstatic, jdyn, seed=0):
+    """A flax parameter tree of jcfg.net's block simulator as nested dicts
+    of NumPy arrays (see numpy_tree), and the JAX apply function."""
+    from gen_fvgn_tpu.training.train_block import init_train_state_block
+    state, apply_fn = init_train_state_block(jcfg, jdyn, jstatic, seed=0)
+    return numpy_tree(state.params, seed), apply_fn
 
 
 def to_plain_dict(tree):
@@ -150,3 +162,24 @@ def random_state(jdyn, tdyn, node_mask, seed=2):
     uvp *= np.asarray(node_mask, np.float32)[None, :, None]
     return (jdyn.replace(uvp=jnp.asarray(uvp)),
             tdyn.replace(uvp=torch.from_numpy(uvp.copy())))
+
+
+@contextlib.contextmanager
+def jax_kernels_on():
+    """The JAX package's Pallas kernels on (the fused MLPs, the fused slice
+    attention and the spmm; interpret mode on the CPU), its module-level
+    switches restored on exit."""
+    from gen_fvgn_tpu.models import mlp as jmlp
+    from gen_fvgn_tpu.models import transolver as jtr
+    from gen_fvgn_tpu.ops import blocksparse as jbs
+    saved = (jmlp._FUSED_ENABLED, jtr._FUSED_ATTN, jbs._USE_PALLAS,
+             jbs._PALLAS_MODE)
+    jmlp.use_fused_mlp(True)
+    jtr.use_fused_attn(True)
+    jbs.use_pallas_spmm(True)
+    try:
+        yield
+    finally:
+        jmlp.use_fused_mlp(saved[0])
+        jtr.use_fused_attn(saved[1])
+        jbs.use_pallas_spmm(saved[2], saved[3])
