@@ -4,23 +4,31 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `gen_fvgn_tpu_torch/csrc/` with nvcc,
-holds each kernel against its plain PyTorch version on the card at the
-shapes of the main path, then drives two paths through `rollout_block` on
-the 101x101-node synthetic cavity at batch 8, with weights from
-torch.Generator().manual_seed(0):
+holds each kernel, forward and backward, against its plain PyTorch version
+on the card at the shapes of the main path, then drives three paths on the
+101x101-node synthetic cavity at batch 8, with weights from
+torch.Generator().manual_seed(0), all with the Config's defaults
+(TransFVGN_v2: hidden 128, 2 processors of 3 message-passing blocks and a
+Transolver block each, 8 heads, 32 slices, bf16 stream) unless named:
 
-  * the main path: 5 steps of the Config's default net, TransFVGN_v2
-    (hidden 128, 2 processors of 3 message-passing blocks and a Transolver
-    block each, 8 heads, 32 slices, bf16 stream); per step 18 spmm, 14
-    fused_mlp_ln, 1 fused_mlp_noln, 2 fused_premlp_res and 2
+  * the main path, training: 5 steps of `make_train_step_block` from
+    `init_train_state_block`, batches from `EnvPool.block_batches` and
+    `gather_block`, `payback_block` after the last; per step 48 spmm
+    (18 forward, 30 on the transposes in the backward), 14 + 14
+    fused_mlp_ln forward and backward, 1 + 1 fused_mlp_noln, 2 + 2
+    fused_premlp_res and 2 + 2 fused_slice_pool launches. Step 1's
+    gradients with the kernels are held against those with the kernels'
+    plain versions on the card;
+  * the rollout of the same net, 5 steps through `rollout_block`; per step
+    18 spmm, 14 fused_mlp_ln, 1 fused_mlp_noln, 2 fused_premlp_res and 2
     fused_slice_pool launches;
-  * the FVGN net (3 message-passing blocks, no attention), 3 steps; per
-    step 9 spmm, 8 fused_mlp_ln, 1 fused_mlp_noln.
+  * the rollout of the FVGN net (3 message-passing blocks, no attention),
+    3 steps; per step 9 spmm, 8 fused_mlp_ln, 1 fused_mlp_noln.
 
 Each path's launch counters are set to 0 just before it and read just
 after; the script checks them, finite outputs, zero padded nodes, a state
-that moves, and step 1 against the same step run with the kernels' plain
-versions on the card.
+or parameters that move, and step 1 of each rollout against the same step
+run with the kernels' plain versions on the card.
 
 Needs one CUDA card and nvcc; exits non-zero without them, and on any phase
 that fails. float32 products run in full float32: TF32 is switched off
@@ -28,7 +36,8 @@ here for matmuls and cuDNN.
 
 Timing: CUDA events around single launches after a warm-up, median of 20,
 with a 256 MB buffer rewritten between launches so that each launch finds
-the 50 MB L2 cold.
+the 50 MB L2 cold. A train step is timed on the host clock, ending in a
+synchronize.
 """
 
 import json
@@ -43,7 +52,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 BF16_TENSOR_FLOPS = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS = 67e12               # float32 outside the tensor cores
 
-BATCH, STEPS, FVGN_STEPS, MESH_N = 8, 5, 3, 100
+BATCH, STEPS, FVGN_STEPS, TRAIN_STEPS, MESH_N = 8, 5, 3, 5, 100
 BF16_EPS = 2.0 ** -8            # one bf16 rounding, relative
 
 
@@ -350,12 +359,164 @@ def check_slice_pool(static, flush_buf, gen):
     return row
 
 
+def named_outputs(out, fields=None):
+    """(name, tensor) pairs of a backward's outputs: a NamedTuple, whose
+    fields may be tuples of tensors, or a tuple named by `fields`."""
+    for name, v in zip(fields or out._fields, out):
+        if isinstance(v, tuple):
+            yield from ((f"{name}[{i}]", t) for i, t in enumerate(v))
+        else:
+            yield name, v
+
+
+def hold_backward(name, run, run_ref, flush_buf, fields=None):
+    """Runs a backward kernel twice (the same bits, no atomics) and its
+    plain version once; every output within 2 bf16 ulps of its own scale
+    (a float32 sum in another order can move a bf16 rounding of dy,
+    dh2pre, dh1pre or a projection by one step, and the weight gradients
+    sum many rows in another order before their rounding). Returns
+    (outputs, a row of max_abs_err over all outputs, the largest share of
+    its tolerance an output's error takes, ms and plain_ms)."""
+    got, again, ref = run(), run(), run_ref()
+    torch.cuda.synchronize()
+    pairs = list(zip(named_outputs(got, fields),
+                     named_outputs(again, fields),
+                     named_outputs(ref, fields)))
+    if not all(torch.equal(a, b) for (_, a), (_, b), _ in pairs):
+        raise RuntimeError(f"{name}: two runs gave different bits")
+    worst, ratio, notes = 0.0, 0.0, []
+    for (key, a), _, (_, r) in pairs:
+        if a.shape != r.shape or a.dtype != r.dtype \
+                or not bool(torch.isfinite(a).all()):
+            raise RuntimeError(f"{name}[{key}]: {a.dtype} {tuple(a.shape)} "
+                               f"not finite or not {r.dtype} "
+                               f"{tuple(r.shape)}")
+        err = float((a.float() - r.float()).abs().max())
+        if float(r.abs().max()) == 0.0:
+            tol = 0.0
+        else:
+            tol = ulps_of_scale(r.float(), 2)
+        if err > tol:
+            raise RuntimeError(f"{name}[{key}] disagrees with its plain "
+                               f"version: max abs {err} > {tol}")
+        worst = max(worst, err)
+        ratio = max(ratio, err / tol if tol else 0.0)
+        notes.append(f"{key} {err:.3g}/{tol:.3g}")
+    ms = median_ms(run, flush_buf)
+    plain_ms = median_ms(run_ref, flush_buf, iters=5, warmup=1)
+    log(f"kernel {name}: max_abs_err/tolerance (2 bf16 ulps of each "
+        f"output's scale) {', '.join(notes)}; two runs bitwise equal; "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f}")
+    return got, dict(max_abs_err=worst, err_over_tolerance=ratio, ms=ms,
+                     plain_ms=plain_ms)
+
+
+def with_bound(row, m, moved, tensor_flops, f32_flops=0.0):
+    """The row with its M and its bound (see `bound`)."""
+    bound_ms, bound_by = bound(moved, tensor_flops, f32_flops)
+    return dict(row, m=m, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_backward(n_pad, e_pad, static, flush_buf, gen):
+    """K3 on the edge MLP's form (a 128-wide part owning the last W1 rows,
+    a pre, the residual on the part with both outputs), K4b at the
+    decoder's shape, K5b at the Transolver MLP's and K7 at the attention's,
+    each against its plain version; rows batch-major, 8 lanes."""
+    from gen_fvgn_tpu_torch.ops import fused_mlp as fm
+    from gen_fvgn_tpu_torch.ops import fused_slice_attn as fsa
+    bf = torch.bfloat16
+    g = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    rows = {}
+    h, sq = 128, 128 * 128
+
+    # K3: edge MLP, M = 8 * padded faces
+    m = BATCH * e_pad
+    w = mlp_weights(gen, 384, 128)
+    part, pre = g(m, h).to(bf), g(m, h).to(bf)
+    douts = [g(m, h).to(bf), g(m, h).to(bf)]
+    args = ([part], [w["w1"][256:].to(bf).contiguous()], w["b1"],
+            w["w2"].to(bf), w["b2"], w["w3"].to(bf), w["b3"], w["gamma"],
+            [pre], douts, 0, True, BATCH)
+    out, row = hold_backward(
+        "fused_mlp_ln_bwd[edge_mlp(part+pre,dual)]",
+        lambda: fm.fused_mlp_ln_bwd(*args),
+        lambda: fm.fused_mlp_ln_bwd_reference(*args), flush_buf)
+    moved = nbytes(part, pre, *douts, *out.dxs, *out.dpres, *args[1],
+                   args[3], args[5], out.dw1s[0], out.dw2, out.dw3) \
+        + 4 * 8 * h
+    # remat: 3 products; backward: dW3, dh2, dW2, dh1, dW1, dx
+    rows["fused_mlp_ln_bwd"] = with_bound(row, m, moved, 2.0 * m * 9 * sq)
+
+    # K4b: decoder, [8 * padded nodes, 128] -> 3
+    m = BATCH * n_pad
+    w = mlp_weights(gen, 128, 3)
+    x, dout = g(m, h).to(bf), g(m, 3).to(bf)
+    args = (x, w["w1"].to(bf), w["b1"], w["w2"].to(bf), w["b2"],
+            w["w3"].to(bf).contiguous(), w["b3"], dout, BATCH)
+    out, row = hold_backward(
+        "fused_mlp_noln_bwd[decoder]", lambda: fm.fused_mlp_noln_bwd(*args),
+        lambda: fm.fused_mlp_noln_bwd_reference(*args), flush_buf,
+        ("dx", "dw1", "db1", "dw2", "db2", "dw3", "db3"))
+    moved = nbytes(x, dout, out[0], args[1], args[3], args[5], out[1],
+                   out[3], out[5]) + 4 * 2 * (2 * h + 3)
+    # remat: x W1, h1 W2 (no LayerNorm, so h2 W3 is not needed); backward:
+    # dW3 and dh2 (3 wide), dW2, dh1, dW1, dx
+    rows["fused_mlp_noln_bwd"] = with_bound(
+        row, m, moved, 2.0 * m * (6 * sq + 2 * 3 * h))
+
+    # K5b: the Transolver MLP, [8 * padded nodes, 128], hidden 256
+    x = (2.0 * g(m, h) + 0.5).to(bf)
+    dout = g(m, h).to(bf)
+    args = (x, 1.0 + 0.1 * g(h), 0.1 * g(h), (g(h, 256) / 128 ** 0.5).to(bf),
+            0.1 * g(256), (g(256, h) / 256 ** 0.5).to(bf), 0.1 * g(h), dout,
+            BATCH)
+    out, row = hold_backward(
+        "fused_premlp_res_bwd", lambda: fm.fused_premlp_res_bwd(*args),
+        lambda: fm.fused_premlp_res_bwd_reference(*args), flush_buf,
+        ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"))
+    moved = nbytes(x, dout, out[0], args[3], args[5], out[3], out[5]) \
+        + 4 * 2 * (4 * h + 256)
+    # remat: u W1 (the branch's output h W2 is not needed); backward: dW2,
+    # g W2^T, dW1, dh W1^T; each [M, 128] x [128, 256] or its transpose
+    rows["fused_premlp_res_bwd"] = with_bound(row, m, moved,
+                                              2.0 * m * 5 * 2 * sq)
+
+    # K7: the slice pooling's backward, x [8, N, 128], the static mask
+    n = static.pos.shape[0]
+    x = g(BATCH, n, h).to(bf)
+    mask = static.node_mask.to(torch.float32)
+    cots = (g(BATCH, n, 256).to(bf), g(BATCH, 8, 32, 16), g(BATCH, 8, 32))
+    args = (x, mask, (g(h, h) / 128 ** 0.5).to(bf), 0.1 * g(h),
+            (g(h, h) / 128 ** 0.5).to(bf), 0.1 * g(h),
+            (g(16, 32) / 4.0).to(bf), 0.1 * g(32),
+            torch.full((8,), 2.0, device="cuda"), *cots)
+    out, row = hold_backward(
+        "fused_slice_pool_bwd", lambda: fsa.fused_slice_pool_bwd_kernel(*args),
+        lambda: fsa.fused_slice_pool_bwd_reference(*args), flush_buf)
+    r = BATCH * n
+    moved = nbytes(x, mask, *cots, out.dx, args[2], args[4], args[6],
+                   out.dwfx, out.dwx, out.dwsl_heads) + 4 * (4 * h + 64 + 16)
+    # tensor cores: remat fx, xm, the logits; backward dxm, dWsl, dWfx,
+    # dWx and dx (two products); float32: dw_m and dfx against dtokens
+    rows["fused_slice_pool_bwd"] = with_bound(
+        row, r, moved, 2.0 * r * (6 * sq + 3 * 8 * 16 * 32),
+        f32_flops=2.0 * 2 * r * 8 * 32 * 16)
+    for name, row in rows.items():
+        log(f"  {name}: M={row['m']} bound_ms={row['bound_ms']:.4f} "
+            f"({row['bound_by']})")
+    return rows
+
+
 def launch_counts():
     from gen_fvgn_tpu_torch.ops import fused_mlp, fused_slice_attn, spmm
     return dict(spmm=spmm.LAUNCHES, fused_mlp_ln=fused_mlp.LAUNCHES_LN,
                 fused_mlp_noln=fused_mlp.LAUNCHES_NOLN,
                 fused_premlp_res=fused_mlp.LAUNCHES_PREMLP,
-                fused_slice_pool=fused_slice_attn.LAUNCHES)
+                fused_slice_pool=fused_slice_attn.LAUNCHES,
+                fused_mlp_ln_bwd=fused_mlp.LAUNCHES_LN_BWD,
+                fused_mlp_noln_bwd=fused_mlp.LAUNCHES_NOLN_BWD,
+                fused_premlp_res_bwd=fused_mlp.LAUNCHES_PREMLP_BWD,
+                fused_slice_pool_bwd=fused_slice_attn.LAUNCHES_BWD)
 
 
 def zero_counts():
@@ -363,7 +524,9 @@ def zero_counts():
     spmm.LAUNCHES = 0
     fused_mlp.LAUNCHES_LN = fused_mlp.LAUNCHES_NOLN = 0
     fused_mlp.LAUNCHES_PREMLP = 0
-    fused_slice_attn.LAUNCHES = 0
+    fused_mlp.LAUNCHES_LN_BWD = fused_mlp.LAUNCHES_NOLN_BWD = 0
+    fused_mlp.LAUNCHES_PREMLP_BWD = 0
+    fused_slice_attn.LAUNCHES = fused_slice_attn.LAUNCHES_BWD = 0
 
 
 def drive(name, cfg, sim, norm_state, dyn, static, steps, per_step, n_real):
@@ -401,7 +564,7 @@ def drive(name, cfg, sim, norm_state, dyn, static, steps, per_step, n_real):
             f"loss_mom_y={rec['loss_mom_y'].mean():.6g} "
             f"loss_press={rec['loss_press'].mean():.6g} "
             f"max|uvp|={np.abs(un).max():.4g} ms={ms:.2f}")
-    expected = {k: v * steps for k, v in per_step.items()}
+    expected = {k: per_step.get(k, 0) * steps for k in counts}
     log(f"{name} rollout: {steps} steps, batch {BATCH}, median "
         f"{float(np.median(step_ms)):.2f} ms/step (host clock, state copied "
         f"to the host each step); launches {counts}")
@@ -431,6 +594,131 @@ def drive(name, cfg, sim, norm_state, dyn, static, steps, per_step, n_real):
         raise RuntimeError(f"{name}: step 1 disagrees with the plain "
                            f"versions")
     return counts
+
+
+def step1_grads(cfg, sim, norm_state, dyn, static, plain):
+    """d loss / d parameter of one training step's loss (forward with
+    normalizer accumulation, then `training_loss`), with the kernels or
+    with their plain versions."""
+    import contextlib
+
+    from gen_fvgn_tpu_torch.ops import plain_versions
+    from gen_fvgn_tpu_torch.training.forward import training_loss
+    from gen_fvgn_tpu_torch.training.forward_block import forward_batch_block
+    params = list(sim.parameters())
+    with (plain_versions() if plain else contextlib.nullcontext()), \
+            torch.enable_grad():
+        out = forward_batch_block(sim, norm_state, dyn, static, cfg,
+                                  accumulate_normalizer=True)
+        loss = training_loss(out, cfg)
+        grads = torch.autograd.grad(loss, params)
+    return float(loss.detach()), grads
+
+
+def drive_training(cfg, pool, static, steps, per_step, n_real):
+    """The main path: `steps` train steps of cfg.net from
+    `init_train_state_block` (seed 0), each on the batch
+    `pool.block_batches(step_seed=k)` gives, `payback_block` after the
+    last, with the counters set to 0 just before and read just after.
+    Before it, step 1's gradients with the kernels against those with the
+    plain versions on the card. Returns the counts and the step times."""
+    from gen_fvgn_tpu_torch.training.train_block import (
+        init_train_state_block, make_train_step_block)
+    name = f"{cfg.net} train"
+    state, sim = init_train_state_block(cfg, seed=0)
+    train_step = make_train_step_block(cfg, sim)
+    start = [p.detach().clone() for p in sim.parameters()]
+
+    # step 1's gradients: kernels vs plain versions on the same inputs
+    _, idxs = pool.block_batches(step_seed=0)[0]
+    dyn = pool.gather_block(idxs)
+    loss_k, g_k = step1_grads(cfg, sim, state.norm_state, dyn, static, False)
+    counts = launch_counts()
+    loss_p, g_p = step1_grads(cfg, sim, state.norm_state, dyn, static, True)
+    if launch_counts() != counts:
+        raise RuntimeError(f"{name}: the plain versions' pass launched a "
+                           f"kernel")
+    diff = torch.sqrt(sum(((a.float() - b.float()) ** 2).sum()
+                          for a, b in zip(g_k, g_p)))
+    ref = torch.sqrt(sum((b.float() ** 2).sum() for b in g_p))
+    rel = float(diff / ref)
+    cos, rels, names = [], [], []
+    for n, a, b in zip((n for n, _ in sim.named_parameters()), g_k, g_p):
+        a, b = a.double().reshape(-1), b.double().reshape(-1)
+        if bool(b.any()):
+            cos.append(float(a @ b / (a.norm() * b.norm())))
+            rels.append(float((a - b).norm() / b.norm()))
+            names.append(n)
+    worst_cos, worst_rel = int(np.argmin(cos)), int(np.argmax(rels))
+    # set from this check's readings on an H100: relative norm of the
+    # whole 5.6e-3 (limit 2e-2), largest per tensor 9.6e-3 (3e-2), lowest
+    # cosine 1 - 5e-5 (1 - 1e-3), loss 1e-6 relative (1e-4). The per-tensor
+    # norm also sees a tensor off by a scale factor, which the cosine
+    # cannot.
+    rel_tol, tensor_tol, cos_tol = 2e-2, 3e-2, 1 - 1e-3
+    log(f"{name} step 1 gradients, kernels vs plain versions on the card: "
+        f"loss {loss_k:.7g} vs {loss_p:.7g}; relative norm of the "
+        f"difference {rel:.3g} (tolerance {rel_tol}); largest per-tensor "
+        f"relative norm {rels[worst_rel]:.3g} ({names[worst_rel]}; "
+        f"tolerance {tensor_tol}); lowest per-tensor cosine "
+        f"{cos[worst_cos]:.5f} ({names[worst_cos]}; tolerance {cos_tol}); "
+        f"gradient norm {float(ref):.6g}")
+    if not rel <= rel_tol or not max(rels) <= tensor_tol \
+            or not min(cos) >= cos_tol \
+            or not abs(loss_k - loss_p) <= 1e-4 * abs(loss_p):
+        raise RuntimeError(f"{name}: step 1 gradients disagree with the "
+                           f"plain versions")
+    del g_k, g_p
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    step_ms, uvp_new = [], None
+    for k in range(steps):
+        _, idxs = pool.block_batches(step_seed=k)[0]
+        t0 = time.perf_counter()
+        dyn = pool.gather_block(idxs)
+        state, m, uvp_new = train_step(state, dyn, static)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        loss, gnorm = float(m.loss), float(m.grad_norm)
+        if not np.isfinite(loss) or not np.isfinite(gnorm) or gnorm <= 0:
+            raise RuntimeError(f"{name} step {k + 1}: loss {loss}, grad_norm "
+                               f"{gnorm}")
+        log(f"{name} step {k + 1}: loss={loss:.6g} "
+            f"loss_cont={float(m.loss_cont):.6g} "
+            f"loss_mom={float(m.loss_mom):.6g} "
+            f"loss_press={float(m.loss_press):.6g} grad_norm={gnorm:.6g} "
+            f"lr={m.lr:.3g} ms={step_ms[-1]:.2f}")
+    pool.payback_block(idxs, uvp_new)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    expected = {k: per_step.get(k, 0) * steps for k in counts}
+    log(f"{name}: {steps} steps, batch {BATCH}, median "
+        f"{float(np.median(step_ms)):.2f} ms/step (host clock, gather and "
+        f"step, ending in a synchronize); peak device memory {peak:.0f} MiB; "
+        f"launches {counts}")
+    if counts != expected:
+        raise RuntimeError(f"{name}: launch counts {counts} != expected "
+                           f"{expected}")
+    moved = max(float((p.detach() - p0).abs().max())
+                for p, p0 in zip(sim.parameters(), start))
+    if not moved > 0 or not all(bool(torch.isfinite(p).all())
+                                for p in sim.parameters()):
+        raise RuntimeError(f"{name}: parameters did not move or are not "
+                           f"finite")
+    back = pool.gather_block(idxs).uvp
+    if uvp_new.shape != back.shape or not torch.equal(
+            back, uvp_new.to(back.dtype)) or bool(
+            (uvp_new[:, n_real:] != 0).any()) or not bool(
+            torch.isfinite(uvp_new).all()):
+        raise RuntimeError(f"{name}: payback_block did not write the new "
+                           f"states, or they are not finite with zero "
+                           f"padded nodes")
+    log(f"{name}: parameters moved by up to {moved:.3g}; payback_block wrote "
+        f"the {len(idxs)} new states back; state {state.step} steps")
+    return counts, step_ms, peak
 
 
 def main():
@@ -485,58 +773,71 @@ def main():
     noln_row = check_fused_noln(n_pad, flush_buf, gen)
     premlp_row = check_premlp(n_pad, flush_buf, gen)
     pool_row = check_slice_pool(static, flush_buf, gen)
+    bwd_rows = check_backward(n_pad, e_pad, static, flush_buf, gen)
     del flush_buf
 
-    # ---- phase 4: the main path, TransFVGN_v2 ----
-    counts = drive(cfg.net, cfg, sim, norm_state, dyn, static, STEPS,
-                   dict(spmm=18, fused_mlp_ln=14, fused_mlp_noln=1,
-                        fused_premlp_res=2, fused_slice_pool=2), n_real)
+    # ---- phase 4: the TransFVGN_v2 rollout ----
+    drive(cfg.net, cfg, sim, norm_state, dyn, static, STEPS,
+          dict(spmm=18, fused_mlp_ln=14, fused_mlp_noln=1,
+               fused_premlp_res=2, fused_slice_pool=2), n_real)
 
-    # ---- phase 5: the FVGN net on the same statics ----
+    # ---- phase 5: the FVGN rollout on the same statics ----
     fcfg = cfg.replace(net="FVGN")
     drive("FVGN", fcfg, make_simulator_block(fcfg, seed=0), norm_state, dyn,
-          static, FVGN_STEPS,
-          dict(spmm=9, fused_mlp_ln=8, fused_mlp_noln=1, fused_premlp_res=0,
-               fused_slice_pool=0), n_real)
+          static, FVGN_STEPS, dict(spmm=9, fused_mlp_ln=8, fused_mlp_noln=1),
+          n_real)
+    del sim
 
-    # ---- phase 6: the kernels line (launches: the main path's run) ----
+    # ---- phase 6: the main path, training TransFVGN_v2 ----
+    per_step = dict(spmm=48, fused_mlp_ln=14, fused_mlp_noln=1,
+                    fused_premlp_res=2, fused_slice_pool=2,
+                    fused_mlp_ln_bwd=14, fused_mlp_noln_bwd=1,
+                    fused_premlp_res_bwd=2, fused_slice_pool_bwd=2)
+    counts, _, _ = drive_training(cfg, pool, static, TRAIN_STEPS, per_step,
+                                  n_real)
+
+    # ---- phase 7: the kernels line (launches: the main path's run) ----
     big = {r["op"]: r for r in spmm_rows}["nbr_r"]
     edge = [r for r in ln_rows if r["variant"].startswith("edge_mlp")][0]
     pick = lambda r: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by")}
+
+    def entry(name, source, replaces, row, measured_on, library_ms=None):
+        return dict(name=name, route="cuda",
+                    source=f"gen_fvgn_tpu_torch/csrc/{source}",
+                    replaces=f"gen_fvgn_tpu/ops/{replaces}",
+                    launches=counts[name],
+                    launches_per_train_step=per_step[name],
+                    max_abs_err=row["max_abs_err"], **pick(row),
+                    library_ms=library_ms, measured_on=measured_on,
+                    **({"err_over_tolerance": row["err_over_tolerance"]}
+                       if "err_over_tolerance" in row else {}))
+    # no single PyTorch call computes a fused MLP chain, the pre-LN MLP
+    # branch with its residual, the slice pooling, or any of their
+    # backwards: library_ms is null for all but the spmm
     kernels = [
-        dict(name="spmm", route="cuda",
-             source="gen_fvgn_tpu_torch/csrc/spmm.cu",
-             replaces="gen_fvgn_tpu/ops/pallas_spmm.py:228",
-             launches=counts["spmm"],
-             max_abs_err=max(r["max_abs_err"] for r in spmm_rows),
-             **pick(big), library_ms=big["library_ms"], measured_on="nbr_r"),
-        dict(name="fused_mlp_ln", route="cuda",
-             source="gen_fvgn_tpu_torch/csrc/fused_mlp.cu",
-             replaces="gen_fvgn_tpu/ops/fused_mlp.py:385",
-             launches=counts["fused_mlp_ln"],
-             max_abs_err=max(r["max_abs_err"] for r in ln_rows),
-             **pick(edge), library_ms=None, measured_on="edge_mlp"),
-        dict(name="fused_mlp_noln", route="cuda",
-             source="gen_fvgn_tpu_torch/csrc/fused_mlp.cu",
-             replaces="gen_fvgn_tpu/ops/fused_mlp.py:960",
-             launches=counts["fused_mlp_noln"],
-             max_abs_err=noln_row["max_abs_err"], **pick(noln_row),
-             library_ms=None, measured_on="decoder"),
-        # no single PyTorch call computes the pre-LN MLP branch with its
-        # residual, nor the slice pooling: library_ms is null for both
-        dict(name="fused_premlp_res", route="cuda",
-             source="gen_fvgn_tpu_torch/csrc/fused_premlp.cu",
-             replaces="gen_fvgn_tpu/ops/fused_mlp.py:747",
-             launches=counts["fused_premlp_res"],
-             max_abs_err=premlp_row["max_abs_err"], **pick(premlp_row),
-             library_ms=None, measured_on="transolver_mlp"),
-        dict(name="fused_slice_pool", route="cuda",
-             source="gen_fvgn_tpu_torch/csrc/fused_slice_pool.cu",
-             replaces="gen_fvgn_tpu/ops/fused_slice_attn.py:274",
-             launches=counts["fused_slice_pool"],
-             max_abs_err=pool_row["max_abs_err"], **pick(pool_row),
-             library_ms=None, measured_on="physics_attention"),
+        entry("spmm", "spmm.cu", "pallas_spmm.py:228",
+              dict(big, max_abs_err=max(r["max_abs_err"]
+                                        for r in spmm_rows)),
+              "nbr_r", big["library_ms"]),
+        entry("fused_mlp_ln", "fused_mlp.cu", "fused_mlp.py:385",
+              dict(edge, max_abs_err=max(r["max_abs_err"] for r in ln_rows)),
+              "edge_mlp"),
+        entry("fused_mlp_ln_bwd", "fused_mlp.cu", "fused_mlp.py:421",
+              bwd_rows["fused_mlp_ln_bwd"], "edge_mlp"),
+        entry("fused_mlp_noln", "fused_mlp.cu", "fused_mlp.py:960",
+              noln_row, "decoder"),
+        entry("fused_mlp_noln_bwd", "fused_mlp.cu", "fused_mlp.py:980",
+              bwd_rows["fused_mlp_noln_bwd"], "decoder"),
+        entry("fused_premlp_res", "fused_premlp.cu", "fused_mlp.py:747",
+              premlp_row, "transolver_mlp"),
+        entry("fused_premlp_res_bwd", "fused_premlp.cu", "fused_mlp.py:766",
+              bwd_rows["fused_premlp_res_bwd"], "transolver_mlp"),
+        entry("fused_slice_pool", "fused_slice_pool.cu",
+              "fused_slice_attn.py:274", pool_row, "physics_attention"),
+        entry("fused_slice_pool_bwd", "fused_slice_pool.cu",
+              "fused_slice_attn.py:297", bwd_rows["fused_slice_pool_bwd"],
+              "physics_attention"),
     ]
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:

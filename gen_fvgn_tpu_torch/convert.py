@@ -1,6 +1,7 @@
 """Converts a flax parameter tree (as nested dicts of NumPy arrays) into a
 state_dict of the port's block simulators (`FVGNSimulatorB`,
-`TransFVGNv1B`, `TransFVGNv2B`), and NumPy normalizer statistics into a
+`TransFVGNv1B`, `TransFVGNv2B`) and back (`flax_paths`, for parameters or
+their gradients), and NumPy normalizer statistics into a
 `NormalizerState`.
 
 The port's modules keep the flax layout (`kernel` stored [in, out], names
@@ -42,6 +43,15 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     _flatten(tree, "", flat)
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in flat.items()}
+
+
+def flax_paths(named: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of `params_from_flax`, flat: {"a/b/kernel": float32
+    NumPy array} for a state_dict or any {parameter name: tensor} mapping
+    (the gradients of a train step, say), so that they compare key by key
+    with the flax tree flattened with "/" between the names."""
+    return {k.replace(".", "/"): v.detach().to("cpu", torch.float32).numpy()
+            for k, v in named.items()}
 
 
 def normalizer_from_numpy(acc_sum, acc_sum_sq, acc_count, num_acc,

@@ -74,6 +74,13 @@ class _LnParams(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
 
+def _lanes(lead) -> int:
+    """Batch lanes of a batch-major [B, M, ...] stream (1 unbatched): the
+    fused kernels' backward rounds weight gradients per lane, as the JAX
+    package's kernels do under the model's per-sample vmap."""
+    return int(lead[0]) if len(lead) == 2 else 1
+
+
 def _layer_norm(h, scale, bias, out_dtype, eps: float = 1e-6):
     """flax-equivalent LayerNorm (fast variance, float32 statistics)."""
     h32 = h.to(torch.float32)
@@ -157,7 +164,8 @@ class Mlp(nn.Module):
             x0 = parts[0]
             lead = x0.shape[:-1]
             out = fused_mlp_noln_parts(x0.reshape(-1, x0.shape[-1]), w1, b1,
-                                       w2, b2, w_out, b_out, dtype=dt)
+                                       w2, b2, w_out, b_out, dtype=dt,
+                                       lanes=_lanes(lead))
             return out.reshape(lead + (out.shape[-1],))
 
         # ---- layer-by-layer path ----
@@ -211,7 +219,7 @@ class Mlp(nn.Module):
             pre = project(xcat, w1)
             out = fused_mlp_ln_parts(
                 [], w1, b1, w2, b2, w_out, b_out, ln[0], ln[1], dtype=dt,
-                pres=(flat(pre),), w1_rows=[])
+                pres=(flat(pre),), w1_rows=[], lanes=_lanes(lead))
             return unflat(out)
 
         # Gathered parts: project the source by its W1 row-slice at source
@@ -233,6 +241,7 @@ class Mlp(nn.Module):
             ln[0], ln[1], dtype=dt,
             pres=() if pre is None else (flat(pre),),
             w1_rows=[rows for _, rows in plain],
-            res_idx=res_plain, res_dual=self.residual_dual)
+            res_idx=res_plain, res_dual=self.residual_dual,
+            lanes=_lanes(lead))
         return (tuple(unflat(o) for o in out) if isinstance(out, tuple)
                 else unflat(out))

@@ -4,8 +4,8 @@ The sources in `gen_fvgn_tpu_torch/csrc/*.cu` have a plain C interface (no
 PyTorch headers), so a build takes seconds. Each source is compiled to an
 object file by its own nvcc process, all started together, and the objects
 are linked into one shared library under `gen_fvgn_tpu_torch/_build/`
-(git-ignored). The library's name carries a hash of the sources, so an
-edited source rebuilds and an unchanged one is reused.
+(git-ignored). The library's name carries a hash of the sources and of the
+header they share, so an edit rebuilds and an unchanged tree is reused.
 
 A failed build raises; nothing falls back to another implementation.
 """
@@ -26,6 +26,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("spmm.cu", "fused_mlp.cu", "fused_premlp.cu",
            "fused_slice_pool.cu")
+HEADERS = ("lane_reduce.cuh",)   # included by the sources: in the hash too
 # -fmad=false: no silent a*b+c contraction, so the kernels' float32
 # elementwise steps round where the plain PyTorch versions round (the sparse
 # apply asks for its fused multiply-adds explicitly).
@@ -52,7 +53,7 @@ def _find_nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -125,6 +126,35 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp,        # wfx, bfx, wx, bx
         vp, vp, vp,            # wsl [16, 32] bf16, bsl [32], inv_temp [8]
         vp, vp, vp, vp,        # slice_w, partials, tokens, norm
+        ci, ci, ci, ci,        # B, N, rows_per_chunk, n_chunks
+        vp]                    # stream
+    lib.gfvgn_fused_mlp_bwd.restype = ci
+    lib.gfvgn_fused_mlp_bwd.argtypes = [
+        vp, vp, ci, ci,        # part0, part1, width0, width1 (0 = absent)
+        vp, vp,                # w1 [width0+width1, 128] bf16, pre or null
+        vp, vp, vp, vp, vp,    # b1, w2, b2, w3, b3
+        vp,                    # gamma (null without LayerNorm)
+        vp, vp,                # dout0, dout1 (null unless res_dual)
+        vp, vp, vp,            # dx0, dx1, dpre (null where absent)
+        vp, vp,                # partial slabs, summed slab (float32)
+        ci, ci, ci, ci, ci,    # M, res_idx, res_dual, layer_norm, d_out
+        ci, ci,                # lanes, blocks_per_lane
+        vp]                    # stream
+    lib.gfvgn_fused_premlp_bwd.restype = ci
+    lib.gfvgn_fused_premlp_bwd.argtypes = [
+        vp, vp, vp,            # x [M, 128] bf16, gamma, beta
+        vp, vp, vp, vp,        # w1 [128, 256] bf16, b1, w2 [256, 128] bf16, b2
+        vp, vp,                # dout, dx [M, 128] bf16
+        vp, vp,                # partial slabs, summed slab (float32)
+        ci, ci, ci,            # M, lanes, blocks_per_lane
+        vp]                    # stream
+    lib.gfvgn_fused_slice_pool_bwd.restype = ci
+    lib.gfvgn_fused_slice_pool_bwd.argtypes = [
+        vp, vp, ci,            # x [B, N, 128] bf16, mask f32, mask batch stride
+        vp, vp, vp, vp,        # wfx, bfx, wx, bx
+        vp, vp, vp,            # wsl [16, 32] bf16, bsl [32], inv_temp [8]
+        vp, vp, vp,            # dslice_w bf16, dtokens f32, dnorm f32
+        vp, vp, vp,            # dx, partial slabs, summed slab
         ci, ci, ci, ci,        # B, N, rows_per_chunk, n_chunks
         vp]                    # stream
 

@@ -181,9 +181,10 @@ def csr_matmul(op: CsrOp, x: torch.Tensor) -> torch.Tensor:
     return out.to(out_dtype).contiguous()
 
 
-def _apply_csr_op(op: CsrOp, x: torch.Tensor) -> torch.Tensor:
-    """x [n_in, F] or batch-major [B, n_in, F] -> [(B,) n_out, F]."""
-    from gen_fvgn_tpu_torch.ops import plain_versions_active
+def _apply_csr_op(op: CsrOp, x: torch.Tensor,
+                  plain: bool = False) -> torch.Tensor:
+    """x [n_in, F] or batch-major [B, n_in, F] -> [(B,) n_out, F]; `plain`
+    takes the spmm kernel's plain version on any device."""
     from gen_fvgn_tpu_torch.ops.spmm import spmm, spmm_reference
     if x.ndim not in (2, 3):
         raise ValueError(f"apply expects [n_in, F] or [B, n_in, F], got "
@@ -198,14 +199,35 @@ def _apply_csr_op(op: CsrOp, x: torch.Tensor) -> torch.Tensor:
         return torch.index_select(x, x.ndim - 2, op.take_idx)
     if f % 128 == 0:
         # the JAX dispatch rule of the Pallas spmm kernels
-        return (spmm_reference if plain_versions_active() else spmm)(op, x)
+        return (spmm_reference if plain else spmm)(op, x)
     return csr_matmul(op, x)
 
 
+class _ApplyLinop(torch.autograd.Function):
+    """out = A·x, with the backward dx = Aᵀ·g applied through the stored
+    transpose `op.bwd` under the forward's dispatch rule (the spmm kernel
+    K1 at widths that are multiples of 128, `csr_matmul` otherwise; `bwd`
+    has no row-gather indices, so the take route's backward is the
+    transpose product too). It never scatters. As in JAX, the cotangent
+    takes the operand cast of a bf16-stored operator: a float32 cotangent
+    is rounded to bf16 before the product."""
+
+    @staticmethod
+    def forward(ctx, x, op, plain):
+        ctx.op, ctx.plain, ctx.x_dtype = op, plain, x.dtype
+        return _apply_csr_op(op.fwd, x, plain)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx = _apply_csr_op(ctx.op.bwd, g.contiguous(), ctx.plain)
+        return dx.to(ctx.x_dtype), None, None
+
+
 def apply_linop(op: LinOp, x: torch.Tensor) -> torch.Tensor:
-    """out = A @ x. x is [n_in, F] or batch-major [B, n_in, F]. Forward
-    only in this slice (the rollout runs under torch.no_grad())."""
-    return _apply_csr_op(op.fwd, x)
+    """out = A @ x. x is [n_in, F] or batch-major [B, n_in, F]; under
+    autograd the backward applies `op.bwd` (see `_ApplyLinop`)."""
+    from gen_fvgn_tpu_torch.ops import plain_versions_active
+    return _ApplyLinop.apply(x, op, plain_versions_active())
 
 
 # ---------- host-side COO triplets of the standard mesh operators ----------

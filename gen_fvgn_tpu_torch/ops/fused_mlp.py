@@ -1,4 +1,5 @@
-"""Kernels K2, K4f and K5f: the fused GELU MLP chains, forward.
+"""Kernels K2, K4f and K5f, the fused GELU MLP chains, and their backward
+kernels K3, K4b and K5b.
 
 K2 `fused_mlp_ln` replaces the TPU kernel `_make_fwd_kernel`
 (`gen_fvgn_tpu/ops/fused_mlp.py:98-126`, called at :385):
@@ -47,11 +48,31 @@ Tolerance kernel vs plain version: the float32 sums are taken in another
 order (tensor-core fragments vs a library GEMM) and tanhf/sqrtf differ in
 the last bit from PyTorch's, which can move a bf16 rounding of h1, h2 or
 the output by one step: 2 bf16 ulps of the output scale.
+
+The backward kernels (K3 `fused_mlp_ln_bwd`, K4b `fused_mlp_noln_bwd`, K5b
+`fused_premlp_res_bwd`) replace `_make_bwd_kernel` (:129-228, called at
+:421), `_noln_bwd_kernel` (:924-952, called at :980) and
+`_premlp_bwd_kernel` (:714-740, called at :766). Each recomputes the
+forward from the saved inputs (remat, as the TPU kernels do), rounds dy,
+dh2pre and dh1pre to bf16 before the products that take them, runs the
+LayerNorm backward in float32, and returns the weight gradients rounded to
+the weights' type (bf16) after one float32 sum over all rows; biases, γ and
+β get float32 gradients. The kernels write per-block float32 partials and
+a second pass sums them in block order (no atomics: two runs give the same
+bits). The `torch.autograd.Function`s below put each forward kernel and its
+backward together; `fused_mlp_ln_parts`, `fused_mlp_noln_parts` and
+`fused_premlp_res_parts` call them on both devices.
+
+Tolerance of a backward kernel vs its plain version: as for the forward, a
+float32 sum in another order can move a bf16 rounding of dy, dh2pre or
+dh1pre, and so dx, by a step: 2 bf16 ulps of dx's scale; the weight
+gradients sum many rows in another order before their one rounding: 2
+bf16 ulps of their scale.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -63,6 +84,9 @@ _GELU_C = 0.044715
 LAUNCHES_LN = 0
 LAUNCHES_NOLN = 0
 LAUNCHES_PREMLP = 0
+LAUNCHES_LN_BWD = 0
+LAUNCHES_NOLN_BWD = 0
+LAUNCHES_PREMLP_BWD = 0
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -71,23 +95,154 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.tanh(u))
 
 
+def _gelu_tanh_grad(x: torch.Tensor) -> torch.Tensor:
+    """d/dx of the tanh-approximate GELU, float32 (the JAX package's
+    `_gelu_tanh_grad`, same operation order)."""
+    u = _SQRT_2_OVER_PI * (x + _GELU_C * x * x * x)
+    t = torch.tanh(u)
+    du = _SQRT_2_OVER_PI * (1.0 + 3.0 * _GELU_C * x * x)
+    return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * du
+
+
 def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """bf16 × bf16 product with float32 accumulation (the products of two
     bf16 values are exact in float32)."""
     return a.to(torch.float32) @ b.to(torch.float32)
 
 
-def _chain(parts, w1s, b1, w2, b2, w3, b3, pres, dt):
+def _chain_parts(parts, w1s, b1, w2, b2, w3, b3, pres, dt):
+    """The forward chain with its intermediates: (h1pre, h1, h2pre, h2, y),
+    all float32 (h1, h2 are rounded to dt where the next product takes
+    them)."""
     f32 = torch.float32
-    h1pre = b1.to(f32)
+    h1pre = b1.to(f32).reshape(-1)
     for p in pres:
         h1pre = h1pre + p.to(f32)
     for xp, w1p in zip(parts, w1s):
         h1pre = h1pre + _dot_f32(xp, w1p)
     h1 = _gelu_tanh(h1pre)
-    h2pre = _dot_f32(h1.to(dt), w2) + b2.to(f32)
+    h2pre = _dot_f32(h1.to(dt), w2) + b2.to(f32).reshape(-1)
     h2 = _gelu_tanh(h2pre)
-    return _dot_f32(h2.to(dt), w3) + b3.to(f32)
+    y = _dot_f32(h2.to(dt), w3) + b3.to(f32).reshape(-1)
+    return h1pre, h1, h2pre, h2, y
+
+
+def _chain(parts, w1s, b1, w2, b2, w3, b3, pres, dt):
+    return _chain_parts(parts, w1s, b1, w2, b2, w3, b3, pres, dt)[-1]
+
+
+def _ln_stats(y: torch.Tensor):
+    """flax fast-variance LayerNorm statistics in float32: (mu, rstd)."""
+    mu = y.mean(dim=-1, keepdim=True)
+    var = torch.clamp((y * y).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
+    return mu, torch.rsqrt(var + LN_EPS)
+
+
+def _ln_bwd(g, xhat, rstd, gamma):
+    """LayerNorm backward in float32: dy = rstd·(gx − mean(gx) −
+    xhat·mean(gx·xhat)) with gx = g·γ."""
+    gx = g * gamma.to(torch.float32).reshape(-1)
+    m1 = gx.mean(dim=-1, keepdim=True)
+    m2 = (gx * xhat).mean(dim=-1, keepdim=True)
+    return rstd * (gx - m1 - xhat * m2)
+
+
+def weight_grad(a: torch.Tensor, b: torch.Tensor, lanes: int,
+                dtype) -> torch.Tensor:
+    """aᵀ·b over the rows of a [M, k] and b [M, n], as the JAX package's
+    kernels produce a weight gradient under the model's per-sample vmap:
+    the float32 sum over each batch lane's M / lanes rows is rounded to
+    `dtype`, then the lanes are summed in float32 and rounded once more
+    (with one lane: a single rounding)."""
+    m = a.shape[0]
+    a3 = a.to(torch.float32).reshape(lanes, m // lanes, a.shape[-1])
+    b3 = b.to(torch.float32).reshape(lanes, m // lanes, b.shape[-1])
+    per = torch.bmm(a3.transpose(1, 2), b3)
+    return per.to(dtype).to(torch.float32).sum(dim=0).to(dtype)
+
+
+def _mlp_chain_bwd(parts, w1s, w2, w3, dt, h1pre, h1, h2pre, h2, dy, lanes):
+    """Backward of the 2-hidden-layer chain from dy [M, d] (float32), with
+    the JAX kernel's rounding points: dy, dh2pre and dh1pre rounded to dt
+    before each product. Returns (dh1pre, dh2pre [f32], dxs [f32, without
+    any residual], dw1s, dw2, dw3 [rounded to the weights' type])."""
+    dy16 = dy.to(dt)
+    dw3 = weight_grad(h2.to(dt), dy16, lanes, w3.dtype)
+    dh2pre = _dot_f32(dy16, w3.t()) * _gelu_tanh_grad(h2pre)
+    dh2pre16 = dh2pre.to(dt)
+    dw2 = weight_grad(h1.to(dt), dh2pre16, lanes, w2.dtype)
+    dh1pre = _dot_f32(dh2pre16, w2.t()) * _gelu_tanh_grad(h1pre)
+    dh1pre16 = dh1pre.to(dt)
+    dw1s = [weight_grad(xp, dh1pre16, lanes, w1p.dtype)
+            for xp, w1p in zip(parts, w1s)]
+    dxs = [_dot_f32(dh1pre16, w1p.t()) for w1p in w1s]
+    return dh1pre, dh2pre, dxs, dw1s, dw2, dw3
+
+
+class MlpLnGrads(NamedTuple):
+    """Gradients of `fused_mlp_ln` (K3's outputs): dxs per part (stream
+    type), dpres per pre (the pre's type), weight gradients rounded to the
+    weights' type, bias/γ/β gradients float32 [H]."""
+    dxs: Tuple[torch.Tensor, ...]
+    dpres: Tuple[torch.Tensor, ...]
+    dw1s: Tuple[torch.Tensor, ...]
+    db1: torch.Tensor
+    dw2: torch.Tensor
+    db2: torch.Tensor
+    dw3: torch.Tensor
+    db3: torch.Tensor
+    dgamma: torch.Tensor
+    dbeta: torch.Tensor
+
+
+def fused_mlp_ln_bwd_reference(parts, w1s, b1, w2, b2, w3, b3, gamma, pres,
+                               douts, res_idx: Optional[int] = None,
+                               res_dual: bool = False,
+                               lanes: int = 1) -> MlpLnGrads:
+    """Plain PyTorch version of K3 on the operands of `fused_mlp_ln` and the
+    output cotangents `douts` (one, or two with res_dual), rounding where
+    the JAX kernel `_make_bwd_kernel` rounds. The rows are `lanes` batch
+    lanes of M / lanes rows each (see `weight_grad`)."""
+    f32 = torch.float32
+    dt = parts[0].dtype if parts else pres[0].dtype
+    h1pre, h1, h2pre, h2, y = _chain_parts(parts, w1s, b1, w2, b2, w3, b3,
+                                           pres, dt)
+    mu, rstd = _ln_stats(y)
+    xhat = (y - mu) * rstd
+    # residual routing: the LayerNorm sees the sum of the raw and the
+    # residual-sum cotangents; the residual part also takes the latter
+    g = douts[0].to(f32)
+    if res_idx is not None and res_dual:
+        g = g + douts[1].to(f32)
+    dgamma = (g * xhat).sum(dim=0)
+    dbeta = g.sum(dim=0)
+    dy = _ln_bwd(g, xhat, rstd, gamma)
+    dh1pre, dh2pre, dxs, dw1s, dw2, dw3 = _mlp_chain_bwd(
+        parts, w1s, w2, w3, dt, h1pre, h1, h2pre, h2, dy, lanes)
+    if res_idx is not None:
+        dres = douts[1] if res_dual else douts[0]
+        dxs[res_idx] = dxs[res_idx] + dres.to(f32)
+    return MlpLnGrads(
+        dxs=tuple(d.to(p.dtype) for d, p in zip(dxs, parts)),
+        dpres=tuple(dh1pre.to(p.dtype) for p in pres),
+        dw1s=tuple(dw1s), db1=dh1pre.sum(dim=0), dw2=dw2,
+        db2=dh2pre.sum(dim=0), dw3=dw3, db3=dy.sum(dim=0), dgamma=dgamma,
+        dbeta=dbeta)
+
+
+def fused_mlp_noln_bwd_reference(x, w1, b1, w2, b2, w3, b3, dout,
+                                 lanes: int = 1):
+    """Plain PyTorch version of K4b: (dx, dw1, db1, dw2, db2, dw3, db3) for
+    the decoder chain and its [M, d] output cotangent (the JAX kernel pads
+    d to 128 lanes with zeros: the same function)."""
+    dt = x.dtype
+    h1pre, h1, h2pre, h2, _ = _chain_parts([x], [w1], b1, w2, b2, w3, b3, (),
+                                           dt)
+    dy = dout.to(torch.float32)
+    dh1pre, dh2pre, dxs, dw1s, dw2, dw3 = _mlp_chain_bwd(
+        [x], [w1], w2, w3, dt, h1pre, h1, h2pre, h2, dy, lanes)
+    return (dxs[0].to(dt), dw1s[0], dh1pre.sum(dim=0), dw2,
+            dh2pre.sum(dim=0), dw3, dy.sum(dim=0))
 
 
 def fused_mlp_ln_reference(parts: Sequence[torch.Tensor],
@@ -128,33 +283,37 @@ def _check(t: torch.Tensor, shape: Tuple[int, ...], dtype, name: str):
     return t.contiguous()
 
 
-def _launch(parts, w1s, b1, w2, b2, w3, b3, gamma, beta, pres, res_idx,
-            res_dual, layer_norm):
-    """Shape/type checks, output allocation and the one launch shared by the
-    two kernels."""
-    from gen_fvgn_tpu_torch.ops._cuda_build import load_library
-    bf16, f32 = torch.bfloat16, torch.float32
+def _vec(v, n: int, name: str):
+    return _check(v.reshape(-1), (n,), torch.float32, name)
+
+
+def _mlp_operands(parts, w1s, b1, w2, b2, w3, b3, gamma, pres, res_idx,
+                  layer_norm, what):
+    """The shape/type checks shared by K2/K4f and K3/K4b, raising on what
+    the kernels do not take. Returns (parts, pres, w1 [Σkᵢ, 128] or None,
+    w2, w3, b1, b2, b3, gamma or None, part widths, d_out), contiguous."""
+    bf16 = torch.bfloat16
     if len(parts) > 2 or len(pres) > 1 or not (parts or pres):
         raise NotImplementedError(
-            f"fused MLP kernel takes at most 2 parts and 1 pre-projected "
-            f"input, got {len(parts)} and {len(pres)}")
-    lead = parts[0] if parts else pres[0]
-    m, dev = lead.shape[0], lead.device
+            f"{what} takes at most 2 parts and 1 pre-projected input, got "
+            f"{len(parts)} and {len(pres)}")
+    m = (parts[0] if parts else pres[0]).shape[0]
     h = 128
     if tuple(w2.shape) != (h, h):
         raise NotImplementedError(
-            f"fused MLP kernel is built for hidden width 128, got "
-            f"{tuple(w2.shape)}")
+            f"{what} is built for hidden width 128, got {tuple(w2.shape)}")
     d_out = w3.shape[1]
     if layer_norm and d_out != h:
-        raise NotImplementedError("fused_mlp_ln kernel needs out width 128")
+        raise NotImplementedError(f"{what} with LayerNorm needs out width "
+                                  f"128")
     if not layer_norm and d_out > 16:
-        raise NotImplementedError("fused_mlp_noln kernel needs out width <= 16")
+        raise NotImplementedError(f"{what} without LayerNorm needs out "
+                                  f"width <= 16")
     widths = [p.shape[1] for p in parts]
     if any(w % 16 != 0 or not 0 < w <= h for w in widths):
         raise NotImplementedError(
-            f"fused MLP kernel takes part widths that are multiples of 16 up "
-            f"to 128, got {widths}")
+            f"{what} takes part widths that are multiples of 16 up to 128, "
+            f"got {widths}")
     if res_idx is not None and widths[res_idx] != h:
         raise NotImplementedError("the residual part must be 128 wide")
     parts = [_check(p, (m, w), bf16, f"part {i}")
@@ -163,14 +322,26 @@ def _launch(parts, w1s, b1, w2, b2, w3, b3, gamma, beta, pres, res_idx,
     w1 = (torch.cat([_check(w1p, (w, h), bf16, "w1 slice")
                      for w1p, w in zip(w1s, widths)], dim=0)
           if parts else None)
-    w2 = _check(w2, (h, h), bf16, "w2")
-    w3 = _check(w3, (h, d_out), bf16, "w3")
-    vec = lambda v, n, name: _check(v.reshape(-1), (n,), f32, name)
-    b1, b2, b3 = vec(b1, h, "b1"), vec(b2, h, "b2"), vec(b3, d_out, "b3")
+    return (parts, pres, w1, _check(w2, (h, h), bf16, "w2"),
+            _check(w3, (h, d_out), bf16, "w3"), _vec(b1, h, "b1"),
+            _vec(b2, h, "b2"), _vec(b3, d_out, "b3"),
+            _vec(gamma, h, "gamma") if layer_norm else None, widths, d_out)
+
+
+def _launch(parts, w1s, b1, w2, b2, w3, b3, gamma, beta, pres, res_idx,
+            res_dual, layer_norm):
+    """Checks, output allocation and the one launch shared by K2 and
+    K4f."""
+    from gen_fvgn_tpu_torch.ops._cuda_build import load_library
+    parts, pres, w1, w2, w3, b1, b2, b3, gamma, widths, d_out = \
+        _mlp_operands(parts, w1s, b1, w2, b2, w3, b3, gamma, pres, res_idx,
+                      layer_norm, "fused MLP kernel")
     if layer_norm:
-        gamma, beta = vec(gamma, h, "gamma"), vec(beta, h, "beta")
+        beta = _vec(beta, 128, "beta")
+    lead = parts[0] if parts else pres[0]
+    m, dev = lead.shape[0], lead.device
     n_out = 2 if (res_idx is not None and res_dual) else 1
-    outs = [torch.empty((m, d_out), dtype=bf16, device=dev)
+    outs = [torch.empty((m, d_out), dtype=torch.bfloat16, device=dev)
             for _ in range(n_out)]
     ptr = lambda t: 0 if t is None else t.data_ptr()
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -180,7 +351,7 @@ def _launch(parts, w1s, b1, w2, b2, w3, b3, gamma, beta, pres, res_idx,
         widths[0] if parts else 0, widths[1] if len(parts) > 1 else 0,
         ptr(w1), ptr(pres[0] if pres else None),
         ptr(b1), ptr(w2), ptr(b2), ptr(w3), ptr(b3),
-        ptr(gamma if layer_norm else None), ptr(beta if layer_norm else None),
+        ptr(gamma), ptr(beta if layer_norm else None),
         ptr(outs[0]), ptr(outs[1] if n_out == 2 else None),
         m, -1 if res_idx is None else int(res_idx), int(bool(res_dual)),
         int(layer_norm), d_out, n_sm,
@@ -188,6 +359,134 @@ def _launch(parts, w1s, b1, w2, b2, w3, b3, gamma, beta, pres, res_idx,
     if err != 0:
         raise RuntimeError(f"fused MLP kernel launch failed: CUDA error {err}")
     return outs
+
+
+def _blocks_per_lane(m: int, lanes: int, dev) -> int:
+    """Blocks of a backward kernel for each batch lane: about one block per
+    SM over all lanes, at most one per 64-row tile of a lane."""
+    if lanes < 1 or m % lanes:
+        raise ValueError(f"{m} rows do not split into {lanes} equal lanes")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = -(-(m // lanes) // 64)
+    return max(1, min(tiles, -(-n_sm // lanes)))
+
+
+def _launch_bwd(parts, w1s, b1, w2, b2, w3, b3, gamma, pres, douts, res_idx,
+                res_dual, lanes, layer_norm):
+    """Checks, allocation and the launch of K3 / K4b: returns (dxs, dpre or
+    None, the float32 sums of the gradient slab, Σkᵢ, the slab's padded
+    out width)."""
+    from gen_fvgn_tpu_torch.ops._cuda_build import load_library
+    bf16, f32 = torch.bfloat16, torch.float32
+    parts, pres, w1, w2, w3, b1, b2, b3, gamma, widths, d_out = \
+        _mlp_operands(parts, w1s, b1, w2, b2, w3, b3, gamma, pres, res_idx,
+                      layer_norm, "fused MLP backward kernel")
+    lead = parts[0] if parts else pres[0]
+    m, dev = lead.shape[0], lead.device
+    h = 128
+    n_dout = 2 if (res_idx is not None and res_dual) else 1
+    if len(douts) != n_dout:
+        raise ValueError(f"expected {n_dout} output cotangents")
+    douts = [_check(g, (m, d_out), bf16, "dout") for g in douts]
+    dxs = [torch.empty((m, w), dtype=bf16, device=dev) for w in widths]
+    dpre = torch.empty((m, h), dtype=bf16, device=dev) if pres else None
+    k1 = sum(widths)
+    d_pad = h if layer_norm else 16
+    slab = k1 * h + h * h + h * d_pad + 4 * h + d_pad
+    nb = _blocks_per_lane(m, lanes, dev)
+    partials = torch.empty((lanes * nb, slab), dtype=f32, device=dev)
+    total = torch.empty((slab,), dtype=f32, device=dev)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    err = load_library().gfvgn_fused_mlp_bwd(
+        ptr(parts[0] if parts else None),
+        ptr(parts[1] if len(parts) > 1 else None),
+        widths[0] if parts else 0, widths[1] if len(parts) > 1 else 0,
+        ptr(w1), ptr(pres[0] if pres else None),
+        ptr(b1), ptr(w2), ptr(b2), ptr(w3), ptr(b3), ptr(gamma),
+        ptr(douts[0]), ptr(douts[1] if n_dout == 2 else None),
+        ptr(dxs[0] if dxs else None), ptr(dxs[1] if len(dxs) > 1 else None),
+        ptr(dpre), ptr(partials), ptr(total),
+        m, -1 if res_idx is None else int(res_idx), int(bool(res_dual)),
+        int(layer_norm), d_out, lanes, nb,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused MLP backward kernel launch failed: CUDA error {err}")
+    return dxs, dpre, total, k1, d_pad
+
+
+def _split_slab(total, k1, d_out, d_pad, widths):
+    """The summed slab [dW1 | dW2 | dW3 | db1 | db2 | db3 | dγ | dβ] as
+    float32 tensors (dW1 split by part rows)."""
+    h = 128
+    o = 0
+
+    def take(n):
+        nonlocal o
+        t = total[o:o + n]
+        o += n
+        return t
+    dw1 = take(k1 * h).reshape(k1, h)
+    dw2 = take(h * h).reshape(h, h)
+    dw3 = take(h * d_pad).reshape(h, d_pad)[:, :d_out]
+    db1, db2 = take(h), take(h)
+    db3 = take(d_pad)[:d_out]
+    dgamma, dbeta = take(h), take(h)
+    offs = [0]
+    for w in widths:
+        offs.append(offs[-1] + w)
+    dw1s = [dw1[offs[i]:offs[i + 1]] for i in range(len(widths))]
+    return dw1s, dw2, dw3, db1, db2, db3, dgamma, dbeta
+
+
+def fused_mlp_ln_bwd(parts, w1s, b1, w2, b2, w3, b3, gamma, pres, douts,
+                     res_idx: Optional[int] = None,
+                     res_dual: bool = False, lanes: int = 1) -> MlpLnGrads:
+    """K3 on the operands of `fused_mlp_ln` and its output cotangents.
+
+    CUDA operands launch the kernel (or raise); CPU operands take
+    `fused_mlp_ln_bwd_reference`."""
+    global LAUNCHES_LN_BWD
+    lead = parts[0] if parts else pres[0]
+    if lead.device.type != "cuda":
+        return fused_mlp_ln_bwd_reference(parts, w1s, b1, w2, b2, w3, b3,
+                                          gamma, pres, douts, res_idx,
+                                          res_dual, lanes)
+    if res_idx is not None and not 0 <= res_idx < len(parts):
+        raise ValueError(f"res_idx {res_idx} names no part")
+    dxs, dpre, total, k1, d_pad = _launch_bwd(
+        list(parts), list(w1s), b1, w2, b2, w3, b3, gamma, list(pres),
+        list(douts), res_idx, res_dual, lanes, layer_norm=True)
+    LAUNCHES_LN_BWD += 1
+    dw1s, dw2, dw3, db1, db2, db3, dgamma, dbeta = _split_slab(
+        total, k1, 128, d_pad, [p.shape[1] for p in parts])
+    bf16 = torch.bfloat16
+    return MlpLnGrads(
+        dxs=tuple(dxs), dpres=(dpre,) if pres else (),
+        dw1s=tuple(d.to(bf16) for d in dw1s), db1=db1, dw2=dw2.to(bf16),
+        db2=db2, dw3=dw3.to(bf16), db3=db3, dgamma=dgamma, dbeta=dbeta)
+
+
+def fused_mlp_noln_bwd(x, w1, b1, w2, b2, w3, b3, dout, lanes: int = 1):
+    """K4b: (dx, dw1, db1, dw2, db2, dw3, db3) for the decoder chain, x
+    [M, 128] bf16 and dout [M, d] bf16 with d <= 16.
+
+    CUDA operands launch the kernel (or raise); CPU operands take
+    `fused_mlp_noln_bwd_reference`."""
+    global LAUNCHES_NOLN_BWD
+    if x.device.type != "cuda":
+        return fused_mlp_noln_bwd_reference(x, w1, b1, w2, b2, w3, b3, dout,
+                                            lanes)
+    d_out = w3.shape[1]
+    dxs, _, total, k1, d_pad = _launch_bwd(
+        [x], [w1], b1, w2, b2, w3, b3, None, [], [dout], None, False,
+        lanes, layer_norm=False)
+    LAUNCHES_NOLN_BWD += 1
+    dw1s, dw2, dw3, db1, db2, db3, _, _ = _split_slab(
+        total, k1, d_out, d_pad, [x.shape[1]])
+    bf16 = torch.bfloat16
+    return (dxs[0], dw1s[0].to(bf16), db1, dw2.to(bf16), db2,
+            dw3.to(bf16), db3)
 
 
 def fused_mlp_ln(parts, w1s, b1, w2, b2, w3, b3, gamma, beta, pres=(),
@@ -228,16 +527,18 @@ def fused_mlp_ln_parts(parts: Sequence[torch.Tensor], w1, b1, w2, b2, w3, b3,
                        pres: Sequence[torch.Tensor] = (),
                        w1_rows: Optional[Sequence[Tuple[int, int]]] = None,
                        res_idx: Optional[int] = None,
-                       res_dual: bool = False):
+                       res_dual: bool = False, lanes: int = 1):
     """Dispatch wrapper for the model code (counterpart of the JAX function
-    of the same name).
+    of the same name), differentiable: K2 forward, K3 backward.
 
     `w1` is the FULL first-layer kernel [(Σkᵢ), H] of the parameter tree; it
     is row-sliced per part here — by cumulative part widths, or by explicit
     `w1_rows` (o0, o1) spans when some rows of w1 were consumed by external
     projections (`pres`, already [M, H] in the first hidden basis). pres
     keep their incoming type. The row count M need not be a multiple of
-    anything: the kernel masks its ragged tile."""
+    anything: the kernel masks its ragged tile. The M rows are `lanes`
+    batch lanes of equal size (the backward rounds the weight gradients
+    per lane, see `weight_grad`)."""
     widths = [p.shape[1] for p in parts]
     if w1_rows is None:
         offs = [0]
@@ -251,20 +552,80 @@ def fused_mlp_ln_parts(parts: Sequence[torch.Tensor], w1, b1, w2, b2, w3, b3,
     from gen_fvgn_tpu_torch.ops import plain_versions_active
     parts16 = [p.to(dtype) for p in parts]
     w1s = [w1[o0:o1].to(dtype) for o0, o1 in w1_rows]
-    fn = fused_mlp_ln_reference if plain_versions_active() else fused_mlp_ln
-    return fn(parts16, w1s, b1, w2.to(dtype), b2, w3.to(dtype), b3, gamma,
-              beta, tuple(pres), res_idx=res_idx, res_dual=res_dual)
+    meta = (len(parts16), len(pres), res_idx, bool(res_dual),
+            plain_versions_active(), lanes)
+    outs = _MlpLnFn.apply(meta, *parts16, *w1s, *pres, b1, w2.to(dtype), b2,
+                          w3.to(dtype), b3, gamma, beta)
+    return outs
+
+
+class _MlpLnFn(torch.autograd.Function):
+    """K2 forward, K3 backward (or their plain versions when `plain` was
+    set at the forward). Saves only the forward's inputs: the backward
+    recomputes the chain."""
+
+    @staticmethod
+    def forward(ctx, meta, *ts):
+        n_parts, n_pre, res_idx, res_dual, plain, _ = meta
+        parts, w1s = ts[:n_parts], ts[n_parts:2 * n_parts]
+        pres = ts[2 * n_parts:2 * n_parts + n_pre]
+        b1, w2, b2, w3, b3, gamma, beta = ts[2 * n_parts + n_pre:]
+        fn = fused_mlp_ln_reference if plain else fused_mlp_ln
+        out = fn(list(parts), list(w1s), b1, w2, b2, w3, b3, gamma, beta,
+                 tuple(pres), res_idx=res_idx, res_dual=res_dual)
+        ctx.meta = meta
+        ctx.save_for_backward(*ts)
+        return out
+
+    @staticmethod
+    def backward(ctx, *gs):
+        n_parts, n_pre, res_idx, res_dual, plain, lanes = ctx.meta
+        ts = ctx.saved_tensors
+        parts, w1s = ts[:n_parts], ts[n_parts:2 * n_parts]
+        pres = ts[2 * n_parts:2 * n_parts + n_pre]
+        b1, w2, b2, w3, b3, gamma, beta = ts[2 * n_parts + n_pre:]
+        fn = fused_mlp_ln_bwd_reference if plain else fused_mlp_ln_bwd
+        gr = fn(list(parts), list(w1s), b1, w2, b2, w3, b3, gamma,
+                list(pres), [g.contiguous() for g in gs], res_idx, res_dual,
+                lanes)
+        return (None, *gr.dxs, *gr.dw1s, *gr.dpres,
+                gr.db1.reshape(b1.shape), gr.dw2, gr.db2.reshape(b2.shape),
+                gr.dw3, gr.db3.reshape(b3.shape),
+                gr.dgamma.reshape(gamma.shape), gr.dbeta.reshape(beta.shape))
+
+
+class _MlpNolnFn(torch.autograd.Function):
+    """K4f forward, K4b backward (or their plain versions)."""
+
+    @staticmethod
+    def forward(ctx, meta, x, w1, b1, w2, b2, w3, b3):
+        plain, _ = meta
+        fn = fused_mlp_noln_reference if plain else fused_mlp_noln
+        ctx.meta = meta
+        ctx.save_for_backward(x, w1, b1, w2, b2, w3, b3)
+        return fn(x, w1, b1, w2, b2, w3, b3)
+
+    @staticmethod
+    def backward(ctx, g):
+        plain, lanes = ctx.meta
+        x, w1, b1, w2, b2, w3, b3 = ctx.saved_tensors
+        fn = fused_mlp_noln_bwd_reference if plain else fused_mlp_noln_bwd
+        dx, dw1, db1, dw2, db2, dw3, db3 = fn(x, w1, b1, w2, b2, w3, b3,
+                                              g.contiguous(), lanes)
+        return (None, dx, dw1, db1.reshape(b1.shape), dw2,
+                db2.reshape(b2.shape), dw3, db3.reshape(b3.shape))
 
 
 def fused_mlp_noln_parts(x, w1, b1, w2, b2, w3, b3,
-                         dtype=torch.bfloat16) -> torch.Tensor:
+                         dtype=torch.bfloat16, lanes: int = 1) -> torch.Tensor:
     """Dispatch wrapper for the Decoder: casts the stream and the weights;
-    the narrow head is written as it is (no 128-lane padding)."""
+    the narrow head is written as it is (no 128-lane padding). The rows of
+    x [M, K] are `lanes` batch lanes (the backward's weight gradients are
+    rounded per lane, see `weight_grad`)."""
     from gen_fvgn_tpu_torch.ops import plain_versions_active
-    fn = (fused_mlp_noln_reference if plain_versions_active()
-          else fused_mlp_noln)
-    return fn(x.to(dtype), w1.to(dtype), b1, w2.to(dtype), b2, w3.to(dtype),
-              b3)
+    return _MlpNolnFn.apply((plain_versions_active(), lanes), x.to(dtype),
+                            w1.to(dtype), b1, w2.to(dtype), b2,
+                            w3.to(dtype), b3)
 
 
 def fused_premlp_res_reference(x, gamma, beta, w1, b1, w2, b2) -> torch.Tensor:
@@ -283,6 +644,22 @@ def fused_premlp_res_reference(x, gamma, beta, w1, b1, w2, b2) -> torch.Tensor:
     return y.to(dt)
 
 
+def _premlp_operands(x, gamma, beta, w1, b1, w2, b2, what):
+    """The checks shared by K5f and K5b, raising on what the kernels do not
+    take: x [M, 128] bf16, w1 [128, 256] and w2 [256, 128] bf16, γ, β, b1,
+    b2 float32; returned contiguous."""
+    bf16 = torch.bfloat16
+    c, hd = 128, 256
+    if x.ndim != 2 or x.shape[1] != c or tuple(w1.shape) != (c, hd):
+        raise NotImplementedError(
+            f"{what} is built for x [M, {c}] and a hidden width of {hd}, got "
+            f"x {tuple(x.shape)}, w1 {tuple(w1.shape)}")
+    return (_check(x, tuple(x.shape), bf16, "x"), _vec(gamma, c, "gamma"),
+            _vec(beta, c, "beta"), _check(w1, (c, hd), bf16, "w1"),
+            _vec(b1, hd, "b1"), _check(w2, (hd, c), bf16, "w2"),
+            _vec(b2, c, "b2"))
+
+
 def fused_premlp_res(x, gamma, beta, w1, b1, w2, b2) -> torch.Tensor:
     """K5f on prepared operands: x [M, 128] bf16, w1 [128, 256] and
     w2 [256, 128] bf16, γ, β, b1, b2 float32. Returns [M, 128] bf16.
@@ -293,20 +670,10 @@ def fused_premlp_res(x, gamma, beta, w1, b1, w2, b2) -> torch.Tensor:
     if x.device.type != "cuda":
         return fused_premlp_res_reference(x, gamma, beta, w1, b1, w2, b2)
     from gen_fvgn_tpu_torch.ops._cuda_build import load_library
-    bf16, f32 = torch.bfloat16, torch.float32
-    c, hd = 128, 256
-    if x.ndim != 2 or x.shape[1] != c or tuple(w1.shape) != (c, hd):
-        raise NotImplementedError(
-            f"fused_premlp_res kernel is built for x [M, {c}] and a hidden "
-            f"width of {hd}, got x {tuple(x.shape)}, w1 {tuple(w1.shape)}")
+    x, gamma, beta, w1, b1, w2, b2 = _premlp_operands(
+        x, gamma, beta, w1, b1, w2, b2, "fused_premlp_res kernel")
     m = x.shape[0]
-    x = _check(x, (m, c), bf16, "x")
-    w1 = _check(w1, (c, hd), bf16, "w1")
-    w2 = _check(w2, (hd, c), bf16, "w2")
-    vec = lambda v, n, name: _check(v.reshape(-1), (n,), f32, name)
-    gamma, beta = vec(gamma, c, "gamma"), vec(beta, c, "beta")
-    b1, b2 = vec(b1, hd, "b1"), vec(b2, c, "b2")
-    out = torch.empty((m, c), dtype=bf16, device=x.device)
+    out = torch.empty((m, 128), dtype=torch.bfloat16, device=x.device)
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     err = load_library().gfvgn_fused_premlp(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
@@ -319,16 +686,113 @@ def fused_premlp_res(x, gamma, beta, w1, b1, w2, b2) -> torch.Tensor:
     return out
 
 
+def fused_premlp_res_bwd_reference(x, gamma, beta, w1, b1, w2, b2, dout,
+                                   lanes: int = 1):
+    """Plain PyTorch version of K5b: (dx, dgamma, dbeta, dw1, db1, dw2, db2)
+    for the operands of `fused_premlp_res` and its output cotangent,
+    rounding where the JAX kernel `_premlp_bwd_kernel` rounds: g, dh1pre
+    rounded to the stream type before their products, the LayerNorm
+    backward in float32, and the residual cotangent g joining dx in float32
+    before the one rounding. The rows are `lanes` batch lanes (see
+    `weight_grad`)."""
+    f32, dt = torch.float32, x.dtype
+    x32 = x.to(f32)
+    mu, rstd = _ln_stats(x32)
+    xhat = (x32 - mu) * rstd
+    u16 = (xhat * gamma.to(f32).reshape(-1) + beta.to(f32).reshape(-1)).to(dt)
+    h1pre = _dot_f32(u16, w1) + b1.to(f32).reshape(-1)
+    h16 = _gelu_tanh(h1pre).to(dt)
+    g = dout.to(f32)
+    g16 = g.to(dt)
+    dw2 = weight_grad(h16, g16, lanes, w2.dtype)
+    dh1pre = _dot_f32(g16, w2.t()) * _gelu_tanh_grad(h1pre)
+    dh1pre16 = dh1pre.to(dt)
+    dw1 = weight_grad(u16, dh1pre16, lanes, w1.dtype)
+    du = _dot_f32(dh1pre16, w1.t())
+    dgamma = (du * xhat).sum(dim=0)
+    dbeta = du.sum(dim=0)
+    dx = _ln_bwd(du, xhat, rstd, gamma) + g
+    return (dx.to(dt), dgamma, dbeta, dw1, dh1pre.sum(dim=0), dw2,
+            g.sum(dim=0))
+
+
+def fused_premlp_res_bwd(x, gamma, beta, w1, b1, w2, b2, dout,
+                         lanes: int = 1):
+    """K5b on the operands of `fused_premlp_res` and dout [M, 128] bf16,
+    the rows `lanes` batch lanes: (dx, dgamma, dbeta, dw1, db1, dw2,
+    db2).
+
+    CUDA operands launch the kernel (or raise); CPU operands take
+    `fused_premlp_res_bwd_reference`."""
+    global LAUNCHES_PREMLP_BWD
+    if x.device.type != "cuda":
+        return fused_premlp_res_bwd_reference(x, gamma, beta, w1, b1, w2, b2,
+                                              dout, lanes)
+    from gen_fvgn_tpu_torch.ops._cuda_build import load_library
+    bf16, f32 = torch.bfloat16, torch.float32
+    c, hd = 128, 256
+    x, gamma, beta, w1, b1, w2, b2 = _premlp_operands(
+        x, gamma, beta, w1, b1, w2, b2, "fused_premlp_res backward kernel")
+    m = x.shape[0]
+    dout = _check(dout, (m, c), bf16, "dout")
+    dx = torch.empty((m, c), dtype=bf16, device=x.device)
+    slab = 2 * c * hd + hd + 3 * c
+    nb = _blocks_per_lane(m, lanes, x.device)
+    partials = torch.empty((lanes * nb, slab), dtype=f32, device=x.device)
+    total = torch.empty((slab,), dtype=f32, device=x.device)
+    err = load_library().gfvgn_fused_premlp_bwd(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), dout.data_ptr(),
+        dx.data_ptr(), partials.data_ptr(), total.data_ptr(), m, lanes, nb,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_premlp_res backward kernel launch failed: CUDA error "
+            f"{err}")
+    LAUNCHES_PREMLP_BWD += 1
+    # slab: [dW1 (C×Hd) | dW2 (Hd×C) | db1 (Hd) | db2 | dγ | dβ (C each)]
+    dw1 = total[:c * hd].reshape(c, hd).to(bf16)
+    dw2 = total[c * hd:2 * c * hd].reshape(hd, c).to(bf16)
+    o = 2 * c * hd
+    db1 = total[o:o + hd]
+    db2, dgamma, dbeta = (total[o + hd + i * c:o + hd + (i + 1) * c]
+                          for i in range(3))
+    return dx, dgamma, dbeta, dw1, db1, dw2, db2
+
+
+class _PremlpFn(torch.autograd.Function):
+    """K5f forward, K5b backward (or their plain versions)."""
+
+    @staticmethod
+    def forward(ctx, meta, x, gamma, beta, w1, b1, w2, b2):
+        plain, _ = meta
+        fn = fused_premlp_res_reference if plain else fused_premlp_res
+        ctx.meta = meta
+        ctx.save_for_backward(x, gamma, beta, w1, b1, w2, b2)
+        return fn(x, gamma, beta, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        plain, lanes = ctx.meta
+        x, gamma, beta, w1, b1, w2, b2 = ctx.saved_tensors
+        fn = fused_premlp_res_bwd_reference if plain else fused_premlp_res_bwd
+        dx, dgamma, dbeta, dw1, db1, dw2, db2 = fn(
+            x, gamma, beta, w1, b1, w2, b2, g.contiguous(), lanes)
+        return (None, dx, dgamma.reshape(gamma.shape),
+                dbeta.reshape(beta.shape), dw1, db1.reshape(b1.shape), dw2,
+                db2.reshape(b2.shape))
+
+
 def fused_premlp_res_parts(x, ln_scale, ln_bias, w1, b1, w2, b2,
                            dtype=torch.bfloat16) -> torch.Tensor:
     """Dispatch wrapper for the Transolver block (counterpart of the JAX
     function of the same name): casts the stream and the weights and runs
-    K5f over the rows of x [..., C]. The kernel masks its ragged tile, so
-    no row padding is needed."""
+    K5f (K5b in the backward) over the rows of x [..., C]. The kernels mask
+    their ragged tile, so no row padding is needed."""
     from gen_fvgn_tpu_torch.ops import plain_versions_active
-    fn = (fused_premlp_res_reference if plain_versions_active()
-          else fused_premlp_res)
     lead = x.shape[:-1]
-    out = fn(x.reshape(-1, x.shape[-1]).to(dtype), ln_scale, ln_bias,
-             w1.to(dtype), b1, w2.to(dtype), b2)
+    lanes = x.shape[0] if x.ndim == 3 else 1
+    out = _PremlpFn.apply((plain_versions_active(), lanes),
+                          x.reshape(-1, x.shape[-1]).to(dtype), ln_scale,
+                          ln_bias, w1.to(dtype), b1, w2.to(dtype), b2)
     return out.reshape(lead + (out.shape[-1],))

@@ -1,7 +1,7 @@
-"""Where a rollout step's time goes on the card.
+"""Where a rollout step's, or a train step's, time goes on the card.
 
     python -m gen_fvgn_tpu_torch.tools.profile_rollout [--net TransFVGN_v2]
-        [--steps 20] [--batch 8]
+        [--steps 20] [--batch 8] [--train]
 
 Sets up the port's main path (the Config defaults: TransFVGN_v2, hidden
 128, 2 processors of 3 blocks and a Transolver block, 8 heads, 32 slices,
@@ -11,7 +11,10 @@ bf16 stream; or --net FVGN / TransFVGN_v1 at the same widths; batch 8,
   * the card's name and power limit;
   * ms per step on the host clock (ending in a synchronize) for
     `rollout_block_scan` (state stays on the device) and `rollout_block`
-    (records copied to the host each step);
+    (records copied to the host each step); with --train instead for
+    `make_train_step_block` (forward, backward through the kernels' backward
+    passes, Adam) on the batch `EnvPool.block_batches` gives, from
+    `init_train_state_block`;
   * from torch.profiler over one more such window: device-busy ms per step
     (device kernels only), the device's idle share (1 - busy / unprofiled
     wall), and the device time by kernel name, largest first;
@@ -64,6 +67,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--train", action="store_true",
+                    help="profile train steps instead of rollout steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_rollout needs one CUDA card")
@@ -89,16 +94,35 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0) / n
 
-    rollout_block_scan(cfg, sim, ns, dyn, static, 3)        # warm-up
-    torch.cuda.reset_peak_memory_stats()
-    scan_ms = [timed(lambda: rollout_block_scan(cfg, sim, ns, dyn, static, n))
-               for _ in range(3)]
-    host_ms = [timed(lambda: rollout_block(cfg, sim, ns, dyn, static, n))
-               for _ in range(3)]
-    print(f"rollout_block_scan: {min(scan_ms):.3f} ms/step (best of 3 runs "
-          f"of {n} steps: {[round(v, 3) for v in scan_ms]})")
-    print(f"rollout_block:      {min(host_ms):.3f} ms/step (best of 3 runs "
-          f"of {n} steps: {[round(v, 3) for v in host_ms]})")
+    if args.train:
+        from gen_fvgn_tpu_torch.training.train_block import (
+            init_train_state_block, make_train_step_block)
+        state, tsim = init_train_state_block(cfg, seed=0)
+        train_step = make_train_step_block(cfg, tsim)
+        _, idxs = pool.block_batches(step_seed=0)[0]
+        tdyn = pool.gather_block(idxs)
+
+        def window(k):
+            nonlocal state
+            for _ in range(k):
+                state, _, _ = train_step(state, tdyn, static)
+        window(3)                                           # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        runs = [timed(lambda: window(n)) for _ in range(3)]
+        print(f"train step:         {min(runs):.3f} ms/step (best of 3 runs "
+              f"of {n} steps: {[round(v, 3) for v in runs]})")
+    else:
+        def window(k):
+            rollout_block_scan(cfg, sim, ns, dyn, static, k)
+        window(3)                                           # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        runs = [timed(lambda: window(n)) for _ in range(3)]
+        host_ms = [timed(lambda: rollout_block(cfg, sim, ns, dyn, static, n))
+                   for _ in range(3)]
+        print(f"rollout_block_scan: {min(runs):.3f} ms/step (best of 3 runs "
+              f"of {n} steps: {[round(v, 3) for v in runs]})")
+        print(f"rollout_block:      {min(host_ms):.3f} ms/step (best of 3 "
+              f"runs of {n} steps: {[round(v, 3) for v in host_ms]})")
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
 
@@ -107,20 +131,22 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
-        rollout_block_scan(cfg, sim, ns, dyn, static, n)
+        window(n)
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / n
     # device kernels only: the operator rows of key_averages() repeat their
-    # kernels' device time
+    # kernels' device time, and so does the device-side range of the
+    # optimizer's step annotation ("Optimizer.step#Adam.step")
     from torch.autograd import DeviceType
     rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", 0) or 0
-        if dev_us > 0 and ev.device_type == DeviceType.CUDA:
+        if dev_us > 0 and ev.device_type == DeviceType.CUDA \
+                and not ev.key.startswith("Optimizer."):
             rows.append((dev_us / 1e3 / n, ev.count / n, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    wall = min(scan_ms)
+    wall = min(runs)
     print(f"profiled window: {wall_ms:.3f} ms/step wall with the profiler "
           f"on (its start-up included); idle share is taken against the "
           f"unprofiled {wall:.3f} ms/step")
@@ -129,8 +155,8 @@ def main(argv=None) -> int:
               "time); idle share: not measured")
         return 0
     ours = sum(r[0] for r in rows if any(
-        k in r[2] for k in ("spmm_csr_kernel", "fused_mlp_kernel",
-                            "premlp_kernel", "slice_pool_")))
+        k in r[2] for k in ("spmm_csr_kernel", "fused_mlp_", "premlp_",
+                            "slice_pool_", "lane_reduce")))
     print(f"device busy: {busy:.3f} ms/step ({ours:.3f} in the port's "
           f"kernels); idle share {1 - busy / wall:.3f}; "
           f"{sum(r[1] for r in rows):.0f} device kernels/step")

@@ -1,9 +1,9 @@
 """Shared pieces of the forward pass.
 
 Counterpart of `gen_fvgn_tpu/training/forward.py`, cut to what the block
-engine's rollout uses: `ForwardOutputs` and the hard Dirichlet overwrite.
-The segment-engine `forward_batch` and the training losses belong to later
-slices.
+engine's rollout and training use: `ForwardOutputs`, the hard Dirichlet
+overwrite and `training_loss`. The segment-engine `forward_batch` and the
+weighted loss of the mixed-case step belong to later slices.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from gen_fvgn_tpu_torch.config import Config
 from gen_fvgn_tpu_torch.training.normalizer import NormalizerState
 from gen_fvgn_tpu_torch.utils.types import NodeType
 
@@ -41,3 +42,15 @@ def enforce_boundary_conditions(uvp: torch.Tensor, node_type: torch.Tensor,
     uv = torch.where(dirichlet, target_uv.to(dt), uvp[..., 0:2])
     p = torch.where(press_pt, torch.zeros_like(uvp[..., 2:3]), uvp[..., 2:3])
     return torch.cat([uv, p], dim=-1)
+
+
+def training_loss(outputs: ForwardOutputs, cfg: Config) -> torch.Tensor:
+    """mean(log(w_p·press + w_c·cont + w_m·(mom_x + mom_y))) over the batch,
+    each sample's weighted residual floored at `cfg.loss_log_floor` (at
+    least 1e-30) inside the log."""
+    loss_batch = (cfg.loss_press * outputs.loss_press
+                  + cfg.loss_cont * outputs.loss_cont
+                  + cfg.loss_mom * outputs.loss_mom_x
+                  + cfg.loss_mom * outputs.loss_mom_y)
+    floor = max(cfg.loss_log_floor, 1e-30)
+    return torch.log(torch.clamp(loss_batch, min=floor)).mean()

@@ -7,7 +7,7 @@ every environment is a padded `MeshSample`, so a batch is a stack and
 boundary-condition re-rolls change only values, never shapes. Stencils and
 WLSQ moments are computed once per mesh.
 
-Waiting for later slices: `load_case` from a directory, payback, the
+Waiting for later slices: `load_case` from a directory, the
 oldest-environment re-roll and the wave sources.
 """
 
@@ -152,18 +152,49 @@ class EnvPool:
                 .to(self.device)
                 for f in dataclasses.fields(DynamicPack)})
 
+    def block_batches(self, step_seed: int):
+        """Per-case batches: a list of (case_idx, env index array). Each
+        batch holds environments of one case (so one StaticPack serves it);
+        the draw is NumPy's, from `step_seed`, so it is the JAX pool's."""
+        rng = np.random.default_rng(step_seed)
+        bs = self.cfg.batch_size
+        out = []
+        by_case: Dict[int, list] = {}
+        for i, env in enumerate(self.envs):
+            by_case.setdefault(env.case_idx, []).append(i)
+        for ci, idxs in by_case.items():
+            perm = rng.permutation(idxs)
+            for j in range(len(perm) // bs):
+                out.append((ci, perm[j * bs:(j + 1) * bs].astype(np.int32)))
+        rng.shuffle(out)
+        return out
+
+    def _local(self, idxs: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(
+            [self._env_local[int(i)] for i in idxs], dtype=torch.int64,
+            device=self.device)
+
     def gather_block(self, idxs: np.ndarray):
         """The stacked DynamicPack [B, ...] of environments `idxs` (all of
         one case), gathered on the device."""
         from gen_fvgn_tpu_torch.graph.packs import DynamicPack
         ci = self.envs[int(idxs[0])].case_idx
-        local = torch.as_tensor(
-            [self._env_local[int(i)] for i in idxs], dtype=torch.int64,
-            device=self.device)
+        local = self._local(idxs)
         pool = self._dyn_pools[ci]
         return DynamicPack(**{
             f.name: getattr(pool, f.name).index_select(0, local)
             for f in dataclasses.fields(DynamicPack)})
+
+    def payback_block(self, idxs: np.ndarray, uvp_new: torch.Tensor) -> None:
+        """Write the new states uvp_new [B, Np, 3] of environments `idxs`
+        (all of one case) into the device pool, in place (the JAX pool
+        donates its buffer instead), and age them by one step."""
+        ci = self.envs[int(idxs[0])].case_idx
+        pool = self._dyn_pools[ci]
+        pool.uvp.index_copy_(0, self._local(idxs),
+                             uvp_new.detach().to(pool.uvp.dtype))
+        for i in idxs:
+            self.envs[int(i)].age += 1
 
     # ---- environment construction ----
 

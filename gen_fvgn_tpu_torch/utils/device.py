@@ -15,3 +15,16 @@ def resolve_device(device="cuda") -> torch.device:
             f"device={device!r} was requested but torch.cuda.is_available() "
             "is False; pass device='cpu' explicitly to run on the CPU")
     return dev
+
+
+def same_device(a, b) -> bool:
+    """Whether two devices name the same one: "cuda" (the current card) and
+    "cuda:0" do when card 0 is current."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or a.index == b.index:
+        return True
+    current = torch.cuda.current_device()
+    return (current if a.index is None else a.index) == \
+        (current if b.index is None else b.index)

@@ -1,0 +1,319 @@
+"""PyTorch port, the backward kernels' plain versions against `jax.vjp` of
+the JAX package's kernel functions (their Pallas kernels in interpret mode
+on the CPU), on the same NumPy inputs and output cotangents:
+
+* K3 (`fused_mlp_ln` backward) in each form the model uses — the
+  encoders' pres-only form, the edge MLP (a 128-wide part, a pre, residual
+  on part 0 with both outputs) and the node MLP (parts 64 + 128 wide,
+  residual on part 1);
+* K4b (`fused_mlp_noln` backward, the decoder, 3-wide head);
+* K5b (`fused_premlp_res` backward);
+* K7 (`fused_slice_pool` backward, with the inverse-temperature
+  cotangent mapped to `graph_temperature` by the caller's 1/temp);
+* `apply_linop`'s backward on the take route, the 128-wide bf16 route
+  (JAX: its Pallas spmm) and the narrow float32 route.
+
+Each port side runs through the dispatcher and its
+`torch.autograd.Function`, which on CPU tensors take the plain versions.
+
+Tolerances. dx: within 2 bf16 ulps of its scale — both sides round dy,
+dh2pre and dh1pre to bf16 at the same points but sum in float32 in another
+order, which can move such a rounding by a step. Weight gradients: the
+same sums over all rows in another order before one rounding to bf16:
+within 2 bf16 ulps of their scale, and at least 90% of the elements equal
+to the bit (measured: 96% to 100%). Float32 bias/γ/β gradients: 1e-3 of
+their scale (sums of 300 to 512 rows of bf16-rounded terms in another
+order). `graph_temperature`: 1e-3 relative.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from torch_port_common import both_sides, jax_kernels_on
+
+torch.set_num_threads(1)
+
+M, H = 300, 128          # M not a multiple of the JAX row tile
+BF16_EQUAL_SHARE = 0.9
+
+
+def _ulps(ref, n=2):
+    scale = float(np.abs(ref).max())
+    return n * 2.0 ** (np.floor(np.log2(scale)) - 7)
+
+
+def _rng_f32(rng, *shape, scale=1.0):
+    return (scale * rng.normal(size=shape)).astype(np.float32)
+
+
+def _bf16(a):
+    """NumPy float32 values rounded through bf16 (cotangents of bf16
+    outputs are bf16)."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def _check_weight(got, ref, name):
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    assert got.shape == ref.shape, name
+    np.testing.assert_allclose(got, ref, rtol=0, atol=_ulps(ref), err_msg=name)
+    share = float((got == ref).mean())
+    assert share >= BF16_EQUAL_SHARE, (name, share)
+
+
+def _check_vec(got, ref, name, rel=1e-3):
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    assert got.shape == ref.shape, name
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=rel * float(np.abs(ref).max()),
+                               err_msg=name)
+
+
+def _check_dx(got, ref, name):
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    assert got.shape == ref.shape, name
+    np.testing.assert_allclose(got, ref, rtol=0, atol=_ulps(ref), err_msg=name)
+
+
+def _mlp_weights(rng, k_total, d_out=H):
+    return dict(
+        w1=_rng_f32(rng, k_total, H) / np.sqrt(max(k_total, 1)),
+        b1=_rng_f32(rng, H, scale=0.1), w2=_rng_f32(rng, H, H) / np.sqrt(H),
+        b2=_rng_f32(rng, H, scale=0.1),
+        w3=_rng_f32(rng, H, d_out) / np.sqrt(H),
+        b3=_rng_f32(rng, d_out, scale=0.1),
+        gamma=1.0 + _rng_f32(rng, d_out, scale=0.1),
+        beta=_rng_f32(rng, d_out, scale=0.1))
+
+
+_ORDER = ("w1", "b1", "w2", "b2", "w3", "b3", "gamma", "beta")
+
+
+@pytest.mark.parametrize("form", ["encoder", "edge", "node"])
+def test_fused_mlp_ln_backward_matches_jax(form):
+    """K3's plain version, through `fused_mlp_ln_parts` and its autograd
+    Function, against jax.vjp of the JAX `fused_mlp_ln_parts`."""
+    from gen_fvgn_tpu.ops.fused_mlp import fused_mlp_ln_parts as jfn
+    from gen_fvgn_tpu_torch.ops.fused_mlp import fused_mlp_ln_parts as tfn
+    rng = np.random.default_rng({"encoder": 10, "edge": 11, "node": 12}[form])
+    if form == "encoder":      # pres-only: x [M, 12] projected outside
+        widths, k_total, rows, res_idx, res_dual, n_pre = [], 12, [], None, \
+            False, 1
+    elif form == "edge":       # part edge_attr owns the last 128 W1 rows
+        widths, k_total, rows, res_idx, res_dual, n_pre = [H], 3 * H, \
+            [(2 * H, 3 * H)], 0, True, 1
+    else:                      # parts (nbr_avg 64, node_x 128)
+        widths, k_total, rows, res_idx, res_dual, n_pre = [64, H], 192, \
+            None, 1, False, 0
+    w = _mlp_weights(rng, k_total)
+    parts = [_rng_f32(rng, M, k) for k in widths]
+    pres = [_bf16(_rng_f32(rng, M, H)) for _ in range(n_pre)]
+    n_out = 2 if res_dual else 1
+    gs = [_bf16(_rng_f32(rng, M, H)) for _ in range(n_out)]
+
+    def jax_fn(parts_, ws, pres_):
+        out = jfn(list(parts_), *[ws[k] for k in _ORDER], dtype=jnp.bfloat16,
+                  pres=tuple(p.astype(jnp.bfloat16) for p in pres_),
+                  w1_rows=rows, res_idx=res_idx, res_dual=res_dual)
+        return out if isinstance(out, tuple) else (out,)
+    jin = ([jnp.asarray(p) for p in parts],
+           {k: jnp.asarray(v) for k, v in w.items()},
+           [jnp.asarray(p) for p in pres])
+    with jax_kernels_on():
+        jouts, vjp = jax.vjp(jax_fn, *jin)
+        jg_parts, jg_w, jg_pres = vjp(tuple(
+            jnp.asarray(g, jnp.bfloat16) for g in gs))
+
+    tparts = [torch.from_numpy(p).requires_grad_() for p in parts]
+    tw = {k: torch.from_numpy(v).requires_grad_() for k, v in w.items()}
+    tpres = [torch.from_numpy(p).to(torch.bfloat16).requires_grad_()
+             for p in pres]
+    touts = tfn(tparts, *[tw[k] for k in _ORDER], dtype=torch.bfloat16,
+                pres=tuple(tpres), w1_rows=rows, res_idx=res_idx,
+                res_dual=res_dual)
+    touts = touts if isinstance(touts, tuple) else (touts,)
+    for jo, to in zip(jouts, touts):
+        _check_dx(to.float().detach().numpy(), np.asarray(jo, np.float32),
+                  "forward")
+    torch.autograd.backward(touts, [torch.from_numpy(g).to(torch.bfloat16)
+                                    for g in gs])
+    for i, (tp, jp) in enumerate(zip(tparts, jg_parts)):
+        _check_dx(tp.grad.numpy(), jp, f"dx part {i}")
+    for tp, jp in zip(tpres, jg_pres):
+        assert tp.grad.dtype == torch.bfloat16
+        _check_dx(tp.grad.float().numpy(), jp, "dpre")
+    if form == "encoder":
+        # the pres-only form reads no W1 row inside the kernel
+        assert tw["w1"].grad is None or not tw["w1"].grad.any()
+    for k in ("w1", "w2", "w3"):
+        if form != "encoder" or k != "w1":
+            _check_weight(tw[k].grad.numpy(), jg_w[k], k)
+    for k in ("b1", "b2", "b3", "gamma", "beta"):
+        assert tw[k].grad.dtype == torch.float32
+        _check_vec(tw[k].grad.numpy(), jg_w[k], k)
+
+
+def test_fused_mlp_noln_backward_matches_jax():
+    """K4b's plain version (the decoder: [M, 128] -> [M, 3]) against
+    jax.vjp of the JAX `fused_mlp_noln_parts`, whose kernel pads the head
+    to 128 lanes: the same function."""
+    from gen_fvgn_tpu.ops.fused_mlp import fused_mlp_noln_parts as jfn
+    from gen_fvgn_tpu_torch.ops.fused_mlp import fused_mlp_noln_parts as tfn
+    rng = np.random.default_rng(13)
+    w = _mlp_weights(rng, H, d_out=3)
+    x = _rng_f32(rng, M, H)
+    g = _bf16(_rng_f32(rng, M, 3))
+    names = ("w1", "b1", "w2", "b2", "w3", "b3")
+    with jax_kernels_on():
+        _, vjp = jax.vjp(lambda x_, ws: jfn(x_, *[ws[k] for k in names],
+                                            dtype=jnp.bfloat16),
+                         jnp.asarray(x), {k: jnp.asarray(w[k]) for k in names})
+        jdx, jw = vjp(jnp.asarray(g, jnp.bfloat16))
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = {k: torch.from_numpy(w[k]).requires_grad_() for k in names}
+    out = tfn(tx, *[tw[k] for k in names], dtype=torch.bfloat16)
+    out.backward(torch.from_numpy(g).to(torch.bfloat16))
+    _check_dx(tx.grad.numpy(), jdx, "dx")
+    for k in ("w1", "w2", "w3"):
+        _check_weight(tw[k].grad.numpy(), jw[k], k)
+    for k in ("b1", "b2", "b3"):
+        _check_vec(tw[k].grad.numpy(), jw[k], k)
+
+
+def test_fused_premlp_res_backward_matches_jax():
+    """K5b's plain version against jax.vjp of the JAX
+    `fused_premlp_res_parts`; the residual cotangent joins dx in float32
+    before its one rounding."""
+    from gen_fvgn_tpu.ops.fused_mlp import fused_premlp_res_parts as jfn
+    from gen_fvgn_tpu_torch.ops.fused_mlp import fused_premlp_res_parts as tfn
+    rng = np.random.default_rng(14)
+    x = _rng_f32(rng, M, H, scale=2.0) + 0.5
+    w = dict(gamma=1.0 + _rng_f32(rng, H, scale=0.1),
+             beta=_rng_f32(rng, H, scale=0.1),
+             w1=_rng_f32(rng, H, 2 * H) / np.sqrt(H),
+             b1=_rng_f32(rng, 2 * H, scale=0.1),
+             w2=_rng_f32(rng, 2 * H, H) / np.sqrt(2 * H),
+             b2=_rng_f32(rng, H, scale=0.1))
+    g = _bf16(_rng_f32(rng, M, H))
+    names = ("gamma", "beta", "w1", "b1", "w2", "b2")
+    with jax_kernels_on():
+        _, vjp = jax.vjp(lambda x_, ws: jfn(x_, *[ws[k] for k in names],
+                                            dtype=jnp.bfloat16),
+                         jnp.asarray(x), {k: jnp.asarray(w[k]) for k in names})
+        jdx, jw = vjp(jnp.asarray(g, jnp.bfloat16))
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = {k: torch.from_numpy(w[k]).requires_grad_() for k in names}
+    out = tfn(tx, *[tw[k] for k in names], dtype=torch.bfloat16)
+    out.backward(torch.from_numpy(g).to(torch.bfloat16))
+    _check_dx(tx.grad.numpy(), jdx, "dx")
+    for k in ("w1", "w2"):
+        _check_weight(tw[k].grad.numpy(), jw[k], k)
+    for k in ("gamma", "beta", "b1", "b2"):
+        _check_vec(tw[k].grad.numpy(), jw[k], k)
+
+
+def test_fused_slice_pool_backward_matches_jax():
+    """K7's plain version through `PhysicsAttention`'s own pieces: the JAX
+    side builds kron(eye(H), wsl), tile(bsl) and repeat(1/temp) as the flax
+    module does, vmaps `fused_slice_pool` over the batch and extracts the
+    diagonal token blocks; the port calls `fused_slice_pool` on the batch
+    with 1/temp. Cotangents of slice_w (bf16), tokens and norm are the same
+    NumPy arrays on both sides."""
+    from gen_fvgn_tpu.ops.fused_slice_attn import fused_slice_pool as jfn
+    from gen_fvgn_tpu_torch.ops.fused_slice_attn import fused_slice_pool as tfn
+    h, g, d, c, b, n = 8, 32, 16, H, 2, 256
+    rng = np.random.default_rng(15)
+    x = _rng_f32(rng, b, n, c)
+    mask = (rng.uniform(size=n) > 0.2).astype(np.float32)
+    w = dict(wfx=_rng_f32(rng, c, c) / np.sqrt(c),
+             bfx=_rng_f32(rng, c, scale=0.1),
+             wx=_rng_f32(rng, c, c) / np.sqrt(c),
+             bx=_rng_f32(rng, c, scale=0.1),
+             wsl=_rng_f32(rng, d, g) / 2.0, bsl=_rng_f32(rng, g, scale=0.1),
+             temp=rng.uniform(0.3, 1.0, size=(1, h, 1)).astype(np.float32))
+    gw = _bf16(_rng_f32(rng, b, n, h * g))
+    gtok = _rng_f32(rng, b, h, g, d)
+    gnorm = _rng_f32(rng, b, h, g)
+
+    def jax_fn(x_, ws):
+        wsl_bd = jnp.kron(jnp.eye(h, dtype=ws["wsl"].dtype), ws["wsl"])
+        bsl_row = jnp.tile(ws["bsl"], h)
+        it_row = jnp.repeat((1.0 / ws["temp"]).reshape(h), g)
+        sw, tok_full, norm = jax.vmap(lambda xi: jfn(
+            xi, jnp.asarray(mask), ws["wfx"], ws["bfx"], ws["wx"], ws["bx"],
+            wsl_bd, bsl_row, it_row, heads=h, slice_num=g))(
+                x_.astype(jnp.bfloat16))
+        t4 = tok_full.reshape(b, h, g, h, d)
+        tok = jnp.einsum("bhgkd,hk->bhgd", t4, jnp.eye(h, dtype=jnp.float32))
+        return sw, tok, norm.reshape(b, h, g)
+    with jax_kernels_on():
+        _, vjp = jax.vjp(jax_fn, jnp.asarray(x),
+                         {k: jnp.asarray(v) for k, v in w.items()})
+        jdx, jw = vjp((jnp.asarray(gw, jnp.bfloat16), jnp.asarray(gtok),
+                       jnp.asarray(gnorm)))
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = {k: torch.from_numpy(v).requires_grad_() for k, v in w.items()}
+    outs = tfn(tx.to(torch.bfloat16), torch.from_numpy(mask), tw["wfx"],
+               tw["bfx"], tw["wx"], tw["bx"], tw["wsl"], tw["bsl"],
+               (1.0 / tw["temp"]).reshape(h), heads=h, slice_num=g)
+    torch.autograd.backward(outs, [torch.from_numpy(gw).to(torch.bfloat16),
+                                   torch.from_numpy(gtok),
+                                   torch.from_numpy(gnorm)])
+    _check_dx(tx.grad.numpy(), jdx, "dx")
+    for k in ("wfx", "wx"):
+        _check_weight(tw[k].grad.numpy(), jw[k], k)
+    # the shared slice kernel: the float32 sum of the 8 rounded head blocks
+    np.testing.assert_allclose(tw["wsl"].grad.numpy(), jw["wsl"], rtol=0,
+                               atol=_ulps(jw["wsl"], 4))
+    for k in ("bfx", "bx", "bsl"):
+        _check_vec(tw[k].grad.numpy(), jw[k], k)
+    np.testing.assert_allclose(tw["temp"].grad.numpy(), jw["temp"],
+                               rtol=1e-3)
+
+
+def _linop_case(name):
+    (jc, jp, js, jd), (tc, tp, ts, td) = both_sides()
+    return getattr(js.ops, name), getattr(ts.ops, name)
+
+
+@pytest.mark.parametrize("name,width,xdtype,n_ulp", [
+    ("gather_s", 128, "bfloat16", 1),   # take route, bf16 stream
+    ("gather_s", 64, "float32", 1),     # take route, float32 projection
+    ("adj", 128, "bfloat16", 1),        # 128-wide bf16: the spmm kernel
+    ("edge_diff", 12, "float32", 1),    # narrow float32 operand, bf16 op
+    # a float32 operator with real entries of both signs (the WLSQ fold):
+    # up to ~40 products a row cancel, so their order moves a few ulps
+    ("wlsq", 10, "float32", 16),
+])
+def test_apply_linop_backward_matches_jax(name, width, xdtype, n_ulp):
+    """dx = Aᵀ·g through the stored transpose, with the bf16 cast of the
+    cotangent of a bf16-stored operator, against jax.vjp of the JAX
+    `apply_linop` (its Pallas spmm on for the 128-wide route). The two
+    sides sum the same products in another order: they agree within one
+    unit in the last place of the output type at the output's scale (a few
+    for the real-valued WLSQ operator)."""
+    from gen_fvgn_tpu.ops.blocksparse import apply_linop as japply
+    from gen_fvgn_tpu_torch.ops.blocksparse import apply_linop as tapply
+    jop, top = _linop_case(name)
+    rng = np.random.default_rng(16)
+    x = _rng_f32(rng, 2, top.fwd.n_in, width)
+    gout = _rng_f32(rng, 2, top.fwd.n_out, width)
+    jdt = jnp.bfloat16 if xdtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if xdtype == "bfloat16" else torch.float32
+    with jax_kernels_on():
+        jout, vjp = jax.vjp(lambda a: japply(jop, a),
+                            jnp.asarray(x).astype(jdt))
+        (jdx,) = vjp(jnp.asarray(gout).astype(jout.dtype))
+    tx = torch.from_numpy(x).to(tdt).requires_grad_()
+    tout = tapply(top, tx)
+    assert str(tout.dtype).split(".")[-1] == jnp.dtype(jout.dtype).name
+    tout.backward(torch.from_numpy(gout).to(tout.dtype))
+    assert tx.grad.dtype == tdt
+    got, ref = tx.grad.float().numpy(), np.asarray(jdx, np.float32)
+    mant = 8 if xdtype == "bfloat16" else 24
+    one_ulp = 2.0 ** (np.ceil(np.log2(float(np.abs(ref).max()))) - mant)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=n_ulp * one_ulp)
+    assert (got == ref).mean() > 0.8

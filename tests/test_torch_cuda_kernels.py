@@ -254,3 +254,175 @@ def test_fused_slice_pool_kernel_refuses_what_it_does_not_take():
     bad[6] = torch.zeros(32, 32, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError):
         mod.fused_slice_pool_kernel(*bad)
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels K3, K4b, K5b, K7 against their plain versions.
+# Tolerance: 2 bf16 ulps of each output's scale — dx, dpre and the bf16
+# weight gradients, and also the float32 bias/γ/β/temperature gradients,
+# which sum terms downstream of bf16 roundings (dy, dh2pre, dh1pre, the
+# projections) that a float32 sum in another order can move by a step.
+# ---------------------------------------------------------------------------
+
+
+def _close(got, ref, name):
+    got, ref = got.float(), ref.float()
+    assert got.shape == ref.shape, name
+    scale = float(ref.abs().max())
+    if scale == 0.0:
+        assert not got.any(), name
+        return
+    torch.testing.assert_close(got, ref, rtol=0, atol=_ulps(ref),
+                               msg=lambda m: f"{name}: {m}")
+
+
+def _grads_equal(a, b):
+    flat = lambda gs: [t for t in gs if isinstance(t, torch.Tensor)] + [
+        t for tup in gs if isinstance(tup, tuple) for t in tup]
+    return all(torch.equal(x, y) for x, y in zip(flat(a), flat(b)))
+
+
+@pytest.mark.parametrize("m,lanes", [(1, 1), (63, 1), (1000, 1), (1280, 2),
+                                     (8 * 1337, 8)])
+@pytest.mark.parametrize("widths,has_pre,res_idx,res_dual", [
+    ([], True, None, False),
+    ([128], True, 0, True),
+    ([64, 128], False, 1, False),
+    ([128, 128], True, None, False)])
+def test_fused_mlp_ln_bwd_kernel_matches_plain_version(m, lanes, widths,
+                                                       has_pre, res_idx,
+                                                       res_dual):
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import fused_mlp as mod
+    parts, w1s, b1, w2, b2, w3, b3, gamma, _, pres = _mlp_args(
+        m, widths, has_pre, 128, seed=m + len(widths))
+    g = torch.Generator("cuda").manual_seed(m)
+    douts = [torch.randn(m, 128, device="cuda", generator=g).to(torch.bfloat16)
+             for _ in range(2 if res_dual else 1)]
+    args = (parts, w1s, b1, w2, b2, w3, b3, gamma, pres, douts, res_idx,
+            res_dual, lanes)
+    before = mod.LAUNCHES_LN_BWD
+    got = mod.fused_mlp_ln_bwd(*args)
+    again = mod.fused_mlp_ln_bwd(*args)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES_LN_BWD == before + 2
+    assert _grads_equal(got, again)             # no atomics: the same bits
+    ref = mod.fused_mlp_ln_bwd_reference(*args)
+    for name in got._fields:
+        a, r = getattr(got, name), getattr(ref, name)
+        if isinstance(a, tuple):
+            assert len(a) == len(r), name
+            for i, (x, y) in enumerate(zip(a, r)):
+                assert x.dtype == y.dtype, name
+                _close(x, y, f"{name}[{i}]")
+        else:
+            assert a.dtype == r.dtype, name
+            _close(a, r, name)
+
+
+def test_fused_mlp_ln_bwd_kernel_zero_cotangent_gives_zero():
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import fused_mlp as mod
+    parts, w1s, b1, w2, b2, w3, b3, gamma, _, pres = _mlp_args(
+        300, [128], True, 128, seed=3)
+    zero = torch.zeros(300, 128, device="cuda", dtype=torch.bfloat16)
+    got = mod.fused_mlp_ln_bwd(parts, w1s, b1, w2, b2, w3, b3, gamma, pres,
+                               [zero, zero], 0, True, 1)
+    for t in (*got.dxs, *got.dpres, *got.dw1s, got.db1, got.dw2, got.db2,
+              got.dw3, got.db3, got.dgamma, got.dbeta):
+        assert not t.any()
+
+
+@pytest.mark.parametrize("m,lanes", [(1, 1), (65, 1), (2 * 640, 2),
+                                     (8 * 1337, 8)])
+@pytest.mark.parametrize("d_out", [3, 16])
+def test_fused_mlp_noln_bwd_kernel_matches_plain_version(m, lanes, d_out):
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import fused_mlp as mod
+    parts, w1s, b1, w2, b2, w3, b3, _, _, _ = _mlp_args(
+        m, [128], False, d_out, seed=m + d_out)
+    g = torch.Generator("cuda").manual_seed(m)
+    dout = torch.randn(m, d_out, device="cuda", generator=g).to(torch.bfloat16)
+    args = (parts[0], w1s[0], b1, w2, b2, w3, b3, dout, lanes)
+    before = mod.LAUNCHES_NOLN_BWD
+    got, again = mod.fused_mlp_noln_bwd(*args), mod.fused_mlp_noln_bwd(*args)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES_NOLN_BWD == before + 2
+    assert _grads_equal(got, again)
+    ref = mod.fused_mlp_noln_bwd_reference(*args)
+    for name, a, r in zip(("dx", "dw1", "db1", "dw2", "db2", "dw3", "db3"),
+                          got, ref):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        _close(a, r, name)
+
+
+@pytest.mark.parametrize("m,lanes", [(1, 1), (63, 1), (65, 1), (1000, 1),
+                                     (8 * 1251, 8)])
+def test_fused_premlp_res_bwd_kernel_matches_plain_version(m, lanes):
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import fused_mlp as mod
+    args = _premlp_args(m, seed=m)
+    g = torch.Generator("cuda").manual_seed(m + 1)
+    dout = torch.randn(m, 128, device="cuda", generator=g).to(torch.bfloat16)
+    before = mod.LAUNCHES_PREMLP_BWD
+    got = mod.fused_premlp_res_bwd(*args, dout, lanes)
+    again = mod.fused_premlp_res_bwd(*args, dout, lanes)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES_PREMLP_BWD == before + 2
+    assert _grads_equal(got, again)
+    ref = mod.fused_premlp_res_bwd_reference(*args, dout, lanes)
+    for name, a, r in zip(("dx", "dgamma", "dbeta", "dw1", "db1", "dw2",
+                           "db2"), got, ref):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        _close(a, r, name)
+
+
+def _pool_cotangents(b, n, seed):
+    g = torch.Generator("cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    return (rnd(b, n, 256).to(torch.bfloat16), rnd(b, 8, 32, 16),
+            rnd(b, 8, 32))
+
+
+@pytest.mark.parametrize("b,n", [(1, 1), (2, 63), (3, 256), (8, 1337),
+                                 (2, 10240)])
+@pytest.mark.parametrize("mask", ["partial", "zero", "ones"])
+def test_fused_slice_pool_bwd_kernel_matches_plain_version(b, n, mask):
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import fused_slice_attn as mod
+    args = _pool_args(b, n, mask, seed=b * n + 1)
+    cots = _pool_cotangents(b, n, seed=b + n)
+    before = mod.LAUNCHES_BWD
+    got = mod.fused_slice_pool_bwd_kernel(*args, *cots)
+    again = mod.fused_slice_pool_bwd_kernel(*args, *cots)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES_BWD == before + 2
+    assert _grads_equal(got, again)
+    ref = mod.fused_slice_pool_bwd_reference(*args, *cots)
+    for name in got._fields:
+        a, r = getattr(got, name), getattr(ref, name)
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        _close(a, r, name)
+
+
+def test_fused_slice_pool_bwd_kernel_shared_mask_and_refusals():
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import fused_slice_attn as mod
+    args = _pool_args(4, 3000, "partial", seed=9, shared=True)
+    cots = _pool_cotangents(4, 3000, seed=9)
+    got = mod.fused_slice_pool_bwd_kernel(*args, *cots)
+    ref = mod.fused_slice_pool_bwd_reference(*args, *cots)
+    for name in got._fields:
+        _close(getattr(got, name), getattr(ref, name), name)
+    with pytest.raises(ValueError):
+        mod.fused_slice_pool_bwd_kernel(*args, cots[0].float(), *cots[1:])
+    with pytest.raises(NotImplementedError):
+        mod.fused_slice_pool_bwd_kernel(
+            *args[:6], torch.zeros(32, 32, device="cuda",
+                                   dtype=torch.bfloat16), *args[7:], *cots)
+    from gen_fvgn_tpu_torch.ops import fused_mlp as fm
+    x, ga, be, w1, b1, w2, b2 = _premlp_args(64, seed=0)
+    with pytest.raises(ValueError):
+        fm.fused_premlp_res_bwd(x, ga, be, w1, b1, w2, b2, x.float(), 1)
+    with pytest.raises(ValueError):
+        fm.fused_premlp_res_bwd(x, ga, be, w1, b1, w2, b2, x, 3)   # 64 % 3

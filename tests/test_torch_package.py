@@ -50,7 +50,9 @@ def test_importing_the_port_loads_no_jax_module():
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
             for m in mods]
     assert {"gen_fvgn_tpu_torch.models.transolver",
-            "gen_fvgn_tpu_torch.ops.fused_slice_attn"} <= set(mods)
+            "gen_fvgn_tpu_torch.ops.fused_slice_attn",
+            "gen_fvgn_tpu_torch.training.train",
+            "gen_fvgn_tpu_torch.training.train_block"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -84,8 +86,14 @@ def _entry_points():
         return build_static_pack(pool.cases[0]["mesh"], cfg.order,
                                  pool.case_sizes[0], node_agg="composed",
                                  **kw)
+    from gen_fvgn_tpu_torch.training.train_block import (
+        init_train_state_block, make_train_step_block)
     return {
         "EnvPool": lambda **kw: EnvPool([], cfg, cases=[_small_case()], **kw),
+        "init_train_state_block": lambda **kw: init_train_state_block(
+            cfg, **kw),
+        "make_train_step_block": lambda **kw: make_train_step_block(
+            cfg, make_simulator_block(cfg, device="cpu"), **kw),
         "make_simulator_block": lambda **kw: make_simulator_block(cfg, **kw),
         "init_normalizer": lambda **kw: init_normalizer(9, **kw),
         "build_static_pack": static_pack,
@@ -96,7 +104,9 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["EnvPool", "make_simulator_block",
                                   "init_normalizer", "build_static_pack",
-                                  "normalizer_from_numpy"])
+                                  "normalizer_from_numpy",
+                                  "init_train_state_block",
+                                  "make_train_step_block"])
 def test_entry_point_defaults_to_cuda_and_raises_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("this test is about a machine without a card")
@@ -106,6 +116,19 @@ def test_entry_point_defaults_to_cuda_and_raises_without_a_card(name):
     with pytest.raises(RuntimeError, match="cuda"):
         fn(device="cuda")
     fn(device="cpu")                            # the CPU only when asked
+
+
+def test_same_device_reads_cuda_as_the_current_card(monkeypatch):
+    """A train step made for device="cuda" takes a batch on "cuda:0" (what
+    tensors report) when card 0 is current, and refuses the CPU or another
+    card."""
+    from gen_fvgn_tpu_torch.utils.device import same_device
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert same_device("cuda", "cuda:0") and same_device("cuda:0", "cuda")
+    assert same_device("cpu", torch.device("cpu"))
+    assert not same_device("cuda", "cuda:1")
+    assert not same_device("cuda:0", "cpu")
+    assert not same_device("cpu", "cuda")
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch):

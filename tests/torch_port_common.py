@@ -112,10 +112,25 @@ def numpy_tree(params, seed=0):
 
 def numpy_params(jcfg, jstatic, jdyn, seed=0):
     """A flax parameter tree of jcfg.net's block simulator as nested dicts
-    of NumPy arrays (see numpy_tree), and the JAX apply function."""
-    from gen_fvgn_tpu.training.train_block import init_train_state_block
-    state, apply_fn = init_train_state_block(jcfg, jdyn, jstatic, seed=0)
-    return numpy_tree(state.params, seed), apply_fn
+    of NumPy arrays (see numpy_tree), and the JAX apply function. The
+    tree's structure and shapes come from `jax.eval_shape` of the module's
+    init on the inputs `init_train_state_block` gives it (no weights are
+    computed: numpy_tree redraws every leaf)."""
+    from gen_fvgn_tpu.models.simulator_block import make_simulator_block
+    from gen_fvgn_tpu.ops.blocksparse import apply_linop
+    simulator = make_simulator_block(jcfg)
+    n_theta = jdyn.theta.shape[-1]
+    one_x = jnp.concatenate(
+        [jdyn.uvp[0], jnp.broadcast_to(jdyn.theta[0][None],
+                                       (jdyn.uvp.shape[1], n_theta))],
+        axis=-1)
+    edge_attr = jnp.concatenate(
+        [apply_linop(jstatic.ops.edge_diff, one_x), jstatic.edge_pos_feat],
+        axis=-1)
+    shapes = jax.eval_shape(
+        lambda key, x, e: simulator.init(key, x, e, jstatic),
+        jax.random.PRNGKey(0), one_x, edge_attr)
+    return numpy_tree(shapes, seed), simulator.apply
 
 
 def to_plain_dict(tree):
@@ -153,6 +168,24 @@ def torch_simulator(tcfg, np_tree):
     sim = make_simulator_block(tcfg, device="cpu")
     sim.load_state_dict(params_from_flax(to_plain_dict(np_tree)), strict=True)
     return sim
+
+
+def jax_flat(tree):
+    """{flax path "a/b/kernel": float64 NumPy} of a JAX parameter (or
+    gradient) tree, without its "params/" root."""
+    out = {}
+    for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        key = "/".join(str(k.key) for k in path)
+        out[key[len("params/"):] if key.startswith("params/") else key] = \
+            np.asarray(v, np.float64)
+    return out
+
+
+def port_flat(named):
+    """The same dict of the port's {parameter name: tensor} (parameters
+    or their gradients), through `convert.flax_paths`."""
+    from gen_fvgn_tpu_torch.convert import flax_paths
+    return {k: v.astype(np.float64) for k, v in flax_paths(named).items()}
 
 
 def random_state(jdyn, tdyn, node_mask, seed=2):
