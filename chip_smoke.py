@@ -5,7 +5,8 @@
 
 Builds the port's CUDA kernels from `gen_fvgn_tpu_torch/csrc/` with nvcc,
 holds each kernel, forward and backward, against its plain PyTorch version
-on the card at the shapes of the main path, then drives three paths on the
+on the card at the shapes of the main path (the paired sparse applies K8
+and K9 at the paired path's), then drives four paths on the
 101x101-node synthetic cavity at batch 8, with weights from
 torch.Generator().manual_seed(0), all with the Config's defaults
 (TransFVGN_v2: hidden 128, 2 processors of 3 message-passing blocks and a
@@ -23,7 +24,15 @@ Transolver block each, 8 heads, 32 slices, bf16 stream) unless named:
     18 spmm, 14 fused_mlp_ln, 1 fused_mlp_noln, 2 fused_premlp_res and 2
     fused_slice_pool launches;
   * the rollout of the FVGN net (3 message-passing blocks, no attention),
-    3 steps; per step 9 spmm, 8 fused_mlp_ln, 1 fused_mlp_noln.
+    3 steps; per step 9 spmm, 8 fused_mlp_ln, 1 fused_mlp_noln;
+  * the paired path: TransFVGN_v2 with the same weights and both paired
+    sparse applies on (`gather_pair=True, node_pair=True`), 3 rollout steps
+    (per step 6 spmm, 12 pair_sum and the forward MLP/attention counts
+    above) and 3 train steps (24 spmm, 12 pair_sum, 6 pair_transpose and
+    the MLP/attention counts of the main path), each step 1 held against
+    the plain versions on the card and logged against the unpaired net's
+    step 1. The main path launches neither pair kernel, so their launches
+    in the kernels line are the paired train steps'.
 
 Each path's launch counters are set to 0 just before it and read just
 after; the script checks them, finite outputs, zero padded nodes, a state
@@ -53,6 +62,7 @@ BF16_TENSOR_FLOPS = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS = 67e12               # float32 outside the tensor cores
 
 BATCH, STEPS, FVGN_STEPS, TRAIN_STEPS, MESH_N = 8, 5, 3, 5, 100
+PAIR_STEPS = 3                  # rollout and train steps of the paired path
 BF16_EPS = 2.0 ** -8            # one bf16 rounding, relative
 
 
@@ -154,6 +164,116 @@ def check_spmm(static, flush_buf, gen):
             f"library vs plain max_abs {lib_abs:.3g}) ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
             f"bound_ms={rows[-1]['bound_ms']:.4f}")
+    return rows
+
+
+def _csr_cat(parts, n_out, n_in):
+    """One CSR [n_out, n_in] with bf16 values from (op, row offset, column
+    offset) pieces: the operators stacked side by side or one above the
+    other, for the library call."""
+    rows, cols, vals = [], [], []
+    for op, r0, c0 in parts:
+        counts = op.crow[1:] - op.crow[:-1]
+        rows.append(torch.repeat_interleave(
+            torch.arange(op.n_out, device=op.crow.device), counts) + r0)
+        cols.append(op.col.long() + c0)
+        vals.append(op.val)
+    coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows),
+                                               torch.cat(cols)]),
+                                  torch.cat(vals).to(torch.bfloat16),
+                                  size=(n_out, n_in)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def check_pairs(static, flush_buf, gen):
+    """K8 as the gather pair (y [8, N, 256] on gather_s / gather_r) and as
+    the node pair (edge_attr [8, E, 128] on nbr_r / nbr_s), K9 on
+    nbr_r.bwd / nbr_s.bwd (g [8, N, 64]), all bf16, each against its plain
+    version. Tolerance: one bf16 rounding of the output plus 2^-20 of the
+    sum of the magnitudes (float32 sums in another order; the node pair's
+    operands have both signs, so a sum may cancel)."""
+    import dataclasses
+
+    from gen_fvgn_tpu_torch.ops import pair_spmm as ps
+    ops = static.ops
+    bf = torch.bfloat16
+    variants = [
+        ("pair_sum[gather_pair]", ps.pair_sum, ps.pair_sum_reference,
+         ops.gather_s.fwd, ops.gather_r.fwd, 256),
+        ("pair_sum[node_pair]", ps.pair_sum, ps.pair_sum_reference,
+         ops.nbr_r.fwd, ops.nbr_s.fwd, 128),
+        ("pair_transpose[node_pair]", ps.pair_transpose,
+         ps.pair_transpose_reference, ops.nbr_r.bwd, ops.nbr_s.bwd, 64)]
+    rows = {}
+    for name, fn, ref_fn, a, b, width in variants:
+        x = torch.randn(BATCH, a.n_in, width, generator=gen,
+                        device="cuda").to(bf)
+        out, again, ref = fn(a, b, x), fn(a, b, x), ref_fn(a, b, x)
+        absolute = lambda op: dataclasses.replace(
+            op, val=op.val.abs(), dtype=torch.float32, _csr=None)
+        mag = ref_fn(absolute(a), absolute(b), x.abs().float())
+        torch.cuda.synchronize()
+        transpose = fn is ps.pair_transpose
+        h = width if transpose else width // 2
+        shape = (BATCH, a.n_out, 2 * h if transpose else h)
+        diff = (out.float() - ref.float()).abs()
+        tol = BF16_EPS * ref.float().abs() + 2.0 ** -20 * mag
+        if tuple(out.shape) != shape or out.dtype != bf \
+                or not torch.equal(out, again) or bool((diff > tol).any()):
+            raise RuntimeError(f"{name} disagrees with its plain version: "
+                               f"max abs {float(diff.max())}, shape "
+                               f"{tuple(out.shape)} {out.dtype}")
+        n_real = int(((a.crow[1:] > a.crow[:-1])
+                      | (b.crow[1:] > b.crow[:-1])).nonzero().max()) + 1
+        if bool((out[:, n_real:] != 0).any()):
+            raise RuntimeError(f"{name}: padded rows are not zero")
+        max_abs, max_rel = err_stats(out, ref)
+        # the library call: one torch.sparse CSR product on the operators
+        # stacked side by side ([A | B] on [y_lo; y_hi], K8) or one above
+        # the other ([A; B] on g, K9), bf16 values, the batch folded into
+        # the columns; the stacking and relayouts outside the timing
+        if transpose:
+            lib_a = _csr_cat([(a, 0, 0), (b, a.n_out, 0)], 2 * a.n_out,
+                             a.n_in)
+            lib_x = x.permute(1, 0, 2).reshape(a.n_in, BATCH * h)
+            lib_ref = torch.sparse.mm(lib_a, lib_x).reshape(
+                2, a.n_out, BATCH, h).permute(2, 1, 0, 3).reshape(shape)
+        else:
+            lib_a = _csr_cat([(a, 0, 0), (b, 0, a.n_in)], a.n_out,
+                             2 * a.n_in)
+            lib_x = torch.cat([x[..., :h], x[..., h:]], dim=1).permute(
+                1, 0, 2).reshape(2 * a.n_in, BATCH * h)
+            lib_ref = torch.sparse.mm(lib_a, lib_x).reshape(
+                a.n_out, BATCH, h).permute(1, 0, 2)
+        lib_x = lib_x.contiguous()
+        lib_abs, _ = err_stats(lib_ref, ref)
+        ms = median_ms(lambda: fn(a, b, x), flush_buf)
+        plain_ms = median_ms(lambda: ref_fn(a, b, x), flush_buf)
+        library_ms = median_ms(lambda: torch.sparse.mm(lib_a, lib_x),
+                               flush_buf)
+        # each operand row an operator reads, once (K8 reads H of the 2H
+        # channels of a row per operator; K9 reads a row once for both)
+        ua, ub = torch.unique(a.col), torch.unique(b.col)
+        if transpose:
+            read = BATCH * int(torch.unique(torch.cat([ua, ub])).numel()) \
+                * h * 2
+        else:
+            read = BATCH * (int(ua.numel()) + int(ub.numel())) * h * 2
+        moved = read + nbytes(out, a.crow, a.col, a.val, b.crow, b.col,
+                              b.val)
+        bound_ms, bound_by = bound(moved, 0.0, f32_flops=2.0 * (
+            a.nnz + b.nnz) * BATCH * h)
+        rows[name] = dict(nnz=a.nnz + b.nnz, max_abs_err=max_abs,
+                          max_rel_err=max_rel, ms=ms, plain_ms=plain_ms,
+                          library_ms=library_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
+        log(f"kernel {name} [{BATCH},{a.n_in},{width}]->{list(shape)} bf16 "
+            f"nnz={a.nnz}+{b.nnz}: max_abs_err={max_abs:.3g} "
+            f"max_rel_err={max_rel:.3g} (tolerance one bf16 rounding + "
+            f"2^-20 of the magnitudes; library vs plain max_abs "
+            f"{lib_abs:.3g}); two runs bitwise equal; ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by})")
     return rows
 
 
@@ -508,8 +628,12 @@ def check_backward(n_pad, e_pad, static, flush_buf, gen):
 
 
 def launch_counts():
-    from gen_fvgn_tpu_torch.ops import fused_mlp, fused_slice_attn, spmm
-    return dict(spmm=spmm.LAUNCHES, fused_mlp_ln=fused_mlp.LAUNCHES_LN,
+    from gen_fvgn_tpu_torch.ops import (fused_mlp, fused_slice_attn,
+                                        pair_spmm, spmm)
+    return dict(spmm=spmm.LAUNCHES,
+                pair_sum=pair_spmm.LAUNCHES_PAIR_SUM,
+                pair_transpose=pair_spmm.LAUNCHES_PAIR_TRANSPOSE,
+                fused_mlp_ln=fused_mlp.LAUNCHES_LN,
                 fused_mlp_noln=fused_mlp.LAUNCHES_NOLN,
                 fused_premlp_res=fused_mlp.LAUNCHES_PREMLP,
                 fused_slice_pool=fused_slice_attn.LAUNCHES,
@@ -520,8 +644,10 @@ def launch_counts():
 
 
 def zero_counts():
-    from gen_fvgn_tpu_torch.ops import fused_mlp, fused_slice_attn, spmm
+    from gen_fvgn_tpu_torch.ops import (fused_mlp, fused_slice_attn,
+                                        pair_spmm, spmm)
     spmm.LAUNCHES = 0
+    pair_spmm.LAUNCHES_PAIR_SUM = pair_spmm.LAUNCHES_PAIR_TRANSPOSE = 0
     fused_mlp.LAUNCHES_LN = fused_mlp.LAUNCHES_NOLN = 0
     fused_mlp.LAUNCHES_PREMLP = 0
     fused_mlp.LAUNCHES_LN_BWD = fused_mlp.LAUNCHES_NOLN_BWD = 0
@@ -532,7 +658,7 @@ def zero_counts():
 def drive(name, cfg, sim, norm_state, dyn, static, steps, per_step, n_real):
     """`steps` rollout steps of `sim` with the counters set to 0 just before
     and read just after; then step 1 again with the plain versions on the
-    card. Returns the counts of the rollout."""
+    card. Returns the counts of the rollout and its records."""
     from gen_fvgn_tpu_torch.solve.rollout_block import (make_eval_step_block,
                                                         rollout_block)
     n_pad = static.pos.shape[0]
@@ -593,7 +719,7 @@ def drive(name, cfg, sim, norm_state, dyn, static, steps, per_step, n_real):
     if not gap.max() <= step_tol or not loss_gap <= 5e-2:
         raise RuntimeError(f"{name}: step 1 disagrees with the plain "
                            f"versions")
-    return counts
+    return counts, hist
 
 
 def step1_grads(cfg, sim, norm_state, dyn, static, plain):
@@ -615,17 +741,22 @@ def step1_grads(cfg, sim, norm_state, dyn, static, plain):
     return float(loss.detach()), grads
 
 
-def drive_training(cfg, pool, static, steps, per_step, n_real):
+def drive_training(cfg, pool, static, steps, per_step, n_real, pairs=None,
+                   compare=None):
     """The main path: `steps` train steps of cfg.net from
-    `init_train_state_block` (seed 0), each on the batch
+    `init_train_state_block` (seed 0; with `pairs` its GraphNet blocks take
+    the paired sparse applies), each on the batch
     `pool.block_batches(step_seed=k)` gives, `payback_block` after the
     last, with the counters set to 0 just before and read just after.
     Before it, step 1's gradients with the kernels against those with the
-    plain versions on the card. Returns the counts and the step times."""
+    plain versions on the card, and, where `compare` names another
+    simulator with the same weights, the distance of its step-1 gradients
+    on the same batch (logged). Returns the counts, the step times and the
+    peak memory."""
     from gen_fvgn_tpu_torch.training.train_block import (
         init_train_state_block, make_train_step_block)
-    name = f"{cfg.net} train"
-    state, sim = init_train_state_block(cfg, seed=0)
+    name = f"{cfg.net}{' paired' if pairs else ''} train"
+    state, sim = init_train_state_block(cfg, seed=0, **(pairs or {}))
     train_step = make_train_step_block(cfg, sim)
     start = [p.detach().clone() for p in sim.parameters()]
 
@@ -668,6 +799,19 @@ def drive_training(cfg, pool, static, steps, per_step, n_real):
             or not abs(loss_k - loss_p) <= 1e-4 * abs(loss_p):
         raise RuntimeError(f"{name}: step 1 gradients disagree with the "
                            f"plain versions")
+    if compare is not None:
+        loss_c, g_c = step1_grads(cfg, compare, state.norm_state, dyn, static,
+                                  False)
+        far = float(torch.sqrt(sum(((a.float() - b.float()) ** 2).sum()
+                                   for a, b in zip(g_k, g_c)))
+                    / torch.sqrt(sum((b.float() ** 2).sum() for b in g_c)))
+        log(f"{name} step 1 against the unpaired net's step 1 on the same "
+            f"batch and weights (kernels both): loss {loss_k:.7g} vs "
+            f"{loss_c:.7g}; relative norm of the gradient difference "
+            f"{far:.3g}")
+        if not np.isfinite(far):
+            raise RuntimeError(f"{name}: step 1 gradients not finite")
+        del g_c
     del g_k, g_p
 
     torch.cuda.synchronize()
@@ -774,12 +918,13 @@ def main():
     premlp_row = check_premlp(n_pad, flush_buf, gen)
     pool_row = check_slice_pool(static, flush_buf, gen)
     bwd_rows = check_backward(n_pad, e_pad, static, flush_buf, gen)
+    pair_rows = check_pairs(static, flush_buf, gen)
     del flush_buf
 
     # ---- phase 4: the TransFVGN_v2 rollout ----
-    drive(cfg.net, cfg, sim, norm_state, dyn, static, STEPS,
-          dict(spmm=18, fused_mlp_ln=14, fused_mlp_noln=1,
-               fused_premlp_res=2, fused_slice_pool=2), n_real)
+    _, hist = drive(cfg.net, cfg, sim, norm_state, dyn, static, STEPS,
+                    dict(spmm=18, fused_mlp_ln=14, fused_mlp_noln=1,
+                         fused_premlp_res=2, fused_slice_pool=2), n_real)
 
     # ---- phase 5: the FVGN rollout on the same statics ----
     fcfg = cfg.replace(net="FVGN")
@@ -796,25 +941,52 @@ def main():
     counts, _, _ = drive_training(cfg, pool, static, TRAIN_STEPS, per_step,
                                   n_real)
 
-    # ---- phase 7: the kernels line (launches: the main path's run) ----
+    # ---- phase 7: the paired path, TransFVGN_v2 with the EdgeBlocks'
+    # gather pair and the NodeBlocks' node pair (K8 forward, K9 backward),
+    # the same weights: rollout, then training ----
+    pairs = dict(gather_pair=True, node_pair=True)
+    psim = make_simulator_block(cfg, seed=0, **pairs)
+    _, phist = drive(f"{cfg.net} paired", cfg, psim, norm_state, dyn, static,
+                     PAIR_STEPS, dict(spmm=6, pair_sum=12, fused_mlp_ln=14,
+                                      fused_mlp_noln=1, fused_premlp_res=2,
+                                      fused_slice_pool=2), n_real)
+    del psim
+    gap = np.abs(phist[0]["uvp_node"] - hist[0]["uvp_node"])
+    log(f"{cfg.net} paired rollout step 1 against the unpaired rollout's "
+        f"step 1 (same weights, state and statics): uvp_node max gap "
+        f"{gap.max():.3g}, median {float(np.median(gap[:, :n_real])):.3g} "
+        f"(the node pair rounds its sum once, the composed form three "
+        f"times; the bf16 net amplifies such ulps)")
+    pair_per_step = dict(per_step, spmm=24, pair_sum=12, pair_transpose=6)
+    pair_counts, _, _ = drive_training(
+        cfg, pool, static, PAIR_STEPS, pair_per_step, n_real, pairs=pairs,
+        compare=make_simulator_block(cfg, seed=0))
+
+    # ---- phase 8: the kernels line (launches: the main path's run; the
+    # pair kernels', which the main path does not run: the paired path's) --
     big = {r["op"]: r for r in spmm_rows}["nbr_r"]
     edge = [r for r in ln_rows if r["variant"].startswith("edge_mlp")][0]
     pick = lambda r: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by")}
 
-    def entry(name, source, replaces, row, measured_on, library_ms=None):
+    def entry(name, source, replaces, row, measured_on, library_ms=None,
+              run=(counts, per_step)):
         return dict(name=name, route="cuda",
                     source=f"gen_fvgn_tpu_torch/csrc/{source}",
                     replaces=f"gen_fvgn_tpu/ops/{replaces}",
-                    launches=counts[name],
-                    launches_per_train_step=per_step[name],
+                    launches=run[0][name],
+                    launches_per_train_step=run[1][name],
                     max_abs_err=row["max_abs_err"], **pick(row),
                     library_ms=library_ms, measured_on=measured_on,
                     **({"err_over_tolerance": row["err_over_tolerance"]}
                        if "err_over_tolerance" in row else {}))
     # no single PyTorch call computes a fused MLP chain, the pre-LN MLP
     # branch with its residual, the slice pooling, or any of their
-    # backwards: library_ms is null for all but the spmm
+    # backwards: library_ms is null for all but the sparse applies
+    paired = (pair_counts, pair_per_step)
+    gpair = pair_rows["pair_sum[gather_pair]"]
+    npair = pair_rows["pair_sum[node_pair]"]
+    ptrans = pair_rows["pair_transpose[node_pair]"]
     kernels = [
         entry("spmm", "spmm.cu", "pallas_spmm.py:228",
               dict(big, max_abs_err=max(r["max_abs_err"]
@@ -838,10 +1010,19 @@ def main():
         entry("fused_slice_pool_bwd", "fused_slice_pool.cu",
               "fused_slice_attn.py:297", bwd_rows["fused_slice_pool_bwd"],
               "physics_attention"),
+        entry("pair_sum", "pair_spmm.cu", "pallas_spmm.py:484",
+              dict(gpair, max_abs_err=max(gpair["max_abs_err"],
+                                          npair["max_abs_err"])),
+              "gather_pair", gpair["library_ms"], paired),
+        entry("pair_transpose", "pair_spmm.cu", "pallas_spmm.py:574",
+              ptrans, "node_pair", ptrans["library_ms"], paired),
     ]
+    kernels[-2]["node_pair"] = {k: npair[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
-        raise RuntimeError(f"the main path launched no {missing}")
+        raise RuntimeError(f"the path that should run them launched no "
+                           f"{missing}")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -23,7 +23,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from gen_fvgn_tpu_torch.ops.blocksparse import apply_linop
+from gen_fvgn_tpu_torch.ops.blocksparse import (apply_gather_pair,
+                                                 apply_linop)
 
 
 class Gathered(NamedTuple):
@@ -38,6 +39,17 @@ class Gathered(NamedTuple):
     (edge) cardinality to the source (node) cardinality."""
     src: Any    # [(B,) Ns, w] source array
     op: Any     # LinOp with fwd.take_idx set, mapping [M ← Ns]
+
+
+class GatheredPair(NamedTuple):
+    """TWO consecutive Gathered parts sharing one source, fused: the
+    contribution y[s_e, :H] + y[r_e, H:] (y = src @ [W1_a | W1_b]) comes
+    from ONE pass of the pair-sum kernel K8 (`apply_gather_pair`) instead
+    of two row-gathers and an add. `ops` is the MeshOperators bundle with
+    gather_s / gather_r. It consumes TWO consecutive W1 row-blocks
+    (2 × src width)."""
+    src: Any    # [(B,) Ns, w] source array
+    ops: Any    # MeshOperators
 
 
 def _trunc_normal(shape, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -92,6 +104,17 @@ def _layer_norm(h, scale, bias, out_dtype, eps: float = 1e-6):
     return out.to(out_dtype)
 
 
+def _materialize(p):
+    """An input part as a tensor: a Gathered part gathered, a GatheredPair
+    as its two gathers concatenated."""
+    if isinstance(p, GatheredPair):
+        return torch.cat([apply_linop(p.ops.gather_s, p.src),
+                          apply_linop(p.ops.gather_r, p.src)], dim=-1)
+    if isinstance(p, Gathered):
+        return apply_linop(p.op, p.src)
+    return p
+
+
 class Mlp(nn.Module):
     """in_size → hidden → hidden → out_size, GELU (tanh form), optional LN.
 
@@ -127,7 +150,8 @@ class Mlp(nn.Module):
         concat(x, dim=-1) — the fused kernel consumes the parts directly so
         the concatenation never exists in device memory."""
         parts = tuple(x) if isinstance(x, (tuple, list)) else (x,)
-        widths = [p.src.shape[-1] if isinstance(p, Gathered)
+        widths = [2 * p.src.shape[-1] if isinstance(p, GatheredPair)
+                  else p.src.shape[-1] if isinstance(p, Gathered)
                   else p.shape[-1] for p in parts]
         k_total = sum(widths)
         if k_total != self.in_size:
@@ -144,7 +168,7 @@ class Mlp(nn.Module):
             offs.append(offs[-1] + w)
         dt = self.dtype
         plain = [(p, (offs[i], offs[i + 1])) for i, p in enumerate(parts)
-                 if not isinstance(p, Gathered)]
+                 if not isinstance(p, (Gathered, GatheredPair))]
         if (dt == torch.bfloat16 and ln is not None
                 and self.num_hidden_layers == 2 and plain
                 and plain[0][0].ndim in (2, 3)
@@ -154,7 +178,7 @@ class Mlp(nn.Module):
 
         if (dt == torch.bfloat16 and ln is None
                 and self.num_hidden_layers == 2 and len(parts) == 1
-                and not isinstance(parts[0], Gathered)
+                and not isinstance(parts[0], (Gathered, GatheredPair))
                 and parts[0].ndim in (2, 3) and k_total % 128 == 0
                 and self.hidden_size % 128 == 0
                 and self.residual_part is None):
@@ -168,9 +192,8 @@ class Mlp(nn.Module):
                                        lanes=_lanes(lead))
             return out.reshape(lead + (out.shape[-1],))
 
-        # ---- layer-by-layer path ----
-        parts = tuple(apply_linop(p.op, p.src) if isinstance(p, Gathered)
-                      else p for p in parts)
+        # ---- layer-by-layer path: the gathers materialized ----
+        parts = tuple(_materialize(p) for p in parts)
         x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
         def dense(h, w, b):
@@ -222,15 +245,25 @@ class Mlp(nn.Module):
                 pres=(flat(pre),), w1_rows=[], lanes=_lanes(lead))
             return unflat(out)
 
-        # Gathered parts: project the source by its W1 row-slice at source
-        # cardinality — one product PER part, so the gather reads full rows
-        # — then row-gather the projection; contributions sum in bf16
+        # a GatheredPair: project the source into BOTH halves' first-layer
+        # bases with one product, lane halves [ys | yr], then one pass of
+        # the pair-sum kernel. Gathered parts: project the source by its W1
+        # row-slice at source cardinality — one product PER part, so the
+        # gather reads full rows — then row-gather the projection;
+        # contributions sum in bf16
         pre = None
         for i, p in enumerate(parts):
-            if not isinstance(p, Gathered):
+            if isinstance(p, GatheredPair):
+                o0, o1 = offs[i], offs[i + 1]
+                half = (o1 - o0) // 2
+                w1cat = torch.cat([w1[o0:o0 + half], w1[o0 + half:o1]],
+                                  dim=-1)
+                contrib = apply_gather_pair(p.ops, project(p.src, w1cat))
+            elif isinstance(p, Gathered):
+                y = project(p.src, w1[offs[i]:offs[i + 1]])
+                contrib = apply_linop(p.op, y)
+            else:
                 continue
-            y = project(p.src, w1[offs[i]:offs[i + 1]])
-            contrib = apply_linop(p.op, y)
             pre = contrib if pre is None else pre + contrib
         res_plain = None
         if self.residual_part is not None:

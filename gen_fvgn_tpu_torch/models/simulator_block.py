@@ -1,6 +1,11 @@
 """Block-engine simulators (FVGN / TransFVGN v1 / v2), with parameter trees
 identical to the JAX package's `models/simulator_block.py` so converted
-checkpoints load key by key."""
+checkpoints load key by key.
+
+`gather_pair` / `node_pair` pick the paired sparse applies in every
+GraphNet block (models/gn_block.py), the counterparts of the JAX package's
+process-wide `use_gather_pair()` / `use_node_pair()`; both default to off,
+as there, and leave the parameter tree as it is."""
 
 from __future__ import annotations
 
@@ -29,12 +34,14 @@ class AttnProcessorB(nn.Module):
                  heads: int, slice_num: int,
                  dtype: Optional[torch.dtype] = None,
                  node_agg: str = "composed",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 gather_pair: bool = False, node_pair: bool = False):
         super().__init__()
         self.n_blocks = message_passing_num
         for i in range(message_passing_num):
             setattr(self, f"gn_{i}",
-                    GnBlockB(hidden_size, dtype, node_agg, generator))
+                    GnBlockB(hidden_size, dtype, node_agg, generator,
+                             gather_pair, node_pair))
         self.transolver = TransolverBlock(hidden_size, heads, slice_num,
                                           dtype=dtype, generator=generator)
 
@@ -53,7 +60,8 @@ class FVGNSimulatorB(nn.Module):
     -> [(B,) N, 3]."""
 
     def __init__(self, cfg: Config,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 gather_pair: bool = False, node_pair: bool = False):
         super().__init__()
         self.cfg = c = cfg
         dtype = _stream_dtype(c)
@@ -62,7 +70,8 @@ class FVGNSimulatorB(nn.Module):
         self.n_blocks = c.message_passing_num
         for i in range(c.message_passing_num):
             setattr(self, f"gn_{i}",
-                    GnBlockB(c.hidden_size, dtype, c.node_agg, generator))
+                    GnBlockB(c.hidden_size, dtype, c.node_agg, generator,
+                             gather_pair, node_pair))
         self.decoder = Decoder(c.node_output_size, c.hidden_size, dtype,
                                generator)
 
@@ -78,8 +87,9 @@ class TransFVGNv1B(FVGNSimulatorB):
     and the Decoder."""
 
     def __init__(self, cfg: Config,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(cfg, generator)
+                 generator: Optional[torch.Generator] = None,
+                 gather_pair: bool = False, node_pair: bool = False):
+        super().__init__(cfg, generator, gather_pair, node_pair)
         self.transolver = TransolverBlock(
             cfg.hidden_size, cfg.attn_heads, cfg.slice_num,
             dtype=_stream_dtype(cfg), generator=generator)
@@ -96,7 +106,8 @@ class TransFVGNv2B(nn.Module):
     a Transolver block each) → Decoder."""
 
     def __init__(self, cfg: Config,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 gather_pair: bool = False, node_pair: bool = False):
         super().__init__()
         self.cfg = c = cfg
         dtype = _stream_dtype(c)
@@ -105,7 +116,8 @@ class TransFVGNv2B(nn.Module):
         for i in range(2):
             setattr(self, f"processor_{i}", AttnProcessorB(
                 c.hidden_size, c.message_passing_num, c.attn_heads,
-                c.slice_num, dtype, c.node_agg, generator))
+                c.slice_num, dtype, c.node_agg, generator, gather_pair,
+                node_pair))
         self.decoder = Decoder(c.node_output_size, c.hidden_size, dtype,
                                generator)
 
@@ -121,14 +133,17 @@ NETS = {"FVGN": FVGNSimulatorB, "TransFVGN_v1": TransFVGNv1B,
         "TransFVGN_v2": TransFVGNv2B, "TransFVGN": TransFVGNv2B}
 
 
-def make_simulator_block(cfg: Config, device="cuda", seed: int = 0
+def make_simulator_block(cfg: Config, device="cuda", seed: int = 0,
+                         gather_pair: bool = False, node_pair: bool = False
                          ) -> nn.Module:
     """The block-engine simulator for cfg.net on `device`, weights drawn
     from torch.Generator().manual_seed(seed) (truncated normal 0.02, zero
-    bias, orthogonal slice kernels, temperature 0.5). device="cuda" without
-    a card raises."""
+    bias, orthogonal slice kernels, temperature 0.5), with the paired
+    sparse applies where asked (the same weights either way).
+    device="cuda" without a card raises."""
     dev = resolve_device(device)
     if cfg.net not in NETS:
         raise ValueError(f"unknown net {cfg.net!r}")
     gen = torch.Generator().manual_seed(seed)
-    return NETS[cfg.net](cfg, generator=gen).to(dev)
+    return NETS[cfg.net](cfg, generator=gen, gather_pair=gather_pair,
+                         node_pair=node_pair).to(dev)

@@ -32,7 +32,20 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from gen_fvgn_tpu_torch.models.mlp import _DenseParams, _layer_norm, _LnParams
+from gen_fvgn_tpu_torch.models.mlp import _DenseParams, _LnParams
+
+
+def _flax_layer_norm(h, scale, bias, out_dtype, eps: float = 1e-6):
+    """flax `nn.LayerNorm` in its own rounding order (fast variance,
+    float32 statistics): (x − μ) · (rstd · γ) + β. `models/mlp.py::
+    _layer_norm` rounds as ((x − μ) · rstd) · γ + β, which is right for
+    `Mlp`, whose JAX counterpart writes it out that way."""
+    h32 = h.to(torch.float32)
+    mu = h32.mean(dim=-1, keepdim=True)
+    var = torch.clamp((h32 * h32).mean(dim=-1, keepdim=True) - mu * mu,
+                      min=0.0)
+    mul = torch.rsqrt(var + eps) * scale.to(torch.float32)
+    return ((h32 - mu) * mul + bias.to(torch.float32)).to(out_dtype)
 
 
 def _dense(h, p: _DenseParams, dt: Optional[torch.dtype]):
@@ -158,9 +171,9 @@ class TransolverBlock(nn.Module):
                                           pre.bias, post.kernel, post.bias,
                                           dtype=dt)
         if dt == torch.bfloat16:
-            h = _layer_norm(x, ln.scale, ln.bias, out_dtype=dt)
+            h = _flax_layer_norm(x, ln.scale, ln.bias, out_dtype=dt)
         else:
-            h = _layer_norm(x.to(torch.float32), ln.scale, ln.bias,
-                            out_dtype=torch.float32)
+            h = _flax_layer_norm(x.to(torch.float32), ln.scale, ln.bias,
+                                 out_dtype=torch.float32)
         h = F.gelu(_dense(h, pre, dt), approximate="tanh")
         return x + _dense(h, post, dt)

@@ -2,13 +2,15 @@
 
 `plain_versions()` is the one switch between the kernels and their plain
 PyTorch versions: inside it the dispatching callers (`apply_linop`,
-`fused_mlp_ln_parts`, `fused_mlp_noln_parts`, `fused_premlp_res_parts`,
-`fused_slice_pool`) call `spmm_reference`, `fused_mlp_ln_reference`,
+`apply_gather_pair`, `apply_node_pair`, `fused_mlp_ln_parts`,
+`fused_mlp_noln_parts`, `fused_premlp_res_parts`, `fused_slice_pool`) call
+`spmm_reference`, `pair_sum_reference`, `fused_mlp_ln_reference`,
 `fused_mlp_noln_reference`, `fused_premlp_res_reference` and
 `fused_slice_pool_reference` on whatever device the data is on, and their
 autograd Functions take the backward's plain versions
-(`fused_mlp_ln_bwd_reference`, `fused_mlp_noln_bwd_reference`,
-`fused_premlp_res_bwd_reference`, `fused_slice_pool_bwd_reference`). It is
+(`pair_transpose_reference`, `fused_mlp_ln_bwd_reference`,
+`fused_mlp_noln_bwd_reference`, `fused_premlp_res_bwd_reference`,
+`fused_slice_pool_bwd_reference`). It is
 entered only by the eval step's `plain_kernels=True` argument and by
 `chip_smoke.py` (the on-card comparisons of a kernel step with a plain
 step, and of their gradients) and by tests.

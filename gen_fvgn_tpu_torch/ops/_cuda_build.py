@@ -24,7 +24,7 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("spmm.cu", "fused_mlp.cu", "fused_premlp.cu",
+SOURCES = ("spmm.cu", "pair_spmm.cu", "fused_mlp.cu", "fused_premlp.cu",
            "fused_slice_pool.cu")
 HEADERS = ("lane_reduce.cuh",)   # included by the sources: in the hash too
 # -fmad=false: no silent a*b+c contraction, so the kernels' float32
@@ -102,6 +102,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         ci, ci, ci, ci,        # B, n_in, n_out, F
         ci, ci,                # x_is_bf16, out_is_bf16
         vp]                    # stream
+    for name in ("gfvgn_pair_sum", "gfvgn_pair_transpose"):
+        fn = getattr(lib, name)
+        fn.restype = ci
+        fn.argtypes = [
+            vp, vp, vp,        # A: crow, col, val
+            vp, vp, vp,        # B: crow, col, val
+            vp, vp,            # operand, out
+            ci, ci, ci, ci,    # B, n_in, n_out, H
+            ci, ci,            # operand_is_bf16, out_is_bf16
+            vp]                # stream
     lib.gfvgn_fused_mlp.restype = ci
     lib.gfvgn_fused_mlp.argtypes = [
         vp, vp, ci, ci,        # part0, part1, width0, width1 (0 = absent)

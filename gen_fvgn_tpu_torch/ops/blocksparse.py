@@ -23,6 +23,12 @@ row-gather route) go to the `spmm` CUDA kernel (ops/spmm.py) — the JAX
 dispatch rule for its Pallas kernels. Narrower applies (edge_diff at 12
 channels, the float32 FV/WLSQ streams) are outside any kernel in the JAX
 package as well; here they are one `torch.sparse` CSR product.
+
+`apply_gather_pair` and `apply_node_pair` are the paired applies of the
+JAX package's `use_gather_pair()` / `use_node_pair()` forms: two operators
+with the same rows applied to the two halves of one operand and summed
+through one float32 accumulator (kernel K8, ops/pair_spmm.py); the node
+pair's backward applies both stored transposes in one pass (K9).
 """
 
 from __future__ import annotations
@@ -170,15 +176,20 @@ def csr_matmul(op: CsrOp, x: torch.Tensor) -> torch.Tensor:
     states (ops/spmm.py::spmm_reference)."""
     out_dtype = _out_dtype(op, x)
     xin = x.to(torch.bfloat16) if op.dtype == torch.bfloat16 else x
-    xf = xin.to(torch.float32).contiguous()
+    return csr_matmul_f32(op, xin).to(out_dtype).contiguous()
+
+
+def csr_matmul_f32(op: CsrOp, x: torch.Tensor) -> torch.Tensor:
+    """A @ x as one `torch.sparse` CSR product in float32, unrounded: x is
+    taken as it is (no cast for a bf16-stored operator), the batch of
+    [B, n_in, F] folded into the columns."""
+    xf = x.to(torch.float32).contiguous()
     a = op.csr()
     if x.ndim == 2:
-        out = torch.sparse.mm(a, xf)
-    else:
-        b, n_in, f = xf.shape
-        flat = xf.permute(1, 0, 2).reshape(n_in, b * f)
-        out = torch.sparse.mm(a, flat).reshape(op.n_out, b, f).permute(1, 0, 2)
-    return out.to(out_dtype).contiguous()
+        return torch.sparse.mm(a, xf)
+    b, n_in, f = xf.shape
+    flat = xf.permute(1, 0, 2).reshape(n_in, b * f)
+    return torch.sparse.mm(a, flat).reshape(op.n_out, b, f).permute(1, 0, 2)
 
 
 def _apply_csr_op(op: CsrOp, x: torch.Tensor,
@@ -228,6 +239,74 @@ def apply_linop(op: LinOp, x: torch.Tensor) -> torch.Tensor:
     autograd the backward applies `op.bwd` (see `_ApplyLinop`)."""
     from gen_fvgn_tpu_torch.ops import plain_versions_active
     return _ApplyLinop.apply(x, op, plain_versions_active())
+
+
+class _GatherPair(torch.autograd.Function):
+    """pres = Gs·y[..., :H] + Gr·y[..., H:] through K8, and the JAX rule's
+    backward dy = [Gsᵀ·g | Grᵀ·g]: two applies on the stored transposes
+    (K1 at widths that are multiples of 128), not K9, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, y, ops, plain):
+        from gen_fvgn_tpu_torch.ops.pair_spmm import (pair_sum,
+                                                      pair_sum_reference)
+        ctx.ops, ctx.plain, ctx.y_dtype = ops, plain, y.dtype
+        return (pair_sum_reference if plain else pair_sum)(
+            ops.gather_s.fwd, ops.gather_r.fwd, y, out_dtype=y.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        dy = torch.cat([_apply_csr_op(ctx.ops.gather_s.bwd, g, ctx.plain),
+                        _apply_csr_op(ctx.ops.gather_r.bwd, g, ctx.plain)],
+                       dim=-1)
+        return dy.to(ctx.y_dtype), None, None
+
+
+def apply_gather_pair(ops, y: torch.Tensor) -> torch.Tensor:
+    """pres = y[s_e, :H] + y[r_e, H:] for a MeshOperators bundle (JAX
+    `ops/blocksparse.py::apply_gather_pair`): y [(B,) n_nodes, 2H] ->
+    [(B,) n_edges, H] in y's type. Unlike the take route, padded edge rows
+    come out zero (the gather operators have no entries there)."""
+    from gen_fvgn_tpu_torch.ops import plain_versions_active
+    return _GatherPair.apply(y, ops, plain_versions_active())
+
+
+class _NodePair(torch.autograd.Function):
+    """nbr_sum = nbr_r·y[..., :h] + nbr_s·y[..., h:] through K8, backward
+    dy = [nbr_rᵀ·g | nbr_sᵀ·g] through K9 on the stored transposes. Both
+    wrappers round their operand (y, or a float32 cotangent) to bf16 for
+    bf16-stored operators, and both outputs take the type of y so cast."""
+
+    @staticmethod
+    def forward(ctx, y, ops, plain):
+        from gen_fvgn_tpu_torch.ops.pair_spmm import (pair_sum,
+                                                      pair_sum_reference)
+        ctx.ops, ctx.plain, ctx.y_dtype = ops, plain, y.dtype
+        ctx.x_dtype = torch.bfloat16 \
+            if ops.nbr_r.fwd.dtype == torch.bfloat16 else y.dtype
+        return (pair_sum_reference if plain else pair_sum)(
+            ops.nbr_r.fwd, ops.nbr_s.fwd, y, out_dtype=ctx.x_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        from gen_fvgn_tpu_torch.ops.pair_spmm import (
+            pair_transpose, pair_transpose_reference)
+        dy = (pair_transpose_reference if ctx.plain else pair_transpose)(
+            ctx.ops.nbr_r.bwd, ctx.ops.nbr_s.bwd, g.contiguous(),
+            out_dtype=ctx.x_dtype)
+        return dy.to(ctx.y_dtype), None, None
+
+
+def apply_node_pair(ops, y: torch.Tensor) -> torch.Tensor:
+    """The composed NodeBlock aggregation in one pass (JAX
+    `ops/blocksparse.py::apply_node_pair`): y [(B,) n_edges, 2h] ->
+    [(B,) n_nodes, h]. The operand is cast to bf16 when `nbr_r` is stored
+    bf16 and the output takes the type of that cast operand — so in the
+    float32 configuration with bf16-stored operators the aggregation comes
+    out bf16, as in JAX (a reference quirk, kept)."""
+    from gen_fvgn_tpu_torch.ops import plain_versions_active
+    return _NodePair.apply(y, ops, plain_versions_active())
 
 
 # ---------- host-side COO triplets of the standard mesh operators ----------

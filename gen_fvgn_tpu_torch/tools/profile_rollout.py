@@ -1,12 +1,14 @@
 """Where a rollout step's, or a train step's, time goes on the card.
 
     python -m gen_fvgn_tpu_torch.tools.profile_rollout [--net TransFVGN_v2]
-        [--steps 20] [--batch 8] [--train]
+        [--steps 20] [--batch 8] [--train] [--gather-pair] [--node-pair]
 
 Sets up the port's main path (the Config defaults: TransFVGN_v2, hidden
 128, 2 processors of 3 blocks and a Transolver block, 8 heads, 32 slices,
 bf16 stream; or --net FVGN / TransFVGN_v1 at the same widths; batch 8,
-101x101-node synthetic cavity, seeded random weights), then prints
+101x101-node synthetic cavity, seeded random weights; with --gather-pair
+and --node-pair the GraphNet blocks take the paired sparse applies, kernels
+K8 and K9, on the same weights), then prints
 
   * the card's name and power limit;
   * ms per step on the host clock (ending in a synchronize) for
@@ -35,10 +37,12 @@ import torch
 
 
 def build_main_path(batch: int = 8, mesh_n: int = 100, device="cuda",
-                    seed: int = 0, net: str = "TransFVGN_v2"):
+                    seed: int = 0, net: str = "TransFVGN_v2",
+                    gather_pair: bool = False, node_pair: bool = False):
     """(cfg, pool, static, dyn, simulator, norm_state) of the main path at
     full width: the Config defaults (net "TransFVGN_v2"), or another net
-    at the same widths."""
+    at the same widths; the simulator with the paired sparse applies where
+    asked."""
     from gen_fvgn_tpu_torch import Config
     from gen_fvgn_tpu_torch.meshes.synthetic import (cavity_quad_mesh,
                                                      synthetic_case)
@@ -54,7 +58,8 @@ def build_main_path(batch: int = 8, mesh_n: int = 100, device="cuda",
     pool = EnvPool([], cfg, seed=seed, cases=[case], dataset_size=batch,
                    device=device)
     dyn = pool.gather_block(np.arange(batch))
-    sim = make_simulator_block(cfg, device=device, seed=seed)
+    sim = make_simulator_block(cfg, device=device, seed=seed,
+                               gather_pair=gather_pair, node_pair=node_pair)
     norm_state = init_normalizer(cfg.node_input_size - cfg.node_phi_size,
                                  device=device)
     return cfg, pool, pool.statics[0], dyn, sim, norm_state
@@ -69,6 +74,10 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--train", action="store_true",
                     help="profile train steps instead of rollout steps")
+    ap.add_argument("--gather-pair", action="store_true",
+                    help="the EdgeBlocks' paired gather (kernel K8)")
+    ap.add_argument("--node-pair", action="store_true",
+                    help="the NodeBlocks' paired aggregation (K8, K9)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_rollout needs one CUDA card")
@@ -81,10 +90,11 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
     print(f"card: {card}")
+    pairs = dict(gather_pair=args.gather_pair, node_pair=args.node_pair)
     cfg, pool, static, dyn, sim, ns = build_main_path(batch=args.batch,
-                                                      net=args.net)
+                                                      net=args.net, **pairs)
     print(f"net {cfg.net}, batch {args.batch}, {static.pos.shape[0]} padded "
-          f"nodes")
+          f"nodes, {pairs}")
     n = args.steps
 
     def timed(fn):
@@ -97,7 +107,7 @@ def main(argv=None) -> int:
     if args.train:
         from gen_fvgn_tpu_torch.training.train_block import (
             init_train_state_block, make_train_step_block)
-        state, tsim = init_train_state_block(cfg, seed=0)
+        state, tsim = init_train_state_block(cfg, seed=0, **pairs)
         train_step = make_train_step_block(cfg, tsim)
         _, idxs = pool.block_batches(step_seed=0)[0]
         tdyn = pool.gather_block(idxs)
@@ -155,7 +165,8 @@ def main(argv=None) -> int:
               "time); idle share: not measured")
         return 0
     ours = sum(r[0] for r in rows if any(
-        k in r[2] for k in ("spmm_csr_kernel", "fused_mlp_", "premlp_",
+        k in r[2] for k in ("spmm_csr_kernel", "pair_sum_kernel",
+                            "pair_transpose_kernel", "fused_mlp_", "premlp_",
                             "slice_pool_", "lane_reduce")))
     print(f"device busy: {busy:.3f} ms/step ({ours:.3f} in the port's "
           f"kernels); idle share {1 - busy / wall:.3f}; "

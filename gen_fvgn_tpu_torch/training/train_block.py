@@ -3,8 +3,9 @@
 Counterpart of `gen_fvgn_tpu/training/train_block.py`
 (`init_train_state_block`, `make_train_step_block`, :26-164): forward with
 normalizer accumulation, the log loss, the backward through the kernels'
-backward passes (K1 on the stored transposes, K3, K4b, K5b, K7), one Adam
-step with the learning rate of `step_exp_lr(epoch)`. The batch is a stacked
+backward passes (K1 on the stored transposes, K3, K4b, K5b, K7, and K9
+where the NodeBlocks take the node pair), one Adam step with the learning
+rate of `step_exp_lr(epoch)`. The batch is a stacked
 DynamicPack; the case's StaticPack is shared. `MixedTrainStepBlock` and
 `make_scan_train` belong to a later slice.
 
@@ -36,14 +37,18 @@ from gen_fvgn_tpu_torch.training.train import (StepMetrics, TrainState,
 from gen_fvgn_tpu_torch.utils.device import resolve_device, same_device
 
 
-def init_train_state_block(cfg: Config, seed: int = 0, device="cuda"):
+def init_train_state_block(cfg: Config, seed: int = 0, device="cuda",
+                           gather_pair: bool = False,
+                           node_pair: bool = False):
     """(TrainState, simulator) for cfg.net on `device`: weights from
     torch.Generator().manual_seed(seed), a fresh Adam, the initial
-    normalizer. (The JAX function also takes an example batch, from which
-    flax shapes its parameters; the port's modules know their shapes from
-    cfg.) device="cuda" without a card raises."""
+    normalizer; `gather_pair` / `node_pair` as in `make_simulator_block`.
+    (The JAX function also takes an example batch, from which flax shapes
+    its parameters; the port's modules know their shapes from cfg.)
+    device="cuda" without a card raises."""
     dev = resolve_device(device)
-    sim = make_simulator_block(cfg, device=dev, seed=seed)
+    sim = make_simulator_block(cfg, device=dev, seed=seed,
+                               gather_pair=gather_pair, node_pair=node_pair)
     state = TrainState(
         simulator=sim, optimizer=make_optimizer(cfg, sim.parameters()),
         norm_state=init_normalizer(cfg.node_input_size - cfg.node_phi_size,

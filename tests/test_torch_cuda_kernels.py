@@ -7,8 +7,10 @@ test, never while the module is imported). Run them on the card with
 
 `chip_smoke.py` makes the same comparisons at the main path's full shapes;
 these cover the edges: ragged row counts, every operand/output type of the
-sparse apply, unbatched operands, all-zero and partial node masks, shared
-and per-lane masks, and the bitwise repeatability of the slice pool."""
+sparse apply and of the paired applies (K8, K9: B = 1, empty rows, float32
+operands, H = 64 and 128), unbatched operands, all-zero and partial node
+masks, shared and per-lane masks, and the bitwise repeatability of the
+slice pool."""
 
 import numpy as np
 import pytest
@@ -75,6 +77,63 @@ def test_spmm_kernel_refuses_what_it_does_not_take():
     with pytest.raises(TypeError):
         mod.spmm(op, torch.zeros(op.n_in, 128, device="cuda",
                                  dtype=torch.float16))
+
+
+@pytest.mark.parametrize("op_dtype,x_dtype", [
+    ("bfloat16", torch.bfloat16), ("bfloat16", torch.float32),
+    ("float32", torch.float32), ("float32", torch.bfloat16)])
+@pytest.mark.parametrize("b", [1, 3, None])
+@pytest.mark.parametrize("h", [64, 128, 48])
+@pytest.mark.parametrize("kind", ["pair_sum", "pair_transpose"])
+def test_pair_kernels_match_plain_versions(kind, h, b, op_dtype, x_dtype):
+    """K8 and K9 on two operators whose last 50 rows are empty: every type
+    pair of the rule, B = 1 and an unbatched operand, H = 64 (the node
+    pair), 128 (the gather pair) and 48 (one feature a lane). A bf16
+    output is one rounding from the plain version, a float32 one differs
+    by the order of float32 sums."""
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import pair_spmm as mod
+    a, bop = _op(op_dtype, seed=0), _op(op_dtype, seed=1)
+    width = 2 * h if kind == "pair_sum" else h
+    size = (a.n_in, width) if b is None else (b, a.n_in, width)
+    x = torch.randn(*size, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(h)
+                    ).to(x_dtype)
+    counter = "LAUNCHES_" + kind.upper()
+    before = getattr(mod, counter)
+    out = getattr(mod, kind)(a, bop, x)
+    again = getattr(mod, kind)(a, bop, x)
+    torch.cuda.synchronize()
+    assert getattr(mod, counter) == before + 2
+    ref = getattr(mod, kind + "_reference")(a, bop, x)
+    bf_out = op_dtype == "bfloat16" and x_dtype == torch.bfloat16
+    assert out.dtype == ref.dtype == (torch.bfloat16 if bf_out
+                                      else torch.float32)
+    assert out.shape == ref.shape and torch.equal(out, again)
+    assert out.shape[-1] == (h if kind == "pair_sum" else 2 * h)
+    tol = 2 ** -8 if bf_out else 1e-5
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=1e-5)
+    assert bool((out[..., a.n_out - 50:, :] == 0).all())
+
+
+def test_pair_kernels_out_dtype_and_refusals():
+    """The node pair's named output type (bf16 from a float32 operand cast
+    by bf16-stored operators, as JAX), and what the kernels do not take."""
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import pair_spmm as mod
+    a, bop = _op("bfloat16", seed=0), _op("bfloat16", seed=1)
+    y = torch.randn(2, a.n_in, 128, device="cuda")
+    out = mod.pair_sum(a, bop, y, out_dtype=torch.bfloat16)
+    ref = mod.pair_sum_reference(a, bop, y, out_dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -8,
+                               atol=1e-5)
+    with pytest.raises(ValueError):
+        mod.pair_sum(a, bop, y[..., :127].contiguous())       # odd width
+    with pytest.raises(TypeError):
+        mod.pair_transpose(a, bop, y.to(torch.float16))
+    with pytest.raises(ValueError):
+        mod.pair_sum(a, _op("bfloat16", n_out=999, seed=1), y)
 
 
 def _mlp_args(m, widths, has_pre, d_out, seed):

@@ -51,6 +51,7 @@ def test_importing_the_port_loads_no_jax_module():
             for m in mods]
     assert {"gen_fvgn_tpu_torch.models.transolver",
             "gen_fvgn_tpu_torch.ops.fused_slice_attn",
+            "gen_fvgn_tpu_torch.ops.pair_spmm",
             "gen_fvgn_tpu_torch.training.train",
             "gen_fvgn_tpu_torch.training.train_block"} <= set(mods)
     code = ("import importlib, sys\n"

@@ -162,10 +162,11 @@ def torch_norm_state(stats):
     return normalizer_from_numpy(device="cpu", **stats)
 
 
-def torch_simulator(tcfg, np_tree):
+def torch_simulator(tcfg, np_tree, gather_pair=False, node_pair=False):
     from gen_fvgn_tpu_torch.convert import params_from_flax
     from gen_fvgn_tpu_torch.models.simulator_block import make_simulator_block
-    sim = make_simulator_block(tcfg, device="cpu")
+    sim = make_simulator_block(tcfg, device="cpu", gather_pair=gather_pair,
+                               node_pair=node_pair)
     sim.load_state_dict(params_from_flax(to_plain_dict(np_tree)), strict=True)
     return sim
 
@@ -198,21 +199,28 @@ def random_state(jdyn, tdyn, node_mask, seed=2):
 
 
 @contextlib.contextmanager
-def jax_kernels_on():
+def jax_kernels_on(pairs=False):
     """The JAX package's Pallas kernels on (the fused MLPs, the fused slice
-    attention and the spmm; interpret mode on the CPU), its module-level
-    switches restored on exit."""
+    attention and the spmm; interpret mode on the CPU), with `pairs` also
+    its paired sparse applies (`use_gather_pair`, `use_node_pair`: the
+    kernels `pallas_gather_pair` and `pallas_pair_transpose`); its
+    module-level switches restored on exit."""
     from gen_fvgn_tpu.models import mlp as jmlp
     from gen_fvgn_tpu.models import transolver as jtr
     from gen_fvgn_tpu.ops import blocksparse as jbs
     saved = (jmlp._FUSED_ENABLED, jtr._FUSED_ATTN, jbs._USE_PALLAS,
-             jbs._PALLAS_MODE)
+             jbs._PALLAS_MODE, jbs._GATHER_PAIR, jbs._NODE_PAIR)
     jmlp.use_fused_mlp(True)
     jtr.use_fused_attn(True)
     jbs.use_pallas_spmm(True)
+    if pairs:
+        jbs.use_gather_pair(True)
+        jbs.use_node_pair(True)
     try:
         yield
     finally:
         jmlp.use_fused_mlp(saved[0])
         jtr.use_fused_attn(saved[1])
         jbs.use_pallas_spmm(saved[2], saved[3])
+        jbs.use_gather_pair(saved[4])
+        jbs.use_node_pair(saved[5])
