@@ -5,8 +5,9 @@
 
 Builds the port's CUDA kernels from `gen_fvgn_tpu_torch/csrc/` with nvcc,
 holds each kernel, forward and backward, against its plain PyTorch version
-on the card at the shapes of the main path (the paired sparse applies K8
-and K9 at the paired path's), then drives four paths on the
+on the card at the shapes of the main path (the fused MLP kernels K2, K3,
+K4f and K4b at hidden width 128 and again at 256; the paired sparse
+applies K8 and K9 at the paired path's), then drives five paths on the
 101x101-node synthetic cavity at batch 8, with weights from
 torch.Generator().manual_seed(0), all with the Config's defaults
 (TransFVGN_v2: hidden 128, 2 processors of 3 message-passing blocks and a
@@ -32,12 +33,18 @@ Transolver block each, 8 heads, 32 slices, bf16 stream) unless named:
     the MLP/attention counts of the main path), each step 1 held against
     the plain versions on the card and logged against the unpaired net's
     step 1. The main path launches neither pair kernel, so their launches
-    in the kernels line are the paired train steps'.
+    in the kernels line are the paired train steps';
+  * FVGN at hidden width 256 (the MLP kernels at H = 256; the node MLP's
+    parts 128 + 256 wide) at batch 2 on the same statics: one rollout step
+    (9 spmm, 8 fused_mlp_ln, 1 fused_mlp_noln) and one train step (24
+    spmm, 8 + 8 fused_mlp_ln, 1 + 1 fused_mlp_noln), the rollout step and
+    step 1's gradients held against the plain versions on the card.
 
 Each path's launch counters are set to 0 just before it and read just
 after; the script checks them, finite outputs, zero padded nodes, a state
 or parameters that move, and step 1 of each rollout against the same step
-run with the kernels' plain versions on the card.
+run with the kernels' plain versions on the card. The kernels line lists
+the K2/K3/K4f/K4b times at hidden 256 under "hidden_256".
 
 Needs one CUDA card and nvcc; exits non-zero without them, and on any phase
 that fails. float32 products run in full float32: TF32 is switched off
@@ -277,16 +284,17 @@ def check_pairs(static, flush_buf, gen):
     return rows
 
 
-def mlp_weights(gen, k_total, d_out):
+def mlp_weights(gen, k_total, d_out, h=128):
     g = lambda *s: torch.randn(*s, generator=gen, device="cuda")
-    return dict(w1=g(k_total, 128) / max(k_total, 1) ** 0.5, b1=0.1 * g(128),
-                w2=g(128, 128) / 128 ** 0.5, b2=0.1 * g(128),
-                w3=g(128, d_out) / 128 ** 0.5, b3=0.1 * g(d_out),
+    return dict(w1=g(k_total, h) / max(k_total, 1) ** 0.5, b1=0.1 * g(h),
+                w2=g(h, h) / h ** 0.5, b2=0.1 * g(h),
+                w3=g(h, d_out) / h ** 0.5, b3=0.1 * g(d_out),
                 gamma=1.0 + 0.1 * g(d_out), beta=0.1 * g(d_out))
 
 
-def check_fused_ln(n_pad, e_pad, flush_buf, gen):
-    """K2 in the variants of the main path."""
+def check_fused_ln(n_pad, e_pad, flush_buf, gen, h=128):
+    """K2 in the variants of the main path at hidden width h (the node MLP's
+    first part is h/2 wide, the edge MLP's W1 3h rows, as in the nets)."""
     from gen_fvgn_tpu_torch.ops.fused_mlp import (fused_mlp_ln,
                                                   fused_mlp_ln_reference)
     bf = torch.bfloat16
@@ -296,19 +304,20 @@ def check_fused_ln(n_pad, e_pad, flush_buf, gen):
         # name, M, part widths, has pre, w1 rows, res_idx, res_dual
         ("node_encoder(pres-only)", mn, [], True, 12, None, False),
         ("edge_encoder(pres-only)", me, [], True, 15, None, False),
-        ("edge_mlp(part+pre,dual)", me, [128], True, 384, 0, True),
-        ("node_mlp(parts 64+128,res)", mn, [64, 128], False, 192, 1, False),
+        ("edge_mlp(part+pre,dual)", me, [h], True, 3 * h, 0, True),
+        (f"node_mlp(parts {h // 2}+{h},res)", mn, [h // 2, h], False,
+         h // 2 + h, 1, False),
     ]
     rows = []
     for name, m, widths, has_pre, k_total, res_idx, res_dual in variants:
-        w = mlp_weights(gen, k_total, 128)
+        w = mlp_weights(gen, k_total, h, h)
         parts = [rnd(m, k) for k in widths]
         k1 = sum(widths)
         w1s, off = [], k_total - k1        # the parts own the LAST rows of W1
         for k in widths:
             w1s.append(w["w1"][off:off + k].to(bf).contiguous())
             off += k
-        pres = (rnd(m, 128),) if has_pre else ()
+        pres = (rnd(m, h),) if has_pre else ()
         args = (parts, w1s, w["b1"], w["w2"].to(bf), w["b2"], w["w3"].to(bf),
                 w["b3"], w["gamma"], w["beta"], pres)
         run = lambda: fused_mlp_ln(*args, res_idx=res_idx, res_dual=res_dual)
@@ -324,34 +333,33 @@ def check_fused_ln(n_pad, e_pad, flush_buf, gen):
             t = ulps_of_scale(r, 2)
             if a > t or o.dtype != bf or not bool(torch.isfinite(o).all()):
                 raise RuntimeError(
-                    f"fused_mlp_ln[{name}] disagrees with its plain version: "
-                    f"max abs {a} > {t}")
+                    f"fused_mlp_ln[{name}] H={h} disagrees with its plain "
+                    f"version: max abs {a} > {t}")
             max_abs, max_rel, tol = max(max_abs, a), max(max_rel, rl), max(tol, t)
         ms = median_ms(run, flush_buf)
         plain_ms = median_ms(run_ref, flush_buf, iters=5, warmup=1)
         moved = (nbytes(*parts, *pres, *outs, *w1s, args[3], args[5])
-                 + 4 * 5 * 128)
-        bound_ms, bound_by = bound(
-            moved, 2.0 * m * (k1 * 128 + 128 * 128 + 128 * 128))
-        rows.append(dict(variant=name, m=m, max_abs_err=max_abs,
+                 + 4 * 5 * h)
+        bound_ms, bound_by = bound(moved, 2.0 * m * (k1 * h + 2 * h * h))
+        rows.append(dict(variant=name, h=h, m=m, max_abs_err=max_abs,
                          max_rel_err=max_rel, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by))
-        log(f"kernel fused_mlp_ln[{name}] M={m} bf16: "
+        log(f"kernel fused_mlp_ln[{name}] H={h} M={m} bf16: "
             f"max_abs_err={max_abs:.3g} max_rel_err={max_rel:.3g} "
             f"(tolerance {tol:.3g} abs = 2 bf16 ulps of the output scale) "
             f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={rows[-1]['bound_ms']:.4f}")
+            f"bound_ms={bound_ms:.4f} ({bound_by})")
     return rows
 
 
-def check_fused_noln(n_pad, flush_buf, gen):
-    """K4f at the decoder's shape: [8*N, 128] bf16 -> [8*N, 3]."""
+def check_fused_noln(n_pad, flush_buf, gen, h=128):
+    """K4f at the decoder's shape: [8*N, h] bf16 -> [8*N, 3]."""
     from gen_fvgn_tpu_torch.ops.fused_mlp import (fused_mlp_noln,
                                                   fused_mlp_noln_reference)
     bf = torch.bfloat16
     m = BATCH * n_pad
-    w = mlp_weights(gen, 128, 3)
-    x = torch.randn(m, 128, generator=gen, device="cuda").to(bf)
+    w = mlp_weights(gen, h, 3, h)
+    x = torch.randn(m, h, generator=gen, device="cuda").to(bf)
     args = (x, w["w1"].to(bf), w["b1"], w["w2"].to(bf), w["b2"],
             w["w3"].to(bf).contiguous(), w["b3"])
     out, ref = fused_mlp_noln(*args), fused_mlp_noln_reference(*args)
@@ -359,20 +367,19 @@ def check_fused_noln(n_pad, flush_buf, gen):
     max_abs, max_rel = err_stats(out, ref)
     tol = ulps_of_scale(ref, 2)
     if max_abs > tol or tuple(out.shape) != (m, 3) or out.dtype != bf:
-        raise RuntimeError(f"fused_mlp_noln disagrees with its plain version:"
-                           f" max abs {max_abs} > {tol}")
+        raise RuntimeError(f"fused_mlp_noln H={h} disagrees with its plain "
+                           f"version: max abs {max_abs} > {tol}")
     ms = median_ms(lambda: fused_mlp_noln(*args), flush_buf)
     plain_ms = median_ms(lambda: fused_mlp_noln_reference(*args), flush_buf,
                          iters=5, warmup=1)
-    moved = nbytes(x, out, args[1], args[3], args[5]) + 4 * (128 + 128 + 3)
-    bound_ms, bound_by = bound(moved,
-                               2.0 * m * (128 * 128 + 128 * 128 + 128 * 3))
-    row = dict(m=m, max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
+    moved = nbytes(x, out, args[1], args[3], args[5]) + 4 * (h + h + 3)
+    bound_ms, bound_by = bound(moved, 2.0 * m * (2 * h * h + h * 3))
+    row = dict(h=h, m=m, max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-    log(f"kernel fused_mlp_noln M={m} bf16 -> [M,3]: max_abs_err={max_abs:.3g}"
-        f" max_rel_err={max_rel:.3g} (tolerance {tol:.3g} abs = 2 bf16 ulps "
-        f"of the output scale) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"bound_ms={row['bound_ms']:.4f}")
+    log(f"kernel fused_mlp_noln H={h} M={m} bf16 -> [M,3]: "
+        f"max_abs_err={max_abs:.3g} max_rel_err={max_rel:.3g} (tolerance "
+        f"{tol:.3g} abs = 2 bf16 ulps of the output scale) ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
     return row
 
 
@@ -537,28 +544,27 @@ def with_bound(row, m, moved, tensor_flops, f32_flops=0.0):
     return dict(row, m=m, bound_ms=bound_ms, bound_by=bound_by)
 
 
-def check_backward(n_pad, e_pad, static, flush_buf, gen):
-    """K3 on the edge MLP's form (a 128-wide part owning the last W1 rows,
-    a pre, the residual on the part with both outputs), K4b at the
-    decoder's shape, K5b at the Transolver MLP's and K7 at the attention's,
-    each against its plain version; rows batch-major, 8 lanes."""
+def check_mlp_backward(n_pad, e_pad, flush_buf, gen, h=128):
+    """K3 on the edge MLP's form at hidden width h (an h-wide part owning
+    the last W1 rows, a pre, the residual on the part with both outputs)
+    and K4b at the decoder's shape, each against its plain version and
+    twice for the same bits; rows batch-major, 8 lanes."""
     from gen_fvgn_tpu_torch.ops import fused_mlp as fm
-    from gen_fvgn_tpu_torch.ops import fused_slice_attn as fsa
     bf = torch.bfloat16
     g = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     rows = {}
-    h, sq = 128, 128 * 128
+    sq = h * h
 
     # K3: edge MLP, M = 8 * padded faces
     m = BATCH * e_pad
-    w = mlp_weights(gen, 384, 128)
+    w = mlp_weights(gen, 3 * h, h, h)
     part, pre = g(m, h).to(bf), g(m, h).to(bf)
     douts = [g(m, h).to(bf), g(m, h).to(bf)]
-    args = ([part], [w["w1"][256:].to(bf).contiguous()], w["b1"],
+    args = ([part], [w["w1"][2 * h:].to(bf).contiguous()], w["b1"],
             w["w2"].to(bf), w["b2"], w["w3"].to(bf), w["b3"], w["gamma"],
             [pre], douts, 0, True, BATCH)
     out, row = hold_backward(
-        "fused_mlp_ln_bwd[edge_mlp(part+pre,dual)]",
+        f"fused_mlp_ln_bwd[edge_mlp(part+pre,dual)] H={h}",
         lambda: fm.fused_mlp_ln_bwd(*args),
         lambda: fm.fused_mlp_ln_bwd_reference(*args), flush_buf)
     moved = nbytes(part, pre, *douts, *out.dxs, *out.dpres, *args[1],
@@ -567,14 +573,15 @@ def check_backward(n_pad, e_pad, static, flush_buf, gen):
     # remat: 3 products; backward: dW3, dh2, dW2, dh1, dW1, dx
     rows["fused_mlp_ln_bwd"] = with_bound(row, m, moved, 2.0 * m * 9 * sq)
 
-    # K4b: decoder, [8 * padded nodes, 128] -> 3
+    # K4b: decoder, [8 * padded nodes, h] -> 3
     m = BATCH * n_pad
-    w = mlp_weights(gen, 128, 3)
+    w = mlp_weights(gen, h, 3, h)
     x, dout = g(m, h).to(bf), g(m, 3).to(bf)
     args = (x, w["w1"].to(bf), w["b1"], w["w2"].to(bf), w["b2"],
             w["w3"].to(bf).contiguous(), w["b3"], dout, BATCH)
     out, row = hold_backward(
-        "fused_mlp_noln_bwd[decoder]", lambda: fm.fused_mlp_noln_bwd(*args),
+        f"fused_mlp_noln_bwd[decoder] H={h}",
+        lambda: fm.fused_mlp_noln_bwd(*args),
         lambda: fm.fused_mlp_noln_bwd_reference(*args), flush_buf,
         ("dx", "dw1", "db1", "dw2", "db2", "dw3", "db3"))
     moved = nbytes(x, dout, out[0], args[1], args[3], args[5], out[1],
@@ -583,6 +590,22 @@ def check_backward(n_pad, e_pad, static, flush_buf, gen):
     # dW3 and dh2 (3 wide), dW2, dh1, dW1, dx
     rows["fused_mlp_noln_bwd"] = with_bound(
         row, m, moved, 2.0 * m * (6 * sq + 2 * 3 * h))
+    for name, r in rows.items():
+        log(f"  {name} H={h}: M={r['m']} bound_ms={r['bound_ms']:.4f} "
+            f"({r['bound_by']})")
+    return rows
+
+
+def check_backward(n_pad, static, flush_buf, gen):
+    """K5b at the Transolver MLP's shape and K7 at the attention's, each
+    against its plain version; rows batch-major, 8 lanes."""
+    from gen_fvgn_tpu_torch.ops import fused_mlp as fm
+    from gen_fvgn_tpu_torch.ops import fused_slice_attn as fsa
+    bf = torch.bfloat16
+    g = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    rows = {}
+    h, sq = 128, 128 * 128
+    m = BATCH * n_pad
 
     # K5b: the Transolver MLP, [8 * padded nodes, 128], hidden 256
     x = (2.0 * g(m, h) + 0.5).to(bf)
@@ -741,31 +764,13 @@ def step1_grads(cfg, sim, norm_state, dyn, static, plain):
     return float(loss.detach()), grads
 
 
-def drive_training(cfg, pool, static, steps, per_step, n_real, pairs=None,
-                   compare=None):
-    """The main path: `steps` train steps of cfg.net from
-    `init_train_state_block` (seed 0; with `pairs` its GraphNet blocks take
-    the paired sparse applies), each on the batch
-    `pool.block_batches(step_seed=k)` gives, `payback_block` after the
-    last, with the counters set to 0 just before and read just after.
-    Before it, step 1's gradients with the kernels against those with the
-    plain versions on the card, and, where `compare` names another
-    simulator with the same weights, the distance of its step-1 gradients
-    on the same batch (logged). Returns the counts, the step times and the
-    peak memory."""
-    from gen_fvgn_tpu_torch.training.train_block import (
-        init_train_state_block, make_train_step_block)
-    name = f"{cfg.net}{' paired' if pairs else ''} train"
-    state, sim = init_train_state_block(cfg, seed=0, **(pairs or {}))
-    train_step = make_train_step_block(cfg, sim)
-    start = [p.detach().clone() for p in sim.parameters()]
-
-    # step 1's gradients: kernels vs plain versions on the same inputs
-    _, idxs = pool.block_batches(step_seed=0)[0]
-    dyn = pool.gather_block(idxs)
-    loss_k, g_k = step1_grads(cfg, sim, state.norm_state, dyn, static, False)
+def hold_step1_grads(name, cfg, sim, norm_state, dyn, static):
+    """Step 1's gradients with the kernels against those with the plain
+    versions on the card, on the same batch; raises outside the limits.
+    Returns (loss, gradients) with the kernels."""
+    loss_k, g_k = step1_grads(cfg, sim, norm_state, dyn, static, False)
     counts = launch_counts()
-    loss_p, g_p = step1_grads(cfg, sim, state.norm_state, dyn, static, True)
+    loss_p, g_p = step1_grads(cfg, sim, norm_state, dyn, static, True)
     if launch_counts() != counts:
         raise RuntimeError(f"{name}: the plain versions' pass launched a "
                            f"kernel")
@@ -799,6 +804,34 @@ def drive_training(cfg, pool, static, steps, per_step, n_real, pairs=None,
             or not abs(loss_k - loss_p) <= 1e-4 * abs(loss_p):
         raise RuntimeError(f"{name}: step 1 gradients disagree with the "
                            f"plain versions")
+    del g_p
+    return loss_k, g_k
+
+
+def drive_training(cfg, pool, static, steps, per_step, n_real, pairs=None,
+                   compare=None):
+    """The main path: `steps` train steps of cfg.net from
+    `init_train_state_block` (seed 0; with `pairs` its GraphNet blocks take
+    the paired sparse applies), each on the batch
+    `pool.block_batches(step_seed=k)` gives, `payback_block` after the
+    last, with the counters set to 0 just before and read just after.
+    Before it, step 1's gradients with the kernels against those with the
+    plain versions on the card, and, where `compare` names another
+    simulator with the same weights, the distance of its step-1 gradients
+    on the same batch (logged). Returns the counts, the step times and the
+    peak memory."""
+    from gen_fvgn_tpu_torch.training.train_block import (
+        init_train_state_block, make_train_step_block)
+    name = f"{cfg.net}{' paired' if pairs else ''} train"
+    state, sim = init_train_state_block(cfg, seed=0, **(pairs or {}))
+    train_step = make_train_step_block(cfg, sim)
+    start = [p.detach().clone() for p in sim.parameters()]
+
+    # step 1's gradients: kernels vs plain versions on the same inputs
+    _, idxs = pool.block_batches(step_seed=0)[0]
+    dyn = pool.gather_block(idxs)
+    loss_k, g_k = hold_step1_grads(name, cfg, sim, state.norm_state, dyn,
+                                   static)
     if compare is not None:
         loss_c, g_c = step1_grads(cfg, compare, state.norm_state, dyn, static,
                                   False)
@@ -812,7 +845,7 @@ def drive_training(cfg, pool, static, steps, per_step, n_real, pairs=None,
         if not np.isfinite(far):
             raise RuntimeError(f"{name}: step 1 gradients not finite")
         del g_c
-    del g_k, g_p
+    del g_k
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -865,6 +898,72 @@ def drive_training(cfg, pool, static, steps, per_step, n_real, pairs=None,
     return counts, step_ms, peak
 
 
+def drive_hidden256(cfg, pool, static, norm_state, n_real):
+    """FVGNSimulatorB at hidden width 256 through the MLP kernels (K2/K3 at
+    H = 256, the node MLP's parts 128 + 256; K4f/K4b on a 256-wide input):
+    one rollout step and one train step at batch 2 on the same statics,
+    weights from seed 0, each with the counters set to 0 just before and
+    read just after; the rollout step and step 1's gradients held against
+    the plain versions on the card. TransFVGN_v2 at hidden 256 would also
+    need K5/K6/K7 at C = 256, which those kernels do not take yet."""
+    from gen_fvgn_tpu_torch.solve.rollout_block import make_eval_step_block
+    from gen_fvgn_tpu_torch.training.train_block import (
+        init_train_state_block, make_train_step_block)
+    b = 2
+    hcfg = cfg.replace(net="FVGN", hidden_size=256, batch_size=b,
+                       dataset_size=b)
+    name = "FVGN hidden 256"
+    dyn = pool.gather_block(np.arange(b))
+    state, sim = init_train_state_block(hcfg, seed=0)
+    step = make_eval_step_block(hcfg, sim)
+    step(norm_state, dyn, static)                  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    out = step(norm_state, dyn, static)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expected = {k: 0 for k in counts}
+    expected.update(spmm=9, fused_mlp_ln=8, fused_mlp_noln=1)
+    un = out.uvp_node_new.float()
+    log(f"{name} rollout step 1: batch {b}, launches {counts}; "
+        f"max|uvp|={float(un.abs().max()):.4g}")
+    if counts != expected or tuple(un.shape) != (b, static.pos.shape[0], 3) \
+            or not bool(torch.isfinite(un).all()) \
+            or bool((un[:, n_real:] != 0).any()):
+        raise RuntimeError(f"{name}: rollout launches {counts} != "
+                           f"{expected}, or a state not finite with zero "
+                           f"padded nodes")
+    plain = make_eval_step_block(hcfg, sim, plain_kernels=True)(
+        norm_state, dyn, static)
+    gap = float((plain.uvp_node_new.float() - un).abs().max())
+    step_tol = 2e-2                    # as the main path's rollouts
+    log(f"{name} rollout step 1 kernels vs plain versions on the card: "
+        f"uvp_node max gap {gap:.3g} (tolerance {step_tol})")
+    if not gap <= step_tol:
+        raise RuntimeError(f"{name}: step 1 disagrees with the plain "
+                           f"versions")
+    hold_step1_grads(f"{name} train", hcfg, sim, state.norm_state, dyn,
+                     static)
+    train_step = make_train_step_block(hcfg, sim)
+    start = [p.detach().clone() for p in sim.parameters()]
+    torch.cuda.synchronize()
+    zero_counts()
+    state, m, uvp_new = train_step(state, dyn, static)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expected.update(spmm=24, fused_mlp_ln_bwd=8, fused_mlp_noln_bwd=1)
+    loss, gnorm = float(m.loss), float(m.grad_norm)
+    moved = max(float((p.detach() - p0).abs().max())
+                for p, p0 in zip(sim.parameters(), start))
+    log(f"{name} train step 1: loss={loss:.6g} grad_norm={gnorm:.6g}; "
+        f"parameters moved by up to {moved:.3g}; launches {counts}")
+    if counts != expected or not np.isfinite(loss) or not gnorm > 0 \
+            or not moved > 0 or not bool(torch.isfinite(uvp_new).all()):
+        raise RuntimeError(f"{name}: train launches {counts} != {expected},"
+                           f" or loss {loss}, grad_norm {gnorm}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -909,16 +1008,25 @@ def main():
         f"{mesh['cell|centroid'].shape[0]} (padded "
         f"{static.cells_area.shape[0]})")
 
-    # ---- phase 3: each kernel against its plain version ----
+    # ---- phase 3: each kernel against its plain version (the phases of
+    # hidden width 128 draw their inputs from `gen` in the same order as
+    # before the width-256 phases existed; those draw from their own) ----
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush_buf = torch.zeros(64 * 1024 * 1024, device="cuda")
     spmm_rows = check_spmm(static, flush_buf, gen)
-    ln_rows = check_fused_ln(n_pad, e_pad, flush_buf, gen)
-    noln_row = check_fused_noln(n_pad, flush_buf, gen)
+    ln_rows = {128: check_fused_ln(n_pad, e_pad, flush_buf, gen)}
+    noln_row = {128: check_fused_noln(n_pad, flush_buf, gen)}
     premlp_row = check_premlp(n_pad, flush_buf, gen)
     pool_row = check_slice_pool(static, flush_buf, gen)
-    bwd_rows = check_backward(n_pad, e_pad, static, flush_buf, gen)
+    mlp_bwd_rows = {128: check_mlp_backward(n_pad, e_pad, flush_buf, gen)}
+    bwd_rows = dict(mlp_bwd_rows[128],
+                    **check_backward(n_pad, static, flush_buf, gen))
     pair_rows = check_pairs(static, flush_buf, gen)
+    gen256 = torch.Generator(device="cuda").manual_seed(256)
+    ln_rows[256] = check_fused_ln(n_pad, e_pad, flush_buf, gen256, 256)
+    noln_row[256] = check_fused_noln(n_pad, flush_buf, gen256, 256)
+    mlp_bwd_rows[256] = check_mlp_backward(n_pad, e_pad, flush_buf, gen256,
+                                           256)
     del flush_buf
 
     # ---- phase 4: the TransFVGN_v2 rollout ----
@@ -962,10 +1070,14 @@ def main():
         cfg, pool, static, PAIR_STEPS, pair_per_step, n_real, pairs=pairs,
         compare=make_simulator_block(cfg, seed=0))
 
-    # ---- phase 8: the kernels line (launches: the main path's run; the
+    # ---- phase 8: the MLP kernels at hidden width 256, on FVGN ----
+    drive_hidden256(cfg, pool, static, norm_state, n_real)
+
+    # ---- phase 9: the kernels line (launches: the main path's run; the
     # pair kernels', which the main path does not run: the paired path's) --
     big = {r["op"]: r for r in spmm_rows}["nbr_r"]
-    edge = [r for r in ln_rows if r["variant"].startswith("edge_mlp")][0]
+    edge = {h: [r for r in rows if r["variant"].startswith("edge_mlp")][0]
+            for h, rows in ln_rows.items()}
     pick = lambda r: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by")}
 
@@ -993,12 +1105,13 @@ def main():
                                         for r in spmm_rows)),
               "nbr_r", big["library_ms"]),
         entry("fused_mlp_ln", "fused_mlp.cu", "fused_mlp.py:385",
-              dict(edge, max_abs_err=max(r["max_abs_err"] for r in ln_rows)),
+              dict(edge[128], max_abs_err=max(r["max_abs_err"]
+                                              for r in ln_rows[128])),
               "edge_mlp"),
         entry("fused_mlp_ln_bwd", "fused_mlp.cu", "fused_mlp.py:421",
               bwd_rows["fused_mlp_ln_bwd"], "edge_mlp"),
         entry("fused_mlp_noln", "fused_mlp.cu", "fused_mlp.py:960",
-              noln_row, "decoder"),
+              noln_row[128], "decoder"),
         entry("fused_mlp_noln_bwd", "fused_mlp.cu", "fused_mlp.py:980",
               bwd_rows["fused_mlp_noln_bwd"], "decoder"),
         entry("fused_premlp_res", "fused_premlp.cu", "fused_mlp.py:747",
@@ -1019,6 +1132,14 @@ def main():
     ]
     kernels[-2]["node_pair"] = {k: npair[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    # the same four kernels at hidden width 256 (same forms and method)
+    wide = dict(fused_mlp_ln=edge[256], fused_mlp_noln=noln_row[256],
+                **{k: mlp_bwd_rows[256][k]
+                   for k in ("fused_mlp_ln_bwd", "fused_mlp_noln_bwd")})
+    for k in kernels:
+        if k["name"] in wide:
+            k["hidden_256"] = {f: wide[k["name"]][f] for f in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
         raise RuntimeError(f"the path that should run them launched no "

@@ -1,4 +1,5 @@
-// K2 / K4f: fused 2-hidden-layer GELU MLP chain, forward, for sm_90a.
+// K2 / K4f (forward) and K3 / K4b (backward): the fused 2-hidden-layer GELU
+// MLP chain for sm_90a, at any hidden width H that is a multiple of 128.
 //
 //   LN = true  (K2, fused_mlp_ln):
 //     out = LN(W3*gelu(W2*gelu(sum_i x_i*W1_i + pre + b1) + b2) + b3)*gamma + beta
@@ -6,930 +7,2391 @@
 //   LN = false (K4f, fused_mlp_noln):
 //     out = W3*gelu(W2*gelu(x*W1 + b1) + b2) + b3, d_out <= 16 real columns
 //
-// Replaces the Pallas TPU kernels _make_fwd_kernel and _noln_fwd_kernel of
-// gen_fvgn_tpu/ops/fused_mlp.py. Rows are independent. A block stages W1 (up
-// to 256x128), W2 and W3 in shared memory as bf16 once and then walks over
-// 64-row tiles (grid = min(tiles, SMs)). Each product runs on the tensor
-// cores through wmma (bf16 operands, float32 accumulators); accumulators are
-// staged through shared memory for the elementwise steps, so h1, h2 and y
-// never reach device memory. The ragged last tile is masked, not padded.
+// Replaces the Pallas TPU kernels _make_fwd_kernel (K2, called at :385),
+// _noln_fwd_kernel (K4f, :960), _make_bwd_kernel (K3, :421) and
+// _noln_bwd_kernel (K4b, :980) of gen_fvgn_tpu/ops/fused_mlp.py.
 //
-// Rounding points (the same as the TPU kernel's): float32 accumulation in
-// each product; h1, h2 rounded to bf16 before the next product; biases, pre,
-// GELU (tanh form) and LayerNorm statistics (fast variance clamped at 0,
-// eps 1e-6) in float32; out rounded to bf16 before the residual add, which
-// is a bf16 add.
+// What bounds them on the H100: bytes. A row of the edge MLP costs about
+// 100 k FLOP forward and 200 k backward against 0.5 to 3 KB of row streams,
+// under the card's ~295 FLOP/byte bf16 ridge. Products run on the tensor
+// cores (mma.sync m16n8k16, bf16 operands, float32 accumulators in
+// registers; operands from shared memory by ldmatrix, a weight read as its
+// transpose by the other ldmatrix form from the same staged copy). Every
+// intermediate of a row stays on the SM. Two designs:
 //
-// Plain C interface, no allocation, launches on the caller's stream and
+// * H = 128 (fused_mlp_fwd_rows, fused_mlp_bwd_rows), the nets' width: a
+//   block stages W1, W2, W3 once; after that each of its 8 warps walks over its
+//   own 16-row strips with a 16 x 128 accumulator and no block barrier. The C
+//   fragments of two neighbouring 8-column tiles are the A fragment of the next
+//   product's 16-deep slice, so h1, h2, dy16, dh2pre16 and dh1pre16 pass from
+//   one product to the next as bf16 registers; LayerNorm rows are reduced by
+//   quad shuffles; the next strip's x (and pre) rows come in by cp.async into
+//   the warp's own buffers while it computes. Row outputs are written as whole
+//   32-byte sectors (the four lanes of a quad trade their column pairs first:
+//   4-byte pieces leave half sectors that the memory completes by a
+//   read-modify-write).
+// * Wider H (fused_mlp_fwd_tiles, fused_mlp_bwd_tiles): tiles of TM rows (64;
+//   32 or 16 where H leaves no room) shared by the block's 8 warps, WR = TM/16
+//   warps over the rows and WC = 8/WR over the columns, each warp owning a 16 x
+//   64 block of a pass of PW = WC*64 output columns; h1, h2 and dy16 in shared
+//   memory; weights staged while they fit, otherwise streamed in chunks of KC
+//   contraction rows through a STAGES-deep cp.async ring that runs across
+//   products and tiles; LayerNorm rows through one exchange between the column
+//   warps. Persistent blocks, grid = min(tiles, SMs).
+//
+// The backward is two hand-written passes and a fixed-order reduction:
+//   pass 1 (fused_mlp_bwd_rows / fused_mlp_bwd_tiles): per tile the forward
+//     is recomputed once; gelu' of h1pre and h2pre comes from that one
+//     recomputation (registers and shared memory; for the wide tiles' later
+//     column passes a per-block spill in device memory); then
+//       LN:   g = dout0 (+ dout1 with res_dual); dgamma += g*xhat; dbeta += g;
+//             dy = rstd*((g*gamma - mean(g*gamma)) - xhat*mean(g*gamma*xhat))
+//       noLN: dy = dout (the d_out <= 16 real columns)
+//       dh2pre = (dy16 W3^T) gelu'(h2pre); dh1pre = (dh2pre16 W2^T) gelu'(h1pre)
+//       dpre = bf16(dh1pre); dx_i = bf16(dh1pre16 W1_i^T (+ the residual's
+//       cotangent in float32))
+//     It writes h1, h2, dy16, dh2pre16 and dh1pre16 as bf16 rows (the TPU
+//     kernel rounds these five to bf16 before its weight-gradient products,
+//     so storing them moves no rounding point), and keeps the float32 column
+//     sums db1, db2, db3, dgamma, dbeta in shared memory over all its tiles,
+//     written once per block.
+//   pass 2 (fused_mlp_wgrad): per batch lane the weight gradients as products
+//     dW1_i = x_i^T dh1pre16, dW2 = h1^T dh2pre16, dW3 = h2^T dy16; grid =
+//     output tiles x row chunks x lanes, each block keeps its 128 x 128
+//     float32 tile in registers over its whole chunk of rows and writes one
+//     partial.
+//   lane_reduce (lane_reduce.cuh) sums the partials in a fixed order and
+//     rounds each lane's weight gradients to bf16 (the JAX package's kernels
+//     run under a per-sample vmap and round per lane). No float atomics: two
+//     runs give the same bits.
+//
+// Rounding points (the same as the TPU kernels'): float32 accumulation in
+// each product; h1, h2 rounded to bf16 before the next product; biases,
+// pre, GELU (tanh form, evaluated as x * sigmoid(2u)) and LayerNorm
+// statistics (fast variance clamped at 0, eps 1e-6) in float32; out
+// rounded to bf16 before the residual add, which is a bf16 add; dy, dh2pre,
+// dh1pre rounded to bf16 before the products that take them.
+//
+// Plain C interface, no allocation (the caller passes a workspace of the
+// size gfvgn_fused_mlp_workspace gives), launches on the caller's stream and
 // returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <stddef.h>
 #include <stdint.h>
 
 #include "lane_reduce.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int H = 128;        // hidden width = part width = LayerNorm width
-constexpr int TM = 64;        // rows per tile
-constexpr int THREADS = 256;  // 8 warps: 4 row blocks x 2 column halves
-constexpr int LDW = H + 8;    // bf16 leading dim of the staged weights
-constexpr int LDH = H + 8;    // bf16 leading dim of the h1/h2 buffer
-constexpr int LDC = H + 4;    // f32 leading dim of the accumulator staging
+constexpr int THREADS = 256;      // 8 warps
+constexpr int KC = 32;            // contraction rows of a streamed weight chunk
+constexpr int STAGES = 3;         // chunks in flight in the weight ring
+constexpr int LDN = 24;           // staged, zero-padded noLN W3 [H][LDN]
+constexpr int KR = 32;            // rows of a pass-2 stage
+constexpr int STAGES2 = 4;        // stages of the pass-2 ring
+constexpr int LD2 = 136;          // pass-2 tile leading dim (128 + 8)
 constexpr float kLnEps = 1e-6f;
 
-struct Params {
+// ===== sm_90 primitives =====
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+}
+
+// the same, each matrix transposed
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+}
+
+// d += a * b: m16n8k16, bf16 operands, float32 accumulators
+__device__ __forceinline__ void mma16816(float d[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes device memory -> shared memory, asynchronous; zero-fills the
+// destination instead when !pred (src is not read then)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// ===== end of sm_90 primitives =====
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+}
+
+__device__ __forceinline__ float2 load_bf16x2(const bf16* p) {
+    return unpack_bf16(*reinterpret_cast<const uint32_t*>(p));
+}
+
+__device__ __forceinline__ void store_bf16x2(bf16* p, float a, float b) {
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+    return __bfloat162float(__float2bfloat16(x));
+}
+
+// GELU, tanh form: 0.5 x (1 + tanh(u)), u = sqrt(2/pi) (x + 0.044715 x^3),
+// evaluated as x * s with s = sigmoid(2u) = 1 / (1 + e^(-2u)): the same
+// function with one exp and one fast reciprocal (each within 2 ulps),
+// where tanhf and an IEEE division cost more than the products of the
+// chain. It differs from the plain version's tanh form in the last bits of
+// float32, as tanhf did.
+__device__ __forceinline__ float gelu_u(float x) {
+    return 0.7978845608028654f * (x + 0.044715f * x * x * x);
+}
+
+__device__ __forceinline__ float gelu_tanh(float x) {
+    return x * __fdividef(1.0f, 1.0f + __expf(-2.0f * gelu_u(x)));
+}
+
+// gelu(x) and its derivative from the same exp: with s = sigmoid(2u),
+// 1 + tanh = 2s and 1 - tanh^2 = 4 s (1 - s), so the derivative 0.5 (1 +
+// tanh) + 0.5 x (1 - tanh^2) u' = s + 2 x s (1 - s) u', and 1 - s = e s
+// (no cancellation; 1 where e overflows and s is 0)
+__device__ __forceinline__ float gelu_and_grad(float x, float& grad) {
+    const float e = __expf(-2.0f * gelu_u(x));
+    const float s = __fdividef(1.0f, 1.0f + e);
+    const float sm = e < 3.0e38f ? e * s : 1.0f;
+    const float du =
+        0.7978845608028654f * (1.0f + (float)(3.0 * 0.044715) * x * x);
+    grad = s + 2.0f * x * (s * sm) * du;
+    return x * s;
+}
+
+// acc[8][4] += A[16 x 16*ksteps] * B over a warp's 64 output columns.
+// `a` points at the warp's first row and first contraction column (row
+// stride lda); B is [k][n] row-major (BT false: `b` at (k0, n0)) or [n][k]
+// (BT true, a weight read as its transpose: `b` at (n0, k0)). `nv` (even,
+// 0..8) is the number of valid 8-column tiles; the rest are left alone.
+template <bool BT>
+__device__ __forceinline__ void warp_mma(float acc[8][4], const bf16* a,
+                                         int lda, const bf16* b, int ldb,
+                                         int ksteps, int nv) {
+    const int lane = threadIdx.x & 31;
+    const bf16* ap = a + (lane & 15) * lda + ((lane >> 4) << 3);
+    const bf16* bp = BT
+        ? b + ((lane & 7) + ((lane >> 4) << 3)) * ldb + (((lane >> 3) & 1) << 3)
+        : b + ((lane & 7) + (((lane >> 3) & 1) << 3)) * ldb + ((lane >> 4) << 3);
+    for (int ks = 0; ks < ksteps; ++ks) {
+        uint32_t af[4];
+        ldsm_x4(af, ap + ks * 16);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            if (2 * q < nv) {
+                uint32_t bfr[4];
+                if (BT) ldsm_x4(bfr, bp + q * 16 * ldb + ks * 16);
+                else ldsm_x4_t(bfr, bp + ks * 16 * ldb + q * 16);
+                mma16816(acc[2 * q], af, bfr[0], bfr[1]);
+                mma16816(acc[2 * q + 1], af, bfr[2], bfr[3]);
+            }
+        }
+    }
+}
+
+__device__ __forceinline__ void zero_acc(float acc[8][4]) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+}
+
+// A weight operand of the tile's products. trans 0: W is [k][n] row-major
+// (out = A*W); trans 1: W is [n][k] (out = A*W^T).
+struct Prod {
+    const bf16* w;    // first row of W in device memory
+    int ldw;          // row stride of W (elements)
+    int k;            // contraction length
+    int n;            // output width
+    int trans;
+    int res_row;      // first row of W in the staged copy (resident mode)
+};
+
+constexpr int MAX_PROD = 7;
+
+struct Common {
     const bf16* part[2];
-    int width[2];       // part widths, multiples of 16, each <= H
+    int width[2];
     int n_parts;
-    const bf16* w1;     // [width[0]+width[1], H]
-    const bf16* pre;    // [M, H] or null
+    int k1;              // width[0] + width[1]
+    const bf16* pre;     // [M, H] or null
+    const bf16* w1;      // [k1, H]
+    const bf16* w2;      // [H, H]
+    const bf16* w3;      // [H, d_out]
     const float* b1;
-    const bf16* w2;     // [H, H]
     const float* b2;
-    const bf16* w3;     // [H, d_out]
     const float* b3;
     const float* gamma;
     const float* beta;
-    bf16* out0;
-    bf16* out1;
-    int M;
-    int res_idx;        // -1: no residual
-    int res_dual;
-    int d_out;
+    Prod prod[MAX_PROD];
+    int n_prod;
+    int cpt;             // streamed chunks a tile
+    int M, H, d_out, dp; // dp: width of dy (H, or 16 without LayerNorm)
+    int res_idx, res_dual;
+    int tm, wr, pw, np;  // tile rows, row warps, pass width, passes over H
+    float* spill;        // [grid][3][np-1][32][THREADS] or null
 };
 
-__device__ __forceinline__ float gelu_tanh(float x) {
-    const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-    return 0.5f * x * (1.0f + tanhf(u));
+struct FwdParams {
+    Common c;
+    bf16* out0;
+    bf16* out1;
+};
+
+struct BwdParams {
+    Common c;
+    const bf16* dout0;   // [M, d_out]
+    const bf16* dout1;   // [M, H] with res_dual, else null
+    bf16* dx[2];
+    bf16* dpre;
+    bf16* h1s;           // [M, H]: rows for pass 2
+    bf16* h2s;
+    bf16* dys;           // [M, dp]
+    bf16* dh2s;
+    bf16* dh1s;
+    float* colsum;       // [grid][4H + dp]
+};
+
+__host__ __device__ inline size_t align128(size_t x) {
+    return (x + 127) & ~(size_t)127;
 }
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+__host__ __device__ inline int slot_elems(int pw) {
+    const int a = KC * (pw + 8), b = pw * (KC + 8);
+    return a > b ? a : b;
+}
 
-// C[16 x NT*16] (this warp's strip) = A[16 x K] * B[K x NT*16]; result to sC.
-template <int NT>
-__device__ __forceinline__ void warp_gemm(const bf16* sA, int lda,
-                                          const bf16* sB, int K,
-                                          float* sC, int rb, int c0) {
-    FragC acc[NT];
-#pragma unroll
-    for (int t = 0; t < NT; ++t) wmma::fill_fragment(acc[t], 0.0f);
-    for (int k0 = 0; k0 < K; k0 += 16) {
-        FragA a;
-        wmma::load_matrix_sync(a, sA + rb * 16 * lda + k0, lda);
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-            FragB b;
-            wmma::load_matrix_sync(b, sB + k0 * LDW + c0 + t * 16, LDW);
-            wmma::mma_sync(acc[t], a, b, acc[t]);
+// byte offsets of the shared-memory regions
+struct Smem {
+    size_t w, x, p, h1, h2, dy, w3n, stat, red, acc, total;
+};
+
+__host__ __device__ inline Smem smem_layout(int tm, int pw, int k1, int h,
+                                            int dp, bool pre, bool ln,
+                                            bool stream, bool bwd) {
+    const int wr = tm / 16, wc = 8 / wr;
+    Smem L;
+    size_t o = 0;
+    const size_t res_rows = (size_t)k1 + h + (ln ? h : 0);
+    L.w = o;
+    o += align128(stream ? (size_t)STAGES * slot_elems(pw) * 2
+                         : res_rows * (h + 8) * 2);
+    L.x = o;
+    o += align128(k1 > 0 ? (size_t)tm * (k1 + 8) * 2 : 0);
+    L.p = o;
+    o += align128(pre ? (size_t)tm * (h + 8) * 2 : 0);
+    L.h1 = o;
+    o += align128((size_t)tm * (h + 8) * 2);
+    L.h2 = o;
+    o += align128((size_t)tm * (h + 8) * 2);
+    L.dy = o;
+    o += align128(bwd ? (size_t)tm * (dp + 8) * 2 : 0);
+    L.w3n = o;
+    o += align128(ln ? 0 : (size_t)h * LDN * 2);
+    L.stat = o;
+    o += align128((size_t)2 * wc * tm * 2 * 4);
+    L.red = o;
+    o += align128(bwd ? (size_t)5 * wr * h * 4 : 0);
+    L.acc = o;
+    o += align128(bwd ? (size_t)(4 * h + dp) * 4 : 0);
+    L.total = o;
+    return L;
+}
+
+// Per-thread view of a block: shared memory, the warp's place, the ring.
+struct Ctx {
+    bf16* sW;        // resident weights or the ring
+    bf16* sX;
+    bf16* sP;
+    bf16* sH1;
+    bf16* sH2;
+    bf16* sDY;
+    bf16* sW3n;
+    float* sStat;
+    float* sRed;
+    float* sAcc;
+    int ldx, ldh, ldw, lddy;
+    int wrow, wcol, g, t;
+    int q, q_end;    // next ring chunk to consume; chunks of this block
+    float* spill;    // this block's spill
+};
+
+// chunk q of the per-tile sequence -> (product, pass, chunk of k)
+__device__ __forceinline__ void decode_chunk(const Common& c, int q, int& pi,
+                                             int& j, int& kc) {
+    for (pi = 0; pi < c.n_prod; ++pi) {
+        const Prod& P = c.prod[pi];
+        const int nk = (P.k + KC - 1) / KC;
+        const int cnt = nk * ((P.n + c.pw - 1) / c.pw);
+        if (q < cnt) {
+            j = q / nk;
+            kc = q - j * nk;
+            return;
         }
+        q -= cnt;
     }
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-        wmma::store_matrix_sync(sC + rb * 16 * LDC + c0 + t * 16, acc[t], LDC,
-                                wmma::mem_row_major);
+    pi = j = kc = 0;
 }
 
-__device__ __forceinline__ void store_bf16x4(bf16* p, const float v[4]) {
-    __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-    __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 raw;
-    raw.x = *reinterpret_cast<uint32_t*>(&a);
-    raw.y = *reinterpret_cast<uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(p) = raw;
-}
-
-__device__ __forceinline__ void load_bf16x4(const bf16* p, float v[4]) {
-    uint2 raw = *reinterpret_cast<const uint2*>(p);
-    float2 fa = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.x));
-    float2 fb = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.y));
-    v[0] = fa.x; v[1] = fa.y; v[2] = fb.x; v[3] = fb.y;
-}
-
-// h = gelu(acc + bias (+ pre)) rounded to bf16 into sH. `acc` may be absent
-// (the pres-only form has no first product).
-__device__ __forceinline__ void hidden_epilogue(const float* sC, bool has_acc,
-                                                const float* bias,
-                                                const bf16* pre, int r0, int M,
-                                                bf16* sH) {
-    for (int idx = threadIdx.x; idx < TM * 32; idx += THREADS) {
-        const int row = idx >> 5;
-        const int c4 = (idx & 31) * 4;
-        const int g = r0 + row;
-        float v[4];
-        const float4 bb = *reinterpret_cast<const float4*>(bias + c4);
-        v[0] = bb.x; v[1] = bb.y; v[2] = bb.z; v[3] = bb.w;
-        if (pre != nullptr && g < M) {
-            float pv[4];
-            load_bf16x4(pre + (size_t)g * H + c4, pv);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) v[i] += pv[i];
-        }
-        if (has_acc) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) v[i] += sC[row * LDC + c4 + i];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) v[i] = gelu_tanh(v[i]);
-        store_bf16x4(sH + row * LDH + c4, v);
-    }
-}
-
-template <bool LN>
-__global__ void __launch_bounds__(THREADS, 1) fused_mlp_kernel(Params p) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    const int K1 = p.width[0] + p.width[1];
-    const int LDX = K1 + 8;
-    bf16* sW1 = reinterpret_cast<bf16*>(smem);
-    bf16* sW2 = sW1 + (size_t)K1 * LDW;
-    bf16* sW3 = sW2 + (size_t)H * LDW;
-    bf16* sX = sW3 + (size_t)H * LDW;
-    bf16* sH = sX + (size_t)(K1 > 0 ? TM * LDX : 0);
-    float* sC = reinterpret_cast<float*>(sH + (size_t)TM * LDH);
-
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int rb = warp >> 1;          // 16-row block of the tile
-    const int c0 = (warp & 1) * 64;    // first column of this warp's strip
-
-    // ---- stage the weights once per block ----
-    for (int idx = threadIdx.x; idx < K1 * 16; idx += THREADS) {
-        const int row = idx >> 4, ch = idx & 15;
-        *reinterpret_cast<uint4*>(sW1 + row * LDW + ch * 8) =
-            *reinterpret_cast<const uint4*>(p.w1 + (size_t)row * H + ch * 8);
-    }
-    for (int idx = threadIdx.x; idx < H * 16; idx += THREADS) {
-        const int row = idx >> 4, ch = idx & 15;
-        *reinterpret_cast<uint4*>(sW2 + row * LDW + ch * 8) =
-            *reinterpret_cast<const uint4*>(p.w2 + (size_t)row * H + ch * 8);
-    }
-    if (LN) {
-        for (int idx = threadIdx.x; idx < H * 16; idx += THREADS) {
-            const int row = idx >> 4, ch = idx & 15;
-            *reinterpret_cast<uint4*>(sW3 + row * LDW + ch * 8) =
-                *reinterpret_cast<const uint4*>(p.w3 + (size_t)row * H + ch * 8);
+// start the copies of ring chunk q (block-global count) into its slot
+__device__ __forceinline__ void fetch_chunk(const Common& c, Ctx& cx,
+                                            int q) {
+    if (q >= cx.q_end) return;
+    int pi, j, kc;
+    decode_chunk(c, q % c.cpt, pi, j, kc);
+    const Prod& P = c.prod[pi];
+    bf16* slot = cx.sW + (size_t)(q % STAGES) * slot_elems(c.pw);
+    const int k0 = kc * KC, n0 = j * c.pw;
+    const int nk = min(KC, P.k - k0), nn = min(c.pw, P.n - n0);
+    if (P.trans == 0) {
+        // rows k, columns n: slot [KC][pw + 8]
+        const int cpr = nn >> 3;
+        for (int i = threadIdx.x; i < nk * cpr; i += THREADS) {
+            const int r = i / cpr, ch = i - r * cpr;
+            cp_async16(slot + r * (c.pw + 8) + ch * 8,
+                       P.w + (size_t)(k0 + r) * P.ldw + n0 + ch * 8, true);
         }
     } else {
-        // narrow head: d_out real columns, zero up to one 16-column tile
-        for (int idx = threadIdx.x; idx < H * 16; idx += THREADS) {
-            const int row = idx >> 4, c = idx & 15;
-            sW3[row * LDW + c] = c < p.d_out
-                ? p.w3[(size_t)row * p.d_out + c] : __float2bfloat16(0.0f);
+        // rows n, columns k: slot [pw][KC + 8]
+        const int cpr = nk >> 3;
+        for (int i = threadIdx.x; i < nn * cpr; i += THREADS) {
+            const int r = i / cpr, ch = i - r * cpr;
+            cp_async16(slot + r * (KC + 8) + ch * 8,
+                       P.w + (size_t)(n0 + r) * P.ldw + k0 + ch * 8, true);
+        }
+    }
+}
+
+// acc = A[tile rows of this warp, 0..P.k) * op(W)[:, pass j], A in shared
+// memory (row stride lda). Every thread of the block calls it the same
+// number of times (the ring's barriers); warps without valid columns only
+// take part in those.
+template <bool STREAM>
+__device__ __forceinline__ void product(const Common& c, Ctx& cx, int pi,
+                                        int j, float acc[8][4],
+                                        const bf16* sA, int lda) {
+    zero_acc(acc);
+    const Prod& P = c.prod[pi];
+    const int n0 = j * c.pw + cx.wcol * 64;
+    const int nv = max(0, min(8, (P.n - n0) / 8));
+    const int nk = (P.k + KC - 1) / KC;
+    const bf16* a = sA + cx.wrow * 16 * lda;
+    for (int kc = 0; kc < nk; ++kc) {
+        const int ks = min(KC, P.k - kc * KC) / 16;
+        const bf16* b;
+        int ldb;
+        if (STREAM) {
+            cp_async_wait<STAGES - 2>();
+            __syncthreads();
+            fetch_chunk(c, cx, cx.q + STAGES - 1);
+            cp_async_commit();
+            const bf16* slot = cx.sW + (size_t)(cx.q % STAGES) * slot_elems(c.pw);
+            ++cx.q;
+            b = P.trans ? slot + cx.wcol * 64 * (KC + 8) : slot + cx.wcol * 64;
+            ldb = P.trans ? KC + 8 : c.pw + 8;
+        } else {
+            const bf16* base = cx.sW + (size_t)P.res_row * cx.ldw;
+            b = P.trans ? base + (size_t)n0 * cx.ldw + kc * KC
+                        : base + (size_t)kc * KC * cx.ldw + n0;
+            ldb = cx.ldw;
+        }
+        if (nv > 0) {
+            if (P.trans) warp_mma<true>(acc, a + kc * KC, lda, b, ldb, ks, nv);
+            else warp_mma<false>(acc, a + kc * KC, lda, b, ldb, ks, nv);
+        }
+    }
+}
+
+// rows r0 .. r0 + tm of a [M, w] bf16 array -> dst (row stride ldd), rows
+// past nrow zero-filled
+__device__ __forceinline__ void load_rows(bf16* dst, int ldd, const bf16* src,
+                                          int w, int r0, int nrow, int tm) {
+    const int cpr = w >> 3;
+    for (int i = threadIdx.x; i < tm * cpr; i += THREADS) {
+        const int r = i / cpr, ch = i - r * cpr;
+        const bool ok = r < nrow;
+        cp_async16(dst + r * ldd + ch * 8,
+                   src + (size_t)(ok ? r0 + r : r0) * w + ch * 8, ok);
+    }
+}
+
+__device__ __forceinline__ void load_tile(const Common& c, Ctx& cx, int r0,
+                                          int nrow) {
+    int off = 0;
+    for (int pi = 0; pi < c.n_parts; ++pi) {
+        load_rows(cx.sX + off, cx.ldx, c.part[pi], c.width[pi], r0, nrow,
+                  c.tm);
+        off += c.width[pi];
+    }
+    if (c.pre != nullptr) load_rows(cx.sP, cx.ldh, c.pre, c.H, r0, nrow, c.tm);
+}
+
+// the resident weights [W1 | W2 | W3] as [rows][H + 8]; the noLN head W3
+// zero-padded to [H][LDN] (plain loads: its rows are d_out * 2 bytes)
+__device__ __forceinline__ void stage_weights(const Common& c, Ctx& cx,
+                                              bool ln, bool stream) {
+    const int cpr = c.H >> 3;
+    if (!stream) {
+        const bf16* src[3] = {c.w1, c.w2, c.w3};
+        const int rows[3] = {c.k1, c.H, ln ? c.H : 0};
+        int r0 = 0;
+        for (int m = 0; m < 3; ++m) {
+            for (int i = threadIdx.x; i < rows[m] * cpr; i += THREADS) {
+                const int r = i / cpr, ch = i - r * cpr;
+                cp_async16(cx.sW + (size_t)(r0 + r) * cx.ldw + ch * 8,
+                           src[m] + (size_t)r * c.H + ch * 8, true);
+            }
+            r0 += rows[m];
+        }
+    }
+    if (!ln) {
+        for (int i = threadIdx.x; i < c.H * LDN; i += THREADS) {
+            const int r = i / LDN, col = i - r * LDN;
+            cx.sW3n[i] = col < c.d_out ? c.w3[(size_t)r * c.d_out + col]
+                                       : __float2bfloat16(0.0f);
+        }
+    }
+}
+
+__device__ __forceinline__ void init_ctx(const Common& c, Ctx& cx, bool ln,
+                                         bool stream, bool bwd) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    const Smem L = smem_layout(c.tm, c.pw, c.k1, c.H, c.dp, c.pre != nullptr,
+                               ln, stream, bwd);
+    cx.sW = reinterpret_cast<bf16*>(smem + L.w);
+    cx.sX = reinterpret_cast<bf16*>(smem + L.x);
+    cx.sP = reinterpret_cast<bf16*>(smem + L.p);
+    cx.sH1 = reinterpret_cast<bf16*>(smem + L.h1);
+    cx.sH2 = reinterpret_cast<bf16*>(smem + L.h2);
+    cx.sDY = reinterpret_cast<bf16*>(smem + L.dy);
+    cx.sW3n = reinterpret_cast<bf16*>(smem + L.w3n);
+    cx.sStat = reinterpret_cast<float*>(smem + L.stat);
+    cx.sRed = reinterpret_cast<float*>(smem + L.red);
+    cx.sAcc = reinterpret_cast<float*>(smem + L.acc);
+    cx.ldx = c.k1 + 8;
+    cx.ldh = c.H + 8;
+    cx.ldw = c.H + 8;
+    cx.lddy = c.dp + 8;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    cx.wrow = warp % c.wr;
+    cx.wcol = warp / c.wr;
+    cx.g = lane >> 2;
+    cx.t = lane & 3;
+    const int n_tiles = (c.M + c.tm - 1) / c.tm;
+    const int mine = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+                     (int)gridDim.x;
+    cx.q = 0;
+    cx.q_end = stream ? mine * c.cpt : 0;
+    cx.spill = c.spill == nullptr ? nullptr
+        : c.spill + (size_t)blockIdx.x * 3 * (c.np - 1) * 32 * THREADS;
+}
+
+// element e (0..31) of pass j >= 1 of spilled array `which` (0: gelu'(h1pre),
+// 1: gelu'(h2pre), 2: y), this thread's own slot
+__device__ __forceinline__ float& spill_at(const Common& c, Ctx& cx,
+                                           int which, int j, int e) {
+    return cx.spill[((size_t)(which * (c.np - 1) + (j - 1)) * 32 + e) *
+                    THREADS + threadIdx.x];
+}
+
+// value of pass j, tile nt, element e: registers for pass 0, else the spill
+#define KEEP(reg, which, j, nt, e, v)                                       \
+    do {                                                                     \
+        if ((j) == 0) reg[nt][e] = (v);                                      \
+        else spill_at(c, cx, which, j, (nt) * 4 + (e)) = (v);                \
+    } while (0)
+#define FETCH(reg, which, j, nt, e)                                          \
+    ((j) == 0 ? reg[nt][e] : spill_at(c, cx, which, j, (nt) * 4 + (e)))
+
+// column sums of a warp's 16 rows for 8-column tile nt (v0: column 2t, v1:
+// 2t + 1, each already the sum of this thread's two rows) -> red[0..1]
+__device__ __forceinline__ void col_sum_store(float v0, float v1, int g,
+                                              float* red) {
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+        v0 += __shfl_xor_sync(0xffffffffu, v0, o);
+        v1 += __shfl_xor_sync(0xffffffffu, v1, o);
+    }
+    if (g == 0) {
+        red[0] = v0;
+        red[1] = v1;
+    }
+}
+
+// h = bf16(gelu(bias (+ pre) (+ acc))) of pass j into sH; with `grad`, also
+// keep gelu'(.) of the same value (array `which`); with `gout`, also write
+// h as rows r0.. of gout (real rows only)
+template <bool GRAD>
+__device__ __forceinline__ void hidden_epilogue(
+    const Common& c, Ctx& cx, const float acc[8][4], bool has_acc,
+    const float* bias, const bf16* sP, bf16* sH, int j, float keep[8][4],
+    int which, bf16* gout, int r0, int nrow) {
+    const int n0 = j * c.pw + cx.wcol * 64;
+    const int nv = max(0, min(8, (c.H - n0) / 8));
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+        if (nt < nv) {
+            const int col = n0 + nt * 8 + 2 * cx.t;
+            const float2 bb = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+                const int row = cx.wrow * 16 + cx.g + 8 * hf;
+                float v0 = bb.x, v1 = bb.y;
+                if (sP != nullptr) {
+                    const float2 pv = load_bf16x2(sP + row * cx.ldh + col);
+                    v0 += pv.x;
+                    v1 += pv.y;
+                }
+                if (has_acc) {
+                    v0 += acc[nt][2 * hf];
+                    v1 += acc[nt][2 * hf + 1];
+                }
+                float h0, h1;
+                if (GRAD) {
+                    float d0, d1;
+                    h0 = gelu_and_grad(v0, d0);
+                    h1 = gelu_and_grad(v1, d1);
+                    KEEP(keep, which, j, nt, 2 * hf, d0);
+                    KEEP(keep, which, j, nt, 2 * hf + 1, d1);
+                } else {
+                    h0 = gelu_tanh(v0);
+                    h1 = gelu_tanh(v1);
+                }
+                const uint32_t hv = pack_bf16(h0, h1);
+                *reinterpret_cast<uint32_t*>(sH + row * cx.ldh + col) = hv;
+                if (gout != nullptr && row < nrow)
+                    *reinterpret_cast<uint32_t*>(
+                        gout + (size_t)(r0 + row) * c.H + col) = hv;
+            }
+        }
+    }
+}
+
+// this thread's two rows (g, g + 8 of its warp): quad-reduce a, b, write
+// them for the column warps' exchange, sync, and return the full-row sums
+__device__ __forceinline__ void row_exchange(const Common& c, Ctx& cx,
+                                             float a[2], float b[2],
+                                             float* stat) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+            a[hf] += __shfl_xor_sync(0xffffffffu, a[hf], o);
+            b[hf] += __shfl_xor_sync(0xffffffffu, b[hf], o);
+        }
+        if (cx.t == 0) {
+            const int row = cx.wrow * 16 + cx.g + 8 * hf;
+            stat[(cx.wcol * c.tm + row) * 2] = a[hf];
+            stat[(cx.wcol * c.tm + row) * 2 + 1] = b[hf];
         }
     }
     __syncthreads();
+    const int wc = 8 / c.wr;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+        const int row = cx.wrow * 16 + cx.g + 8 * hf;
+        float sa = 0.0f, sb = 0.0f;
+        for (int w = 0; w < wc; ++w) {
+            sa += stat[(w * c.tm + row) * 2];
+            sb += stat[(w * c.tm + row) * 2 + 1];
+        }
+        a[hf] = sa;
+        b[hf] = sb;
+    }
+}
 
-    const int n_tiles = (p.M + TM - 1) / TM;
+// ================================ forward ==================================
+
+template <bool LN, bool STREAM>
+__global__ void __launch_bounds__(THREADS, 1) fused_mlp_fwd_tiles(FwdParams p) {
+    const Common& c = p.c;
+    Ctx cx;
+    init_ctx(c, cx, LN, STREAM, false);
+    const int n_tiles = (c.M + c.tm - 1) / c.tm;
+    const int id_w1 = 0, id_w2 = c.k1 > 0 ? 1 : 0, id_w3 = id_w2 + 1;
+
+    // ---- prologue: weights, the first tile's rows, the ring's first chunks
+    stage_weights(c, cx, LN, STREAM);
+    if ((int)blockIdx.x < n_tiles) {
+        const int r0 = blockIdx.x * c.tm;
+        load_tile(c, cx, r0, min(c.tm, c.M - r0));
+    }
+    cp_async_commit();
+    if (STREAM) {
+        for (int s = 0; s < STAGES - 1; ++s) {
+            fetch_chunk(c, cx, s);
+            cp_async_commit();
+        }
+    }
+
+    float keep_unused[8][4];
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        const int r0 = tile * TM;
+        const int r0 = tile * c.tm;
+        const int nrow = min(c.tm, c.M - r0);
+        cp_async_wait<0>();
+        __syncthreads();
 
-        // ---- input parts -> sX (rows past M read as zero) ----
-        for (int pi = 0; pi < p.n_parts; ++pi) {
-            const bf16* src = p.part[pi];
-            const int w = p.width[pi];
-            const int cpr = w >> 3;                  // 16-byte chunks a row
-            const int off = pi == 0 ? 0 : p.width[0];
-            for (int idx = threadIdx.x; idx < TM * cpr; idx += THREADS) {
-                const int row = idx / cpr, ch = idx % cpr;
-                const int g = r0 + row;
-                uint4 v = make_uint4(0u, 0u, 0u, 0u);
-                if (g < p.M)
-                    v = *reinterpret_cast<const uint4*>(
-                        src + (size_t)g * w + ch * 8);
-                *reinterpret_cast<uint4*>(sX + row * LDX + off + ch * 8) = v;
+        float acc[8][4];
+        // ---- layer 1: h1 = bf16(gelu(x W1 + b1 + pre)) ----
+        for (int j = 0; j < c.np; ++j) {
+            if (c.k1 > 0) product<STREAM>(c, cx, id_w1, j, acc, cx.sX, cx.ldx);
+            hidden_epilogue<false>(c, cx, acc, c.k1 > 0, c.b1,
+                                   c.pre != nullptr ? cx.sP : nullptr, cx.sH1,
+                                   j, keep_unused, 0, nullptr, r0, nrow);
+        }
+        __syncthreads();
+        // the next tile's rows, while this one computes
+        {
+            const int nt_ = tile + gridDim.x;
+            if (nt_ < n_tiles) {
+                const int nr0 = nt_ * c.tm;
+                load_tile(c, cx, nr0, min(c.tm, c.M - nr0));
             }
+            cp_async_commit();
         }
-        __syncthreads();
-
-        // ---- layer 1 ----
-        if (K1 > 0) {
-            warp_gemm<4>(sX, LDX, sW1, K1, sC, rb, c0);
-            __syncthreads();
+        // ---- layer 2: h2 = bf16(gelu(h1 W2 + b2)) ----
+        for (int j = 0; j < c.np; ++j) {
+            product<STREAM>(c, cx, id_w2, j, acc, cx.sH1, cx.ldh);
+            hidden_epilogue<false>(c, cx, acc, true, c.b2, nullptr, cx.sH2, j,
+                                   keep_unused, 0, nullptr, r0, nrow);
         }
-        hidden_epilogue(sC, K1 > 0, p.b1, p.pre, r0, p.M, sH);
-        __syncthreads();
-
-        // ---- layer 2 ----
-        warp_gemm<4>(sH, LDH, sW2, H, sC, rb, c0);
-        __syncthreads();
-        hidden_epilogue(sC, true, p.b2, nullptr, r0, p.M, sH);
         __syncthreads();
 
         // ---- layer 3 + epilogue ----
         if (LN) {
-            warp_gemm<4>(sH, LDH, sW3, H, sC, rb, c0);
-            __syncthreads();
-            const int c4 = lane * 4;
-            const float4 b3 = *reinterpret_cast<const float4*>(p.b3 + c4);
-            const float4 ga = *reinterpret_cast<const float4*>(p.gamma + c4);
-            const float4 be = *reinterpret_cast<const float4*>(p.beta + c4);
-            const float b3v[4] = {b3.x, b3.y, b3.z, b3.w};
-            const float gav[4] = {ga.x, ga.y, ga.z, ga.w};
-            const float bev[4] = {be.x, be.y, be.z, be.w};
-            for (int row = warp; row < TM; row += THREADS / 32) {
-                const int g = r0 + row;
-                float y[4];
-                float s = 0.0f, ss = 0.0f;
+            float yr[8][4];
+            float s[2] = {0.0f, 0.0f}, ss[2] = {0.0f, 0.0f};
+            for (int j = 0; j < c.np; ++j) {
+                product<STREAM>(c, cx, id_w3, j, acc, cx.sH2, cx.ldh);
+                const int n0 = j * c.pw + cx.wcol * 64;
+                const int nv = max(0, min(8, (c.H - n0) / 8));
 #pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    y[i] = sC[row * LDC + c4 + i] + b3v[i];
-                    s += y[i];
-                    ss += y[i] * y[i];
+                for (int nt = 0; nt < 8; ++nt) {
+                    if (nt < nv) {
+                        const int col = n0 + nt * 8 + 2 * cx.t;
+                        const float2 bb =
+                            *reinterpret_cast<const float2*>(c.b3 + col);
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            const float y = acc[nt][e] + (e & 1 ? bb.y : bb.x);
+                            s[e >> 1] += y;
+                            ss[e >> 1] += y * y;
+                            KEEP(yr, 2, j, nt, e, y);
+                        }
+                    }
                 }
+            }
+            row_exchange(c, cx, s, ss, cx.sStat);
+            float mu[2], rstd[2];
 #pragma unroll
-                for (int off = 16; off > 0; off >>= 1) {
-                    s += __shfl_xor_sync(0xffffffffu, s, off);
-                    ss += __shfl_xor_sync(0xffffffffu, ss, off);
-                }
-                const float mu = s * (1.0f / H);
-                const float var = fmaxf(ss * (1.0f / H) - mu * mu, 0.0f);
-                const float rstd = 1.0f / sqrtf(var + kLnEps);
-                float o[4];
+            for (int hf = 0; hf < 2; ++hf) {
+                mu[hf] = s[hf] / (float)c.H;
+                const float var = fmaxf(ss[hf] / (float)c.H - mu[hf] * mu[hf],
+                                        0.0f);
+                rstd[hf] = 1.0f / sqrtf(var + kLnEps);
+            }
+            const bf16* res = c.res_idx >= 0 ? c.part[c.res_idx] : nullptr;
+            for (int j = 0; j < c.np; ++j) {
+                const int n0 = j * c.pw + cx.wcol * 64;
+                const int nv = max(0, min(8, (c.H - n0) / 8));
 #pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    o[i] = (y[i] - mu) * rstd * gav[i] + bev[i];
-                    // round to bf16 BEFORE the residual add
-                    o[i] = __bfloat162float(__float2bfloat16(o[i]));
-                }
-                if (g < p.M) {
-                    if (p.res_idx < 0) {
-                        store_bf16x4(p.out0 + (size_t)g * H + c4, o);
-                    } else {
-                        float r[4], sum[4];
-                        const int roff = p.res_idx == 0 ? 0 : p.width[0];
-                        load_bf16x4(sX + row * LDX + roff + c4, r);
+                for (int nt = 0; nt < 8; ++nt) {
+                    if (nt < nv) {
+                        const int col = n0 + nt * 8 + 2 * cx.t;
+                        const float2 ga =
+                            *reinterpret_cast<const float2*>(c.gamma + col);
+                        const float2 be =
+                            *reinterpret_cast<const float2*>(c.beta + col);
 #pragma unroll
-                        for (int i = 0; i < 4; ++i) sum[i] = o[i] + r[i];
-                        if (p.res_dual) {
-                            store_bf16x4(p.out0 + (size_t)g * H + c4, o);
-                            store_bf16x4(p.out1 + (size_t)g * H + c4, sum);
-                        } else {
-                            store_bf16x4(p.out0 + (size_t)g * H + c4, sum);
+                        for (int hf = 0; hf < 2; ++hf) {
+                            const int row = cx.wrow * 16 + cx.g + 8 * hf;
+                            if (row >= nrow) continue;
+                            float o0 = FETCH(yr, 2, j, nt, 2 * hf);
+                            float o1 = FETCH(yr, 2, j, nt, 2 * hf + 1);
+                            // round to bf16 BEFORE the residual add
+                            o0 = round_bf16((o0 - mu[hf]) * rstd[hf] * ga.x + be.x);
+                            o1 = round_bf16((o1 - mu[hf]) * rstd[hf] * ga.y + be.y);
+                            const size_t at = (size_t)(r0 + row) * c.H + col;
+                            if (res == nullptr) {
+                                store_bf16x2(p.out0 + at, o0, o1);
+                            } else {
+                                const float2 rv = load_bf16x2(res + at);
+                                if (c.res_dual) {
+                                    store_bf16x2(p.out0 + at, o0, o1);
+                                    store_bf16x2(p.out1 + at, o0 + rv.x,
+                                                 o1 + rv.y);
+                                } else {
+                                    store_bf16x2(p.out0 + at, o0 + rv.x,
+                                                 o1 + rv.y);
+                                }
+                            }
                         }
                     }
                 }
             }
         } else {
-            if ((warp & 1) == 0) warp_gemm<1>(sH, LDH, sW3, H, sC, rb, 0);
-            __syncthreads();
-            for (int idx = threadIdx.x; idx < TM * p.d_out; idx += THREADS) {
-                const int row = idx / p.d_out, c = idx % p.d_out;
-                const int g = r0 + row;
-                if (g < p.M)
-                    p.out0[(size_t)g * p.d_out + c] =
-                        __float2bfloat16(sC[row * LDC + c] + p.b3[c]);
+            // narrow head: 16 zero-padded columns, the column-0 warps
+            zero_acc(acc);
+            if (cx.wcol == 0)
+                warp_mma<false>(acc, cx.sH2 + cx.wrow * 16 * cx.ldh, cx.ldh,
+                                cx.sW3n, LDN, c.H / 16, 2);
+            if (cx.wcol == 0) {
+#pragma unroll
+                for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int row = cx.wrow * 16 + cx.g + 8 * (e >> 1);
+                        const int col = nt * 8 + 2 * cx.t + (e & 1);
+                        if (row < nrow && col < c.d_out)
+                            p.out0[(size_t)(r0 + row) * c.d_out + col] =
+                                __float2bfloat16(acc[nt][e] + c.b3[col]);
+                    }
+                }
             }
         }
-        __syncthreads();   // sX / sC are rewritten by the next tile
     }
+    cp_async_wait<0>();
 }
 
-// ===================== K3 / K4b: the backward, for sm_90a =====================
-//
-// Replaces the Pallas TPU kernels _make_bwd_kernel (K3, :129-228, called at
-// :421) and _noln_bwd_kernel (K4b, :924-952, called at :980) of
-// gen_fvgn_tpu/ops/fused_mlp.py. Per 64-row tile the forward is recomputed
-// from the saved inputs (remat), then
-//
-//   LN:   g = dout0 (+ dout1 with res_dual); dgamma += g*xhat; dbeta += g;
-//         dy = rstd*(g*gamma - mean(g*gamma) - xhat*mean(g*gamma*xhat))
-//   noLN: dy = dout (the d_out <= 16 real columns)
-//   dW3 += h2^T dy16;        db3 += dy;        dh2pre = (dy16 W3^T) gelu'(h2pre)
-//   dW2 += h1^T dh2pre16;    db2 += dh2pre;    dh1pre = (dh2pre16 W2^T) gelu'(h1pre)
-//   dW1_i += x_i^T dh1pre16; db1 += dh1pre;    dpre = bf16(dh1pre)
-//   dx_i = bf16(dh1pre16 W1_i^T (+ the residual part's cotangent))
-//
-// with the TPU kernel's rounding points: dy, dh2pre, dh1pre rounded to bf16
-// before the products that take them; LayerNorm statistics and backward,
-// GELU and its derivative in float32. h1pre and h2pre are recomputed a
-// second time where their derivative is needed instead of being kept (one
-// float32 staging tile fits the shared memory); the recomputation is the
-// same code on the same inputs, so the same bits.
-//
-// What bounds it on the H100: bytes for the row streams (x parts, pre, the
-// cotangents in; dx, dpre out) at about 7 products of [64 x 128 x 128] a
-// tile, under the bf16 ridge. This first form reads W1, W2, W3 through the
-// L1/L2 caches with wmma loads (the shared memory holds the tile's
-// activations), and its weight gradients are the slow part: each block owns
-// a float32 slab of partial sums in device memory (L2-resident) and every
-// tile adds its [K1+256, 128] contribution by wmma load/mma/store.
-//
-// Determinism and the per-lane rounding. The rows are `lanes` batch lanes of
-// M / lanes rows (one graph of the batch each); grid = (blocks_per_lane,
-// lanes), a block walks over tiles of its own lane only and owns one slab.
-// A second kernel sums each lane's slabs in block order, rounds the weight
-// gradients to bf16 per lane (the JAX package's kernels run under a
-// per-sample vmap and round per lane), and sums the lanes in lane order. No
-// atomics: two runs give the same bits.
+// =============================== backward ==================================
 
-constexpr int BT = 256;            // 8 warps
-constexpr int LDT = H + 8;         // bf16 leading dim of the 128-wide tiles
-constexpr int LDW3N = 24;          // staged, zero-padded noLN W3 [H][LDW3N]
+enum { RED_DB1 = 0, RED_DB2, RED_DB3, RED_DG, RED_DBE };
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAc;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBc;
+template <bool LN, bool STREAM>
+__global__ void __launch_bounds__(THREADS, 1) fused_mlp_bwd_tiles(BwdParams p) {
+    const Common& c = p.c;
+    Ctx cx;
+    init_ctx(c, cx, LN, STREAM, true);
+    const int n_tiles = (c.M + c.tm - 1) / c.tm;
+    const int H = c.H;
+    // product ids: W1, W2, [W3], [W3^T], W2^T, W1_0^T, [W1_1^T]
+    int nid = 0;
+    const int id_w1 = c.k1 > 0 ? nid++ : -1;
+    const int id_w2 = nid++;
+    const int id_w3 = LN ? nid++ : -1;
+    const int id_w3t = LN ? nid++ : -1;
+    const int id_w2t = nid++;
+    const int id_w1t = nid;
+    const int n_bias = 4 * H + c.dp;
+    const int acc_off[5] = {0, H, 2 * H, 2 * H + c.dp, 3 * H + c.dp};
 
-struct BwdParams {
-    const bf16* part[2];
-    int width[2];
-    int n_parts;
-    const bf16* w1;      // [K1, H] (device memory)
-    const bf16* pre;     // [M, H] or null
-    const float* b1;
-    const bf16* w2;      // [H, H]
-    const float* b2;
-    const bf16* w3;      // [H, d_out]
-    const float* b3;
-    const float* gamma;
-    const bf16* dout0;   // [M, d_out]
-    const bf16* dout1;   // [M, H] with res_dual, else null
-    bf16* dx[2];
-    bf16* dpre;
-    float* part_acc;     // [lanes * blocks_per_lane, slab]
-    int rows_per_lane;
-    int res_idx;
-    int res_dual;
-    int d_out;
-    int slab;
-};
-
-// acc[t] = A[16 rows of block rb, K] * B[K, c0 + 16t ..], B row-major
-template <int NT>
-__device__ __forceinline__ void mma_rows(const bf16* A, int lda, int K,
-                                         const bf16* B, int ldb, FragC* acc,
-                                         int rb, int c0) {
-#pragma unroll
-    for (int t = 0; t < NT; ++t) wmma::fill_fragment(acc[t], 0.0f);
-    for (int k0 = 0; k0 < K; k0 += 16) {
-        FragA a;
-        wmma::load_matrix_sync(a, A + rb * 16 * lda + k0, lda);
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-            FragB b;
-            wmma::load_matrix_sync(b, B + k0 * ldb + c0 + t * 16, ldb);
-            wmma::mma_sync(acc[t], a, b, acc[t]);
+    // ---- prologue ----
+    for (int i = threadIdx.x; i < n_bias; i += THREADS) cx.sAcc[i] = 0.0f;
+    for (int i = threadIdx.x; i < 5 * c.wr * H; i += THREADS) cx.sRed[i] = 0.0f;
+    stage_weights(c, cx, LN, STREAM);
+    if ((int)blockIdx.x < n_tiles) {
+        const int r0 = blockIdx.x * c.tm;
+        load_tile(c, cx, r0, min(c.tm, c.M - r0));
+    }
+    cp_async_commit();
+    if (STREAM) {
+        for (int s = 0; s < STAGES - 1; ++s) {
+            fetch_chunk(c, cx, s);
+            cp_async_commit();
         }
     }
-}
 
-// acc[t] = A[16 rows of block rb, K] * W^T[K, c0 + 16t ..], W row-major
-// [n, K] (so W^T is W read column-major)
-template <int NT>
-__device__ __forceinline__ void mma_rows_bt(const bf16* A, int lda, int K,
-                                            const bf16* W, int ldw,
-                                            FragC* acc, int rb, int c0) {
-#pragma unroll
-    for (int t = 0; t < NT; ++t) wmma::fill_fragment(acc[t], 0.0f);
-    for (int k0 = 0; k0 < K; k0 += 16) {
-        FragA a;
-        wmma::load_matrix_sync(a, A + rb * 16 * lda + k0, lda);
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-            FragBc b;
-            wmma::load_matrix_sync(b, W + (c0 + t * 16) * ldw + k0, ldw);
-            wmma::mma_sync(acc[t], a, b, acc[t]);
-        }
-    }
-}
-
-template <int NT>
-__device__ __forceinline__ void store_rows(float* sC, const FragC* acc, int rb,
-                                           int c0) {
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-        wmma::store_matrix_sync(sC + rb * 16 * LDC + c0 + t * 16, acc[t], LDC,
-                                wmma::mem_row_major);
-}
-
-// sC[block] = acc * sC[block], element by element. An accumulator fragment
-// loaded from memory holds the same (row, column) in the same register as
-// one produced by mma_sync, so the product is of matching elements.
-template <int NT>
-__device__ __forceinline__ void mul_store_rows(float* sC, FragC* acc, int rb,
-                                               int c0) {
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-        FragC m;
-        float* p = sC + rb * 16 * LDC + c0 + t * 16;
-        wmma::load_matrix_sync(m, p, LDC, wmma::mem_row_major);
-#pragma unroll
-        for (int i = 0; i < m.num_elements; ++i) acc[t].x[i] *= m.x[i];
-        wmma::store_matrix_sync(p, acc[t], LDC, wmma::mem_row_major);
-    }
-}
-
-// W[m0.., n0 + 16t ..] += A^T B over the tile's TM rows: A [TM, *] and B
-// [TM, *] row-major in shared memory, W a float32 row-major slab (device
-// memory) read and written by this warp only.
-template <int NT>
-__device__ __forceinline__ void wgrad_rmw(const bf16* A, int lda,
-                                          const bf16* B, int ldb, float* W,
-                                          int ldw, int m0, int n0) {
-    FragC acc[NT];
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-        wmma::load_matrix_sync(acc[t], W + (size_t)m0 * ldw + n0 + t * 16, ldw,
-                               wmma::mem_row_major);
-#pragma unroll
-    for (int k0 = 0; k0 < TM; k0 += 16) {
-        FragAc a;
-        wmma::load_matrix_sync(a, A + k0 * lda + m0, lda);
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-            FragB b;
-            wmma::load_matrix_sync(b, B + k0 * ldb + n0 + t * 16, ldb);
-            wmma::mma_sync(acc[t], a, b, acc[t]);
-        }
-    }
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-        wmma::store_matrix_sync(W + (size_t)m0 * ldw + n0 + t * 16, acc[t], ldw,
-                                wmma::mem_row_major);
-}
-
-__device__ __forceinline__ float gelu_tanh_grad(float x) {
-    const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-    const float t = tanhf(u);
-    const float du = 0.7978845608028654f * (1.0f + (float)(3.0 * 0.044715) * x * x);
-    return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * du;
-}
-
-// v = bias (+ pre) (+ sC) for the tile, in the forward epilogue's order;
-// `grad` stores gelu'(v) in place in sC, otherwise bf16(gelu(v)) into sH.
-__device__ __forceinline__ void hidden_pass(float* sC, bool has_acc,
-                                            const float* bias, const bf16* pre,
-                                            int r0, int nrow, bf16* sH,
-                                            bool grad) {
-    for (int idx = threadIdx.x; idx < TM * 32; idx += BT) {
-        const int row = idx >> 5;
-        const int c4 = (idx & 31) * 4;
-        float v[4];
-        const float4 bb = *reinterpret_cast<const float4*>(bias + c4);
-        v[0] = bb.x; v[1] = bb.y; v[2] = bb.z; v[3] = bb.w;
-        if (pre != nullptr && row < nrow) {
-            float pv[4];
-            load_bf16x4(pre + (size_t)(r0 + row) * H + c4, pv);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) v[i] += pv[i];
-        }
-        if (has_acc) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) v[i] += sC[row * LDC + c4 + i];
-        }
-        if (grad) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) sC[row * LDC + c4 + i] = gelu_tanh_grad(v[i]);
-        } else {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) v[i] = gelu_tanh(v[i]);
-            store_bf16x4(sH + row * LDT + c4, v);
-        }
-    }
-}
-
-// sH = bf16(sC) for the tile; column sums of sC (rows in order) added to
-// slab_b[0..H) by threads 0..H-1; optionally dpre = bf16(sC) for real rows
-__device__ __forceinline__ void grad_epilogue(const float* sC, bf16* sH,
-                                              float* slab_b, bf16* dpre,
-                                              int r0, int nrow) {
-    for (int idx = threadIdx.x; idx < TM * 32; idx += BT) {
-        const int row = idx >> 5;
-        const int c4 = (idx & 31) * 4;
-        const float v[4] = {sC[row * LDC + c4], sC[row * LDC + c4 + 1],
-                            sC[row * LDC + c4 + 2], sC[row * LDC + c4 + 3]};
-        store_bf16x4(sH + row * LDT + c4, v);
-        if (dpre != nullptr && row < nrow)
-            store_bf16x4(dpre + (size_t)(r0 + row) * H + c4, v);
-    }
-    if (threadIdx.x < H) {
-        float s = 0.0f;
-        for (int row = 0; row < TM; ++row) s += sC[row * LDC + threadIdx.x];
-        slab_b[threadIdx.x] += s;
-    }
-}
-
-size_t bwd_smem_bytes(int k1) {
-    size_t bytes = 0;
-    if (k1 > 0) bytes += (size_t)TM * (k1 + 8) * sizeof(bf16);   // sX
-    bytes += 3 * (size_t)TM * LDT * sizeof(bf16);                 // sH1 sH2 sDY
-    bytes += (size_t)TM * LDC * sizeof(float);                    // sC
-    bytes += (size_t)(BT / 32) * 3 * H * sizeof(float);           // sRed
-    bytes += (size_t)H * LDW3N * sizeof(bf16);                    // sW3n
-    return bytes;
-}
-
-template <bool LN>
-__global__ void __launch_bounds__(BT, 1) fused_mlp_bwd_kernel(BwdParams p) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    const int K1 = p.width[0] + p.width[1];
-    const int LDX = K1 + 8;
-    bf16* sX = reinterpret_cast<bf16*>(smem);
-    bf16* sH1 = sX + (size_t)(K1 > 0 ? TM * LDX : 0);
-    bf16* sH2 = sH1 + (size_t)TM * LDT;
-    bf16* sDY = sH2 + (size_t)TM * LDT;
-    float* sC = reinterpret_cast<float*>(sDY + (size_t)TM * LDT);
-    float* sRed = sC + (size_t)TM * LDC;
-    bf16* sW3n = reinterpret_cast<bf16*>(sRed + (BT / 32) * 3 * H);
-
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int rb = warp >> 1;
-    const int c0 = (warp & 1) * 64;
-    const int DP = LN ? H : 16;               // padded width of dy / W3 columns
-
-    // slab: dW1 [K1][H] | dW2 [H][H] | dW3 [H][DP] | db1 | db2 | db3 [DP] |
-    // dgamma | dbeta
-    float* slab = p.part_acc +
-        (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * p.slab;
-    float* sw1 = slab;
-    float* sw2 = sw1 + (size_t)K1 * H;
-    float* sw3 = sw2 + H * H;
-    float* sb1 = sw3 + H * DP;
-    float* sb2 = sb1 + H;
-    float* sb3 = sb2 + H;
-    float* sg = sb3 + DP;
-    float* sbe = sg + H;
-    for (int i = threadIdx.x; i < p.slab; i += BT) slab[i] = 0.0f;
-    if (!LN) {
-        for (int idx = threadIdx.x; idx < H * LDW3N; idx += BT) {
-            const int row = idx / LDW3N, c = idx % LDW3N;
-            sW3n[idx] = c < p.d_out ? p.w3[(size_t)row * p.d_out + c]
-                                    : __float2bfloat16(0.0f);
-        }
-    }
-    const bf16* W3 = LN ? p.w3 : sW3n;
-    const int ldw3 = LN ? H : LDW3N;
-    __syncthreads();
-
-    const int lane_begin = blockIdx.y * p.rows_per_lane;
-    const int lane_end = lane_begin + p.rows_per_lane;
-    const int n_tiles = (p.rows_per_lane + TM - 1) / TM;
+    float g1r[8][4], g2r[8][4];
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        const int r0 = lane_begin + tile * TM;
-        const int nrow = min(TM, lane_end - r0);
+        const int r0 = tile * c.tm;
+        const int nrow = min(c.tm, c.M - r0);
+        cp_async_wait<0>();
+        __syncthreads();
 
-        // ---- x parts -> sX (rows past the lane read as zero) ----
-        for (int pi = 0; pi < p.n_parts; ++pi) {
-            const bf16* src = p.part[pi];
-            const int w = p.width[pi];
-            const int cpr = w >> 3;
-            const int off = pi == 0 ? 0 : p.width[0];
-            for (int idx = threadIdx.x; idx < TM * cpr; idx += BT) {
-                const int row = idx / cpr, ch = idx % cpr;
-                uint4 v = make_uint4(0u, 0u, 0u, 0u);
-                if (row < nrow)
-                    v = *reinterpret_cast<const uint4*>(
-                        src + (size_t)(r0 + row) * w + ch * 8);
-                *reinterpret_cast<uint4*>(sX + row * LDX + off + ch * 8) = v;
+        float acc[8][4];
+        // ---- 1. h1 = bf16(gelu(x W1 + b1 + pre)), gelu'(h1pre) ----
+        for (int j = 0; j < c.np; ++j) {
+            if (c.k1 > 0) product<STREAM>(c, cx, id_w1, j, acc, cx.sX, cx.ldx);
+            hidden_epilogue<true>(c, cx, acc, c.k1 > 0, c.b1,
+                                  c.pre != nullptr ? cx.sP : nullptr, cx.sH1,
+                                  j, g1r, 0, p.h1s, r0, nrow);
+        }
+        __syncthreads();
+        {
+            const int nt_ = tile + gridDim.x;
+            if (nt_ < n_tiles) {
+                const int nr0 = nt_ * c.tm;
+                load_tile(c, cx, nr0, min(c.tm, c.M - nr0));
             }
+            cp_async_commit();
         }
-        __syncthreads();
-
-        FragC acc[4];
-        // ---- 1. h1 = bf16(gelu(x W1 + b1 + pre)) ----
-        if (K1 > 0) {
-            mma_rows<4>(sX, LDX, K1, p.w1, H, acc, rb, c0);
-            store_rows<4>(sC, acc, rb, c0);
-            __syncthreads();
+        // ---- 2. h2 = bf16(gelu(h1 W2 + b2)), gelu'(h2pre) ----
+        for (int j = 0; j < c.np; ++j) {
+            product<STREAM>(c, cx, id_w2, j, acc, cx.sH1, cx.ldh);
+            hidden_epilogue<true>(c, cx, acc, true, c.b2, nullptr, cx.sH2, j,
+                                  g2r, 1, p.h2s, r0, nrow);
         }
-        hidden_pass(sC, K1 > 0, p.b1, p.pre, r0, nrow, sH1, false);
-        __syncthreads();
-        // ---- 2. h2 = bf16(gelu(h1 W2 + b2)) ----
-        mma_rows<4>(sH1, LDT, H, p.w2, H, acc, rb, c0);
-        store_rows<4>(sC, acc, rb, c0);
-        __syncthreads();
-        hidden_pass(sC, true, p.b2, nullptr, r0, nrow, sH2, false);
         __syncthreads();
 
         // ---- 3. dy ----
         if (LN) {
-            mma_rows<4>(sH2, LDT, H, p.w3, H, acc, rb, c0);
-            store_rows<4>(sC, acc, rb, c0);
-            __syncthreads();
-            const int c4 = lane * 4;
-            float b3v[4], gav[4], pg[4], pb[4], pd[4];
+            float yr[8][4];
+            float s[2] = {0.0f, 0.0f}, ss[2] = {0.0f, 0.0f};
+            for (int j = 0; j < c.np; ++j) {
+                product<STREAM>(c, cx, id_w3, j, acc, cx.sH2, cx.ldh);
+                const int n0 = j * c.pw + cx.wcol * 64;
+                const int nv = max(0, min(8, (H - n0) / 8));
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                b3v[i] = p.b3[c4 + i];
-                gav[i] = p.gamma[c4 + i];
-                pg[i] = pb[i] = pd[i] = 0.0f;
-            }
-            for (int row = warp; row < TM; row += BT / 32) {
-                float y[4], s = 0.0f, ss = 0.0f;
+                for (int nt = 0; nt < 8; ++nt) {
+                    if (nt < nv) {
+                        const int col = n0 + nt * 8 + 2 * cx.t;
+                        const float2 bb =
+                            *reinterpret_cast<const float2*>(c.b3 + col);
 #pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    y[i] = sC[row * LDC + c4 + i] + b3v[i];
-                    s += y[i];
-                    ss += y[i] * y[i];
-                }
-#pragma unroll
-                for (int off = 16; off > 0; off >>= 1) {
-                    s += __shfl_xor_sync(0xffffffffu, s, off);
-                    ss += __shfl_xor_sync(0xffffffffu, ss, off);
-                }
-                const float mu = s * (1.0f / H);
-                const float var = fmaxf(ss * (1.0f / H) - mu * mu, 0.0f);
-                const float rstd = 1.0f / sqrtf(var + kLnEps);
-                float g[4] = {0.0f, 0.0f, 0.0f, 0.0f}, xh[4], gx[4];
-                if (row < nrow) {
-                    load_bf16x4(p.dout0 + (size_t)(r0 + row) * H + c4, g);
-                    if (p.res_idx >= 0 && p.res_dual) {
-                        float g1[4];
-                        load_bf16x4(p.dout1 + (size_t)(r0 + row) * H + c4, g1);
-#pragma unroll
-                        for (int i = 0; i < 4; ++i) g[i] += g1[i];
+                        for (int e = 0; e < 4; ++e) {
+                            const float y = acc[nt][e] + (e & 1 ? bb.y : bb.x);
+                            s[e >> 1] += y;
+                            ss[e >> 1] += y * y;
+                            KEEP(yr, 2, j, nt, e, y);
+                        }
                     }
                 }
-                float s1 = 0.0f, s2 = 0.0f;
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    xh[i] = (y[i] - mu) * rstd;
-                    pg[i] += g[i] * xh[i];
-                    pb[i] += g[i];
-                    gx[i] = g[i] * gav[i];
-                    s1 += gx[i];
-                    s2 += gx[i] * xh[i];
-                }
-#pragma unroll
-                for (int off = 16; off > 0; off >>= 1) {
-                    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-                    s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-                }
-                const float m1 = s1 * (1.0f / H), m2 = s2 * (1.0f / H);
-                float dy[4];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    dy[i] = rstd * ((gx[i] - m1) - xh[i] * m2);
-                    pd[i] += dy[i];
-                }
-                store_bf16x4(sDY + row * LDT + c4, dy);
             }
+            row_exchange(c, cx, s, ss, cx.sStat);
+            float mu[2], rstd[2];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                sRed[(warp * 3 + 0) * H + c4 + i] = pg[i];
-                sRed[(warp * 3 + 1) * H + c4 + i] = pb[i];
-                sRed[(warp * 3 + 2) * H + c4 + i] = pd[i];
+            for (int hf = 0; hf < 2; ++hf) {
+                mu[hf] = s[hf] / (float)H;
+                const float var =
+                    fmaxf(ss[hf] / (float)H - mu[hf] * mu[hf], 0.0f);
+                rstd[hf] = 1.0f / sqrtf(var + kLnEps);
             }
-            __syncthreads();
-            if (threadIdx.x < H) {
-                float a = 0.0f, b = 0.0f, d = 0.0f;
-                for (int w = 0; w < BT / 32; ++w) {
-                    a += sRed[(w * 3 + 0) * H + threadIdx.x];
-                    b += sRed[(w * 3 + 1) * H + threadIdx.x];
-                    d += sRed[(w * 3 + 2) * H + threadIdx.x];
+            const bool dual = c.res_idx >= 0 && c.res_dual;
+            // g = dout0 (+ dout1) at (row, col), zero past the tile's rows
+            auto load_g = [&](int row, int col, float& g0, float& g1) {
+                g0 = g1 = 0.0f;
+                if (row < nrow) {
+                    const size_t at = (size_t)(r0 + row) * H + col;
+                    const float2 a = load_bf16x2(p.dout0 + at);
+                    g0 = a.x;
+                    g1 = a.y;
+                    if (dual) {
+                        const float2 b = load_bf16x2(p.dout1 + at);
+                        g0 += b.x;
+                        g1 += b.y;
+                    }
                 }
-                sg[threadIdx.x] += a;
-                sbe[threadIdx.x] += b;
-                sb3[threadIdx.x] += d;
+            };
+            float m1[2] = {0.0f, 0.0f}, m2[2] = {0.0f, 0.0f};
+            for (int j = 0; j < c.np; ++j) {
+                const int n0 = j * c.pw + cx.wcol * 64;
+                const int nv = max(0, min(8, (H - n0) / 8));
+#pragma unroll
+                for (int nt = 0; nt < 8; ++nt) {
+                    if (nt < nv) {
+                        const int col = n0 + nt * 8 + 2 * cx.t;
+                        const float2 ga =
+                            *reinterpret_cast<const float2*>(c.gamma + col);
+                        float pg[2] = {0.0f, 0.0f}, pb[2] = {0.0f, 0.0f};
+#pragma unroll
+                        for (int hf = 0; hf < 2; ++hf) {
+                            const int row = cx.wrow * 16 + cx.g + 8 * hf;
+                            float g[2];
+                            load_g(row, col, g[0], g[1]);
+#pragma unroll
+                            for (int e = 0; e < 2; ++e) {
+                                const float y = FETCH(yr, 2, j, nt, 2 * hf + e);
+                                const float xh = (y - mu[hf]) * rstd[hf];
+                                const float gx = g[e] * (e ? ga.y : ga.x);
+                                m1[hf] += gx;
+                                m2[hf] += gx * xh;
+                                pg[e] += g[e] * xh;
+                                pb[e] += g[e];
+                            }
+                        }
+                        col_sum_store(pg[0], pg[1], cx.g,
+                                      cx.sRed + (RED_DG * c.wr + cx.wrow) * H +
+                                          n0 + nt * 8 + 2 * cx.t);
+                        col_sum_store(pb[0], pb[1], cx.g,
+                                      cx.sRed + (RED_DBE * c.wr + cx.wrow) * H +
+                                          n0 + nt * 8 + 2 * cx.t);
+                    }
+                }
+            }
+            row_exchange(c, cx, m1, m2, cx.sStat + 2 * (8 / c.wr) * c.tm);
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+                m1[hf] = m1[hf] / (float)H;
+                m2[hf] = m2[hf] / (float)H;
+            }
+            for (int j = 0; j < c.np; ++j) {
+                const int n0 = j * c.pw + cx.wcol * 64;
+                const int nv = max(0, min(8, (H - n0) / 8));
+#pragma unroll
+                for (int nt = 0; nt < 8; ++nt) {
+                    if (nt < nv) {
+                        const int col = n0 + nt * 8 + 2 * cx.t;
+                        const float2 ga =
+                            *reinterpret_cast<const float2*>(c.gamma + col);
+                        float pd[2] = {0.0f, 0.0f};
+#pragma unroll
+                        for (int hf = 0; hf < 2; ++hf) {
+                            const int row = cx.wrow * 16 + cx.g + 8 * hf;
+                            float g[2], dy[2];
+                            load_g(row, col, g[0], g[1]);
+#pragma unroll
+                            for (int e = 0; e < 2; ++e) {
+                                const float y = FETCH(yr, 2, j, nt, 2 * hf + e);
+                                const float xh = (y - mu[hf]) * rstd[hf];
+                                const float gx = g[e] * (e ? ga.y : ga.x);
+                                dy[e] = rstd[hf] * ((gx - m1[hf]) - xh * m2[hf]);
+                                pd[e] += dy[e];
+                            }
+                            const uint32_t dv = pack_bf16(dy[0], dy[1]);
+                            *reinterpret_cast<uint32_t*>(
+                                cx.sDY + row * cx.lddy + col) = dv;
+                            if (row < nrow)
+                                *reinterpret_cast<uint32_t*>(
+                                    p.dys + (size_t)(r0 + row) * H + col) = dv;
+                        }
+                        col_sum_store(pd[0], pd[1], cx.g,
+                                      cx.sRed + (RED_DB3 * c.wr + cx.wrow) * H +
+                                          n0 + nt * 8 + 2 * cx.t);
+                    }
+                }
             }
         } else {
-            // dy = dout: d_out real columns, zero up to one 16-column tile
-            for (int idx = threadIdx.x; idx < TM * 16; idx += BT) {
-                const int row = idx >> 4, c = idx & 15;
-                sDY[row * LDT + c] = (row < nrow && c < p.d_out)
-                    ? p.dout0[(size_t)(r0 + row) * p.d_out + c]
+            // dy = dout: d_out real columns, zero up to 16
+            for (int i = threadIdx.x; i < c.tm * 16; i += THREADS) {
+                const int row = i >> 4, col = i & 15;
+                const bf16 v = (row < nrow && col < c.d_out)
+                    ? p.dout0[(size_t)(r0 + row) * c.d_out + col]
                     : __float2bfloat16(0.0f);
+                cx.sDY[row * cx.lddy + col] = v;
+                if (row < nrow) p.dys[(size_t)(r0 + row) * 16 + col] = v;
             }
             __syncthreads();
             if (threadIdx.x < 16) {
                 float d = 0.0f;
-                for (int row = 0; row < TM; ++row)
-                    d += __bfloat162float(sDY[row * LDT + threadIdx.x]);
-                sb3[threadIdx.x] += d;
+                for (int row = 0; row < c.tm; ++row)
+                    d += __bfloat162float(cx.sDY[row * cx.lddy + threadIdx.x]);
+                cx.sRed[(RED_DB3 * c.wr) * H + threadIdx.x] = d;
             }
         }
-        // ---- 4. dW3 += h2^T dy16 ----
-        if (LN) wgrad_rmw<8>(sH2, LDT, sDY, LDT, sw3, H, warp * 16, 0);
-        else wgrad_rmw<1>(sH2, LDT, sDY, LDT, sw3, 16, warp * 16, 0);
         __syncthreads();
 
-        // ---- 5. dh2pre = (dy16 W3^T) * gelu'(h2pre) ----
-        mma_rows<4>(sH1, LDT, H, p.w2, H, acc, rb, c0);       // h2pre - b2
-        store_rows<4>(sC, acc, rb, c0);
-        __syncthreads();
-        hidden_pass(sC, true, p.b2, nullptr, r0, nrow, nullptr, true);
-        __syncthreads();
-        mma_rows_bt<4>(sDY, LDT, DP, W3, ldw3, acc, rb, c0);
-        mul_store_rows<4>(sC, acc, rb, c0);
-        __syncthreads();
-        grad_epilogue(sC, sH2, sb2, nullptr, r0, nrow);      // sH2 = dh2pre16
-        __syncthreads();
-        // ---- 6. dW2 += h1^T dh2pre16 ----
-        wgrad_rmw<8>(sH1, LDT, sH2, LDT, sw2, H, warp * 16, 0);
-        __syncthreads();
-
-        // ---- 7. dh1pre = (dh2pre16 W2^T) * gelu'(h1pre); dpre ----
-        if (K1 > 0) {
-            mma_rows<4>(sX, LDX, K1, p.w1, H, acc, rb, c0);
-            store_rows<4>(sC, acc, rb, c0);
-            __syncthreads();
-        }
-        hidden_pass(sC, K1 > 0, p.b1, p.pre, r0, nrow, nullptr, true);
-        __syncthreads();
-        mma_rows_bt<4>(sH2, LDT, H, p.w2, H, acc, rb, c0);
-        mul_store_rows<4>(sC, acc, rb, c0);
-        __syncthreads();
-        grad_epilogue(sC, sH1, sb1, p.dpre, r0, nrow);        // sH1 = dh1pre16
-        __syncthreads();
-
-        if (K1 > 0) {
-            // ---- 8. dW1 += x^T dh1pre16 ----
-            for (int m0 = warp * 16; m0 < K1; m0 += BT / 2)
-                wgrad_rmw<8>(sX, LDX, sH1, LDT, sw1, H, m0, 0);
-            // ---- 9. dx_i = dh1pre16 W1_i^T (+ the residual cotangent) ----
-            int off = 0;
-            for (int pi = 0; pi < p.n_parts; ++pi) {
-                const int w = p.width[pi];
-                const int n_ct = w / 16;
-                for (int f = warp; f < 4 * n_ct; f += BT / 32) {
-                    const int frb = f & 3, fc = (f >> 2) * 16;
-                    FragC a1[1];
-                    mma_rows_bt<1>(sH1, LDT, H, p.w1 + (size_t)off * H, H, a1,
-                                   frb, fc);
-                    store_rows<1>(sC, a1, frb, fc);
-                }
-                __syncthreads();
-                const bf16* dres = nullptr;
-                if (pi == p.res_idx) dres = p.res_dual ? p.dout1 : p.dout0;
-                const int cpr = w / 4;
-                for (int idx = threadIdx.x; idx < nrow * cpr; idx += BT) {
-                    const int row = idx / cpr, c4 = (idx % cpr) * 4;
-                    float v[4];
+        // ---- 4. dh2pre = (dy16 W3^T) * gelu'(h2pre) -> sH2, db2 ----
+        for (int j = 0; j < c.np; ++j) {
+            if (LN) {
+                product<STREAM>(c, cx, id_w3t, j, acc, cx.sDY, cx.lddy);
+            } else {
+                // the staged head read as its transpose: contraction 16
+                zero_acc(acc);
+                const int n0 = j * c.pw + cx.wcol * 64;
+                const int nv = max(0, min(8, (H - n0) / 8));
+                if (nv > 0)
+                    warp_mma<true>(acc, cx.sDY + cx.wrow * 16 * cx.lddy,
+                                   cx.lddy, cx.sW3n + (size_t)n0 * LDN, LDN, 1,
+                                   nv);
+            }
+            const int n0 = j * c.pw + cx.wcol * 64;
+            const int nv = max(0, min(8, (H - n0) / 8));
 #pragma unroll
-                    for (int i = 0; i < 4; ++i) v[i] = sC[row * LDC + c4 + i];
-                    if (dres != nullptr) {
-                        float r[4];
-                        load_bf16x4(dres + (size_t)(r0 + row) * H + c4, r);
+            for (int nt = 0; nt < 8; ++nt) {
+                if (nt < nv) {
+                    const int col = n0 + nt * 8 + 2 * cx.t;
+                    float ps[2] = {0.0f, 0.0f};
 #pragma unroll
-                        for (int i = 0; i < 4; ++i) v[i] += r[i];
+                    for (int hf = 0; hf < 2; ++hf) {
+                        const int row = cx.wrow * 16 + cx.g + 8 * hf;
+                        const float v0 = acc[nt][2 * hf] *
+                                         FETCH(g2r, 1, j, nt, 2 * hf);
+                        const float v1 = acc[nt][2 * hf + 1] *
+                                         FETCH(g2r, 1, j, nt, 2 * hf + 1);
+                        ps[0] += v0;
+                        ps[1] += v1;
+                        const uint32_t dv = pack_bf16(v0, v1);
+                        *reinterpret_cast<uint32_t*>(
+                            cx.sH2 + row * cx.ldh + col) = dv;
+                        if (row < nrow)
+                            *reinterpret_cast<uint32_t*>(
+                                p.dh2s + (size_t)(r0 + row) * H + col) = dv;
                     }
-                    store_bf16x4(p.dx[pi] + (size_t)(r0 + row) * w + c4, v);
+                    col_sum_store(ps[0], ps[1], cx.g,
+                                  cx.sRed + (RED_DB2 * c.wr + cx.wrow) * H +
+                                      col);
                 }
-                __syncthreads();
-                off += w;
             }
         }
-        __syncthreads();   // every tile buffer is rewritten by the next tile
+        __syncthreads();
+
+        // ---- 5. dh1pre = (dh2pre16 W2^T) * gelu'(h1pre) -> sH1, db1, dpre --
+        for (int j = 0; j < c.np; ++j) {
+            product<STREAM>(c, cx, id_w2t, j, acc, cx.sH2, cx.ldh);
+            const int n0 = j * c.pw + cx.wcol * 64;
+            const int nv = max(0, min(8, (H - n0) / 8));
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt) {
+                if (nt < nv) {
+                    const int col = n0 + nt * 8 + 2 * cx.t;
+                    float ps[2] = {0.0f, 0.0f};
+#pragma unroll
+                    for (int hf = 0; hf < 2; ++hf) {
+                        const int row = cx.wrow * 16 + cx.g + 8 * hf;
+                        const float v0 = acc[nt][2 * hf] *
+                                         FETCH(g1r, 0, j, nt, 2 * hf);
+                        const float v1 = acc[nt][2 * hf + 1] *
+                                         FETCH(g1r, 0, j, nt, 2 * hf + 1);
+                        ps[0] += v0;
+                        ps[1] += v1;
+                        const uint32_t dv = pack_bf16(v0, v1);
+                        *reinterpret_cast<uint32_t*>(
+                            cx.sH1 + row * cx.ldh + col) = dv;
+                        if (row < nrow) {
+                            const size_t at = (size_t)(r0 + row) * H + col;
+                            *reinterpret_cast<uint32_t*>(p.dh1s + at) = dv;
+                            if (p.dpre != nullptr)
+                                *reinterpret_cast<uint32_t*>(p.dpre + at) = dv;
+                        }
+                    }
+                    col_sum_store(ps[0], ps[1], cx.g,
+                                  cx.sRed + (RED_DB1 * c.wr + cx.wrow) * H +
+                                      col);
+                }
+            }
+        }
+        __syncthreads();
+
+        // the tile's column sums into the block's, row warps in order
+        for (int i = threadIdx.x; i < n_bias; i += THREADS) {
+            int kind = 0;
+            while (kind < 4 && i >= acc_off[kind + 1]) ++kind;
+            const int col = i - acc_off[kind];
+            float s = 0.0f;
+            for (int w = 0; w < c.wr; ++w) s += cx.sRed[(kind * c.wr + w) * H + col];
+            cx.sAcc[i] += s;
+        }
+
+        // ---- 6. dx_i = dh1pre16 W1_i^T (+ the residual's cotangent) ----
+        for (int pi = 0; pi < c.n_parts; ++pi) {
+            const int w = c.width[pi];
+            const bf16* dres = nullptr;
+            if (pi == c.res_idx) dres = c.res_dual ? p.dout1 : p.dout0;
+            const int passes = (w + c.pw - 1) / c.pw;
+            for (int j = 0; j < passes; ++j) {
+                product<STREAM>(c, cx, id_w1t + pi, j, acc, cx.sH1, cx.ldh);
+                const int n0 = j * c.pw + cx.wcol * 64;
+                const int nv = max(0, min(8, (w - n0) / 8));
+#pragma unroll
+                for (int nt = 0; nt < 8; ++nt) {
+                    if (nt < nv) {
+                        const int col = n0 + nt * 8 + 2 * cx.t;
+#pragma unroll
+                        for (int hf = 0; hf < 2; ++hf) {
+                            const int row = cx.wrow * 16 + cx.g + 8 * hf;
+                            if (row >= nrow) continue;
+                            float v0 = acc[nt][2 * hf], v1 = acc[nt][2 * hf + 1];
+                            if (dres != nullptr) {
+                                const float2 r = load_bf16x2(
+                                    dres + (size_t)(r0 + row) * H + col);
+                                v0 += r.x;
+                                v1 += r.y;
+                            }
+                            store_bf16x2(p.dx[pi] + (size_t)(r0 + row) * w + col,
+                                         v0, v1);
+                        }
+                    }
+                }
+            }
+        }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int i = threadIdx.x; i < n_bias; i += THREADS)
+        p.colsum[(size_t)blockIdx.x * n_bias + i] = cx.sAcc[i];
+}
+
+// ====================== H = 128: one warp a 16-row strip ===================
+//
+// At H = 128 a warp owns whole rows: a 16 x 128 accumulator (16 tiles of 8
+// columns, 64 floats a thread). The C fragment of m16n8k16 holds, for two
+// neighbouring 8-column tiles, exactly the A fragment of a 16-deep slice of
+// the next product, so h1, h2 (and the backward's dy16, dh2pre16,
+// dh1pre16) go from one product's epilogue to the next product as bf16
+// registers, never through shared memory; LayerNorm statistics are quad
+// shuffles. The block stages the weights once; after that its warps share
+// nothing and need no barrier: each walks over its own strips, its x and
+// pre rows coming in by cp.async into its own buffers while it computes.
+
+constexpr int RW = 8;                 // warps of a rows block
+constexpr int LDR = 136;              // staged weights' leading dim (128 + 8)
+
+struct RowsSmem {
+    size_t w, w3n, bias, x, p, col, total;
+};
+
+// bytes of a warp's x region: its x rows [16][k1 + 8]; in the backward
+// also gelu'(h1pre) [64][32] float32 while x is not needed
+__host__ __device__ inline size_t rows_x_bytes(int k1, bool bwd) {
+    const size_t x = k1 > 0 ? (size_t)16 * (k1 + 8) * 2 : 0;
+    return bwd && x < 8192 ? 8192 : x;
+}
+
+// x and pre rows staged per warp (in the backward the x region holds
+// gelu'(h1pre) between layer 1 and step 5)
+__host__ __device__ inline RowsSmem rows_layout(int k1, int dp, bool pre,
+                                                bool ln, bool bwd) {
+    RowsSmem L;
+    size_t o = 0;
+    L.w = o;
+    o += align128((size_t)(k1 + 128 + (ln ? 128 : 0)) * LDR * 2);
+    L.w3n = o;
+    o += align128(ln ? 0 : (size_t)128 * LDN * 2);
+    L.bias = o;
+    o += align128((size_t)5 * 128 * 4);
+    L.x = o;
+    o += align128((size_t)RW * rows_x_bytes(k1, bwd));
+    L.p = o;
+    o += align128(pre ? (size_t)RW * 16 * LDR * 2 : 0);
+    L.col = o;
+    o += align128(bwd ? (size_t)RW * (4 * 128 + dp) * 4 : 0);
+    L.total = o;
+    return L;
+}
+
+// acc[16][4] += A * B over 16 columns tiles (nv valid, even); A [16 x
+// 16*ksteps] in shared memory (a at the first row, stride lda)
+template <bool BT>
+__device__ __forceinline__ void rows_mma_smem(float acc[16][4], const bf16* a,
+                                              int lda, const bf16* b,
+                                              int ldb, int ksteps, int nv) {
+    const int lane = threadIdx.x & 31;
+    const bf16* ap = a + (lane & 15) * lda + ((lane >> 4) << 3);
+    const bf16* bp = BT
+        ? b + ((lane & 7) + ((lane >> 4) << 3)) * ldb + (((lane >> 3) & 1) << 3)
+        : b + ((lane & 7) + (((lane >> 3) & 1) << 3)) * ldb + ((lane >> 4) << 3);
+    for (int ks = 0; ks < ksteps; ++ks) {
+        uint32_t af[4];
+        ldsm_x4(af, ap + ks * 16);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+            if (2 * q < nv) {
+                uint32_t bfr[4];
+                if (BT) ldsm_x4(bfr, bp + q * 16 * ldb + ks * 16);
+                else ldsm_x4_t(bfr, bp + ks * 16 * ldb + q * 16);
+                mma16816(acc[2 * q], af, bfr[0], bfr[1]);
+                mma16816(acc[2 * q + 1], af, bfr[2], bfr[3]);
+            }
+        }
     }
 }
 
-size_t smem_bytes(int k1) {
-    const size_t K1 = (size_t)k1;
-    size_t bytes = (K1 + 2 * H) * LDW * sizeof(bf16);
-    if (K1 > 0) bytes += (size_t)TM * (K1 + 8) * sizeof(bf16);
-    bytes += (size_t)TM * LDH * sizeof(bf16);
-    bytes += (size_t)TM * LDC * sizeof(float);
-    return bytes;
+// the same with A in registers: a[kk] is the fragment of contraction
+// columns 16kk .. 16kk + 15 (ksteps <= 8)
+template <bool BT>
+__device__ __forceinline__ void rows_mma_reg(float acc[16][4],
+                                             const uint32_t a[8][4],
+                                             const bf16* b, int ldb,
+                                             int ksteps, int nv) {
+    const int lane = threadIdx.x & 31;
+    const bf16* bp = BT
+        ? b + ((lane & 7) + ((lane >> 4) << 3)) * ldb + (((lane >> 3) & 1) << 3)
+        : b + ((lane & 7) + (((lane >> 3) & 1) << 3)) * ldb + ((lane >> 4) << 3);
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+        if (ks < ksteps) {
+#pragma unroll
+            for (int q = 0; q < 8; ++q) {
+                if (2 * q < nv) {
+                    uint32_t bfr[4];
+                    if (BT) ldsm_x4(bfr, bp + q * 16 * ldb + ks * 16);
+                    else ldsm_x4_t(bfr, bp + ks * 16 * ldb + q * 16);
+                    mma16816(acc[2 * q], a[ks], bfr[0], bfr[1]);
+                    mma16816(acc[2 * q + 1], a[ks], bfr[2], bfr[3]);
+                }
+            }
+        }
+    }
 }
+
+__device__ __forceinline__ void zero_acc16(float acc[16][4]) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+}
+
+// the packed bf16 pair (row g + 8 hf, columns 2t, 2t + 1 of tile nt) into
+// its place in the A fragments of the next product
+__device__ __forceinline__ void put_a(uint32_t a[8][4], int nt, int hf,
+                                      uint32_t v) {
+    a[nt >> 1][((nt & 1) << 1) + hf] = v;
+}
+
+// rows r0 .. r0 + 16 of a [M, w] array -> this warp's buffer, rows past
+// nrow zero-filled
+__device__ __forceinline__ void warp_load_rows(bf16* dst, int ldd,
+                                               const bf16* src, int w, int r0,
+                                               int nrow) {
+    const int lane = threadIdx.x & 31;
+    const int cpr = w >> 3;
+    for (int i = lane; i < 16 * cpr; i += 32) {
+        const int r = i / cpr, ch = i - r * cpr;
+        const bool ok = r < nrow;
+        cp_async16(dst + r * ldd + ch * 8,
+                   src + (size_t)(ok ? r0 + r : r0) * w + ch * 8, ok);
+    }
+}
+
+__device__ __forceinline__ void warp_load_strip(const Common& c, bf16* sx,
+                                                bf16* sp, int r0, int nrow) {
+    int off = 0;
+    for (int pi = 0; pi < c.n_parts; ++pi) {
+        warp_load_rows(sx + off, c.k1 + 8, c.part[pi], c.width[pi], r0, nrow);
+        off += c.width[pi];
+    }
+    if (c.pre != nullptr && sp != nullptr)
+        warp_load_rows(sp, LDR, c.pre, 128, r0, nrow);
+}
+
+struct RowsCtx {
+    bf16* sW;        // [W1 | W2 | W3] as [rows][LDR]
+    bf16* sW3n;
+    float* sB;       // b1 | b2 | b3 | gamma | beta, 128 each
+    bf16* sx;        // this warp's x rows [16][k1 + 8]
+    bf16* sp;        // this warp's pre rows [16][LDR]
+    float* sCol;     // this warp's column sums [4 * 128 + dp]
+};
+
+// staging of weights and vectors, then one barrier; this warp's buffers
+__device__ __forceinline__ RowsCtx rows_init(const Common& c, bool ln,
+                                             bool bwd) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    const RowsSmem L = rows_layout(c.k1, c.dp, c.pre != nullptr, ln, bwd);
+    RowsCtx r;
+    r.sW = reinterpret_cast<bf16*>(smem + L.w);
+    r.sW3n = reinterpret_cast<bf16*>(smem + L.w3n);
+    r.sB = reinterpret_cast<float*>(smem + L.bias);
+    const int warp = threadIdx.x >> 5;
+    r.sx = reinterpret_cast<bf16*>(smem + L.x + warp * rows_x_bytes(c.k1, bwd));
+    r.sp = reinterpret_cast<bf16*>(smem + L.p) + warp * 16 * LDR;
+    r.sCol = reinterpret_cast<float*>(smem + L.col) + warp * (4 * 128 + c.dp);
+    const bf16* src[3] = {c.w1, c.w2, c.w3};
+    const int rows[3] = {c.k1, 128, ln ? 128 : 0};
+    int r0 = 0;
+    for (int m = 0; m < 3; ++m) {
+        for (int i = threadIdx.x; i < rows[m] * 16; i += RW * 32) {
+            const int rr = i >> 4, ch = i & 15;
+            cp_async16(r.sW + (size_t)(r0 + rr) * LDR + ch * 8,
+                       src[m] + (size_t)rr * 128 + ch * 8, true);
+        }
+        r0 += rows[m];
+    }
+    cp_async_commit();
+    if (!ln) {
+        for (int i = threadIdx.x; i < 128 * LDN; i += RW * 32) {
+            const int rr = i / LDN, col = i - rr * LDN;
+            r.sW3n[i] = col < c.d_out ? c.w3[(size_t)rr * c.d_out + col]
+                                      : __float2bfloat16(0.0f);
+        }
+    }
+    for (int i = threadIdx.x; i < 5 * 128; i += RW * 32) {
+        const int k = i >> 7, col = i & 127;
+        float v = 0.0f;
+        if (k == 0) v = c.b1[col];
+        else if (k == 1) v = c.b2[col];
+        else if (k == 2) v = col < c.d_out ? c.b3[col] : 0.0f;
+        else if (ln && k == 3) v = c.gamma[col];
+        else if (ln && k == 4 && c.beta != nullptr) v = c.beta[col];
+        r.sB[i] = v;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    return r;
+}
+
+// Rows r0 .. r0 + 16 (real rows < nrow) of a bf16 [*, ld] array from A
+// fragments a[p] (columns 16p .. 16p + 15, p < npairs): the four lanes of a
+// quad trade their pairs so that lane t holds columns 16p + 4t .. + 3 and
+// each store writes whole 32-byte sectors of a row (4-byte stores leave
+// half sectors that the memory completes by read-modify-write)
+__device__ __forceinline__ void store_frag_rows(bf16* base, int ld, int r0,
+                                                int nrow,
+                                                const uint32_t a[8][4],
+                                                int npairs) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int q0 = lane & ~3;
+    const int s1 = q0 + ((2 * t) & 3), s2 = q0 + ((2 * t + 1) & 3);
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+        if (p < npairs) {
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+                const uint32_t x = a[p][hf], y = a[p][2 + hf];
+                const uint32_t x1 = __shfl_sync(0xffffffffu, x, s1);
+                const uint32_t y1 = __shfl_sync(0xffffffffu, y, s1);
+                const uint32_t x2 = __shfl_sync(0xffffffffu, x, s2);
+                const uint32_t y2 = __shfl_sync(0xffffffffu, y, s2);
+                const int row = g + 8 * hf;
+                if (row < nrow) {
+                    uint2 v;
+                    v.x = t < 2 ? x1 : y1;
+                    v.y = t < 2 ? x2 : y2;
+                    *reinterpret_cast<uint2*>(
+                        base + (size_t)(r0 + row) * ld + 16 * p + 4 * t) = v;
+                }
+            }
+        }
+    }
+}
+
+// h = bf16(gelu(bias (+ pre) (+ acc))) for the warp's 16 rows, as the next
+// product's A fragments; with GRAD, gelu'(.) into gk; with `gout`, h also
+// into rows r0.. of gout (real rows)
+template <bool GRAD>
+__device__ __forceinline__ void rows_hidden(const float acc[16][4],
+                                            bool has_acc, const float* bias,
+                                            const bf16* sp,
+                                            uint32_t a[8][4],
+                                            float gk[16][4], bf16* gout,
+                                            int r0, int nrow) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+        const int col = nt * 8 + 2 * t;
+        const float2 bb = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+            const int row = g + 8 * hf;
+            float v0 = bb.x, v1 = bb.y;
+            if (sp != nullptr) {
+                const float2 pv = load_bf16x2(sp + row * LDR + col);
+                v0 += pv.x;
+                v1 += pv.y;
+            }
+            if (has_acc) {
+                v0 += acc[nt][2 * hf];
+                v1 += acc[nt][2 * hf + 1];
+            }
+            float h0, h1;
+            if (GRAD) {
+                h0 = gelu_and_grad(v0, gk[nt][2 * hf]);
+                h1 = gelu_and_grad(v1, gk[nt][2 * hf + 1]);
+            } else {
+                h0 = gelu_tanh(v0);
+                h1 = gelu_tanh(v1);
+            }
+            put_a(a, nt, hf, pack_bf16(h0, h1));
+        }
+    }
+    if (gout != nullptr) store_frag_rows(gout, 128, r0, nrow, a, 8);
+}
+
+// this warp's column sums of v (tile nt: columns 2t, 2t + 1, each the sum
+// of this thread's two rows) added to col[0..1] by lanes 0..3
+__device__ __forceinline__ void rows_col_add(float v0, float v1, float* col) {
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+        v0 += __shfl_xor_sync(0xffffffffu, v0, o);
+        v1 += __shfl_xor_sync(0xffffffffu, v1, o);
+    }
+    if ((threadIdx.x & 31) < 4) {
+        col[0] += v0;
+        col[1] += v1;
+    }
+}
+
+// The warp's column sums of 8 tiles (v[i][e]: column 2t + e of tile base +
+// i, this thread's two rows) added into col[], by a reduce-scatter over the
+// 8 lanes that share t: each step keeps half the tiles and hands the other
+// half to the partner lane (14 shuffles instead of 48); the last holder of
+// a column adds it. The order of the sums is fixed: the same bits every run.
+__device__ __forceinline__ void col_add8(const float v[8][2], int base,
+                                         float* col) {
+    const int lane = threadIdx.x & 31;
+    const bool b4 = (lane >> 4) & 1, b3 = (lane >> 3) & 1,
+               b2 = (lane >> 2) & 1;
+    float a[4][2], b[2][2], r[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const float keep = b4 ? v[i + 4][e] : v[i][e];
+            const float send = b4 ? v[i][e] : v[i + 4][e];
+            a[i][e] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const float keep = b3 ? a[i + 2][e] : a[i][e];
+            const float send = b3 ? a[i][e] : a[i + 2][e];
+            b[i][e] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+        }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+        const float keep = b2 ? b[1][e] : b[0][e];
+        const float send = b2 ? b[0][e] : b[1][e];
+        r[e] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+    }
+    const int tile = base + (b4 ? 4 : 0) + (b3 ? 2 : 0) + (b2 ? 1 : 0);
+    float* c = col + tile * 8 + 2 * (lane & 3);
+    c[0] += r[0];
+    c[1] += r[1];
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    return v;
+}
+
+template <bool LN>
+__global__ void __launch_bounds__(RW * 32, 1) fused_mlp_fwd_rows(FwdParams p) {
+    const Common& c = p.c;
+    const RowsCtx rc = rows_init(c, LN, false);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int n_strips = (c.M + 15) / 16;
+    const int stride = gridDim.x * RW;
+    const bf16* sW1 = rc.sW;
+    const bf16* sW2 = rc.sW + (size_t)c.k1 * LDR;
+    const bf16* sW3 = sW2 + (size_t)128 * LDR;
+    const bf16* res = c.res_idx >= 0 ? c.part[c.res_idx] : nullptr;
+
+    int s = blockIdx.x * RW + warp;
+    if (s < n_strips)
+        warp_load_strip(c, rc.sx, rc.sp, s * 16, min(16, c.M - s * 16));
+    cp_async_commit();
+    for (; s < n_strips; s += stride) {
+        const int r0 = s * 16, nrow = min(16, c.M - r0);
+        cp_async_wait<0>();
+        __syncwarp();
+        float acc[16][4];
+        uint32_t ha[8][4];
+        float unused[16][4];
+        // ---- layer 1 ----
+        zero_acc16(acc);
+        if (c.k1 > 0)
+            rows_mma_smem<false>(acc, rc.sx, c.k1 + 8, sW1, LDR, c.k1 / 16, 16);
+        rows_hidden<false>(acc, c.k1 > 0, rc.sB,
+                           c.pre != nullptr ? rc.sp : nullptr, ha, unused,
+                           nullptr, r0, nrow);
+        __syncwarp();
+        if (s + stride < n_strips)
+            warp_load_strip(c, rc.sx, rc.sp, (s + stride) * 16,
+                            min(16, c.M - (s + stride) * 16));
+        cp_async_commit();
+        // ---- layer 2 ----
+        zero_acc16(acc);
+        rows_mma_reg<false>(acc, ha, sW2, LDR, 8, 16);
+        rows_hidden<false>(acc, true, rc.sB + 128, nullptr, ha, unused,
+                           nullptr, r0, nrow);
+        // ---- layer 3 ----
+        if (LN) {
+            // the residual's rows, loaded ahead of the product
+            uint32_t rv[16][2];
+            if (res != nullptr) {
+#pragma unroll
+                for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+                    for (int hf = 0; hf < 2; ++hf) {
+                        const int row = min(g + 8 * hf, nrow - 1);
+                        rv[nt][hf] = *reinterpret_cast<const uint32_t*>(
+                            res + (size_t)(r0 + row) * 128 + nt * 8 + 2 * t);
+                    }
+            }
+            zero_acc16(acc);
+            rows_mma_reg<false>(acc, ha, sW3, LDR, 8, 16);
+            float sm[2] = {0.0f, 0.0f}, ss[2] = {0.0f, 0.0f};
+#pragma unroll
+            for (int nt = 0; nt < 16; ++nt) {
+                const float2 bb =
+                    *reinterpret_cast<const float2*>(rc.sB + 256 + nt * 8 + 2 * t);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float y = acc[nt][e] + (e & 1 ? bb.y : bb.x);
+                    acc[nt][e] = y;
+                    sm[e >> 1] += y;
+                    ss[e >> 1] += y * y;
+                }
+            }
+            float mu[2], rstd[2];
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+                mu[hf] = quad_sum(sm[hf]) / 128.0f;
+                const float var =
+                    fmaxf(quad_sum(ss[hf]) / 128.0f - mu[hf] * mu[hf], 0.0f);
+                rstd[hf] = 1.0f / sqrtf(var + kLnEps);
+            }
+            uint32_t o0a[8][4], o1a[8][4];
+#pragma unroll
+            for (int nt = 0; nt < 16; ++nt) {
+                const int col = nt * 8 + 2 * t;
+                const float2 ga = *reinterpret_cast<const float2*>(rc.sB + 384 + col);
+                const float2 be = *reinterpret_cast<const float2*>(rc.sB + 512 + col);
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf) {
+                    // round to bf16 BEFORE the residual add
+                    const float o0 = round_bf16(
+                        (acc[nt][2 * hf] - mu[hf]) * rstd[hf] * ga.x + be.x);
+                    const float o1 = round_bf16(
+                        (acc[nt][2 * hf + 1] - mu[hf]) * rstd[hf] * ga.y + be.y);
+                    float s0 = o0, s1 = o1;
+                    if (res != nullptr) {
+                        const float2 r2 = unpack_bf16(rv[nt][hf]);
+                        s0 = o0 + r2.x;
+                        s1 = o1 + r2.y;
+                    }
+                    put_a(o0a, nt, hf, pack_bf16(o0, o1));
+                    put_a(o1a, nt, hf, pack_bf16(s0, s1));
+                }
+            }
+            if (res == nullptr || c.res_dual)
+                store_frag_rows(p.out0, 128, r0, nrow, o0a, 8);
+            if (res != nullptr)
+                store_frag_rows(c.res_dual ? p.out1 : p.out0, 128, r0, nrow,
+                                o1a, 8);
+        } else {
+            // narrow head: 16 zero-padded columns
+            zero_acc16(acc);
+            rows_mma_reg<false>(acc, ha, rc.sW3n, LDN, 8, 2);
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int row = g + 8 * (e >> 1);
+                    const int col = nt * 8 + 2 * t + (e & 1);
+                    if (row < nrow && col < c.d_out)
+                        p.out0[(size_t)(r0 + row) * c.d_out + col] =
+                            __float2bfloat16(acc[nt][e] + rc.sB[256 + col]);
+                }
+            }
+        }
+    }
+    cp_async_wait<0>();
+}
+
+// rows r0 + g + 8 hf (clamped to the strip's real rows) of a [*, 128]
+// bf16 array as this thread's column pairs: v[nt][hf] = columns nt*8 + 2t, +1
+__device__ __forceinline__ void load_pairs(uint32_t v[16][2], const bf16* src,
+                                           int r0, int nrow) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+            const int row = min(g + 8 * hf, nrow - 1);
+            v[nt][hf] = *reinterpret_cast<const uint32_t*>(
+                src + (size_t)(r0 + row) * 128 + nt * 8 + 2 * t);
+        }
+}
+
+template <bool LN>
+__global__ void __launch_bounds__(RW * 32, 1) fused_mlp_bwd_rows(BwdParams p) {
+    const Common& c = p.c;
+    const RowsCtx rc = rows_init(c, LN, true);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int n_strips = (c.M + 15) / 16;
+    const int stride = gridDim.x * RW;
+    const int n_bias = 4 * 128 + c.dp;
+    const bf16* sW1 = rc.sW;
+    const bf16* sW2 = rc.sW + (size_t)c.k1 * LDR;
+    const bf16* sW3 = sW2 + (size_t)128 * LDR;
+    // column sums: db1 | db2 | db3 (dp) | dgamma | dbeta
+    float* cdb1 = rc.sCol;
+    float* cdb2 = rc.sCol + 128;
+    float* cdb3 = rc.sCol + 256;
+    float* cdg = rc.sCol + 256 + c.dp;
+    float* cdbe = cdg + 128;
+    for (int i = lane; i < n_bias; i += 32) rc.sCol[i] = 0.0f;
+    // gelu'(h1pre) waits in this warp's x region between layer 1 and step 5
+    // ([64][32] float32, this lane's column: no bank conflicts)
+    float* g1s = reinterpret_cast<float*>(rc.sx) + lane;
+    const bool dual = c.res_idx >= 0 && c.res_dual;
+
+    int s = blockIdx.x * RW + warp;
+    if (s < n_strips)
+        warp_load_strip(c, rc.sx, rc.sp, s * 16, min(16, c.M - s * 16));
+    cp_async_commit();
+    for (; s < n_strips; s += stride) {
+        const int r0 = s * 16, nrow = min(16, c.M - r0);
+        cp_async_wait<0>();
+        __syncwarp();
+        float acc[16][4], gk[16][4];
+        uint32_t ha[8][4];
+        // ---- 1. h1, gelu'(h1pre) -> the x region ----
+        zero_acc16(acc);
+        if (c.k1 > 0)
+            rows_mma_smem<false>(acc, rc.sx, c.k1 + 8, sW1, LDR, c.k1 / 16,
+                                 16);
+        rows_hidden<true>(acc, c.k1 > 0, rc.sB,
+                          c.pre != nullptr ? rc.sp : nullptr, ha, gk, p.h1s,
+                          r0, nrow);
+        __syncwarp();                 // every lane is past its x reads
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) g1s[(nt * 4 + e) * 32] = gk[nt][e];
+        // ---- 2. h2, gelu'(h2pre) in registers ----
+        zero_acc16(acc);
+        rows_mma_reg<false>(acc, ha, sW2, LDR, 8, 16);
+        rows_hidden<true>(acc, true, rc.sB + 128, nullptr, ha, gk, p.h2s, r0,
+                          nrow);
+        // ---- 3. dy -> ha (the A fragments of dy16) ----
+        if (LN) {
+            zero_acc16(acc);
+            rows_mma_reg<false>(acc, ha, sW3, LDR, 8, 16);
+            float sm[2] = {0.0f, 0.0f}, ss[2] = {0.0f, 0.0f};
+#pragma unroll
+            for (int nt = 0; nt < 16; ++nt) {
+                const float2 bb =
+                    *reinterpret_cast<const float2*>(rc.sB + 256 + nt * 8 + 2 * t);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float y = acc[nt][e] + (e & 1 ? bb.y : bb.x);
+                    acc[nt][e] = y;
+                    sm[e >> 1] += y;
+                    ss[e >> 1] += y * y;
+                }
+            }
+            float mu[2], rstd[2];
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+                mu[hf] = quad_sum(sm[hf]) * (1.0f / 128.0f);
+                const float var = fmaxf(
+                    quad_sum(ss[hf]) * (1.0f / 128.0f) - mu[hf] * mu[hf], 0.0f);
+                rstd[hf] = 1.0f / sqrtf(var + kLnEps);
+            }
+            // g = dout0 (+ dout1) of 8 tiles, loaded as each sweep needs
+            // them (twice: held across both sweeps they would not fit the
+            // registers beside y and gelu'(h2pre)); zero past the strip
+            uint32_t d0[8][2], d1[8][2];
+            auto load_chunk = [&](int ch) {
+#pragma unroll
+                for (int i = 0; i < 8; ++i)
+#pragma unroll
+                    for (int hf = 0; hf < 2; ++hf) {
+                        const int row = min(g + 8 * hf, nrow - 1);
+                        const size_t at = (size_t)(r0 + row) * 128 +
+                                          (ch * 8 + i) * 8 + 2 * t;
+                        d0[i][hf] = *reinterpret_cast<const uint32_t*>(
+                            p.dout0 + at);
+                        if (dual)
+                            d1[i][hf] = *reinterpret_cast<const uint32_t*>(
+                                p.dout1 + at);
+                    }
+            };
+            auto load_g = [&](int i, int hf, float& g0, float& g1) {
+                g0 = g1 = 0.0f;
+                if (g + 8 * hf < nrow) {
+                    const float2 a = unpack_bf16(d0[i][hf]);
+                    g0 = a.x;
+                    g1 = a.y;
+                    if (dual) {
+                        const float2 b = unpack_bf16(d1[i][hf]);
+                        g0 += b.x;
+                        g1 += b.y;
+                    }
+                }
+            };
+            float m1[2] = {0.0f, 0.0f}, m2[2] = {0.0f, 0.0f};
+#pragma unroll
+            for (int ch = 0; ch < 2; ++ch) {
+                float pg[8][2], pb[8][2];
+                load_chunk(ch);
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const int nt = ch * 8 + i, col = nt * 8 + 2 * t;
+                    const float2 ga =
+                        *reinterpret_cast<const float2*>(rc.sB + 384 + col);
+                    pg[i][0] = pg[i][1] = pb[i][0] = pb[i][1] = 0.0f;
+#pragma unroll
+                    for (int hf = 0; hf < 2; ++hf) {
+                        float gv[2];
+                        load_g(i, hf, gv[0], gv[1]);
+#pragma unroll
+                        for (int e = 0; e < 2; ++e) {
+                            const float xh =
+                                (acc[nt][2 * hf + e] - mu[hf]) * rstd[hf];
+                            const float gx = gv[e] * (e ? ga.y : ga.x);
+                            m1[hf] += gx;
+                            m2[hf] += gx * xh;
+                            pg[i][e] += gv[e] * xh;
+                            pb[i][e] += gv[e];
+                        }
+                    }
+                }
+                col_add8(pg, ch * 8, cdg);
+                col_add8(pb, ch * 8, cdbe);
+            }
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+                m1[hf] = quad_sum(m1[hf]) * (1.0f / 128.0f);
+                m2[hf] = quad_sum(m2[hf]) * (1.0f / 128.0f);
+            }
+#pragma unroll
+            for (int ch = 0; ch < 2; ++ch) {
+                float pd[8][2];
+                load_chunk(ch);
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const int nt = ch * 8 + i, col = nt * 8 + 2 * t;
+                    const float2 ga =
+                        *reinterpret_cast<const float2*>(rc.sB + 384 + col);
+                    pd[i][0] = pd[i][1] = 0.0f;
+#pragma unroll
+                    for (int hf = 0; hf < 2; ++hf) {
+                        float gv[2], dy[2];
+                        load_g(i, hf, gv[0], gv[1]);
+#pragma unroll
+                        for (int e = 0; e < 2; ++e) {
+                            const float xh =
+                                (acc[nt][2 * hf + e] - mu[hf]) * rstd[hf];
+                            const float gx = gv[e] * (e ? ga.y : ga.x);
+                            dy[e] = rstd[hf] * ((gx - m1[hf]) - xh * m2[hf]);
+                            pd[i][e] += dy[e];
+                        }
+                        put_a(ha, nt, hf, pack_bf16(dy[0], dy[1]));
+                    }
+                }
+                col_add8(pd, ch * 8, cdb3);
+            }
+            store_frag_rows(p.dys, 128, r0, nrow, ha, 8);
+        } else {
+            // dy = dout: d_out real columns, zero up to 16 (one 16-deep slice)
+            float v[2][2][2];
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int row = g + 8 * hf, col = nt * 8 + 2 * t + e;
+                        v[nt][hf][e] = (row < nrow && col < c.d_out)
+                            ? __bfloat162float(
+                                  p.dout0[(size_t)(r0 + row) * c.d_out + col])
+                            : 0.0f;
+                    }
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+                const int col = nt * 8 + 2 * t;
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf)
+                    put_a(ha, nt, hf, pack_bf16(v[nt][hf][0], v[nt][hf][1]));
+                rows_col_add(v[nt][0][0] + v[nt][1][0],
+                             v[nt][0][1] + v[nt][1][1], cdb3 + col);
+            }
+            store_frag_rows(p.dys, 16, r0, nrow, ha, 1);
+        }
+        // ---- 4. dh2pre = (dy16 W3^T) * gelu'(h2pre), db2 ----
+        zero_acc16(acc);
+        if (LN) rows_mma_reg<true>(acc, ha, sW3, LDR, 8, 16);
+        else rows_mma_reg<true>(acc, ha, rc.sW3n, LDN, 1, 16);
+#pragma unroll
+        for (int ch = 0; ch < 2; ++ch) {
+            float ps[8][2];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                const int nt = ch * 8 + i;
+                ps[i][0] = ps[i][1] = 0.0f;
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf) {
+                    const float v0 = acc[nt][2 * hf] * gk[nt][2 * hf];
+                    const float v1 = acc[nt][2 * hf + 1] * gk[nt][2 * hf + 1];
+                    ps[i][0] += v0;
+                    ps[i][1] += v1;
+                    put_a(ha, nt, hf, pack_bf16(v0, v1));
+                }
+            }
+            col_add8(ps, ch * 8, cdb2);
+        }
+        store_frag_rows(p.dh2s, 128, r0, nrow, ha, 8);
+        // ---- 5. dh1pre = (dh2pre16 W2^T) * gelu'(h1pre), db1, dpre ----
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt)          // back from the x region,
+#pragma unroll                                   // ahead of the product
+            for (int e = 0; e < 4; ++e) gk[nt][e] = g1s[(nt * 4 + e) * 32];
+        zero_acc16(acc);
+        rows_mma_reg<true>(acc, ha, sW2, LDR, 8, 16);
+#pragma unroll
+        for (int ch = 0; ch < 2; ++ch) {
+            float ps[8][2];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                const int nt = ch * 8 + i;
+                ps[i][0] = ps[i][1] = 0.0f;
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf) {
+                    const float v0 = acc[nt][2 * hf] * gk[nt][2 * hf];
+                    const float v1 = acc[nt][2 * hf + 1] * gk[nt][2 * hf + 1];
+                    ps[i][0] += v0;
+                    ps[i][1] += v1;
+                    put_a(ha, nt, hf, pack_bf16(v0, v1));
+                }
+            }
+            col_add8(ps, ch * 8, cdb1);
+        }
+        store_frag_rows(p.dh1s, 128, r0, nrow, ha, 8);
+        if (p.dpre != nullptr) store_frag_rows(p.dpre, 128, r0, nrow, ha, 8);
+        // the x region is free again: the next strip's x rows come in
+        // while this one's dx is computed
+        __syncwarp();
+        if (s + stride < n_strips)
+            warp_load_strip(c, rc.sx, rc.sp, (s + stride) * 16,
+                            min(16, c.M - (s + stride) * 16));
+        cp_async_commit();
+        // ---- 6. dx_i = dh1pre16 W1_i^T (+ the residual's cotangent) ----
+        int off = 0;
+        for (int pi = 0; pi < c.n_parts; ++pi) {
+            const int w = c.width[pi];
+            const bool has_res = pi == c.res_idx;
+            uint32_t rr[16][2];          // the residual's cotangent rows
+            if (has_res) load_pairs(rr, c.res_dual ? p.dout1 : p.dout0, r0,
+                                    nrow);
+            zero_acc16(acc);
+            rows_mma_reg<true>(acc, ha, sW1 + (size_t)off * LDR, LDR, 8, w / 8);
+            uint32_t dxa[8][4];
+#pragma unroll
+            for (int nt = 0; nt < 16; ++nt) {
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf) {
+                    float v0 = acc[nt][2 * hf], v1 = acc[nt][2 * hf + 1];
+                    if (has_res) {
+                        const float2 r = unpack_bf16(rr[nt][hf]);
+                        v0 += r.x;
+                        v1 += r.y;
+                    }
+                    put_a(dxa, nt, hf, pack_bf16(v0, v1));
+                }
+            }
+            store_frag_rows(p.dx[pi], w, r0, nrow, dxa, w / 16);
+            off += w;
+        }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    // the block's column sums: its warps' in order
+    extern __shared__ __align__(128) unsigned char smem[];
+    const RowsSmem L = rows_layout(c.k1, c.dp, c.pre != nullptr, LN, true);
+    const float* cols = reinterpret_cast<const float*>(smem + L.col);
+    for (int i = threadIdx.x; i < n_bias; i += RW * 32) {
+        float v = 0.0f;
+        for (int w = 0; w < RW; ++w) v += cols[w * n_bias + i];
+        p.colsum[(size_t)blockIdx.x * n_bias + i] = v;
+    }
+}
+
+// ============================ weight gradients =============================
+
+// one weight gradient of a lane: out[m][n] = A^T B over the lane's rows,
+// A [rows, lda] from column a0 (m = its width), B [rows, ldb] (n columns)
+struct WgJob {
+    const bf16* a;
+    int lda;
+    int m;
+    const bf16* b;
+    int ldb;
+    int n;
+    int out;          // offset of out[0][0] in the weight slab
+    int ldo;          // row stride of out in the slab
+};
+
+struct WgParams {
+    WgJob job[4];
+    int n_jobs;
+    int rows_per_lane;
+    int chunk_rows;   // rows of a chunk (a multiple of KR)
+    float* part;      // [lanes][chunks][n_w]
+    int n_w;
+};
+
+// grid (output tiles of all jobs, row chunks, lanes); 128 x 128 tile, warps
+// 4 (32 rows each) x 2 (64 columns each)
+__global__ void __launch_bounds__(THREADS) fused_mlp_wgrad(WgParams p) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    bf16* sbuf = reinterpret_cast<bf16*>(smem);   // STAGES2 x [A | B]
+    const int stage_elems = 2 * KR * LD2;
+
+    // this block's job and tile
+    int tile = blockIdx.x, ji = 0;
+    int mt = 0, ntl = 0;
+    for (ji = 0; ji < p.n_jobs; ++ji) {
+        const int tm_ = (p.job[ji].m + 127) / 128;
+        const int tn_ = (p.job[ji].n + 127) / 128;
+        if (tile < tm_ * tn_) {
+            mt = tile / tn_;
+            ntl = tile - mt * tn_;
+            break;
+        }
+        tile -= tm_ * tn_;
+    }
+    const WgJob J = p.job[ji];
+    const int mv = min(128, J.m - mt * 128);
+    const int nvv = min(128, J.n - ntl * 128);
+    const int lane_id = blockIdx.z;
+    const int row_begin = lane_id * p.rows_per_lane + blockIdx.y * p.chunk_rows;
+    const int row_end = min(row_begin + p.chunk_rows,
+                            (lane_id + 1) * p.rows_per_lane);
+    const int nsteps = (row_end - row_begin + KR - 1) / KR;
+    const bf16* A = J.a + mt * 128;
+    const bf16* B = J.b + ntl * 128;
+    const int a_cpr = mv >> 3, b_cpr = nvv >> 3;
+
+    auto load_stage = [&](int s) {
+        bf16* sa = sbuf + (size_t)(s % STAGES2) * stage_elems;
+        bf16* sb = sa + KR * LD2;
+        const int rb = row_begin + s * KR;
+        for (int i = threadIdx.x; i < KR * a_cpr; i += THREADS) {
+            const int r = i / a_cpr, ch = i - r * a_cpr;
+            const bool ok = rb + r < row_end;
+            cp_async16(sa + r * LD2 + ch * 8,
+                       A + (size_t)(ok ? rb + r : row_begin) * J.lda + ch * 8,
+                       ok);
+        }
+        for (int i = threadIdx.x; i < KR * b_cpr; i += THREADS) {
+            const int r = i / b_cpr, ch = i - r * b_cpr;
+            const bool ok = rb + r < row_end;
+            cp_async16(sb + r * LD2 + ch * 8,
+                       B + (size_t)(ok ? rb + r : row_begin) * J.ldb + ch * 8,
+                       ok);
+        }
+    };
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int m0 = (warp & 3) * 32, n0 = (warp >> 2) * 64;
+    const int nv = max(0, min(8, (nvv - n0) / 8));
+    float acc[2][8][4];
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb) zero_acc(acc[mb]);
+
+    for (int s = 0; s < STAGES2 - 1; ++s) {
+        if (s < nsteps) load_stage(s);
+        cp_async_commit();
+    }
+    for (int s = 0; s < nsteps; ++s) {
+        cp_async_wait<STAGES2 - 2>();
+        __syncthreads();
+        if (s + STAGES2 - 1 < nsteps) load_stage(s + STAGES2 - 1);
+        cp_async_commit();
+        const bf16* sa = sbuf + (size_t)(s % STAGES2) * stage_elems;
+        const bf16* sb = sa + KR * LD2;
+#pragma unroll
+        for (int ks = 0; ks < KR / 16; ++ks) {
+            // A^T fragments: A stored [k][m]
+            uint32_t af[2][4];
+#pragma unroll
+            for (int mb = 0; mb < 2; ++mb)
+                ldsm_x4_t(af[mb], sa + (ks * 16 + (lane & 7) +
+                                        ((lane >> 4) << 3)) * LD2 +
+                                       m0 + mb * 16 + (((lane >> 3) & 1) << 3));
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                if (2 * q < nv) {
+                    uint32_t bfr[4];
+                    ldsm_x4_t(bfr, sb + (ks * 16 + (lane & 7) +
+                                         (((lane >> 3) & 1) << 3)) * LD2 +
+                                        n0 + q * 16 + ((lane >> 4) << 3));
+#pragma unroll
+                    for (int mb = 0; mb < 2; ++mb) {
+                        mma16816(acc[mb][2 * q], af[mb], bfr[0], bfr[1]);
+                        mma16816(acc[mb][2 * q + 1], af[mb], bfr[2], bfr[3]);
+                    }
+                }
+            }
+        }
+    }
+    cp_async_wait<0>();
+
+    float* out = p.part +
+        ((size_t)lane_id * gridDim.y + blockIdx.y) * p.n_w + J.out;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+            if (nt < nv) {
+                const int col = ntl * 128 + n0 + nt * 8 + 2 * t;
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf) {
+                    const int rl = m0 + mb * 16 + g + 8 * hf;
+                    if (rl < mv) {
+                        float2 v;
+                        v.x = acc[mb][nt][2 * hf];
+                        v.y = acc[mb][nt][2 * hf + 1];
+                        *reinterpret_cast<float2*>(
+                            out + (size_t)(mt * 128 + rl) * J.ldo + col) = v;
+                    }
+                }
+            }
+        }
+    }
+}
+
+// ================================ host side ================================
+
+struct Shape {
+    int w0, w1, h, has_pre, ln, d_out, M, lanes, bwd;
+};
+
+struct Plan {
+    bool rows;           // H = 128: one warp a 16-row strip (fused_mlp_*_rows)
+    int tm, pw, np;
+    bool stream;
+    size_t smem;
+    int grid;
+    int k1, dp;
+    // backward
+    int tiles2, chunk_rows, n_chunks, n_w, n_bias;
+    size_t smem2;
+    // workspace byte offsets
+    size_t o_spill, o_h1, o_h2, o_dy, o_dh2, o_dh1, o_colsum, o_part, bytes;
+};
+
+int device_limits(int& max_smem, int& n_sm) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    return (int)e;
+}
+
+bool width_ok(int w) {
+    return w > 0 && ((w < 128 && w % 16 == 0) || w % 128 == 0);
+}
+
+// 0 and the plan, or cudaErrorInvalidValue for a shape no kernel takes
+int make_plan(const Shape& s, Plan& P) {
+    int max_smem = 0, n_sm = 0;
+    const int err = device_limits(max_smem, n_sm);
+    if (err != 0) return err;
+    if (s.h < 128 || s.h % 128 != 0 || s.w0 < 0 || s.w1 < 0 ||
+        (s.w0 > 0 && !width_ok(s.w0)) || (s.w1 > 0 && !width_ok(s.w1)) ||
+        (s.w1 > 0 && s.w0 == 0) || (s.w0 == 0 && !s.has_pre) || s.M < 0 ||
+        s.lanes < 1 || s.lanes > 65535)
+        return (int)cudaErrorInvalidValue;
+    if (s.ln ? s.d_out != s.h : (s.d_out < 1 || s.d_out > 16))
+        return (int)cudaErrorInvalidValue;
+    P.k1 = s.w0 + s.w1;
+    P.dp = s.ln ? s.h : 16;
+    bool found = false;
+    P.rows = false;
+    if (s.h == 128) {
+        const RowsSmem R = rows_layout(P.k1, P.dp, s.has_pre != 0, s.ln != 0,
+                                       s.bwd != 0);
+        if (R.total <= (size_t)max_smem) {
+            P.rows = true;
+            P.tm = 16;
+            P.pw = 128;
+            P.np = 1;
+            P.stream = false;
+            P.smem = R.total;
+            found = true;
+        }
+    }
+    for (int tm = 64; tm >= 16 && !found; tm >>= 1) {
+        for (int st = 0; st < 2 && !found; ++st) {
+            const int pw = (8 / (tm / 16)) * 64;
+            const Smem L = smem_layout(tm, pw, P.k1, s.h, P.dp, s.has_pre != 0,
+                                       s.ln != 0, st == 1, s.bwd != 0);
+            if (L.total <= (size_t)max_smem) {
+                P.tm = tm;
+                P.pw = pw;
+                P.np = (s.h + pw - 1) / pw;
+                P.stream = st == 1;
+                P.smem = L.total;
+                found = true;
+            }
+        }
+    }
+    if (!found) return (int)cudaErrorInvalidValue;
+    const int n_tiles = P.rows ? (s.M + 16 * RW - 1) / (16 * RW)
+                               : (s.M + P.tm - 1) / P.tm;
+    P.grid = n_tiles < n_sm ? n_tiles : n_sm;
+    if (P.grid < 1) P.grid = 1;
+    size_t o = 0;
+    P.o_spill = o;
+    if (!P.rows && P.np > 1)
+        o += align128((size_t)P.grid * 3 * (P.np - 1) * 32 * THREADS * 4);
+    P.n_w = P.k1 * s.h + s.h * s.h + s.h * P.dp;
+    P.n_bias = 4 * s.h + P.dp;
+    P.smem2 = (size_t)STAGES2 * 2 * KR * LD2 * 2;
+    if (s.bwd) {
+        if (s.M % s.lanes != 0) return (int)cudaErrorInvalidValue;
+        const size_t row = (size_t)s.M * s.h * 2;
+        P.o_h1 = o; o += align128(row);
+        P.o_h2 = o; o += align128(row);
+        P.o_dy = o; o += align128((size_t)s.M * P.dp * 2);
+        P.o_dh2 = o; o += align128(row);
+        P.o_dh1 = o; o += align128(row);
+        P.o_colsum = o; o += align128((size_t)P.grid * P.n_bias * 4);
+        // pass 2: tiles of the jobs, then chunks for about 2 blocks an SM
+        const int ht = (s.h + 127) / 128;
+        P.tiles2 = ((s.w0 + 127) / 128) * ht + ((s.w1 + 127) / 128) * ht +
+                   ht * ht + ht * ((P.dp + 127) / 128);
+        const int rpl = s.M / s.lanes;
+        const int steps = rpl > 0 ? (rpl + KR - 1) / KR : 1;
+        int want = (2 * n_sm + P.tiles2 * s.lanes - 1) / (P.tiles2 * s.lanes);
+        if (want < 1) want = 1;
+        if (want > steps) want = steps;
+        P.chunk_rows = ((steps + want - 1) / want) * KR;
+        P.n_chunks = rpl > 0 ? (rpl + P.chunk_rows - 1) / P.chunk_rows : 1;
+        P.o_part = o;
+        o += align128((size_t)s.lanes * P.n_chunks * P.n_w * 4);
+    }
+    P.bytes = o;
+    return 0;
+}
+
+void fill_common(Common& c, const Shape& s, const Plan& P, const void* part0,
+                 const void* part1, const void* w1, const void* pre,
+                 const void* b1, const void* w2, const void* b2,
+                 const void* w3, const void* b3, const void* gamma,
+                 const void* beta, int res_idx, int res_dual,
+                 unsigned char* ws) {
+    c.part[0] = static_cast<const bf16*>(part0);
+    c.part[1] = static_cast<const bf16*>(part1);
+    c.width[0] = s.w0;
+    c.width[1] = s.w1;
+    c.n_parts = (s.w0 > 0) + (s.w1 > 0);
+    c.k1 = P.k1;
+    c.pre = static_cast<const bf16*>(pre);
+    c.w1 = static_cast<const bf16*>(w1);
+    c.w2 = static_cast<const bf16*>(w2);
+    c.w3 = static_cast<const bf16*>(w3);
+    c.b1 = static_cast<const float*>(b1);
+    c.b2 = static_cast<const float*>(b2);
+    c.b3 = static_cast<const float*>(b3);
+    c.gamma = static_cast<const float*>(gamma);
+    c.beta = static_cast<const float*>(beta);
+    c.M = s.M;
+    c.H = s.h;
+    c.d_out = s.d_out;
+    c.dp = P.dp;
+    c.res_idx = res_idx;
+    c.res_dual = res_dual;
+    c.tm = P.tm;
+    c.wr = P.tm / 16;
+    c.pw = P.pw;
+    c.np = P.np;
+    c.spill = !P.rows && P.np > 1
+        ? reinterpret_cast<float*>(ws + P.o_spill) : nullptr;
+    // the weight products of a tile, in the order the kernels take them
+    const int h = s.h;
+    int n = 0;
+    auto add = [&](const void* w, int ldw, int k, int nn, int trans,
+                   int res_row) {
+        Prod& q = c.prod[n++];
+        q.w = static_cast<const bf16*>(w);
+        q.ldw = ldw;
+        q.k = k;
+        q.n = nn;
+        q.trans = trans;
+        q.res_row = res_row;
+    };
+    const bf16* w1p = static_cast<const bf16*>(w1);
+    if (P.k1 > 0) add(w1, h, P.k1, h, 0, 0);
+    add(w2, h, h, h, 0, P.k1);
+    if (s.ln) add(w3, h, h, h, 0, P.k1 + h);
+    if (s.bwd) {
+        if (s.ln) add(w3, h, h, h, 1, P.k1 + h);
+        add(w2, h, h, h, 1, P.k1);
+        if (s.w0 > 0) add(w1p, h, h, s.w0, 1, 0);
+        if (s.w1 > 0) add(w1p + (size_t)s.w0 * h, h, h, s.w1, 1, s.w0);
+    }
+    c.n_prod = n;
+    int cpt = 0;
+    for (int i = 0; i < n; ++i)
+        cpt += ((c.prod[i].k + KC - 1) / KC) *
+               ((c.prod[i].n + P.pw - 1) / P.pw);
+    c.cpt = cpt;
+}
+
+template <typename K, typename Pa>
+int launch(K kernel, int grid, size_t smem, cudaStream_t st, const Pa& p) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<grid, THREADS, smem, st>>>(p);
+    return (int)cudaGetLastError();
+}
+
+static_assert(RW * 32 == THREADS, "rows blocks launch with THREADS threads");
 
 }  // namespace
 
+// Bytes of workspace the forward (backward = 0) or the backward needs for
+// this shape, or -1 when no kernel takes it (widths, or shared memory).
+extern "C" long long gfvgn_fused_mlp_workspace(int width0, int width1, int h,
+                                               int has_pre, int layer_norm,
+                                               int d_out, int M, int lanes,
+                                               int backward) {
+    const Shape s{width0, width1, h, has_pre, layer_norm, d_out, M, lanes,
+                  backward};
+    Plan P;
+    if (make_plan(s, P) != 0) return -1;
+    return (long long)P.bytes;
+}
+
 extern "C" int gfvgn_fused_mlp(const void* part0, const void* part1,
-                               int width0, int width1,
+                               int width0, int width1, int h,
                                const void* w1, const void* pre,
                                const void* b1, const void* w2, const void* b2,
                                const void* w3, const void* b3,
                                const void* gamma, const void* beta,
                                void* out0, void* out1, int M, int res_idx,
                                int res_dual, int layer_norm, int d_out,
-                               int n_sm, void* stream) {
-    // width1 > 0 needs width0 > 0; widths are multiples of 16 up to H
+                               void* workspace, void* stream) {
+    const Shape s{width0, width1, h, pre != nullptr, layer_norm, d_out, M, 1,
+                  0};
+    Plan P;
+    int err = make_plan(s, P);
+    if (err != 0) return err;
     const int n_parts = (width0 > 0) + (width1 > 0);
-    if (width0 < 0 || width1 < 0 || width0 > H || width1 > H ||
-        width0 % 16 != 0 || width1 % 16 != 0 || (width1 > 0 && width0 == 0) ||
-        (n_parts == 0 && pre == nullptr) || res_idx >= n_parts || M < 0 ||
-        n_sm < 1)
-        return (int)cudaErrorInvalidValue;
-    if (res_idx >= 0 && (res_idx == 0 ? width0 : width1) != H)
-        return (int)cudaErrorInvalidValue;
-    if (layer_norm ? (d_out != H) : (d_out < 1 || d_out > 16 || res_idx >= 0))
+    if (res_idx >= n_parts || (res_idx >= 0 && !layer_norm) ||
+        (res_idx >= 0 && (res_idx == 0 ? width0 : width1) != h))
         return (int)cudaErrorInvalidValue;
     if (M == 0) return 0;
-    Params p;
-    p.part[0] = static_cast<const bf16*>(part0);
-    p.part[1] = static_cast<const bf16*>(part1);
-    p.width[0] = width0;
-    p.width[1] = width1;
-    p.n_parts = n_parts;
-    p.w1 = static_cast<const bf16*>(w1);
-    p.pre = static_cast<const bf16*>(pre);
-    p.b1 = static_cast<const float*>(b1);
-    p.w2 = static_cast<const bf16*>(w2);
-    p.b2 = static_cast<const float*>(b2);
-    p.w3 = static_cast<const bf16*>(w3);
-    p.b3 = static_cast<const float*>(b3);
-    p.gamma = static_cast<const float*>(gamma);
-    p.beta = static_cast<const float*>(beta);
+    FwdParams p;
+    fill_common(p.c, s, P, part0, part1, w1, pre, b1, w2, b2, w3, b3, gamma,
+                beta, res_idx, res_dual,
+                static_cast<unsigned char*>(workspace));
     p.out0 = static_cast<bf16*>(out0);
     p.out1 = static_cast<bf16*>(out1);
-    p.M = M;
-    p.res_idx = res_idx;
-    p.res_dual = res_dual;
-    p.d_out = d_out;
-
-    const size_t smem = smem_bytes(width0 + width1);
-    const int n_tiles = (M + TM - 1) / TM;
-    const int grid = n_tiles < n_sm ? n_tiles : n_sm;
-    cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-    cudaError_t err;
-    if (layer_norm) {
-        err = cudaFuncSetAttribute(fused_mlp_kernel<true>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        fused_mlp_kernel<true><<<grid, THREADS, smem, s>>>(p);
-    } else {
-        err = cudaFuncSetAttribute(fused_mlp_kernel<false>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        fused_mlp_kernel<false><<<grid, THREADS, smem, s>>>(p);
-    }
-    return (int)cudaGetLastError();
+    cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+    if (P.rows)
+        return layer_norm ? launch(fused_mlp_fwd_rows<true>, P.grid, P.smem, st, p)
+                          : launch(fused_mlp_fwd_rows<false>, P.grid, P.smem, st, p);
+    if (layer_norm)
+        return P.stream ? launch(fused_mlp_fwd_tiles<true, true>, P.grid, P.smem, st, p)
+                        : launch(fused_mlp_fwd_tiles<true, false>, P.grid, P.smem, st, p);
+    return P.stream ? launch(fused_mlp_fwd_tiles<false, true>, P.grid, P.smem, st, p)
+                    : launch(fused_mlp_fwd_tiles<false, false>, P.grid, P.smem, st, p);
 }
 
+// total: the float32 slab [dW1 (k1 x h) | dW2 (h x h) | dW3 (h x dp) | db1 |
+// db2 | db3 (dp) | dgamma | dbeta], weights summed per lane, each lane's sum
+// rounded to bf16, the lanes summed in order
 extern "C" int gfvgn_fused_mlp_bwd(const void* part0, const void* part1,
-                                   int width0, int width1, const void* w1,
-                                   const void* pre, const void* b1,
-                                   const void* w2, const void* b2,
-                                   const void* w3, const void* b3,
-                                   const void* gamma, const void* dout0,
-                                   const void* dout1, void* dx0, void* dx1,
-                                   void* dpre, void* partials, void* total,
-                                   int M, int res_idx, int res_dual,
-                                   int layer_norm, int d_out, int lanes,
-                                   int blocks_per_lane, void* stream) {
+                                   int width0, int width1, int h,
+                                   const void* w1, const void* pre,
+                                   const void* b1, const void* w2,
+                                   const void* b2, const void* w3,
+                                   const void* b3, const void* gamma,
+                                   const void* dout0, const void* dout1,
+                                   void* dx0, void* dx1, void* dpre,
+                                   void* total, int M, int res_idx,
+                                   int res_dual, int layer_norm, int d_out,
+                                   int lanes, void* workspace, void* stream) {
+    const Shape s{width0, width1, h, pre != nullptr, layer_norm, d_out, M,
+                  lanes, 1};
+    Plan P;
+    int err = make_plan(s, P);
+    if (err != 0) return err;
     const int n_parts = (width0 > 0) + (width1 > 0);
-    if (width0 < 0 || width1 < 0 || width0 > H || width1 > H ||
-        width0 % 16 != 0 || width1 % 16 != 0 || (width1 > 0 && width0 == 0) ||
-        (n_parts == 0 && pre == nullptr) || res_idx >= n_parts || M < 0 ||
-        lanes < 1 || blocks_per_lane < 1 || lanes > 65535 || M % lanes != 0)
+    if (res_idx >= n_parts || (res_idx >= 0 && !layer_norm) ||
+        (res_idx >= 0 && (res_idx == 0 ? width0 : width1) != h) ||
+        (res_idx >= 0 && res_dual && dout1 == nullptr))
         return (int)cudaErrorInvalidValue;
-    if (res_idx >= 0 && (res_idx == 0 ? width0 : width1) != H)
-        return (int)cudaErrorInvalidValue;
-    if (layer_norm ? (d_out != H) : (d_out < 1 || d_out > 16 || res_idx >= 0))
-        return (int)cudaErrorInvalidValue;
-    if (res_idx >= 0 && res_dual && dout1 == nullptr)
-        return (int)cudaErrorInvalidValue;
-    if (M == 0) return 0;
-    const int k1 = width0 + width1;
-    const int dp = layer_norm ? H : 16;
+    cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+    unsigned char* ws = static_cast<unsigned char*>(workspace);
+    if (M == 0) {
+        cudaError_t e = cudaMemsetAsync(total, 0,
+                                        (size_t)(P.n_w + P.n_bias) * 4, st);
+        return (int)e;
+    }
     BwdParams p;
-    p.part[0] = static_cast<const bf16*>(part0);
-    p.part[1] = static_cast<const bf16*>(part1);
-    p.width[0] = width0;
-    p.width[1] = width1;
-    p.n_parts = n_parts;
-    p.w1 = static_cast<const bf16*>(w1);
-    p.pre = static_cast<const bf16*>(pre);
-    p.b1 = static_cast<const float*>(b1);
-    p.w2 = static_cast<const bf16*>(w2);
-    p.b2 = static_cast<const float*>(b2);
-    p.w3 = static_cast<const bf16*>(w3);
-    p.b3 = static_cast<const float*>(b3);
-    p.gamma = static_cast<const float*>(gamma);
+    fill_common(p.c, s, P, part0, part1, w1, pre, b1, w2, b2, w3, b3, gamma,
+                nullptr, res_idx, res_dual, ws);
     p.dout0 = static_cast<const bf16*>(dout0);
     p.dout1 = static_cast<const bf16*>(dout1);
     p.dx[0] = static_cast<bf16*>(dx0);
     p.dx[1] = static_cast<bf16*>(dx1);
     p.dpre = static_cast<bf16*>(dpre);
-    p.part_acc = static_cast<float*>(partials);
-    p.rows_per_lane = M / lanes;
-    p.res_idx = res_idx;
-    p.res_dual = res_dual;
-    p.d_out = d_out;
-    p.slab = k1 * H + H * H + H * dp + 4 * H + dp;
-    const int n_w = k1 * H + H * H + H * dp;
+    p.h1s = reinterpret_cast<bf16*>(ws + P.o_h1);
+    p.h2s = reinterpret_cast<bf16*>(ws + P.o_h2);
+    p.dys = reinterpret_cast<bf16*>(ws + P.o_dy);
+    p.dh2s = reinterpret_cast<bf16*>(ws + P.o_dh2);
+    p.dh1s = reinterpret_cast<bf16*>(ws + P.o_dh1);
+    p.colsum = reinterpret_cast<float*>(ws + P.o_colsum);
+    if (P.rows)
+        err = layer_norm ? launch(fused_mlp_bwd_rows<true>, P.grid, P.smem, st, p)
+                         : launch(fused_mlp_bwd_rows<false>, P.grid, P.smem, st, p);
+    else if (layer_norm)
+        err = P.stream ? launch(fused_mlp_bwd_tiles<true, true>, P.grid, P.smem, st, p)
+                       : launch(fused_mlp_bwd_tiles<true, false>, P.grid, P.smem, st, p);
+    else
+        err = P.stream ? launch(fused_mlp_bwd_tiles<false, true>, P.grid, P.smem, st, p)
+                       : launch(fused_mlp_bwd_tiles<false, false>, P.grid, P.smem, st, p);
+    if (err != 0) return err;
 
-    const size_t smem = bwd_smem_bytes(k1);
-    cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-    const dim3 grid(blocks_per_lane, lanes);
-    cudaError_t err;
-    if (layer_norm) {
-        err = cudaFuncSetAttribute(fused_mlp_bwd_kernel<true>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        fused_mlp_bwd_kernel<true><<<grid, BT, smem, s>>>(p);
-    } else {
-        err = cudaFuncSetAttribute(fused_mlp_bwd_kernel<false>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        fused_mlp_bwd_kernel<false><<<grid, BT, smem, s>>>(p);
-    }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    lane_reduce<<<(p.slab + 255) / 256, 256, 0, s>>>(
-        static_cast<const float*>(partials), static_cast<float*>(total),
-        p.slab, n_w, lanes, blocks_per_lane);
+    // pass 2: the weight gradients per lane
+    WgParams q;
+    const bf16* x0 = static_cast<const bf16*>(part0);
+    const bf16* x1 = static_cast<const bf16*>(part1);
+    int nj = 0;
+    auto job = [&](const bf16* a, int lda, int m, const bf16* b, int ldb,
+                   int n, int out, int ldo) {
+        WgJob& J = q.job[nj++];
+        J.a = a; J.lda = lda; J.m = m; J.b = b; J.ldb = ldb; J.n = n;
+        J.out = out; J.ldo = ldo;
+    };
+    if (width0 > 0) job(x0, width0, width0, p.dh1s, h, h, 0, h);
+    if (width1 > 0) job(x1, width1, width1, p.dh1s, h, h, width0 * h, h);
+    job(p.h1s, h, h, p.dh2s, h, h, P.k1 * h, h);
+    job(p.h2s, h, h, p.dys, P.dp, P.dp, P.k1 * h + h * h, P.dp);
+    q.n_jobs = nj;
+    q.rows_per_lane = M / lanes;
+    q.chunk_rows = P.chunk_rows;
+    q.part = reinterpret_cast<float*>(ws + P.o_part);
+    q.n_w = P.n_w;
+    cudaError_t e = cudaFuncSetAttribute(
+        fused_mlp_wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)P.smem2);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid2(P.tiles2, P.n_chunks, lanes);
+    fused_mlp_wgrad<<<grid2, THREADS, P.smem2, st>>>(q);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+
+    float* tot = static_cast<float*>(total);
+    lane_reduce<<<(P.n_w + 255) / 256, 256, 0, st>>>(
+        q.part, tot, P.n_w, P.n_w, lanes, P.n_chunks);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    lane_reduce<<<(P.n_bias + 255) / 256, 256, 0, st>>>(
+        p.colsum, tot + P.n_w, P.n_bias, 0, 1, P.grid);
     return (int)cudaGetLastError();
 }

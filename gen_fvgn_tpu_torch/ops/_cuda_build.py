@@ -112,16 +112,21 @@ def _declare(lib: ctypes.CDLL) -> None:
             ci, ci, ci, ci,    # B, n_in, n_out, H
             ci, ci,            # operand_is_bf16, out_is_bf16
             vp]                # stream
+    lib.gfvgn_fused_mlp_workspace.restype = ctypes.c_longlong
+    lib.gfvgn_fused_mlp_workspace.argtypes = [
+        ci, ci, ci,            # width0, width1, H
+        ci, ci, ci,            # has_pre, layer_norm, d_out
+        ci, ci, ci]            # M, lanes, backward
     lib.gfvgn_fused_mlp.restype = ci
     lib.gfvgn_fused_mlp.argtypes = [
-        vp, vp, ci, ci,        # part0, part1, width0, width1 (0 = absent)
-        vp,                    # w1 [width0+width1, 128] bf16
-        vp,                    # pre [M, 128] bf16 or null
+        vp, vp, ci, ci, ci,    # part0, part1, width0, width1 (0 = absent), H
+        vp,                    # w1 [width0+width1, H] bf16
+        vp,                    # pre [M, H] bf16 or null
         vp, vp, vp, vp, vp,    # b1, w2, b2, w3, b3
         vp, vp,                # gamma, beta (null without LayerNorm)
         vp, vp,                # out0, out1
         ci, ci, ci, ci, ci,    # M, res_idx, res_dual, layer_norm, d_out
-        ci,                    # n_sm
+        vp,                    # workspace
         vp]                    # stream
     lib.gfvgn_fused_premlp.restype = ci
     lib.gfvgn_fused_premlp.argtypes = [
@@ -140,16 +145,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp]                    # stream
     lib.gfvgn_fused_mlp_bwd.restype = ci
     lib.gfvgn_fused_mlp_bwd.argtypes = [
-        vp, vp, ci, ci,        # part0, part1, width0, width1 (0 = absent)
-        vp, vp,                # w1 [width0+width1, 128] bf16, pre or null
+        vp, vp, ci, ci, ci,    # part0, part1, width0, width1 (0 = absent), H
+        vp, vp,                # w1 [width0+width1, H] bf16, pre or null
         vp, vp, vp, vp, vp,    # b1, w2, b2, w3, b3
         vp,                    # gamma (null without LayerNorm)
         vp, vp,                # dout0, dout1 (null unless res_dual)
         vp, vp, vp,            # dx0, dx1, dpre (null where absent)
-        vp, vp,                # partial slabs, summed slab (float32)
+        vp,                    # summed gradient slab (float32)
         ci, ci, ci, ci, ci,    # M, res_idx, res_dual, layer_norm, d_out
-        ci, ci,                # lanes, blocks_per_lane
-        vp]                    # stream
+        ci,                    # lanes
+        vp, vp]                # workspace, stream
     lib.gfvgn_fused_premlp_bwd.restype = ci
     lib.gfvgn_fused_premlp_bwd.argtypes = [
         vp, vp, vp,            # x [M, 128] bf16, gamma, beta

@@ -16,16 +16,27 @@ K4f `fused_mlp_noln` replaces `_noln_fwd_kernel` (:915-921, called at :960),
 the same chain without LayerNorm for the decoder. The TPU wrapper pads the
 3-wide head to 128 lanes; the CUDA kernel writes the 3 real columns.
 
-Both are one CUDA kernel template (csrc/fused_mlp.cu): a block stages W1
-(up to 256×128), W2 and W3 in shared memory as bf16 once, then walks over
-64-row tiles; the three products run on the tensor cores (wmma, bf16 in,
-float32 accumulate) in the kernel's own body, and h1, h2, y never leave the
-SM.
+Widths: any hidden width H that is a multiple of 128 (the LayerNorm as
+wide), part widths that are multiples of 16 below 128 or multiples of 128
+(`part_width_ok`: JAX's `k % 128 == 0 or k < 128`), a head of at most 16
+columns without LayerNorm; `_mlp_operands` raises on anything else, and
+the kernel library on a shape whose tile does not fit a block's shared
+memory (`gfvgn_fused_mlp_workspace`).
 
-What bounds them here: bytes. A row costs ~131 k FLOP against ~1 KB moved,
-under the card's ~295 FLOP/byte ridge. This first form is far from
-that bound — it stages every accumulator through shared memory for the
-elementwise steps — and its times stand in PERF.md.
+Both are kernels of csrc/fused_mlp.cu, products on the tensor cores
+(mma.sync m16n8k16, bf16 in, float32 accumulators) in the kernels' own
+bodies. At H = 128 (`fused_mlp_fwd_rows`) a block stages W1, W2, W3 once and
+each warp walks over its own 16-row strips: a 16 × 128 accumulator whose
+fragments feed the next product as bf16 registers (h1, h2 never touch
+shared memory), LayerNorm by quad shuffles, no block barrier after the
+staging, the next strip's rows in flight by cp.async. Wider H
+(`fused_mlp_fwd_tiles`) takes 64-, 32- or 16-row tiles shared by 8 warps,
+h1/h2 in shared memory, weights resident while they fit and streamed in
+32-row chunks through a 3-stage cp.async ring otherwise.
+
+What bounds them here: bytes. A row costs ~131 k FLOP against ~1 KB moved
+at H = 128, under the card's ~295 FLOP/byte ridge; the times stand in
+PERF.md.
 
 Rounding points, identical in the kernel and in the plain versions below:
 float32 accumulation in each product; h1 and h2 rounded to bf16 before the
@@ -38,16 +49,17 @@ K5f `fused_premlp_res` replaces `_premlp_fwd_kernel` (:691-711, called at
 
     out = x + W2·gelu(W1·(LN(x)·γ + β) + b1) + b2,   hidden width 256
 
-in its own kernel (csrc/fused_premlp.cu): K2's template holds a 128-wide
-hidden layer only. Its rounding points differ from K2's: u = LN(x)·γ + β is
+in its own kernel (csrc/fused_premlp.cu): the LayerNorm comes first and
+its rounding points differ from K2's: u = LN(x)·γ + β is
 rounded to bf16 before W1, h before W2, and the residual x is added in
 float32 BEFORE the one final bf16 rounding (K2 rounds first and adds in
 bf16).
 
 Tolerance kernel vs plain version: the float32 sums are taken in another
-order (tensor-core fragments vs a library GEMM) and tanhf/sqrtf differ in
-the last bit from PyTorch's, which can move a bf16 rounding of h1, h2 or
-the output by one step: 2 bf16 ulps of the output scale.
+order (tensor-core fragments vs a library GEMM), and the kernels' GELU
+(x·sigmoid(2u) on a fast exp and reciprocal; tanhf in K5) and sqrtf
+differ in the last bits from PyTorch's, which can move a bf16 rounding of
+h1, h2 or the output by one step: 2 bf16 ulps of the output scale.
 
 The backward kernels (K3 `fused_mlp_ln_bwd`, K4b `fused_mlp_noln_bwd`, K5b
 `fused_premlp_res_bwd`) replace `_make_bwd_kernel` (:129-228, called at
@@ -56,11 +68,18 @@ The backward kernels (K3 `fused_mlp_ln_bwd`, K4b `fused_mlp_noln_bwd`, K5b
 forward from the saved inputs (remat, as the TPU kernels do), rounds dy,
 dh2pre and dh1pre to bf16 before the products that take them, runs the
 LayerNorm backward in float32, and returns the weight gradients rounded to
-the weights' type (bf16) after one float32 sum over all rows; biases, γ and
-β get float32 gradients. The kernels write per-block float32 partials and
-a second pass sums them in block order (no atomics: two runs give the same
-bits). The `torch.autograd.Function`s below put each forward kernel and its
-backward together; `fused_mlp_ln_parts`, `fused_mlp_noln_parts` and
+the weights' type (bf16) after one float32 sum per batch lane; biases, γ
+and β get float32 gradients. No float atomics: two runs give the same
+bits. K3/K4b run as two passes: the row pass (`fused_mlp_bwd_rows` at H = 128,
+`fused_mlp_bwd_tiles` wider) recomputes the forward once per tile, writes dx,
+dpre and the bf16 rows h1, h2, dy16, dh2pre16, dh1pre16 (the operands the
+TPU kernel rounds before its weight-gradient products) into a workspace of
+4 + (d_pad / H) [M, H] bf16 streams, and keeps the bias/γ/β column sums per
+block; the weight-gradient pass (`fused_mlp_wgrad`) computes xᵢᵀ·dh1pre16,
+h1ᵀ·dh2pre16 and h2ᵀ·dy16 per lane with a 128 × 128 float32 tile in
+registers over a chunk of rows, and `lane_reduce` sums the partials in
+order. The `torch.autograd.Function`s below put each forward kernel and
+its backward together; `fused_mlp_ln_parts`, `fused_mlp_noln_parts` and
 `fused_premlp_res_parts` call them on both devices.
 
 Tolerance of a backward kernel vs its plain version: as for the forward, a
@@ -273,59 +292,101 @@ def fused_mlp_noln_reference(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def _check(t: torch.Tensor, shape: Tuple[int, ...], dtype, name: str):
-    """The operand `name` of a kernel, contiguous; raises unless it is a
-    CUDA tensor of this shape and type."""
-    if tuple(t.shape) != tuple(shape) or t.dtype != dtype or not t.is_cuda:
+def _check(t: torch.Tensor, shape: Tuple[int, ...], dtype, name: str,
+           device=None):
+    """The operand `name` of a kernel, contiguous; raises unless it has this
+    shape and type and lies on `device` (a CUDA device unless given)."""
+    on = t.is_cuda if device is None else t.device == device
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype or not on:
+        where = "CUDA" if device is None else str(device)
         raise ValueError(
-            f"kernel operand {name} must be a CUDA {dtype} tensor of shape "
+            f"kernel operand {name} must be a {where} {dtype} tensor of shape "
             f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     return t.contiguous()
 
 
-def _vec(v, n: int, name: str):
-    return _check(v.reshape(-1), (n,), torch.float32, name)
+def _vec(v, n: int, name: str, device=None):
+    return _check(v.reshape(-1), (n,), torch.float32, name, device)
+
+
+def part_width_ok(w: int) -> bool:
+    """A part width the MLP kernels take: a multiple of 16 below 128 (the
+    node MLP's 64-wide `nbr_avg`), a multiple of 128 from there on (the JAX
+    package's rule, `k % 128 == 0 or k < 128`, at 16-element granularity)."""
+    return w > 0 and (w % 128 == 0 or (w < 128 and w % 16 == 0))
 
 
 def _mlp_operands(parts, w1s, b1, w2, b2, w3, b3, gamma, pres, res_idx,
                   layer_norm, what):
     """The shape/type checks shared by K2/K4f and K3/K4b, raising on what
-    the kernels do not take. Returns (parts, pres, w1 [Σkᵢ, 128] or None,
-    w2, w3, b1, b2, b3, gamma or None, part widths, d_out), contiguous."""
+    the kernels do not take: hidden width H a multiple of 128, the
+    LayerNorm's width H, part widths by `part_width_ok`, the residual part
+    H wide, a narrow head of at most 16 columns without LayerNorm. Every
+    operand must lie on the first input's device. Returns (parts, pres,
+    w1 [Σkᵢ, H] or None, w2, w3, b1, b2, b3, gamma or None, part widths,
+    d_out, H), contiguous. Whether the shape fits a block's shared memory
+    is the kernel library's to say (`gfvgn_fused_mlp_workspace`)."""
     bf16 = torch.bfloat16
     if len(parts) > 2 or len(pres) > 1 or not (parts or pres):
         raise NotImplementedError(
             f"{what} takes at most 2 parts and 1 pre-projected input, got "
             f"{len(parts)} and {len(pres)}")
-    m = (parts[0] if parts else pres[0]).shape[0]
-    h = 128
-    if tuple(w2.shape) != (h, h):
+    lead = parts[0] if parts else pres[0]
+    m, dev = lead.shape[0], lead.device
+    h = w2.shape[0]
+    if w2.ndim != 2 or w2.shape[1] != h or h % 128 != 0 or h == 0:
         raise NotImplementedError(
-            f"{what} is built for hidden width 128, got {tuple(w2.shape)}")
+            f"{what} takes a hidden width that is a multiple of 128, got w2 "
+            f"{tuple(w2.shape)}")
     d_out = w3.shape[1]
     if layer_norm and d_out != h:
-        raise NotImplementedError(f"{what} with LayerNorm needs out width "
-                                  f"128")
+        raise NotImplementedError(f"{what} with LayerNorm needs its width "
+                                  f"equal to the hidden width {h}, got "
+                                  f"{d_out}")
     if not layer_norm and d_out > 16:
         raise NotImplementedError(f"{what} without LayerNorm needs out "
                                   f"width <= 16")
     widths = [p.shape[1] for p in parts]
-    if any(w % 16 != 0 or not 0 < w <= h for w in widths):
+    if not all(part_width_ok(w) for w in widths):
         raise NotImplementedError(
-            f"{what} takes part widths that are multiples of 16 up to 128, "
-            f"got {widths}")
+            f"{what} takes part widths that are multiples of 16 below 128 or "
+            f"multiples of 128, got {widths}")
     if res_idx is not None and widths[res_idx] != h:
-        raise NotImplementedError("the residual part must be 128 wide")
-    parts = [_check(p, (m, w), bf16, f"part {i}")
+        raise NotImplementedError(f"the residual part must be {h} wide")
+    parts = [_check(p, (m, w), bf16, f"part {i}", dev)
              for i, (p, w) in enumerate(zip(parts, widths))]
-    pres = [_check(p, (m, h), bf16, "pre") for p in pres]
-    w1 = (torch.cat([_check(w1p, (w, h), bf16, "w1 slice")
-                     for w1p, w in zip(w1s, widths)], dim=0)
-          if parts else None)
-    return (parts, pres, w1, _check(w2, (h, h), bf16, "w2"),
-            _check(w3, (h, d_out), bf16, "w3"), _vec(b1, h, "b1"),
-            _vec(b2, h, "b2"), _vec(b3, d_out, "b3"),
-            _vec(gamma, h, "gamma") if layer_norm else None, widths, d_out)
+    pres = [_check(p, (m, h), bf16, "pre", dev) for p in pres]
+    w1s = [_check(w1p, (w, h), bf16, "w1 slice", dev)
+           for w1p, w in zip(w1s, widths)]
+    w1 = (None if not w1s else w1s[0] if len(w1s) == 1
+          else torch.cat(w1s, dim=0))
+    return (parts, pres, w1, _check(w2, (h, h), bf16, "w2", dev),
+            _check(w3, (h, d_out), bf16, "w3", dev), _vec(b1, h, "b1", dev),
+            _vec(b2, h, "b2", dev), _vec(b3, d_out, "b3", dev),
+            _vec(gamma, h, "gamma", dev) if layer_norm else None, widths,
+            d_out, h)
+
+
+def _workspace(lib, widths, h, has_pre, layer_norm, d_out, m, lanes,
+               backward, dev, what):
+    """The kernels' workspace (uint8 on `dev`); raises where the library
+    takes no kernel for the shape (it does not fit a block's shared
+    memory)."""
+    n = lib.gfvgn_fused_mlp_workspace(
+        widths[0] if widths else 0, widths[1] if len(widths) > 1 else 0, h,
+        int(has_pre), int(layer_norm), d_out, m, lanes, int(backward))
+    if n < 0:
+        raise NotImplementedError(
+            f"{what}: no kernel takes parts {widths} at hidden width {h} "
+            f"(the tile does not fit a block's shared memory)")
+    return torch.empty((max(n, 1),), dtype=torch.uint8, device=dev)
+
+
+def _cuda_lead(lead, what):
+    if not lead.is_cuda:
+        raise ValueError(f"{what} launches on CUDA tensors only, got "
+                         f"{lead.device}")
+    return lead.device
 
 
 def _launch(parts, w1s, b1, w2, b2, w3, b3, gamma, beta, pres, res_idx,
@@ -333,29 +394,33 @@ def _launch(parts, w1s, b1, w2, b2, w3, b3, gamma, beta, pres, res_idx,
     """Checks, output allocation and the one launch shared by K2 and
     K4f."""
     from gen_fvgn_tpu_torch.ops._cuda_build import load_library
-    parts, pres, w1, w2, w3, b1, b2, b3, gamma, widths, d_out = \
+    what = "fused MLP kernel"
+    dev = _cuda_lead(parts[0] if parts else pres[0], what)
+    parts, pres, w1, w2, w3, b1, b2, b3, gamma, widths, d_out, h = \
         _mlp_operands(parts, w1s, b1, w2, b2, w3, b3, gamma, pres, res_idx,
-                      layer_norm, "fused MLP kernel")
+                      layer_norm, what)
     if layer_norm:
-        beta = _vec(beta, 128, "beta")
-    lead = parts[0] if parts else pres[0]
-    m, dev = lead.shape[0], lead.device
+        beta = _vec(beta, h, "beta", dev)
+    m = (parts[0] if parts else pres[0]).shape[0]
+    lib = load_library()
     n_out = 2 if (res_idx is not None and res_dual) else 1
+    ws = _workspace(lib, widths, h, bool(pres), layer_norm, d_out, m, 1,
+                    False, dev, what)
     outs = [torch.empty((m, d_out), dtype=torch.bfloat16, device=dev)
             for _ in range(n_out)]
     ptr = lambda t: 0 if t is None else t.data_ptr()
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    err = load_library().gfvgn_fused_mlp(
-        ptr(parts[0] if parts else None),
-        ptr(parts[1] if len(parts) > 1 else None),
-        widths[0] if parts else 0, widths[1] if len(parts) > 1 else 0,
-        ptr(w1), ptr(pres[0] if pres else None),
-        ptr(b1), ptr(w2), ptr(b2), ptr(w3), ptr(b3),
-        ptr(gamma), ptr(beta if layer_norm else None),
-        ptr(outs[0]), ptr(outs[1] if n_out == 2 else None),
-        m, -1 if res_idx is None else int(res_idx), int(bool(res_dual)),
-        int(layer_norm), d_out, n_sm,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.gfvgn_fused_mlp(
+            ptr(parts[0] if parts else None),
+            ptr(parts[1] if len(parts) > 1 else None),
+            widths[0] if parts else 0, widths[1] if len(parts) > 1 else 0, h,
+            ptr(w1), ptr(pres[0] if pres else None),
+            ptr(b1), ptr(w2), ptr(b2), ptr(w3), ptr(b3),
+            ptr(gamma), ptr(beta if layer_norm else None),
+            ptr(outs[0]), ptr(outs[1] if n_out == 2 else None),
+            m, -1 if res_idx is None else int(res_idx), int(bool(res_dual)),
+            int(layer_norm), d_out, ws.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused MLP kernel launch failed: CUDA error {err}")
     return outs
@@ -373,52 +438,60 @@ def _blocks_per_lane(m: int, lanes: int, dev) -> int:
 
 def _launch_bwd(parts, w1s, b1, w2, b2, w3, b3, gamma, pres, douts, res_idx,
                 res_dual, lanes, layer_norm):
-    """Checks, allocation and the launch of K3 / K4b: returns (dxs, dpre or
-    None, the float32 sums of the gradient slab, Σkᵢ, the slab's padded
-    out width)."""
+    """Checks, allocation and the launches of K3 / K4b (the row pass, the
+    weight-gradient pass and the fixed-order reductions): returns (dxs, dpre
+    or None, the float32 gradient slab, Σkᵢ, H, the slab's padded out
+    width)."""
     from gen_fvgn_tpu_torch.ops._cuda_build import load_library
     bf16, f32 = torch.bfloat16, torch.float32
-    parts, pres, w1, w2, w3, b1, b2, b3, gamma, widths, d_out = \
+    what = "fused MLP backward kernel"
+    dev = _cuda_lead(parts[0] if parts else pres[0], what)
+    parts, pres, w1, w2, w3, b1, b2, b3, gamma, widths, d_out, h = \
         _mlp_operands(parts, w1s, b1, w2, b2, w3, b3, gamma, pres, res_idx,
-                      layer_norm, "fused MLP backward kernel")
-    lead = parts[0] if parts else pres[0]
-    m, dev = lead.shape[0], lead.device
-    h = 128
+                      layer_norm, what)
+    m = (parts[0] if parts else pres[0]).shape[0]
+    if lanes < 1 or m % lanes:
+        raise ValueError(f"{m} rows do not split into {lanes} equal lanes")
     n_dout = 2 if (res_idx is not None and res_dual) else 1
     if len(douts) != n_dout:
         raise ValueError(f"expected {n_dout} output cotangents")
-    douts = [_check(g, (m, d_out), bf16, "dout") for g in douts]
+    douts = [_check(g, (m, d_out if i == 0 else h), bf16, "dout", dev)
+             for i, g in enumerate(douts)]
+    lib = load_library()
+    # the workspace holds the rows the weight-gradient pass reads (h1, h2,
+    # dy16, dh2pre16, dh1pre16: 4 + d_pad/H streams of [M, H] bf16) and the
+    # float32 partials; it is freed when the call returns
+    ws = _workspace(lib, widths, h, bool(pres), layer_norm, d_out, m, lanes,
+                    True, dev, what)
     dxs = [torch.empty((m, w), dtype=bf16, device=dev) for w in widths]
     dpre = torch.empty((m, h), dtype=bf16, device=dev) if pres else None
     k1 = sum(widths)
     d_pad = h if layer_norm else 16
-    slab = k1 * h + h * h + h * d_pad + 4 * h + d_pad
-    nb = _blocks_per_lane(m, lanes, dev)
-    partials = torch.empty((lanes * nb, slab), dtype=f32, device=dev)
-    total = torch.empty((slab,), dtype=f32, device=dev)
+    total = torch.empty((k1 * h + h * h + h * d_pad + 4 * h + d_pad,),
+                        dtype=f32, device=dev)
     ptr = lambda t: 0 if t is None else t.data_ptr()
-    err = load_library().gfvgn_fused_mlp_bwd(
-        ptr(parts[0] if parts else None),
-        ptr(parts[1] if len(parts) > 1 else None),
-        widths[0] if parts else 0, widths[1] if len(parts) > 1 else 0,
-        ptr(w1), ptr(pres[0] if pres else None),
-        ptr(b1), ptr(w2), ptr(b2), ptr(w3), ptr(b3), ptr(gamma),
-        ptr(douts[0]), ptr(douts[1] if n_dout == 2 else None),
-        ptr(dxs[0] if dxs else None), ptr(dxs[1] if len(dxs) > 1 else None),
-        ptr(dpre), ptr(partials), ptr(total),
-        m, -1 if res_idx is None else int(res_idx), int(bool(res_dual)),
-        int(layer_norm), d_out, lanes, nb,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.gfvgn_fused_mlp_bwd(
+            ptr(parts[0] if parts else None),
+            ptr(parts[1] if len(parts) > 1 else None),
+            widths[0] if parts else 0, widths[1] if len(parts) > 1 else 0, h,
+            ptr(w1), ptr(pres[0] if pres else None),
+            ptr(b1), ptr(w2), ptr(b2), ptr(w3), ptr(b3), ptr(gamma),
+            ptr(douts[0]), ptr(douts[1] if n_dout == 2 else None),
+            ptr(dxs[0] if dxs else None),
+            ptr(dxs[1] if len(dxs) > 1 else None), ptr(dpre), ptr(total),
+            m, -1 if res_idx is None else int(res_idx), int(bool(res_dual)),
+            int(layer_norm), d_out, lanes, ws.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"fused MLP backward kernel launch failed: CUDA error {err}")
-    return dxs, dpre, total, k1, d_pad
+    return dxs, dpre, total, k1, h, d_pad
 
 
-def _split_slab(total, k1, d_out, d_pad, widths):
+def _split_slab(total, k1, h, d_out, d_pad, widths):
     """The summed slab [dW1 | dW2 | dW3 | db1 | db2 | db3 | dγ | dβ] as
     float32 tensors (dW1 split by part rows)."""
-    h = 128
     o = 0
 
     def take(n):
@@ -454,12 +527,12 @@ def fused_mlp_ln_bwd(parts, w1s, b1, w2, b2, w3, b3, gamma, pres, douts,
                                           res_dual, lanes)
     if res_idx is not None and not 0 <= res_idx < len(parts):
         raise ValueError(f"res_idx {res_idx} names no part")
-    dxs, dpre, total, k1, d_pad = _launch_bwd(
+    dxs, dpre, total, k1, h, d_pad = _launch_bwd(
         list(parts), list(w1s), b1, w2, b2, w3, b3, gamma, list(pres),
         list(douts), res_idx, res_dual, lanes, layer_norm=True)
     LAUNCHES_LN_BWD += 1
     dw1s, dw2, dw3, db1, db2, db3, dgamma, dbeta = _split_slab(
-        total, k1, 128, d_pad, [p.shape[1] for p in parts])
+        total, k1, h, h, d_pad, [p.shape[1] for p in parts])
     bf16 = torch.bfloat16
     return MlpLnGrads(
         dxs=tuple(dxs), dpres=(dpre,) if pres else (),
@@ -469,7 +542,7 @@ def fused_mlp_ln_bwd(parts, w1s, b1, w2, b2, w3, b3, gamma, pres, douts,
 
 def fused_mlp_noln_bwd(x, w1, b1, w2, b2, w3, b3, dout, lanes: int = 1):
     """K4b: (dx, dw1, db1, dw2, db2, dw3, db3) for the decoder chain, x
-    [M, 128] bf16 and dout [M, d] bf16 with d <= 16.
+    [M, K] bf16 and dout [M, d] bf16 with d <= 16.
 
     CUDA operands launch the kernel (or raise); CPU operands take
     `fused_mlp_noln_bwd_reference`."""
@@ -478,12 +551,12 @@ def fused_mlp_noln_bwd(x, w1, b1, w2, b2, w3, b3, dout, lanes: int = 1):
         return fused_mlp_noln_bwd_reference(x, w1, b1, w2, b2, w3, b3, dout,
                                             lanes)
     d_out = w3.shape[1]
-    dxs, _, total, k1, d_pad = _launch_bwd(
+    dxs, _, total, k1, h, d_pad = _launch_bwd(
         [x], [w1], b1, w2, b2, w3, b3, None, [], [dout], None, False,
         lanes, layer_norm=False)
     LAUNCHES_NOLN_BWD += 1
     dw1s, dw2, dw3, db1, db2, db3, _, _ = _split_slab(
-        total, k1, d_out, d_pad, [x.shape[1]])
+        total, k1, h, d_out, d_pad, [x.shape[1]])
     bf16 = torch.bfloat16
     return (dxs[0], dw1s[0].to(bf16), db1, dw2.to(bf16), db2,
             dw3.to(bf16), db3)
@@ -491,9 +564,11 @@ def fused_mlp_noln_bwd(x, w1, b1, w2, b2, w3, b3, dout, lanes: int = 1):
 
 def fused_mlp_ln(parts, w1s, b1, w2, b2, w3, b3, gamma, beta, pres=(),
                  res_idx: Optional[int] = None, res_dual: bool = False):
-    """K2 on prepared operands. parts: up to two [M, kᵢ] bf16 (kᵢ a multiple
-    of 16 up to 128; the residual part 128 wide); w1s: [kᵢ, 128] bf16 each; biases/γ/β float32; pres: already-projected [M, 128] bf16.
-    Returns LN(MLP(...)) [M, 128]; with res_dual also the residual sum.
+    """K2 on prepared operands. parts: up to two [M, kᵢ] bf16 (kᵢ by
+    `part_width_ok`; the residual part H wide); w1s: [kᵢ, H] bf16 each;
+    w2, w3 [H, H] bf16 (H a multiple of 128); biases/γ/β float32; pres:
+    already-projected [M, H] bf16. Returns LN(MLP(...)) [M, H]; with
+    res_dual also the residual sum.
 
     CUDA operands launch the kernel (or raise); CPU operands take
     `fused_mlp_ln_reference`."""
@@ -511,8 +586,8 @@ def fused_mlp_ln(parts, w1s, b1, w2, b2, w3, b3, gamma, beta, pres=(),
 
 
 def fused_mlp_noln(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
-    """K4f on prepared operands: x [M, 128] bf16, w3 [128, d] with d <= 16.
-    Returns [M, d] bf16."""
+    """K4f on prepared operands: x [M, K] bf16 (K by `part_width_ok`),
+    w2 [H, H], w3 [H, d] with d <= 16. Returns [M, d] bf16."""
     global LAUNCHES_NOLN
     if x.device.type != "cuda":
         return fused_mlp_noln_reference(x, w1, b1, w2, b2, w3, b3)

@@ -21,7 +21,10 @@ dh2pre and dh1pre to bf16 at the same points but sum in float32 in another
 order, which can move such a rounding by a step. Weight gradients: the
 same sums over all rows in another order before one rounding to bf16:
 within 2 bf16 ulps of their scale, and at least 90% of the elements equal
-to the bit (measured: 96% to 100%). Float32 bias/γ/β gradients: 1e-3 of
+to the bit (measured: 96% to 100%; at hidden 256, whose products sum
+twice as many terms before dh2pre and dh1pre are rounded, at least 85%:
+measured 89.8% for the node form's dW1, 96% to 99% otherwise, every
+element within one ulp). Float32 bias/γ/β gradients: 1e-3 of
 their scale (sums of 300 to 512 rows of bf16-rounded terms in another
 order). `graph_temperature`: 1e-3 relative.
 """
@@ -38,7 +41,7 @@ from torch_port_common import both_sides, jax_kernels_on
 torch.set_num_threads(1)
 
 M, H = 300, 128          # M not a multiple of the JAX row tile
-BF16_EQUAL_SHARE = 0.9
+BF16_EQUAL_SHARE = {128: 0.9, 256: 0.85}     # by hidden width
 
 
 def _ulps(ref, n=2):
@@ -56,12 +59,12 @@ def _bf16(a):
     return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
 
 
-def _check_weight(got, ref, name):
+def _check_weight(got, ref, name, h=H):
     got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
     assert got.shape == ref.shape, name
     np.testing.assert_allclose(got, ref, rtol=0, atol=_ulps(ref), err_msg=name)
     share = float((got == ref).mean())
-    assert share >= BF16_EQUAL_SHARE, (name, share)
+    assert share >= BF16_EQUAL_SHARE[h], (name, share)
 
 
 def _check_vec(got, ref, name, rel=1e-3):
@@ -78,12 +81,12 @@ def _check_dx(got, ref, name):
     np.testing.assert_allclose(got, ref, rtol=0, atol=_ulps(ref), err_msg=name)
 
 
-def _mlp_weights(rng, k_total, d_out=H):
+def _mlp_weights(rng, k_total, d_out=H, h=H):
     return dict(
-        w1=_rng_f32(rng, k_total, H) / np.sqrt(max(k_total, 1)),
-        b1=_rng_f32(rng, H, scale=0.1), w2=_rng_f32(rng, H, H) / np.sqrt(H),
-        b2=_rng_f32(rng, H, scale=0.1),
-        w3=_rng_f32(rng, H, d_out) / np.sqrt(H),
+        w1=_rng_f32(rng, k_total, h) / np.sqrt(max(k_total, 1)),
+        b1=_rng_f32(rng, h, scale=0.1), w2=_rng_f32(rng, h, h) / np.sqrt(h),
+        b2=_rng_f32(rng, h, scale=0.1),
+        w3=_rng_f32(rng, h, d_out) / np.sqrt(h),
         b3=_rng_f32(rng, d_out, scale=0.1),
         gamma=1.0 + _rng_f32(rng, d_out, scale=0.1),
         beta=_rng_f32(rng, d_out, scale=0.1))
@@ -92,27 +95,30 @@ def _mlp_weights(rng, k_total, d_out=H):
 _ORDER = ("w1", "b1", "w2", "b2", "w3", "b3", "gamma", "beta")
 
 
-@pytest.mark.parametrize("form", ["encoder", "edge", "node"])
-def test_fused_mlp_ln_backward_matches_jax(form):
+@pytest.mark.parametrize("form,h", [
+    pytest.param(form, h, id=form if h == H else f"{form}-h{h}")
+    for h in (H, 2 * H) for form in ("encoder", "edge", "node")])
+def test_fused_mlp_ln_backward_matches_jax(form, h):
     """K3's plain version, through `fused_mlp_ln_parts` and its autograd
-    Function, against jax.vjp of the JAX `fused_mlp_ln_parts`."""
+    Function, against jax.vjp of the JAX `fused_mlp_ln_parts`, at hidden
+    width 128 and 256 (node parts h/2 + h)."""
     from gen_fvgn_tpu.ops.fused_mlp import fused_mlp_ln_parts as jfn
     from gen_fvgn_tpu_torch.ops.fused_mlp import fused_mlp_ln_parts as tfn
     rng = np.random.default_rng({"encoder": 10, "edge": 11, "node": 12}[form])
     if form == "encoder":      # pres-only: x [M, 12] projected outside
         widths, k_total, rows, res_idx, res_dual, n_pre = [], 12, [], None, \
             False, 1
-    elif form == "edge":       # part edge_attr owns the last 128 W1 rows
-        widths, k_total, rows, res_idx, res_dual, n_pre = [H], 3 * H, \
-            [(2 * H, 3 * H)], 0, True, 1
-    else:                      # parts (nbr_avg 64, node_x 128)
-        widths, k_total, rows, res_idx, res_dual, n_pre = [64, H], 192, \
-            None, 1, False, 0
-    w = _mlp_weights(rng, k_total)
+    elif form == "edge":       # part edge_attr owns the last h W1 rows
+        widths, k_total, rows, res_idx, res_dual, n_pre = [h], 3 * h, \
+            [(2 * h, 3 * h)], 0, True, 1
+    else:                      # parts (nbr_avg h/2, node_x h)
+        widths, k_total, rows, res_idx, res_dual, n_pre = [h // 2, h], \
+            h // 2 + h, None, 1, False, 0
+    w = _mlp_weights(rng, k_total, d_out=h, h=h)
     parts = [_rng_f32(rng, M, k) for k in widths]
-    pres = [_bf16(_rng_f32(rng, M, H)) for _ in range(n_pre)]
+    pres = [_bf16(_rng_f32(rng, M, h)) for _ in range(n_pre)]
     n_out = 2 if res_dual else 1
-    gs = [_bf16(_rng_f32(rng, M, H)) for _ in range(n_out)]
+    gs = [_bf16(_rng_f32(rng, M, h)) for _ in range(n_out)]
 
     def jax_fn(parts_, ws, pres_):
         out = jfn(list(parts_), *[ws[k] for k in _ORDER], dtype=jnp.bfloat16,
@@ -150,7 +156,7 @@ def test_fused_mlp_ln_backward_matches_jax(form):
         assert tw["w1"].grad is None or not tw["w1"].grad.any()
     for k in ("w1", "w2", "w3"):
         if form != "encoder" or k != "w1":
-            _check_weight(tw[k].grad.numpy(), jg_w[k], k)
+            _check_weight(tw[k].grad.numpy(), jg_w[k], k, h)
     for k in ("b1", "b2", "b3", "gamma", "beta"):
         assert tw[k].grad.dtype == torch.float32
         _check_vec(tw[k].grad.numpy(), jg_w[k], k)
@@ -160,11 +166,20 @@ def test_fused_mlp_noln_backward_matches_jax():
     """K4b's plain version (the decoder: [M, 128] -> [M, 3]) against
     jax.vjp of the JAX `fused_mlp_noln_parts`, whose kernel pads the head
     to 128 lanes: the same function."""
+    _noln_backward(H)
+
+
+def test_fused_mlp_noln_backward_matches_jax_at_hidden_256():
+    """The same at hidden width 256: [M, 256] -> [M, 3]."""
+    _noln_backward(2 * H)
+
+
+def _noln_backward(h):
     from gen_fvgn_tpu.ops.fused_mlp import fused_mlp_noln_parts as jfn
     from gen_fvgn_tpu_torch.ops.fused_mlp import fused_mlp_noln_parts as tfn
     rng = np.random.default_rng(13)
-    w = _mlp_weights(rng, H, d_out=3)
-    x = _rng_f32(rng, M, H)
+    w = _mlp_weights(rng, h, d_out=3, h=h)
+    x = _rng_f32(rng, M, h)
     g = _bf16(_rng_f32(rng, M, 3))
     names = ("w1", "b1", "w2", "b2", "w3", "b3")
     with jax_kernels_on():
@@ -178,7 +193,7 @@ def test_fused_mlp_noln_backward_matches_jax():
     out.backward(torch.from_numpy(g).to(torch.bfloat16))
     _check_dx(tx.grad.numpy(), jdx, "dx")
     for k in ("w1", "w2", "w3"):
-        _check_weight(tw[k].grad.numpy(), jw[k], k)
+        _check_weight(tw[k].grad.numpy(), jw[k], k, h)
     for k in ("b1", "b2", "b3"):
         _check_vec(tw[k].grad.numpy(), jw[k], k)
 

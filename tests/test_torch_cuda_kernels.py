@@ -9,8 +9,10 @@ test, never while the module is imported). Run them on the card with
 these cover the edges: ragged row counts, every operand/output type of the
 sparse apply and of the paired applies (K8, K9: B = 1, empty rows, float32
 operands, H = 64 and 128), unbatched operands, all-zero and partial node
-masks, shared and per-lane masks, and the bitwise repeatability of the
-slice pool."""
+masks, shared and per-lane masks, the fused MLP kernels (K2, K3, K4f, K4b)
+at hidden widths 128 and 256 (and 384 for the 32-row tiles) in every form
+the nets use, with lanes of one row and ragged last tiles, and the bitwise
+repeatability of the backward kernels and the slice pool."""
 
 import numpy as np
 import pytest
@@ -136,29 +138,36 @@ def test_pair_kernels_out_dtype_and_refusals():
         mod.pair_sum(a, _op("bfloat16", n_out=999, seed=1), y)
 
 
-def _mlp_args(m, widths, has_pre, d_out, seed):
+def _mlp_args(m, widths, has_pre, d_out, seed, h=128):
     g = torch.Generator("cuda").manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
     bf = torch.bfloat16
     parts = [rnd(m, k).to(bf) for k in widths]
-    w1s = [(rnd(k, 128) / max(sum(widths), 1) ** 0.5).to(bf) for k in widths]
-    pres = (rnd(m, 128).to(bf),) if has_pre else ()
-    return (parts, w1s, 0.1 * rnd(128), (rnd(128, 128) / 128 ** 0.5).to(bf),
-            0.1 * rnd(128), (rnd(128, d_out) / 128 ** 0.5).to(bf),
+    w1s = [(rnd(k, h) / max(sum(widths), 1) ** 0.5).to(bf) for k in widths]
+    pres = (rnd(m, h).to(bf),) if has_pre else ()
+    return (parts, w1s, 0.1 * rnd(h), (rnd(h, h) / h ** 0.5).to(bf),
+            0.1 * rnd(h), (rnd(h, d_out) / h ** 0.5).to(bf),
             0.1 * rnd(d_out), 1 + 0.1 * rnd(d_out), 0.1 * rnd(d_out), pres)
 
 
+# the part widths of each form in units of the hidden width h: the
+# encoders' pres-only form, the edge MLP, the node MLP, two full parts
+_FORMS = [([], True, None, False), ([1], True, 0, True),
+          ([0.5, 1], False, 1, False), ([1, 1], True, None, False)]
+
+
+def _widths(units, h):
+    return [int(u * h) for u in units]
+
+
+@pytest.mark.parametrize("h", [128, 256])
 @pytest.mark.parametrize("m", [1, 63, 64, 1000, 8 * 1337])
-@pytest.mark.parametrize("widths,has_pre,res_idx,res_dual", [
-    ([], True, None, False),
-    ([128], True, 0, True),
-    ([64, 128], False, 1, False),
-    ([128, 128], True, None, False)])
-def test_fused_mlp_ln_kernel_matches_plain_version(m, widths, has_pre,
-                                                   res_idx, res_dual):
+@pytest.mark.parametrize("units,has_pre,res_idx,res_dual", _FORMS)
+def test_fused_mlp_ln_kernel_matches_plain_version(m, units, has_pre,
+                                                   res_idx, res_dual, h):
     _need_card()
     from gen_fvgn_tpu_torch.ops import fused_mlp as mod
-    args = _mlp_args(m, widths, has_pre, 128, seed=m)
+    args = _mlp_args(m, _widths(units, h), has_pre, h, seed=m, h=h)
     before = mod.LAUNCHES_LN
     outs = mod.fused_mlp_ln(*args, res_idx=res_idx, res_dual=res_dual)
     torch.cuda.synchronize()
@@ -174,13 +183,14 @@ def test_fused_mlp_ln_kernel_matches_plain_version(m, widths, has_pre,
                                    atol=_ulps(r))
 
 
+@pytest.mark.parametrize("h", [128, 256])
 @pytest.mark.parametrize("m", [1, 65, 8 * 1337])
 @pytest.mark.parametrize("d_out", [3, 16])
-def test_fused_mlp_noln_kernel_matches_plain_version(m, d_out):
+def test_fused_mlp_noln_kernel_matches_plain_version(m, d_out, h):
     _need_card()
     from gen_fvgn_tpu_torch.ops import fused_mlp as mod
     parts, w1s, b1, w2, b2, w3, b3, _, _, _ = _mlp_args(
-        m, [128], False, d_out, seed=m + d_out)
+        m, [h], False, d_out, seed=m + d_out, h=h)
     before = mod.LAUNCHES_NOLN
     out = mod.fused_mlp_noln(parts[0], w1s[0], b1, w2, b2, w3, b3)
     torch.cuda.synchronize()
@@ -202,6 +212,46 @@ def test_fused_mlp_kernel_refuses_what_it_does_not_take():
     args[0] = [torch.zeros(64, 40, device="cuda", dtype=torch.bfloat16)]
     with pytest.raises(NotImplementedError):
         mod.fused_mlp_ln(*args)
+    args = list(_mlp_args(64, [136], False, 256, seed=0, h=256))
+    with pytest.raises(NotImplementedError):                # 136 > 128
+        mod.fused_mlp_ln(*args)
+    args = list(_mlp_args(64, [192], False, 192, seed=0, h=192))
+    with pytest.raises(NotImplementedError):                # H % 128
+        mod.fused_mlp_ln(*args)
+    with pytest.raises(NotImplementedError):                # no room
+        mod.fused_mlp_ln(*_mlp_args(64, [4096, 4096], False, 1024, seed=0,
+                                    h=1024))
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_fused_mlp_kernels_at_hidden_384(direction):
+    """A hidden width whose tiles take 32 rows (three 128-column passes do
+    not fit the 64-row tile's shared memory): the edge MLP's form."""
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import fused_mlp as mod
+    h, m = 384, 1000
+    args = _mlp_args(m, [h], True, h, seed=7, h=h)
+    if direction == "forward":
+        outs = mod.fused_mlp_ln(*args, res_idx=0, res_dual=True)
+        refs = mod.fused_mlp_ln_reference(*args, res_idx=0, res_dual=True)
+        torch.cuda.synchronize()
+        for o, r in zip(outs, refs):
+            torch.testing.assert_close(o.float(), r.float(), rtol=0,
+                                       atol=_ulps(r))
+        return
+    g = torch.Generator("cuda").manual_seed(7)
+    douts = [torch.randn(m, h, device="cuda", generator=g).to(torch.bfloat16)
+             for _ in range(2)]
+    bargs = (*args[:8], args[9], douts, 0, True, 2)
+    got, again = mod.fused_mlp_ln_bwd(*bargs), mod.fused_mlp_ln_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert _grads_equal(got, again)
+    ref = mod.fused_mlp_ln_bwd_reference(*bargs)
+    for name in got._fields:
+        a, r = getattr(got, name), getattr(ref, name)
+        for i, (x, y) in enumerate(zip(a if isinstance(a, tuple) else (a,),
+                                       r if isinstance(r, tuple) else (r,))):
+            _close(x, y, f"{name}[{i}]")
 
 
 def _premlp_args(m, seed):
@@ -341,22 +391,22 @@ def _grads_equal(a, b):
     return all(torch.equal(x, y) for x, y in zip(flat(a), flat(b)))
 
 
-@pytest.mark.parametrize("m,lanes", [(1, 1), (63, 1), (1000, 1), (1280, 2),
-                                     (8 * 1337, 8)])
-@pytest.mark.parametrize("widths,has_pre,res_idx,res_dual", [
-    ([], True, None, False),
-    ([128], True, 0, True),
-    ([64, 128], False, 1, False),
-    ([128, 128], True, None, False)])
-def test_fused_mlp_ln_bwd_kernel_matches_plain_version(m, lanes, widths,
+# (5, 5): lanes of one row each; (8 * 65, 8): each lane ends in a ragged
+# 1-row tile and the weight-gradient pass's chunks end inside a lane
+@pytest.mark.parametrize("h", [128, 256])
+@pytest.mark.parametrize("m,lanes", [(1, 1), (5, 5), (63, 1), (1000, 1),
+                                     (1280, 2), (8 * 65, 8), (8 * 1337, 8)])
+@pytest.mark.parametrize("units,has_pre,res_idx,res_dual", _FORMS)
+def test_fused_mlp_ln_bwd_kernel_matches_plain_version(m, lanes, units,
                                                        has_pre, res_idx,
-                                                       res_dual):
+                                                       res_dual, h):
     _need_card()
     from gen_fvgn_tpu_torch.ops import fused_mlp as mod
+    widths = _widths(units, h)
     parts, w1s, b1, w2, b2, w3, b3, gamma, _, pres = _mlp_args(
-        m, widths, has_pre, 128, seed=m + len(widths))
+        m, widths, has_pre, h, seed=m + len(widths), h=h)
     g = torch.Generator("cuda").manual_seed(m)
-    douts = [torch.randn(m, 128, device="cuda", generator=g).to(torch.bfloat16)
+    douts = [torch.randn(m, h, device="cuda", generator=g).to(torch.bfloat16)
              for _ in range(2 if res_dual else 1)]
     args = (parts, w1s, b1, w2, b2, w3, b3, gamma, pres, douts, res_idx,
             res_dual, lanes)
@@ -392,14 +442,15 @@ def test_fused_mlp_ln_bwd_kernel_zero_cotangent_gives_zero():
         assert not t.any()
 
 
-@pytest.mark.parametrize("m,lanes", [(1, 1), (65, 1), (2 * 640, 2),
+@pytest.mark.parametrize("h", [128, 256])
+@pytest.mark.parametrize("m,lanes", [(1, 1), (5, 5), (65, 1), (2 * 640, 2),
                                      (8 * 1337, 8)])
 @pytest.mark.parametrize("d_out", [3, 16])
-def test_fused_mlp_noln_bwd_kernel_matches_plain_version(m, lanes, d_out):
+def test_fused_mlp_noln_bwd_kernel_matches_plain_version(m, lanes, d_out, h):
     _need_card()
     from gen_fvgn_tpu_torch.ops import fused_mlp as mod
     parts, w1s, b1, w2, b2, w3, b3, _, _, _ = _mlp_args(
-        m, [128], False, d_out, seed=m + d_out)
+        m, [h], False, d_out, seed=m + d_out, h=h)
     g = torch.Generator("cuda").manual_seed(m)
     dout = torch.randn(m, d_out, device="cuda", generator=g).to(torch.bfloat16)
     args = (parts[0], w1s[0], b1, w2, b2, w3, b3, dout, lanes)

@@ -8,6 +8,7 @@ points, but accumulate their float32 sums in a different order, which can
 move such a rounding by one step."""
 
 import numpy as np
+import pytest
 import torch
 
 import jax.numpy as jnp
@@ -22,13 +23,13 @@ def _ulps(ref, n=2):
     return n * 2.0 ** (np.floor(np.log2(scale)) - 7)
 
 
-def _weights(seed, k_total, d_out=H):
+def _weights(seed, k_total, d_out=H, h=H):
     rng = np.random.default_rng(seed)
     g = lambda *s: rng.normal(size=s).astype(np.float32)
     return dict(
-        w1=g(k_total, H) / np.sqrt(max(k_total, 1)), b1=0.1 * g(H),
-        w2=g(H, H) / np.sqrt(H), b2=0.1 * g(H),
-        w3=g(H, d_out) / np.sqrt(H), b3=0.1 * g(d_out),
+        w1=g(k_total, h) / np.sqrt(max(k_total, 1)), b1=0.1 * g(h),
+        w2=g(h, h) / np.sqrt(h), b2=0.1 * g(h),
+        w3=g(h, d_out) / np.sqrt(h), b3=0.1 * g(d_out),
         gamma=1.0 + 0.1 * g(d_out), beta=0.1 * g(d_out))
 
 
@@ -59,43 +60,43 @@ def _compare(jouts, touts):
         assert (got == ref).mean() > 0.98
 
 
-def test_pres_only_variant_matches_jax():
+def _pres_only(h):
     """The encoders' form: no parts, one pre-projected input."""
     rng = np.random.default_rng(0)
-    pre = rng.normal(size=(M, H)).astype(np.float32)
-    w = _weights(1, 12)
+    pre = rng.normal(size=(M, h)).astype(np.float32)
+    w = _weights(1, 12, d_out=h, h=h)
     _compare(*_run_both([], [pre], w, [], None, False))
 
 
-def test_edge_variant_matches_jax():
-    """The edge MLP: part (edge_attr,) whose W1 rows are the last 128 of a
-    384-row kernel, one pre, residual on part 0, dual output."""
+def _edge(h):
+    """The edge MLP: part (edge_attr,) whose W1 rows are the last h of a
+    3h-row kernel, one pre, residual on part 0, dual output."""
     rng = np.random.default_rng(2)
-    edge = rng.normal(size=(M, H)).astype(np.float32)
-    pre = rng.normal(size=(M, H)).astype(np.float32)
-    w = _weights(3, 3 * H)
-    jouts, touts = _run_both([edge], [pre], w, [(2 * H, 3 * H)], 0, True)
+    edge = rng.normal(size=(M, h)).astype(np.float32)
+    pre = rng.normal(size=(M, h)).astype(np.float32)
+    w = _weights(3, 3 * h, d_out=h, h=h)
+    jouts, touts = _run_both([edge], [pre], w, [(2 * h, 3 * h)], 0, True)
     assert len(touts) == 2
     _compare(jouts, touts)
 
 
-def test_node_variant_matches_jax():
-    """The node MLP: parts (nbr_avg [64], node_x [128]), residual on part 1,
+def _node(h):
+    """The node MLP: parts (nbr_avg [h/2], node_x [h]), residual on part 1,
     one output out + node_x."""
     rng = np.random.default_rng(4)
-    nbr = rng.normal(size=(M, H // 2)).astype(np.float32)
-    node = rng.normal(size=(M, H)).astype(np.float32)
-    w = _weights(5, H // 2 + H)
+    nbr = rng.normal(size=(M, h // 2)).astype(np.float32)
+    node = rng.normal(size=(M, h)).astype(np.float32)
+    w = _weights(5, h // 2 + h, d_out=h, h=h)
     _compare(*_run_both([nbr, node], [], w, None, 1, False))
 
 
-def test_noln_matches_jax():
-    """The decoder chain: [M, 128] bf16 -> [M, 3] bf16."""
+def _noln(h):
+    """The decoder chain: [M, h] bf16 -> [M, 3] bf16."""
     from gen_fvgn_tpu.ops.fused_mlp import fused_mlp_noln_parts as jfn
     from gen_fvgn_tpu_torch.ops.fused_mlp import fused_mlp_noln_parts as tfn
     rng = np.random.default_rng(6)
-    x = rng.normal(size=(M, H)).astype(np.float32)
-    w = _weights(7, H, d_out=3)
+    x = rng.normal(size=(M, h)).astype(np.float32)
+    w = _weights(7, h, d_out=3, h=h)
     order = ("w1", "b1", "w2", "b2", "w3", "b3")
     ref = np.asarray(jfn(jnp.asarray(x), *[jnp.asarray(w[k]) for k in order],
                          dtype=jnp.bfloat16), np.float32)
@@ -103,6 +104,32 @@ def test_noln_matches_jax():
               dtype=torch.bfloat16)
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (M, 3)
     _compare([ref], [got.float().numpy()])
+
+
+def test_pres_only_variant_matches_jax():
+    _pres_only(H)
+
+
+def test_edge_variant_matches_jax():
+    _edge(H)
+
+
+def test_node_variant_matches_jax():
+    """parts 64 + 128 wide."""
+    _node(H)
+
+
+def test_noln_matches_jax():
+    _noln(H)
+
+
+@pytest.mark.parametrize("form", ["pres_only", "edge", "node", "noln"])
+def test_variants_match_jax_at_hidden_256(form):
+    """The same four forms at hidden width 256 (JAX fuses any multiple of
+    128): the node MLP's parts are 128 + 256 wide, the decoder's input
+    256."""
+    {"pres_only": _pres_only, "edge": _edge, "node": _node,
+     "noln": _noln}[form](256)
 
 
 def test_residual_is_added_after_the_bf16_rounding():
@@ -134,3 +161,33 @@ def test_wrappers_on_cpu_are_the_references_and_count_nothing():
         [x], [w1], b1, w2, b2, w3, b3, ga, be))
     assert torch.equal(b, mod.fused_mlp_noln_reference(
         x, w1, b1, w2, b2, w3[:, :3].contiguous(), b3[:3]))
+
+
+@pytest.mark.parametrize("h,widths,d_out,takes", [
+    pytest.param(256, [256], 256, True, id="h256-part-256"),
+    pytest.param(256, [256, 384], 256, True, id="h256-parts-256-384"),
+    pytest.param(256, [128, 256], 256, True, id="h256-node-parts"),
+    pytest.param(128, [64, 128], 128, True, id="h128-node-parts"),
+    pytest.param(192, [192], 192, False, id="h192"),
+    pytest.param(256, [136], 256, False, id="part-136"),
+    pytest.param(256, [256], 128, False, id="ln-width-not-h")])
+def test_mlp_operands_take_the_widths_jax_fuses(h, widths, d_out, takes):
+    """The kernels' shape checks (`_mlp_operands`): any hidden width that
+    is a multiple of 128 with the LayerNorm as wide, part widths that are
+    multiples of 16 below 128 or of 128; everything else raises."""
+    from gen_fvgn_tpu_torch.ops.fused_mlp import _mlp_operands
+    bf, f32 = torch.bfloat16, torch.float32
+    m = 8
+    parts = [torch.zeros(m, w, dtype=bf) for w in widths]
+    w1s = [torch.zeros(w, h, dtype=bf) for w in widths]
+    args = (parts, w1s, torch.zeros(h, dtype=f32), torch.zeros(h, h, dtype=bf),
+            torch.zeros(h, dtype=f32), torch.zeros(h, d_out, dtype=bf),
+            torch.zeros(d_out, dtype=f32), torch.zeros(h, dtype=f32), [], None,
+            True, "test")
+    if takes:
+        out = _mlp_operands(*args)
+        assert out[-1] == h and out[-3] == widths
+        assert tuple(out[2].shape) == (sum(widths), h)
+    else:
+        with pytest.raises(NotImplementedError):
+            _mlp_operands(*args)

@@ -37,9 +37,9 @@ def _ulps(ref, n):
     return n * 2.0 ** (np.floor(np.log2(scale)) - 7)
 
 
-def _setup(mxu):
+def _setup(mxu, hidden=None):
     if mxu == "float32":
-        args = (6, 32, 1, "float32", 2)
+        args = (6, hidden or 32, 1, "float32", 2)
         (jc, _, _, jd), (tc, _, _, _) = both_sides(*args)
         js, ts = f32_operator_statics(*args)
     else:
@@ -112,9 +112,14 @@ def test_gn_block_matches_flax(mxu):
     assert tn.dtype == tdt and te.dtype == tdt
 
 
-@pytest.mark.parametrize("mxu", ["float32", "bfloat16"])
-def test_simulator_matches_flax(mxu):
-    jc, tc, js, ts, tree, apply_fn = _setup(mxu)
+@pytest.mark.parametrize("mxu,hidden", [
+    pytest.param("float32", None, id="float32"),
+    pytest.param("bfloat16", None, id="bfloat16"),
+    # hidden 256: the width the MLP kernels now also take (FVGN's node MLP
+    # parts 128 + 256)
+    pytest.param("float32", 256, id="float32-h256")])
+def test_simulator_matches_flax(mxu, hidden):
+    jc, tc, js, ts, tree, apply_fn = _setup(mxu, hidden)
     sim = torch_simulator(tc, tree)
     node, edge = _inputs(ts, 13)
     jt = jax.tree_util.tree_map(jnp.asarray, tree)

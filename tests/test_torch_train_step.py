@@ -89,9 +89,13 @@ def port_loss(tc, ts, td, sim, stats):
     return training_loss(out, tc)
 
 
-@pytest.mark.parametrize("net", ["TransFVGN_v2", "FVGN"])
-def test_train_loss_and_grads_match_jax_f32(net):
-    jc, tc, js, ts, jd, td, tree, apply_fn, stats = setup(net, F32)
+@pytest.mark.parametrize("net,args", [
+    pytest.param("TransFVGN_v2", F32, id="TransFVGN_v2"),
+    pytest.param("FVGN", F32, id="FVGN"),
+    # FVGNSimulatorB at hidden 256, the width the MLP kernels now also take
+    pytest.param("FVGN", (6, 256, 1, "float32", 2), id="FVGN-h256")])
+def test_train_loss_and_grads_match_jax_f32(net, args):
+    jc, tc, js, ts, jd, td, tree, apply_fn, stats = setup(net, args)
     jl, jg = jax_value_and_grad(jc, js, jd, apply_fn, stats)(
         jax.tree_util.tree_map(jnp.asarray, tree), jd.uvp)
     jg = jax_flat(jg)
