@@ -5,9 +5,9 @@
 
 Builds the port's CUDA kernels from `gen_fvgn_tpu_torch/csrc/` with nvcc,
 holds each kernel, forward and backward, against its plain PyTorch version
-on the card at the shapes of the main path (the fused MLP kernels K2, K3,
-K4f and K4b at hidden width 128 and again at 256; the paired sparse
-applies K8 and K9 at the paired path's), then drives five paths on the
+on the card at the shapes of the main path (K2-K7 at hidden width 128 and
+again at 256; the paired sparse applies K8 and K9 at the paired path's),
+then drives six paths on the
 101x101-node synthetic cavity at batch 8, with weights from
 torch.Generator().manual_seed(0), all with the Config's defaults
 (TransFVGN_v2: hidden 128, 2 processors of 3 message-passing blocks and a
@@ -38,13 +38,20 @@ Transolver block each, 8 heads, 32 slices, bf16 stream) unless named:
     parts 128 + 256 wide) at batch 2 on the same statics: one rollout step
     (9 spmm, 8 fused_mlp_ln, 1 fused_mlp_noln) and one train step (24
     spmm, 8 + 8 fused_mlp_ln, 1 + 1 fused_mlp_noln), the rollout step and
-    step 1's gradients held against the plain versions on the card.
+    step 1's gradients held against the plain versions on the card;
+  * TransFVGN_v2 at hidden width 256 the same way (the Transolver kernels
+    at C = 256: K5f/K5b with the hidden width 512, K6/K7 with 8 heads of 32
+    and 32 slices; the MLP kernels at H = 256): one rollout step with the
+    main path's rollout launches and one train step with its train-step
+    launches.
 
 Each path's launch counters are set to 0 just before it and read just
 after; the script checks them, finite outputs, zero padded nodes, a state
 or parameters that move, and step 1 of each rollout against the same step
 run with the kernels' plain versions on the card. The kernels line lists
-the K2/K3/K4f/K4b times at hidden 256 under "hidden_256".
+the K2-K7 times at hidden 256 (the same row counts) under "hidden_256", and
+for K5b and K7 the bytes their two passes move ("design_bytes") beside the
+bound of the function itself.
 
 Needs one CUDA card and nvcc; exits non-zero without them, and on any phase
 that fails. float32 products run in full float32: TF32 is switched off
@@ -196,9 +203,11 @@ def check_pairs(static, flush_buf, gen):
     """K8 as the gather pair (y [8, N, 256] on gather_s / gather_r) and as
     the node pair (edge_attr [8, E, 128] on nbr_r / nbr_s), K9 on
     nbr_r.bwd / nbr_s.bwd (g [8, N, 64]), all bf16, each against its plain
-    version. Tolerance: one bf16 rounding of the output plus 2^-20 of the
-    sum of the magnitudes (float32 sums in another order; the node pair's
-    operands have both signs, so a sum may cancel)."""
+    version. Tolerance: one bf16 ulp of the output plus 2^-20 of the sum
+    of the magnitudes (float32 sums in another order: where the exact sum
+    lies next to a bf16 rounding midpoint, one order lands on it and rounds
+    to even, the other does not; the node pair's operands have both signs,
+    so a sum may cancel)."""
     import dataclasses
 
     from gen_fvgn_tpu_torch.ops import pair_spmm as ps
@@ -224,7 +233,7 @@ def check_pairs(static, flush_buf, gen):
         h = width if transpose else width // 2
         shape = (BATCH, a.n_out, 2 * h if transpose else h)
         diff = (out.float() - ref.float()).abs()
-        tol = BF16_EPS * ref.float().abs() + 2.0 ** -20 * mag
+        tol = 2.0 * BF16_EPS * ref.float().abs() + 2.0 ** -20 * mag
         if tuple(out.shape) != shape or out.dtype != bf \
                 or not torch.equal(out, again) or bool((diff > tol).any()):
             raise RuntimeError(f"{name} disagrees with its plain version: "
@@ -276,7 +285,7 @@ def check_pairs(static, flush_buf, gen):
                           bound_by=bound_by)
         log(f"kernel {name} [{BATCH},{a.n_in},{width}]->{list(shape)} bf16 "
             f"nnz={a.nnz}+{b.nnz}: max_abs_err={max_abs:.3g} "
-            f"max_rel_err={max_rel:.3g} (tolerance one bf16 rounding + "
+            f"max_rel_err={max_rel:.3g} (tolerance one bf16 ulp + "
             f"2^-20 of the magnitudes; library vs plain max_abs "
             f"{lib_abs:.3g}); two runs bitwise equal; ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
@@ -383,56 +392,58 @@ def check_fused_noln(n_pad, flush_buf, gen, h=128):
     return row
 
 
-def check_premlp(n_pad, flush_buf, gen):
-    """K5f at the Transolver block's shape: x [8*N, 128] bf16, hidden 256."""
+def check_premlp(n_pad, flush_buf, gen, c=128):
+    """K5f at the Transolver block's shape: x [8*N, c] bf16, hidden 2c."""
     from gen_fvgn_tpu_torch.ops.fused_mlp import (fused_premlp_res,
                                                   fused_premlp_res_reference)
     bf = torch.bfloat16
-    m = BATCH * n_pad
+    m, hd = BATCH * n_pad, 2 * c
     g = lambda *s: torch.randn(*s, generator=gen, device="cuda")
-    x = (2.0 * g(m, 128) + 0.5).to(bf)
-    args = (x, 1.0 + 0.1 * g(128), 0.1 * g(128),
-            (g(128, 256) / 128 ** 0.5).to(bf), 0.1 * g(256),
-            (g(256, 128) / 256 ** 0.5).to(bf), 0.1 * g(128))
+    x = (2.0 * g(m, c) + 0.5).to(bf)
+    args = (x, 1.0 + 0.1 * g(c), 0.1 * g(c),
+            (g(c, hd) / c ** 0.5).to(bf), 0.1 * g(hd),
+            (g(hd, c) / hd ** 0.5).to(bf), 0.1 * g(c))
     out, ref = fused_premlp_res(*args), fused_premlp_res_reference(*args)
     torch.cuda.synchronize()
     max_abs, max_rel = err_stats(out, ref)
-    # float32 sums in another order and last-bit tanhf/sqrtf differences
+    # float32 sums in another order and last-bit exp/sqrtf differences
     # can move one bf16 rounding of u, h or the output by one step
     tol = ulps_of_scale(ref, 2)
-    if max_abs > tol or tuple(out.shape) != (m, 128) or out.dtype != bf \
+    if max_abs > tol or tuple(out.shape) != (m, c) or out.dtype != bf \
             or not bool(torch.isfinite(out).all()):
-        raise RuntimeError(f"fused_premlp_res disagrees with its plain "
+        raise RuntimeError(f"fused_premlp_res C={c} disagrees with its plain "
                            f"version: max abs {max_abs} > {tol}")
     ms = median_ms(lambda: fused_premlp_res(*args), flush_buf)
     plain_ms = median_ms(lambda: fused_premlp_res_reference(*args),
                          flush_buf, iters=5, warmup=1)
-    moved = nbytes(x, out, args[3], args[5]) + 4 * (3 * 128 + 256)
-    bound_ms, bound_by = bound(moved, 2.0 * m * (128 * 256 + 256 * 128))
-    row = dict(m=m, max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
+    moved = nbytes(x, out, args[3], args[5]) + 4 * (3 * c + hd)
+    bound_ms, bound_by = bound(moved, 2.0 * m * (c * hd + hd * c))
+    row = dict(c=c, m=m, max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-    log(f"kernel fused_premlp_res M={m} bf16 [M,128]->[M,128] hidden 256: "
-        f"max_abs_err={max_abs:.3g} max_rel_err={max_rel:.3g} (tolerance "
-        f"{tol:.3g} abs = 2 bf16 ulps of the output scale) ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+    log(f"kernel fused_premlp_res C={c} M={m} bf16 [M,{c}]->[M,{c}] hidden "
+        f"{hd}: max_abs_err={max_abs:.3g} max_rel_err={max_rel:.3g} "
+        f"(tolerance {tol:.3g} abs = 2 bf16 ulps of the output scale) "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+        f"({bound_by})")
     return row
 
 
-def check_slice_pool(static, flush_buf, gen):
-    """K6 at the attention's shape: x [8, N, 128] bf16, the static node
-    mask, 8 heads of 16, 32 slices, temperature 0.5."""
+def check_slice_pool(static, flush_buf, gen, c=128, heads=8, slices=32):
+    """K6 at the attention's shape: x [8, N, c] bf16, the static node
+    mask, `heads` heads of c / heads, `slices` slices, temperature 0.5."""
     from gen_fvgn_tpu_torch.ops.fused_slice_attn import (
         fused_slice_pool_kernel, fused_slice_pool_reference, slice_logits,
         slice_w_tolerance)
     bf = torch.bfloat16
     n = static.pos.shape[0]
+    d, hg = c // heads, heads * slices
     g = lambda *s: torch.randn(*s, generator=gen, device="cuda")
-    x = g(BATCH, n, 128).to(bf)
+    x = g(BATCH, n, c).to(bf)
     mask = static.node_mask.to(torch.float32)
-    args = (x, mask, (g(128, 128) / 128 ** 0.5).to(bf), 0.1 * g(128),
-            (g(128, 128) / 128 ** 0.5).to(bf), 0.1 * g(128),
-            (g(16, 32) / 4.0).to(bf), 0.1 * g(32),
-            torch.full((8,), 2.0, device="cuda"))
+    args = (x, mask, (g(c, c) / c ** 0.5).to(bf), 0.1 * g(c),
+            (g(c, c) / c ** 0.5).to(bf), 0.1 * g(c),
+            (g(d, slices) / d ** 0.5).to(bf), 0.1 * g(slices),
+            torch.full((heads,), 2.0, device="cuda"))
     outs = fused_slice_pool_kernel(*args)
     refs = fused_slice_pool_reference(*args)
     again = fused_slice_pool_kernel(*args)
@@ -454,8 +465,8 @@ def check_slice_pool(static, flush_buf, gen):
             ("norm", outs[2], refs[2], 1e-3 * float(refs[2].abs().max()))):
         a, _ = err_stats(o, r)
         if a > t or o.shape != r.shape or not bool(torch.isfinite(o).all()):
-            raise RuntimeError(f"fused_slice_pool[{name}] disagrees with its "
-                               f"plain version: max abs {a} > {t}")
+            raise RuntimeError(f"fused_slice_pool[{name}] C={c} disagrees "
+                               f"with its plain version: max abs {a} > {t}")
         errs.append(a)
         tols.append(t)
     if w_far >= 1e-4:
@@ -466,23 +477,25 @@ def check_slice_pool(static, flush_buf, gen):
                          flush_buf, iters=5, warmup=1)
     rows = BATCH * n
     moved = nbytes(x, mask, *outs, args[2], args[4], args[6]) \
-        + 4 * (2 * 128 + 32 + 8)
+        + 4 * (2 * c + slices + heads)
     # the projections and the logits take bf16 operands (tensor cores); the
     # pooling takes float32 w*mask and fx (CUDA cores): per-head blocks only
     bound_ms, bound_by = bound(
-        moved, 2.0 * rows * (2 * 128 * 128 + 8 * 16 * 32),
-        f32_flops=2.0 * rows * 8 * 32 * 16)
-    row = dict(m=rows, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-               bound_ms=bound_ms, bound_by=bound_by)
-    log(f"kernel fused_slice_pool x [{BATCH},{n},128] bf16 -> slice_w "
-        f"[{BATCH},{n},256] bf16, tokens [{BATCH},8,32,16], norm "
-        f"[{BATCH},8,32]: max_abs_err slice_w={errs[0]:.3g} "
-        f"tokens={errs[1]:.3g} norm={errs[2]:.3g} (tolerance "
-        f"{tols[0]:.3g} for a flipped logit rounding at max|logit| "
-        f"{l_max:.3g}, {tols[1]:.3g} and {tols[2]:.3g} = 1e-3 of the scale; "
-        f"share of weights more than 2^-7 off {w_far:.3g}, limit 1e-4); two "
-        f"runs bitwise equal; ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"bound_ms={bound_ms:.4f} ({bound_by})")
+        moved, 2.0 * rows * (2 * c * c + c * slices),
+        f32_flops=2.0 * rows * c * slices)
+    row = dict(c=c, heads=heads, slices=slices, m=rows, max_abs_err=max(errs),
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by)
+    log(f"kernel fused_slice_pool x [{BATCH},{n},{c}] bf16, {heads} heads, "
+        f"{slices} slices -> slice_w [{BATCH},{n},{hg}] bf16, tokens "
+        f"[{BATCH},{heads},{slices},{d}], norm [{BATCH},{heads},{slices}]: "
+        f"max_abs_err slice_w={errs[0]:.3g} tokens={errs[1]:.3g} "
+        f"norm={errs[2]:.3g} (tolerance {tols[0]:.3g} for a flipped logit "
+        f"rounding at max|logit| {l_max:.3g}, {tols[1]:.3g} and "
+        f"{tols[2]:.3g} = 1e-3 of the scale; share of weights more than "
+        f"2^-7 off {w_far:.3g}, limit 1e-4); two runs bitwise equal; "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+        f"({bound_by})")
     return row
 
 
@@ -596,57 +609,77 @@ def check_mlp_backward(n_pad, e_pad, flush_buf, gen, h=128):
     return rows
 
 
-def check_backward(n_pad, static, flush_buf, gen):
-    """K5b at the Transolver MLP's shape and K7 at the attention's, each
-    against its plain version; rows batch-major, 8 lanes."""
+def check_backward(n_pad, static, flush_buf, gen, c=128, heads=8,
+                   slices=32):
+    """K5b at the Transolver MLP's shape (x [8*N, c], hidden 2c) and K7 at
+    the attention's (x [8, N, c], `heads` heads, `slices` slices), each
+    against its plain version; rows batch-major, 8 lanes. Beside each
+    bound (the function's own bytes and operations) the bytes the kernel's
+    two passes move: the row pass's reads and writes, its bf16 rows read
+    again by the weight-gradient pass once per output tile they feed."""
     from gen_fvgn_tpu_torch.ops import fused_mlp as fm
     from gen_fvgn_tpu_torch.ops import fused_slice_attn as fsa
     bf = torch.bfloat16
     g = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     rows = {}
-    h, sq = 128, 128 * 128
+    hd, sq = 2 * c, c * c
     m = BATCH * n_pad
+    tiles = lambda k: -(-k // 128)
 
-    # K5b: the Transolver MLP, [8 * padded nodes, 128], hidden 256
-    x = (2.0 * g(m, h) + 0.5).to(bf)
-    dout = g(m, h).to(bf)
-    args = (x, 1.0 + 0.1 * g(h), 0.1 * g(h), (g(h, 256) / 128 ** 0.5).to(bf),
-            0.1 * g(256), (g(256, h) / 256 ** 0.5).to(bf), 0.1 * g(h), dout,
+    # K5b: the Transolver MLP, [8 * padded nodes, c], hidden 2c
+    x = (2.0 * g(m, c) + 0.5).to(bf)
+    dout = g(m, c).to(bf)
+    args = (x, 1.0 + 0.1 * g(c), 0.1 * g(c), (g(c, hd) / c ** 0.5).to(bf),
+            0.1 * g(hd), (g(hd, c) / hd ** 0.5).to(bf), 0.1 * g(c), dout,
             BATCH)
     out, row = hold_backward(
-        "fused_premlp_res_bwd", lambda: fm.fused_premlp_res_bwd(*args),
+        f"fused_premlp_res_bwd C={c}", lambda: fm.fused_premlp_res_bwd(*args),
         lambda: fm.fused_premlp_res_bwd_reference(*args), flush_buf,
         ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"))
     moved = nbytes(x, dout, out[0], args[3], args[5], out[3], out[5]) \
-        + 4 * 2 * (4 * h + 256)
+        + 4 * 2 * (4 * c + hd)
+    # the rows pass 1 writes (u16 [M, c], h16 and dh1pre16 [M, 2c]) and
+    # pass 2 reads: dW1 = u16^T dh1pre16, dW2 = h16^T dout
+    design = moved + 2 * m * (c + 2 * hd) + 2 * m * (
+        c * tiles(hd) + hd * tiles(c) + hd * tiles(c) + c * tiles(hd))
     # remat: u W1 (the branch's output h W2 is not needed); backward: dW2,
-    # g W2^T, dW1, dh W1^T; each [M, 128] x [128, 256] or its transpose
-    rows["fused_premlp_res_bwd"] = with_bound(row, m, moved,
-                                              2.0 * m * 5 * 2 * sq)
+    # g W2^T, dW1, dh W1^T; each [M, c] x [c, 2c] or its transpose
+    rows["fused_premlp_res_bwd"] = dict(with_bound(
+        row, m, moved, 2.0 * m * 5 * c * hd), design_bytes=design,
+        design_ms=1e3 * design / HBM_BYTES_PER_S)
 
-    # K7: the slice pooling's backward, x [8, N, 128], the static mask
+    # K7: the slice pooling's backward, x [8, N, c], the static mask
     n = static.pos.shape[0]
-    x = g(BATCH, n, h).to(bf)
+    d, hg = c // heads, heads * slices
+    x = g(BATCH, n, c).to(bf)
     mask = static.node_mask.to(torch.float32)
-    cots = (g(BATCH, n, 256).to(bf), g(BATCH, 8, 32, 16), g(BATCH, 8, 32))
-    args = (x, mask, (g(h, h) / 128 ** 0.5).to(bf), 0.1 * g(h),
-            (g(h, h) / 128 ** 0.5).to(bf), 0.1 * g(h),
-            (g(16, 32) / 4.0).to(bf), 0.1 * g(32),
-            torch.full((8,), 2.0, device="cuda"), *cots)
+    cots = (g(BATCH, n, hg).to(bf), g(BATCH, heads, slices, d),
+            g(BATCH, heads, slices))
+    args = (x, mask, (g(c, c) / c ** 0.5).to(bf), 0.1 * g(c),
+            (g(c, c) / c ** 0.5).to(bf), 0.1 * g(c),
+            (g(d, slices) / d ** 0.5).to(bf), 0.1 * g(slices),
+            torch.full((heads,), 2.0, device="cuda"), *cots)
     out, row = hold_backward(
-        "fused_slice_pool_bwd", lambda: fsa.fused_slice_pool_bwd_kernel(*args),
+        f"fused_slice_pool_bwd C={c} H={heads} G={slices}",
+        lambda: fsa.fused_slice_pool_bwd_kernel(*args),
         lambda: fsa.fused_slice_pool_bwd_reference(*args), flush_buf)
     r = BATCH * n
     moved = nbytes(x, mask, *cots, out.dx, args[2], args[4], args[6],
-                   out.dwfx, out.dwx, out.dwsl_heads) + 4 * (4 * h + 64 + 16)
+                   out.dwfx, out.dwx, out.dwsl_heads) \
+        + 4 * (4 * c + 2 * slices + 2 * heads)
+    # pass 1 writes dfx16, dxm16 [r, c]; pass 2 reads them and x per tile
+    design = moved + 2 * r * 2 * c + 2 * r * 2 * (c + c) * tiles(c)
     # tensor cores: remat fx, xm, the logits; backward dxm, dWsl, dWfx,
     # dWx and dx (two products); float32: dw_m and dfx against dtokens
-    rows["fused_slice_pool_bwd"] = with_bound(
-        row, r, moved, 2.0 * r * (6 * sq + 3 * 8 * 16 * 32),
-        f32_flops=2.0 * 2 * r * 8 * 32 * 16)
+    rows["fused_slice_pool_bwd"] = dict(with_bound(
+        row, r, moved, 2.0 * r * (6 * sq + 3 * c * slices),
+        f32_flops=2.0 * 2 * r * c * slices), design_bytes=design,
+        design_ms=1e3 * design / HBM_BYTES_PER_S)
     for name, row in rows.items():
-        log(f"  {name}: M={row['m']} bound_ms={row['bound_ms']:.4f} "
-            f"({row['bound_by']})")
+        log(f"  {name} C={c}: M={row['m']} bound_ms={row['bound_ms']:.4f} "
+            f"({row['bound_by']}); the two passes move "
+            f"{row['design_bytes'] / 1e6:.1f} MB, {row['design_ms']:.4f} ms "
+            f"at the memory rate")
     return rows
 
 
@@ -898,21 +931,24 @@ def drive_training(cfg, pool, static, steps, per_step, n_real, pairs=None,
     return counts, step_ms, peak
 
 
-def drive_hidden256(cfg, pool, static, norm_state, n_real):
-    """FVGNSimulatorB at hidden width 256 through the MLP kernels (K2/K3 at
-    H = 256, the node MLP's parts 128 + 256; K4f/K4b on a 256-wide input):
-    one rollout step and one train step at batch 2 on the same statics,
-    weights from seed 0, each with the counters set to 0 just before and
-    read just after; the rollout step and step 1's gradients held against
-    the plain versions on the card. TransFVGN_v2 at hidden 256 would also
-    need K5/K6/K7 at C = 256, which those kernels do not take yet."""
+def drive_hidden256(cfg, pool, static, norm_state, n_real, net, per_step,
+                    train_step_counts):
+    """`net` at hidden width 256: one rollout step and one train step at
+    batch 2 on the same statics, weights from seed 0, each with the counters
+    set to 0 just before and read just after; the rollout step and step 1's
+    gradients held against the plain versions on the card. FVGN waits on
+    the MLP kernels at H = 256 (K2/K3, the node MLP's parts 128 + 256;
+    K4f/K4b on a 256-wide input). TransFVGN_v2 waits on exactly those and
+    the Transolver kernels at C = 256: K5f/K5b with the hidden width 512
+    and K6/K7 with 8 heads of 32 and 32 slices. `per_step` gives the
+    rollout step's launches, `train_step_counts` the train step's."""
     from gen_fvgn_tpu_torch.solve.rollout_block import make_eval_step_block
     from gen_fvgn_tpu_torch.training.train_block import (
         init_train_state_block, make_train_step_block)
     b = 2
-    hcfg = cfg.replace(net="FVGN", hidden_size=256, batch_size=b,
+    hcfg = cfg.replace(net=net, hidden_size=256, batch_size=b,
                        dataset_size=b)
-    name = "FVGN hidden 256"
+    name = f"{net} hidden 256"
     dyn = pool.gather_block(np.arange(b))
     state, sim = init_train_state_block(hcfg, seed=0)
     step = make_eval_step_block(hcfg, sim)
@@ -922,8 +958,7 @@ def drive_hidden256(cfg, pool, static, norm_state, n_real):
     out = step(norm_state, dyn, static)
     torch.cuda.synchronize()
     counts = launch_counts()
-    expected = {k: 0 for k in counts}
-    expected.update(spmm=9, fused_mlp_ln=8, fused_mlp_noln=1)
+    expected = {k: per_step.get(k, 0) for k in counts}
     un = out.uvp_node_new.float()
     log(f"{name} rollout step 1: batch {b}, launches {counts}; "
         f"max|uvp|={float(un.abs().max()):.4g}")
@@ -947,16 +982,19 @@ def drive_hidden256(cfg, pool, static, norm_state, n_real):
     train_step = make_train_step_block(hcfg, sim)
     start = [p.detach().clone() for p in sim.parameters()]
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     zero_counts()
     state, m, uvp_new = train_step(state, dyn, static)
     torch.cuda.synchronize()
     counts = launch_counts()
-    expected.update(spmm=24, fused_mlp_ln_bwd=8, fused_mlp_noln_bwd=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    expected = {k: train_step_counts.get(k, 0) for k in counts}
     loss, gnorm = float(m.loss), float(m.grad_norm)
     moved = max(float((p.detach() - p0).abs().max())
                 for p, p0 in zip(sim.parameters(), start))
     log(f"{name} train step 1: loss={loss:.6g} grad_norm={gnorm:.6g}; "
-        f"parameters moved by up to {moved:.3g}; launches {counts}")
+        f"parameters moved by up to {moved:.3g}; peak device memory "
+        f"{peak:.0f} MiB; launches {counts}")
     if counts != expected or not np.isfinite(loss) or not gnorm > 0 \
             or not moved > 0 or not bool(torch.isfinite(uvp_new).all()):
         raise RuntimeError(f"{name}: train launches {counts} != {expected},"
@@ -1027,6 +1065,11 @@ def main():
     noln_row[256] = check_fused_noln(n_pad, flush_buf, gen256, 256)
     mlp_bwd_rows[256] = check_mlp_backward(n_pad, e_pad, flush_buf, gen256,
                                            256)
+    # the Transolver kernels at C = 256 (hidden 512; 8 heads of 32, 32
+    # slices), the same row counts
+    premlp256 = check_premlp(n_pad, flush_buf, gen256, 256)
+    pool256 = check_slice_pool(static, flush_buf, gen256, 256)
+    bwd256 = check_backward(n_pad, static, flush_buf, gen256, 256)
     del flush_buf
 
     # ---- phase 4: the TransFVGN_v2 rollout ----
@@ -1070,8 +1113,17 @@ def main():
         cfg, pool, static, PAIR_STEPS, pair_per_step, n_real, pairs=pairs,
         compare=make_simulator_block(cfg, seed=0))
 
-    # ---- phase 8: the MLP kernels at hidden width 256, on FVGN ----
-    drive_hidden256(cfg, pool, static, norm_state, n_real)
+    # ---- phase 8: hidden width 256: the MLP kernels on FVGN, then every
+    # kernel but the pair kernels on TransFVGN_v2 (K5 at C = 256, hidden
+    # 512; K6/K7 at C = 256, 8 heads, 32 slices) ----
+    fv = dict(spmm=9, fused_mlp_ln=8, fused_mlp_noln=1)
+    drive_hidden256(cfg, pool, static, norm_state, n_real, "FVGN", fv,
+                    dict(fv, spmm=24, fused_mlp_ln_bwd=8,
+                         fused_mlp_noln_bwd=1))
+    tv = dict(spmm=18, fused_mlp_ln=14, fused_mlp_noln=1,
+              fused_premlp_res=2, fused_slice_pool=2)
+    drive_hidden256(cfg, pool, static, norm_state, n_real, "TransFVGN_v2",
+                    tv, per_step)
 
     # ---- phase 9: the kernels line (launches: the main path's run; the
     # pair kernels', which the main path does not run: the paired path's) --
@@ -1135,7 +1187,12 @@ def main():
     # the same four kernels at hidden width 256 (same forms and method)
     wide = dict(fused_mlp_ln=edge[256], fused_mlp_noln=noln_row[256],
                 **{k: mlp_bwd_rows[256][k]
-                   for k in ("fused_mlp_ln_bwd", "fused_mlp_noln_bwd")})
+                   for k in ("fused_mlp_ln_bwd", "fused_mlp_noln_bwd")},
+                fused_premlp_res=premlp256, fused_slice_pool=pool256,
+                **bwd256)
+    for k in kernels:
+        if k["name"] in bwd_rows and "design_bytes" in bwd_rows[k["name"]]:
+            k["design_bytes"] = bwd_rows[k["name"]]["design_bytes"]
     for k in kernels:
         if k["name"] in wide:
             k["hidden_256"] = {f: wide[k["name"]][f] for f in (

@@ -82,157 +82,18 @@
 #include <stdint.h>
 
 #include "lane_reduce.cuh"
+#include "mma_sm90.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int THREADS = 256;      // 8 warps
 constexpr int KC = 32;            // contraction rows of a streamed weight chunk
 constexpr int STAGES = 3;         // chunks in flight in the weight ring
 constexpr int LDN = 24;           // staged, zero-padded noLN W3 [H][LDN]
-constexpr int KR = 32;            // rows of a pass-2 stage
+constexpr int KR = gfvgn::WG_KR;  // rows of a pass-2 stage
 constexpr int STAGES2 = 4;        // stages of the pass-2 ring
 constexpr int LD2 = 136;          // pass-2 tile leading dim (128 + 8)
 constexpr float kLnEps = 1e-6f;
-
-// ===== sm_90 primitives =====
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p)));
-}
-
-// the same, each matrix transposed
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p)));
-}
-
-// d += a * b: m16n8k16, bf16 operands, float32 accumulators
-__device__ __forceinline__ void mma16816(float d[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16 bytes device memory -> shared memory, asynchronous; zero-fills the
-// destination instead when !pred (src is not read then)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-// ===== end of sm_90 primitives =====
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
-    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
-}
-
-__device__ __forceinline__ float2 load_bf16x2(const bf16* p) {
-    return unpack_bf16(*reinterpret_cast<const uint32_t*>(p));
-}
-
-__device__ __forceinline__ void store_bf16x2(bf16* p, float a, float b) {
-    *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-}
-
-// GELU, tanh form: 0.5 x (1 + tanh(u)), u = sqrt(2/pi) (x + 0.044715 x^3),
-// evaluated as x * s with s = sigmoid(2u) = 1 / (1 + e^(-2u)): the same
-// function with one exp and one fast reciprocal (each within 2 ulps),
-// where tanhf and an IEEE division cost more than the products of the
-// chain. It differs from the plain version's tanh form in the last bits of
-// float32, as tanhf did.
-__device__ __forceinline__ float gelu_u(float x) {
-    return 0.7978845608028654f * (x + 0.044715f * x * x * x);
-}
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-    return x * __fdividef(1.0f, 1.0f + __expf(-2.0f * gelu_u(x)));
-}
-
-// gelu(x) and its derivative from the same exp: with s = sigmoid(2u),
-// 1 + tanh = 2s and 1 - tanh^2 = 4 s (1 - s), so the derivative 0.5 (1 +
-// tanh) + 0.5 x (1 - tanh^2) u' = s + 2 x s (1 - s) u', and 1 - s = e s
-// (no cancellation; 1 where e overflows and s is 0)
-__device__ __forceinline__ float gelu_and_grad(float x, float& grad) {
-    const float e = __expf(-2.0f * gelu_u(x));
-    const float s = __fdividef(1.0f, 1.0f + e);
-    const float sm = e < 3.0e38f ? e * s : 1.0f;
-    const float du =
-        0.7978845608028654f * (1.0f + (float)(3.0 * 0.044715) * x * x);
-    grad = s + 2.0f * x * (s * sm) * du;
-    return x * s;
-}
-
-// acc[8][4] += A[16 x 16*ksteps] * B over a warp's 64 output columns.
-// `a` points at the warp's first row and first contraction column (row
-// stride lda); B is [k][n] row-major (BT false: `b` at (k0, n0)) or [n][k]
-// (BT true, a weight read as its transpose: `b` at (n0, k0)). `nv` (even,
-// 0..8) is the number of valid 8-column tiles; the rest are left alone.
-template <bool BT>
-__device__ __forceinline__ void warp_mma(float acc[8][4], const bf16* a,
-                                         int lda, const bf16* b, int ldb,
-                                         int ksteps, int nv) {
-    const int lane = threadIdx.x & 31;
-    const bf16* ap = a + (lane & 15) * lda + ((lane >> 4) << 3);
-    const bf16* bp = BT
-        ? b + ((lane & 7) + ((lane >> 4) << 3)) * ldb + (((lane >> 3) & 1) << 3)
-        : b + ((lane & 7) + (((lane >> 3) & 1) << 3)) * ldb + ((lane >> 4) << 3);
-    for (int ks = 0; ks < ksteps; ++ks) {
-        uint32_t af[4];
-        ldsm_x4(af, ap + ks * 16);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            if (2 * q < nv) {
-                uint32_t bfr[4];
-                if (BT) ldsm_x4(bfr, bp + q * 16 * ldb + ks * 16);
-                else ldsm_x4_t(bfr, bp + ks * 16 * ldb + q * 16);
-                mma16816(acc[2 * q], af, bfr[0], bfr[1]);
-                mma16816(acc[2 * q + 1], af, bfr[2], bfr[3]);
-            }
-        }
-    }
-}
-
-__device__ __forceinline__ void zero_acc(float acc[8][4]) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
-}
 
 // A weight operand of the tile's products. trans 0: W is [k][n] row-major
 // (out = A*W); trans 1: W is [n][k] (out = A*W^T).
@@ -289,10 +150,6 @@ struct BwdParams {
     bf16* dh1s;
     float* colsum;       // [grid][4H + dp]
 };
-
-__host__ __device__ inline size_t align128(size_t x) {
-    return (x + 127) & ~(size_t)127;
-}
 
 __host__ __device__ inline int slot_elems(int pw) {
     const int a = KC * (pw + 8), b = pw * (KC + 8);
@@ -540,21 +397,6 @@ __device__ __forceinline__ float& spill_at(const Common& c, Ctx& cx,
     } while (0)
 #define FETCH(reg, which, j, nt, e)                                          \
     ((j) == 0 ? reg[nt][e] : spill_at(c, cx, which, j, (nt) * 4 + (e)))
-
-// column sums of a warp's 16 rows for 8-column tile nt (v0: column 2t, v1:
-// 2t + 1, each already the sum of this thread's two rows) -> red[0..1]
-__device__ __forceinline__ void col_sum_store(float v0, float v1, int g,
-                                              float* red) {
-#pragma unroll
-    for (int o = 4; o < 32; o <<= 1) {
-        v0 += __shfl_xor_sync(0xffffffffu, v0, o);
-        v1 += __shfl_xor_sync(0xffffffffu, v1, o);
-    }
-    if (g == 0) {
-        red[0] = v0;
-        red[1] = v1;
-    }
-}
 
 // h = bf16(gelu(bias (+ pre) (+ acc))) of pass j into sH; with `grad`, also
 // keep gelu'(.) of the same value (array `which`); with `gout`, also write
@@ -1913,31 +1755,9 @@ __global__ void __launch_bounds__(RW * 32, 1) fused_mlp_bwd_rows(BwdParams p) {
 
 // ============================ weight gradients =============================
 
-// one weight gradient of a lane: out[m][n] = A^T B over the lane's rows,
-// A [rows, lda] from column a0 (m = its width), B [rows, ldb] (n columns)
-struct WgJob {
-    const bf16* a;
-    int lda;
-    int m;
-    const bf16* b;
-    int ldb;
-    int n;
-    int out;          // offset of out[0][0] in the weight slab
-    int ldo;          // row stride of out in the slab
-};
-
-struct WgParams {
-    WgJob job[4];
-    int n_jobs;
-    int rows_per_lane;
-    int chunk_rows;   // rows of a chunk (a multiple of KR)
-    float* part;      // [lanes][chunks][n_w]
-    int n_w;
-};
-
 // grid (output tiles of all jobs, row chunks, lanes); 128 x 128 tile, warps
 // 4 (32 rows each) x 2 (64 columns each)
-__global__ void __launch_bounds__(THREADS) fused_mlp_wgrad(WgParams p) {
+__global__ void __launch_bounds__(THREADS) fused_mlp_wgrad(gfvgn::WgParams p) {
     extern __shared__ __align__(128) unsigned char smem[];
     bf16* sbuf = reinterpret_cast<bf16*>(smem);   // STAGES2 x [A | B]
     const int stage_elems = 2 * KR * LD2;
@@ -1955,7 +1775,7 @@ __global__ void __launch_bounds__(THREADS) fused_mlp_wgrad(WgParams p) {
         }
         tile -= tm_ * tn_;
     }
-    const WgJob J = p.job[ji];
+    const gfvgn::WgJob J = p.job[ji];
     const int mv = min(128, J.m - mt * 128);
     const int nvv = min(128, J.n - ntl * 128);
     const int lane_id = blockIdx.z;
@@ -2072,21 +1892,9 @@ struct Plan {
     int k1, dp;
     // backward
     int tiles2, chunk_rows, n_chunks, n_w, n_bias;
-    size_t smem2;
     // workspace byte offsets
     size_t o_spill, o_h1, o_h2, o_dy, o_dh2, o_dh1, o_colsum, o_part, bytes;
 };
-
-int device_limits(int& max_smem, int& n_sm) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    return (int)e;
-}
 
 bool width_ok(int w) {
     return w > 0 && ((w < 128 && w % 16 == 0) || w % 128 == 0);
@@ -2147,7 +1955,6 @@ int make_plan(const Shape& s, Plan& P) {
         o += align128((size_t)P.grid * 3 * (P.np - 1) * 32 * THREADS * 4);
     P.n_w = P.k1 * s.h + s.h * s.h + s.h * P.dp;
     P.n_bias = 4 * s.h + P.dp;
-    P.smem2 = (size_t)STAGES2 * 2 * KR * LD2 * 2;
     if (s.bwd) {
         if (s.M % s.lanes != 0) return (int)cudaErrorInvalidValue;
         const size_t row = (size_t)s.M * s.h * 2;
@@ -2161,13 +1968,8 @@ int make_plan(const Shape& s, Plan& P) {
         const int ht = (s.h + 127) / 128;
         P.tiles2 = ((s.w0 + 127) / 128) * ht + ((s.w1 + 127) / 128) * ht +
                    ht * ht + ht * ((P.dp + 127) / 128);
-        const int rpl = s.M / s.lanes;
-        const int steps = rpl > 0 ? (rpl + KR - 1) / KR : 1;
-        int want = (2 * n_sm + P.tiles2 * s.lanes - 1) / (P.tiles2 * s.lanes);
-        if (want < 1) want = 1;
-        if (want > steps) want = steps;
-        P.chunk_rows = ((steps + want - 1) / want) * KR;
-        P.n_chunks = rpl > 0 ? (rpl + P.chunk_rows - 1) / P.chunk_rows : 1;
+        gfvgn::wg_chunking(P.tiles2, s.M / s.lanes, s.lanes, n_sm,
+                           P.chunk_rows, P.n_chunks);
         P.o_part = o;
         o += align128((size_t)s.lanes * P.n_chunks * P.n_w * 4);
     }
@@ -2251,6 +2053,25 @@ int launch(K kernel, int grid, size_t smem, cudaStream_t st, const Pa& p) {
 static_assert(RW * 32 == THREADS, "rows blocks launch with THREADS threads");
 
 }  // namespace
+
+// The weight-gradient pass of every backward kernel (see mma_sm90.cuh):
+// grid (output tiles of all jobs, row chunks, lanes), then the fixed-order
+// reduction of the partials into total[0 .. n_w).
+extern "C" int gfvgn_wgrad(const gfvgn::WgParams* q, int lanes, float* total,
+                           cudaStream_t st) {
+    const size_t smem = (size_t)STAGES2 * 2 * KR * LD2 * 2;
+    cudaError_t e = cudaFuncSetAttribute(
+        fused_mlp_wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid(gfvgn::wg_tiles(*q), q->n_chunks, lanes);
+    fused_mlp_wgrad<<<grid, THREADS, smem, st>>>(*q);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    lane_reduce<<<(q->n_w + 255) / 256, 256, 0, st>>>(
+        q->part, total, q->n_w, q->n_w, lanes, q->n_chunks);
+    return (int)cudaGetLastError();
+}
 
 // Bytes of workspace the forward (backward = 0) or the backward needs for
 // this shape, or -1 when no kernel takes it (widths, or shared memory).
@@ -2357,16 +2178,14 @@ extern "C" int gfvgn_fused_mlp_bwd(const void* part0, const void* part1,
                        : launch(fused_mlp_bwd_tiles<false, false>, P.grid, P.smem, st, p);
     if (err != 0) return err;
 
-    // pass 2: the weight gradients per lane
-    WgParams q;
+    // pass 2: the weight gradients per lane, summed in a fixed order
+    gfvgn::WgParams q;
     const bf16* x0 = static_cast<const bf16*>(part0);
     const bf16* x1 = static_cast<const bf16*>(part1);
     int nj = 0;
     auto job = [&](const bf16* a, int lda, int m, const bf16* b, int ldb,
                    int n, int out, int ldo) {
-        WgJob& J = q.job[nj++];
-        J.a = a; J.lda = lda; J.m = m; J.b = b; J.ldb = ldb; J.n = n;
-        J.out = out; J.ldo = ldo;
+        q.job[nj++] = gfvgn::WgJob{a, lda, m, b, ldb, n, out, ldo};
     };
     if (width0 > 0) job(x0, width0, width0, p.dh1s, h, h, 0, h);
     if (width1 > 0) job(x1, width1, width1, p.dh1s, h, h, width0 * h, h);
@@ -2375,22 +2194,12 @@ extern "C" int gfvgn_fused_mlp_bwd(const void* part0, const void* part1,
     q.n_jobs = nj;
     q.rows_per_lane = M / lanes;
     q.chunk_rows = P.chunk_rows;
+    q.n_chunks = P.n_chunks;
     q.part = reinterpret_cast<float*>(ws + P.o_part);
     q.n_w = P.n_w;
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_mlp_wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)P.smem2);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid2(P.tiles2, P.n_chunks, lanes);
-    fused_mlp_wgrad<<<grid2, THREADS, P.smem2, st>>>(q);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-
     float* tot = static_cast<float*>(total);
-    lane_reduce<<<(P.n_w + 255) / 256, 256, 0, st>>>(
-        q.part, tot, P.n_w, P.n_w, lanes, P.n_chunks);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+    err = gfvgn_wgrad(&q, lanes, tot, st);
+    if (err != 0) return err;
     lane_reduce<<<(P.n_bias + 255) / 256, 256, 0, st>>>(
         p.colsum, tot + P.n_w, P.n_bias, 0, 1, P.grid);
     return (int)cudaGetLastError();

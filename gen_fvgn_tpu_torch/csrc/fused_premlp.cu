@@ -1,37 +1,41 @@
-// K5f: the Transolver block's pre-LN MLP branch with its residual, forward,
-// for sm_90a:
+// K5f and K5b: the Transolver block's pre-LN MLP branch with its residual,
+// forward and backward, for sm_90a, at any width C % 128 == 0 up to 512 with
+// the hidden width 2C (mlp_ratio 2):
 //
 //   u   = bf16(LN(x) * gamma + beta)
-//   h   = bf16(gelu(u * W1 + b1))                    W1 [128, 256]
-//   out = bf16((h * W2 + b2) + x)                    W2 [256, 128]
+//   h   = bf16(gelu(u * W1 + b1))                    W1 [C, 2C]
+//   out = bf16((h * W2 + b2) + x)                    W2 [2C, C]
 //
-// Replaces the Pallas TPU kernel _premlp_fwd_kernel of
+// K5f replaces the Pallas TPU kernel _premlp_fwd_kernel of
 // gen_fvgn_tpu/ops/fused_mlp.py (core :691-711, called at :747).
 //
 // What bounds it on the H100: bytes. A row costs 2*(128*256 + 256*128) =
-// 131 k FLOP against 512 bytes moved (x read once, out written once), 256
-// FLOP/byte, under the card's ~295 FLOP/byte bf16 ridge.
+// 131 k FLOP at C = 128 against 512 bytes moved (x read once, out written
+// once), 256 FLOP/byte, under the card's ~295 FLOP/byte bf16 ridge.
 //
-// Design. Rows are independent: [B, N, 128] is flattened to [M, 128] and the
-// ragged last 64-row tile is masked, so M needs no padding. A block stages
-// W1 and W2 in shared memory as bf16 once (135 KB with row padding against
-// bank conflicts) and walks over 64-row tiles (grid = min(tiles, SMs)). The
-// LayerNorm runs a row per warp (4 columns a lane, statistics by warp
-// shuffles); the lane keeps its raw x values in registers for the residual.
-// The two products run on the tensor cores through wmma (bf16 operands,
-// float32 accumulators); the 256-wide hidden layer is produced in two
-// 128-column halves through one float32 staging tile, so u, h1pre, h and y
-// never reach device memory. Shared memory: 222 KB, one block per SM. This
-// first form stages every accumulator through shared memory; its times stand
-// in PERF.md beside its bound.
+// Design at C = 128 (premlp_kernel). Rows are independent: [B, N, 128] is
+// flattened to [M, 128] and the ragged last 64-row tile is masked, so M needs
+// no padding. A block stages W1 and W2 in shared memory as bf16 once (135 KB
+// with row padding against bank conflicts) and walks over 64-row tiles (grid
+// = min(tiles, SMs)). The LayerNorm runs a row per warp (4 columns a lane,
+// statistics by warp shuffles); the lane keeps its raw x values in registers
+// for the residual. The two products run on the tensor cores through wmma
+// (bf16 operands, float32 accumulators); the 256-wide hidden layer is
+// produced in two 128-column halves through one float32 staging tile, so u,
+// h1pre, h and y never reach device memory. Shared memory: 222 KB, one block
+// per SM. This first form stages every accumulator through shared memory; its
+// times stand in PERF.md beside its bound. Wider C (the 222 KB tile does not
+// scale) and the backward run on the block row tiles below.
 //
 // Rounding points (the TPU kernel's): LayerNorm statistics in float32 (fast
 // variance clamped at 0, eps 1e-6); u rounded to bf16 before W1; h1pre, GELU
-// (tanh form) in float32, h rounded to bf16 before W2; the residual x is
-// added in float32 BEFORE the one final bf16 rounding (unlike K2's epilogue,
-// which rounds first and adds in bf16).
+// (tanh form, evaluated as x * sigmoid(2u) on a fast exp: mma_sm90.cuh) in
+// float32, h rounded to bf16 before W2; the residual x is added in float32
+// BEFORE the one final bf16 rounding (unlike K2's epilogue, which rounds
+// first and adds in bf16).
 //
-// Plain C interface, no allocation, launches on the caller's stream and
+// Plain C interface, no allocation (the backward takes a workspace of the
+// size gfvgn_premlp_workspace gives), launches on the caller's stream and
 // returns cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -40,12 +44,13 @@
 #include <stdint.h>
 
 #include "lane_reduce.cuh"
+#include "mma_sm90.cuh"
 
 using namespace nvcuda;
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+// ===================== K5f at C = 128: wmma row tiles ======================
 
 constexpr int C = 128;          // stream width = LayerNorm width
 constexpr int HD = 256;         // hidden width (mlp_ratio 2)
@@ -75,11 +80,6 @@ struct Params {
     bf16* out;            // [M, C]
     int M;
 };
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-    const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-    return 0.5f * x * (1.0f + tanhf(u));
-}
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
@@ -114,15 +114,6 @@ __device__ __forceinline__ void unpack_bf16x4(uint2 raw, float v[4]) {
     float2 fa = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.x));
     float2 fb = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.y));
     v[0] = fa.x; v[1] = fa.y; v[2] = fb.x; v[3] = fb.y;
-}
-
-__device__ __forceinline__ void store_bf16x4(bf16* p, const float v[4]) {
-    __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-    __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 raw;
-    raw.x = *reinterpret_cast<uint32_t*>(&a);
-    raw.y = *reinterpret_cast<uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(p) = raw;
 }
 
 __device__ __forceinline__ void load_f32x4(const float* p, float v[4]) {
@@ -235,356 +226,573 @@ __global__ void __launch_bounds__(THREADS, 1) premlp_kernel(Params p) {
     }
 }
 
-// ===================== K5b: the backward, for sm_90a =====================
+
+// ============== K5f (C >= 256) and K5b (every C): block row tiles ===========
 //
-// Replaces the Pallas TPU kernel _premlp_bwd_kernel of
-// gen_fvgn_tpu/ops/fused_mlp.py (:714-740, called at :766). Per 64-row tile
-// the forward is recomputed (remat), then, with g = dout:
+// Any C % 128 == 0 up to 512 with the hidden width 2C, the tile's rows
+// shared by the block's 8 warps (mma_sm90.cuh: Blk, block_product). Weights
+// resident in shared memory where they fit (C = 128: 32-row tiles),
+// otherwise streamed through the ring (the largest of 64, 32, 16 rows that
+// fits). The tile's rows of x and, in the backward, of dout come in by
+// cp.async, the next tile's while this one computes where there is room for
+// two buffers (tile_plan).
 //
-//   db2 += g;  dW2 += h16^T g16;  dh1pre = (g16 W2^T) * gelu'(h1pre)
-//   db1 += dh1pre;  dW1 += u16^T dh1pre16;  du = dh1pre16 W1^T
-//   dgamma += du*xhat;  dbeta += du
+// K5b replaces the Pallas TPU kernel _premlp_bwd_kernel of
+// gen_fvgn_tpu/ops/fused_mlp.py (:714-740, called at :766). With g = dout:
+//
+//   dW2 = h16^T g16;  dh1pre = (g16 W2^T) * gelu'(h1pre);  db1 = sum dh1pre
+//   dW1 = u16^T dh1pre16;  du = dh1pre16 W1^T;  db2 = sum g
+//   dgamma = sum du*xhat;  dbeta = sum du
 //   dx = bf16(rstd*(du*gamma - mean(du*gamma) - xhat*mean(du*gamma*xhat)) + g)
 //
 // with the TPU kernel's rounding points: g and dh1pre rounded to bf16 before
 // their products (g arrives bf16), the LayerNorm backward in float32, and the
-// residual cotangent g joining dx in float32 before the one rounding.
+// residual cotangent joining dx in float32 before the one rounding.
 //
 // What bounds it on the H100: bytes (x and dout in, dx out: 768 bytes a row
-// against ~6 products of 128x256 a row). As in K3, this first form reads W1
-// and W2 through the L1/L2 caches, recomputes h1pre where its derivative is
-// needed, and accumulates the weight gradients per block in a float32 slab
-// in device memory; grid = (blocks_per_lane, lanes), a second kernel sums
-// the slabs in block order with the per-lane bf16 rounding of the weight
-// gradients (no atomics: the same bits every run).
+// at C = 128 against 5 products of 128 x 256 a row). It runs as two passes
+// and a fixed-order reduction, as K3 does:
+//   the row pass (premlp_tiles<CPL, true>): per tile the LayerNorm and
+//     u16 W1 + b1 are recomputed once; for each pass of hidden columns the
+//     warp forms gelu and gelu' from one exp (registers), then g16 W2^T for
+//     the same columns, so gelu' never leaves the registers; dh1pre16 stays
+//     in shared memory as the A operand of du = dh1pre16 W1^T; the LayerNorm
+//     backward runs a row a warp. It writes u16, h16 and dh1pre16 as bf16
+//     rows (the TPU kernel rounds all of them to bf16 before its weight
+//     products, so storing them moves no rounding point) and keeps the
+//     float32 column sums db1 (shared memory), db2, dgamma, dbeta (each
+//     lane's columns, registers) over all its tiles, written once a block;
+//   the weight-gradient pass (fused_mlp_wgrad through gfvgn_wgrad): per batch
+//     lane dW1 = u16^T dh1pre16 and dW2 = h16^T g16;
+//   lane_reduce: each lane's weight gradients rounded to bf16, lanes and
+//     blocks summed in a fixed order (no atomics: the same bits every run).
+//
+// The forward at C >= 256 (premlp_tiles<CPL, false>) is the same tile: the
+// LayerNorm, h16 = bf16(gelu(u16 W1 + b1)) into shared memory, then
+// out = bf16((h16 W2 + b2) + x).
 
-constexpr int BLDG = C + 8;       // bf16 leading dim of the g tile
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAc;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBc;
-
-struct BwdParams {
-    const bf16* x;
-    const float* gamma;
-    const float* beta;
-    const bf16* w1;       // [C, HD]
-    const float* b1;
-    const bf16* w2;       // [HD, C]
-    const float* b2;
-    const bf16* dout;     // [M, C]
-    bf16* dx;             // [M, C]
-    float* part_acc;      // [lanes * blocks_per_lane, slab]
-    int rows_per_lane;
-    int slab;
+struct TilePlan {
+    int tm, nbuf, resident, grid;
+    size_t smem;
+    int o_w, o_x, o_u, o_h, o_g, o_du, o_stat, o_red, o_acc;
 };
 
-constexpr size_t kBwdSmemBytes =
-    (size_t)TM * LDU * sizeof(bf16) + (size_t)TM * LDH * sizeof(bf16) +
-    (size_t)TM * BLDG * sizeof(bf16) + (size_t)TM * LDC * sizeof(float) +
-    (size_t)(THREADS / 32) * 2 * C * sizeof(float);
+struct TileParams {
+    const bf16* x;        // [M, C]
+    const float* gamma;
+    const float* beta;
+    const bf16* w1;       // [C, 2C]
+    const float* b1;
+    const bf16* w2;       // [2C, C]
+    const float* b2;
+    bf16* out;            // forward [M, C]
+    const bf16* dout;     // backward [M, C]
+    bf16* dx;             // [M, C]
+    bf16* us;             // [M, C]   u16 rows for the weight-gradient pass
+    bf16* hs;             // [M, 2C]  h16 rows
+    bf16* dhs;            // [M, 2C]  dh1pre16 rows
+    float* colsum;        // [grid][5C]: db1 (2C) | db2 | dgamma | dbeta
+    int M;
+    TilePlan L;           // the tile and its shared-memory layout
+};
 
-__device__ __forceinline__ float gelu_tanh_grad(float x) {
-    const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-    const float t = tanhf(u);
-    const float du = 0.7978845608028654f * (1.0f + (float)(3.0 * 0.044715) * x * x);
-    return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * du;
+// shared-memory layout of a tile of tm rows; returns the total bytes
+size_t tile_layout(int c, int tm, int resident, int nbuf, bool bwd,
+                   TilePlan& L) {
+    const int hd = 2 * c, wr = tm / 16, pw = (8 / wr) * 64;
+    size_t o = 0;
+    L.o_w = (int)o;
+    o += align128(resident ? ((size_t)c * (hd + 8) + (size_t)hd * (c + 8)) * 2
+                           : (size_t)2 * ring_slot(pw) * 2);
+    L.o_x = (int)o;
+    o += align128((size_t)nbuf * tm * (c + 8) * 2);
+    L.o_u = (int)o;
+    o += align128((size_t)tm * (c + 8) * 2);
+    L.o_h = (int)o;
+    o += align128((size_t)tm * (hd + 8) * 2);
+    L.o_g = (int)o;
+    o += align128(bwd ? (size_t)nbuf * tm * (c + 8) * 2 : 0);
+    L.o_du = (int)o;
+    o += align128(bwd ? (size_t)tm * (c + 4) * 4 : 0);
+    L.o_stat = (int)o;
+    o += align128(bwd ? (size_t)tm * 2 * 4 : 0);
+    L.o_red = (int)o;
+    o += align128(bwd ? (size_t)wr * hd * 4 : 0);
+    L.o_acc = (int)o;
+    o += align128(bwd ? (size_t)hd * 4 : 0);
+    // the end of the backward reuses the start for [8 warps][3][C] floats
+    const size_t fin = bwd ? (size_t)8 * 3 * c * 4 : 0;
+    return o > fin ? o : fin;
 }
 
-// acc[t] = A[16 rows rb, K] * B[K, b0 + c0 + 16t ..] (B row-major, device)
-template <int K>
-__device__ __forceinline__ void mma_rows(const bf16* A, int lda, const bf16* B,
-                                         int ldb, int b0, FragC* acc, int rb,
-                                         int c0) {
-#pragma unroll
-    for (int t = 0; t < 4; ++t) wmma::fill_fragment(acc[t], 0.0f);
-#pragma unroll 4
-    for (int k0 = 0; k0 < K; k0 += 16) {
-        FragA a;
-        wmma::load_matrix_sync(a, A + rb * 16 * lda + k0, lda);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-            FragB b;
-            wmma::load_matrix_sync(b, B + k0 * ldb + b0 + c0 + t * 16, ldb);
-            wmma::mma_sync(acc[t], a, b, acc[t]);
-        }
-    }
-}
-
-// acc[t] = A[16 rows rb, K] * W^T[K, n0 + c0 + 16t ..], W row-major [n, K]
-template <int K>
-__device__ __forceinline__ void mma_rows_bt(const bf16* A, int lda,
-                                            const bf16* W, int ldw, int n0,
-                                            FragC* acc, int rb, int c0) {
-#pragma unroll
-    for (int t = 0; t < 4; ++t) wmma::fill_fragment(acc[t], 0.0f);
-#pragma unroll 4
-    for (int k0 = 0; k0 < K; k0 += 16) {
-        FragA a;
-        wmma::load_matrix_sync(a, A + rb * 16 * lda + k0, lda);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-            FragBc b;
-            wmma::load_matrix_sync(b, W + (size_t)(n0 + c0 + t * 16) * ldw + k0,
-                                   ldw);
-            wmma::mma_sync(acc[t], a, b, acc[t]);
-        }
-    }
-}
-
-__device__ __forceinline__ void store_rows(float* sC, const FragC* acc, int rb,
-                                           int c0) {
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-        wmma::store_matrix_sync(sC + rb * 16 * LDC + c0 + t * 16, acc[t], LDC,
-                                wmma::mem_row_major);
-}
-
-// W[m0.., n0 + 16t ..] += A^T B over the tile's TM rows (see fused_mlp.cu)
-__device__ __forceinline__ void wgrad_rmw(const bf16* A, int lda,
-                                          const bf16* B, int ldb, float* W,
-                                          int ldw, int m0, int n0) {
-    FragC acc[8];
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-        wmma::load_matrix_sync(acc[t], W + (size_t)m0 * ldw + n0 + t * 16, ldw,
-                               wmma::mem_row_major);
-#pragma unroll
-    for (int k0 = 0; k0 < TM; k0 += 16) {
-        FragAc a;
-        wmma::load_matrix_sync(a, A + k0 * lda + m0, lda);
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-            FragB b;
-            wmma::load_matrix_sync(b, B + k0 * ldb + n0 + t * 16, ldb);
-            wmma::mma_sync(acc[t], a, b, acc[t]);
-        }
-    }
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-        wmma::store_matrix_sync(W + (size_t)m0 * ldw + n0 + t * 16, acc[t], ldw,
-                                wmma::mem_row_major);
-}
-
-__global__ void __launch_bounds__(THREADS, 1) premlp_bwd_kernel(BwdParams p) {
+template <int CPL, bool BWD>
+__global__ void __launch_bounds__(BK_THREADS, 1) premlp_tiles(TileParams p) {
+    constexpr int CC = 128 * CPL, HDD = 2 * CC;
+    constexpr int LDC_ = CC + 8, LDH_ = HDD + 8, LDU_ = CC + 4;
     extern __shared__ __align__(128) unsigned char smem[];
-    bf16* sU = reinterpret_cast<bf16*>(smem);
-    bf16* sH = sU + (size_t)TM * LDU;
-    bf16* sG = sH + (size_t)TM * LDH;
-    float* sC = reinterpret_cast<float*>(sG + (size_t)TM * BLDG);
-    float* sRed = sC + (size_t)TM * LDC;
+    const bool res = p.L.resident != 0;
+    bf16* sW1 = reinterpret_cast<bf16*>(smem + p.L.o_w);
+    bf16* sW2 = sW1 + (size_t)CC * LDH_;
+    const Blk b = make_blk(p.L.tm, sW1);
+    // W1 [C][2C] is [k][n] for u W1 and [n][k] for dh W1^T; W2 [2C][C] is
+    // [k][n] for h W2 and [n][k] for g W2^T: one source each
+    const WSrc W1{p.w1, HDD, res ? sW1 : nullptr, LDH_};
+    const WSrc W2{p.w2, CC, res ? sW2 : nullptr, LDC_};
+    bf16* sX = reinterpret_cast<bf16*>(smem + p.L.o_x);
+    bf16* sU = reinterpret_cast<bf16*>(smem + p.L.o_u);
+    bf16* sH = reinterpret_cast<bf16*>(smem + p.L.o_h);   // h16, or dh1pre16
+    bf16* sG = reinterpret_cast<bf16*>(smem + p.L.o_g);
+    float* sDU = reinterpret_cast<float*>(smem + p.L.o_du);
+    float* sStat = reinterpret_cast<float*>(smem + p.L.o_stat);
+    float* sRed = reinterpret_cast<float*>(smem + p.L.o_red);
+    float* sAcc = reinterpret_cast<float*>(smem + p.L.o_acc);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int tm = p.L.tm;
 
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int rb = warp >> 1;
-    const int c0 = (warp & 1) * 64;
-    const int c4 = lane * 4;
+    if (res) {
+        stage_matrix(sW1, LDH_, p.w1, CC, HDD);
+        stage_matrix(sW2, LDC_, p.w2, HDD, CC);
+    }
+    if (BWD)
+        for (int i = threadIdx.x; i < HDD; i += BK_THREADS) sAcc[i] = 0.0f;
+    const int n_tiles = (p.M + tm - 1) / tm;
+    auto load_rows = [&](int tile, int buf) {
+        const int r0 = tile * tm, nrow = min(tm, p.M - r0);
+        load_tile_rows(sX + (size_t)buf * tm * LDC_, LDC_, p.x, CC, r0, nrow,
+                       tm);
+        if (BWD)
+            load_tile_rows(sG + (size_t)buf * tm * LDC_, LDC_, p.dout, CC, r0,
+                           nrow, tm);
+    };
+    if ((int)blockIdx.x < n_tiles) load_rows(blockIdx.x, 0);
+    cp_async_commit();
 
-    // slab: dW1 [C][HD] | dW2 [HD][C] | db1 [HD] | db2 | dgamma | dbeta [C]
-    float* slab = p.part_acc +
-        (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * p.slab;
-    float* sw1 = slab;
-    float* sw2 = sw1 + C * HD;
-    float* sb1 = sw2 + HD * C;
-    float* sb2 = sb1 + HD;
-    float* sg = sb2 + C;
-    float* sbe = sg + C;
-    for (int i = threadIdx.x; i < p.slab; i += THREADS) slab[i] = 0.0f;
-    float gam[4], bet[4];
-    load_f32x4(p.gamma + c4, gam);
-    load_f32x4(p.beta + c4, bet);
-    __syncthreads();
-
-    const int lane_begin = blockIdx.y * p.rows_per_lane;
-    const int lane_end = lane_begin + p.rows_per_lane;
-    const int n_tiles = (p.rows_per_lane + TM - 1) / TM;
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        const int r0 = lane_begin + tile * TM;
-        const int nrow = min(TM, lane_end - r0);
-
-        // ---- 1. LayerNorm a row per warp (as K5f); g tile ----
-        uint2 xr[ROWS_PER_WARP];
-        float mu[ROWS_PER_WARP], rstd[ROWS_PER_WARP];
+    // this lane's columns of the row-a-warp stages: 128 k + 4 lane + j
+    float pg[CPL][4], pb[CPL][4], pd[CPL][4];
 #pragma unroll
-        for (int i = 0; i < ROWS_PER_WARP; ++i) {
-            const int row = warp + i * (THREADS / 32);
-            xr[i] = make_uint2(0u, 0u);
-            uint2 gr = make_uint2(0u, 0u);
-            if (row < nrow) {
-                xr[i] = *reinterpret_cast<const uint2*>(
-                    p.x + (size_t)(r0 + row) * C + c4);
-                gr = *reinterpret_cast<const uint2*>(
-                    p.dout + (size_t)(r0 + row) * C + c4);
-            }
-            *reinterpret_cast<uint2*>(sG + row * BLDG + c4) = gr;
-            float v[4];
-            unpack_bf16x4(xr[i], v);
-            float s = 0.0f, ss = 0.0f;
+    for (int k = 0; k < CPL; ++k)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                s += v[j];
-                ss += v[j] * v[j];
+        for (int j = 0; j < 4; ++j) pg[k][j] = pb[k][j] = pd[k][j] = 0.0f;
+
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+        const int r0 = tile * tm, nrow = min(tm, p.M - r0);
+        const int buf = p.L.nbuf == 2 ? (it & 1) : 0;
+        const bf16* xb = sX + (size_t)buf * tm * LDC_;
+        const bf16* gb = sG + (size_t)buf * tm * LDC_;
+        if (p.L.nbuf == 1 && it > 0) {
+            __syncthreads();                 // the last tile is done with them
+            load_rows(tile, 0);
+            cp_async_commit();
+        }
+        cp_async_wait<0>();
+        __syncthreads();
+        if (p.L.nbuf == 2) {
+            // the next tile's rows, into the buffers the last tile used
+            if (tile + (int)gridDim.x < n_tiles)
+                load_rows(tile + gridDim.x, buf ^ 1);
+            cp_async_commit();
+        }
+
+        // ---- LayerNorm, a row a warp: u = bf16(LN(x) gamma + beta) ----
+        for (int row = warp; row < tm; row += 8) {
+            float v[CPL][4], s = 0.0f, ss = 0.0f;
+#pragma unroll
+            for (int k = 0; k < CPL; ++k) {
+                load_bf16x4(xb + row * LDC_ + 128 * k + 4 * lane, v[k]);
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    s += v[k][j];
+                    ss += v[k][j] * v[k][j];
+                }
             }
 #pragma unroll
             for (int off = 16; off > 0; off >>= 1) {
                 s += __shfl_xor_sync(0xffffffffu, s, off);
                 ss += __shfl_xor_sync(0xffffffffu, ss, off);
             }
-            mu[i] = s * (1.0f / C);
-            const float var = fmaxf(ss * (1.0f / C) - mu[i] * mu[i], 0.0f);
-            rstd[i] = 1.0f / sqrtf(var + kLnEps);
-            float u[4];
+            const float mu = s / (float)CC;
+            const float var = fmaxf(ss / (float)CC - mu * mu, 0.0f);
+            const float rstd = 1.0f / sqrtf(var + kLnEps);
+            if (BWD && lane == 0) {
+                sStat[2 * row] = mu;
+                sStat[2 * row + 1] = rstd;
+            }
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-                u[j] = (v[j] - mu[i]) * rstd[i] * gam[j] + bet[j];
-            store_bf16x4(sU + row * LDU + c4, u);
+            for (int k = 0; k < CPL; ++k) {
+                const int col = 128 * k + 4 * lane;
+                const float4 ga = *reinterpret_cast<const float4*>(p.gamma + col);
+                const float4 be = *reinterpret_cast<const float4*>(p.beta + col);
+                const float u[4] = {(v[k][0] - mu) * rstd * ga.x + be.x,
+                                    (v[k][1] - mu) * rstd * ga.y + be.y,
+                                    (v[k][2] - mu) * rstd * ga.z + be.z,
+                                    (v[k][3] - mu) * rstd * ga.w + be.w};
+                store_bf16x4(sU + row * LDC_ + col, u);
+                if (BWD && row < nrow)
+                    store_bf16x4(p.us + (size_t)(r0 + row) * CC + col, u);
+            }
         }
         __syncthreads();
 
-        // ---- 2. h16 = bf16(gelu(u16 W1 + b1)), in two 128-column halves ----
-        FragC acc[4];
-        for (int half = 0; half < 2; ++half) {
-            mma_rows<C>(sU, LDU, p.w1, HD, half * 128, acc, rb, c0);
-            store_rows(sC, acc, rb, c0);
-            __syncthreads();
-            for (int idx = threadIdx.x; idx < TM * 32; idx += THREADS) {
-                const int row = idx >> 5;
-                const int cc = (idx & 31) * 4;
-                float bb[4], v[4];
-                load_f32x4(p.b1 + half * 128 + cc, bb);
+        float acc[8][4];
+        if (!BWD) {
+            // ---- h16 = bf16(gelu(u16 W1 + b1)) ----
+            for (int n0 = 0; n0 < HDD; n0 += b.pw) {
+                const int nv = block_product<false>(b, acc, sU, LDC_, CC, W1,
+                                                    n0, HDD);
 #pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    v[j] = gelu_tanh(sC[row * LDC + cc + j] + bb[j]);
-                store_bf16x4(sH + row * LDH + half * 128 + cc, v);
+                for (int nt = 0; nt < 8; ++nt) {
+                    if (nt < nv) {
+                        const int col = n0 + b.wcol * 64 + nt * 8 + 2 * b.t;
+                        const float2 bb = *reinterpret_cast<const float2*>(p.b1 + col);
+#pragma unroll
+                        for (int hf = 0; hf < 2; ++hf) {
+                            const int row = b.wrow * 16 + b.g + 8 * hf;
+                            store_bf16x2(sH + row * LDH_ + col,
+                                         gelu_tanh(acc[nt][2 * hf] + bb.x),
+                                         gelu_tanh(acc[nt][2 * hf + 1] + bb.y));
+                        }
+                    }
+                }
             }
             __syncthreads();
+            // ---- out = bf16((h16 W2 + b2) + x) ----
+            for (int n0 = 0; n0 < CC; n0 += b.pw) {
+                const int nv = block_product<false>(b, acc, sH, LDH_, HDD, W2,
+                                                    n0, CC);
+#pragma unroll
+                for (int nt = 0; nt < 8; ++nt) {
+                    if (nt < nv) {
+                        const int col = n0 + b.wcol * 64 + nt * 8 + 2 * b.t;
+                        const float2 bb = *reinterpret_cast<const float2*>(p.b2 + col);
+#pragma unroll
+                        for (int hf = 0; hf < 2; ++hf) {
+                            const int row = b.wrow * 16 + b.g + 8 * hf;
+                            if (row < nrow) {
+                                const float2 xv = load_bf16x2(xb + row * LDC_ + col);
+                                store_bf16x2(
+                                    p.out + (size_t)(r0 + row) * CC + col,
+                                    (acc[nt][2 * hf] + bb.x) + xv.x,
+                                    (acc[nt][2 * hf + 1] + bb.y) + xv.y);
+                            }
+                        }
+                    }
+                }
+            }
+            continue;
         }
 
-        // ---- 3. db2 += g; dW2 += h16^T g16 ----
-        if (threadIdx.x < C) {
-            float d = 0.0f;
-            for (int row = 0; row < TM; ++row)
-                d += __bfloat162float(sG[row * BLDG + threadIdx.x]);
-            sb2[threadIdx.x] += d;
+        // ---- per pass of hidden columns: h16 and gelu'(h1pre), then
+        //      dh1pre = (g16 W2^T) gelu' for the same columns ----
+        float gk[8][4];
+        for (int n0 = 0; n0 < HDD; n0 += b.pw) {
+            const int nv = block_product<false>(b, acc, sU, LDC_, CC, W1, n0,
+                                                HDD);
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt) {
+                if (nt < nv) {
+                    const int col = n0 + b.wcol * 64 + nt * 8 + 2 * b.t;
+                    const float2 bb = *reinterpret_cast<const float2*>(p.b1 + col);
+#pragma unroll
+                    for (int hf = 0; hf < 2; ++hf) {
+                        const int row = b.wrow * 16 + b.g + 8 * hf;
+                        const float h0 = gelu_and_grad(acc[nt][2 * hf] + bb.x,
+                                                       gk[nt][2 * hf]);
+                        const float h1 = gelu_and_grad(
+                            acc[nt][2 * hf + 1] + bb.y, gk[nt][2 * hf + 1]);
+                        if (row < nrow)
+                            store_bf16x2(p.hs + (size_t)(r0 + row) * HDD + col,
+                                         h0, h1);
+                    }
+                }
+            }
+            block_product<true>(b, acc, gb, LDC_, CC, W2, n0, HDD);
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt) {
+                if (nt < nv) {
+                    const int col = n0 + b.wcol * 64 + nt * 8 + 2 * b.t;
+                    float ps[2] = {0.0f, 0.0f};
+#pragma unroll
+                    for (int hf = 0; hf < 2; ++hf) {
+                        const int row = b.wrow * 16 + b.g + 8 * hf;
+                        const float d0 = acc[nt][2 * hf] * gk[nt][2 * hf];
+                        const float d1 = acc[nt][2 * hf + 1] * gk[nt][2 * hf + 1];
+                        ps[0] += d0;
+                        ps[1] += d1;
+                        const uint32_t dv = pack_bf16(d0, d1);
+                        *reinterpret_cast<uint32_t*>(sH + row * LDH_ + col) = dv;
+                        if (row < nrow)
+                            *reinterpret_cast<uint32_t*>(
+                                p.dhs + (size_t)(r0 + row) * HDD + col) = dv;
+                    }
+                    col_sum_store(ps[0], ps[1], b.g, sRed + b.wrow * HDD + col);
+                }
+            }
         }
-        for (int m0 = warp * 16; m0 < HD; m0 += THREADS / 2)
-            wgrad_rmw(sH, LDH, sG, BLDG, sw2, C, m0, 0);
         __syncthreads();
-
-        // ---- 4. dh1pre = (g16 W2^T) * gelu'(h1pre), per half; db1 ----
-        for (int half = 0; half < 2; ++half) {
-            mma_rows<C>(sU, LDU, p.w1, HD, half * 128, acc, rb, c0);
-            store_rows(sC, acc, rb, c0);
-            __syncthreads();
-            for (int idx = threadIdx.x; idx < TM * C; idx += THREADS) {
-                const int row = idx >> 7, c = idx & 127;
-                sC[row * LDC + c] =
-                    gelu_tanh_grad(sC[row * LDC + c] + p.b1[half * 128 + c]);
-            }
-            __syncthreads();
-            mma_rows_bt<C>(sG, BLDG, p.w2, C, half * 128, acc, rb, c0);
-#pragma unroll
-            for (int t = 0; t < 4; ++t) {
-                FragC m;
-                float* q = sC + rb * 16 * LDC + c0 + t * 16;
-                wmma::load_matrix_sync(m, q, LDC, wmma::mem_row_major);
-#pragma unroll
-                for (int i = 0; i < m.num_elements; ++i) acc[t].x[i] *= m.x[i];
-                wmma::store_matrix_sync(q, acc[t], LDC, wmma::mem_row_major);
-            }
-            __syncthreads();
-            for (int idx = threadIdx.x; idx < TM * 32; idx += THREADS) {
-                const int row = idx >> 5;
-                const int cc = (idx & 31) * 4;
-                const float v[4] = {sC[row * LDC + cc], sC[row * LDC + cc + 1],
-                                    sC[row * LDC + cc + 2],
-                                    sC[row * LDC + cc + 3]};
-                store_bf16x4(sH + row * LDH + half * 128 + cc, v);
-            }
-            if (threadIdx.x < 128) {
-                float d = 0.0f;
-                for (int row = 0; row < TM; ++row)
-                    d += sC[row * LDC + threadIdx.x];
-                sb1[half * 128 + threadIdx.x] += d;
-            }
-            __syncthreads();
+        // the tile's db1, row warps in order
+        for (int i = threadIdx.x; i < HDD; i += BK_THREADS) {
+            float s = 0.0f;
+            for (int w = 0; w < b.wr; ++w) s += sRed[w * HDD + i];
+            sAcc[i] += s;
         }
-
-        // ---- 5. dW1 += u16^T dh1pre16 ----
-        wgrad_rmw(sU, LDU, sH, LDH, sw1, HD, warp * 16, 0);
-        wgrad_rmw(sU, LDU, sH, LDH, sw1, HD, warp * 16, 128);
-
-        // ---- 6. du = dh1pre16 W1^T ----
-        mma_rows_bt<HD>(sH, LDH, p.w1, HD, 0, acc, rb, c0);
-        store_rows(sC, acc, rb, c0);
-        __syncthreads();
-
-        // ---- 7. LayerNorm backward, a row per warp; dx ----
-        float pg[4] = {0.0f, 0.0f, 0.0f, 0.0f}, pb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        // ---- du = dh1pre16 W1^T ----
+        for (int n0 = 0; n0 < CC; n0 += b.pw) {
+            const int nv = block_product<true>(b, acc, sH, LDH_, HDD, W1, n0,
+                                               CC);
 #pragma unroll
-        for (int i = 0; i < ROWS_PER_WARP; ++i) {
-            const int row = warp + i * (THREADS / 32);
-            float v[4], du[4], xh[4], dxh[4], g[4];
-            unpack_bf16x4(xr[i], v);
-            unpack_bf16x4(*reinterpret_cast<const uint2*>(sG + row * BLDG + c4),
-                          g);
+            for (int nt = 0; nt < 8; ++nt) {
+                if (nt < nv) {
+                    const int col = n0 + b.wcol * 64 + nt * 8 + 2 * b.t;
+#pragma unroll
+                    for (int hf = 0; hf < 2; ++hf) {
+                        const int row = b.wrow * 16 + b.g + 8 * hf;
+                        *reinterpret_cast<float2*>(sDU + row * LDU_ + col) =
+                            make_float2(acc[nt][2 * hf], acc[nt][2 * hf + 1]);
+                    }
+                }
+            }
+        }
+        __syncthreads();
+        // ---- the LayerNorm backward and dx, a row a warp ----
+        for (int row = warp; row < nrow; row += 8) {
+            const float mu = sStat[2 * row], rstd = sStat[2 * row + 1];
+            float xh[CPL][4], dxh[CPL][4], gv[CPL][4];
             float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                du[j] = sC[row * LDC + c4 + j];
-                xh[j] = (v[j] - mu[i]) * rstd[i];
-                pg[j] += du[j] * xh[j];
-                pb[j] += du[j];
-                dxh[j] = du[j] * gam[j];
-                s1 += dxh[j];
-                s2 += dxh[j] * xh[j];
+            for (int k = 0; k < CPL; ++k) {
+                const int col = 128 * k + 4 * lane;
+                float xv[4];
+                load_bf16x4(xb + row * LDC_ + col, xv);
+                load_bf16x4(gb + row * LDC_ + col, gv[k]);
+                const float4 du = *reinterpret_cast<const float4*>(sDU + row * LDU_ + col);
+                const float4 ga = *reinterpret_cast<const float4*>(p.gamma + col);
+                const float d[4] = {du.x, du.y, du.z, du.w};
+                const float gm[4] = {ga.x, ga.y, ga.z, ga.w};
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    xh[k][j] = (xv[j] - mu) * rstd;
+                    dxh[k][j] = d[j] * gm[j];
+                    s1 += dxh[k][j];
+                    s2 += dxh[k][j] * xh[k][j];
+                    pg[k][j] += d[j] * xh[k][j];
+                    pb[k][j] += d[j];
+                    pd[k][j] += gv[k][j];
+                }
             }
 #pragma unroll
             for (int off = 16; off > 0; off >>= 1) {
                 s1 += __shfl_xor_sync(0xffffffffu, s1, off);
                 s2 += __shfl_xor_sync(0xffffffffu, s2, off);
             }
-            const float m1 = s1 * (1.0f / C), m2 = s2 * (1.0f / C);
-            if (row < nrow) {
+            const float m1 = s1 / (float)CC, m2 = s2 / (float)CC;
+#pragma unroll
+            for (int k = 0; k < CPL; ++k) {
                 float dx[4];
 #pragma unroll
                 for (int j = 0; j < 4; ++j)
-                    dx[j] = rstd[i] * ((dxh[j] - m1) - xh[j] * m2) + g[j];
-                store_bf16x4(p.dx + (size_t)(r0 + row) * C + c4, dx);
+                    dx[j] = rstd * ((dxh[k][j] - m1) - xh[k][j] * m2) + gv[k][j];
+                store_bf16x4(p.dx + (size_t)(r0 + row) * CC + 128 * k + 4 * lane,
+                             dx);
             }
         }
+    }
+    cp_async_wait<0>();
+    if (!BWD) return;
+    __syncthreads();
+    float* cs = p.colsum + (size_t)blockIdx.x * 5 * CC;
+    for (int i = threadIdx.x; i < HDD; i += BK_THREADS) cs[i] = sAcc[i];
+    __syncthreads();
+    // db2 | dgamma | dbeta: the warps' lane columns, warps in order
+    float* fin = reinterpret_cast<float*>(smem);
+#pragma unroll
+    for (int k = 0; k < CPL; ++k)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-            sRed[(warp * 2 + 0) * C + c4 + j] = pg[j];
-            sRed[(warp * 2 + 1) * C + c4 + j] = pb[j];
+            const int col = 128 * k + 4 * lane + j;
+            fin[(warp * 3 + 0) * CC + col] = pd[k][j];
+            fin[(warp * 3 + 1) * CC + col] = pg[k][j];
+            fin[(warp * 3 + 2) * CC + col] = pb[k][j];
         }
-        __syncthreads();
-        if (threadIdx.x < C) {
-            float a = 0.0f, b = 0.0f;
-            for (int w = 0; w < THREADS / 32; ++w) {
-                a += sRed[(w * 2 + 0) * C + threadIdx.x];
-                b += sRed[(w * 2 + 1) * C + threadIdx.x];
-            }
-            sg[threadIdx.x] += a;
-            sbe[threadIdx.x] += b;
-        }
-        __syncthreads();   // every tile buffer is rewritten by the next tile
+    __syncthreads();
+    for (int i = threadIdx.x; i < 3 * CC; i += BK_THREADS) {
+        const int kind = i / CC, col = i - kind * CC;
+        float s = 0.0f;
+        for (int w = 0; w < 8; ++w) s += fin[(w * 3 + kind) * CC + col];
+        cs[HDD + i] = s;
     }
+}
+
+constexpr int MAX_CPL = 4;              // C up to 512
+
+// the tile plan of the block kernels for width c, or cudaErrorInvalidValue:
+// weights resident before streamed, larger tiles first, two row buffers
+// before one
+int tile_plan(int c, int m, bool bwd, TilePlan& P) {
+    int max_smem = 0, n_sm = 0;
+    const int err = device_limits(max_smem, n_sm);
+    if (err != 0) return err;
+    if (c < 128 || c % 128 != 0 || c / 128 > MAX_CPL || m < 0)
+        return (int)cudaErrorInvalidValue;
+    for (int res = 1; res >= 0; --res)
+        for (int tm = 64; tm >= 16; tm >>= 1)
+            for (int nbuf = 2; nbuf >= 1; --nbuf) {
+                const size_t total = tile_layout(c, tm, res, nbuf, bwd, P);
+                if (total <= (size_t)max_smem) {
+                    P.tm = tm;
+                    P.nbuf = nbuf;
+                    P.resident = res;
+                    P.smem = total;
+                    const int tiles = (m + tm - 1) / tm;
+                    P.grid = tiles < n_sm ? tiles : n_sm;
+                    if (P.grid < 1) P.grid = 1;
+                    return 0;
+                }
+            }
+    return (int)cudaErrorInvalidValue;
+}
+
+// the backward's workspace: u16, h16, dh1pre16 rows, the blocks' column
+// sums and the weight-gradient pass's partials
+struct BwdWs {
+    size_t o_us, o_hs, o_dhs, o_colsum, o_part, bytes;
+    gfvgn::WgParams q;
+};
+
+void bwd_workspace(int c, int m, int lanes, int grid, int n_sm, BwdWs& W) {
+    const int hd = 2 * c;
+    size_t o = 0;
+    W.o_us = o; o += align128((size_t)m * c * 2);
+    W.o_hs = o; o += align128((size_t)m * hd * 2);
+    W.o_dhs = o; o += align128((size_t)m * hd * 2);
+    W.o_colsum = o; o += align128((size_t)grid * 5 * c * 4);
+    gfvgn::WgParams& q = W.q;
+    q.n_jobs = 2;
+    q.job[0] = gfvgn::WgJob{nullptr, c, c, nullptr, hd, hd, 0, hd};
+    q.job[1] = gfvgn::WgJob{nullptr, hd, hd, nullptr, c, c, c * hd, c};
+    q.rows_per_lane = m / lanes;
+    q.n_w = 2 * c * hd;
+    gfvgn::wg_chunking(gfvgn::wg_tiles(q), q.rows_per_lane, lanes, n_sm,
+                       q.chunk_rows, q.n_chunks);
+    W.o_part = o; o += align128((size_t)lanes * q.n_chunks * q.n_w * 4);
+    W.bytes = o;
+}
+
+template <int CPL, bool BWD>
+int launch_tiles(const TilePlan& P, TileParams& p, cudaStream_t st) {
+    p.L = P;
+    cudaError_t e = cudaFuncSetAttribute(
+        premlp_tiles<CPL, BWD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)P.smem);
+    if (e != cudaSuccess) return (int)e;
+    premlp_tiles<CPL, BWD><<<P.grid, BK_THREADS, P.smem, st>>>(p);
+    return (int)cudaGetLastError();
+}
+
+template <bool BWD>
+int launch_tiles_c(int c, const TilePlan& P, TileParams& p, cudaStream_t st) {
+    switch (c / 128) {
+        case 1: return launch_tiles<1, BWD>(P, p, st);
+        case 2: return launch_tiles<2, BWD>(P, p, st);
+        case 3: return launch_tiles<3, BWD>(P, p, st);
+        case 4: return launch_tiles<4, BWD>(P, p, st);
+    }
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// Bytes of workspace K5f (backward = 0) or K5b needs for x [M, C], hidden
+// width 2C, M rows in `lanes` equal batch lanes; -1 where no kernel takes
+// the shape (C not a multiple of 128, C above 512, or no tile that fits a
+// block's shared memory).
+extern "C" long long gfvgn_premlp_workspace(int c, int m, int lanes,
+                                            int backward) {
+    TilePlan P;
+    if (tile_plan(c, m, backward != 0, P) != 0) return -1;
+    if (!backward) return 0;
+    if (lanes < 1 || lanes > 65535 || m % lanes != 0) return -1;
+    int max_smem = 0, n_sm = 0;
+    if (device_limits(max_smem, n_sm) != 0) return -1;
+    BwdWs W;
+    bwd_workspace(c, m, lanes, P.grid, n_sm, W);
+    return (long long)W.bytes;
+}
+
+extern "C" int gfvgn_fused_premlp(const void* x, const void* gamma,
+                                  const void* beta, const void* w1,
+                                  const void* b1, const void* w2,
+                                  const void* b2, void* out, int c, int m,
+                                  void* stream) {
+    TilePlan P;
+    int err = tile_plan(c, m, false, P);
+    if (err != 0) return err;
+    if (m == 0) return 0;
+    cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+    if (c == C) {
+        // the C = 128 kernel: weights staged once, wmma row tiles
+        Params p;
+        p.x = static_cast<const bf16*>(x);
+        p.gamma = static_cast<const float*>(gamma);
+        p.beta = static_cast<const float*>(beta);
+        p.w1 = static_cast<const bf16*>(w1);
+        p.b1 = static_cast<const float*>(b1);
+        p.w2 = static_cast<const bf16*>(w2);
+        p.b2 = static_cast<const float*>(b2);
+        p.out = static_cast<bf16*>(out);
+        p.M = m;
+        cudaError_t e = cudaFuncSetAttribute(
+            premlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)kSmemBytes);
+        if (e != cudaSuccess) return (int)e;
+        int max_smem = 0, n_sm = 0;
+        err = device_limits(max_smem, n_sm);
+        if (err != 0) return err;
+        const int n_tiles = (m + TM - 1) / TM;
+        premlp_kernel<<<n_tiles < n_sm ? n_tiles : n_sm, THREADS, kSmemBytes,
+                        st>>>(p);
+        return (int)cudaGetLastError();
+    }
+    TileParams p{};
+    p.x = static_cast<const bf16*>(x);
+    p.gamma = static_cast<const float*>(gamma);
+    p.beta = static_cast<const float*>(beta);
+    p.w1 = static_cast<const bf16*>(w1);
+    p.b1 = static_cast<const float*>(b1);
+    p.w2 = static_cast<const bf16*>(w2);
+    p.b2 = static_cast<const float*>(b2);
+    p.out = static_cast<bf16*>(out);
+    p.M = m;
+    return launch_tiles_c<false>(c, P, p, st);
+}
+
+// total: the float32 slab [dW1 (C x 2C) | dW2 (2C x C) | db1 (2C) | db2 |
+// dgamma | dbeta (C each)], the weight gradients summed per lane, each
+// lane's sum rounded to bf16, the lanes summed in order
 extern "C" int gfvgn_fused_premlp_bwd(const void* x, const void* gamma,
                                       const void* beta, const void* w1,
                                       const void* b1, const void* w2,
                                       const void* b2, const void* dout,
-                                      void* dx, void* partials, void* total,
-                                      int M, int lanes, int blocks_per_lane,
+                                      void* dx, void* total, int c, int m,
+                                      int lanes, void* workspace,
                                       void* stream) {
-    if (M < 0 || lanes < 1 || lanes > 65535 || blocks_per_lane < 1 ||
-        M % lanes != 0)
+    TilePlan P;
+    int err = tile_plan(c, m, true, P);
+    if (err != 0) return err;
+    if (lanes < 1 || lanes > 65535 || m % lanes != 0)
         return (int)cudaErrorInvalidValue;
-    if (M == 0) return 0;
-    BwdParams p;
+    int max_smem = 0, n_sm = 0;
+    err = device_limits(max_smem, n_sm);
+    if (err != 0) return err;
+    cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+    const int hd = 2 * c;
+    if (m == 0)
+        return (int)cudaMemsetAsync(total, 0,
+                                    (size_t)(2 * c * hd + 5 * c) * 4, st);
+    BwdWs W;
+    bwd_workspace(c, m, lanes, P.grid, n_sm, W);
+    unsigned char* ws = static_cast<unsigned char*>(workspace);
+    TileParams p{};
     p.x = static_cast<const bf16*>(x);
     p.gamma = static_cast<const float*>(gamma);
     p.beta = static_cast<const float*>(beta);
@@ -594,49 +802,24 @@ extern "C" int gfvgn_fused_premlp_bwd(const void* x, const void* gamma,
     p.b2 = static_cast<const float*>(b2);
     p.dout = static_cast<const bf16*>(dout);
     p.dx = static_cast<bf16*>(dx);
-    p.part_acc = static_cast<float*>(partials);
-    p.rows_per_lane = M / lanes;
-    p.slab = 2 * C * HD + HD + 3 * C;
-    const int n_w = 2 * C * HD;
-    cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-    cudaError_t err = cudaFuncSetAttribute(
-        premlp_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kBwdSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    premlp_bwd_kernel<<<dim3(blocks_per_lane, lanes), THREADS, kBwdSmemBytes,
-                        s>>>(p);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    lane_reduce<<<(p.slab + 255) / 256, 256, 0, s>>>(
-        static_cast<const float*>(partials), static_cast<float*>(total),
-        p.slab, n_w, lanes, blocks_per_lane);
-    return (int)cudaGetLastError();
-}
-
-extern "C" int gfvgn_fused_premlp(const void* x, const void* gamma,
-                                  const void* beta, const void* w1,
-                                  const void* b1, const void* w2,
-                                  const void* b2, void* out, int M, int n_sm,
-                                  void* stream) {
-    if (M < 0 || n_sm < 1) return (int)cudaErrorInvalidValue;
-    if (M == 0) return 0;
-    Params p;
-    p.x = static_cast<const bf16*>(x);
-    p.gamma = static_cast<const float*>(gamma);
-    p.beta = static_cast<const float*>(beta);
-    p.w1 = static_cast<const bf16*>(w1);
-    p.b1 = static_cast<const float*>(b1);
-    p.w2 = static_cast<const bf16*>(w2);
-    p.b2 = static_cast<const float*>(b2);
-    p.out = static_cast<bf16*>(out);
-    p.M = M;
-    cudaError_t err = cudaFuncSetAttribute(
-        premlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    const int n_tiles = (M + TM - 1) / TM;
-    const int grid = n_tiles < n_sm ? n_tiles : n_sm;
-    premlp_kernel<<<grid, THREADS, kSmemBytes,
-                    reinterpret_cast<cudaStream_t>(stream)>>>(p);
+    p.us = reinterpret_cast<bf16*>(ws + W.o_us);
+    p.hs = reinterpret_cast<bf16*>(ws + W.o_hs);
+    p.dhs = reinterpret_cast<bf16*>(ws + W.o_dhs);
+    p.colsum = reinterpret_cast<float*>(ws + W.o_colsum);
+    p.M = m;
+    err = launch_tiles_c<true>(c, P, p, st);
+    if (err != 0) return err;
+    // dW1 = u16^T dh1pre16, dW2 = h16^T g16, per lane
+    gfvgn::WgParams& q = W.q;
+    q.job[0].a = p.us;
+    q.job[0].b = p.dhs;
+    q.job[1].a = p.hs;
+    q.job[1].b = p.dout;
+    q.part = reinterpret_cast<float*>(ws + W.o_part);
+    float* tot = static_cast<float*>(total);
+    err = gfvgn_wgrad(&q, lanes, tot, st);
+    if (err != 0) return err;
+    lane_reduce<<<(5 * c + 255) / 256, 256, 0, st>>>(
+        p.colsum, tot + q.n_w, 5 * c, 0, 1, P.grid);
     return (int)cudaGetLastError();
 }

@@ -5,7 +5,7 @@ PyTorch headers), so a build takes seconds. Each source is compiled to an
 object file by its own nvcc process, all started together, and the objects
 are linked into one shared library under `gen_fvgn_tpu_torch/_build/`
 (git-ignored). The library's name carries a hash of the sources and of the
-header they share, so an edit rebuilds and an unchanged tree is reused.
+headers they share, so an edit rebuilds and an unchanged tree is reused.
 
 A failed build raises; nothing falls back to another implementation.
 """
@@ -25,8 +25,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("spmm.cu", "pair_spmm.cu", "fused_mlp.cu", "fused_premlp.cu",
-           "fused_slice_pool.cu")
-HEADERS = ("lane_reduce.cuh",)   # included by the sources: in the hash too
+           "fused_slice_pool.cu", "fused_slice_pool_bwd.cu")
+# included by the sources: in the hash too
+HEADERS = ("lane_reduce.cuh", "mma_sm90.cuh", "slice_pool_tiles.cuh")
 # -fmad=false: no silent a*b+c contraction, so the kernels' float32
 # elementwise steps round where the plain PyTorch versions round (the sparse
 # apply asks for its fused multiply-adds explicitly).
@@ -128,21 +129,26 @@ def _declare(lib: ctypes.CDLL) -> None:
         ci, ci, ci, ci, ci,    # M, res_idx, res_dual, layer_norm, d_out
         vp,                    # workspace
         vp]                    # stream
+    lib.gfvgn_premlp_workspace.restype = ctypes.c_longlong
+    lib.gfvgn_premlp_workspace.argtypes = [ci, ci, ci, ci]   # C, M, lanes, bwd
     lib.gfvgn_fused_premlp.restype = ci
     lib.gfvgn_fused_premlp.argtypes = [
-        vp, vp, vp,            # x [M, 128] bf16, gamma, beta
-        vp, vp, vp, vp,        # w1 [128, 256] bf16, b1, w2 [256, 128] bf16, b2
-        vp,                    # out [M, 128] bf16
-        ci, ci,                # M, n_sm
+        vp, vp, vp,            # x [M, C] bf16, gamma, beta
+        vp, vp, vp, vp,        # w1 [C, 2C] bf16, b1, w2 [2C, C] bf16, b2
+        vp,                    # out [M, C] bf16
+        ci, ci,                # C, M
         vp]                    # stream
+    lib.gfvgn_slice_pool_workspace.restype = ctypes.c_longlong
+    lib.gfvgn_slice_pool_workspace.argtypes = [
+        ci, ci, ci, ci, ci, ci]   # C, H, G, B, N, backward
     lib.gfvgn_fused_slice_pool.restype = ci
     lib.gfvgn_fused_slice_pool.argtypes = [
-        vp, vp, ci,            # x [B, N, 128] bf16, mask f32, mask batch stride
+        vp, vp, ci,            # x [B, N, C] bf16, mask f32, mask batch stride
         vp, vp, vp, vp,        # wfx, bfx, wx, bx
-        vp, vp, vp,            # wsl [16, 32] bf16, bsl [32], inv_temp [8]
-        vp, vp, vp, vp,        # slice_w, partials, tokens, norm
-        ci, ci, ci, ci,        # B, N, rows_per_chunk, n_chunks
-        vp]                    # stream
+        vp, vp, vp,            # wsl [D, G] bf16, bsl [G], inv_temp [H]
+        vp, vp, vp,            # slice_w, tokens, norm
+        ci, ci, ci, ci, ci,    # C, H, G, B, N
+        vp, vp]                # workspace, stream
     lib.gfvgn_fused_mlp_bwd.restype = ci
     lib.gfvgn_fused_mlp_bwd.argtypes = [
         vp, vp, ci, ci, ci,    # part0, part1, width0, width1 (0 = absent), H
@@ -157,21 +163,21 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp]                # workspace, stream
     lib.gfvgn_fused_premlp_bwd.restype = ci
     lib.gfvgn_fused_premlp_bwd.argtypes = [
-        vp, vp, vp,            # x [M, 128] bf16, gamma, beta
-        vp, vp, vp, vp,        # w1 [128, 256] bf16, b1, w2 [256, 128] bf16, b2
-        vp, vp,                # dout, dx [M, 128] bf16
-        vp, vp,                # partial slabs, summed slab (float32)
-        ci, ci, ci,            # M, lanes, blocks_per_lane
-        vp]                    # stream
+        vp, vp, vp,            # x [M, C] bf16, gamma, beta
+        vp, vp, vp, vp,        # w1 [C, 2C] bf16, b1, w2 [2C, C] bf16, b2
+        vp, vp,                # dout, dx [M, C] bf16
+        vp,                    # summed gradient slab (float32)
+        ci, ci, ci,            # C, M, lanes
+        vp, vp]                # workspace, stream
     lib.gfvgn_fused_slice_pool_bwd.restype = ci
     lib.gfvgn_fused_slice_pool_bwd.argtypes = [
-        vp, vp, ci,            # x [B, N, 128] bf16, mask f32, mask batch stride
+        vp, vp, ci,            # x [B, N, C] bf16, mask f32, mask batch stride
         vp, vp, vp, vp,        # wfx, bfx, wx, bx
-        vp, vp, vp,            # wsl [16, 32] bf16, bsl [32], inv_temp [8]
+        vp, vp, vp,            # wsl [D, G] bf16, bsl [G], inv_temp [H]
         vp, vp, vp,            # dslice_w bf16, dtokens f32, dnorm f32
-        vp, vp, vp,            # dx, partial slabs, summed slab
-        ci, ci, ci, ci,        # B, N, rows_per_chunk, n_chunks
-        vp]                    # stream
+        vp, vp,                # dx, summed slab
+        ci, ci, ci, ci, ci,    # C, H, G, B, N
+        vp, vp]                # workspace, stream
 
 
 def load_library() -> ctypes.CDLL:

@@ -47,19 +47,22 @@ the residual add, which is a bf16 add.
 K5f `fused_premlp_res` replaces `_premlp_fwd_kernel` (:691-711, called at
 :747), the Transolver block's pre-LN MLP branch with its residual:
 
-    out = x + W2·gelu(W1·(LN(x)·γ + β) + b1) + b2,   hidden width 256
+    out = x + W2·gelu(W1·(LN(x)·γ + β) + b1) + b2,   hidden width 2C
 
-in its own kernel (csrc/fused_premlp.cu): the LayerNorm comes first and
-its rounding points differ from K2's: u = LN(x)·γ + β is
+in its own kernels (csrc/fused_premlp.cu), at any width C that is a
+multiple of 128 up to 512 (`premlp_shape_ok`; C = 128 on its own wmma
+kernel, wider C on block row tiles with streamed weights): the LayerNorm
+comes first and its rounding points differ from K2's: u = LN(x)·γ + β is
 rounded to bf16 before W1, h before W2, and the residual x is added in
 float32 BEFORE the one final bf16 rounding (K2 rounds first and adds in
 bf16).
 
 Tolerance kernel vs plain version: the float32 sums are taken in another
 order (tensor-core fragments vs a library GEMM), and the kernels' GELU
-(x·sigmoid(2u) on a fast exp and reciprocal; tanhf in K5) and sqrtf
-differ in the last bits from PyTorch's, which can move a bf16 rounding of
-h1, h2 or the output by one step: 2 bf16 ulps of the output scale.
+(x·sigmoid(2u) on a fast exp and reciprocal, csrc/mma_sm90.cuh, shared by
+every MLP kernel) and sqrtf differ in the last bits from PyTorch's, which
+can move a bf16 rounding of h1, h2 or the output by one step: 2 bf16 ulps
+of the output scale.
 
 The backward kernels (K3 `fused_mlp_ln_bwd`, K4b `fused_mlp_noln_bwd`, K5b
 `fused_premlp_res_bwd`) replace `_make_bwd_kernel` (:129-228, called at
@@ -426,16 +429,6 @@ def _launch(parts, w1s, b1, w2, b2, w3, b3, gamma, beta, pres, res_idx,
     return outs
 
 
-def _blocks_per_lane(m: int, lanes: int, dev) -> int:
-    """Blocks of a backward kernel for each batch lane: about one block per
-    SM over all lanes, at most one per 64-row tile of a lane."""
-    if lanes < 1 or m % lanes:
-        raise ValueError(f"{m} rows do not split into {lanes} equal lanes")
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    tiles = -(-(m // lanes) // 64)
-    return max(1, min(tiles, -(-n_sm // lanes)))
-
-
 def _launch_bwd(parts, w1s, b1, w2, b2, w3, b3, gamma, pres, douts, res_idx,
                 res_dual, lanes, layer_norm):
     """Checks, allocation and the launches of K3 / K4b (the row pass, the
@@ -719,16 +712,73 @@ def fused_premlp_res_reference(x, gamma, beta, w1, b1, w2, b2) -> torch.Tensor:
     return y.to(dt)
 
 
+# what a block of the H100 can hold (cudaDevAttrMaxSharedMemoryPerBlockOptin)
+SMEM_PER_BLOCK = 232_448
+
+
+def _align128(n: int) -> int:
+    return (n + 127) // 128 * 128
+
+
+def _ring_bytes(tm: int) -> int:
+    """Two ring slots of streamed weight chunks (mma_sm90.cuh `ring_slot`)
+    for a tile of tm rows: 32 contraction rows by the pass width, or the
+    transposed chunk, whichever is larger."""
+    pw = (8 // (tm // 16)) * 64
+    return 2 * max(32 * (pw + 8), pw * 40) * 2
+
+
+def premlp_plan(c: int, backward: bool):
+    """The row tile K5f (C >= 256) and K5b take for width c with hidden
+    width 2c, as csrc/fused_premlp.cu `tile_plan` chooses it: (tm, weights
+    resident, row buffers, shared-memory bytes), or None where no tile fits
+    a block's shared memory or c is not a multiple of 128 up to 512."""
+    if c < 128 or c % 128 or c > 512:
+        return None
+    hd = 2 * c
+    for resident in (True, False):
+        for tm in (64, 32, 16):
+            for nbuf in (2, 1):
+                wr = tm // 16
+                size = _align128((c * (hd + 8) + hd * (c + 8)) * 2
+                                 if resident else _ring_bytes(tm))
+                size += _align128(nbuf * tm * (c + 8) * 2)
+                size += _align128(tm * (c + 8) * 2)
+                size += _align128(tm * (hd + 8) * 2)
+                if backward:
+                    size += (_align128(nbuf * tm * (c + 8) * 2)
+                             + _align128(tm * (c + 4) * 4)
+                             + _align128(tm * 2 * 4)
+                             + _align128(wr * hd * 4) + _align128(hd * 4))
+                    size = max(size, 8 * 3 * c * 4)
+                if size <= SMEM_PER_BLOCK:
+                    return tm, resident, nbuf, size
+    return None
+
+
+def premlp_shape_ok(c: int, hd: int) -> bool:
+    """Whether K5f and K5b take the pre-LN MLP branch at width c and hidden
+    width hd: hd = 2c (mlp_ratio 2), c a multiple of 128 up to 512 whose
+    tiles fit a block's shared memory (the kernels' size query,
+    `gfvgn_premlp_workspace`, decides the same on the card)."""
+    return hd == 2 * c and premlp_plan(c, True) is not None \
+        and premlp_plan(c, False) is not None
+
+
 def _premlp_operands(x, gamma, beta, w1, b1, w2, b2, what):
     """The checks shared by K5f and K5b, raising on what the kernels do not
-    take: x [M, 128] bf16, w1 [128, 256] and w2 [256, 128] bf16, γ, β, b1,
-    b2 float32; returned contiguous."""
+    take: x [M, C] bf16, w1 [C, 2C] and w2 [2C, C] bf16, γ, β, b1, b2
+    float32, C by `premlp_shape_ok`; returned contiguous."""
     bf16 = torch.bfloat16
-    c, hd = 128, 256
-    if x.ndim != 2 or x.shape[1] != c or tuple(w1.shape) != (c, hd):
+    c = x.shape[-1]
+    hd = w1.shape[-1]
+    if x.ndim != 2 or tuple(w1.shape) != (c, hd) \
+            or not premlp_shape_ok(c, hd):
         raise NotImplementedError(
-            f"{what} is built for x [M, {c}] and a hidden width of {hd}, got "
-            f"x {tuple(x.shape)}, w1 {tuple(w1.shape)}")
+            f"{what} takes x [M, C] with C a multiple of 128 up to 512 and a "
+            f"hidden width 2C whose row tile fits a block's "
+            f"{SMEM_PER_BLOCK} bytes of shared memory, got x "
+            f"{tuple(x.shape)}, w1 {tuple(w1.shape)}")
     return (_check(x, tuple(x.shape), bf16, "x"), _vec(gamma, c, "gamma"),
             _vec(beta, c, "beta"), _check(w1, (c, hd), bf16, "w1"),
             _vec(b1, hd, "b1"), _check(w2, (hd, c), bf16, "w2"),
@@ -736,8 +786,9 @@ def _premlp_operands(x, gamma, beta, w1, b1, w2, b2, what):
 
 
 def fused_premlp_res(x, gamma, beta, w1, b1, w2, b2) -> torch.Tensor:
-    """K5f on prepared operands: x [M, 128] bf16, w1 [128, 256] and
-    w2 [256, 128] bf16, γ, β, b1, b2 float32. Returns [M, 128] bf16.
+    """K5f on prepared operands: x [M, C] bf16, w1 [C, 2C] and w2 [2C, C]
+    bf16, γ, β, b1, b2 float32 (C by `premlp_shape_ok`). Returns [M, C]
+    bf16.
 
     CUDA operands launch the kernel (or raise); CPU operands take
     `fused_premlp_res_reference`."""
@@ -747,13 +798,13 @@ def fused_premlp_res(x, gamma, beta, w1, b1, w2, b2) -> torch.Tensor:
     from gen_fvgn_tpu_torch.ops._cuda_build import load_library
     x, gamma, beta, w1, b1, w2, b2 = _premlp_operands(
         x, gamma, beta, w1, b1, w2, b2, "fused_premlp_res kernel")
-    m = x.shape[0]
-    out = torch.empty((m, 128), dtype=torch.bfloat16, device=x.device)
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    err = load_library().gfvgn_fused_premlp(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), m, n_sm,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    m, c = x.shape
+    out = torch.empty((m, c), dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):
+        err = load_library().gfvgn_fused_premlp(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), c, m,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"fused_premlp_res kernel launch failed: CUDA error {err}")
@@ -793,9 +844,11 @@ def fused_premlp_res_bwd_reference(x, gamma, beta, w1, b1, w2, b2, dout,
 
 def fused_premlp_res_bwd(x, gamma, beta, w1, b1, w2, b2, dout,
                          lanes: int = 1):
-    """K5b on the operands of `fused_premlp_res` and dout [M, 128] bf16,
+    """K5b on the operands of `fused_premlp_res` and dout [M, C] bf16,
     the rows `lanes` batch lanes: (dx, dgamma, dbeta, dw1, db1, dw2,
-    db2).
+    db2). Three launches: the row pass, the weight-gradient pass and the
+    fixed-order reductions, over a workspace of bf16 rows (u16, h16,
+    dh1pre16: 5 [M, C] streams) and float32 partials freed on return.
 
     CUDA operands launch the kernel (or raise); CPU operands take
     `fused_premlp_res_bwd_reference`."""
@@ -805,27 +858,32 @@ def fused_premlp_res_bwd(x, gamma, beta, w1, b1, w2, b2, dout,
                                               dout, lanes)
     from gen_fvgn_tpu_torch.ops._cuda_build import load_library
     bf16, f32 = torch.bfloat16, torch.float32
-    c, hd = 128, 256
+    what = "fused_premlp_res backward kernel"
     x, gamma, beta, w1, b1, w2, b2 = _premlp_operands(
-        x, gamma, beta, w1, b1, w2, b2, "fused_premlp_res backward kernel")
-    m = x.shape[0]
+        x, gamma, beta, w1, b1, w2, b2, what)
+    m, c = x.shape
+    hd = 2 * c
+    if lanes < 1 or m % lanes:
+        raise ValueError(f"{m} rows do not split into {lanes} equal lanes")
     dout = _check(dout, (m, c), bf16, "dout")
-    dx = torch.empty((m, c), dtype=bf16, device=x.device)
-    slab = 2 * c * hd + hd + 3 * c
-    nb = _blocks_per_lane(m, lanes, x.device)
-    partials = torch.empty((lanes * nb, slab), dtype=f32, device=x.device)
-    total = torch.empty((slab,), dtype=f32, device=x.device)
-    err = load_library().gfvgn_fused_premlp_bwd(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), dout.data_ptr(),
-        dx.data_ptr(), partials.data_ptr(), total.data_ptr(), m, lanes, nb,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    lib = load_library()
+    dev = x.device
+    with torch.cuda.device(dev):
+        n = lib.gfvgn_premlp_workspace(c, m, lanes, 1)
+        if n < 0:
+            raise NotImplementedError(f"{what}: no tile takes C = {c}")
+        ws = torch.empty((max(n, 1),), dtype=torch.uint8, device=dev)
+        dx = torch.empty((m, c), dtype=bf16, device=dev)
+        total = torch.empty((2 * c * hd + 5 * c,), dtype=f32, device=dev)
+        err = lib.gfvgn_fused_premlp_bwd(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), dout.data_ptr(),
+            dx.data_ptr(), total.data_ptr(), c, m, lanes, ws.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(
-            f"fused_premlp_res backward kernel launch failed: CUDA error "
-            f"{err}")
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
     LAUNCHES_PREMLP_BWD += 1
-    # slab: [dW1 (C×Hd) | dW2 (Hd×C) | db1 (Hd) | db2 | dγ | dβ (C each)]
+    # slab: [dW1 (C×2C) | dW2 (2C×C) | db1 (2C) | db2 | dγ | dβ (C each)]
     dw1 = total[:c * hd].reshape(c, hd).to(bf16)
     dw2 = total[c * hd:2 * c * hd].reshape(hd, c).to(bf16)
     o = 2 * c * hd

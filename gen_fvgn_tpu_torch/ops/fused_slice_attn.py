@@ -16,7 +16,11 @@ one inverse temperature per head, and produces only the per-head diagonal
 blocks: tokens [B, H, G, D] and norm [B, H, G]. Rows of a batch lane are
 cut into chunks pooled by separate blocks; a second pass in the same file
 sums the chunks' partials in a fixed order, so the result is the same bits
-from run to run.
+from run to run. The default shape (C = 128, 8 heads, 32 slices) has its
+own kernel; every other shape the kernels take (`slice_pool_shape_ok`: C a
+multiple of 128 up to 512, H·G a multiple of 128, H and G powers of two)
+runs on the block row tiles of csrc/slice_pool_tiles.cuh, as does the
+backward K7 at every shape.
 
 Rounding points, identical in the kernel and in the plain version: fx, xm
 and the logits rounded to the stream type (bf16) after a float32-accumulated
@@ -44,12 +48,6 @@ from gen_fvgn_tpu_torch.ops.fused_mlp import _check, _dot_f32, weight_grad
 # incremented once per kernel launch, and nowhere else
 LAUNCHES = 0
 LAUNCHES_BWD = 0
-
-_C, _H, _D, _G = 128, 8, 16, 32      # the shape the CUDA kernels are built for
-_TILE = 64                           # K6's row tile
-_BWD_TILE = 32                       # K7's row tile
-# floats of one K7 block's partial slab (csrc/fused_slice_pool.cu)
-_BWD_PART = 2 * _C * _C + _H * _D * _G + 2 * _H * _G + 2 * _C
 
 
 def slice_logits(x, wx, bx, wsl, bsl) -> torch.Tensor:
@@ -99,42 +97,121 @@ def fused_slice_pool_reference(x, mask, wfx, bfx, wx, bx, wsl, bsl, inv_temp
     return w.reshape(b, n, h * g).to(dt), tokens, w_m.sum(dim=1)
 
 
-def _chunks(n: int, batch: int, n_sm: int, tile: int = _TILE
-            ) -> Tuple[int, int]:
-    """(rows_per_chunk, n_chunks): about two blocks per SM over the batch,
-    each chunk a whole number of `tile`-row tiles."""
-    tiles = -(-n // tile)
-    want = max(1, min(tiles, (2 * n_sm) // max(batch, 1)))
-    rows = -(-tiles // want) * tile
-    return rows, -(-n // rows)
+def slice_pool_slots(c: int, h: int, g: int):
+    """The kernels' slot mapping for width c, h heads and g slices, as
+    csrc/fused_slice_pool.cu `pool_shape` gives it: (L lanes a head group,
+    heads per group, groups sharing a head, slots a thread, columns a
+    thread), or None where no kernel takes the shape. The JAX package fuses
+    c % 128 == 0 with h·g % 128 == 0; the kernels take those with c up to
+    512, h and g powers of two (g from 8 to 128), and a thread's columns
+    (the head width c / h over the groups sharing a head) 8, 16, 32, 48 or
+    64 with at most 64 pooled sums a thread (c·g <= 16384)."""
+    pow2 = lambda v: v > 0 and v & (v - 1) == 0
+    if c < 128 or c % 128 or c > 512 or h < 1 or c % h or (h * g) % 128 \
+            or not pow2(g) or not 8 <= g <= 128 or not pow2(h):
+        return None
+    d = c // h
+    lanes = min(g, 32)
+    spt, groups = g // lanes, 256 // lanes
+    hpg, ds = (h // groups, 1) if h >= groups else (1, groups // h)
+    ns = hpg * spt
+    if d % ds:
+        return None
+    dpt = d // ds
+    if ns not in (1, 2, 4) or dpt not in (8, 16, 32, 48, 64) \
+            or ns * dpt > 64:
+        return None
+    return lanes, hpg, ds, ns, dpt
+
+
+def slice_pool_plan(c: int, h: int, g: int, backward: bool):
+    """The row tile of the block kernels (K7, and K6 at any shape but the
+    default C = 128, H = 8, G = 32) as csrc/fused_slice_pool.cu `pool_run`
+    chooses it: (tm, weights resident, dtokens in shared memory, row
+    buffers, shared-memory bytes), or None where no kernel takes the shape
+    or no tile fits a block's shared memory."""
+    from gen_fvgn_tpu_torch.ops.fused_mlp import (SMEM_PER_BLOCK, _align128,
+                                                  _ring_bytes)
+    slots = slice_pool_slots(c, h, g)
+    if slots is None:
+        return None
+    ds, d, hg = slots[2], c // h, h * g
+    for resident in (True, False):
+        for tm in (64, 32, 16):
+            for tok in (True, False):
+                for nbuf in (2, 1):
+                    if (not backward and not tok) \
+                            or (backward and tm * c // 16 > 1024):
+                        continue
+                    row = _align128(tm * (c + 8) * 2)
+                    size = (_align128(2 * c * (c + 8) * 2) if resident
+                            else _ring_bytes(tm))
+                    size += _align128(nbuf * tm * (c + 8) * 2) + 2 * row
+                    if backward:
+                        size += _align128(hg * (tm + 4) * 4)
+                        size += _align128(hg * (tm + 8) * 2)
+                        size += _align128(d * (g + 1) * 4 + g * (d + 4) * 4
+                                          + d * (g + 8) * 2)
+                        size += _align128(hg * (d + 4) * 4) if tok else 0
+                        size += _align128(nbuf * tm * (hg + 8) * 2)
+                    else:
+                        size += _align128(tm * (hg + 1) * 4)
+                        size += _align128(d * (g + 1) * 4)
+                    size = max(size, (2 * ds * hg + 2 * (tm // 4) * c) * 4)
+                    if size <= SMEM_PER_BLOCK:
+                        return tm, resident, tok, nbuf, size
+    return None
+
+
+def slice_pool_shape_ok(c: int, h: int, g: int) -> bool:
+    """Whether K6 and K7 take width c with h heads and g slices (the
+    kernels' size query, `gfvgn_slice_pool_workspace`, decides the same on
+    the card)."""
+    return slice_pool_plan(c, h, g, True) is not None \
+        and slice_pool_plan(c, h, g, False) is not None
 
 
 def _pool_operands(x, mask, wfx, bfx, wx, bx, wsl, bsl, inv_temp, what):
     """The checks shared by K6 and K7, raising on what the kernels do not
     take. Returns the operands contiguous, with the mask's batch stride (0
-    for a mask [N] shared by the batch) after the mask."""
+    for a mask [N] shared by the batch) after the mask, and (C, H, G)."""
     bf16, f32 = torch.bfloat16, torch.float32
-    if x.ndim != 3 or x.shape[2] != _C or tuple(wsl.shape) != (_D, _G):
+    c = x.shape[-1]
+    d, g = wsl.shape if wsl.ndim == 2 else (0, 0)
+    h = c // d if d else 0
+    if x.ndim != 3 or not d or c % d or not slice_pool_shape_ok(c, h, g):
         raise NotImplementedError(
-            f"{what} is built for x [B, N, {_C}] and a [{_D}, {_G}] slice "
-            f"kernel, got x {tuple(x.shape)}, wsl {tuple(wsl.shape)}")
+            f"{what} takes x [B, N, C] and a [C / H, G] slice kernel with C "
+            f"a multiple of 128 up to 512, H·G a multiple of 128, H and G "
+            f"powers of two (G from 8 to 128), C·G <= 16384 and a row tile "
+            f"within a block's shared memory; got x {tuple(x.shape)}, wsl "
+            f"{tuple(wsl.shape)}")
     b, n, _ = x.shape
     if mask.ndim == 1:
         mask, stride = _check(mask, (n,), f32, "mask"), 0
     else:
         mask, stride = _check(mask, (b, n), f32, "mask"), n
     vec = lambda v, k, name: _check(v.reshape(-1), (k,), f32, name)
-    return (_check(x, (b, n, _C), bf16, "x"), mask, stride,
-            _check(wfx, (_C, _C), bf16, "wfx"), vec(bfx, _C, "bfx"),
-            _check(wx, (_C, _C), bf16, "wx"), vec(bx, _C, "bx"),
-            _check(wsl, (_D, _G), bf16, "wsl"), vec(bsl, _G, "bsl"),
-            vec(inv_temp, _H, "inv_temp"))
+    return (_check(x, (b, n, c), bf16, "x"), mask, stride,
+            _check(wfx, (c, c), bf16, "wfx"), vec(bfx, c, "bfx"),
+            _check(wx, (c, c), bf16, "wx"), vec(bx, c, "bx"),
+            _check(wsl, (d, g), bf16, "wsl"), vec(bsl, g, "bsl"),
+            vec(inv_temp, h, "inv_temp"), (c, h, g))
+
+
+def _pool_workspace(lib, shape, b, n, backward, dev, what):
+    """The kernels' workspace (partials; for K7 also the dfx16/dxm16 rows
+    and the weight-gradient partials), freed when the call returns."""
+    nbytes = lib.gfvgn_slice_pool_workspace(*shape, b, n, int(backward))
+    if nbytes < 0:
+        raise NotImplementedError(f"{what}: no kernel takes (C, H, G) = "
+                                  f"{shape}")
+    return torch.empty((max(nbytes, 1),), dtype=torch.uint8, device=dev)
 
 
 def fused_slice_pool_kernel(x, mask, wfx, bfx, wx, bx, wsl, bsl, inv_temp):
-    """K6 on prepared operands (see `fused_slice_pool_reference`); the
-    kernel is built for C = 128, D = 16, G = 32 (so H = 8) with a bf16
-    stream.
+    """K6 on prepared operands (see `fused_slice_pool_reference`), bf16
+    stream, the shape by `slice_pool_shape_ok`.
 
     CUDA operands launch the kernel (or raise); CPU operands take
     `fused_slice_pool_reference`."""
@@ -144,27 +221,25 @@ def fused_slice_pool_kernel(x, mask, wfx, bfx, wx, bx, wsl, bsl, inv_temp):
                                           inv_temp)
     from gen_fvgn_tpu_torch.ops._cuda_build import load_library
     bf16, f32 = torch.bfloat16, torch.float32
-    x, mask, stride, wfx, bfx, wx, bx, wsl, bsl, inv_temp = _pool_operands(
-        x, mask, wfx, bfx, wx, bx, wsl, bsl, inv_temp,
-        "fused_slice_pool kernel")
-    b, n, _ = x.shape
+    what = "fused_slice_pool kernel"
+    x, mask, stride, wfx, bfx, wx, bx, wsl, bsl, inv_temp, shape = \
+        _pool_operands(x, mask, wfx, bfx, wx, bx, wsl, bsl, inv_temp, what)
+    (b, n, c), (_, h, g) = x.shape, shape
     dev = x.device
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows, n_chunks = _chunks(n, b, n_sm)
-    slice_w = torch.empty((b, n, _H * _G), dtype=bf16, device=dev)
-    part = torch.empty((b, n_chunks, _H * _G * (_D + 1)), dtype=f32,
-                       device=dev)
-    tokens = torch.empty((b, _H, _G, _D), dtype=f32, device=dev)
-    norm = torch.empty((b, _H, _G), dtype=f32, device=dev)
-    err = load_library().gfvgn_fused_slice_pool(
-        x.data_ptr(), mask.data_ptr(), stride, wfx.data_ptr(),
-        bfx.data_ptr(), wx.data_ptr(), bx.data_ptr(), wsl.data_ptr(),
-        bsl.data_ptr(), inv_temp.data_ptr(), slice_w.data_ptr(),
-        part.data_ptr(), tokens.data_ptr(), norm.data_ptr(), b, n, rows,
-        n_chunks, torch.cuda.current_stream(dev).cuda_stream)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        ws = _pool_workspace(lib, shape, b, n, False, dev, what)
+        slice_w = torch.empty((b, n, h * g), dtype=bf16, device=dev)
+        tokens = torch.empty((b, h, g, c // h), dtype=f32, device=dev)
+        norm = torch.empty((b, h, g), dtype=f32, device=dev)
+        err = lib.gfvgn_fused_slice_pool(
+            x.data_ptr(), mask.data_ptr(), stride, wfx.data_ptr(),
+            bfx.data_ptr(), wx.data_ptr(), bx.data_ptr(), wsl.data_ptr(),
+            bsl.data_ptr(), inv_temp.data_ptr(), slice_w.data_ptr(),
+            tokens.data_ptr(), norm.data_ptr(), c, h, g, b, n, ws.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(
-            f"fused_slice_pool kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
     LAUNCHES += 1
     return slice_w, tokens, norm
 
@@ -246,7 +321,10 @@ def fused_slice_pool_bwd_reference(x, mask, wfx, bfx, wx, bx, wsl, bsl,
 def fused_slice_pool_bwd_kernel(x, mask, wfx, bfx, wx, bx, wsl, bsl, inv_temp,
                                 dslice_w, dtokens, dnorm) -> SlicePoolGrads:
     """K7 on the operands of `fused_slice_pool_kernel` and the cotangents
-    (see `fused_slice_pool_bwd_reference`).
+    (see `fused_slice_pool_bwd_reference`). Three launches: the row pass,
+    the weight-gradient pass and the fixed-order reductions, over a
+    workspace of bf16 rows (dfx16, dxm16: 2 [B, N, C] streams) and float32
+    partials freed on return.
 
     CUDA operands launch the kernel (or raise); CPU operands take
     `fused_slice_pool_bwd_reference`."""
@@ -257,43 +335,43 @@ def fused_slice_pool_bwd_kernel(x, mask, wfx, bfx, wx, bx, wsl, bsl, inv_temp,
             dtokens, dnorm)
     from gen_fvgn_tpu_torch.ops._cuda_build import load_library
     bf16, f32 = torch.bfloat16, torch.float32
-    x, mask, stride, wfx, bfx, wx, bx, wsl, bsl, inv_temp = _pool_operands(
-        x, mask, wfx, bfx, wx, bx, wsl, bsl, inv_temp,
-        "fused_slice_pool backward kernel")
-    b, n, _ = x.shape
-    dslice_w = _check(dslice_w, (b, n, _H * _G), bf16, "dslice_w")
-    dtokens = _check(dtokens, (b, _H, _G, _D), f32, "dtokens")
-    dnorm = _check(dnorm, (b, _H, _G), f32, "dnorm")
+    what = "fused_slice_pool backward kernel"
+    x, mask, stride, wfx, bfx, wx, bx, wsl, bsl, inv_temp, shape = \
+        _pool_operands(x, mask, wfx, bfx, wx, bx, wsl, bsl, inv_temp, what)
+    (b, n, c), (_, h, g) = x.shape, shape
+    d = c // h
+    dslice_w = _check(dslice_w, (b, n, h * g), bf16, "dslice_w")
+    dtokens = _check(dtokens, (b, h, g, d), f32, "dtokens")
+    dnorm = _check(dnorm, (b, h, g), f32, "dnorm")
     dev = x.device
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows, n_chunks = _chunks(n, b, n_sm, _BWD_TILE)
-    dx = torch.empty((b, n, _C), dtype=bf16, device=dev)
-    part = torch.empty((b * n_chunks, _BWD_PART), dtype=f32, device=dev)
-    total = torch.empty((_BWD_PART,), dtype=f32, device=dev)
-    err = load_library().gfvgn_fused_slice_pool_bwd(
-        x.data_ptr(), mask.data_ptr(), stride, wfx.data_ptr(),
-        bfx.data_ptr(), wx.data_ptr(), bx.data_ptr(), wsl.data_ptr(),
-        bsl.data_ptr(), inv_temp.data_ptr(), dslice_w.data_ptr(),
-        dtokens.data_ptr(), dnorm.data_ptr(), dx.data_ptr(),
-        part.data_ptr(), total.data_ptr(), b, n, rows, n_chunks,
-        torch.cuda.current_stream(dev).cuda_stream)
+    cc, hdg, hg = c * c, h * d * g, h * g
+    lib = load_library()
+    with torch.cuda.device(dev):
+        ws = _pool_workspace(lib, shape, b, n, True, dev, what)
+        dx = torch.empty((b, n, c), dtype=bf16, device=dev)
+        total = torch.empty((2 * cc + hdg + 2 * hg + 2 * c,), dtype=f32,
+                            device=dev)
+        err = lib.gfvgn_fused_slice_pool_bwd(
+            x.data_ptr(), mask.data_ptr(), stride, wfx.data_ptr(),
+            bfx.data_ptr(), wx.data_ptr(), bx.data_ptr(), wsl.data_ptr(),
+            bsl.data_ptr(), inv_temp.data_ptr(), dslice_w.data_ptr(),
+            dtokens.data_ptr(), dnorm.data_ptr(), dx.data_ptr(),
+            total.data_ptr(), c, h, g, b, n, ws.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(
-            f"fused_slice_pool backward kernel launch failed: CUDA error "
-            f"{err}")
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
     LAUNCHES_BWD += 1
     # the summed slab: dWfx | dWx [C, C] | dWsl per head [H, D, G] |
-    # dbsl per head [H, G] | dinv_temp per slice [H, G] | dbfx | dbx [C]
-    cc, hdg, hg = _C * _C, _H * _D * _G, _H * _G
+    # dbsl per slot [H, G] | dinv_temp per slot [H, G] | dbfx | dbx [C]
     o = [0, cc, 2 * cc, 2 * cc + hdg, 2 * cc + hdg + hg, 2 * cc + hdg + 2 * hg,
-         2 * cc + hdg + 2 * hg + _C, _BWD_PART]
+         2 * cc + hdg + 2 * hg + c, 2 * cc + hdg + 2 * hg + 2 * c]
     seg = lambda i: total[o[i]:o[i + 1]]
     return SlicePoolGrads(
-        dx=dx, dwfx=seg(0).reshape(_C, _C).to(bf16), dbfx=seg(5),
-        dwx=seg(1).reshape(_C, _C).to(bf16), dbx=seg(6),
-        dwsl_heads=seg(2).reshape(_H, _D, _G).to(bf16),
-        dbsl=seg(3).reshape(_H, _G).sum(dim=0),
-        dinv_temp=seg(4).reshape(_H, _G).sum(dim=1))
+        dx=dx, dwfx=seg(0).reshape(c, c).to(bf16), dbfx=seg(5),
+        dwx=seg(1).reshape(c, c).to(bf16), dbx=seg(6),
+        dwsl_heads=seg(2).reshape(h, d, g).to(bf16),
+        dbsl=seg(3).reshape(h, g).sum(dim=0),
+        dinv_temp=seg(4).reshape(h, g).sum(dim=1))
 
 
 class _SlicePoolFn(torch.autograd.Function):

@@ -167,7 +167,7 @@ def main(argv=None) -> int:
     ours = sum(r[0] for r in rows if any(
         k in r[2] for k in ("spmm_csr_kernel", "pair_sum_kernel",
                             "pair_transpose_kernel", "fused_mlp_", "premlp_",
-                            "slice_pool_", "lane_reduce")))
+                            "slice_pool_", "lane_reduce", "chunk_reduce")))
     print(f"device busy: {busy:.3f} ms/step ({ours:.3f} in the port's "
           f"kernels); idle share {1 - busy / wall:.3f}; "
           f"{sum(r[1] for r in rows):.0f} device kernels/step")

@@ -202,17 +202,26 @@ def test_fused_premlp_res_backward_matches_jax():
     """K5b's plain version against jax.vjp of the JAX
     `fused_premlp_res_parts`; the residual cotangent joins dx in float32
     before its one rounding."""
+    _premlp_backward(H)
+
+
+def test_fused_premlp_res_backward_matches_jax_at_c256():
+    """The same at C = 256 (hidden 512)."""
+    _premlp_backward(2 * H)
+
+
+def _premlp_backward(c):
     from gen_fvgn_tpu.ops.fused_mlp import fused_premlp_res_parts as jfn
     from gen_fvgn_tpu_torch.ops.fused_mlp import fused_premlp_res_parts as tfn
     rng = np.random.default_rng(14)
-    x = _rng_f32(rng, M, H, scale=2.0) + 0.5
-    w = dict(gamma=1.0 + _rng_f32(rng, H, scale=0.1),
-             beta=_rng_f32(rng, H, scale=0.1),
-             w1=_rng_f32(rng, H, 2 * H) / np.sqrt(H),
-             b1=_rng_f32(rng, 2 * H, scale=0.1),
-             w2=_rng_f32(rng, 2 * H, H) / np.sqrt(2 * H),
-             b2=_rng_f32(rng, H, scale=0.1))
-    g = _bf16(_rng_f32(rng, M, H))
+    x = _rng_f32(rng, M, c, scale=2.0) + 0.5
+    w = dict(gamma=1.0 + _rng_f32(rng, c, scale=0.1),
+             beta=_rng_f32(rng, c, scale=0.1),
+             w1=_rng_f32(rng, c, 2 * c) / np.sqrt(c),
+             b1=_rng_f32(rng, 2 * c, scale=0.1),
+             w2=_rng_f32(rng, 2 * c, c) / np.sqrt(2 * c),
+             b2=_rng_f32(rng, c, scale=0.1))
+    g = _bf16(_rng_f32(rng, M, c))
     names = ("gamma", "beta", "w1", "b1", "w2", "b2")
     with jax_kernels_on():
         _, vjp = jax.vjp(lambda x_, ws: jfn(x_, *[ws[k] for k in names],
@@ -220,12 +229,12 @@ def test_fused_premlp_res_backward_matches_jax():
                          jnp.asarray(x), {k: jnp.asarray(w[k]) for k in names})
         jdx, jw = vjp(jnp.asarray(g, jnp.bfloat16))
     tx = torch.from_numpy(x).requires_grad_()
-    tw = {k: torch.from_numpy(w[k]).requires_grad_() for k in names}
+    tw = {k: torch.from_numpy(v).requires_grad_() for k, v in w.items()}
     out = tfn(tx, *[tw[k] for k in names], dtype=torch.bfloat16)
     out.backward(torch.from_numpy(g).to(torch.bfloat16))
     _check_dx(tx.grad.numpy(), jdx, "dx")
     for k in ("w1", "w2"):
-        _check_weight(tw[k].grad.numpy(), jw[k], k)
+        _check_weight(tw[k].grad.numpy(), jw[k], k, c)
     for k in ("gamma", "beta", "b1", "b2"):
         _check_vec(tw[k].grad.numpy(), jw[k], k)
 
@@ -237,9 +246,19 @@ def test_fused_slice_pool_backward_matches_jax():
     diagonal token blocks; the port calls `fused_slice_pool` on the batch
     with 1/temp. Cotangents of slice_w (bf16), tokens and norm are the same
     NumPy arrays on both sides."""
+    _slice_pool_backward(H, 8, 32)
+
+
+@pytest.mark.parametrize("c,h,g", [(2 * H, 8, 32), (H, 8, 16)])
+def test_fused_slice_pool_backward_matches_jax_at_other_shapes(c, h, g):
+    """The same at C = 256 (8 heads of 32) and with 16 slices."""
+    _slice_pool_backward(c, h, g)
+
+
+def _slice_pool_backward(c, h, g):
     from gen_fvgn_tpu.ops.fused_slice_attn import fused_slice_pool as jfn
     from gen_fvgn_tpu_torch.ops.fused_slice_attn import fused_slice_pool as tfn
-    h, g, d, c, b, n = 8, 32, 16, H, 2, 256
+    d, b, n = c // h, 2, 256
     rng = np.random.default_rng(15)
     x = _rng_f32(rng, b, n, c)
     mask = (rng.uniform(size=n) > 0.2).astype(np.float32)
@@ -279,8 +298,8 @@ def test_fused_slice_pool_backward_matches_jax():
                                    torch.from_numpy(gnorm)])
     _check_dx(tx.grad.numpy(), jdx, "dx")
     for k in ("wfx", "wx"):
-        _check_weight(tw[k].grad.numpy(), jw[k], k)
-    # the shared slice kernel: the float32 sum of the 8 rounded head blocks
+        _check_weight(tw[k].grad.numpy(), jw[k], k, c)
+    # the shared slice kernel: the float32 sum of the H rounded head blocks
     np.testing.assert_allclose(tw["wsl"].grad.numpy(), jw["wsl"], rtol=0,
                                atol=_ulps(jw["wsl"], 4))
     for k in ("bfx", "bx", "bsl"):

@@ -93,7 +93,10 @@ def port_loss(tc, ts, td, sim, stats):
     pytest.param("TransFVGN_v2", F32, id="TransFVGN_v2"),
     pytest.param("FVGN", F32, id="FVGN"),
     # FVGNSimulatorB at hidden 256, the width the MLP kernels now also take
-    pytest.param("FVGN", (6, 256, 1, "float32", 2), id="FVGN-h256")])
+    pytest.param("FVGN", (6, 256, 1, "float32", 2), id="FVGN-h256"),
+    # TransFVGN_v2 at hidden 256, the width the Transolver kernels now take
+    pytest.param("TransFVGN_v2", (6, 256, 1, "float32", 2),
+                 id="TransFVGN_v2-h256")])
 def test_train_loss_and_grads_match_jax_f32(net, args):
     jc, tc, js, ts, jd, td, tree, apply_fn, stats = setup(net, args)
     jl, jg = jax_value_and_grad(jc, js, jd, apply_fn, stats)(

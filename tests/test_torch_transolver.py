@@ -48,13 +48,13 @@ def _ulps(ref, n):
 # ---------------------------------------------------------------- K5f
 
 
-def _premlp_operands(seed, m=300):
+def _premlp_operands(seed, m=300, c=C):
     rng = np.random.default_rng(seed)
     g = lambda *s: rng.normal(size=s).astype(np.float32)
-    return dict(x=g(m, C) * 2.0 + 0.5, scale=1.0 + 0.1 * g(C),
-                bias=0.1 * g(C), w1=g(C, 2 * C) / np.sqrt(C),
-                b1=0.1 * g(2 * C), w2=g(2 * C, C) / np.sqrt(2 * C),
-                b2=0.1 * g(C))
+    return dict(x=g(m, c) * 2.0 + 0.5, scale=1.0 + 0.1 * g(c),
+                bias=0.1 * g(c), w1=g(c, 2 * c) / np.sqrt(c),
+                b1=0.1 * g(2 * c), w2=g(2 * c, c) / np.sqrt(2 * c),
+                b2=0.1 * g(c))
 
 
 ORDER = ("x", "scale", "bias", "w1", "b1", "w2", "b2")
@@ -63,9 +63,18 @@ ORDER = ("x", "scale", "bias", "w1", "b1", "w2", "b2")
 def test_premlp_reference_matches_jax():
     """M = 300 rows: not a multiple of the JAX row tile (the JAX wrapper
     pads, the port's kernel masks its ragged tile)."""
+    _premlp_vs_jax(C, seed=0)
+
+
+def test_premlp_reference_matches_jax_at_c256():
+    """The same at C = 256 (hidden 512), a width the kernels now take."""
+    _premlp_vs_jax(256, seed=2)
+
+
+def _premlp_vs_jax(c, seed):
     from gen_fvgn_tpu.ops.fused_mlp import fused_premlp_res_parts as jfn
     from gen_fvgn_tpu_torch.ops.fused_mlp import fused_premlp_res_parts as tfn
-    ops = _premlp_operands(0)
+    ops = _premlp_operands(seed, c=c)
     ref = np.asarray(jfn(*[jnp.asarray(ops[k]) for k in ORDER],
                          dtype=jnp.bfloat16), np.float32)
     got = tfn(*[torch.from_numpy(ops[k]) for k in ORDER],
@@ -109,20 +118,30 @@ def _premlp_branch_f32(x, gamma, beta, w1, b1, w2, b2):
 # ---------------------------------------------------------------- K6
 
 
-def _slice_operands(seed, n=256, batch=2, mask="partial", spread=1.0):
+def _slice_operands(seed, n=256, batch=2, mask="partial", spread=1.0,
+                    shape=(C, H, G)):
+    c, h, gs = shape
+    d = c // h
     rng = np.random.default_rng(seed)
     g = lambda *s: rng.normal(size=s).astype(np.float32)
-    x = g(batch, n, C)
+    x = g(batch, n, c)
     if mask == "partial":
         m = (rng.random((batch, n)) > 0.2).astype(np.float32)
     elif mask == "zero":
         m = np.zeros((batch, n), np.float32)
     else:
         m = np.ones((batch, n), np.float32)
-    return dict(x=x, mask=m, wfx=0.4 * g(C, C) / 4, bfx=0.1 * g(C),
-                wx=0.4 * g(C, C) / 4 * spread, bx=0.1 * g(C),
-                wsl=g(D, G) * spread, bsl=0.1 * g(G),
-                it=(1.0 + rng.random(H)).astype(np.float32))
+    s = np.sqrt(C / c)          # the default's scales at C = 128
+    return dict(x=x, mask=m, wfx=0.4 * s * g(c, c) / 4, bfx=0.1 * g(c),
+                wx=0.4 * s * g(c, c) / 4 * spread, bx=0.1 * g(c),
+                wsl=g(d, gs) * spread * np.sqrt(D / d), bsl=0.1 * g(gs),
+                it=(1.0 + rng.random(h)).astype(np.float32))
+
+
+def _shape_of(ops):
+    d, g = ops["wsl"].shape
+    c = ops["x"].shape[-1]
+    return c, c // d, g, d
 
 
 def _jax_slice_pool(ops):
@@ -130,29 +149,31 @@ def _jax_slice_pool(ops):
     per-lane bias and inverse-temperature rows); tok_full's per-head
     diagonal blocks as [B, H, G, D]."""
     from gen_fvgn_tpu.ops.fused_slice_attn import fused_slice_pool
-    wsl_bd = jnp.kron(jnp.eye(H), jnp.asarray(ops["wsl"]))
+    c, h, g, d = _shape_of(ops)
+    wsl_bd = jnp.kron(jnp.eye(h), jnp.asarray(ops["wsl"]))
     outs = [fused_slice_pool(
         jnp.asarray(ops["x"][i], jnp.bfloat16), jnp.asarray(ops["mask"][i]),
         jnp.asarray(ops["wfx"]), jnp.asarray(ops["bfx"]),
         jnp.asarray(ops["wx"]), jnp.asarray(ops["bx"]), wsl_bd,
-        jnp.tile(jnp.asarray(ops["bsl"]), H),
-        jnp.repeat(jnp.asarray(ops["it"]), G), heads=H, slice_num=G)
+        jnp.tile(jnp.asarray(ops["bsl"]), h),
+        jnp.repeat(jnp.asarray(ops["it"]), g), heads=h, slice_num=g)
         for i in range(ops["x"].shape[0])]
     w = np.stack([np.asarray(o[0], np.float32) for o in outs])
-    t4 = [np.asarray(o[1], np.float32).reshape(H, G, H, D) for o in outs]
-    tok = np.stack([t[np.arange(H), :, np.arange(H), :] for t in t4])
-    norm = np.stack([np.asarray(o[2], np.float32).reshape(H, G)
+    t4 = [np.asarray(o[1], np.float32).reshape(h, g, h, d) for o in outs]
+    tok = np.stack([t[np.arange(h), :, np.arange(h), :] for t in t4])
+    norm = np.stack([np.asarray(o[2], np.float32).reshape(h, g)
                      for o in outs])
     return w, tok, norm
 
 
 def _torch_slice_pool(ops, mask=None):
     from gen_fvgn_tpu_torch.ops.fused_slice_attn import fused_slice_pool
+    _, h, g, _ = _shape_of(ops)
     t = {k: torch.from_numpy(v) for k, v in ops.items()}
     w, tok, norm = fused_slice_pool(
         t["x"].to(torch.bfloat16), t["mask"] if mask is None else mask,
         t["wfx"], t["bfx"], t["wx"], t["bx"], t["wsl"], t["bsl"], t["it"],
-        heads=H, slice_num=G)
+        heads=h, slice_num=g)
     assert w.dtype == torch.bfloat16 and tok.dtype == norm.dtype == \
         torch.float32
     return w.float().numpy(), tok.numpy(), norm.numpy()
@@ -163,18 +184,29 @@ def _close_scaled(got, ref, rel):
     np.testing.assert_allclose(got, ref, rtol=0, atol=rel * scale)
 
 
-@pytest.mark.parametrize("mask,spread", [("partial", 1.0), ("zero", 1.0),
-                                         ("ones", 12.0)])
-def test_slice_pool_reference_matches_jax(mask, spread):
+# (C, H, G) beyond the default that the kernels take: wider C, fewer heads,
+# fewer and more slices
+_OTHER_SHAPES = [(256, 8, 32), (128, 4, 32), (128, 8, 16), (128, 8, 64)]
+
+
+@pytest.mark.parametrize("mask,spread,shape", [
+    pytest.param("partial", 1.0, (C, H, G), id="partial-1.0"),
+    pytest.param("zero", 1.0, (C, H, G), id="zero-1.0"),
+    pytest.param("ones", 12.0, (C, H, G), id="ones-12.0")] + [
+    pytest.param("partial", 1.0, s, id="partial-1.0-C{}-H{}-G{}".format(*s))
+    for s in _OTHER_SHAPES])
+def test_slice_pool_reference_matches_jax(mask, spread, shape):
     """Masks with zeros (and an all-zero mask), and logits spread over more
     than 88 within a head — where a mean shift overflowed exp() — so that
-    the exact-max shift is what keeps the weights finite."""
-    ops = _slice_operands(3, mask=mask, spread=spread)
+    the exact-max shift is what keeps the weights finite; and the other
+    shapes the kernels take."""
+    c, h, g = shape
+    ops = _slice_operands(3, mask=mask, spread=spread, shape=shape)
     jw, jtok, jnorm = _jax_slice_pool(ops)
     tw, ttok, tnorm = _torch_slice_pool(ops)
-    assert tw.shape == jw.shape == (2, 256, H * G)
-    assert ttok.shape == jtok.shape == (2, H, G, D)
-    assert tnorm.shape == jnorm.shape == (2, H, G)
+    assert tw.shape == jw.shape == (2, 256, h * g)
+    assert ttok.shape == jtok.shape == (2, h, g, c // h)
+    assert tnorm.shape == jnorm.shape == (2, h, g)
     if spread > 1.0:
         from gen_fvgn_tpu_torch.ops.fused_slice_attn import slice_logits
         t = {k: torch.from_numpy(v) for k, v in ops.items()}
@@ -192,6 +224,28 @@ def test_slice_pool_reference_matches_jax(mask, spread):
     else:
         _close_scaled(ttok, jtok, 1e-3)
         _close_scaled(tnorm, jnorm, 1e-3)
+
+
+def test_transolver_kernel_shape_predicates():
+    """The shapes the Transolver kernels take, decided the same on any
+    device: K5 at C 128 to 512 with the hidden width 2C; K6/K7 at the
+    default (128, 8, 32) and the listed others. Shapes the JAX package
+    fuses but no tile or variant fits are refused, each for a named limit:
+    C = 640 (a K5 or K6/K7 tile does not fit a block's shared memory), a
+    hidden width other than 2C, (512, 4, 128) (more than 64 pooled sums a
+    thread) and (128, 16, 8) (a thread's head columns not 8-48-64 wide)."""
+    from gen_fvgn_tpu_torch.ops import fused_mlp as fm
+    from gen_fvgn_tpu_torch.ops import fused_slice_attn as fsa
+    for c in (128, 256, 384, 512):
+        assert fm.premlp_shape_ok(c, 2 * c)
+    assert not fm.premlp_shape_ok(640, 1280)
+    assert not fm.premlp_shape_ok(128, 128)
+    for shape in [(C, H, G)] + _OTHER_SHAPES + [(512, 8, 32), (128, 2, 64),
+                                                 (256, 16, 32)]:
+        assert fsa.slice_pool_shape_ok(*shape), shape
+    for shape in [(640, 8, 32), (512, 4, 128), (128, 16, 8)]:
+        assert (shape[0] * shape[2]) % 128 == 0       # JAX fuses these
+        assert not fsa.slice_pool_shape_ok(*shape), shape
 
 
 def test_slice_pool_shared_mask_equals_per_lane_mask_and_counts_nothing():

@@ -53,11 +53,20 @@ def _setup(net, args):
     return jc, tc, js, ts, jd, td, tree, apply_fn
 
 
-@pytest.mark.parametrize("mxu", ["float32", "bfloat16"])
-@pytest.mark.parametrize("net", ["TransFVGN_v1", "TransFVGN_v2"])
-def test_transfvgn_matches_flax(net, mxu):
-    jc, tc, js, ts, _, _, tree, apply_fn = _setup(
-        net, F32 if mxu == "float32" else BF16)
+BF16_H256 = (6, 256, 1, "bfloat16", 2)
+
+
+@pytest.mark.parametrize("net,mxu,args", [
+    pytest.param(net, mxu, F32 if mxu == "float32" else BF16,
+                 id=f"{net}-{mxu}")
+    for net in ("TransFVGN_v1", "TransFVGN_v2")
+    for mxu in ("float32", "bfloat16")] + [
+    # hidden 256: the Transolver kernels' forms at C = 256 (K5 hidden 512,
+    # K6 8 heads of 32) on both sides
+    pytest.param("TransFVGN_v2", "bfloat16", BF16_H256,
+                 id="TransFVGN_v2-bfloat16-h256")])
+def test_transfvgn_matches_flax(net, mxu, args):
+    jc, tc, js, ts, _, _, tree, apply_fn = _setup(net, args)
     sim = torch_simulator(tc, tree)
     rng = np.random.default_rng(40)
     n, e = ts.pos.shape[0], ts.edge_pos_feat.shape[0]
