@@ -5,9 +5,13 @@
 
 Builds the port's CUDA kernels from `gen_fvgn_tpu_torch/csrc/` with nvcc,
 holds each kernel, forward and backward, against its plain PyTorch version
-on the card at the shapes of the main path (K2-K7 at hidden width 128 and
-again at 256; the paired sparse applies K8 and K9 at the paired path's),
-then drives six paths on the
+on the card at the shapes of the main path (K1 in each form a train step
+launches, `SPMM_FORMS`, the node aggregation's 64-column windows among
+them; K2-K7 at hidden width 128 and again at 256; the Transolver kernels
+K5-K7 also at the shapes the JAX package fuses beyond the nets', C 768
+and 1024, (C, H, G) = (128, 16, 8), (512, 4, 128), (384, 6, 64), at batch
+2; the paired sparse applies K8 and K9 at the paired path's), then drives
+six paths on the
 101x101-node synthetic cavity at batch 8, with weights from
 torch.Generator().manual_seed(0), all with the Config's defaults
 (TransFVGN_v2: hidden 128, 2 processors of 3 message-passing blocks and a
@@ -16,7 +20,8 @@ Transolver block each, 8 heads, 32 slices, bf16 stream) unless named:
   * the main path, training: 5 steps of `make_train_step_block` from
     `init_train_state_block`, batches from `EnvPool.block_batches` and
     `gather_block`, `payback_block` after the last; per step 48 spmm
-    (18 forward, 30 on the transposes in the backward), 14 + 14
+    (18 forward, 30 on the transposes in the backward; 24 of them the
+    composed node aggregation's 64-column windows), 14 + 14
     fused_mlp_ln forward and backward, 1 + 1 fused_mlp_noln, 2 + 2
     fused_premlp_res and 2 + 2 fused_slice_pool launches. Step 1's
     gradients with the kernels are held against those with the kernels'
@@ -49,9 +54,13 @@ Each path's launch counters are set to 0 just before it and read just
 after; the script checks them, finite outputs, zero padded nodes, a state
 or parameters that move, and step 1 of each rollout against the same step
 run with the kernels' plain versions on the card. The kernels line lists
-the K2-K7 times at hidden 256 (the same row counts) under "hidden_256", and
-for K5b and K7 the bytes their two passes move ("design_bytes") beside the
-bound of the function itself.
+K1's forms ("forms", each with its launches a train and a rollout step,
+and their sum "train_step_ms"; the entry's own times are nbr_r at full
+width, the form the node aggregation took before it used windows), the
+K2-K7 times at hidden 256 (the same row counts) under "hidden_256", K5-K7
+at the shapes above under "repaired_shapes", and for K5b and K7 the bytes
+their two passes move ("design_bytes") beside the bound of the function
+itself.
 
 Needs one CUDA card and nvcc; exits non-zero without them, and on any phase
 that fails. float32 products run in full float32: TF32 is switched off
@@ -59,7 +68,9 @@ here for matmuls and cuDNN.
 
 Timing: CUDA events around single launches after a warm-up, median of 20,
 with a 256 MB buffer rewritten between launches so that each launch finds
-the 50 MB L2 cold. A train step is timed on the host clock, ending in a
+the 50 MB L2 cold (the rewrite, ahead of the first event, also keeps the
+card busy while the host enqueues the launch, so the wrapper's host time
+stays out). A train step is timed on the host clock, ending in a
 synchronize.
 """
 
@@ -128,56 +139,119 @@ def bound(moved, tensor_flops, f32_flops=0.0):
                                        else "operations")
 
 
+# K1's forms in a TransFVGN_v2 train step (6 GnBlocks), as (name, operator,
+# operand columns, window start, output width, launches per train step,
+# launches per rollout step): the neighbour sum adj and its transpose, the
+# gathers' transposes (the EdgeBlock's backward), the composed node
+# aggregation's two 64-column windows (forward: N <- E, out [.., 64];
+# backward: E <- N into a half of one [.., E, 128] gradient), and, for
+# comparison with the parent, the full-width nbr_r/nbr_s applies and their
+# transposes it launched instead (none now)
+SPMM_FORMS = (
+    ("adj", "adj.fwd", 128, 0, 128, 6, 6),
+    ("adj^T", "adj.bwd", 128, 0, 128, 6, 0),
+    ("gather_s^T", "gather_s.bwd", 128, 0, 128, 6, 0),
+    ("gather_r^T", "gather_r.bwd", 128, 0, 128, 6, 0),
+    ("nbr_r[:64]", "nbr_r.fwd", 128, 0, 64, 6, 6),
+    ("nbr_s[64:]", "nbr_s.fwd", 128, 64, 64, 6, 6),
+    ("nbr_r^T->[:64]", "nbr_r.bwd", 64, 0, 128, 6, 0),
+    ("nbr_s^T->[64:]", "nbr_s.bwd", 64, 64, 128, 6, 0),
+    ("nbr_r", "nbr_r.fwd", 128, 0, 128, 0, 0),
+    ("nbr_s", "nbr_s.fwd", 128, 0, 128, 0, 0),
+    ("nbr_r^T", "nbr_r.bwd", 128, 0, 128, 0, 0),
+    ("nbr_s^T", "nbr_s.bwd", 128, 0, 128, 0, 0),
+)
+
+
+def spmm_form(static, form, gen, batch=BATCH):
+    """(operator, operand window, output window, its full output) of one of
+    SPMM_FORMS, operands bf16 from `gen`: a window form reads columns
+    c0 .. c0 + 64 of a 128-wide operand, or writes a 64-wide result into
+    columns c0 .. of a 128-wide output."""
+    _, path, width, c0, out_w, _, _ = form
+    name, direction = path.split(".")
+    op = getattr(getattr(static.ops, name), direction)
+    x = torch.randn(batch, op.n_in, width, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    f = min(width, out_w)
+    xw = x[..., c0:c0 + f] if width > f else x
+    full = torch.zeros(batch, op.n_out, out_w, device="cuda",
+                       dtype=torch.bfloat16)
+    ow = full[..., c0:c0 + f] if out_w > f else full
+    return op, xw, ow, full
+
+
 def check_spmm(static, flush_buf, gen):
-    """K1 on adj, nbr_r, nbr_s at [8, n_in, 128] bf16."""
+    """K1 in every form a train step launches (SPMM_FORMS) at [8, n, 128]
+    bf16: each against its plain version on the same window (one bf16
+    rounding, padded rows zero, the same bits twice), timed beside its
+    bound and the library call (torch.sparse.mm on the same operator, the
+    batch folded into the columns outside the timing)."""
     from gen_fvgn_tpu_torch.ops.spmm import spmm, spmm_reference
     rows = []
-    for name in ("adj", "nbr_r", "nbr_s"):
-        op = getattr(static.ops, name).fwd
-        x = torch.randn(BATCH, op.n_in, 128, generator=gen,
-                        device="cuda").to(torch.bfloat16)
-        out = spmm(op, x)
-        ref = spmm_reference(op, x)
+    for form in SPMM_FORMS:
+        name, _, width, c0, out_w, per_train, per_roll = form
+        op, xw, ow, full = spmm_form(static, form, gen)
+        f = xw.shape[-1]
+        spmm(op, xw, out=ow)
+        again = spmm(op, xw)
+        ref = spmm_reference(op, xw)
         torch.cuda.synchronize()
-        max_abs, max_rel = err_stats(out, ref)
+        if not torch.equal(ow, again):
+            raise RuntimeError(f"spmm[{name}]: two runs gave different bits")
+        if out_w > f and bool((torch.cat([full[..., :c0],
+                                          full[..., c0 + f:]], -1) != 0)
+                              .any()):
+            raise RuntimeError(f"spmm[{name}] wrote outside its window")
+        max_abs, max_rel = err_stats(ow, ref)
         # integer weights, float32 accumulation in another order: at most
         # one bf16 rounding of the output
         tol_rel = BF16_EPS
-        bad = ((out.float() - ref.float()).abs()
+        bad = ((ow.float() - ref.float()).abs()
                > tol_rel * ref.float().abs() + 1e-6)
-        if bool(bad.any()) or out.dtype != torch.bfloat16:
+        if bool(bad.any()) or ow.dtype != torch.bfloat16:
             raise RuntimeError(f"spmm[{name}] disagrees with spmm_reference: "
                                f"max abs {max_abs}, max rel {max_rel}")
         n_real = int((op.crow[1:] > op.crow[:-1]).nonzero().max()) + 1
-        if bool((out[:, n_real:] != 0).any()):
+        if bool((ow[:, n_real:] != 0).any()):
             raise RuntimeError(f"spmm[{name}]: padded rows are not zero")
-        # the library call: torch.sparse CSR @ dense on the same values, the
-        # batch folded into the columns ([n_in, B*128]) outside the timing
         a16 = torch.sparse_csr_tensor(op.crow, op.col,
                                       op.val.to(torch.bfloat16),
                                       size=(op.n_out, op.n_in))
-        xf = x.permute(1, 0, 2).reshape(op.n_in, BATCH * 128).contiguous()
-        lib = torch.sparse.mm(a16, xf).reshape(op.n_out, BATCH, 128)
+        xf = xw.permute(1, 0, 2).reshape(op.n_in, BATCH * f).contiguous()
+        lib = torch.sparse.mm(a16, xf).reshape(op.n_out, BATCH, f)
         lib_abs, _ = err_stats(lib.permute(1, 0, 2), ref)
-        ms = median_ms(lambda: spmm(op, x), flush_buf)
-        plain_ms = median_ms(lambda: spmm_reference(op, x), flush_buf)
+        ms = median_ms(lambda: spmm(op, xw, out=ow), flush_buf)
+        plain_ms = median_ms(lambda: spmm_reference(op, xw), flush_buf)
         library_ms = median_ms(lambda: torch.sparse.mm(a16, xf), flush_buf)
         used_rows = int(torch.unique(op.col).numel())
-        moved = (BATCH * used_rows * 128 * 2 + nbytes(out)
+        moved = (BATCH * used_rows * f * 2 + nbytes(ow)
                  + nbytes(op.crow, op.col, op.val))
         # float32 accumulation of the products: CUDA cores
         bound_ms, bound_by = bound(moved, 0.0,
-                                   f32_flops=2.0 * op.nnz * BATCH * 128)
+                                   f32_flops=2.0 * op.nnz * BATCH * f)
         rows.append(dict(op=name, nnz=op.nnz, n_out=op.n_out, n_in=op.n_in,
-                         max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
-                         plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bound_ms, bound_by=bound_by))
-        log(f"kernel spmm[{name}] [{BATCH},{op.n_in},128]->[{BATCH},"
-            f"{op.n_out},128] bf16 nnz={op.nnz}: max_abs_err={max_abs:.3g} "
+                         f=f, max_abs_err=max_abs, max_rel_err=max_rel,
+                         ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         launches_per_train_step=per_train,
+                         launches_per_rollout_step=per_roll))
+        log(f"kernel spmm[{name}] [{BATCH},{op.n_in},{width}]"
+            f"{f'[..,{c0}:{c0 + f}]' if width > f else ''}->[{BATCH},"
+            f"{op.n_out},{out_w}]{f'[..,{c0}:{c0 + f}]' if out_w > f else ''}"
+            f" bf16 nnz={op.nnz}: max_abs_err={max_abs:.3g} "
             f"max_rel_err={max_rel:.3g} (tolerance {tol_rel:.3g} relative; "
-            f"library vs plain max_abs {lib_abs:.3g}) ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-            f"bound_ms={rows[-1]['bound_ms']:.4f}")
+            f"library vs plain max_abs {lib_abs:.3g}); two runs bitwise "
+            f"equal; ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
+            f"({bound_by}); launches a train step {per_train}, a rollout "
+            f"step {per_roll}")
+    step = sum(r["ms"] * r["launches_per_train_step"] for r in rows)
+    step_bound = sum(r["bound_ms"] * r["launches_per_train_step"]
+                     for r in rows)
+    log(f"  spmm in a train step: {step:.4f} ms in "
+        f"{sum(r['launches_per_train_step'] for r in rows)} launches "
+        f"(bound {step_bound:.4f} ms)")
     return rows
 
 
@@ -392,12 +466,13 @@ def check_fused_noln(n_pad, flush_buf, gen, h=128):
     return row
 
 
-def check_premlp(n_pad, flush_buf, gen, c=128):
-    """K5f at the Transolver block's shape: x [8*N, c] bf16, hidden 2c."""
+def check_premlp(n_pad, flush_buf, gen, c=128, batch=BATCH):
+    """K5f at the Transolver block's shape: x [batch*N, c] bf16, hidden
+    2c."""
     from gen_fvgn_tpu_torch.ops.fused_mlp import (fused_premlp_res,
                                                   fused_premlp_res_reference)
     bf = torch.bfloat16
-    m, hd = BATCH * n_pad, 2 * c
+    m, hd = batch * n_pad, 2 * c
     g = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     x = (2.0 * g(m, c) + 0.5).to(bf)
     args = (x, 1.0 + 0.1 * g(c), 0.1 * g(c),
@@ -428,8 +503,9 @@ def check_premlp(n_pad, flush_buf, gen, c=128):
     return row
 
 
-def check_slice_pool(static, flush_buf, gen, c=128, heads=8, slices=32):
-    """K6 at the attention's shape: x [8, N, c] bf16, the static node
+def check_slice_pool(static, flush_buf, gen, c=128, heads=8, slices=32,
+                     batch=BATCH):
+    """K6 at the attention's shape: x [batch, N, c] bf16, the static node
     mask, `heads` heads of c / heads, `slices` slices, temperature 0.5."""
     from gen_fvgn_tpu_torch.ops.fused_slice_attn import (
         fused_slice_pool_kernel, fused_slice_pool_reference, slice_logits,
@@ -438,7 +514,7 @@ def check_slice_pool(static, flush_buf, gen, c=128, heads=8, slices=32):
     n = static.pos.shape[0]
     d, hg = c // heads, heads * slices
     g = lambda *s: torch.randn(*s, generator=gen, device="cuda")
-    x = g(BATCH, n, c).to(bf)
+    x = g(batch, n, c).to(bf)
     mask = static.node_mask.to(torch.float32)
     args = (x, mask, (g(c, c) / c ** 0.5).to(bf), 0.1 * g(c),
             (g(c, c) / c ** 0.5).to(bf), 0.1 * g(c),
@@ -475,7 +551,7 @@ def check_slice_pool(static, flush_buf, gen, c=128, heads=8, slices=32):
     ms = median_ms(lambda: fused_slice_pool_kernel(*args), flush_buf)
     plain_ms = median_ms(lambda: fused_slice_pool_reference(*args),
                          flush_buf, iters=5, warmup=1)
-    rows = BATCH * n
+    rows = batch * n
     moved = nbytes(x, mask, *outs, args[2], args[4], args[6]) \
         + 4 * (2 * c + slices + heads)
     # the projections and the logits take bf16 operands (tensor cores); the
@@ -486,9 +562,9 @@ def check_slice_pool(static, flush_buf, gen, c=128, heads=8, slices=32):
     row = dict(c=c, heads=heads, slices=slices, m=rows, max_abs_err=max(errs),
                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by)
-    log(f"kernel fused_slice_pool x [{BATCH},{n},{c}] bf16, {heads} heads, "
-        f"{slices} slices -> slice_w [{BATCH},{n},{hg}] bf16, tokens "
-        f"[{BATCH},{heads},{slices},{d}], norm [{BATCH},{heads},{slices}]: "
+    log(f"kernel fused_slice_pool x [{batch},{n},{c}] bf16, {heads} heads, "
+        f"{slices} slices -> slice_w [{batch},{n},{hg}] bf16, tokens "
+        f"[{batch},{heads},{slices},{d}], norm [{batch},{heads},{slices}]: "
         f"max_abs_err slice_w={errs[0]:.3g} tokens={errs[1]:.3g} "
         f"norm={errs[2]:.3g} (tolerance {tols[0]:.3g} for a flipped logit "
         f"rounding at max|logit| {l_max:.3g}, {tols[1]:.3g} and "
@@ -610,77 +686,107 @@ def check_mlp_backward(n_pad, e_pad, flush_buf, gen, h=128):
 
 
 def check_backward(n_pad, static, flush_buf, gen, c=128, heads=8,
-                   slices=32):
-    """K5b at the Transolver MLP's shape (x [8*N, c], hidden 2c) and K7 at
-    the attention's (x [8, N, c], `heads` heads, `slices` slices), each
-    against its plain version; rows batch-major, 8 lanes. Beside each
-    bound (the function's own bytes and operations) the bytes the kernel's
-    two passes move: the row pass's reads and writes, its bf16 rows read
-    again by the weight-gradient pass once per output tile they feed."""
+                   slices=32, batch=BATCH, premlp=True, pool=True):
+    """K5b at the Transolver MLP's shape (x [batch*N, c], hidden 2c) and K7
+    at the attention's (x [batch, N, c], `heads` heads, `slices` slices),
+    each against its plain version; rows batch-major, `batch` lanes.
+    Beside each bound (the function's own bytes and operations) the bytes
+    the kernel's two passes move: the row pass's reads and writes, its bf16
+    rows read again by the weight-gradient pass once per output tile they
+    feed. `premlp` / `pool` leave out K5b / K7."""
     from gen_fvgn_tpu_torch.ops import fused_mlp as fm
     from gen_fvgn_tpu_torch.ops import fused_slice_attn as fsa
     bf = torch.bfloat16
     g = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     rows = {}
     hd, sq = 2 * c, c * c
-    m = BATCH * n_pad
+    m = batch * n_pad
     tiles = lambda k: -(-k // 128)
 
-    # K5b: the Transolver MLP, [8 * padded nodes, c], hidden 2c
-    x = (2.0 * g(m, c) + 0.5).to(bf)
-    dout = g(m, c).to(bf)
-    args = (x, 1.0 + 0.1 * g(c), 0.1 * g(c), (g(c, hd) / c ** 0.5).to(bf),
-            0.1 * g(hd), (g(hd, c) / hd ** 0.5).to(bf), 0.1 * g(c), dout,
-            BATCH)
-    out, row = hold_backward(
-        f"fused_premlp_res_bwd C={c}", lambda: fm.fused_premlp_res_bwd(*args),
-        lambda: fm.fused_premlp_res_bwd_reference(*args), flush_buf,
-        ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"))
-    moved = nbytes(x, dout, out[0], args[3], args[5], out[3], out[5]) \
-        + 4 * 2 * (4 * c + hd)
-    # the rows pass 1 writes (u16 [M, c], h16 and dh1pre16 [M, 2c]) and
-    # pass 2 reads: dW1 = u16^T dh1pre16, dW2 = h16^T dout
-    design = moved + 2 * m * (c + 2 * hd) + 2 * m * (
-        c * tiles(hd) + hd * tiles(c) + hd * tiles(c) + c * tiles(hd))
-    # remat: u W1 (the branch's output h W2 is not needed); backward: dW2,
-    # g W2^T, dW1, dh W1^T; each [M, c] x [c, 2c] or its transpose
-    rows["fused_premlp_res_bwd"] = dict(with_bound(
-        row, m, moved, 2.0 * m * 5 * c * hd), design_bytes=design,
-        design_ms=1e3 * design / HBM_BYTES_PER_S)
+    if premlp:
+        # K5b: the Transolver MLP, [batch * padded nodes, c], hidden 2c
+        x = (2.0 * g(m, c) + 0.5).to(bf)
+        dout = g(m, c).to(bf)
+        args = (x, 1.0 + 0.1 * g(c), 0.1 * g(c),
+                (g(c, hd) / c ** 0.5).to(bf), 0.1 * g(hd),
+                (g(hd, c) / hd ** 0.5).to(bf), 0.1 * g(c), dout, batch)
+        out, row = hold_backward(
+            f"fused_premlp_res_bwd C={c}",
+            lambda: fm.fused_premlp_res_bwd(*args),
+            lambda: fm.fused_premlp_res_bwd_reference(*args), flush_buf,
+            ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"))
+        moved = nbytes(x, dout, out[0], args[3], args[5], out[3], out[5]) \
+            + 4 * 2 * (4 * c + hd)
+        # the rows pass 1 writes (u16 [M, c], h16 and dh1pre16 [M, 2c]) and
+        # pass 2 reads: dW1 = u16^T dh1pre16, dW2 = h16^T dout
+        design = moved + 2 * m * (c + 2 * hd) + 2 * m * (
+            c * tiles(hd) + hd * tiles(c) + hd * tiles(c) + c * tiles(hd))
+        # remat: u W1 (the branch's output h W2 is not needed); backward:
+        # dW2, g W2^T, dW1, dh W1^T; each [M, c] x [c, 2c] or its transpose
+        rows["fused_premlp_res_bwd"] = dict(with_bound(
+            row, m, moved, 2.0 * m * 5 * c * hd), design_bytes=design,
+            design_ms=1e3 * design / HBM_BYTES_PER_S)
 
-    # K7: the slice pooling's backward, x [8, N, c], the static mask
-    n = static.pos.shape[0]
-    d, hg = c // heads, heads * slices
-    x = g(BATCH, n, c).to(bf)
-    mask = static.node_mask.to(torch.float32)
-    cots = (g(BATCH, n, hg).to(bf), g(BATCH, heads, slices, d),
-            g(BATCH, heads, slices))
-    args = (x, mask, (g(c, c) / c ** 0.5).to(bf), 0.1 * g(c),
-            (g(c, c) / c ** 0.5).to(bf), 0.1 * g(c),
-            (g(d, slices) / d ** 0.5).to(bf), 0.1 * g(slices),
-            torch.full((heads,), 2.0, device="cuda"), *cots)
-    out, row = hold_backward(
-        f"fused_slice_pool_bwd C={c} H={heads} G={slices}",
-        lambda: fsa.fused_slice_pool_bwd_kernel(*args),
-        lambda: fsa.fused_slice_pool_bwd_reference(*args), flush_buf)
-    r = BATCH * n
-    moved = nbytes(x, mask, *cots, out.dx, args[2], args[4], args[6],
-                   out.dwfx, out.dwx, out.dwsl_heads) \
-        + 4 * (4 * c + 2 * slices + 2 * heads)
-    # pass 1 writes dfx16, dxm16 [r, c]; pass 2 reads them and x per tile
-    design = moved + 2 * r * 2 * c + 2 * r * 2 * (c + c) * tiles(c)
-    # tensor cores: remat fx, xm, the logits; backward dxm, dWsl, dWfx,
-    # dWx and dx (two products); float32: dw_m and dfx against dtokens
-    rows["fused_slice_pool_bwd"] = dict(with_bound(
-        row, r, moved, 2.0 * r * (6 * sq + 3 * c * slices),
-        f32_flops=2.0 * 2 * r * c * slices), design_bytes=design,
-        design_ms=1e3 * design / HBM_BYTES_PER_S)
+    if pool:
+        # K7: the slice pooling's backward, x [batch, N, c], the static mask
+        n = static.pos.shape[0]
+        d, hg = c // heads, heads * slices
+        x = g(batch, n, c).to(bf)
+        mask = static.node_mask.to(torch.float32)
+        cots = (g(batch, n, hg).to(bf), g(batch, heads, slices, d),
+                g(batch, heads, slices))
+        args = (x, mask, (g(c, c) / c ** 0.5).to(bf), 0.1 * g(c),
+                (g(c, c) / c ** 0.5).to(bf), 0.1 * g(c),
+                (g(d, slices) / d ** 0.5).to(bf), 0.1 * g(slices),
+                torch.full((heads,), 2.0, device="cuda"), *cots)
+        out, row = hold_backward(
+            f"fused_slice_pool_bwd C={c} H={heads} G={slices}",
+            lambda: fsa.fused_slice_pool_bwd_kernel(*args),
+            lambda: fsa.fused_slice_pool_bwd_reference(*args), flush_buf)
+        r = batch * n
+        moved = nbytes(x, mask, *cots, out.dx, args[2], args[4], args[6],
+                       out.dwfx, out.dwx, out.dwsl_heads) \
+            + 4 * (4 * c + 2 * slices + 2 * heads)
+        # pass 1 writes dfx16, dxm16 [r, c]; pass 2 reads them and x per
+        # tile
+        design = moved + 2 * r * 2 * c + 2 * r * 2 * (c + c) * tiles(c)
+        # tensor cores: remat fx, xm, the logits; backward dxm, dWsl, dWfx,
+        # dWx and dx (two products); float32: dw_m and dfx against dtokens
+        rows["fused_slice_pool_bwd"] = dict(with_bound(
+            row, r, moved, 2.0 * r * (6 * sq + 3 * c * slices),
+            f32_flops=2.0 * 2 * r * c * slices), design_bytes=design,
+            design_ms=1e3 * design / HBM_BYTES_PER_S)
     for name, row in rows.items():
         log(f"  {name} C={c}: M={row['m']} bound_ms={row['bound_ms']:.4f} "
             f"({row['bound_by']}); the two passes move "
             f"{row['design_bytes'] / 1e6:.1f} MB, {row['design_ms']:.4f} ms "
             f"at the memory rate")
     return rows
+
+
+def check_repaired_shapes(n_pad, static, flush_buf, gen):
+    """The shapes the Transolver kernels took from this slice on, at batch
+    2 on the main path's rows (right, not fast): K5f/K5b at C 768 and 1024
+    (hidden 2C; the backward in hidden chunks), K6/K7 at (C, H, G) =
+    (128, 16, 8), (512, 4, 128) and (384, 6, 64) (their run-time paths),
+    each held against its plain version as the main shapes are. Returns
+    {kernel: {shape: row}}."""
+    out = {k: {} for k in ("fused_premlp_res", "fused_premlp_res_bwd",
+                           "fused_slice_pool", "fused_slice_pool_bwd")}
+    for c in (768, 1024):
+        out["fused_premlp_res"][f"C{c}"] = check_premlp(
+            n_pad, flush_buf, gen, c, batch=2)
+        out["fused_premlp_res_bwd"][f"C{c}"] = check_backward(
+            n_pad, static, flush_buf, gen, c, batch=2,
+            pool=False)["fused_premlp_res_bwd"]
+    for c, h, gs in ((128, 16, 8), (512, 4, 128), (384, 6, 64)):
+        key = f"C{c}-H{h}-G{gs}"
+        out["fused_slice_pool"][key] = check_slice_pool(
+            static, flush_buf, gen, c, h, gs, batch=2)
+        out["fused_slice_pool_bwd"][key] = check_backward(
+            n_pad, static, flush_buf, gen, c, h, gs, batch=2,
+            premlp=False)["fused_slice_pool_bwd"]
+    return out
 
 
 def launch_counts():
@@ -1070,6 +1176,9 @@ def main():
     premlp256 = check_premlp(n_pad, flush_buf, gen256, 256)
     pool256 = check_slice_pool(static, flush_buf, gen256, 256)
     bwd256 = check_backward(n_pad, static, flush_buf, gen256, 256)
+    # the shapes repaired in this slice (their own generator)
+    repaired = check_repaired_shapes(
+        n_pad, static, flush_buf, torch.Generator(device="cuda").manual_seed(9))
     del flush_buf
 
     # ---- phase 4: the TransFVGN_v2 rollout ----
@@ -1172,7 +1281,7 @@ def main():
               bwd_rows["fused_premlp_res_bwd"], "transolver_mlp"),
         entry("fused_slice_pool", "fused_slice_pool.cu",
               "fused_slice_attn.py:274", pool_row, "physics_attention"),
-        entry("fused_slice_pool_bwd", "fused_slice_pool.cu",
+        entry("fused_slice_pool_bwd", "fused_slice_pool_bwd.cu",
               "fused_slice_attn.py:297", bwd_rows["fused_slice_pool_bwd"],
               "physics_attention"),
         entry("pair_sum", "pair_spmm.cu", "pallas_spmm.py:484",
@@ -1184,6 +1293,14 @@ def main():
     ]
     kernels[-2]["node_pair"] = {k: npair[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    # K1 in every form a train step launches (the "ms" above: nbr_r at
+    # full width, the parent's form, for comparison), and their sum
+    kernels[0]["forms"] = [{k: r[k] for k in (
+        "op", "f", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err", "launches_per_train_step",
+        "launches_per_rollout_step")} for r in spmm_rows]
+    kernels[0]["train_step_ms"] = sum(
+        r["ms"] * r["launches_per_train_step"] for r in spmm_rows)
     # the same four kernels at hidden width 256 (same forms and method)
     wide = dict(fused_mlp_ln=edge[256], fused_mlp_noln=noln_row[256],
                 **{k: mlp_bwd_rows[256][k]
@@ -1197,6 +1314,11 @@ def main():
         if k["name"] in wide:
             k["hidden_256"] = {f: wide[k["name"]][f] for f in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+    for k in kernels:
+        if k["name"] in repaired:
+            k["repaired_shapes"] = {sh: {f: r[f] for f in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+                for sh, r in repaired[k["name"]].items()}
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
         raise RuntimeError(f"the path that should run them launched no "

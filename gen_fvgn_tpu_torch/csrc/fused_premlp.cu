@@ -1,6 +1,6 @@
 // K5f and K5b: the Transolver block's pre-LN MLP branch with its residual,
-// forward and backward, for sm_90a, at any width C % 128 == 0 up to 512 with
-// the hidden width 2C (mlp_ratio 2):
+// forward and backward, for sm_90a, at any width C % 128 == 0 up to 1024
+// with the hidden width 2C (mlp_ratio 2):
 //
 //   u   = bf16(LN(x) * gamma + beta)
 //   h   = bf16(gelu(u * W1 + b1))                    W1 [C, 2C]
@@ -229,11 +229,15 @@ __global__ void __launch_bounds__(THREADS, 1) premlp_kernel(Params p) {
 
 // ============== K5f (C >= 256) and K5b (every C): block row tiles ===========
 //
-// Any C % 128 == 0 up to 512 with the hidden width 2C, the tile's rows
+// Any C % 128 == 0 up to 1024 with the hidden width 2C, the tile's rows
 // shared by the block's 8 warps (mma_sm90.cuh: Blk, block_product). Weights
 // resident in shared memory where they fit (C = 128: 32-row tiles),
 // otherwise streamed through the ring (the largest of 64, 32, 16 rows that
-// fits). The tile's rows of x and, in the backward, of dout come in by
+// fits). Above C = 512 the backward's tile no longer holds the whole hidden
+// row: it takes the hidden width in chunks of one pass (512 columns, 16-row
+// tiles), adds each chunk's dh1pre16 W1^T into float32 du accumulators kept
+// in registers, and stages du where the ring was once the chunks are done;
+// the rounding points do not move. The tile's rows of x and, in the backward, of dout come in by
 // cp.async, the next tile's while this one computes where there is room for
 // two buffers (tile_plan).
 //
@@ -296,24 +300,32 @@ struct TileParams {
     TilePlan L;           // the tile and its shared-memory layout
 };
 
+// the backward above C = 512 takes the hidden width in chunks of a pass
+// (CHUNK_MIN_C): 16-row tiles, streamed weights, the float32 du accumulated
+// in registers over the chunks and staged where the ring was
+constexpr int CHUNK_MIN_C = 640;
+
 // shared-memory layout of a tile of tm rows; returns the total bytes
 size_t tile_layout(int c, int tm, int resident, int nbuf, bool bwd,
                    TilePlan& L) {
     const int hd = 2 * c, wr = tm / 16, pw = (8 / wr) * 64;
+    const bool chunk = bwd && c >= CHUNK_MIN_C;
     size_t o = 0;
     L.o_w = (int)o;
-    o += align128(resident ? ((size_t)c * (hd + 8) + (size_t)hd * (c + 8)) * 2
-                           : (size_t)2 * ring_slot(pw) * 2);
+    size_t w = resident ? ((size_t)c * (hd + 8) + (size_t)hd * (c + 8)) * 2
+                        : (size_t)2 * ring_slot(pw) * 2;
+    if (chunk && w < (size_t)tm * (c + 4) * 4) w = (size_t)tm * (c + 4) * 4;
+    o += align128(w);
     L.o_x = (int)o;
     o += align128((size_t)nbuf * tm * (c + 8) * 2);
     L.o_u = (int)o;
     o += align128((size_t)tm * (c + 8) * 2);
     L.o_h = (int)o;
-    o += align128((size_t)tm * (hd + 8) * 2);
+    o += align128((size_t)tm * ((chunk ? pw : hd) + 8) * 2);
     L.o_g = (int)o;
     o += align128(bwd ? (size_t)nbuf * tm * (c + 8) * 2 : 0);
-    L.o_du = (int)o;
-    o += align128(bwd ? (size_t)tm * (c + 4) * 4 : 0);
+    L.o_du = chunk ? L.o_w : (int)o;
+    o += align128(bwd && !chunk ? (size_t)tm * (c + 4) * 4 : 0);
     L.o_stat = (int)o;
     o += align128(bwd ? (size_t)tm * 2 * 4 : 0);
     L.o_red = (int)o;
@@ -328,6 +340,7 @@ size_t tile_layout(int c, int tm, int resident, int nbuf, bool bwd,
 template <int CPL, bool BWD>
 __global__ void __launch_bounds__(BK_THREADS, 1) premlp_tiles(TileParams p) {
     constexpr int CC = 128 * CPL, HDD = 2 * CC;
+    constexpr bool CHUNK = BWD && CC >= CHUNK_MIN_C;
     constexpr int LDC_ = CC + 8, LDH_ = HDD + 8, LDU_ = CC + 4;
     extern __shared__ __align__(128) unsigned char smem[];
     const bool res = p.L.resident != 0;
@@ -483,9 +496,18 @@ __global__ void __launch_bounds__(BK_THREADS, 1) premlp_tiles(TileParams p) {
         }
 
         // ---- per pass of hidden columns: h16 and gelu'(h1pre), then
-        //      dh1pre = (g16 W2^T) gelu' for the same columns ----
+        //      dh1pre = (g16 W2^T) gelu' for the same columns; above C =
+        //      512 also du += dh1pre16 W1^T of those columns (CHUNK: sH
+        //      holds one pass, du two passes of accumulators) ----
         float gk[8][4];
+        float adu[CHUNK ? 2 : 1][8][4];
+        if (CHUNK) {
+            zero_acc(adu[0]);
+            zero_acc(adu[CHUNK ? 1 : 0]);
+        }
+        const int ldh = CHUNK ? b.pw + 8 : LDH_;
         for (int n0 = 0; n0 < HDD; n0 += b.pw) {
+            const int h0 = CHUNK ? n0 : 0;      // first hidden column of sH
             const int nv = block_product<false>(b, acc, sU, LDC_, CC, W1, n0,
                                                 HDD);
 #pragma unroll
@@ -520,13 +542,24 @@ __global__ void __launch_bounds__(BK_THREADS, 1) premlp_tiles(TileParams p) {
                         ps[0] += d0;
                         ps[1] += d1;
                         const uint32_t dv = pack_bf16(d0, d1);
-                        *reinterpret_cast<uint32_t*>(sH + row * LDH_ + col) = dv;
+                        *reinterpret_cast<uint32_t*>(sH + row * ldh + col - h0) =
+                            dv;
                         if (row < nrow)
                             *reinterpret_cast<uint32_t*>(
                                 p.dhs + (size_t)(r0 + row) * HDD + col) = dv;
                     }
                     col_sum_store(ps[0], ps[1], b.g, sRed + b.wrow * HDD + col);
                 }
+            }
+            if (CHUNK) {
+                // W1 [C][2C] read as [n][k] from hidden column n0 on
+                const WSrc W1c{p.w1 + n0, HDD, nullptr, 0};
+                const int kc = min(b.pw, HDD - n0);
+#pragma unroll
+                for (int q = 0; q < (CHUNK ? 2 : 1); ++q)
+                    if (q * b.pw < CC)
+                        block_product<true>(b, adu[q], sH, ldh, kc, W1c,
+                                            q * b.pw, CC, true);
             }
         }
         __syncthreads();
@@ -538,8 +571,18 @@ __global__ void __launch_bounds__(BK_THREADS, 1) premlp_tiles(TileParams p) {
         }
         // ---- du = dh1pre16 W1^T ----
         for (int n0 = 0; n0 < CC; n0 += b.pw) {
-            const int nv = block_product<true>(b, acc, sH, LDH_, HDD, W1, n0,
-                                               CC);
+            const int nv = CHUNK ? max(0, min(8, (CC - n0 - b.wcol * 64) / 8))
+                                 : block_product<true>(b, acc, sH, LDH_, HDD,
+                                                       W1, n0, CC);
+            if (CHUNK) {
+                const bool first = n0 == 0;
+#pragma unroll
+                for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        acc[nt][e] = first ? adu[0][nt][e]
+                                           : adu[CHUNK ? 1 : 0][nt][e];
+            }
 #pragma unroll
             for (int nt = 0; nt < 8; ++nt) {
                 if (nt < nv) {
@@ -623,7 +666,7 @@ __global__ void __launch_bounds__(BK_THREADS, 1) premlp_tiles(TileParams p) {
     }
 }
 
-constexpr int MAX_CPL = 4;              // C up to 512
+constexpr int MAX_CPL = 8;              // C up to 1024
 
 // the tile plan of the block kernels for width c, or cudaErrorInvalidValue:
 // weights resident before streamed, larger tiles first, two row buffers
@@ -637,6 +680,8 @@ int tile_plan(int c, int m, bool bwd, TilePlan& P) {
     for (int res = 1; res >= 0; --res)
         for (int tm = 64; tm >= 16; tm >>= 1)
             for (int nbuf = 2; nbuf >= 1; --nbuf) {
+                // the chunked backward keeps two passes of du: 16-row tiles
+                if (bwd && c >= CHUNK_MIN_C && (tm != 16 || res)) continue;
                 const size_t total = tile_layout(c, tm, res, nbuf, bwd, P);
                 if (total <= (size_t)max_smem) {
                     P.tm = tm;
@@ -696,6 +741,10 @@ int launch_tiles_c(int c, const TilePlan& P, TileParams& p, cudaStream_t st) {
         case 2: return launch_tiles<2, BWD>(P, p, st);
         case 3: return launch_tiles<3, BWD>(P, p, st);
         case 4: return launch_tiles<4, BWD>(P, p, st);
+        case 5: return launch_tiles<5, BWD>(P, p, st);
+        case 6: return launch_tiles<6, BWD>(P, p, st);
+        case 7: return launch_tiles<7, BWD>(P, p, st);
+        case 8: return launch_tiles<8, BWD>(P, p, st);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -704,7 +753,7 @@ int launch_tiles_c(int c, const TilePlan& P, TileParams& p, cudaStream_t st) {
 
 // Bytes of workspace K5f (backward = 0) or K5b needs for x [M, C], hidden
 // width 2C, M rows in `lanes` equal batch lanes; -1 where no kernel takes
-// the shape (C not a multiple of 128, C above 512, or no tile that fits a
+// the shape (C not a multiple of 128, C above 1024, or no tile that fits a
 // block's shared memory).
 extern "C" long long gfvgn_premlp_workspace(int c, int m, int lanes,
                                             int backward) {

@@ -9,84 +9,77 @@
 //   tokens[h,g,:]    += w[n,h,g] * mask[n] * fx[n, hD:(h+1)D]  float32
 //   norm[h,g]        += w[n,h,g] * mask[n]                     float32
 //
-// with C = 128, H = 8 heads, D = 16, G = 32 slices and the [D, G] slice
-// kernel shared by the heads.
+// with H heads of D = C / H and the [D, G] slice kernel shared by the heads.
 //
 // Replaces the Pallas TPU kernel _make_fwd_kernel of
 // gen_fvgn_tpu/ops/fused_slice_attn.py (core _slice_core :117-140, kernel
 // :143-167, called at :274). The TPU kernel takes the slice kernel as a
 // block-diagonal [C, H*G] embed and pools the FULL cross-head [H*G, C]
 // product, whose off-diagonal blocks are thrown away outside; this kernel
-// computes only the per-head diagonal blocks [H, G, D] (8x less pooling
-// work) and takes the shared [D, G] kernel itself.
+// computes only the per-head diagonal blocks [H, G, D] and takes the shared
+// [D, G] kernel itself.
 //
-// What bounds it on the H100: bytes. A node costs 2*(2*128*128 + 8*16*32 +
-// 8*32*16) = 82 k FLOP against 256 bytes of x read and 512 bytes of slice
-// weights written (plus 4 of mask), ~107 FLOP/byte, under the ~295 FLOP/byte
-// bf16 ridge.
+// What bounds it on the H100: bytes. A node costs 2*(2*C*C + C*G) FLOP on
+// the tensor cores and 2*C*G in float32 against 2C bytes of x read and 2HG
+// bytes of slice weights written (at C = 128: 82 k FLOP against 772 bytes,
+// ~107 FLOP/byte, under the ~295 FLOP/byte bf16 ridge).
 //
-// Design. The TPU carries the token and norm sums in scratch across a
-// sequential grid; on the H100 the row tiles run in parallel, so the rows of
-// each batch lane are cut into chunks, one block per (chunk, batch lane), and
-// each block writes its partial sums; a second kernel of this file sums the
-// partials over chunks in a fixed order, so two runs give the same bits (no
-// atomics). Inside a block: Wfx and Wx are staged in shared memory as bf16
-// once; per 64-row tile the two projections run on the tensor cores (wmma,
-// float32 accumulators staged through shared memory for the bias and the
-// bf16 rounding). Then warp h owns head h and lane g owns slice g (G = 32 is
-// one warp): the lane computes its logit from the tile's xm (a broadcast
-// read) and its column of the slice kernel (registers), the softmax takes the
-// EXACT max and the sum over G by warp shuffles (a mean shift overflowed
-// exp() at within-head logit spreads > ~88 on the TPU), and the lane carries
-// tokens[h, g, 0:D] and norm[h, g] in registers across all rows of its
-// chunk. Four rows are processed together so that their shuffle chains
-// overlap. Shared memory: 152 KB, one block per SM.
+// Design of the row kernel (pool_fwd_rows<D>, the nets' shapes: 8 heads of
+// D = 16, 32 or 64, 32 slices). The TPU carries the token and norm sums in
+// scratch across a sequential grid; on the H100 the rows of each batch lane
+// are cut into chunks, one block per (chunk, batch lane), the grid one wave
+// of two blocks an SM (16 warps) where their shared memory fits; each block
+// writes its partial sums and chunk_reduce sums them over chunks in a fixed
+// order, so two runs give the same bits (no atomics). Inside a block:
+//   * x and the mask come in by cp.async, the next tile's while this one
+//     computes (two buffers);
+//   * the projections run on the tensor cores as block products of the
+//     tile (mma_sm90.cuh), Wfx | Wx staged once per block as one [C][2C]
+//     matrix where it fits (C = 128: all 8 warps in one pass), otherwise
+//     streamed through the ring; the float32 accumulators take their bias
+//     and bf16 rounding in registers and land in shared memory as bf16 fx
+//     and xm (no float32 staging tile);
+//   * warp h owns head h over 16-row strips: the logits are an mma of the
+//     strip's xm_h (ldmatrix, A) against Wsl held as B fragments in
+//     registers (exact bf16 products, as the TPU's), so each thread holds 8
+//     of the 32 slices of two rows; the exact max and the sum of the
+//     float32 softmax come from two quad shuffles each;
+//   * slice_w leaves as whole 16-byte rows: a quad trades its words so that
+//     each thread holds 8 consecutive slices of a row;
+//   * pooling on the tensor cores: w*mask (float32) is split into bf16 hi +
+//     lo (the rest is below 2^-16 of it), the fragments are transposed in
+//     registers (movmatrix) into the B operand, and tokens_h^T [D x G] +=
+//     fx_h^T (ldmatrix.trans, exact bf16) x (hi + lo) accumulates in float32
+//     registers over all the warp's strips; norm is a float32 sum in
+//     registers, reduced over the rows' lanes once at the end.
 //
 // Rounding points (the TPU kernel's): fx, xm and the logits rounded to bf16
 // after a float32-accumulated product plus bias; logits*inv_temp, exp and
-// the normalisation in float32; slice_w stored bf16; the pooling uses the
-// float32 w*mask and float32 fx.
+// the normalisation in float32; slice_w stored bf16; the pooling of float32
+// w*mask and the bf16-exact fx (here in two exact bf16 products).
 //
-// Every other shape the JAX package fuses (C % 128 == 0, H*G % 128 == 0)
-// runs on the block row tiles of slice_pool_tiles.cuh, shared with the
-// backward K7 (fused_slice_pool_bwd.cu); gfvgn_slice_pool_workspace sizes
-// the partials and refuses what no tile takes.
+// Every other shape up to C = 1024 runs the run-time path (pool_fwd_generic:
+// a block a (chunk, batch lane, head), the projections of the head's
+// columns, the softmax a warp a row and the pooling on the CUDA cores).
+// gfvgn_slice_pool_workspace sizes the partials and refuses what no path
+// takes (slice_pool_tiles.cuh, pool_run).
 //
 // Plain C interface, no allocation (the caller passes a workspace of the
-// size gfvgn_slice_pool_workspace gives), launches on the caller's stream
-// and returns cudaGetLastError().
+// size gfvgn_slice_pool_workspace gives), launches on the caller's stream and
+// returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "lane_reduce.cuh"
 #include "mma_sm90.cuh"
 #include "slice_pool_tiles.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int C = 128;          // stream width
-constexpr int H = 8;            // heads
-constexpr int D = 16;           // head width
-constexpr int G = 32;           // slices (one warp)
-constexpr int HG = H * G;
-constexpr int PART = H * G * D + H * G;   // floats of one partial: tok, norm
-constexpr int TM = 64;          // rows per tile
-constexpr int THREADS = 256;    // 8 warps = 8 heads (and 4x2 GEMM strips)
-constexpr int ILP = 4;          // rows processed together by a warp
-constexpr int LDW = C + 8;      // bf16 leading dim of staged Wfx, Wx
-constexpr int LDX = C + 8;      // bf16 leading dim of x, fx, xm tiles
-constexpr int LDC = C + 4;      // f32 leading dim of the staging tile
-
-constexpr size_t kSmemBytes =
-    2 * (size_t)C * LDW * sizeof(bf16) + 3 * (size_t)TM * LDX * sizeof(bf16) +
-    (size_t)TM * LDC * sizeof(float);
-
-struct Params {
+struct RowsParams {
     const bf16* x;          // [B, N, C]
     const float* mask;      // [B, N] (mask_bstride N) or [N] (stride 0)
     const bf16* wfx;        // [C, C]
@@ -97,191 +90,354 @@ struct Params {
     const float* bsl;       // [G]
     const float* inv_temp;  // [H]
     bf16* slice_w;          // [B, N, H*G]
-    float* part;            // [B, n_chunks, PART]
-    int N;
-    int mask_bstride;
-    int rows_per_chunk;     // a multiple of TM
-    int n_chunks;
+    float* part;            // [B, n_chunks, part_len]
+    int N, mask_bstride, rows_per_chunk, n_chunks, part_len;
+    int tm, resident;
+    int o_x, o_fx, o_xm, o_mask;    // shared-memory offsets (o_w = 0)
 };
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// sC[16 rows of block rb, columns c0..c0+63] = A[16 x C] * B[C x (c0 ..)]
-__device__ __forceinline__ void warp_gemm(const bf16* sA, const bf16* sB,
-                                          float* sC, int rb, int c0) {
-    FragC acc[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) wmma::fill_fragment(acc[t], 0.0f);
-#pragma unroll
-    for (int k0 = 0; k0 < C; k0 += 16) {
-        FragA a;
-        wmma::load_matrix_sync(a, sA + rb * 16 * LDX + k0, LDX);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-            FragB b;
-            wmma::load_matrix_sync(b, sB + k0 * LDW + c0 + t * 16, LDW);
-            wmma::mma_sync(acc[t], a, b, acc[t]);
-        }
-    }
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-        wmma::store_matrix_sync(sC + rb * 16 * LDC + c0 + t * 16, acc[t], LDC,
-                                wmma::mem_row_major);
+__device__ __forceinline__ uint32_t pick4(const uint32_t v[4], int i) {
+    return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
 }
 
-// dst[row][c] = bf16(sC[row][c] + bias[c]) for the whole tile
-__device__ __forceinline__ void bias_round(const float* sC,
-                                           const float* __restrict__ bias,
-                                           bf16* dst) {
-    for (int idx = threadIdx.x; idx < TM * 32; idx += THREADS) {
-        const int row = idx >> 5;
-        const int c4 = (idx & 31) * 4;
-        const float4 bb = *reinterpret_cast<const float4*>(bias + c4);
-        const float v[4] = {sC[row * LDC + c4] + bb.x,
-                            sC[row * LDC + c4 + 1] + bb.y,
-                            sC[row * LDC + c4 + 2] + bb.z,
-                            sC[row * LDC + c4 + 3] + bb.w};
-        store_bf16x4(dst + row * LDX + c4, v);
-    }
-}
-
-// 8 bf16 at p (16-byte aligned) into v[0..7]
-__device__ __forceinline__ void load_bf16x8(const bf16* p, float v[8]) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-        v[2 * i] = f.x;
-        v[2 * i + 1] = f.y;
-    }
-}
-
-__global__ void __launch_bounds__(THREADS, 1) slice_pool_kernel(Params p) {
+template <int D>
+__global__ void __launch_bounds__(BK_THREADS, 2) pool_fwd_rows(RowsParams p) {
+    constexpr int H = 8, G = 32, C = H * D, HG = H * G, LDX = C + 8;
+    constexpr int NT = G / 8, KS = D / 16;
     extern __shared__ __align__(128) unsigned char smem[];
-    bf16* sWfx = reinterpret_cast<bf16*>(smem);
-    bf16* sWx = sWfx + (size_t)C * LDW;
-    bf16* sX = sWx + (size_t)C * LDW;
-    bf16* sFX = sX + (size_t)TM * LDX;
-    bf16* sXM = sFX + (size_t)TM * LDX;
-    float* sC = reinterpret_cast<float*>(sXM + (size_t)TM * LDX);
+    const int tm = p.tm;
+    bf16* sW = reinterpret_cast<bf16*>(smem);
+    const Blk b = make_blk(tm, sW);
+    bf16* sX = reinterpret_cast<bf16*>(smem + p.o_x);
+    bf16* sFX = reinterpret_cast<bf16*>(smem + p.o_fx);
+    bf16* sXM = reinterpret_cast<bf16*>(smem + p.o_xm);
+    float* sMask = reinterpret_cast<float*>(smem + p.o_mask);
+    const int lane = threadIdx.x & 31, h = threadIdx.x >> 5;
+    const int qr = lane >> 2, qt = lane & 3;
+    const int bl = blockIdx.y;
+    const int begin = blockIdx.x * p.rows_per_chunk;
+    const int end = min(p.N, begin + p.rows_per_chunk);
+    const int n_tiles = (end - begin + tm - 1) / tm;
+    const bf16* xlane = p.x + (size_t)bl * p.N * C;
+    const float* mlane = p.mask + (size_t)bl * p.mask_bstride;
+    bf16* wlane = p.slice_w + (size_t)bl * p.N * HG;
 
-    const int chunk = blockIdx.x;
-    const int b = blockIdx.y;
-    const int warp = threadIdx.x >> 5;      // = head h
-    const int lane = threadIdx.x & 31;      // = slice g
-    const int h = warp;
-    const int rb = warp >> 1;               // GEMM strip of this warp
-    const int c0 = (warp & 1) * 64;
-
-    for (int idx = threadIdx.x; idx < C * (C / 8); idx += THREADS) {
-        const int row = idx >> 4, ch = idx & 15;
-        *reinterpret_cast<uint4*>(sWfx + row * LDW + ch * 8) =
-            *reinterpret_cast<const uint4*>(p.wfx + (size_t)row * C + ch * 8);
-        *reinterpret_cast<uint4*>(sWx + row * LDW + ch * 8) =
-            *reinterpret_cast<const uint4*>(p.wx + (size_t)row * C + ch * 8);
+    if (p.resident) {
+        stage_matrix(sW, 2 * C + 8, p.wfx, C, C);
+        stage_matrix(sW + C, 2 * C + 8, p.wx, C, C);
     }
-    float wcol[D];                          // column g of the slice kernel
+    auto load = [&](int t, int buf) {
+        const int r0 = begin + t * tm, nrow = min(tm, end - r0);
+        load_tile_rows(sX + (size_t)buf * tm * LDX, LDX, xlane, C, r0, nrow,
+                       tm);
+        for (int i = threadIdx.x; i < tm; i += BK_THREADS)
+            cp_async4(sMask + buf * tm + i, mlane + r0 + (i < nrow ? i : 0),
+                      i < nrow);
+    };
+    if (n_tiles > 0) load(0, 0);
+    cp_async_commit();
+
+    // Wsl as the logits' B fragments (k = head column, n = slice), the
+    // thread's slices 8j + 2qt (+1): bias; this head's inverse temperature
+    uint32_t bw[KS][NT][2];
+    float bias[NT][2];
+    const unsigned short* wraw = reinterpret_cast<const unsigned short*>(p.wsl);
 #pragma unroll
-    for (int d = 0; d < D; ++d) wcol[d] = __bfloat162float(p.wsl[d * G + lane]);
-    const float bsl = p.bsl[lane];
+    for (int j = 0; j < NT; ++j) {
+        const int n = 8 * j + qr;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+                const int k = 16 * ks + 8 * hf + 2 * qt;
+                bw[ks][j][hf] = (uint32_t)wraw[k * G + n] |
+                                ((uint32_t)wraw[(k + 1) * G + n] << 16);
+            }
+        bias[j][0] = p.bsl[8 * j + 2 * qt];
+        bias[j][1] = p.bsl[8 * j + 2 * qt + 1];
+    }
     const float it = p.inv_temp[h];
-    float tok[D];
+    // tokens_h^T [D x G] (m = column, n = slice) and the norm of the
+    // thread's slices over its rows
+    float tok[KS][NT][4], nacc[NT][2];
 #pragma unroll
-    for (int d = 0; d < D; ++d) tok[d] = 0.0f;
-    float norm = 0.0f;
+    for (int j = 0; j < NT; ++j) {
+        nacc[j][0] = nacc[j][1] = 0.0f;
+#pragma unroll
+        for (int mt = 0; mt < KS; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) tok[mt][j][e] = 0.0f;
+    }
 
-    const bf16* xb = p.x + (size_t)b * p.N * C;
-    const float* mb = p.mask + (size_t)b * p.mask_bstride;
-    bf16* wb = p.slice_w + (size_t)b * p.N * HG;
-    const int row_begin = chunk * p.rows_per_chunk;
-    const int row_end = min(p.N, row_begin + p.rows_per_chunk);
-    __syncthreads();
+    for (int t = 0; t < n_tiles; ++t) {
+        const int r0 = begin + t * tm, nrow = min(tm, end - r0);
+        const int buf = t & 1;
+        cp_async_wait<0>();
+        __syncthreads();
+        if (t + 1 < n_tiles) load(t + 1, buf ^ 1);
+        cp_async_commit();
+        const bf16* xb = sX + (size_t)buf * tm * LDX;
 
-    for (int r0 = row_begin; r0 < row_end; r0 += TM) {
-        // ---- x tile (rows past the chunk read as zero) ----
-        for (int idx = threadIdx.x; idx < TM * (C / 8); idx += THREADS) {
-            const int row = idx >> 4, ch = idx & 15;
-            uint4 v = make_uint4(0u, 0u, 0u, 0u);
-            if (r0 + row < row_end)
-                v = *reinterpret_cast<const uint4*>(
-                    xb + (size_t)(r0 + row) * C + ch * 8);
-            *reinterpret_cast<uint4*>(sX + row * LDX + ch * 8) = v;
-        }
-        __syncthreads();
-        // ---- the two projections, each rounded to bf16 after its bias ----
-        warp_gemm(sX, sWfx, sC, rb, c0);
-        __syncthreads();
-        bias_round(sC, p.bfx, sFX);
-        __syncthreads();
-        warp_gemm(sX, sWx, sC, rb, c0);
-        __syncthreads();
-        bias_round(sC, p.bx, sXM);
-        __syncthreads();
-
-        // ---- per-head softmax over G and pooling: warp h, lane g ----
-        const int n_rows = min(TM, row_end - r0);
-        for (int rr = 0; rr < n_rows; rr += ILP) {
-            float s[ILP], m[ILP];
+        // ---- fx = bf16(x Wfx + bfx), xm = bf16(x Wx + bx) ----
+        float acc[8][4];
+        const int passes = p.resident ? 1 : 2;
+        for (int which = 0; which < passes; ++which) {
+            const WSrc W = p.resident
+                ? WSrc{nullptr, 0, sW, 2 * C + 8}
+                : WSrc{which ? p.wx : p.wfx, C, nullptr, 0};
+            const int n = p.resident ? 2 * C : C;
+            for (int n0 = 0; n0 < n; n0 += b.pw) {
+                const int nv = block_product<false>(b, acc, xb, LDX, C, W, n0,
+                                                    n);
 #pragma unroll
-            for (int k = 0; k < ILP; ++k) {
-                // rows past n_rows compute on the zero rows of the tile and
-                // are dropped below
-                float xm[D];
-                load_bf16x8(sXM + (rr + k) * LDX + h * D, xm);
-                load_bf16x8(sXM + (rr + k) * LDX + h * D + 8, xm + 8);
-                float l = 0.0f;
+                for (int nt = 0; nt < 8; ++nt) {
+                    if (nt < nv) {
+                        int col = n0 + b.wcol * 64 + nt * 8 + 2 * b.t +
+                                  which * C;
+                        const bool is_xm = col >= C;
+                        col -= is_xm ? C : 0;
+                        const float2 bb = *reinterpret_cast<const float2*>(
+                            (is_xm ? p.bx : p.bfx) + col);
+                        bf16* dst = is_xm ? sXM : sFX;
 #pragma unroll
-                for (int d = 0; d < D; ++d) l = fmaf(xm[d], wcol[d], l);
-                l = __bfloat162float(__float2bfloat16(l + bsl));
-                s[k] = l * it;
-                m[k] = s[k];
-            }
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-                for (int k = 0; k < ILP; ++k)
-                    m[k] = fmaxf(m[k], __shfl_xor_sync(0xffffffffu, m[k], off));
-            float e[ILP], z[ILP];
-#pragma unroll
-            for (int k = 0; k < ILP; ++k) {
-                e[k] = expf(s[k] - m[k]);
-                z[k] = e[k];
-            }
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-                for (int k = 0; k < ILP; ++k)
-                    z[k] += __shfl_xor_sync(0xffffffffu, z[k], off);
-#pragma unroll
-            for (int k = 0; k < ILP; ++k) {
-                if (rr + k < n_rows) {
-                    const int n = r0 + rr + k;
-                    const float w = e[k] / z[k];
-                    wb[(size_t)n * HG + h * G + lane] = __float2bfloat16(w);
-                    const float wm = w * mb[n];
-                    norm += wm;
-                    float fx[D];
-                    load_bf16x8(sFX + (rr + k) * LDX + h * D, fx);
-                    load_bf16x8(sFX + (rr + k) * LDX + h * D + 8, fx + 8);
-#pragma unroll
-                    for (int d = 0; d < D; ++d) tok[d] += wm * fx[d];
+                        for (int hf = 0; hf < 2; ++hf) {
+                            const int row = b.wrow * 16 + b.g + 8 * hf;
+                            store_bf16x2(dst + row * LDX + col,
+                                         acc[nt][2 * hf] + bb.x,
+                                         acc[nt][2 * hf + 1] + bb.y);
+                        }
+                    }
                 }
             }
         }
-        __syncthreads();   // sX, sFX, sXM are rewritten by the next tile
-    }
+        __syncthreads();
 
-    // ---- this block's partial sums: tok [H][G][D] then norm [H][G] ----
-    float* dst = p.part + ((size_t)b * p.n_chunks + chunk) * PART;
+        // ---- warp h: head h, 16-row strips ----
+        const float* mk = sMask + buf * tm;
+        for (int s0 = 0; s0 < nrow; s0 += 16) {
+            // logits l = bf16(xm_h Wsl + bsl), s = l * inv_temp: rows qr
+            // (e = 0, 1) and qr + 8 (e = 2, 3), slices 8j + 2qt (+1)
+            float v[NT][4];
 #pragma unroll
-    for (int d = 0; d < D; d += 4)
-        *reinterpret_cast<float4*>(dst + (h * G + lane) * D + d) =
-            make_float4(tok[d], tok[d + 1], tok[d + 2], tok[d + 3]);
-    dst[H * G * D + h * G + lane] = norm;
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) v[j][e] = 0.0f;
+#pragma unroll
+            for (int ks = 0; ks < KS; ++ks) {
+                uint32_t af[4];
+                ldsm_x4(af, sXM + (s0 + (lane & 15)) * LDX + h * D + 16 * ks +
+                                ((lane >> 4) << 3));
+#pragma unroll
+                for (int j = 0; j < NT; ++j)
+                    mma16816(v[j], af, bw[ks][j][0], bw[ks][j][1]);
+            }
+            float m[2] = {-INFINITY, -INFINITY}, z[2] = {0.0f, 0.0f};
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    v[j][e] = round_bf16(v[j][e] + bias[j][e & 1]) * it;
+                    m[e >> 1] = fmaxf(m[e >> 1], v[j][e]);
+                }
+#pragma unroll
+            for (int o = 1; o < 4; o <<= 1)
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf)
+                    m[hf] = fmaxf(m[hf], __shfl_xor_sync(0xffffffffu, m[hf], o));
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    v[j][e] = __expf(v[j][e] - m[e >> 1]);
+                    z[e >> 1] += v[j][e];
+                }
+#pragma unroll
+            for (int o = 1; o < 4; o <<= 1)
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf)
+                    z[hf] += __shfl_xor_sync(0xffffffffu, z[hf], o);
+            const float rz[2] = {1.0f / z[0], 1.0f / z[1]};
+            const float mrow[2] = {mk[s0 + qr], mk[s0 + qr + 8]};
+            uint32_t whi[NT][2], wlo[NT][2];
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+                // slice_w: the quad trades words so that thread qt holds
+                // slices 8qt .. 8qt + 7 of its row (32 = 4 x 8)
+                uint32_t wd[4], rcv[4];
+#pragma unroll
+                for (int j = 0; j < NT; ++j) {
+                    const float w0 = v[j][2 * hf] * rz[hf];
+                    const float w1 = v[j][2 * hf + 1] * rz[hf];
+                    wd[j] = pack_bf16(w0, w1);
+                    // w * mask, split into bf16 hi + lo; norm in float32
+                    const float a0 = w0 * mrow[hf], a1 = w1 * mrow[hf];
+                    nacc[j][0] += a0;
+                    nacc[j][1] += a1;
+                    whi[j][hf] = pack_bf16(a0, a1);
+                    const float2 hv = unpack_bf16(whi[j][hf]);
+                    wlo[j][hf] = pack_bf16(a0 - hv.x, a1 - hv.y);
+                }
+                rcv[0] = pick4(wd, qt);
+#pragma unroll
+                for (int k = 1; k < 4; ++k)
+                    rcv[k] = __shfl_xor_sync(0xffffffffu, pick4(wd, qt ^ k), k);
+                const int row = s0 + qr + 8 * hf;
+                if (row < nrow)
+                    *reinterpret_cast<uint4*>(
+                        wlane + (size_t)(r0 + row) * HG + h * G + 8 * qt) =
+                        make_uint4(pick4(rcv, qt), pick4(rcv, qt ^ 1),
+                                   pick4(rcv, qt ^ 2), pick4(rcv, qt ^ 3));
+            }
+            // tokens_h^T += fx_h^T (hi + lo): A = fx_h^T by ldmatrix.trans,
+            // B = (w * mask) with k = row, n = slice: the transposed
+            // fragments (rows qr / qr + 8 are k 0-7 / 8-15)
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+                const uint32_t bh0 = movm_trans(whi[j][0]);
+                const uint32_t bh1 = movm_trans(whi[j][1]);
+                const uint32_t bl0 = movm_trans(wlo[j][0]);
+                const uint32_t bl1 = movm_trans(wlo[j][1]);
+                whi[j][0] = bh0; whi[j][1] = bh1;
+                wlo[j][0] = bl0; wlo[j][1] = bl1;
+            }
+#pragma unroll
+            for (int mt = 0; mt < KS; ++mt) {
+                uint32_t af[4];
+                ldsm_x4_t(af, sFX + (s0 + (lane & 7) + (((lane >> 4) & 1) << 3)) *
+                                        LDX + h * D + 16 * mt +
+                                  (((lane >> 3) & 1) << 3));
+#pragma unroll
+                for (int j = 0; j < NT; ++j) {
+                    mma16816(tok[mt][j], af, whi[j][0], whi[j][1]);
+                    mma16816(tok[mt][j], af, wlo[j][0], wlo[j][1]);
+                }
+            }
+        }
+    }
+    cp_async_wait<0>();
+
+    // ---- this block's partials: tokens [H][G][D], then norm [H][G] ----
+    float* part = p.part + ((size_t)bl * p.n_chunks + blockIdx.x) * p.part_len;
+#pragma unroll
+    for (int mt = 0; mt < KS; ++mt)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int d = 16 * mt + qr + 8 * (e >> 1);
+                const int gg = 8 * j + 2 * qt + (e & 1);
+                part[(h * G + gg) * D + d] = tok[mt][j][e];
+            }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            float s = nacc[j][e];
+#pragma unroll
+            for (int o = 4; o < 32; o <<= 1)
+                s += __shfl_xor_sync(0xffffffffu, s, o);
+            if (qr == 0) part[HG * D + h * G + 8 * j + 2 * qt + e] = s;
+        }
+}
+
+
+// ==================== K6 at every other shape (run time) ====================
+//
+// A block a (chunk, batch lane, head): per tile of tm rows the head's fx and
+// xm columns (float32 sums over C on the CUDA cores, rounded to bf16 after
+// the bias), the logits and the softmax a warp a row (the G slices over the
+// lanes), slice_w, then the pooled sums of the head, each thread owning
+// tokens/norm elements and adding the tile's rows in order into the block's
+// partial (the first tile writes it).
+
+struct GenParams {
+    const bf16* x;
+    const float* mask;
+    const bf16* wfx;
+    const float* bfx;
+    const bf16* wx;
+    const float* bx;
+    const bf16* wsl;
+    const float* bsl;
+    const float* inv_temp;
+    bf16* slice_w;
+    float* part;
+    int N, mask_bstride, rows_per_chunk, n_chunks, part_len;
+    int c, h, g, d, tm;
+};
+
+__global__ void __launch_bounds__(BK_THREADS) pool_fwd_generic(GenParams p) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    const int c = p.c, d = p.d, G = p.g, hg = p.h * p.g, tm = p.tm;
+    const int hh = blockIdx.z, bl = blockIdx.y;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    size_t o = 0;
+    bf16* sX = reinterpret_cast<bf16*>(smem);
+    o += align128((size_t)tm * c * 2);
+    float* sF = reinterpret_cast<float*>(smem + o);
+    o += align128((size_t)tm * d * 4);
+    float* sM = reinterpret_cast<float*>(smem + o);
+    o += align128((size_t)tm * d * 4);
+    float* sW = reinterpret_cast<float*>(smem + o);
+    o += align128((size_t)tm * G * 4);
+    float* sMk = reinterpret_cast<float*>(smem + o);
+    const int begin = blockIdx.x * p.rows_per_chunk;
+    const int end = min(p.N, begin + p.rows_per_chunk);
+    const float* mlane = p.mask + (size_t)bl * p.mask_bstride;
+    float* part = p.part + ((size_t)bl * p.n_chunks + blockIdx.x) * p.part_len;
+    const float it = p.inv_temp[hh];
+    const int hgd = hg * d, col0 = hh * d;
+
+    for (int r0 = begin, t = 0; r0 < end; r0 += tm, ++t) {
+        const int nrow = min(tm, end - r0);
+        generic_tile(p.x + (size_t)bl * p.N * c, mlane, p.wfx, p.bfx, p.wx,
+                     p.bx, c, d, col0, tm, r0, nrow, sX, sMk, sF, sM);
+        for (int r = warp; r < nrow; r += BK_THREADS / 32) {
+            float m = -INFINITY;
+            for (int gg = lane; gg < G; gg += 32) {
+                float a = 0.0f;
+                for (int dd = 0; dd < d; ++dd)
+                    a = fmaf(sM[r * d + dd],
+                             __bfloat162float(p.wsl[(size_t)dd * G + gg]), a);
+                const float s = round_bf16(a + p.bsl[gg]) * it;
+                sW[r * G + gg] = s;
+                m = fmaxf(m, s);
+            }
+            for (int off = 16; off > 0; off >>= 1)
+                m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+            float z = 0.0f;
+            for (int gg = lane; gg < G; gg += 32) {
+                const float e = __expf(sW[r * G + gg] - m);
+                sW[r * G + gg] = e;
+                z += e;
+            }
+            for (int off = 16; off > 0; off >>= 1)
+                z += __shfl_xor_sync(0xffffffffu, z, off);
+            const float rz = 1.0f / z;
+            for (int gg = lane; gg < G; gg += 32) {
+                const float w = sW[r * G + gg] * rz;
+                sW[r * G + gg] = w;
+                p.slice_w[((size_t)bl * p.N + r0 + r) * hg + hh * G + gg] =
+                    __float2bfloat16(w);
+            }
+        }
+        __syncthreads();
+        for (int e = threadIdx.x; e < G * d + G; e += BK_THREADS) {
+            float s = 0.0f;
+            size_t at;
+            if (e < G * d) {
+                const int gg = e / d, dd = e - gg * d;
+                for (int r = 0; r < nrow; ++r)
+                    s = fmaf(sW[r * G + gg] * sMk[r], sF[r * d + dd], s);
+                at = (size_t)(hh * G + gg) * d + dd;
+            } else {
+                const int gg = e - G * d;
+                for (int r = 0; r < nrow; ++r) s += sW[r * G + gg] * sMk[r];
+                at = (size_t)hgd + hh * G + gg;
+            }
+            part[at] = t == 0 ? s : part[at] + s;
+        }
+    }
 }
 
 
@@ -301,11 +457,23 @@ __global__ void chunk_reduce(const float* __restrict__ part,
     else out1[(size_t)b * (len - split) + (e - split)] = s;
 }
 
+template <int D>
+int launch_rows(const PoolRun& P, const RowsParams& p, int B,
+                cudaStream_t st) {
+    cudaError_t e = cudaFuncSetAttribute(
+        pool_fwd_rows<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)P.smem);
+    if (e != cudaSuccess) return (int)e;
+    pool_fwd_rows<D><<<dim3(P.n_chunks, B), BK_THREADS, P.smem, st>>>(p);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Bytes of workspace K6 (backward = 0) or K7 needs for x [B, N, C] with H
-// heads and G slices; -1 where no kernel takes the shape (the slot rules of
-// pool_shape, or no tile that fits a block's shared memory).
+// heads and G slices; -1 where no kernel takes the shape (outside the JAX
+// package's fusing condition, C above 1024, or no tile that fits a block's
+// shared memory).
 extern "C" long long gfvgn_slice_pool_workspace(int c, int h, int g, int B,
                                                 int N, int backward) {
     PoolRun P;
@@ -329,8 +497,8 @@ extern "C" int gfvgn_fused_slice_pool(const void* x, const void* mask,
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     unsigned char* ws = static_cast<unsigned char*>(workspace);
     float* part = reinterpret_cast<float*>(ws + P.o_part);
-    if (default_shape(c, h, g)) {
-        Params p;
+    if (P.path == POOL_ROWS) {
+        RowsParams p;
         p.x = static_cast<const bf16*>(x);
         p.mask = static_cast<const float*>(mask);
         p.wfx = static_cast<const bf16*>(wfx);
@@ -346,18 +514,48 @@ extern "C" int gfvgn_fused_slice_pool(const void* x, const void* mask,
         p.mask_bstride = mask_bstride;
         p.rows_per_chunk = P.rows_per_chunk;
         p.n_chunks = P.n_chunks;
-        cudaError_t e = cudaFuncSetAttribute(
-            slice_pool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)kSmemBytes);
-        if (e != cudaSuccess) return (int)e;
-        slice_pool_kernel<<<dim3(P.n_chunks, B), THREADS, kSmemBytes, st>>>(p);
-        err = (int)cudaGetLastError();
+        p.part_len = P.part_len;
+        p.tm = P.tm;
+        p.resident = P.resident;
+        const int tm = P.tm, pw = (8 / (tm / 16)) * 64;
+        size_t o = align128(P.resident ? (size_t)c * (2 * c + 8) * 2
+                                       : (size_t)2 * ring_slot(pw) * 2);
+        p.o_x = (int)o; o += align128((size_t)2 * tm * (c + 8) * 2);
+        p.o_fx = (int)o; o += align128((size_t)tm * (c + 8) * 2);
+        p.o_xm = (int)o; o += align128((size_t)tm * (c + 8) * 2);
+        p.o_mask = (int)o;
+        switch (c / h) {
+            case 16: err = launch_rows<16>(P, p, B, st); break;
+            case 32: err = launch_rows<32>(P, p, B, st); break;
+            case 64: err = launch_rows<64>(P, p, B, st); break;
+            default: return (int)cudaErrorInvalidValue;
+        }
     } else {
-        PoolParams p{};
-        fill_pool(p, P, x, mask, mask_bstride, wfx, bfx, wx, bx, wsl, bsl,
-                  inv_temp, N, ws);
+        GenParams p;
+        p.x = static_cast<const bf16*>(x);
+        p.mask = static_cast<const float*>(mask);
+        p.wfx = static_cast<const bf16*>(wfx);
+        p.bfx = static_cast<const float*>(bfx);
+        p.wx = static_cast<const bf16*>(wx);
+        p.bx = static_cast<const float*>(bx);
+        p.wsl = static_cast<const bf16*>(wsl);
+        p.bsl = static_cast<const float*>(bsl);
+        p.inv_temp = static_cast<const float*>(inv_temp);
         p.slice_w = static_cast<bf16*>(slice_w);
-        err = launch_pool<false>(P, p, B, st);
+        p.part = part;
+        p.N = N;
+        p.mask_bstride = mask_bstride;
+        p.rows_per_chunk = P.rows_per_chunk;
+        p.n_chunks = P.n_chunks;
+        p.part_len = P.part_len;
+        p.c = c; p.h = h; p.g = g; p.d = c / h; p.tm = P.tm;
+        cudaError_t e = cudaFuncSetAttribute(
+            pool_fwd_generic, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)P.smem);
+        if (e != cudaSuccess) return (int)e;
+        pool_fwd_generic<<<dim3(P.n_chunks, B, h), BK_THREADS, P.smem, st>>>(
+            p);
+        err = (int)cudaGetLastError();
     }
     if (err != 0) return err;
     const int hgd = P.s.hg * P.s.d;
@@ -366,4 +564,3 @@ extern "C" int gfvgn_fused_slice_pool(const void* x, const void* mask,
         P.part_len, hgd, P.n_chunks);
     return (int)cudaGetLastError();
 }
-

@@ -118,6 +118,24 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                  : "memory");
 }
 
+// 4 bytes device memory -> shared memory, asynchronous (through L1);
+// zero-fills the destination instead when !pred
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 4 : 0)
+                 : "memory");
+}
+
+// the 8x8 b16 matrix of a warp's fragments (a thread's register: row
+// lane / 4, columns 2 (lane % 4) and + 1), transposed
+__device__ __forceinline__ uint32_t movm_trans(uint32_t a) {
+    uint32_t d;
+    asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+                 : "=r"(d) : "r"(a));
+    return d;
+}
+
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -227,14 +245,20 @@ __device__ __forceinline__ void zero_acc(float acc[8][4]) {
         for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
 }
 
-// the current device's shared memory a block can opt into and its SMs
-inline int device_limits(int& max_smem, int& n_sm) {
+// the current device's shared memory a block can opt into, its SMs and
+// (when asked for) the shared memory of an SM
+inline int device_limits(int& max_smem, int& n_sm, int* sm_smem = nullptr) {
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
     e = cudaDeviceGetAttribute(&max_smem,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (e != cudaSuccess) return (int)e;
+    if (sm_smem != nullptr) {
+        e = cudaDeviceGetAttribute(
+            sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+        if (e != cudaSuccess) return (int)e;
+    }
     return (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
                                        dev);
 }

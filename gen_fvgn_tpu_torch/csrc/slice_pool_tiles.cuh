@@ -1,7 +1,6 @@
-// The block row tiles of K6 (every shape but the default) and K7, shared by
-// fused_slice_pool.cu (the forward) and fused_slice_pool_bwd.cu (the
-// backward): each file instantiates its direction of slice_pool_tiles, so
-// the two compile in parallel.
+// K7's block row tiles (instantiated by fused_slice_pool_bwd.cu) and the
+// plans of K6 and K7 (pool_run), shared by fused_slice_pool.cu (the forward)
+// and fused_slice_pool_bwd.cu (the backward), which compile in parallel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,19 +13,20 @@
 
 namespace {
 
-// ================ K6 (other shapes) and K7: block row tiles ================
+// ========================== K7: block row tiles ==========================
 //
 // Any C % 128 == 0 up to 512 with H heads of D = C / H and G slices, H*G %
 // 128 == 0 (the JAX package's condition), H and G powers of two (G from 8 to
 // 128), where a tile fits a block's shared memory and a thread's slots and
-// columns are an instantiated variant (pool_shape). The projections fx = x
-// Wfx, xm = x Wx (and, in the backward, dx = dfx16 Wfx^T + dxm16 Wx^T) run
-// on the tensor cores as block products of a row tile (mma_sm90.cuh): Wfx,
-// Wx resident in shared memory where they fit (C = 128), otherwise streamed
-// through the ring. The shapes the nets use have their head width D and
-// slices G compiled in (slice_pool_tiles<NS, DPT, DC, GC, BWD>), so the
-// per-slot loops unroll and a slot's operands stay in registers; any other
-// shape runs the same code with D and G at run time.
+// columns are an instantiated variant (pool_shape); every other shape runs
+// K7's run-time path (fused_slice_pool_bwd.cu). The projections fx = x Wfx,
+// xm = x Wx and dx = dfx16 Wfx^T + dxm16 Wx^T run on the tensor cores as
+// block products of a row tile (mma_sm90.cuh): Wfx, Wx resident in shared
+// memory where they fit (C = 128), otherwise streamed through the ring. The
+// shapes the nets use have their head width D and slices G compiled in
+// (slice_pool_tiles<NS, DPT, DC, GC>), so the per-slot loops unroll and a
+// slot's operands stay in registers; any other shape runs the same code
+// with D and G at run time.
 //
 // Slots. A (head, slice) pair is a slot. The L = min(G, 32) lanes of a lane
 // group own one head's slices (SPT = G / L each: g = lane + L j), so a
@@ -35,7 +35,7 @@ namespace {
 // there are fewer heads than groups, DS = groups / H groups share a head and
 // split its rows (the softmax) and its D columns (the pooling). A thread's
 // NS = HPG * SPT slots and its DPT = D / DS columns are fixed over all its
-// tiles, so its pooled sums (K6: tokens, norm; K7: dWsl) stay in registers.
+// tiles, so its pooled sums (dWsl) stay in registers.
 //
 // K7 replaces the Pallas TPU kernel _make_bwd_kernel of
 // gen_fvgn_tpu/ops/fused_slice_attn.py (:170-236, called at :297). Inputs:
@@ -127,8 +127,7 @@ struct PoolParams {
     const bf16* wsl;        // [D, G]
     const float* bsl;       // [G]
     const float* inv_temp;  // [H]
-    bf16* slice_w;          // forward: [B, N, H*G]
-    const bf16* dslice_w;   // backward: [B, N, H*G]
+    const bf16* dslice_w;   // [B, N, H*G]
     const float* dtok;      // [B, H, G, D]
     const float* dnorm;     // [B, H, G]
     bf16* dx;               // [B, N, C]
@@ -142,7 +141,7 @@ struct PoolParams {
 
 
 size_t pool_layout(const PoolShape& s, int tm, int resident, int nbuf,
-                   int tok_smem, bool bwd, PoolPlan& L) {
+                   int tok_smem, PoolPlan& L) {
     const int c = s.c, wr = tm / 16, pw = (8 / wr) * 64;
     size_t o = 0;
     L.o_w = (int)o;
@@ -154,24 +153,20 @@ size_t pool_layout(const PoolShape& s, int tm, int resident, int nbuf,
     o += align128((size_t)tm * (c + 8) * 2);
     L.o_xm = (int)o;
     o += align128((size_t)tm * (c + 8) * 2);
-    // K6: w*mask as [tm][hg + 1]; K7: w*mask and dl16 transposed,
-    // [hg][tm + 4] float and [hg][tm + 8] bf16 (the column stage reads four
-    // rows of a slice at once)
+    // w*mask and dl16 transposed, [hg][tm + 4] float and [hg][tm + 8] bf16
+    // (the column stage reads four rows of a slice at once)
     L.o_wm = (int)o;
-    o += align128(bwd ? (size_t)s.hg * (tm + 4) * 4
-                      : (size_t)tm * (s.hg + 1) * 4);
+    o += align128((size_t)s.hg * (tm + 4) * 4);
     L.o_dl = (int)o;
-    o += align128(bwd ? (size_t)s.hg * (tm + 8) * 2 : 0);
-    // Wsl as [D][G + 1] float and, for K7, [G][D + 4] float and [D][G + 8]
-    // bf16
+    o += align128((size_t)s.hg * (tm + 8) * 2);
+    // Wsl as [D][G + 1] float, [G][D + 4] float and [D][G + 8] bf16
     L.o_wsl = (int)o;
-    o += align128((size_t)s.d * (s.g + 1) * 4 +
-                  (bwd ? (size_t)s.g * (s.d + 4) * 4 + (size_t)s.d * (s.g + 8) * 2
-                       : 0));
+    o += align128((size_t)s.d * (s.g + 1) * 4 + (size_t)s.g * (s.d + 4) * 4 +
+                  (size_t)s.d * (s.g + 8) * 2);
     L.o_tok = (int)o;
-    o += align128(bwd && tok_smem ? (size_t)s.hg * (s.d + 4) * 4 : 0);
+    o += align128(tok_smem ? (size_t)s.hg * (s.d + 4) * 4 : 0);
     L.o_dsw = (int)o;
-    o += align128(bwd ? (size_t)nbuf * tm * (s.hg + 8) * 2 : 0);
+    o += align128((size_t)nbuf * tm * (s.hg + 8) * 2);
     // the end reuses the start: [ds][2][hg] and [tm / 4][2][c] floats
     const size_t fin = (size_t)(2 * s.ds * s.hg + 2 * (tm / 4) * c) * 4;
     return o > fin ? o : fin;
@@ -344,7 +339,7 @@ __device__ __forceinline__ Rows block_rows(const PoolParams& p) {
 
 // DC, GC: the head width and the slices as compile-time constants (the
 // shapes the nets use), or 0 for the runtime ones of p.s
-template <int NS, int DPT, int DC, int GC, bool BWD>
+template <int NS, int DPT, int DC, int GC>
 __global__ void __launch_bounds__(BK_THREADS, 1)
 slice_pool_tiles(PoolParams p) {
     extern __shared__ __align__(128) unsigned char smem[];
@@ -352,7 +347,7 @@ slice_pool_tiles(PoolParams p) {
     const int D_ = DC ? DC : S.d, G_ = GC ? GC : S.g;
     const int L_ = GC ? (GC < 32 ? GC : 32) : S.L;
     const int SPT_ = GC ? G_ / L_ : S.spt;
-    const int c = S.c, ldx = c + 8, ldwm = S.hg + 1;
+    const int c = S.c, ldx = c + 8;
     const int ldwt = p.L.tm + 4, lddt = p.L.tm + 8, ldwst = S.d + 4;
     const bool res = p.L.resident != 0;
     bf16* sW = reinterpret_cast<bf16*>(smem + p.L.o_w);
@@ -364,8 +359,7 @@ slice_pool_tiles(PoolParams p) {
     bf16* sXM = reinterpret_cast<bf16*>(smem + p.L.o_xm);
     bf16* sDF = sFX;       // dfx16 and dxm16, once fx and xm are done with
     bf16* sDX = sXM;
-    float* sWM = reinterpret_cast<float*>(smem + p.L.o_wm);     // K6
-    float* sWMT = sWM;                                           // K7
+    float* sWMT = reinterpret_cast<float*>(smem + p.L.o_wm);
     bf16* sDLT = reinterpret_cast<bf16*>(smem + p.L.o_dl);
     float* sWsl = reinterpret_cast<float*>(smem + p.L.o_wsl);
     float* sWslT = sWsl + S.d * (S.g + 1);
@@ -387,26 +381,23 @@ slice_pool_tiles(PoolParams p) {
         const int dd = i / S.g, gg = i - dd * S.g;
         const float v = __bfloat162float(p.wsl[i]);
         sWsl[dd * (S.g + 1) + gg] = v;
-        if (BWD) {
-            sWslT[gg * ldwst + dd] = v;
-            sWslB[dd * ldwb + gg] = p.wsl[i];
-        }
+        sWslT[gg * ldwst + dd] = v;
+        sWslB[dd * ldwb + gg] = p.wsl[i];
     }
     // dtokens of this lane as [H*G][D + 1] (shared memory) or [H*G][D]
-    const float* tok_l = BWD ? p.dtok + (size_t)R.b * S.hg * S.d : nullptr;
+    const float* tok_l = p.dtok + (size_t)R.b * S.hg * S.d;
     const int ldt = p.L.tok_smem ? S.d + 4 : S.d;
-    if (BWD && p.L.tok_smem)
+    if (p.L.tok_smem)
         for (int i = threadIdx.x; i < S.hg * S.d; i += BK_THREADS) {
             const int sl = i / S.d, dd = i - sl * S.d;
             sTok[sl * (S.d + 4) + dd] = tok_l[i];
         }
-    const float* tok = BWD ? (p.L.tok_smem ? sTok : tok_l) : nullptr;
+    const float* tok = p.L.tok_smem ? sTok : tok_l;
     auto load_rows = [&](int t, int buf) {
         const int r0 = R.begin + t * tm, nrow = min(tm, R.end - r0);
         load_tile_rows(sX + (size_t)buf * tm * ldx, ldx, xlane, c, r0, nrow,
                        tm);
-        if (BWD)
-            load_tile_rows(sDSW + (size_t)buf * tm * lddsw, lddsw,
+        load_tile_rows(sDSW + (size_t)buf * tm * lddsw, lddsw,
                            p.dslice_w + (size_t)R.b * p.N * S.hg, S.hg, r0,
                            nrow, tm);
     };
@@ -422,10 +413,10 @@ slice_pool_tiles(PoolParams p) {
         so[i] = sl[i].h * S.g + sl[i].g;
         bsl_s[i] = p.bsl[sl[i].g];
         it_s[i] = p.inv_temp[sl[i].h];
-        dn_s[i] = BWD ? p.dnorm[(size_t)R.b * S.hg + so[i]] : 0.0f;
+        dn_s[i] = p.dnorm[(size_t)R.b * S.hg + so[i]];
     }
-    // pooled sums of this thread's slots and columns q*DPT ..: K6 tokens,
-    // K7 dWsl; and per slot K6 norm, K7 dinv_temp and dbsl
+    // pooled sums of this thread's slots and columns q*DPT ..: dWsl; and
+    // per slot dinv_temp and dbsl
     float pool[NS][DPT], acc1[NS], acc2[NS];
 #pragma unroll
     for (int i = 0; i < NS; ++i) {
@@ -458,10 +449,10 @@ slice_pool_tiles(PoolParams p) {
         }
         pool_projections(b, p, Wfx, Wx, xb, sFX, sXM);
         __syncthreads();
-        // K7: the logits on the tensor cores, l = bf16(xm_h Wsl + bsl), into
+        // the logits on the tensor cores, l = bf16(xm_h Wsl + bsl), into
         // the transposed w*mask tile, which the row stage reads and then
         // overwrites with w*mask, element by element
-        const bool mma_logits = BWD && D_ % 16 == 0;
+        const bool mma_logits = D_ % 16 == 0;
         if (mma_logits) {
             const int rbs = tm / 16, items = S.h * rbs;
             for (int itm = threadIdx.x >> 5; itm < items; itm += 8) {
@@ -503,7 +494,7 @@ slice_pool_tiles(PoolParams p) {
 #pragma unroll
                 for (int d = 0; d < DC; ++d) {
                     wcol[i][d] = sWsl[d * (GC + 1) + sl[i].g];
-                    dtr[i][d] = BWD ? tok[so[i] * ldt + d] : 0.0f;
+                    dtr[i][d] = tok[so[i] * ldt + d];
                 }
         }
         for (int ra = q; ra < tm; ra += RI * S.ds) {
@@ -543,21 +534,6 @@ slice_pool_tiles(PoolParams p) {
             head_reduce<N, false>(z, SPT_, L_);
 #pragma unroll
             for (int i = 0; i < N; ++i) w[i] = e[i] / z[i];
-            if (!BWD) {
-#pragma unroll
-                for (int u = 0; u < RI; ++u) {
-                    const int r = ra + u * S.ds;
-#pragma unroll
-                    for (int i = 0; i < NS; ++i) {
-                        const float wv = w[u * NS + i];
-                        if (r < nrow)
-                            p.slice_w[((size_t)R.b * p.N + r0 + r) * S.hg +
-                                      so[i]] = __float2bfloat16(wv);
-                        sWM[r * ldwm + so[i]] = wv * mk[u];
-                    }
-                }
-                continue;
-            }
             float dwa[N], inner[N];
 #pragma unroll
             for (int u = 0; u < RI; ++u) {
@@ -602,10 +578,8 @@ slice_pool_tiles(PoolParams p) {
 #pragma unroll
             for (int i = 0; i < NS; ++i) {
                 const int so = sl[i].h * S.g + sl[i].g;
-                const float a = BWD ? __bfloat162float(sDLT[so * lddt + r])
-                                    : sWM[r * ldwm + so];
-                const bf16* brow = (BWD ? sXM : sFX) + r * ldx + sl[i].h * D_ +
-                                   q * DPT;
+                const float a = __bfloat162float(sDLT[so * lddt + r]);
+                const bf16* brow = sXM + r * ldx + sl[i].h * D_ + q * DPT;
 #pragma unroll
                 for (int d0 = 0; d0 < DPT; d0 += 8) {
                     float v[8];
@@ -614,10 +588,8 @@ slice_pool_tiles(PoolParams p) {
                     for (int u = 0; u < 8; ++u)
                         pool[i][d0 + u] = fmaf(a, v[u], pool[i][d0 + u]);
                 }
-                if (!BWD && q == 0) acc1[i] += a;
             }
         }
-        if (!BWD) continue;
         __syncthreads();    // dfx16 and dxm16 overwrite fx and xm
 
         // ---- the column stage: dfx = wm dtokens and dxm = dl16 Wsl^T
@@ -704,16 +676,13 @@ slice_pool_tiles(PoolParams p) {
     // ---- this block's partials ----
     float* part = p.part + ((size_t)R.b * p.n_chunks + blockIdx.x) * p.part_len;
     const int hgd = S.hg * S.d;
-    // pooled sums: K6 tokens [H][G][D], K7 dWsl [H][D][G]
+    // pooled sums: dWsl [H][D][G]
 #pragma unroll
     for (int i = 0; i < NS; ++i) {
 #pragma unroll
         for (int dd = 0; dd < DPT; ++dd) {
             const int d_ = q * DPT + dd;
-            const size_t at = BWD
-                ? ((size_t)sl[i].h * S.d + d_) * S.g + sl[i].g
-                : ((size_t)sl[i].h * S.g + sl[i].g) * S.d + d_;
-            part[at] = pool[i][dd];
+            part[((size_t)sl[i].h * S.d + d_) * S.g + sl[i].g] = pool[i][dd];
         }
     }
     // per-slot sums over the groups that split a head's rows, in order
@@ -725,29 +694,21 @@ slice_pool_tiles(PoolParams p) {
         fin[(q * 2 + 1) * S.hg + so] = acc2[i];
     }
     float* fin2 = fin + 2 * S.ds * S.hg;
-    if (BWD) {
 #pragma unroll
-        for (int k = 0; k < CS_ITEMS; ++k) {
-            const int it = threadIdx.x + BK_THREADS * k;
-            if (it < n_items) {
-                const int db = it % dq, rb = (it / dq) % rq, hh = it / (dq * rq);
-                const int col = hh * D_ + db * 4;
+    for (int k = 0; k < CS_ITEMS; ++k) {
+        const int it = threadIdx.x + BK_THREADS * k;
+        if (it < n_items) {
+            const int db = it % dq, rb = (it / dq) % rq, hh = it / (dq * rq);
+            const int col = hh * D_ + db * 4;
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    fin2[(rb * 2 + 0) * c + col + j] = cs1[k][j];
-                    fin2[(rb * 2 + 1) * c + col + j] = cs2[k][j];
-                }
+            for (int j = 0; j < 4; ++j) {
+                fin2[(rb * 2 + 0) * c + col + j] = cs1[k][j];
+                fin2[(rb * 2 + 1) * c + col + j] = cs2[k][j];
             }
         }
     }
     __syncthreads();
-    if (!BWD) {
-        // norm [H*G] after the tokens (only the q = 0 groups counted it)
-        for (int i = threadIdx.x; i < S.hg; i += BK_THREADS)
-            part[hgd + i] = fin[i];
-        return;
-    }
-    // K7: dWsl | dbsl per slot | dinv_temp per slot | dbfx | dbx
+    // dWsl | dbsl per slot | dinv_temp per slot | dbfx | dbx
     for (int i = threadIdx.x; i < S.hg; i += BK_THREADS) {
         float a = 0.0f, bb = 0.0f;
         for (int qq = 0; qq < S.ds; ++qq) {
@@ -768,55 +729,175 @@ slice_pool_tiles(PoolParams p) {
     }
 }
 
-// the K6 kernel of C = 128, H = 8, G = 32 (the default, fused_slice_pool.cu)
-// takes that shape with its 64-row tiles; every other shape (and K7 always)
-// the block tiles
-constexpr int DEFAULT_TM = 64;
-bool default_shape(int c, int h, int g) { return c == 128 && h == 8 && g == 32; }
+// ===================== the plans of K6 and K7 =====================
+//
+// Every shape the JAX package fuses up to C = 1024 (jax_pool_shape). K6
+// runs its row kernel (fused_slice_pool.cu, pool_fwd_rows) where the head
+// width and slices are compiled in (rows_variant: the nets' 8 heads of 16,
+// 32 or 64 with 32 slices), K7 the block row tiles above where pool_shape
+// takes the shape; every other shape runs the run-time path of either
+// direction (a block a head, its head width, slices and row tile at run
+// time: fused_slice_pool.cu pool_fwd_generic, fused_slice_pool_bwd.cu
+// pool_bwd_generic and pool_dx). Right, not fast.
+
+// the JAX package's fusing condition (C % 128 == 0, H*G % 128 == 0, H*D ==
+// C), up to C = 1024
+bool jax_pool_shape(int c, int h, int g) {
+    return c >= 128 && c % 128 == 0 && c <= 1024 && h >= 1 && c % h == 0 &&
+           g >= 1 && (h * g) % 128 == 0;
+}
+
+// K6's row kernel: 8 heads (a warp each) of 16, 32 or 64 columns, 32
+// slices
+bool rows_variant(int c, int h, int g) {
+    return h == 8 && g == 32 && (c == 128 || c == 256 || c == 512);
+}
+
+// K6's row kernel with tiles of tm rows: weights resident ([C][2C + 8], Wfx
+// then Wx) or the ring, two x buffers, fx and xm, two mask buffers
+size_t rows_smem(int c, int tm, int resident) {
+    const int pw = (8 / (tm / 16)) * 64;
+    return align128(resident ? (size_t)c * (2 * c + 8) * 2
+                             : (size_t)2 * ring_slot(pw) * 2) +
+           align128((size_t)2 * tm * (c + 8) * 2) +
+           2 * align128((size_t)tm * (c + 8) * 2) +
+           align128((size_t)2 * tm * 4);
+}
+
+// the run-time path of K6 (bwd false) or K7 with tiles of tm rows: x, fx
+// and xm of the block's head (float), w (K7 also l and ds), the mask
+size_t generic_smem(int c, int h, int g, int tm, bool bwd) {
+    const int d = c / h;
+    return align128((size_t)tm * c * 2) + 2 * align128((size_t)tm * d * 4) +
+           (bwd ? 3 : 1) * align128((size_t)tm * g * 4) +
+           align128((size_t)tm * 4);
+}
+
+// K7's run-time dx pass with tiles of tm rows: the ring, dfx16 and dxm16
+size_t dx_smem(int c, int tm) {
+    const int pw = (8 / (tm / 16)) * 64;
+    return align128((size_t)2 * ring_slot(pw) * 2) +
+           2 * align128((size_t)tm * (c + 8) * 2);
+}
+
+// The run-time paths' start of a tile (K6 and K7 alike): rows r0 .. r0 +
+// nrow of x into sX [tm][C] and the mask into sMk (zero past nrow), then
+// the head's fx16 and xm16 columns col0 .. col0 + D into sF, sM [nrow][D]
+// as floats (float32 sums over C in order, the bias, one bf16 rounding).
+// Starts and ends with a block barrier.
+__device__ __forceinline__ void generic_tile(
+        const bf16* xlane, const float* mlane, const bf16* wfx,
+        const float* bfx, const bf16* wx, const float* bx, int c, int d,
+        int col0, int tm, int r0, int nrow, bf16* sX, float* sMk, float* sF,
+        float* sM) {
+    __syncthreads();                            // the last tile is read
+    for (int i = threadIdx.x; i < tm * (c / 8); i += BK_THREADS) {
+        const int r = i / (c / 8), ch = i - r * (c / 8);
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (r < nrow)
+            v = *reinterpret_cast<const uint4*>(xlane + (size_t)(r0 + r) * c +
+                                                ch * 8);
+        *reinterpret_cast<uint4*>(sX + (size_t)r * c + ch * 8) = v;
+    }
+    for (int i = threadIdx.x; i < tm; i += BK_THREADS)
+        sMk[i] = i < nrow ? mlane[r0 + i] : 0.0f;
+    __syncthreads();
+    for (int i = threadIdx.x; i < nrow * d; i += BK_THREADS) {
+        const int r = i / d, dd = i - r * d, col = col0 + dd;
+        float a = 0.0f, q = 0.0f;
+        for (int k = 0; k < c; ++k) {
+            const float xv = __bfloat162float(sX[(size_t)r * c + k]);
+            a = fmaf(xv, __bfloat162float(wfx[(size_t)k * c + col]), a);
+            q = fmaf(xv, __bfloat162float(wx[(size_t)k * c + col]), q);
+        }
+        sF[i] = round_bf16(a + bfx[col]);
+        sM[i] = round_bf16(q + bx[col]);
+    }
+    __syncthreads();
+}
+
+enum PoolPath { POOL_ROWS = 0, POOL_TILES = 1, POOL_GENERIC = 2 };
 
 struct PoolRun {
     PoolShape s;
-    PoolPlan L;
+    PoolPlan L;             // POOL_TILES: the tile and its layout
+    int path, tm, resident, blocks_per_sm, dx_tm;
+    size_t smem, dx_smem;   // POOL_ROWS / POOL_GENERIC, K7's dx pass
     int rows_per_chunk, n_chunks, part_len, n_sm;
     size_t o_part, o_dfx, o_dxm, o_wg, bytes;
     gfvgn::WgParams q;
 };
 
-// plan, chunks and workspace of a call; cudaErrorInvalidValue where no
-// kernel takes the shape
+// path, plan, chunks and workspace of a call; cudaErrorInvalidValue where
+// no kernel takes the shape
 int pool_run(int c, int h, int g, int B, int N, bool bwd, PoolRun& P) {
-    int max_smem = 0;
-    int err = device_limits(max_smem, P.n_sm);
+    int max_smem = 0, sm_smem = 0;
+    int err = device_limits(max_smem, P.n_sm, &sm_smem);
     if (err != 0) return err;
-    if (B < 1 || B > 65535 || N < 1 || !pool_shape(c, h, g, P.s))
+    if (B < 1 || B > 65535 || N < 1 || !jax_pool_shape(c, h, g))
         return (int)cudaErrorInvalidValue;
-    const bool dflt = !bwd && default_shape(c, h, g);
-    bool found = dflt;
-    int tm = DEFAULT_TM;
-    for (int res = 1; res >= 0 && !found; --res)
-        for (int t = 64; t >= 16 && !found; t >>= 1)
-            for (int tok = 1; tok >= 0 && !found; --tok)
-                for (int nbuf = 2; nbuf >= 1 && !found; --nbuf) {
-                    if (!bwd && tok == 0) continue;
-                    // the column stage's items a thread (CS_ITEMS)
-                    if (bwd && t * c / 16 > BK_THREADS * CS_ITEMS) continue;
-                    const size_t total =
-                        pool_layout(P.s, t, res, nbuf, tok, bwd, P.L);
-                    if (total <= (size_t)max_smem) {
-                        P.L.tm = t; P.L.nbuf = nbuf; P.L.resident = res;
-                        P.L.tok_smem = tok; P.L.smem = total;
-                        tm = t;
-                        found = true;
+    P.s.c = c; P.s.h = h; P.s.g = g; P.s.d = c / h; P.s.hg = h * g;
+    bool found = false;
+    if (!bwd && rows_variant(c, h, g)) {
+        // two blocks an SM (16 warps) before one, resident weights before
+        // streamed, then larger tiles (at C = 256 two blocks of 32-row
+        // tiles beat one of 64-row tiles, which read the streamed weights
+        // half as often: 0.28 against 0.35-0.40 ms on the H100)
+        for (int k = 0; k < 12 && !found; ++k) {
+            const int per_sm = 2 - k / 6, res = 1 - (k / 3) % 2;
+            const int t = 64 >> (k % 3);
+            const size_t total = rows_smem(c, t, res);
+            if (total <= (size_t)max_smem &&
+                (total + 1024) * per_sm <= (size_t)sm_smem) {
+                P.path = POOL_ROWS; P.tm = t; P.resident = res;
+                P.blocks_per_sm = per_sm; P.smem = total;
+                found = true;
+            }
+        }
+    }
+    if (!found && bwd && pool_shape(c, h, g, P.s))
+        for (int res = 1; res >= 0 && !found; --res)
+            for (int t = 64; t >= 16 && !found; t >>= 1)
+                for (int tok = 1; tok >= 0 && !found; --tok)
+                    for (int nbuf = 2; nbuf >= 1 && !found; --nbuf) {
+                        // the column stage's items a thread (CS_ITEMS)
+                        if (t * c / 16 > BK_THREADS * CS_ITEMS) continue;
+                        const size_t total =
+                            pool_layout(P.s, t, res, nbuf, tok, P.L);
+                        if (total <= (size_t)max_smem) {
+                            P.L.tm = t; P.L.nbuf = nbuf; P.L.resident = res;
+                            P.L.tok_smem = tok; P.L.smem = total;
+                            P.path = POOL_TILES; P.tm = t;
+                            found = true;
+                        }
                     }
-                }
+    if (!found) {
+        for (int t = 32; t >= 1 && !found; t >>= 1) {
+            const size_t total = generic_smem(c, h, g, t, bwd);
+            if (total <= (size_t)max_smem) {
+                P.path = POOL_GENERIC; P.tm = t; P.smem = total;
+                found = true;
+            }
+        }
+        bool dx = !bwd;
+        for (int t = 64; t >= 16 && !dx; t >>= 1)
+            if (dx_smem(c, t) <= (size_t)max_smem) {
+                P.dx_tm = t; P.dx_smem = dx_smem(c, t);
+                dx = true;
+            }
+        found = found && dx;
+    }
     if (!found) return (int)cudaErrorInvalidValue;
-    // row chunks: about two blocks an SM over the batch (the default K6),
-    // one otherwise (one block fits an SM)
-    const int tiles = (N + tm - 1) / tm;
-    int want = (dflt ? 2 * P.n_sm : P.n_sm) / B;
+    // row chunks: the row kernel's resident blocks over the batch; one
+    // block an SM for K7's tiles; about two blocks an SM over the batch and
+    // the heads for the run-time path
+    const int tiles = (N + P.tm - 1) / P.tm;
+    int want = P.path == POOL_ROWS ? P.blocks_per_sm * P.n_sm / B
+             : P.path == POOL_TILES ? P.n_sm / B
+                                    : 2 * P.n_sm / (B * h);
     if (want > tiles) want = tiles;
     if (want < 1) want = 1;
-    P.rows_per_chunk = ((tiles + want - 1) / want) * tm;
+    P.rows_per_chunk = ((tiles + want - 1) / want) * P.tm;
     P.n_chunks = (N + P.rows_per_chunk - 1) / P.rows_per_chunk;
     const int hgd = P.s.hg * P.s.d;
     P.part_len = bwd ? hgd + 2 * P.s.hg + 2 * c : hgd + P.s.hg;
@@ -863,26 +944,25 @@ void fill_pool(PoolParams& p, const PoolRun& P, const void* x,
     p.L = P.L;
 }
 
-template <int NS, int DPT, int DC, int GC, bool BWD>
+template <int NS, int DPT, int DC, int GC>
 int launch_pool_t(const PoolRun& P, const PoolParams& p, int B,
                   cudaStream_t st) {
     cudaError_t e = cudaFuncSetAttribute(
-        slice_pool_tiles<NS, DPT, DC, GC, BWD>,
+        slice_pool_tiles<NS, DPT, DC, GC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P.L.smem);
     if (e != cudaSuccess) return (int)e;
-    slice_pool_tiles<NS, DPT, DC, GC, BWD><<<dim3(P.n_chunks, B), BK_THREADS,
-                                              P.L.smem, st>>>(p);
+    slice_pool_tiles<NS, DPT, DC, GC><<<dim3(P.n_chunks, B), BK_THREADS,
+                                         P.L.smem, st>>>(p);
     return (int)cudaGetLastError();
 }
 
-template <bool BWD>
 int launch_pool(const PoolRun& P, const PoolParams& p, int B,
                 cudaStream_t st) {
     const int ns = P.s.ns, dpt = P.s.dpt, d = P.s.d, g = P.s.g;
     // the listed shapes with their head width and slices compiled in
 #define GFVGN_POOL_C(NS_, DPT_, D_, G_) \
     if (ns == NS_ && dpt == DPT_ && d == D_ && g == G_) \
-        return launch_pool_t<NS_, DPT_, D_, G_, BWD>(P, p, B, st);
+        return launch_pool_t<NS_, DPT_, D_, G_>(P, p, B, st);
     GFVGN_POOL_C(1, 16, 16, 32) GFVGN_POOL_C(1, 32, 32, 32)
     GFVGN_POOL_C(1, 64, 64, 32) GFVGN_POOL_C(1, 48, 48, 32)
     GFVGN_POOL_C(1, 16, 32, 32) GFVGN_POOL_C(1, 8, 16, 16)
@@ -891,7 +971,7 @@ int launch_pool(const PoolRun& P, const PoolParams& p, int B,
 #undef GFVGN_POOL_C
 #define GFVGN_POOL(NS_, DPT_) \
     if (ns == NS_ && dpt == DPT_) \
-        return launch_pool_t<NS_, DPT_, 0, 0, BWD>(P, p, B, st);
+        return launch_pool_t<NS_, DPT_, 0, 0>(P, p, B, st);
     GFVGN_POOL(1, 8) GFVGN_POOL(1, 16) GFVGN_POOL(1, 32) GFVGN_POOL(1, 48)
     GFVGN_POOL(1, 64)
     GFVGN_POOL(2, 8) GFVGN_POOL(2, 16) GFVGN_POOL(2, 32)

@@ -27,7 +27,8 @@ from torch import nn
 
 from gen_fvgn_tpu_torch.graph.packs import StaticPack
 from gen_fvgn_tpu_torch.models.mlp import Gathered, GatheredPair, Mlp
-from gen_fvgn_tpu_torch.ops.blocksparse import apply_linop, apply_node_pair
+from gen_fvgn_tpu_torch.ops.blocksparse import (apply_linop, apply_node_agg,
+                                               apply_node_pair)
 
 
 class EdgeBlockB(nn.Module):
@@ -83,7 +84,6 @@ class NodeBlockB(nn.Module):
 
     def forward(self, node_x, edge_attr, static: StaticPack):
         ops = static.ops
-        h2 = self.hidden_size // 2
         if ops.nbr_r is None:
             raise ValueError("the StaticPack was built without the composed "
                              "nbr_r/nbr_s operators (node_agg='composed')")
@@ -92,11 +92,11 @@ class NodeBlockB(nn.Module):
             # ONE dual-output transpose pass (K9) in the backward
             nbr_sum = apply_node_pair(ops, edge_attr)
         else:
-            # one wide apply per half with the precomputed adj@scat
-            # operators; the half selection is a node-side channel slice
-            t = apply_linop(ops.nbr_r, edge_attr)        # [.., N, h]
-            u = apply_linop(ops.nbr_s, edge_attr)
-            nbr_sum = t[..., :h2] + u[..., h2:]
+            # nbr_r·e[..., :h2] + nbr_s·e[..., h2:] with the precomputed
+            # adj@scat operators, each on its kept column window (the
+            # JAX package applies both to all h columns and then keeps a
+            # half of each: the same bits)
+            nbr_sum = apply_node_agg(ops, edge_attr)     # [.., N, h2]
         # keep the bf16 stream bf16: inv_deg is cast to the stream type and
         # multiplied there
         inv_deg = (1.0 / torch.clamp(ops.deg, min=1.0)).to(nbr_sum.dtype)

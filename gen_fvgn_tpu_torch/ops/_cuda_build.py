@@ -97,10 +97,12 @@ def _build(lib_path: Path) -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.gfvgn_spmm_csr.restype = ci
+    cl = ctypes.c_longlong
     lib.gfvgn_spmm_csr.argtypes = [
         vp, vp, vp,            # crow, col, val
-        vp, vp,                # x, out
+        vp, vp,                # x, out (windows)
         ci, ci, ci, ci,        # B, n_in, n_out, F
+        cl, cl, cl, cl,        # x row/batch stride, out row/batch stride
         ci, ci,                # x_is_bf16, out_is_bf16
         vp]                    # stream
     for name in ("gfvgn_pair_sum", "gfvgn_pair_transpose"):

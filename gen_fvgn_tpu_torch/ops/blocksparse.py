@@ -298,6 +298,65 @@ class _NodePair(torch.autograd.Function):
         return dy.to(ctx.y_dtype), None, None
 
 
+class _NodeAgg(torch.autograd.Function):
+    """The composed NodeBlock aggregation nbr_sum = nbr_r·e[..., :h2] +
+    nbr_s·e[..., h2:] as two applies on column windows of the edge stream
+    e [(B,) E, h] (h2 = h / 2): each product at width h2, rounded to its
+    output type as the full-width applies round (`_out_dtype`), the two
+    added in that type. The backward writes nbr_rᵀ·g and nbr_sᵀ·g straight
+    into the two halves of one [(B,) E, h] gradient. It gives the bits of
+    `(nbr_r·e)[..., :h2] + (nbr_s·e)[..., h2:]` and of that expression's
+    autograd backward (whose other halves are exact zeros), with half the
+    operand bytes, no zero-filled cotangent and no add of two half-zero
+    edge gradients. Windows of a multiple of 64 columns go to K1 (spmm)
+    on the card; the plain version (`plain`, or CPU tensors) computes the
+    same windows through `spmm_reference`, and narrower ones take
+    `csr_matmul`, as the full-width applies do below 128."""
+
+    @staticmethod
+    def forward(ctx, e, ops, plain):
+        ctx.ops, ctx.plain, ctx.e_dtype = ops, plain, e.dtype
+        h2 = e.shape[-1] // 2
+        t = _apply_window(ops.nbr_r.fwd, e[..., :h2], plain)
+        u = _apply_window(ops.nbr_s.fwd, e[..., h2:], plain)
+        return t + u
+
+    @staticmethod
+    def backward(ctx, g):
+        ops, plain = ctx.ops, ctx.plain
+        g = g.contiguous()
+        h2 = g.shape[-1]
+        out_dtype = _out_dtype(ops.nbr_r.bwd, g)
+        de = torch.empty(g.shape[:-2] + (ops.nbr_r.bwd.n_out, 2 * h2),
+                         dtype=out_dtype, device=g.device)
+        _apply_window(ops.nbr_r.bwd, g, plain, de[..., :h2])
+        _apply_window(ops.nbr_s.bwd, g, plain, de[..., h2:])
+        return de.to(ctx.e_dtype), None, None
+
+
+def _apply_window(op: CsrOp, x: torch.Tensor, plain: bool,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A·x for a column window x (and optionally into a window `out`):
+    K1 at widths that are multiples of 64, `csr_matmul` below."""
+    from gen_fvgn_tpu_torch.ops.spmm import spmm, spmm_reference
+    if x.shape[-1] % 64 == 0:
+        return (spmm_reference if plain else spmm)(op, x, out)
+    res = csr_matmul(op, x)
+    if out is None:
+        return res
+    out.copy_(res)
+    return out
+
+
+def apply_node_agg(ops, e: torch.Tensor) -> torch.Tensor:
+    """The composed NodeBlock aggregation (JAX `models/gn_block.py`
+    :110-112, `t[..., :h2] + u[..., h2:]` of two full-width applies):
+    e [(B,) n_edges, h] -> [(B,) n_nodes, h/2], computed on the kept
+    column windows only (see `_NodeAgg`)."""
+    from gen_fvgn_tpu_torch.ops import plain_versions_active
+    return _NodeAgg.apply(e, ops, plain_versions_active())
+
+
 def apply_node_pair(ops, y: torch.Tensor) -> torch.Tensor:
     """The composed NodeBlock aggregation in one pass (JAX
     `ops/blocksparse.py::apply_node_pair`): y [(B,) n_edges, 2h] ->

@@ -50,8 +50,9 @@ K5f `fused_premlp_res` replaces `_premlp_fwd_kernel` (:691-711, called at
     out = x + W2·gelu(W1·(LN(x)·γ + β) + b1) + b2,   hidden width 2C
 
 in its own kernels (csrc/fused_premlp.cu), at any width C that is a
-multiple of 128 up to 512 (`premlp_shape_ok`; C = 128 on its own wmma
-kernel, wider C on block row tiles with streamed weights): the LayerNorm
+multiple of 128 up to 1024 (`premlp_shape_ok`; C = 128 on its own wmma
+kernel, wider C on block row tiles with streamed weights, the backward
+above 512 taking the hidden width in chunks): the LayerNorm
 comes first and its rounding points differ from K2's: u = LN(x)·γ + β is
 rounded to bf16 before W1, h before W2, and the residual x is added in
 float32 BEFORE the one final bf16 rounding (K2 rounds first and adds in
@@ -732,22 +733,29 @@ def premlp_plan(c: int, backward: bool):
     """The row tile K5f (C >= 256) and K5b take for width c with hidden
     width 2c, as csrc/fused_premlp.cu `tile_plan` chooses it: (tm, weights
     resident, row buffers, shared-memory bytes), or None where no tile fits
-    a block's shared memory or c is not a multiple of 128 up to 512."""
-    if c < 128 or c % 128 or c > 512:
+    a block's shared memory or c is not a multiple of 128 up to 1024. From
+    C = 640 on the backward takes the hidden width in chunks of one 512-wide
+    pass (16-row tiles, streamed weights, du staged where the ring was)."""
+    if c < 128 or c % 128 or c > 1024:
         return None
     hd = 2 * c
+    chunk = backward and c >= 640
     for resident in (True, False):
         for tm in (64, 32, 16):
             for nbuf in (2, 1):
+                if chunk and (tm != 16 or resident):
+                    continue
                 wr = tm // 16
-                size = _align128((c * (hd + 8) + hd * (c + 8)) * 2
-                                 if resident else _ring_bytes(tm))
+                pw = (8 // wr) * 64
+                w = ((c * (hd + 8) + hd * (c + 8)) * 2 if resident
+                     else _ring_bytes(tm))
+                size = _align128(max(w, tm * (c + 4) * 4) if chunk else w)
                 size += _align128(nbuf * tm * (c + 8) * 2)
                 size += _align128(tm * (c + 8) * 2)
-                size += _align128(tm * (hd + 8) * 2)
+                size += _align128(tm * ((pw if chunk else hd) + 8) * 2)
                 if backward:
                     size += (_align128(nbuf * tm * (c + 8) * 2)
-                             + _align128(tm * (c + 4) * 4)
+                             + (0 if chunk else _align128(tm * (c + 4) * 4))
                              + _align128(tm * 2 * 4)
                              + _align128(wr * hd * 4) + _align128(hd * 4))
                     size = max(size, 8 * 3 * c * 4)
@@ -758,9 +766,11 @@ def premlp_plan(c: int, backward: bool):
 
 def premlp_shape_ok(c: int, hd: int) -> bool:
     """Whether K5f and K5b take the pre-LN MLP branch at width c and hidden
-    width hd: hd = 2c (mlp_ratio 2), c a multiple of 128 up to 512 whose
+    width hd: hd = 2c (mlp_ratio 2), c a multiple of 128 up to 1024 whose
     tiles fit a block's shared memory (the kernels' size query,
-    `gfvgn_premlp_workspace`, decides the same on the card)."""
+    `gfvgn_premlp_workspace`, decides the same on the card). The JAX
+    package fuses every c % 128 == 0 with hd % 128 == 0; above 1024 the
+    kernels raise."""
     return hd == 2 * c and premlp_plan(c, True) is not None \
         and premlp_plan(c, False) is not None
 
@@ -775,7 +785,7 @@ def _premlp_operands(x, gamma, beta, w1, b1, w2, b2, what):
     if x.ndim != 2 or tuple(w1.shape) != (c, hd) \
             or not premlp_shape_ok(c, hd):
         raise NotImplementedError(
-            f"{what} takes x [M, C] with C a multiple of 128 up to 512 and a "
+            f"{what} takes x [M, C] with C a multiple of 128 up to 1024 and a "
             f"hidden width 2C whose row tile fits a block's "
             f"{SMEM_PER_BLOCK} bytes of shared memory, got x "
             f"{tuple(x.shape)}, w1 {tuple(w1.shape)}")

@@ -16,11 +16,14 @@ one inverse temperature per head, and produces only the per-head diagonal
 blocks: tokens [B, H, G, D] and norm [B, H, G]. Rows of a batch lane are
 cut into chunks pooled by separate blocks; a second pass in the same file
 sums the chunks' partials in a fixed order, so the result is the same bits
-from run to run. The default shape (C = 128, 8 heads, 32 slices) has its
-own kernel; every other shape the kernels take (`slice_pool_shape_ok`: C a
-multiple of 128 up to 512, H·G a multiple of 128, H and G powers of two)
-runs on the block row tiles of csrc/slice_pool_tiles.cuh, as does the
-backward K7 at every shape.
+from run to run. The nets' shapes (8 heads of 16, 32 or 64, 32 slices) run
+its row kernel: projections on the tensor cores into bf16 tiles, a warp a
+head with the logits, the softmax and the pooling (w·mask split into bf16
+hi + lo against the exact bf16 fx) in mma fragments. Every other shape the
+JAX package fuses up to C = 1024 (`slice_pool_shape_ok`) runs a run-time
+path (a block a head, float32 sums on the CUDA cores). The backward K7 runs
+the block row tiles of csrc/slice_pool_tiles.cuh where their slot mapping
+takes the shape, the run-time path otherwise (`slice_pool_plan`).
 
 Rounding points, identical in the kernel and in the plain version: fx, xm
 and the logits rounded to the stream type (bf16) after a float32-accumulated
@@ -33,7 +36,8 @@ taken in another order, which can flip one bf16 rounding of fx, xm or a
 logit. A flipped logit moves all G weights of its (node, head) by up to a
 factor e^(±2δ), δ = inv_temp · ulp(logit): `slice_w_tolerance`. Tokens and
 norm within 1e-3 of their scale (the float32 pooling sums run in another
-order, and a flipped rounding moves one row's contribution).
+order, and a flipped rounding moves one row's contribution; the row
+kernel's hi + lo split of w·mask leaves under 2⁻¹⁶ of it out).
 """
 
 from __future__ import annotations
@@ -97,15 +101,27 @@ def fused_slice_pool_reference(x, mask, wfx, bfx, wx, bx, wsl, bsl, inv_temp
     return w.reshape(b, n, h * g).to(dt), tokens, w_m.sum(dim=1)
 
 
+# what an SM of the H100 holds (cudaDevAttrMaxSharedMemoryPerMultiprocessor);
+# each resident block also takes 1 KB of it
+SMEM_PER_SM = 233_472
+
+
+def jax_fuses_slice_pool(c: int, h: int, g: int) -> bool:
+    """The JAX package's condition for its fused slice pool
+    (`gen_fvgn_tpu/models/transolver.py:63-64`, without its `n % 256`):
+    C % 128 == 0, H·G % 128 == 0 and H·D == C."""
+    return c >= 128 and c % 128 == 0 and h >= 1 and c % h == 0 and g >= 1 \
+        and (h * g) % 128 == 0
+
+
 def slice_pool_slots(c: int, h: int, g: int):
-    """The kernels' slot mapping for width c, h heads and g slices, as
-    csrc/fused_slice_pool.cu `pool_shape` gives it: (L lanes a head group,
-    heads per group, groups sharing a head, slots a thread, columns a
-    thread), or None where no kernel takes the shape. The JAX package fuses
-    c % 128 == 0 with h·g % 128 == 0; the kernels take those with c up to
-    512, h and g powers of two (g from 8 to 128), and a thread's columns
-    (the head width c / h over the groups sharing a head) 8, 16, 32, 48 or
-    64 with at most 64 pooled sums a thread (c·g <= 16384)."""
+    """K7's block row tiles' slot mapping for width c, h heads and g slices,
+    as csrc/slice_pool_tiles.cuh `pool_shape` gives it: (L lanes a head
+    group, heads per group, groups sharing a head, slots a thread, columns
+    a thread), or None where the tiles do not take the shape (c up to 512,
+    h and g powers of two, g from 8 to 128, a thread's columns 8, 16, 32,
+    48 or 64 with at most 64 pooled sums a thread); those shapes run K7's
+    run-time path."""
     pow2 = lambda v: v > 0 and v & (v - 1) == 0
     if c < 128 or c % 128 or c > 512 or h < 1 or c % h or (h * g) % 128 \
             or not pow2(g) or not 8 <= g <= 128 or not pow2(h):
@@ -124,12 +140,30 @@ def slice_pool_slots(c: int, h: int, g: int):
     return lanes, hpg, ds, ns, dpt
 
 
-def slice_pool_plan(c: int, h: int, g: int, backward: bool):
-    """The row tile of the block kernels (K7, and K6 at any shape but the
-    default C = 128, H = 8, G = 32) as csrc/fused_slice_pool.cu `pool_run`
-    chooses it: (tm, weights resident, dtokens in shared memory, row
-    buffers, shared-memory bytes), or None where no kernel takes the shape
-    or no tile fits a block's shared memory."""
+def _rows_plan(c: int, h: int, g: int):
+    """K6's row kernel (the nets' shapes: 8 heads of 16, 32 or 64, 32
+    slices), as csrc/slice_pool_tiles.cuh `pool_run` chooses its tile: two
+    blocks an SM before one, weights resident before streamed, larger
+    tiles first."""
+    from gen_fvgn_tpu_torch.ops.fused_mlp import (SMEM_PER_BLOCK, _align128,
+                                                  _ring_bytes)
+    if not (h == 8 and g == 32 and c in (128, 256, 512)):
+        return None
+    order = [(resident, per_sm, tm) for per_sm in (2, 1)
+             for resident in (True, False) for tm in (64, 32, 16)]
+    for resident, per_sm, tm in order:
+        size = (_align128(c * (2 * c + 8) * 2 if resident
+                          else _ring_bytes(tm))
+                + _align128(2 * tm * (c + 8) * 2)
+                + 2 * _align128(tm * (c + 8) * 2) + _align128(2 * tm * 4))
+        if size <= SMEM_PER_BLOCK and (size + 1024) * per_sm <= SMEM_PER_SM:
+            return "rows", tm, resident, per_sm, size
+    return None
+
+
+def _tiles_plan(c: int, h: int, g: int):
+    """K7's block row tiles, as `pool_run` chooses them: (tm, weights
+    resident, dtokens in shared memory, row buffers, bytes)."""
     from gen_fvgn_tpu_torch.ops.fused_mlp import (SMEM_PER_BLOCK, _align128,
                                                   _ring_bytes)
     slots = slice_pool_slots(c, h, g)
@@ -140,33 +174,60 @@ def slice_pool_plan(c: int, h: int, g: int, backward: bool):
         for tm in (64, 32, 16):
             for tok in (True, False):
                 for nbuf in (2, 1):
-                    if (not backward and not tok) \
-                            or (backward and tm * c // 16 > 1024):
+                    if tm * c // 16 > 1024:
                         continue
                     row = _align128(tm * (c + 8) * 2)
                     size = (_align128(2 * c * (c + 8) * 2) if resident
                             else _ring_bytes(tm))
                     size += _align128(nbuf * tm * (c + 8) * 2) + 2 * row
-                    if backward:
-                        size += _align128(hg * (tm + 4) * 4)
-                        size += _align128(hg * (tm + 8) * 2)
-                        size += _align128(d * (g + 1) * 4 + g * (d + 4) * 4
-                                          + d * (g + 8) * 2)
-                        size += _align128(hg * (d + 4) * 4) if tok else 0
-                        size += _align128(nbuf * tm * (hg + 8) * 2)
-                    else:
-                        size += _align128(tm * (hg + 1) * 4)
-                        size += _align128(d * (g + 1) * 4)
+                    size += _align128(hg * (tm + 4) * 4)
+                    size += _align128(hg * (tm + 8) * 2)
+                    size += _align128(d * (g + 1) * 4 + g * (d + 4) * 4
+                                      + d * (g + 8) * 2)
+                    size += _align128(hg * (d + 4) * 4) if tok else 0
+                    size += _align128(nbuf * tm * (hg + 8) * 2)
                     size = max(size, (2 * ds * hg + 2 * (tm // 4) * c) * 4)
                     if size <= SMEM_PER_BLOCK:
-                        return tm, resident, tok, nbuf, size
+                        return "tiles", tm, resident, tok, nbuf, size
     return None
+
+
+def _generic_plan(c: int, h: int, g: int, backward: bool):
+    """The run-time path of K6 (or K7): the largest tile of 32 to 1 rows
+    whose x, the head's fx and xm, w (K7: also l and ds) and the mask fit a
+    block; K7 also needs a tile of its dx pass (the ring and two row
+    tiles)."""
+    from gen_fvgn_tpu_torch.ops.fused_mlp import (SMEM_PER_BLOCK, _align128,
+                                                  _ring_bytes)
+    d = c // h
+    tm = next((t for t in (32, 16, 8, 4, 2, 1)
+               if _align128(t * c * 2) + 2 * _align128(t * d * 4)
+               + (3 if backward else 1) * _align128(t * g * 4)
+               + _align128(t * 4) <= SMEM_PER_BLOCK), None)
+    dx = next((t for t in (64, 32, 16)
+               if _ring_bytes(t) + 2 * _align128(t * (c + 8) * 2)
+               <= SMEM_PER_BLOCK), None)
+    if tm is None or (backward and dx is None):
+        return None
+    return "generic", tm
+
+
+def slice_pool_plan(c: int, h: int, g: int, backward: bool):
+    """How K6 (backward False) or K7 runs width c with h heads and g
+    slices, as csrc/slice_pool_tiles.cuh `pool_run` decides it: K6's row
+    kernel at the nets' shapes, K7's block row tiles where their slot
+    mapping and a tile fit, the run-time path for every other shape the JAX
+    package fuses up to C = 1024; None above 1024 or where no tile fits."""
+    if not jax_fuses_slice_pool(c, h, g) or c > 1024:
+        return None
+    first = _tiles_plan(c, h, g) if backward else _rows_plan(c, h, g)
+    return first or _generic_plan(c, h, g, backward)
 
 
 def slice_pool_shape_ok(c: int, h: int, g: int) -> bool:
     """Whether K6 and K7 take width c with h heads and g slices (the
     kernels' size query, `gfvgn_slice_pool_workspace`, decides the same on
-    the card)."""
+    the card): every shape the JAX package fuses up to C = 1024."""
     return slice_pool_plan(c, h, g, True) is not None \
         and slice_pool_plan(c, h, g, False) is not None
 
@@ -182,10 +243,9 @@ def _pool_operands(x, mask, wfx, bfx, wx, bx, wsl, bsl, inv_temp, what):
     if x.ndim != 3 or not d or c % d or not slice_pool_shape_ok(c, h, g):
         raise NotImplementedError(
             f"{what} takes x [B, N, C] and a [C / H, G] slice kernel with C "
-            f"a multiple of 128 up to 512, H·G a multiple of 128, H and G "
-            f"powers of two (G from 8 to 128), C·G <= 16384 and a row tile "
-            f"within a block's shared memory; got x {tuple(x.shape)}, wsl "
-            f"{tuple(wsl.shape)}")
+            f"a multiple of 128 up to 1024 and H·G a multiple of 128 (the "
+            f"JAX package's condition) and a row tile within a block's "
+            f"shared memory; got x {tuple(x.shape)}, wsl {tuple(wsl.shape)}")
     b, n, _ = x.shape
     if mask.ndim == 1:
         mask, stride = _check(mask, (n,), f32, "mask"), 0

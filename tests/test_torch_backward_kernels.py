@@ -41,7 +41,10 @@ from torch_port_common import both_sides, jax_kernels_on
 torch.set_num_threads(1)
 
 M, H = 300, 128          # M not a multiple of the JAX row tile
-BF16_EQUAL_SHARE = {128: 0.9, 256: 0.85}     # by hidden width
+# by hidden width (measured at 768 and 1024: >= 0.988; the slice pool's
+# Wfx, Wx at 384 and 512 likewise)
+BF16_EQUAL_SHARE = {128: 0.9, 256: 0.85, 384: 0.85, 512: 0.85, 768: 0.85,
+                    1024: 0.85}
 
 
 def _ulps(ref, n=2):
@@ -210,6 +213,13 @@ def test_fused_premlp_res_backward_matches_jax_at_c256():
     _premlp_backward(2 * H)
 
 
+@pytest.mark.parametrize("c", [768, 1024])
+def test_fused_premlp_res_backward_matches_jax_at_wide_c(c):
+    """The same at C = 768 and 1024 (hidden 2C), which the kernels take
+    from this slice on (the backward in hidden chunks on the card)."""
+    _premlp_backward(c)
+
+
 def _premlp_backward(c):
     from gen_fvgn_tpu.ops.fused_mlp import fused_premlp_res_parts as jfn
     from gen_fvgn_tpu_torch.ops.fused_mlp import fused_premlp_res_parts as tfn
@@ -249,9 +259,14 @@ def test_fused_slice_pool_backward_matches_jax():
     _slice_pool_backward(H, 8, 32)
 
 
-@pytest.mark.parametrize("c,h,g", [(2 * H, 8, 32), (H, 8, 16)])
+@pytest.mark.parametrize("c,h,g", [(2 * H, 8, 32), (H, 8, 16),
+                                   (H, 16, 8), (4 * H, 4, 128),
+                                   (3 * H, 6, 64)])
 def test_fused_slice_pool_backward_matches_jax_at_other_shapes(c, h, g):
-    """The same at C = 256 (8 heads of 32) and with 16 slices."""
+    """The same at C = 256 (8 heads of 32), with 16 slices, and at the
+    shapes the kernels take from this slice on: 16 heads of 8 with 8
+    slices, 4 heads of 128 with 128 slices, 6 heads of 64 with 64 slices
+    (no powers of two)."""
     _slice_pool_backward(c, h, g)
 
 
@@ -266,7 +281,15 @@ def _slice_pool_backward(c, h, g):
              bfx=_rng_f32(rng, c, scale=0.1),
              wx=_rng_f32(rng, c, c) / np.sqrt(c),
              bx=_rng_f32(rng, c, scale=0.1),
-             wsl=_rng_f32(rng, d, g) / 2.0, bsl=_rng_f32(rng, g, scale=0.1),
+             # above D = 32 the slice kernel's columns as long as at the
+             # default D = 16 (about 2; the model initialises them
+             # orthogonal, of unit length): unscaled, the logits grow as
+             # sqrt(D) and reach |l| ~ 20 at D = 128, where one bf16 ulp is
+             # 1/8 and a flipped rounding on either side moves a softmax
+             # by a factor of two
+             wsl=_rng_f32(rng, d, g) / 2.0 * (np.sqrt(16.0 / d) if d > 32
+                                              else 1.0),
+             bsl=_rng_f32(rng, g, scale=0.1),
              temp=rng.uniform(0.3, 1.0, size=(1, h, 1)).astype(np.float32))
     gw = _bf16(_rng_f32(rng, b, n, h * g))
     gtok = _rng_f32(rng, b, h, g, d)
@@ -302,10 +325,20 @@ def _slice_pool_backward(c, h, g):
     # the shared slice kernel: the float32 sum of the H rounded head blocks
     np.testing.assert_allclose(tw["wsl"].grad.numpy(), jw["wsl"], rtol=0,
                                atol=_ulps(jw["wsl"], 4))
+    # at 128 slices (and 128-wide heads) the bias and temperature gradients
+    # are worse
+    # conditioned: each element sums four times the default's bf16-rounded
+    # dl16 terms, and a flipped logit rounding on either side moves a row's
+    # 128 weights of a head at once. The JAX gradient itself moves dbsl by
+    # 4.5e-4 of its scale when one element of x moves by 3e-2 (a few bf16
+    # ulps); the port's float32 sums differ from XLA's in every element:
+    # 5e-3 of the scale there (measured 1.3e-3 for dbx, 2.1e-3 for dbsl,
+    # 2.5e-3 for dtemp), 1e-3 at up to 64 slices
+    rel = 5e-3 if g >= 128 else 1e-3
     for k in ("bfx", "bx", "bsl"):
-        _check_vec(tw[k].grad.numpy(), jw[k], k)
+        _check_vec(tw[k].grad.numpy(), jw[k], k, rel)
     np.testing.assert_allclose(tw["temp"].grad.numpy(), jw["temp"],
-                               rtol=1e-3)
+                               rtol=rel)
 
 
 def _linop_case(name):

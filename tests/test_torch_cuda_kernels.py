@@ -7,13 +7,15 @@ test, never while the module is imported). Run them on the card with
 
 `chip_smoke.py` makes the same comparisons at the main path's full shapes;
 these cover the edges: ragged row counts, every operand/output type of the
-sparse apply and of the paired applies (K8, K9: B = 1, empty rows, float32
+sparse apply (K1 also on column windows of wider tensors, at F 64 to 256,
+B = 1, float32, and in the windowed composed node aggregation forward and
+backward) and of the paired applies (K8, K9: B = 1, empty rows, float32
 operands, H = 64 and 128; a row whose float32 sum lies next to a bf16
 rounding midpoint), unbatched operands, all-zero and partial node masks,
 shared and per-lane masks, the fused MLP kernels (K2, K3, K4f, K4b) at
 hidden widths 128 and 256 (and 384 for the 32-row tiles) in every form the
-nets use, the pre-LN branch (K5f, K5b) at C 128 to 512 and the slice pool
-(K6, K7) at eleven (C, H, G) shapes, with lanes of one row, ragged lanes
+nets use, the pre-LN branch (K5f, K5b) at C 128 to 1024 and the slice pool
+(K6, K7) at fifteen (C, H, G) shapes, with lanes of one row, ragged lanes
 and ragged last tiles, the bitwise repeatability of the backward kernels
 and the slice pool, the shapes each kernel refuses, and the kernels' size
 queries against the Python predicates."""
@@ -72,6 +74,90 @@ def test_spmm_kernel_matches_plain_version(op_dtype, x_dtype, out_dtype,
     tol = 2 ** -8 if out_dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=1e-5)
     assert bool((out[..., op.n_out - 50:, :] == 0).all())
+
+
+@pytest.mark.parametrize("op_dtype,x_dtype", [
+    ("bfloat16", torch.bfloat16), ("bfloat16", torch.float32),
+    ("float32", torch.float32)])
+@pytest.mark.parametrize("b", [1, 3, None])
+@pytest.mark.parametrize("f,width,c0", [(64, 128, 0), (64, 128, 64),
+                                        (128, 256, 128), (64, 64, 0),
+                                        (192, 256, 64)])
+def test_spmm_kernel_takes_column_windows(op_dtype, x_dtype, b, f, width,
+                                          c0):
+    """K1 on columns c0 .. c0 + f of a wider operand, written into the
+    same columns of a wider output, against its plain version on the
+    window: one bf16 rounding (bf16 output) or the order of float32 sums;
+    the columns around the window are left as they were; two runs give the
+    same bits."""
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import spmm as mod
+    from gen_fvgn_tpu_torch.ops.blocksparse import _out_dtype
+    op = _op(op_dtype)
+    lead = () if b is None else (b,)
+    g = torch.Generator("cuda").manual_seed(f + width + c0)
+    x = torch.randn(*lead, op.n_in, width, device="cuda",
+                    generator=g).to(x_dtype)
+    win = x[..., c0:c0 + f]
+    dt = _out_dtype(op, win)
+    out = torch.full((*lead, op.n_out, width), 7.0, device="cuda", dtype=dt)
+    before = mod.LAUNCHES
+    mod.spmm(op, win, out=out[..., c0:c0 + f])
+    again = mod.spmm(op, win)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == before + 2
+    ref = mod.spmm_reference(op, win)
+    got = out[..., c0:c0 + f]
+    assert torch.equal(got, again)
+    tol = 2 ** -8 if dt == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=1e-5)
+    assert bool((got[..., op.n_out - 50:, :] == 0).all())
+    rest = torch.cat([out[..., :c0], out[..., c0 + f:]], dim=-1)
+    assert bool((rest == 7.0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_node_agg_kernel_matches_plain_version(dtype):
+    """The windowed composed node aggregation (two K1 launches forward, two
+    backward into the halves of one gradient) against the same under the
+    plain versions on the card: within one bf16 rounding (float32 sums in
+    another order), with the launches of the full-width composition."""
+    _need_card()
+    from types import SimpleNamespace
+    from gen_fvgn_tpu_torch.ops import plain_versions, spmm
+    from gen_fvgn_tpu_torch.ops.blocksparse import apply_node_agg, build_linop
+    rng = np.random.default_rng(5)
+    n_nodes, n_edges = 1000, 1800
+    lin = {}
+    for name in ("nbr_r", "nbr_s"):
+        rows = np.repeat(np.arange(n_nodes - 50), 6)
+        cols = rng.integers(0, n_edges, rows.shape[0])
+        vals = rng.integers(1, 4, rows.shape[0]).astype(np.float32)
+        lin[name] = build_linop(rows, cols, vals, n_nodes, n_edges,
+                                "bfloat16").to("cuda")
+    ops = SimpleNamespace(**lin)
+    g = torch.Generator("cuda").manual_seed(3)
+    e0 = torch.randn(3, n_edges, 128, device="cuda", generator=g).to(dtype)
+    cot = torch.randn(3, n_nodes, 64, device="cuda", generator=g)
+    outs, grads = [], []
+    for plain in (False, True):
+        e = e0.clone().requires_grad_(True)
+        before = spmm.LAUNCHES
+        if plain:
+            with plain_versions():
+                y = apply_node_agg(ops, e)
+                y.backward(cot.to(y.dtype))
+        else:
+            y = apply_node_agg(ops, e)
+            y.backward(cot.to(y.dtype))
+            torch.cuda.synchronize()
+            assert spmm.LAUNCHES == before + 4
+        outs.append(y.detach())
+        grads.append(e.grad)
+    for got, ref in zip((outs[0], grads[0]), (outs[1], grads[1])):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        torch.testing.assert_close(got.float(), ref.float(), rtol=2 ** -7,
+                                   atol=1e-5)
 
 
 def test_spmm_kernel_refuses_what_it_does_not_take():
@@ -302,7 +388,7 @@ def _premlp_args(m, seed, c=128):
 
 # every width the pre-LN branch's kernels take (hidden width 2C); the
 # C = 128 forward is its own kernel, the others the block row tiles
-_PREMLP_C = [128, 256, 384, 512]
+_PREMLP_C = [128, 256, 384, 512, 640, 768, 896, 1024]
 _PREMLP_M = [(128, m) for m in (1, 63, 64, 65, 1000, 8 * 1251)] + [
     (c, m) for c in _PREMLP_C[1:] for m in (1, 65, 1000)]
 
@@ -322,10 +408,10 @@ def test_fused_premlp_res_kernel_matches_plain_version(c, m):
                                atol=_ulps(ref))
 
 
-# what the pre-LN kernels refuse: a width whose tile does not fit a block's
-# shared memory (C = 640: JAX fuses it), a width that is no multiple of 128,
-# a hidden width other than 2C
-_PREMLP_REFUSED = [(640, 1280), (192, 384), (128, 128)]
+# what the pre-LN kernels refuse: a width above the named limit of 1024
+# (C = 1152: JAX fuses it), a width that is no multiple of 128, a hidden
+# width other than 2C
+_PREMLP_REFUSED = [(1152, 2304), (192, 384), (128, 128)]
 
 
 @pytest.mark.parametrize("c,hd", _PREMLP_REFUSED)
@@ -347,11 +433,15 @@ def test_fused_premlp_res_kernel_refuses_what_it_does_not_take(c, hd):
 
 
 # (C, H, G): the default, then wider C, fewer heads, fewer and more slices,
-# more heads; the last three run the kernels' general variant (head width
-# and slices not compiled in)
+# more heads; K6's row kernel takes the first three, the run-time path the
+# rest (and K7's tiles their general variant for the next three); the last
+# four are shapes the tiles refuse (a head width of 8 split in 4, more than
+# 64 pooled sums a thread, heads and slices no powers of two, C above 512)
 _POOL_SHAPES = [(128, 8, 32), (256, 8, 32), (512, 8, 32), (128, 4, 32),
                 (128, 8, 16), (128, 8, 64), (128, 2, 64), (256, 16, 32),
-                (384, 8, 32), (256, 4, 32), (128, 16, 32)]
+                (384, 8, 32), (256, 4, 32), (128, 16, 32), (128, 16, 8),
+                (512, 4, 128), (384, 6, 64), (1024, 8, 128)]
+_POOL_RUNTIME_ONLY = _POOL_SHAPES[-4:]
 _POOL_ID = lambda s: "C{}-H{}-G{}".format(*s)
 
 
@@ -392,11 +482,19 @@ def _check_pool(args, outs, refs, shape=(128, 8, 32)):
     diff = (w.float() - rw.float()).abs()
     assert float(diff.max()) <= tol
     assert float((diff > 2 ** -7).float().mean()) < 1e-4
-    flip = 0.0
+    flip, wflip = 0.0, 0.0
     if tuple(shape) != (128, 8, 32):
         fx = (x.float() @ wfx.float() + bfx).to(torch.bfloat16)
         flip = _ulps(fx, 1)
-    for a, r, extra in ((tok, rtok, flip), (norm, rnorm, 0.0)):
+        if tuple(shape) in _POOL_RUNTIME_ONLY:
+            # the run-time path sums xm (C products) and the logits (D
+            # products) in another order than the plain version: at a few
+            # rows of few-row lanes a flipped logit rounding moves one
+            # node's weights of a head by up to `tol`, and with them the
+            # norm by `tol` and the tokens by `tol` * max|fx|
+            wflip = tol
+            flip += tol * float(fx.float().abs().max())
+    for a, r, extra in ((tok, rtok, flip), (norm, rnorm, wflip)):
         scale = max(float(r.abs().max()), 1e-6)
         torch.testing.assert_close(a, r, rtol=0, atol=1e-3 * scale + extra)
 
@@ -435,10 +533,9 @@ def test_fused_slice_pool_kernel_shared_mask_and_repeatable_bits(shape):
         assert torch.equal(x, y)            # no atomics: the same bits
 
 
-# (C, H, G) the JAX package fuses and the kernels refuse, each for a limit:
-# the thread's columns (head width 8 split in 4), the pooled sums a thread
-# (C·G > 16384), C above 512
-_POOL_REFUSED = [(128, 16, 8), (512, 4, 128), (640, 8, 32)]
+# (C, H, G) the JAX package fuses and the kernels refuse: C above the named
+# limit of 1024
+_POOL_REFUSED = [(1152, 8, 32), (2048, 16, 8)]
 
 
 @pytest.mark.parametrize("shape", _POOL_REFUSED, ids=_POOL_ID)
@@ -466,12 +563,12 @@ def test_kernel_size_queries_agree_with_the_predicates():
     from gen_fvgn_tpu_torch.ops import fused_slice_attn as fsa
     from gen_fvgn_tpu_torch.ops._cuda_build import load_library
     lib = load_library()
-    for c in range(64, 769, 64):
+    for c in range(64, 1153, 64):
         for bwd in (0, 1):
             took = lib.gfvgn_premlp_workspace(c, 64, 1, bwd) >= 0
             assert took == (fm.premlp_plan(c, bool(bwd)) is not None), c
-        for h in (1, 2, 4, 8, 16, 32, 64):
-            for g in (8, 16, 24, 32, 64, 128):
+        for h in (1, 2, 3, 4, 6, 8, 16, 32, 64):
+            for g in (1, 8, 16, 24, 32, 64, 128, 256):
                 for bwd in (0, 1):
                     took = lib.gfvgn_slice_pool_workspace(c, h, g, 2, 300,
                                                           bwd) >= 0
@@ -649,13 +746,13 @@ def test_fused_slice_pool_bwd_kernel_shared_mask_and_refusals():
         _close(getattr(got, name), getattr(ref, name), name)
     with pytest.raises(ValueError):
         mod.fused_slice_pool_bwd_kernel(*args, cots[0].float(), *cots[1:])
-    with pytest.raises(NotImplementedError):          # (C, H, G) (128, 16, 8)
+    with pytest.raises(NotImplementedError):          # (C, H, G) (128, 16, 6)
         mod.fused_slice_pool_bwd_kernel(
-            *args[:6], torch.zeros(8, 8, device="cuda", dtype=torch.bfloat16),
-            torch.zeros(8, device="cuda"), torch.ones(16, device="cuda"),
-            cots[0][..., :128].contiguous(), torch.zeros(4, 16, 8, 8,
-                                                         device="cuda"),
-            torch.zeros(4, 16, 8, device="cuda"))
+            *args[:6], torch.zeros(8, 6, device="cuda", dtype=torch.bfloat16),
+            torch.zeros(6, device="cuda"), torch.ones(16, device="cuda"),
+            cots[0][..., :96].contiguous(), torch.zeros(4, 16, 6, 8,
+                                                        device="cuda"),
+            torch.zeros(4, 16, 6, device="cuda"))
     from gen_fvgn_tpu_torch.ops import fused_mlp as fm
     x, ga, be, w1, b1, w2, b2 = _premlp_args(64, seed=0)
     with pytest.raises(ValueError):

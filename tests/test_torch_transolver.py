@@ -71,6 +71,13 @@ def test_premlp_reference_matches_jax_at_c256():
     _premlp_vs_jax(256, seed=2)
 
 
+@pytest.mark.parametrize("c", [768, 1024])
+def test_premlp_reference_matches_jax_at_wide_c(c):
+    """The same at C = 768 and 1024 (hidden 2C), the widest the kernels
+    take."""
+    _premlp_vs_jax(c, seed=c)
+
+
 def _premlp_vs_jax(c, seed):
     from gen_fvgn_tpu.ops.fused_mlp import fused_premlp_res_parts as jfn
     from gen_fvgn_tpu_torch.ops.fused_mlp import fused_premlp_res_parts as tfn
@@ -185,8 +192,10 @@ def _close_scaled(got, ref, rel):
 
 
 # (C, H, G) beyond the default that the kernels take: wider C, fewer heads,
-# fewer and more slices
-_OTHER_SHAPES = [(256, 8, 32), (128, 4, 32), (128, 8, 16), (128, 8, 64)]
+# fewer and more slices; then 16 heads of 8 with 8 slices, 4 heads of 128
+# with 128 slices, and 6 heads of 64 with 64 slices (the run-time path)
+_OTHER_SHAPES = [(256, 8, 32), (128, 4, 32), (128, 8, 16), (128, 8, 64),
+                 (128, 16, 8), (512, 4, 128), (384, 6, 64)]
 
 
 @pytest.mark.parametrize("mask,spread,shape", [
@@ -228,24 +237,29 @@ def test_slice_pool_reference_matches_jax(mask, spread, shape):
 
 def test_transolver_kernel_shape_predicates():
     """The shapes the Transolver kernels take, decided the same on any
-    device: K5 at C 128 to 512 with the hidden width 2C; K6/K7 at the
-    default (128, 8, 32) and the listed others. Shapes the JAX package
-    fuses but no tile or variant fits are refused, each for a named limit:
-    C = 640 (a K5 or K6/K7 tile does not fit a block's shared memory), a
-    hidden width other than 2C, (512, 4, 128) (more than 64 pooled sums a
-    thread) and (128, 16, 8) (a thread's head columns not 8-48-64 wide)."""
+    device: exactly what the JAX package fuses up to C = 1024. K5 at every
+    C % 128 == 0 up to 1024 with the hidden width 2C (JAX: `c % 128 == 0
+    and hd % 128 == 0`, models/transolver.py:152, with mlp_ratio 2); K6/K7
+    at every (C, H, G) with C % 128 == 0, H·G % 128 == 0 and H·D == C
+    (:63-64), over a grid of heads and slices. Above C = 1024 both raise
+    (the named limit), and a hidden width other than 2C is refused."""
     from gen_fvgn_tpu_torch.ops import fused_mlp as fm
     from gen_fvgn_tpu_torch.ops import fused_slice_attn as fsa
-    for c in (128, 256, 384, 512):
-        assert fm.premlp_shape_ok(c, 2 * c)
-    assert not fm.premlp_shape_ok(640, 1280)
+    for c in range(64, 1153, 64):
+        assert fm.premlp_shape_ok(c, 2 * c) == (c % 128 == 0 and c <= 1024), c
     assert not fm.premlp_shape_ok(128, 128)
-    for shape in [(C, H, G)] + _OTHER_SHAPES + [(512, 8, 32), (128, 2, 64),
-                                                 (256, 16, 32)]:
-        assert fsa.slice_pool_shape_ok(*shape), shape
-    for shape in [(640, 8, 32), (512, 4, 128), (128, 16, 8)]:
-        assert (shape[0] * shape[2]) % 128 == 0       # JAX fuses these
-        assert not fsa.slice_pool_shape_ok(*shape), shape
+    for c in range(128, 1153, 128):
+        for h in (1, 2, 3, 4, 5, 6, 8, 12, 16, 32, 64, 128):
+            for g in (1, 2, 8, 16, 24, 32, 48, 64, 128, 256):
+                fused = c % h == 0 and (h * g) % 128 == 0
+                assert fused == fsa.jax_fuses_slice_pool(c, h, g)
+                assert fsa.slice_pool_shape_ok(c, h, g) == (
+                    fused and c <= 1024), (c, h, g)
+    for shape in [(C, H, G), (256, 8, 32), (512, 8, 32)]:
+        assert fsa.slice_pool_plan(*shape, False)[0] == "rows", shape
+    for shape in [(128, 16, 8), (512, 4, 128), (384, 6, 64)]:
+        assert fsa.slice_pool_plan(*shape, False)[0] == "generic", shape
+        assert fsa.slice_pool_plan(*shape, True)[0] == "generic", shape
 
 
 def test_slice_pool_shared_mask_equals_per_lane_mask_and_counts_nothing():
