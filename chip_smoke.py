@@ -60,7 +60,10 @@ width, the form the node aggregation took before it used windows), the
 K2-K7 times at hidden 256 (the same row counts) under "hidden_256", K5-K7
 at the shapes above under "repaired_shapes", and for K5b and K7 the bytes
 their two passes move ("design_bytes") beside the bound of the function
-itself.
+itself; K5f and K8, redesigned for this card, carry their kernels'
+registers and spill bytes from nvcc's -Xptxas -v ("registers": K5f's
+strip kernel `premlp_rows`, K8's `pair_sum_kernel` over its
+instantiations and at the main forms' bf16 16-byte vectors).
 
 Needs one CUDA card and nvcc; exits non-zero without them, and on any phase
 that fails. float32 products run in full float32: TF32 is switched off
@@ -75,6 +78,7 @@ synchronize.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -110,6 +114,46 @@ def median_ms(fn, flush_buf, iters=20, warmup=3):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def ptxas_usage(build_log, fragment):
+    """Registers and spill bytes of each compiled kernel whose (mangled)
+    name holds `fragment`, from nvcc's `-Xptxas -v` output: a list of
+    dicts (function, registers, spill_stores, spill_loads)."""
+    found, fn, spill = [], None, (0, 0)
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            if fragment in fn:
+                found.append(dict(function=fn, registers=int(m.group(1)),
+                                  spill_stores=spill[0],
+                                  spill_loads=spill[1]))
+            fn = None
+    return found
+
+
+def register_summary(build_log, fragment, main=()):
+    """The kernels' registers for the kernels line: the largest count and
+    spill over every instantiation of `fragment`, and each instantiation
+    whose mangled name also holds one of `main` (the main path's)."""
+    usage = ptxas_usage(build_log, fragment)
+    if not usage:
+        raise RuntimeError(f"no -Xptxas -v lines for {fragment} in the build "
+                           f"log")
+    return dict(instantiations=len(usage),
+                max_registers=max(u["registers"] for u in usage),
+                max_spill_bytes=max(u["spill_stores"] + u["spill_loads"]
+                                    for u in usage),
+                main={m: [u for u in usage if m in u["function"]]
+                      for m in main})
 
 
 def ulps_of_scale(ref, n):
@@ -1136,6 +1180,15 @@ def main():
     for line in _cuda_build.BUILD_LOG.splitlines():
         if "registers" in line or "error" in line.lower():
             log("  ptxas: " + line.strip())
+    # the redesigned kernels' registers and spills (-Xptxas -v)
+    regs = dict(
+        fused_premlp_res=register_summary(_cuda_build.BUILD_LOG,
+                                          "premlp_rows"),
+        pair_sum=register_summary(
+            _cuda_build.BUILD_LOG, "pair_sum_kernel",
+            main=("I13__nv_bfloat16S1_Li8ELi4E", "I13__nv_bfloat16S1_Li8ELi2E")))
+    for name, r in regs.items():
+        log(f"registers {name}: {json.dumps(r)}")
 
     # ---- statics of the main path ----
     t0 = time.perf_counter()
@@ -1319,6 +1372,9 @@ def main():
             k["repaired_shapes"] = {sh: {f: r[f] for f in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
                 for sh, r in repaired[k["name"]].items()}
+    for k in kernels:
+        if k["name"] in regs:
+            k["registers"] = regs[k["name"]]
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
         raise RuntimeError(f"the path that should run them launched no "

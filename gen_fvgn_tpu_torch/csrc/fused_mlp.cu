@@ -1091,28 +1091,6 @@ __device__ __forceinline__ void zero_acc16(float acc[16][4]) {
         for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
 }
 
-// the packed bf16 pair (row g + 8 hf, columns 2t, 2t + 1 of tile nt) into
-// its place in the A fragments of the next product
-__device__ __forceinline__ void put_a(uint32_t a[8][4], int nt, int hf,
-                                      uint32_t v) {
-    a[nt >> 1][((nt & 1) << 1) + hf] = v;
-}
-
-// rows r0 .. r0 + 16 of a [M, w] array -> this warp's buffer, rows past
-// nrow zero-filled
-__device__ __forceinline__ void warp_load_rows(bf16* dst, int ldd,
-                                               const bf16* src, int w, int r0,
-                                               int nrow) {
-    const int lane = threadIdx.x & 31;
-    const int cpr = w >> 3;
-    for (int i = lane; i < 16 * cpr; i += 32) {
-        const int r = i / cpr, ch = i - r * cpr;
-        const bool ok = r < nrow;
-        cp_async16(dst + r * ldd + ch * 8,
-                   src + (size_t)(ok ? r0 + r : r0) * w + ch * 8, ok);
-    }
-}
-
 __device__ __forceinline__ void warp_load_strip(const Common& c, bf16* sx,
                                                 bf16* sp, int r0, int nrow) {
     int off = 0;
@@ -1178,41 +1156,6 @@ __device__ __forceinline__ RowsCtx rows_init(const Common& c, bool ln,
     cp_async_wait<0>();
     __syncthreads();
     return r;
-}
-
-// Rows r0 .. r0 + 16 (real rows < nrow) of a bf16 [*, ld] array from A
-// fragments a[p] (columns 16p .. 16p + 15, p < npairs): the four lanes of a
-// quad trade their pairs so that lane t holds columns 16p + 4t .. + 3 and
-// each store writes whole 32-byte sectors of a row (4-byte stores leave
-// half sectors that the memory completes by read-modify-write)
-__device__ __forceinline__ void store_frag_rows(bf16* base, int ld, int r0,
-                                                int nrow,
-                                                const uint32_t a[8][4],
-                                                int npairs) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const int q0 = lane & ~3;
-    const int s1 = q0 + ((2 * t) & 3), s2 = q0 + ((2 * t + 1) & 3);
-#pragma unroll
-    for (int p = 0; p < 8; ++p) {
-        if (p < npairs) {
-#pragma unroll
-            for (int hf = 0; hf < 2; ++hf) {
-                const uint32_t x = a[p][hf], y = a[p][2 + hf];
-                const uint32_t x1 = __shfl_sync(0xffffffffu, x, s1);
-                const uint32_t y1 = __shfl_sync(0xffffffffu, y, s1);
-                const uint32_t x2 = __shfl_sync(0xffffffffu, x, s2);
-                const uint32_t y2 = __shfl_sync(0xffffffffu, y, s2);
-                const int row = g + 8 * hf;
-                if (row < nrow) {
-                    uint2 v;
-                    v.x = t < 2 ? x1 : y1;
-                    v.y = t < 2 ? x2 : y2;
-                    *reinterpret_cast<uint2*>(
-                        base + (size_t)(r0 + row) * ld + 16 * p + 4 * t) = v;
-                }
-            }
-        }
-    }
 }
 
 // h = bf16(gelu(bias (+ pre) (+ acc))) for the warp's 16 rows, as the next
@@ -1308,12 +1251,6 @@ __device__ __forceinline__ void col_add8(const float v[8][2], int base,
     float* c = col + tile * 8 + 2 * (lane & 3);
     c[0] += r[0];
     c[1] += r[1];
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-    v += __shfl_xor_sync(0xffffffffu, v, 1);
-    v += __shfl_xor_sync(0xffffffffu, v, 2);
-    return v;
 }
 
 template <bool LN>

@@ -13,19 +13,9 @@
 // 131 k FLOP at C = 128 against 512 bytes moved (x read once, out written
 // once), 256 FLOP/byte, under the card's ~295 FLOP/byte bf16 ridge.
 //
-// Design at C = 128 (premlp_kernel). Rows are independent: [B, N, 128] is
-// flattened to [M, 128] and the ragged last 64-row tile is masked, so M needs
-// no padding. A block stages W1 and W2 in shared memory as bf16 once (135 KB
-// with row padding against bank conflicts) and walks over 64-row tiles (grid
-// = min(tiles, SMs)). The LayerNorm runs a row per warp (4 columns a lane,
-// statistics by warp shuffles); the lane keeps its raw x values in registers
-// for the residual. The two products run on the tensor cores through wmma
-// (bf16 operands, float32 accumulators); the 256-wide hidden layer is
-// produced in two 128-column halves through one float32 staging tile, so u,
-// h1pre, h and y never reach device memory. Shared memory: 222 KB, one block
-// per SM. This first form stages every accumulator through shared memory; its
-// times stand in PERF.md beside its bound. Wider C (the 222 KB tile does not
-// scale) and the backward run on the block row tiles below.
+// Design at C = 128 (premlp_rows): K2's H = 128 row design, one warp a
+// 16-row strip with every intermediate in registers (below). Wider C and
+// the backward run on the block row tiles further down.
 //
 // Rounding points (the TPU kernel's): LayerNorm statistics in float32 (fast
 // variance clamped at 0, eps 1e-6); u rounded to bf16 before W1; h1pre, GELU
@@ -40,36 +30,58 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "lane_reduce.cuh"
 #include "mma_sm90.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-// ===================== K5f at C = 128: wmma row tiles ======================
+// ================ K5f at C = 128: one warp a 16-row strip ==================
+//
+// K2's row design (fused_mlp.cu, fused_mlp_fwd_rows) for the pre-LN branch.
+// The block stages W1 [128][256 + 8] and W2 [256][128 + 8] as bf16 once
+// (137 KB) and the vectors gamma, beta, b1, b2; after that its 8 warps share
+// nothing and meet at no barrier. Each warp walks over its own 16-row
+// strips (grid = min(blocks, SMs), strips s, s + 8 grid, ...):
+//
+//   * x: the strip's rows come in by cp.async into one of the warp's two
+//     buffers, two strips ahead; ldmatrix moves them into A fragments xa
+//     (16 x 128 bf16, 32 registers), which frees the buffer for the strip
+//     after next, so two strips (8 KB) are in flight a warp while it works;
+//   * LayerNorm on the fragments: a thread holds 32 values of each of rows
+//     g and g + 8, the quad (4 lanes) a whole row: statistics by two quad
+//     shuffles; u = bf16(xhat gamma + beta) is formed in the A-fragment
+//     layout (ua, 32 registers): the A operand of u W1;
+//   * the hidden layer in 4 chunks of 64 columns: h1pre = u W1[:, chunk]
+//     (16 x 64 float32, 32 registers), + b1, GELU, rounded to bf16; the C
+//     fragments of n-tiles 2s and 2s + 1 are exactly the A fragment of
+//     k-slice s of the next product, so h goes into h W2[chunk, :] from the
+//     registers and never touches shared memory;
+//   * y (16 x 128 float32, 64 registers) accumulates over the chunks; the
+//     epilogue adds b2, then x from xa (the C fragments of n-tiles 2s, 2s + 1
+//     cover the pairs of k-slice s of the A fragment), rounds once, and
+//     writes whole 32-byte sectors after a quad exchange (store_frag_rows).
+//
+// The last strip is masked (its rows past M zero-filled, not stored), so M
+// needs no padding.
 
 constexpr int C = 128;          // stream width = LayerNorm width
 constexpr int HD = 256;         // hidden width (mlp_ratio 2)
-constexpr int TM = 64;          // rows per tile
-constexpr int THREADS = 256;    // 8 warps: 4 row blocks x 2 column halves
-constexpr int ROWS_PER_WARP = TM / (THREADS / 32);
-constexpr int LDW1 = HD + 8;    // bf16 leading dim of staged W1 [C][LDW1]
-constexpr int LDW2 = C + 8;     // bf16 leading dim of staged W2 [HD][LDW2]
-constexpr int LDU = C + 8;      // bf16 leading dim of u [TM][LDU]
-constexpr int LDH = HD + 8;     // bf16 leading dim of h [TM][LDH]
-constexpr int LDC = C + 4;      // f32 leading dim of the staging tile
+constexpr int RW = 8;           // warps a block
+constexpr int HC = 64;          // hidden columns a chunk
+constexpr int LDW1 = HD + 8;    // staged W1 [C][LDW1]
+constexpr int LDW2 = C + 8;     // staged W2 [HD][LDW2]
+constexpr int LDX = C + 8;      // a warp's x buffer [16][LDX]
 constexpr float kLnEps = 1e-6f;
 
-constexpr size_t kSmemBytes =
-    (size_t)C * LDW1 * sizeof(bf16) + (size_t)HD * LDW2 * sizeof(bf16) +
-    (size_t)TM * LDU * sizeof(bf16) + (size_t)TM * LDH * sizeof(bf16) +
-    (size_t)TM * LDC * sizeof(float);
+// shared memory of premlp_rows: W1, W2, the vectors gamma | beta | b1 | b2
+// (float32), two x buffers a warp
+constexpr size_t kRowsSmem =
+    (size_t)C * LDW1 * 2 + (size_t)HD * LDW2 * 2 + (size_t)(3 * C + HD) * 4 +
+    (size_t)RW * 2 * 16 * LDX * 2;
 
-struct Params {
+struct RowParams {
     const bf16* x;        // [M, C]
     const float* gamma;   // [C]
     const float* beta;    // [C]
@@ -81,149 +93,168 @@ struct Params {
     int M;
 };
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// sC[16 rows of block rb, columns c0..c0+63] = A[16 x K] * B[K x (b0+c0 ..)]
-template <int K>
-__device__ __forceinline__ void warp_gemm(const bf16* sA, int lda,
-                                          const bf16* sB, int ldb, int b0,
-                                          float* sC, int rb, int c0) {
-    FragC acc[4];
+// acc[NT][4] += A * B[k][n] (row-major in shared memory, row stride ldb)
+// over NT 8-column tiles, A in registers: a[ks] the fragment of contraction
+// columns 16 ks .. 16 ks + 15
+template <int KS, int NT>
+__device__ __forceinline__ void mma_a_regs(float acc[NT][4],
+                                           const uint32_t a[KS][4],
+                                           const bf16* b, int ldb) {
+    const int lane = threadIdx.x & 31;
+    const bf16* bp =
+        b + ((lane & 7) + (((lane >> 3) & 1) << 3)) * ldb + ((lane >> 4) << 3);
 #pragma unroll
-    for (int t = 0; t < 4; ++t) wmma::fill_fragment(acc[t], 0.0f);
-#pragma unroll 4
-    for (int k0 = 0; k0 < K; k0 += 16) {
-        FragA a;
-        wmma::load_matrix_sync(a, sA + rb * 16 * lda + k0, lda);
+    for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-        for (int t = 0; t < 4; ++t) {
-            FragB b;
-            wmma::load_matrix_sync(b, sB + k0 * ldb + b0 + c0 + t * 16, ldb);
-            wmma::mma_sync(acc[t], a, b, acc[t]);
+        for (int q = 0; q < NT / 2; ++q) {
+            uint32_t bfr[4];
+            ldsm_x4_t(bfr, bp + ks * 16 * ldb + q * 16);
+            mma16816(acc[2 * q], a[ks], bfr[0], bfr[1]);
+            mma16816(acc[2 * q + 1], a[ks], bfr[2], bfr[3]);
         }
-    }
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-        wmma::store_matrix_sync(sC + rb * 16 * LDC + c0 + t * 16, acc[t], LDC,
-                                wmma::mem_row_major);
 }
 
-__device__ __forceinline__ void unpack_bf16x4(uint2 raw, float v[4]) {
-    float2 fa = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.x));
-    float2 fb = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.y));
-    v[0] = fa.x; v[1] = fa.y; v[2] = fb.x; v[3] = fb.y;
-}
-
-__device__ __forceinline__ void load_f32x4(const float* p, float v[4]) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-
-__global__ void __launch_bounds__(THREADS, 1) premlp_kernel(Params p) {
+__global__ void __launch_bounds__(RW * 32, 1) premlp_rows(RowParams p) {
     extern __shared__ __align__(128) unsigned char smem[];
     bf16* sW1 = reinterpret_cast<bf16*>(smem);
     bf16* sW2 = sW1 + (size_t)C * LDW1;
-    bf16* sU = sW2 + (size_t)HD * LDW2;
-    bf16* sH = sU + (size_t)TM * LDU;
-    float* sC = reinterpret_cast<float*>(sH + (size_t)TM * LDH);
+    float* sGam = reinterpret_cast<float*>(sW2 + (size_t)HD * LDW2);
+    float* sBet = sGam + C;
+    float* sB1 = sBet + C;
+    float* sB2 = sB1 + HD;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int t = lane & 3;
+    bf16* sX = reinterpret_cast<bf16*>(sB2 + C) + (size_t)warp * 2 * 16 * LDX;
 
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int rb = warp >> 1;          // 16-row block of the tile
-    const int c0 = (warp & 1) * 64;    // first column of this warp's strip
-    const int c4 = lane * 4;           // this lane's 4 columns of a row
-
-    // ---- stage the weights once per block ----
-    for (int idx = threadIdx.x; idx < C * (HD / 8); idx += THREADS) {
-        const int row = idx / (HD / 8), ch = idx % (HD / 8);
-        *reinterpret_cast<uint4*>(sW1 + row * LDW1 + ch * 8) =
-            *reinterpret_cast<const uint4*>(p.w1 + (size_t)row * HD + ch * 8);
+    // ---- the weights and vectors, once; the warp's first two strips ----
+    for (int i = threadIdx.x; i < C * (HD / 8); i += RW * 32) {
+        const int r = i / (HD / 8), ch = i - r * (HD / 8);
+        cp_async16(sW1 + r * LDW1 + ch * 8, p.w1 + (size_t)r * HD + ch * 8,
+                   true);
     }
-    for (int idx = threadIdx.x; idx < HD * (C / 8); idx += THREADS) {
-        const int row = idx / (C / 8), ch = idx % (C / 8);
-        *reinterpret_cast<uint4*>(sW2 + row * LDW2 + ch * 8) =
-            *reinterpret_cast<const uint4*>(p.w2 + (size_t)row * C + ch * 8);
+    for (int i = threadIdx.x; i < HD * (C / 8); i += RW * 32) {
+        const int r = i / (C / 8), ch = i - r * (C / 8);
+        cp_async16(sW2 + r * LDW2 + ch * 8, p.w2 + (size_t)r * C + ch * 8,
+                   true);
     }
-    float gam[4], bet[4], bias2[4];
-    load_f32x4(p.gamma + c4, gam);
-    load_f32x4(p.beta + c4, bet);
-    load_f32x4(p.b2 + c4, bias2);
+    cp_async_commit();
+    for (int i = threadIdx.x; i < C; i += RW * 32) {
+        sGam[i] = p.gamma[i];
+        sBet[i] = p.beta[i];
+        sB2[i] = p.b2[i];
+    }
+    for (int i = threadIdx.x; i < HD; i += RW * 32) sB1[i] = p.b1[i];
+    const int n_strips = (p.M + 15) / 16;
+    const int stride = gridDim.x * RW;
+    int s = blockIdx.x * RW + warp;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+        const int sk = s + k * stride;
+        if (sk < n_strips)
+            warp_load_rows(sX + k * 16 * LDX, LDX, p.x, C, sk * 16,
+                           min(16, p.M - sk * 16));
+        cp_async_commit();
+    }
+    cp_async_wait<2>();              // the weights (this thread's copies)
     __syncthreads();
 
-    const int n_tiles = (p.M + TM - 1) / TM;
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        const int r0 = tile * TM;
+    for (int it = 0; s < n_strips; s += stride, ++it) {
+        const int r0 = s * 16, nrow = min(16, p.M - r0);
+        bf16* xb = sX + (it & 1) * 16 * LDX;
+        cp_async_wait<1>();          // this strip's rows
+        __syncwarp();
+        uint32_t xa[8][4];
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks)
+            ldsm_x4(xa[ks], xb + (lane & 15) * LDX + ((lane >> 4) << 3) +
+                                ks * 16);
+        __syncwarp();
+        if (s + 2 * stride < n_strips)
+            warp_load_rows(xb, LDX, p.x, C, r0 + 2 * stride * 16,
+                           min(16, p.M - r0 - 2 * stride * 16));
+        cp_async_commit();
 
-        // ---- LayerNorm, a row per warp: u = bf16(LN(x)*gamma + beta) ----
-        uint2 xr[ROWS_PER_WARP];   // raw x, kept for the residual
+        // ---- LayerNorm: u = bf16(LN(x) gamma + beta), as A fragments ----
+        // xa[ks][e]: row g + 8 (e & 1), columns 16 ks + 8 (e >> 1) + 2t, +1
+        float sm[2] = {0.0f, 0.0f}, ss[2] = {0.0f, 0.0f};
 #pragma unroll
-        for (int i = 0; i < ROWS_PER_WARP; ++i) {
-            const int row = warp + i * (THREADS / 32);
-            const int g = r0 + row;
-            xr[i] = make_uint2(0u, 0u);
-            if (g < p.M)
-                xr[i] = *reinterpret_cast<const uint2*>(p.x + (size_t)g * C + c4);
-            float v[4];
-            unpack_bf16x4(xr[i], v);
-            float s = 0.0f, ss = 0.0f;
+        for (int ks = 0; ks < 8; ++ks)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                s += v[j];
-                ss += v[j] * v[j];
+            for (int e = 0; e < 4; ++e) {
+                const float2 v = unpack_bf16(xa[ks][e]);
+                sm[e & 1] += v.x + v.y;
+                ss[e & 1] += v.x * v.x + v.y * v.y;
             }
+        float mu[2], rstd[2];
 #pragma unroll
-            for (int off = 16; off > 0; off >>= 1) {
-                s += __shfl_xor_sync(0xffffffffu, s, off);
-                ss += __shfl_xor_sync(0xffffffffu, ss, off);
-            }
-            const float mu = s * (1.0f / C);
-            const float var = fmaxf(ss * (1.0f / C) - mu * mu, 0.0f);
-            const float rstd = 1.0f / sqrtf(var + kLnEps);
-            float u[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-                u[j] = (v[j] - mu) * rstd * gam[j] + bet[j];
-            store_bf16x4(sU + row * LDU + c4, u);
+        for (int hf = 0; hf < 2; ++hf) {
+            mu[hf] = quad_sum(sm[hf]) / (float)C;
+            const float var =
+                fmaxf(quad_sum(ss[hf]) / (float)C - mu[hf] * mu[hf], 0.0f);
+            rstd[hf] = 1.0f / sqrtf(var + kLnEps);
         }
-        __syncthreads();
+        uint32_t ua[8][4];
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int col = 16 * ks + 8 * (e >> 1) + 2 * t;
+                const int hf = e & 1;
+                const float2 v = unpack_bf16(xa[ks][e]);
+                const float2 ga = *reinterpret_cast<const float2*>(sGam + col);
+                const float2 be = *reinterpret_cast<const float2*>(sBet + col);
+                ua[ks][e] = pack_bf16((v.x - mu[hf]) * rstd[hf] * ga.x + be.x,
+                                      (v.y - mu[hf]) * rstd[hf] * ga.y + be.y);
+            }
 
-        // ---- layer 1, in two 128-column halves of the hidden layer ----
-        for (int half = 0; half < 2; ++half) {
-            warp_gemm<C>(sU, LDU, sW1, LDW1, half * 128, sC, rb, c0);
-            __syncthreads();
-            for (int idx = threadIdx.x; idx < TM * 32; idx += THREADS) {
-                const int row = idx >> 5;
-                const int cc = (idx & 31) * 4;
-                float bb[4], v[4];
-                load_f32x4(p.b1 + half * 128 + cc, bb);
+        // ---- y = h W2 over 4 chunks of 64 hidden columns ----
+        float y[16][4];
 #pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    v[j] = gelu_tanh(sC[row * LDC + cc + j] + bb[j]);
-                store_bf16x4(sH + row * LDH + half * 128 + cc, v);
+        for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) y[nt][e] = 0.0f;
+#pragma unroll 1
+        for (int h0 = 0; h0 < HD; h0 += HC) {
+            float hacc[HC / 8][4];
+#pragma unroll
+            for (int nt = 0; nt < HC / 8; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) hacc[nt][e] = 0.0f;
+            mma_a_regs<C / 16, HC / 8>(hacc, ua, sW1 + h0, LDW1);
+            // h = bf16(gelu(h1pre + b1)): C fragments of n-tiles 2s, 2s + 1
+            // -> the A fragment of k-slice s
+            uint32_t ha[HC / 16][4];
+#pragma unroll
+            for (int nt = 0; nt < HC / 8; ++nt) {
+                const float2 bb = *reinterpret_cast<const float2*>(
+                    sB1 + h0 + nt * 8 + 2 * t);
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf)
+                    ha[nt >> 1][((nt & 1) << 1) + hf] =
+                        pack_bf16(gelu_tanh(hacc[nt][2 * hf] + bb.x),
+                                  gelu_tanh(hacc[nt][2 * hf + 1] + bb.y));
             }
-            __syncthreads();
+            mma_a_regs<HC / 16, C / 8>(y, ha, sW2 + (size_t)h0 * LDW2, LDW2);
         }
 
-        // ---- layer 2 + residual in float32, one rounding ----
-        warp_gemm<HD>(sH, LDH, sW2, LDW2, 0, sC, rb, c0);
-        __syncthreads();
+        // ---- out = bf16((y + b2) + x): b2, then x, in float32 ----
+        uint32_t oa[8][4];
 #pragma unroll
-        for (int i = 0; i < ROWS_PER_WARP; ++i) {
-            const int row = warp + i * (THREADS / 32);
-            const int g = r0 + row;
-            if (g < p.M) {
-                float xv[4], y[4];
-                unpack_bf16x4(xr[i], xv);
+        for (int nt = 0; nt < 16; ++nt) {
+            const float2 bb =
+                *reinterpret_cast<const float2*>(sB2 + nt * 8 + 2 * t);
 #pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    y[j] = (sC[row * LDC + c4 + j] + bias2[j]) + xv[j];
-                store_bf16x4(p.out + (size_t)g * C + c4, y);
+            for (int hf = 0; hf < 2; ++hf) {
+                const float2 xv =
+                    unpack_bf16(xa[nt >> 1][((nt & 1) << 1) + hf]);
+                put_a(oa, nt, hf,
+                      pack_bf16((y[nt][2 * hf] + bb.x) + xv.x,
+                                (y[nt][2 * hf + 1] + bb.y) + xv.y));
             }
         }
-        __syncthreads();   // sU / sC are rewritten by the next tile
+        store_frag_rows(p.out, C, r0, nrow, oa, 8);
     }
+    cp_async_wait<0>();
 }
 
 
@@ -737,7 +768,9 @@ int launch_tiles(const TilePlan& P, TileParams& p, cudaStream_t st) {
 template <bool BWD>
 int launch_tiles_c(int c, const TilePlan& P, TileParams& p, cudaStream_t st) {
     switch (c / 128) {
-        case 1: return launch_tiles<1, BWD>(P, p, st);
+        case 1:     // the forward at C = 128 runs on premlp_rows
+            if constexpr (BWD) return launch_tiles<1, true>(P, p, st);
+            break;
         case 2: return launch_tiles<2, BWD>(P, p, st);
         case 3: return launch_tiles<3, BWD>(P, p, st);
         case 4: return launch_tiles<4, BWD>(P, p, st);
@@ -757,6 +790,14 @@ int launch_tiles_c(int c, const TilePlan& P, TileParams& p, cudaStream_t st) {
 // block's shared memory).
 extern "C" long long gfvgn_premlp_workspace(int c, int m, int lanes,
                                             int backward) {
+    if (!backward && c == C) {
+        // premlp_rows
+        int max_smem = 0, n_sm = 0;
+        if (device_limits(max_smem, n_sm) != 0 || m < 0 ||
+            kRowsSmem > (size_t)max_smem)
+            return -1;
+        return 0;
+    }
     TilePlan P;
     if (tile_plan(c, m, backward != 0, P) != 0) return -1;
     if (!backward) return 0;
@@ -773,14 +814,16 @@ extern "C" int gfvgn_fused_premlp(const void* x, const void* gamma,
                                   const void* b1, const void* w2,
                                   const void* b2, void* out, int c, int m,
                                   void* stream) {
-    TilePlan P;
-    int err = tile_plan(c, m, false, P);
-    if (err != 0) return err;
-    if (m == 0) return 0;
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     if (c == C) {
-        // the C = 128 kernel: weights staged once, wmma row tiles
-        Params p;
+        // the C = 128 strip kernel
+        int max_smem = 0, n_sm = 0;
+        int err = device_limits(max_smem, n_sm);
+        if (err != 0) return err;
+        if (m < 0 || kRowsSmem > (size_t)max_smem)
+            return (int)cudaErrorInvalidValue;
+        if (m == 0) return 0;
+        RowParams p;
         p.x = static_cast<const bf16*>(x);
         p.gamma = static_cast<const float*>(gamma);
         p.beta = static_cast<const float*>(beta);
@@ -791,17 +834,18 @@ extern "C" int gfvgn_fused_premlp(const void* x, const void* gamma,
         p.out = static_cast<bf16*>(out);
         p.M = m;
         cudaError_t e = cudaFuncSetAttribute(
-            premlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)kSmemBytes);
+            premlp_rows, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)kRowsSmem);
         if (e != cudaSuccess) return (int)e;
-        int max_smem = 0, n_sm = 0;
-        err = device_limits(max_smem, n_sm);
-        if (err != 0) return err;
-        const int n_tiles = (m + TM - 1) / TM;
-        premlp_kernel<<<n_tiles < n_sm ? n_tiles : n_sm, THREADS, kSmemBytes,
-                        st>>>(p);
+        const int blocks = ((m + 15) / 16 + RW - 1) / RW;
+        premlp_rows<<<blocks < n_sm ? blocks : n_sm, RW * 32, kRowsSmem,
+                      st>>>(p);
         return (int)cudaGetLastError();
     }
+    TilePlan P;
+    int err = tile_plan(c, m, false, P);
+    if (err != 0) return err;
+    if (m == 0) return 0;
     TileParams p{};
     p.x = static_cast<const bf16*>(x);
     p.gamma = static_cast<const float*>(gamma);

@@ -7,17 +7,32 @@
 // pallas_gather_pair (K8) and pallas_pair_transpose (K9), which stream the
 // 256x256 dense tiles of two operators through the matrix unit over one
 // union window of the operand. Here both operators are CSR with the same
-// n_out, and the work is a gather-accumulate bounded by bytes, as in K1
-// (csrc/spmm.cu): one warp per (output row, batch lane), float32 FMAs, each
-// lane owning VEC contiguous features of every (32 * VEC)-feature chunk of
-// the H-wide half (VEC 4 for H % 128 == 0, 2 for H % 64 == 0, else 1), so
-// that H = 64 keeps every lane busy with 4- or 8-byte loads.
+// n_out, and the work is a gather-accumulate bounded by bytes, as in K1.
 //
-// K8 sums BOTH operators' products into one float32 accumulator per output
-// element and rounds it once. K9 writes both halves of its 2H-wide output
-// row in one kernel, each half from its own float32 accumulator and its
-// own single rounding. A row with no non-zeros in either operator comes out
-// exactly zero (the padding).
+// K8 (pair_sum_kernel) is K1's design (csr_row in spmm_rows.cuh): a warp
+// owns an output row for all B batch lanes; the indices of A's row and of
+// B's row are loaded once, lane-parallel, as ONE list (A's non-zeros, then
+// B's, B's reading the operand at column offset H) and broadcast by
+// shuffles, so the gather pair's two one-hot rows put eight independent
+// operand loads in flight a lane; 16-byte vectors where H and the
+// addresses allow it, else 8, 4 or 2 bytes. Both operators' products go
+// into ONE float32 accumulator per output element, in ascending order, A's
+// non-zeros then B's, rounded once; stores are whole vectors, streamed
+// past L2. A row's indices cost two dependent memory latencies before its
+// first operand load, so the warps stay resident and walk over rows,
+// loading the next row's indices while this row's operand loads are in
+// flight (csr_rows_ahead): 0.043 / 0.038 ms for the gather / node pair at
+// the paired path's shapes against 0.050 / 0.044 without (H100).
+//
+// K9 (pair_transpose_kernel) is still the first design: one warp per
+// (output row, batch lane), each lane owning VEC contiguous features of
+// every (32 * VEC)-feature chunk of the H-wide half (VEC 4 for H % 128 ==
+// 0, 2 for H % 64 == 0, else 1); it writes both halves of its 2H-wide
+// output row, each half from its own float32 accumulator and its own
+// single rounding.
+//
+// A row with no non-zeros in either operator comes out exactly zero (the
+// padding).
 //
 // Plain C interface, no allocation, launches on the caller's stream and
 // returns cudaGetLastError().
@@ -25,6 +40,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "spmm_rows.cuh"
 
 namespace {
 
@@ -119,37 +136,6 @@ __device__ __forceinline__ void accumulate(const int* __restrict__ col,
     }
 }
 
-// K8: y [B, n_in, 2H] -> out [B, n_out, H]
-template <int VEC, typename XT, typename OT>
-__global__ void pair_sum_kernel(const int* __restrict__ a_crow,
-                                const int* __restrict__ a_col,
-                                const float* __restrict__ a_val,
-                                const int* __restrict__ b_crow,
-                                const int* __restrict__ b_col,
-                                const float* __restrict__ b_val,
-                                const XT* __restrict__ y,
-                                OT* __restrict__ out,
-                                int n_in, int n_out, int H) {
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int row = blockIdx.x * kWarpsPerBlock + warp;
-    if (row >= n_out) return;
-    const int b = blockIdx.y;
-    const int a0 = a_crow[row], a1 = a_crow[row + 1];
-    const int b0 = b_crow[row], b1 = b_crow[row + 1];
-    const size_t stride = 2 * (size_t)H;
-    const XT* yb = y + (size_t)b * n_in * stride;
-    OT* ob = out + ((size_t)b * n_out + row) * H;
-    for (int f0 = lane * VEC; f0 < H; f0 += 32 * VEC) {
-        float acc[VEC];
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
-        accumulate<VEC>(a_col, a_val, a0, a1, yb, stride, f0, acc);
-        accumulate<VEC>(b_col, b_val, b0, b1, yb + H, stride, f0, acc);
-        Vec<VEC>::store(ob + f0, acc);
-    }
-}
-
 // K9: g [B, n_in, H] -> out [B, n_out, 2H]
 template <int VEC, typename XT, typename OT>
 __global__ void pair_transpose_kernel(const int* __restrict__ a_crow,
@@ -187,40 +173,115 @@ struct Csr {
     const float* val;
 };
 
-template <bool TRANSPOSE, int VEC, typename XT, typename OT>
-void launch(const Csr& a, const Csr& b, const void* x, void* out, int B,
-            int n_in, int n_out, int H, cudaStream_t s) {
-    dim3 grid((n_out + kWarpsPerBlock - 1) / kWarpsPerBlock, B);
-    dim3 block(kWarpsPerBlock * 32);
-    const XT* xp = static_cast<const XT*>(x);
-    OT* op = static_cast<OT*>(out);
-    if constexpr (TRANSPOSE) {
-        pair_transpose_kernel<VEC, XT, OT><<<grid, block, 0, s>>>(
-            a.crow, a.col, a.val, b.crow, b.col, b.val, xp, op, n_in, n_out,
-            H);
-    } else {
-        pair_sum_kernel<VEC, XT, OT><<<grid, block, 0, s>>>(
-            a.crow, a.col, a.val, b.crow, b.col, b.val, xp, op, n_in, n_out,
-            H);
-    }
+// K8: y [B, n_in, 2H] -> out [B, n_out, H]: a warp a row at a time over
+// rows warp, warp + all warps, ..., each row's indices loaded while the
+// row before it computes (csr_rows_ahead, spmm_rows.cuh). Registers capped
+// at 128 (two blocks an SM): at IPL 2 the cap of three blocks spilled the
+// prefetched indices and ran 4% slower on the node pair.
+template <typename XT, typename OT, int VEC, int IPL>
+__global__ void __launch_bounds__(kRowWarps * 32, 2)
+pair_sum_kernel(RowArgs a) {
+    csr_rows_ahead<XT, OT, VEC, IPL, 2>(
+        a, blockIdx.x * kRowWarps + (threadIdx.x >> 5),
+        gridDim.x * kRowWarps);
 }
 
-template <bool TRANSPOSE, int VEC>
-int dispatch_types(const Csr& a, const Csr& b, const void* x, void* out,
-                   int B, int n_in, int n_out, int H, int x_is_bf16,
-                   int out_is_bf16, cudaStream_t s) {
+// as many blocks as are resident on the card at once, at most a row a warp
+template <typename XT, typename OT, int VEC, int IPL>
+int launch_pair_sum_rows(const RowArgs& a, cudaStream_t s) {
+    static int per_sm = 0;       // blocks of this kernel an SM holds
+    int dev = 0, n_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess && per_sm == 0)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, pair_sum_kernel<XT, OT, VEC, IPL>, kRowWarps * 32, 0);
+    if (e != cudaSuccess) return (int)e;
+    const int rows = (a.n_out + kRowWarps - 1) / kRowWarps;
+    const int resident = n_sm * (per_sm > 0 ? per_sm : 1);
+    pair_sum_kernel<XT, OT, VEC, IPL>
+        <<<rows < resident ? rows : resident, kRowWarps * 32, 0, s>>>(a);
+    return (int)cudaGetLastError();
+}
+
+template <typename XT, typename OT, int VEC>
+int launch_pair_sum(const RowArgs& a, cudaStream_t s) {
+    const int ipl = row_ipl(a.B, a.F, VEC);
+    if (ipl == 4) return launch_pair_sum_rows<XT, OT, VEC, 4>(a, s);
+    if (ipl == 2) return launch_pair_sum_rows<XT, OT, VEC, 2>(a, s);
+    return launch_pair_sum_rows<XT, OT, VEC, 1>(a, s);
+}
+
+bool aligned_to(const void* p, int bytes) {
+    return reinterpret_cast<uintptr_t>(p) % (uintptr_t)bytes == 0;
+}
+
+// the widest vector (at most 16 bytes of the operand) that the width H and
+// the operand's and the output's addresses allow
+template <typename XT, typename OT>
+int pair_sum_vec(const RowArgs& a, cudaStream_t s) {
+    auto fits = [&](int vec) {
+        return a.F % vec == 0 && aligned_to(a.x, vec * (int)sizeof(XT)) &&
+               aligned_to(a.out, vec * (int)sizeof(OT));
+    };
+    if constexpr (sizeof(XT) == 2) {
+        if (fits(8)) return launch_pair_sum<XT, OT, 8>(a, s);
+    }
+    if (fits(4)) return launch_pair_sum<XT, OT, 4>(a, s);
+    if (fits(2)) return launch_pair_sum<XT, OT, 2>(a, s);
+    return launch_pair_sum<XT, OT, 1>(a, s);
+}
+
+int pair_sum(const Csr& a, const Csr& b, const void* y, void* out, int B,
+             int n_in, int n_out, int H, int y_is_bf16, int out_is_bf16,
+             cudaStream_t s) {
+    RowArgs r{};
+    r.op[0] = RowOp{a.crow, a.col, a.val, 0};
+    r.op[1] = RowOp{b.crow, b.col, b.val, H};
+    r.x = y;
+    r.out = out;
+    r.B = B;
+    r.n_out = n_out;
+    r.F = H;
+    r.x_ld = 2 * (long long)H;
+    r.x_bs = (long long)n_in * 2 * H;
+    r.o_ld = H;
+    r.o_bs = (long long)n_out * H;
+    if (y_is_bf16 && out_is_bf16)
+        return pair_sum_vec<__nv_bfloat16, __nv_bfloat16>(r, s);
+    if (y_is_bf16) return pair_sum_vec<__nv_bfloat16, float>(r, s);
+    if (out_is_bf16) return pair_sum_vec<float, __nv_bfloat16>(r, s);
+    return pair_sum_vec<float, float>(r, s);
+}
+
+template <int VEC, typename XT, typename OT>
+void launch_pair_transpose(const Csr& a, const Csr& b, const void* x,
+                           void* out, int B, int n_in, int n_out, int H,
+                           cudaStream_t s) {
+    dim3 grid((n_out + kWarpsPerBlock - 1) / kWarpsPerBlock, B);
+    dim3 block(kWarpsPerBlock * 32);
+    pair_transpose_kernel<VEC, XT, OT><<<grid, block, 0, s>>>(
+        a.crow, a.col, a.val, b.crow, b.col, b.val,
+        static_cast<const XT*>(x), static_cast<OT*>(out), n_in, n_out, H);
+}
+
+template <int VEC>
+int pair_transpose_types(const Csr& a, const Csr& b, const void* x,
+                         void* out, int B, int n_in, int n_out, int H,
+                         int x_is_bf16, int out_is_bf16, cudaStream_t s) {
     if (x_is_bf16 && out_is_bf16) {
-        launch<TRANSPOSE, VEC, __nv_bfloat16, __nv_bfloat16>(
+        launch_pair_transpose<VEC, __nv_bfloat16, __nv_bfloat16>(
             a, b, x, out, B, n_in, n_out, H, s);
     } else if (x_is_bf16) {
-        launch<TRANSPOSE, VEC, __nv_bfloat16, float>(a, b, x, out, B, n_in,
-                                                     n_out, H, s);
+        launch_pair_transpose<VEC, __nv_bfloat16, float>(a, b, x, out, B,
+                                                         n_in, n_out, H, s);
     } else if (out_is_bf16) {
-        launch<TRANSPOSE, VEC, float, __nv_bfloat16>(a, b, x, out, B, n_in,
-                                                     n_out, H, s);
+        launch_pair_transpose<VEC, float, __nv_bfloat16>(a, b, x, out, B,
+                                                         n_in, n_out, H, s);
     } else {
-        launch<TRANSPOSE, VEC, float, float>(a, b, x, out, B, n_in, n_out, H,
-                                             s);
+        launch_pair_transpose<VEC, float, float>(a, b, x, out, B, n_in,
+                                                 n_out, H, s);
     }
     return (int)cudaGetLastError();
 }
@@ -238,14 +299,17 @@ int dispatch(const void* a_crow, const void* a_col, const void* a_val,
     Csr b{static_cast<const int*>(b_crow), static_cast<const int*>(b_col),
           static_cast<const float*>(b_val)};
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+    if (!TRANSPOSE)
+        return pair_sum(a, b, x, out, B, n_in, n_out, H, x_is_bf16,
+                        out_is_bf16, s);
     if (H % 128 == 0)
-        return dispatch_types<TRANSPOSE, 4>(a, b, x, out, B, n_in, n_out, H,
-                                            x_is_bf16, out_is_bf16, s);
+        return pair_transpose_types<4>(a, b, x, out, B, n_in, n_out, H,
+                                       x_is_bf16, out_is_bf16, s);
     if (H % 64 == 0)
-        return dispatch_types<TRANSPOSE, 2>(a, b, x, out, B, n_in, n_out, H,
-                                            x_is_bf16, out_is_bf16, s);
-    return dispatch_types<TRANSPOSE, 1>(a, b, x, out, B, n_in, n_out, H,
-                                        x_is_bf16, out_is_bf16, s);
+        return pair_transpose_types<2>(a, b, x, out, B, n_in, n_out, H,
+                                       x_is_bf16, out_is_bf16, s);
+    return pair_transpose_types<1>(a, b, x, out, B, n_in, n_out, H,
+                                   x_is_bf16, out_is_bf16, s);
 }
 
 }  // namespace

@@ -10,7 +10,8 @@
 // in L2 (the mesh is RCM-ordered), the output is written once, and the
 // float32 FMA count (2 * nnz * B * F) is far below the card's rate.
 //
-// Design, for that bound:
+// Design, for that bound (the row machinery, csr_row in spmm_rows.cuh,
+// is shared with K8):
 //   * A warp owns an output row for ALL B batch lanes. It loads the row's
 //     col/val once, lane-parallel (up to 32 non-zeros in one coalesced load),
 //     and broadcasts them with __shfl_sync, so no operand load waits on an
@@ -36,151 +37,30 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "spmm_rows.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;      // rows (warps) a block
-
-struct SpmmArgs {
-    const int* crow;
-    const int* col;
-    const float* val;
-    const void* x;             // operand window: row stride x_ld, batch x_bs
-    void* out;                 // output window: row stride o_ld, batch o_bs
-    int B, n_out, F;
-    long long x_ld, x_bs, o_ld, o_bs;   // in elements
-};
-
-__device__ __forceinline__ void unpack(const uint4& r, float v[8],
-                                       const __nv_bfloat16*) {
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-        v[2 * i] = f.x;
-        v[2 * i + 1] = f.y;
-    }
-}
-
-__device__ __forceinline__ void unpack(const uint4& r, float v[4],
-                                       const float*) {
-    v[0] = __uint_as_float(r.x);
-    v[1] = __uint_as_float(r.y);
-    v[2] = __uint_as_float(r.z);
-    v[3] = __uint_as_float(r.w);
-}
-
-template <int VEC>
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float v[VEC]) {
-    static_assert(VEC == 8, "bf16 output takes a bf16 operand");
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-        w[i] = *reinterpret_cast<uint32_t*>(&h);
-    }
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-template <int VEC>
-__device__ __forceinline__ void store_vec(float* p, const float v[VEC]) {
-#pragma unroll
-    for (int i = 0; i < VEC; i += 4)
-        *reinterpret_cast<float4*>(p + i) =
-            make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
-}
-
-// IPL: 16-byte vectors a lane owns; U: non-zeros unrolled (IPL * U loads in
-// flight a lane)
+// a warp a row (spmm_rows.cuh); IPL: 16-byte vectors a lane owns
 template <typename XT, typename OT, int IPL>
-__global__ void __launch_bounds__(kWarps * 32)
-spmm_csr_kernel(SpmmArgs a) {
-    constexpr int VEC = 16 / sizeof(XT);
-    constexpr int U = 8 / IPL;
-    const int lane = threadIdx.x & 31;
-    const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+__global__ void __launch_bounds__(kRowWarps * 32)
+spmm_csr_kernel(RowArgs a) {
+    const int row = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
     if (row >= a.n_out) return;
-    const XT* __restrict__ x = static_cast<const XT*>(a.x);
-    OT* __restrict__ out = static_cast<OT*>(a.out);
-    const int start = a.crow[row], end = a.crow[row + 1];
-    const int cpr = a.F / VEC, items = a.B * cpr;
-    for (int base = 0; base < items; base += 32 * IPL) {
-        long long xo[IPL], oo[IPL];
-        bool ok[IPL];
-        float acc[IPL][VEC];
-#pragma unroll
-        for (int k = 0; k < IPL; ++k) {
-            const int it = base + lane + 32 * k;
-            ok[k] = it < items;
-            const int b = ok[k] ? it / cpr : 0, c = it - b * cpr;
-            xo[k] = b * a.x_bs + (long long)c * VEC;
-            oo[k] = b * a.o_bs + row * a.o_ld + (long long)c * VEC;
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) acc[k][e] = 0.0f;
-        }
-        for (int j0 = start; j0 < end; j0 += 32) {
-            const int nj = min(32, end - j0);
-            int cl = 0;
-            float vl = 0.0f;
-            if (lane < nj) {
-                cl = a.col[j0 + lane];
-                vl = a.val[j0 + lane];
-            }
-            int j = 0;
-            for (; j + U <= nj; j += U) {
-                uint4 raw[U][IPL];
-                float w[U];
-#pragma unroll
-                for (int u = 0; u < U; ++u) {
-                    const long long c = __shfl_sync(0xffffffffu, cl, j + u);
-                    w[u] = __shfl_sync(0xffffffffu, vl, j + u);
-#pragma unroll
-                    for (int k = 0; k < IPL; ++k)
-                        raw[u][k] = ok[k]
-                            ? __ldg(reinterpret_cast<const uint4*>(
-                                  x + c * a.x_ld + xo[k]))
-                            : make_uint4(0u, 0u, 0u, 0u);
-                }
-#pragma unroll
-                for (int u = 0; u < U; ++u)
-#pragma unroll
-                    for (int k = 0; k < IPL; ++k) {
-                        float v[VEC];
-                        unpack(raw[u][k], v, x);
-#pragma unroll
-                        for (int e = 0; e < VEC; ++e)
-                            acc[k][e] = fmaf(w[u], v[e], acc[k][e]);
-                    }
-            }
-            for (; j < nj; ++j) {
-                const long long c = __shfl_sync(0xffffffffu, cl, j);
-                const float w = __shfl_sync(0xffffffffu, vl, j);
-#pragma unroll
-                for (int k = 0; k < IPL; ++k) {
-                    if (!ok[k]) continue;
-                    float v[VEC];
-                    unpack(__ldg(reinterpret_cast<const uint4*>(
-                               x + c * a.x_ld + xo[k])), v, x);
-#pragma unroll
-                    for (int e = 0; e < VEC; ++e)
-                        acc[k][e] = fmaf(w, v[e], acc[k][e]);
-                }
-            }
-        }
-#pragma unroll
-        for (int k = 0; k < IPL; ++k)
-            if (ok[k]) store_vec<VEC>(out + oo[k], acc[k]);
-    }
+    int start[1], len[1];
+    const int total = row_extents<1>(a, row, start, len);
+    csr_row<XT, OT, 16 / sizeof(XT), IPL, 1>(a, row, start, len, total);
 }
 
 template <typename XT, typename OT>
-int launch(const SpmmArgs& a, cudaStream_t s) {
+int launch(const RowArgs& a, cudaStream_t s) {
     constexpr int VEC = 16 / sizeof(XT);
-    const int per_lane = (a.B * (a.F / VEC) + 31) / 32;
-    const dim3 grid((a.n_out + kWarps - 1) / kWarps), block(kWarps * 32);
-    if (per_lane >= 4)
+    const int ipl = row_ipl(a.B, a.F, VEC);
+    const dim3 grid((a.n_out + kRowWarps - 1) / kRowWarps),
+        block(kRowWarps * 32);
+    if (ipl == 4)
         spmm_csr_kernel<XT, OT, 4><<<grid, block, 0, s>>>(a);
-    else if (per_lane >= 2)
+    else if (ipl == 2)
         spmm_csr_kernel<XT, OT, 2><<<grid, block, 0, s>>>(a);
     else
         spmm_csr_kernel<XT, OT, 1><<<grid, block, 0, s>>>(a);
@@ -210,10 +90,10 @@ extern "C" int gfvgn_spmm_csr(const void* crow, const void* col,
         (o_bs * so) % 16 != 0)
         return (int)cudaErrorInvalidValue;
     if (n_out == 0) return 0;
-    SpmmArgs a;
-    a.crow = static_cast<const int*>(crow);
-    a.col = static_cast<const int*>(col);
-    a.val = static_cast<const float*>(val);
+    RowArgs a{};
+    a.op[0] = RowOp{static_cast<const int*>(crow),
+                    static_cast<const int*>(col),
+                    static_cast<const float*>(val), 0};
     a.x = x;
     a.out = out;
     a.B = B;

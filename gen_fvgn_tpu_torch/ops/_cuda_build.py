@@ -27,7 +27,8 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("spmm.cu", "pair_spmm.cu", "fused_mlp.cu", "fused_premlp.cu",
            "fused_slice_pool.cu", "fused_slice_pool_bwd.cu")
 # included by the sources: in the hash too
-HEADERS = ("lane_reduce.cuh", "mma_sm90.cuh", "slice_pool_tiles.cuh")
+HEADERS = ("lane_reduce.cuh", "mma_sm90.cuh", "slice_pool_tiles.cuh",
+           "spmm_rows.cuh")
 # -fmad=false: no silent a*b+c contraction, so the kernels' float32
 # elementwise steps round where the plain PyTorch versions round (the sparse
 # apply asks for its fused multiply-adds explicitly).
@@ -36,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_SECONDS: Optional[float] = None     # wall time of the last real build
-BUILD_LOG: str = ""                       # nvcc's output (ptxas -v included)
+# nvcc's output (ptxas -v included), kept beside the library
+BUILD_LOG: str = ""
 
 
 def _find_nvcc() -> str:
@@ -91,6 +93,7 @@ def _build(lib_path: Path) -> None:
     if link.returncode != 0:
         raise RuntimeError(f"linking the kernel library failed:\n{BUILD_LOG}")
     os.replace(tmp, lib_path)
+    lib_path.with_suffix(".log").write_text(BUILD_LOG)
     BUILD_SECONDS = time.perf_counter() - t0
 
 
@@ -184,11 +187,13 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 def load_library() -> ctypes.CDLL:
     """The kernel library, built at first use."""
-    global _LIB
+    global _LIB, BUILD_LOG
     if _LIB is None:
         lib_path = BUILD_DIR / f"libgfvgn_kernels_{_source_hash()}.so"
         if not lib_path.exists():
             _build(lib_path)
+        elif lib_path.with_suffix(".log").exists():
+            BUILD_LOG = lib_path.with_suffix(".log").read_text()
         lib = ctypes.CDLL(str(lib_path))
         _declare(lib)
         _LIB = lib

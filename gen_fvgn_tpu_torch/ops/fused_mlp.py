@@ -50,9 +50,10 @@ K5f `fused_premlp_res` replaces `_premlp_fwd_kernel` (:691-711, called at
     out = x + W2·gelu(W1·(LN(x)·γ + β) + b1) + b2,   hidden width 2C
 
 in its own kernels (csrc/fused_premlp.cu), at any width C that is a
-multiple of 128 up to 1024 (`premlp_shape_ok`; C = 128 on its own wmma
-kernel, wider C on block row tiles with streamed weights, the backward
-above 512 taking the hidden width in chunks): the LayerNorm
+multiple of 128 up to 1024 (`premlp_shape_ok`; the forward at C = 128 on
+K2's row design, a warp a 16-row strip with u, h and y in registers; wider
+C on block row tiles with streamed weights, the backward above 512 taking
+the hidden width in chunks): the LayerNorm
 comes first and its rounding points differ from K2's: u = LN(x)·γ + β is
 rounded to bf16 before W1, h before W2, and the residual x is added in
 float32 BEFORE the one final bf16 rounding (K2 rounds first and adds in
@@ -729,15 +730,28 @@ def _ring_bytes(tm: int) -> int:
     return 2 * max(32 * (pw + 8), pw * 40) * 2
 
 
+# K5f's strip kernel at C = 128 (csrc/fused_premlp.cu `premlp_rows`): its
+# warps, and its shared memory: W1 [128][264] and W2 [256][136] bf16, the
+# vectors γ | β | b1 | b2 float32, two [16][136] bf16 x buffers a warp
+PREMLP_ROWS_WARPS = 8
+PREMLP_ROWS_SMEM = (128 * 264 * 2 + 256 * 136 * 2 + (3 * 128 + 256) * 4
+                    + PREMLP_ROWS_WARPS * 2 * 16 * 136 * 2)
+
+
 def premlp_plan(c: int, backward: bool):
-    """The row tile K5f (C >= 256) and K5b take for width c with hidden
-    width 2c, as csrc/fused_premlp.cu `tile_plan` chooses it: (tm, weights
-    resident, row buffers, shared-memory bytes), or None where no tile fits
-    a block's shared memory or c is not a multiple of 128 up to 1024. From
-    C = 640 on the backward takes the hidden width in chunks of one 512-wide
-    pass (16-row tiles, streamed weights, du staged where the ring was)."""
+    """How K5f (backward False) or K5b runs width c with hidden width 2c,
+    as csrc/fused_premlp.cu decides it: the forward at c = 128 on the strip
+    kernel, ("rows", warps, shared-memory bytes); every other shape on the
+    block row tiles `tile_plan` chooses, ("tiles", tm, weights resident,
+    row buffers, shared-memory bytes); None where no tile fits a block's
+    shared memory or c is not a multiple of 128 up to 1024. From C = 640
+    on the backward takes the hidden width in chunks of one 512-wide pass
+    (16-row tiles, streamed weights, du staged where the ring was)."""
     if c < 128 or c % 128 or c > 1024:
         return None
+    if c == 128 and not backward:
+        return (("rows", PREMLP_ROWS_WARPS, PREMLP_ROWS_SMEM)
+                if PREMLP_ROWS_SMEM <= SMEM_PER_BLOCK else None)
     hd = 2 * c
     chunk = backward and c >= 640
     for resident in (True, False):
@@ -760,7 +774,7 @@ def premlp_plan(c: int, backward: bool):
                              + _align128(wr * hd * 4) + _align128(hd * 4))
                     size = max(size, 8 * 3 * c * 4)
                 if size <= SMEM_PER_BLOCK:
-                    return tm, resident, nbuf, size
+                    return "tiles", tm, resident, nbuf, size
     return None
 
 

@@ -7,10 +7,17 @@ K8 replaces `gen_fvgn_tpu/ops/pallas_spmm.py::pallas_gather_pair` (:419,
 `pallas_call` at :484), K9 `pallas_pair_transpose` (:503, `pallas_call` at
 :574). Those stream the 256×256 dense tiles of two operators through the
 matrix unit over one union window of the operand. The CUDA kernels
-(csrc/pair_spmm.cu) compute the same functions from the two CSR operators:
-a warp per (output row, batch lane), float32 FMAs, each lane owning 4, 2 or
-1 contiguous features of the H-wide half (H % 128, H % 64, otherwise), so
-that the node pair's H = 64 keeps every lane busy.
+(csrc/pair_spmm.cu) compute the same functions from the two CSR operators,
+in float32 FMAs.
+
+K8 is K1's design (csrc/spmm_rows.cuh, shared with K1): a warp owns an
+output row for all batch lanes, loads the indices of A's row and B's row
+once as one list (A's non-zeros, then B's) and broadcasts them by shuffles,
+and each lane keeps eight independent loads in flight, of 16 bytes where H
+and the addresses allow it (8, 4 or 2 bytes otherwise: any H, any
+address). K9 is still the first design: a warp per (output row, batch
+lane), each lane owning 4, 2 or 1 contiguous features of the H-wide half
+(H % 128, H % 64, otherwise).
 
 K8 serves two uses: the EdgeBlock's gather pair (one-hot `gather_s` /
 `gather_r`, H = hidden) and the NodeBlock's pair sum (`nbr_r` / `nbr_s`,
@@ -95,8 +102,6 @@ def _launch(fn_name, a, b, xin, out_dtype, h, out_width):
     if a.crow.device != xin.device or b.crow.device != xin.device:
         raise ValueError("operators and operand are on different devices")
     xin = xin.contiguous()
-    if xin.data_ptr() % 16 != 0:           # the kernel's vector loads
-        xin = xin.clone()
     nb = 1 if xin.ndim == 2 else xin.shape[0]
     shape = (a.n_out, out_width) if xin.ndim == 2 \
         else (nb, a.n_out, out_width)
@@ -140,6 +145,9 @@ def pair_transpose(a, b, g: torch.Tensor,
         return pair_transpose_reference(a, b, g, out_dtype)
     global LAUNCHES_PAIR_TRANSPOSE
     xin, out_dtype = _operand(a, b, g, out_dtype)
+    xin = xin.contiguous()
+    if xin.data_ptr() % 16 != 0:     # K9's vector loads; K8 narrows its own
+        xin = xin.clone()
     h = g.shape[-1]
     out = _launch("gfvgn_pair_transpose", a, b, xin, out_dtype, h, 2 * h)
     LAUNCHES_PAIR_TRANSPOSE += 1

@@ -15,6 +15,8 @@ of
   full width (nbr_r, nbr_s and their transposes on [.., 128]) where the
   tree's `spmm` takes no column window, on the 64-column windows where it
   does;
+* K8 (`pair_sum`) in both forms: the gather pair (gather_s / gather_r on
+  [8, N, 256]) and the node pair (nbr_r / nbr_s on [8, E, 128]);
 * K6 at (128, 8, 32) and at (256, 8, 32) (`check_slice_pool`), K5f
   (`check_premlp`), K5b and K7 (`check_backward`), each also held against
   its plain version by the tree's check.
@@ -58,6 +60,15 @@ def spmm_forms(static, windows):
     return forms
 
 
+def pair_forms(static):
+    """(name, A, B, operand width) of K8's two forms on the paired path:
+    the EdgeBlock's gather pair (E <- N, H = 128) and the NodeBlock's node
+    pair (N <- E, H = 64)."""
+    ops = static.ops
+    return [("gather_pair", ops.gather_s.fwd, ops.gather_r.fwd, 256),
+            ("node_pair", ops.nbr_r.fwd, ops.nbr_s.fwd, 128)]
+
+
 def main(argv):
     root, label = os.path.abspath(argv[0]), argv[1]
     sys.path.insert(0, root)
@@ -66,6 +77,7 @@ def main(argv):
 
     import chip_smoke as cs
     from gen_fvgn_tpu_torch.ops import _cuda_build
+    from gen_fvgn_tpu_torch.ops.pair_spmm import pair_sum
     from gen_fvgn_tpu_torch.ops.spmm import spmm
     from gen_fvgn_tpu_torch.tools.profile_rollout import build_main_path
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -82,13 +94,19 @@ def main(argv):
         k1[name] = cs.median_ms(run, flush)
     step = sum(k1[name] * n for name, _, _, _, n in
                spmm_forms(static, windows))
+    k8, gen8 = {}, torch.Generator(device="cuda").manual_seed(8)
+    for name, a, b, width in pair_forms(static):
+        y = torch.randn(8, a.n_in, width, generator=gen8,
+                        device="cuda").to(torch.bfloat16)
+        k8[name] = cs.median_ms(lambda: pair_sum(a, b, y), flush)
     rows = {"fused_premlp_res": cs.check_premlp(n_pad, flush, gen),
             "fused_slice_pool": cs.check_slice_pool(static, flush, gen)}
     rows.update(cs.check_backward(n_pad, static, flush, gen))
     rows["fused_slice_pool_c256"] = cs.check_slice_pool(
         static, flush, torch.Generator(device="cuda").manual_seed(256), 256)
     times = {"spmm": {k: round(v, 4) for k, v in k1.items()},
-             "spmm_train_step": round(step, 4)}
+             "spmm_train_step": round(step, 4),
+             "pair_sum": {k: round(v, 4) for k, v in k8.items()}}
     times.update({k: round(v["ms"], 4) for k, v in rows.items()})
     print("TIMES", label, json.dumps(times))
     return 0

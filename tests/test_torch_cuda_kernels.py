@@ -260,6 +260,74 @@ def test_pair_sum_at_a_bf16_rounding_midpoint():
         assert float((t - exact).abs().max()) <= ulp
 
 
+def _pair_ops(op_dtype, n_out=300, n_in=257, seed=3):
+    """A and B of the row-for-all-lanes tests: rows 0..99 one non-zero each
+    (the gather pair), 100..199 three and two, row 200 forty in A alone,
+    row 201 twenty in A and twenty-five in B (the list crosses from A to B
+    inside a 32-index load and goes beyond it), row 202 thirty-three in B
+    alone, 203..249 two and two, 250..299 empty in both. Integer weights
+    for bf16-stored operators (as the structural ones), normal otherwise."""
+    from gen_fvgn_tpu_torch.ops.blocksparse import build_csr_op
+    rng = np.random.default_rng(seed)
+    counts = {"a": [1] * 100 + [3] * 100 + [40, 20, 0] + [2] * 47,
+              "b": [1] * 100 + [2] * 100 + [0, 25, 33] + [2] * 47}
+    ops = []
+    for k in ("a", "b"):
+        rows = np.repeat(np.arange(250), counts[k])
+        cols = np.concatenate([rng.choice(n_in, c, replace=False)
+                               for c in counts[k]])
+        vals = (rng.choice([-3, -2, -1, 1, 2, 3], rows.shape[0])
+                if op_dtype == "bfloat16"
+                else rng.normal(size=rows.shape[0])).astype(np.float32)
+        ops.append(build_csr_op(rows, cols, vals, n_out, n_in,
+                                op_dtype).to("cuda"))
+    return ops
+
+
+@pytest.mark.parametrize("op_dtype,x_dtype", [
+    ("bfloat16", torch.bfloat16), ("float32", torch.float32),
+    ("bfloat16", torch.float32)])
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("h", [48, 64, 128, 256])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_pair_sum_rows_for_all_lanes(h, b, op_dtype, x_dtype, aligned):
+    """K8, a warp a row for all batch lanes, against its plain version:
+    H 48 to 256, B 1, 3 and 8, rows beyond one 32-index load (in one
+    operator, and across A and B), empty rows exactly zero, two runs the
+    same bits. `aligned` False hands it an operand 2 or 4 bytes off a
+    16-byte boundary, which it reads in narrower vectors. Tolerance: a bf16
+    output within one bf16 ulp of each element (the float32 sums run in
+    another order: where the exact sum lies next to a rounding midpoint one
+    order rounds up, the other down), a float32 one 1e-5."""
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import pair_spmm as mod
+    a, bop = _pair_ops(op_dtype)
+    g = torch.Generator("cuda").manual_seed(h + b)
+    y = torch.randn(b, a.n_in, 2 * h, device="cuda", generator=g
+                    ).to(x_dtype)
+    if not aligned:
+        flat = torch.empty(y.numel() + 1, device="cuda", dtype=x_dtype)
+        y = flat[1:].view(y.shape).copy_(y)
+        assert y.data_ptr() % 16 != 0
+    before = mod.LAUNCHES_PAIR_SUM
+    out = mod.pair_sum(a, bop, y)
+    again = mod.pair_sum(a, bop, y)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES_PAIR_SUM == before + 2
+    ref = mod.pair_sum_reference(a, bop, y)
+    assert out.dtype == ref.dtype and out.shape == ref.shape == (b, 300, h)
+    assert torch.equal(out, again)
+    got, want = out.float(), ref.float()
+    if out.dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(
+            2.0 ** -100))) - 7)
+        assert bool(((got - want).abs() <= ulp + 1e-5).all())
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert bool((out[:, 250:] == 0).all())
+    assert bool((out[:, 200:203] != 0).any(dim=-1).all())
+
+
 def _mlp_args(m, widths, has_pre, d_out, seed, h=128):
     g = torch.Generator("cuda").manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
@@ -430,6 +498,64 @@ def test_fused_premlp_res_kernel_refuses_what_it_does_not_take(c, hd):
         mod.fused_premlp_res(*args)
     with pytest.raises(NotImplementedError, match="shared memory"):
         mod.fused_premlp_res_bwd(*args, args[0], 1)
+
+
+# K5f's strip kernel at C = 128: row counts around the 16-row strip (one
+# row, a strip less one, one, one and a row, eight strips less one), the
+# 8 x 1251 rows of a batch of Transolver blocks, and the main path's 8 x
+# 10,240
+_PREMLP_STRIP_M = [1, 15, 16, 17, 127, 8 * 1251, 81920]
+
+
+@pytest.mark.parametrize("m", _PREMLP_STRIP_M)
+def test_fused_premlp_res_strip_kernel(m):
+    """K5f at C = 128 (a warp a 16-row strip) against its plain version
+    at the limit of the K5f test (2 bf16 ulps of the output scale), and the
+    same bits twice."""
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import fused_mlp as mod
+    assert mod.premlp_plan(128, False)[0] == "rows"
+    args = _premlp_args(m, seed=m + 7)
+    before = mod.LAUNCHES_PREMLP
+    out = mod.fused_premlp_res(*args)
+    again = mod.fused_premlp_res(*args)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES_PREMLP == before + 2
+    ref = mod.fused_premlp_res_reference(*args)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape == (m, 128)
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=_ulps(ref))
+
+
+@pytest.mark.parametrize("rows", ["constant", "large"])
+def test_fused_premlp_res_strip_kernel_clamps_and_scales(rows):
+    """K5f at C = 128 on the rows the strip kernel clamps or scales:
+    constant rows (the fast variance E[x^2] - mu^2 is 0, clamped; xhat = 0,
+    u = beta), among them an all-zero row, mixed with ordinary ones; and
+    rows with |x| up to 1e3. Against the plain version at the limit of the
+    K5f test (2 bf16 ulps of the output scale), the same bits twice."""
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import fused_mlp as mod
+    m = 8 * 16 + 5
+    x, *rest = _premlp_args(m, seed=11)
+    g = torch.Generator("cuda").manual_seed(12)
+    if rows == "constant":
+        vals = torch.randn(m, 1, device="cuda", generator=g)
+        vals[0] = 0.0
+        x = x.clone()
+        x[::2] = vals[::2].expand(-1, 128).to(torch.bfloat16)
+    else:
+        x = (330.0 * torch.randn(m, 128, device="cuda", generator=g)
+             ).clamp(-1e3, 1e3).to(torch.bfloat16)
+        assert float(x.float().abs().max()) >= 900.0
+    out = mod.fused_premlp_res(x, *rest)
+    again = mod.fused_premlp_res(x, *rest)
+    torch.cuda.synchronize()
+    ref = mod.fused_premlp_res_reference(x, *rest)
+    assert torch.equal(out, again) and bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=_ulps(ref))
 
 
 # (C, H, G): the default, then wider C, fewer heads, fewer and more slices,

@@ -87,7 +87,7 @@ def _check(got, ref, dtype, abs_sum, f32_tol):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("h", [64, 128])
+@pytest.mark.parametrize("h", [64, 128, 256])
 def test_pair_sum_reference_matches_pallas_gather_pair(h, dtype):
     from gen_fvgn_tpu.ops.pallas_spmm import pallas_gather_pair
     from gen_fvgn_tpu_torch.ops.pair_spmm import pair_sum, pair_sum_reference

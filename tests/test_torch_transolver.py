@@ -78,10 +78,49 @@ def test_premlp_reference_matches_jax_at_wide_c(c):
     _premlp_vs_jax(c, seed=c)
 
 
-def _premlp_vs_jax(c, seed):
+@pytest.mark.parametrize("rows", ["ragged", "constant", "large"])
+def test_premlp_reference_matches_jax_on_strip_edge_rows(rows):
+    """At C = 128, the rows K5f's strip kernel masks or clamps: a row count
+    that is no multiple of its 16-row strip (M = 333); constant rows, an
+    all-zero one among them (the fast variance is 0, clamped; xhat = 0 and
+    u = beta); rows scaled to |x| ~ 1e3. Same limits as the other K5f
+    comparisons."""
+    rng = np.random.default_rng(40)
+    m = 333 if rows == "ragged" else 160
+    ops = _premlp_operands(41, m=m)
+    if rows == "constant":
+        vals = rng.normal(size=(m, 1)).astype(np.float32)
+        vals[0] = 0.0
+        ops["x"][::2] = np.broadcast_to(vals[::2], (len(vals[::2]), C))
+    elif rows == "large":
+        ops["x"] = np.clip(330.0 * rng.normal(size=(m, C)), -1e3, 1e3
+                           ).astype(np.float32)
+        assert np.abs(ops["x"]).max() >= 900.0
+    _premlp_vs_jax(C, seed=None, ops=ops)
+
+
+def test_premlp_plan_names_the_strip_kernel():
+    """K5f at C = 128 runs on the strip kernel ("rows"), every other width
+    and the backward on the block row tiles ("tiles"); the widths the
+    pre-LN kernels take are unchanged: C % 128 == 0 up to 1024, hidden 2C."""
+    from gen_fvgn_tpu_torch.ops import fused_mlp as fm
+    plan = fm.premlp_plan(128, False)
+    assert plan[0] == "rows" and plan[2] <= fm.SMEM_PER_BLOCK
+    assert fm.premlp_plan(128, True)[0] == "tiles"
+    for c in range(128, 1025, 128):
+        for bwd in (False, True):
+            if (c, bwd) != (128, False):
+                assert fm.premlp_plan(c, bwd)[0] == "tiles", (c, bwd)
+    for c in range(0, 1281, 32):
+        for hd in (c, 2 * c, 3 * c):
+            assert fm.premlp_shape_ok(c, hd) == (
+                hd == 2 * c and c > 0 and c % 128 == 0 and c <= 1024), (c, hd)
+
+
+def _premlp_vs_jax(c, seed, ops=None):
     from gen_fvgn_tpu.ops.fused_mlp import fused_premlp_res_parts as jfn
     from gen_fvgn_tpu_torch.ops.fused_mlp import fused_premlp_res_parts as tfn
-    ops = _premlp_operands(seed, c=c)
+    ops = ops if ops is not None else _premlp_operands(seed, c=c)
     ref = np.asarray(jfn(*[jnp.asarray(ops[k]) for k in ORDER],
                          dtype=jnp.bfloat16), np.float32)
     got = tfn(*[torch.from_numpy(ops[k]) for k in ORDER],
