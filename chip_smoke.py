@@ -8,10 +8,12 @@ holds each kernel, forward and backward, against its plain PyTorch version
 on the card at the shapes of the main path (K1 in each form a train step
 launches, `SPMM_FORMS`, the node aggregation's 64-column windows among
 them; K2-K7 at hidden width 128 and again at 256; the Transolver kernels
-K5-K7 also at the shapes the JAX package fuses beyond the nets', C 768
-and 1024, (C, H, G) = (128, 16, 8), (512, 4, 128), (384, 6, 64), at batch
-2; the paired sparse applies K8 and K9 at the paired path's), then drives
-six paths on the
+K5-K7 also at the shapes the JAX package fuses beyond the nets', C 768,
+1024, 1152 and 2048, (C, H, G) = (128, 16, 8), (512, 4, 128), (384, 6,
+64), (1152, 8, 32), (2048, 16, 8), at batch 2, and one TransolverBlock at
+hidden 1152 forward and backward against its plain versions; the paired
+sparse applies K8 and K9 at the paired path's), then drives six paths on
+the
 101x101-node synthetic cavity at batch 8, with weights from
 torch.Generator().manual_seed(0), all with the Config's defaults
 (TransFVGN_v2: hidden 128, 2 processors of 3 message-passing blocks and a
@@ -60,10 +62,11 @@ width, the form the node aggregation took before it used windows), the
 K2-K7 times at hidden 256 (the same row counts) under "hidden_256", K5-K7
 at the shapes above under "repaired_shapes", and for K5b and K7 the bytes
 their two passes move ("design_bytes") beside the bound of the function
-itself; K5f and K8, redesigned for this card, carry their kernels'
+itself; K5f, K8 and K9, redesigned for this card, carry their kernels'
 registers and spill bytes from nvcc's -Xptxas -v ("registers": K5f's
-strip kernel `premlp_rows`, K8's `pair_sum_kernel` over its
-instantiations and at the main forms' bf16 16-byte vectors).
+strip kernel `premlp_rows`, K8's `pair_sum_kernel` and K9's
+`pair_transpose_kernel` over their instantiations and at the main forms'
+bf16 16-byte vectors).
 
 Needs one CUDA card and nvcc; exits non-zero without them, and on any phase
 that fails. float32 products run in full float32: TF32 is switched off
@@ -548,18 +551,19 @@ def check_premlp(n_pad, flush_buf, gen, c=128, batch=BATCH):
 
 
 def check_slice_pool(static, flush_buf, gen, c=128, heads=8, slices=32,
-                     batch=BATCH):
+                     batch=BATCH, nodes=None):
     """K6 at the attention's shape: x [batch, N, c] bf16, the static node
-    mask, `heads` heads of c / heads, `slices` slices, temperature 0.5."""
+    mask, `heads` heads of c / heads, `slices` slices, temperature 0.5; N
+    the first `nodes` nodes where given."""
     from gen_fvgn_tpu_torch.ops.fused_slice_attn import (
         fused_slice_pool_kernel, fused_slice_pool_reference, slice_logits,
         slice_w_tolerance)
     bf = torch.bfloat16
-    n = static.pos.shape[0]
+    n = nodes or static.pos.shape[0]
     d, hg = c // heads, heads * slices
     g = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     x = g(batch, n, c).to(bf)
-    mask = static.node_mask.to(torch.float32)
+    mask = static.node_mask[:n].to(torch.float32)
     args = (x, mask, (g(c, c) / c ** 0.5).to(bf), 0.1 * g(c),
             (g(c, c) / c ** 0.5).to(bf), 0.1 * g(c),
             (g(d, slices) / d ** 0.5).to(bf), 0.1 * g(slices),
@@ -730,14 +734,16 @@ def check_mlp_backward(n_pad, e_pad, flush_buf, gen, h=128):
 
 
 def check_backward(n_pad, static, flush_buf, gen, c=128, heads=8,
-                   slices=32, batch=BATCH, premlp=True, pool=True):
+                   slices=32, batch=BATCH, premlp=True, pool=True,
+                   nodes=None):
     """K5b at the Transolver MLP's shape (x [batch*N, c], hidden 2c) and K7
     at the attention's (x [batch, N, c], `heads` heads, `slices` slices),
     each against its plain version; rows batch-major, `batch` lanes.
     Beside each bound (the function's own bytes and operations) the bytes
     the kernel's two passes move: the row pass's reads and writes, its bf16
     rows read again by the weight-gradient pass once per output tile they
-    feed. `premlp` / `pool` leave out K5b / K7."""
+    feed. `premlp` / `pool` leave out K5b / K7; K7 takes the first `nodes`
+    nodes where given."""
     from gen_fvgn_tpu_torch.ops import fused_mlp as fm
     from gen_fvgn_tpu_torch.ops import fused_slice_attn as fsa
     bf = torch.bfloat16
@@ -755,7 +761,7 @@ def check_backward(n_pad, static, flush_buf, gen, c=128, heads=8,
                 (g(c, hd) / c ** 0.5).to(bf), 0.1 * g(hd),
                 (g(hd, c) / hd ** 0.5).to(bf), 0.1 * g(c), dout, batch)
         out, row = hold_backward(
-            f"fused_premlp_res_bwd C={c}",
+            f"fused_premlp_res_bwd C={c} M={m}",
             lambda: fm.fused_premlp_res_bwd(*args),
             lambda: fm.fused_premlp_res_bwd_reference(*args), flush_buf,
             ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"))
@@ -773,10 +779,10 @@ def check_backward(n_pad, static, flush_buf, gen, c=128, heads=8,
 
     if pool:
         # K7: the slice pooling's backward, x [batch, N, c], the static mask
-        n = static.pos.shape[0]
+        n = nodes or static.pos.shape[0]
         d, hg = c // heads, heads * slices
         x = g(batch, n, c).to(bf)
-        mask = static.node_mask.to(torch.float32)
+        mask = static.node_mask[:n].to(torch.float32)
         cots = (g(batch, n, hg).to(bf), g(batch, heads, slices, d),
                 g(batch, heads, slices))
         args = (x, mask, (g(c, c) / c ** 0.5).to(bf), 0.1 * g(c),
@@ -784,7 +790,8 @@ def check_backward(n_pad, static, flush_buf, gen, c=128, heads=8,
                 (g(d, slices) / d ** 0.5).to(bf), 0.1 * g(slices),
                 torch.full((heads,), 2.0, device="cuda"), *cots)
         out, row = hold_backward(
-            f"fused_slice_pool_bwd C={c} H={heads} G={slices}",
+            f"fused_slice_pool_bwd C={c} H={heads} G={slices} x "
+            f"[{batch},{n},{c}]",
             lambda: fsa.fused_slice_pool_bwd_kernel(*args),
             lambda: fsa.fused_slice_pool_bwd_reference(*args), flush_buf)
         r = batch * n
@@ -808,29 +815,105 @@ def check_backward(n_pad, static, flush_buf, gen, c=128, heads=8,
     return rows
 
 
+# the Transolver kernels' shapes beyond the nets': (C of K5f/K5b), then
+# (C, H, G, nodes a lane) of K6/K7; the run-time paths above C = 1024 run
+# on a quarter of the nodes, so that the script stays within its limit
+REPAIRED_PREMLP = (768, 1024, 1152, 2048)
+REPAIRED_POOL = ((128, 16, 8, None), (512, 4, 128, None), (384, 6, 64, None),
+                 (1152, 8, 32, 2560), (2048, 16, 8, 2560))
+
+
 def check_repaired_shapes(n_pad, static, flush_buf, gen):
-    """The shapes the Transolver kernels took from this slice on, at batch
-    2 on the main path's rows (right, not fast): K5f/K5b at C 768 and 1024
-    (hidden 2C; the backward in hidden chunks), K6/K7 at (C, H, G) =
-    (128, 16, 8), (512, 4, 128) and (384, 6, 64) (their run-time paths),
-    each held against its plain version as the main shapes are. Returns
-    {kernel: {shape: row}}."""
+    """The Transolver kernels at shapes the JAX package fuses beyond the
+    nets', at batch 2 (right, not fast): K5f/K5b at C 768, 1024, 1152 and
+    2048 (hidden 2C; as passes through device memory) on the main path's
+    rows; K6/K7 at (C, H, G) = (128, 16, 8), (512, 4, 128) and (384, 6, 64)
+    on the main path's rows and (1152, 8, 32) and (2048, 16, 8) on 2,560
+    nodes a lane (their run-time paths), each held against its plain
+    version as the main shapes are. Returns {kernel: {shape: row}}."""
     out = {k: {} for k in ("fused_premlp_res", "fused_premlp_res_bwd",
                            "fused_slice_pool", "fused_slice_pool_bwd")}
-    for c in (768, 1024):
+    for c in REPAIRED_PREMLP:
         out["fused_premlp_res"][f"C{c}"] = check_premlp(
             n_pad, flush_buf, gen, c, batch=2)
         out["fused_premlp_res_bwd"][f"C{c}"] = check_backward(
             n_pad, static, flush_buf, gen, c, batch=2,
             pool=False)["fused_premlp_res_bwd"]
-    for c, h, gs in ((128, 16, 8), (512, 4, 128), (384, 6, 64)):
+    for c, h, gs, nodes in REPAIRED_POOL:
         key = f"C{c}-H{h}-G{gs}"
         out["fused_slice_pool"][key] = check_slice_pool(
-            static, flush_buf, gen, c, h, gs, batch=2)
+            static, flush_buf, gen, c, h, gs, batch=2, nodes=nodes)
         out["fused_slice_pool_bwd"][key] = check_backward(
             n_pad, static, flush_buf, gen, c, h, gs, batch=2,
-            premlp=False)["fused_slice_pool_bwd"]
+            premlp=False, nodes=nodes)["fused_slice_pool_bwd"]
     return out
+
+
+def check_wide_block(c=1152, heads=8, slices=32, batch=2, nodes=2048):
+    """One TransolverBlock at hidden c (`heads` heads, `slices` slices,
+    bf16; a width above C = 1024, where the kernels once raised), random
+    weights and biases from a seed, forward and backward with the kernels (one
+    launch each of K5f, K6, K5b, K7) against the same with the plain
+    versions on the same inputs. Limits as step 1's gradients on the main
+    path: each of the output, dx and the parameters' gradients within a
+    relative norm of 3e-2 of the plain version's, cosine at least 0.999."""
+    from gen_fvgn_tpu_torch.models.transolver import TransolverBlock
+    from gen_fvgn_tpu_torch.ops import plain_versions
+    gen = torch.Generator().manual_seed(c)
+    block = TransolverBlock(c, heads, slices, dtype=torch.bfloat16,
+                            generator=gen)
+    with torch.no_grad():
+        for name, p in block.named_parameters():
+            if name.endswith(("bias", "scale")):
+                p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    block = block.to("cuda")
+    x0 = torch.randn(batch, nodes, c, generator=gen).to(torch.bfloat16)
+    dy = torch.randn(batch, nodes, c, generator=gen)
+    x0, dy = x0.to("cuda"), dy.to("cuda")
+    mask = (torch.arange(nodes, device="cuda") < nodes - 100).float()
+    names = ["out", "dx"] + [n for n, _ in block.named_parameters()]
+
+    def run():
+        block.zero_grad(set_to_none=True)
+        x = x0.clone().requires_grad_(True)
+        y = block(x, mask)
+        (y.float() * dy).sum().backward()
+        torch.cuda.synchronize()
+        return [y.detach().float(), x.grad.float()] + [
+            p.grad.float() for p in block.parameters()]
+
+    zero_counts()
+    got = run()
+    counts = launch_counts()
+    want = dict(fused_premlp_res=1, fused_slice_pool=1,
+                fused_premlp_res_bwd=1, fused_slice_pool_bwd=1)
+    if {k: v for k, v in counts.items() if v} != want:
+        raise RuntimeError(f"TransolverBlock C={c}: launches {counts}, "
+                           f"expected {want}")
+    with plain_versions():
+        ref = run()
+    if launch_counts() != counts:
+        raise RuntimeError(f"TransolverBlock C={c}: the plain versions' "
+                           f"pass launched a kernel")
+    rels, coss = [], []
+    for name, a, b in zip(names, got, ref):
+        a, b = a.double().reshape(-1), b.double().reshape(-1)
+        if not bool(torch.isfinite(a).all()) or not bool(b.any()):
+            raise RuntimeError(f"TransolverBlock C={c}[{name}]: not finite "
+                               f"or a zero reference")
+        rels.append(float((a - b).norm() / b.norm()))
+        coss.append(float(a @ b / (a.norm() * b.norm())))
+    worst, low = int(np.argmax(rels)), int(np.argmin(coss))
+    log(f"TransolverBlock C={c} ({heads} heads, {slices} slices, bf16) x "
+        f"[{batch},{nodes},{c}], forward and backward, kernels vs plain "
+        f"versions: launches {want}; output relative norm {rels[0]:.3g}, "
+        f"dx {rels[1]:.3g}; largest relative norm {rels[worst]:.3g} "
+        f"({names[worst]}; tolerance 3e-2), lowest cosine {coss[low]:.6f} "
+        f"({names[low]}; tolerance 0.999)")
+    if max(rels) > 3e-2 or min(coss) < 0.999:
+        raise RuntimeError(f"TransolverBlock C={c}: the kernels disagree "
+                           f"with the plain versions")
+    return dict(max_rel=max(rels), min_cos=min(coss))
 
 
 def launch_counts():
@@ -1186,7 +1269,10 @@ def main():
                                           "premlp_rows"),
         pair_sum=register_summary(
             _cuda_build.BUILD_LOG, "pair_sum_kernel",
-            main=("I13__nv_bfloat16S1_Li8ELi4E", "I13__nv_bfloat16S1_Li8ELi2E")))
+            main=("I13__nv_bfloat16S1_Li8ELi4E", "I13__nv_bfloat16S1_Li8ELi2E")),
+        pair_transpose=register_summary(
+            _cuda_build.BUILD_LOG, "pair_transpose_kernel",
+            main=("I13__nv_bfloat16S1_Li8ELi2E",)))
     for name, r in regs.items():
         log(f"registers {name}: {json.dumps(r)}")
 
@@ -1233,6 +1319,8 @@ def main():
     repaired = check_repaired_shapes(
         n_pad, static, flush_buf, torch.Generator(device="cuda").manual_seed(9))
     del flush_buf
+    # the net that raised above C = 1024: a Transolver block at hidden 1152
+    check_wide_block()
 
     # ---- phase 4: the TransFVGN_v2 rollout ----
     _, hist = drive(cfg.net, cfg, sim, norm_state, dyn, static, STEPS,
@@ -1370,7 +1458,7 @@ def main():
     for k in kernels:
         if k["name"] in repaired:
             k["repaired_shapes"] = {sh: {f: r[f] for f in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+                "m", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
                 for sh, r in repaired[k["name"]].items()}
     for k in kernels:
         if k["name"] in regs:

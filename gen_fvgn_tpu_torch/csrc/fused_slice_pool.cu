@@ -58,7 +58,7 @@
 // the normalisation in float32; slice_w stored bf16; the pooling of float32
 // w*mask and the bf16-exact fx (here in two exact bf16 products).
 //
-// Every other shape up to C = 1024 runs the run-time path (pool_fwd_generic:
+// Every other shape runs the run-time path (pool_fwd_generic:
 // a block a (chunk, batch lane, head), the projections of the head's
 // columns, the softmax a warp a row and the pooling on the CUDA cores).
 // gfvgn_slice_pool_workspace sizes the partials and refuses what no path
@@ -472,8 +472,8 @@ int launch_rows(const PoolRun& P, const RowsParams& p, int B,
 
 // Bytes of workspace K6 (backward = 0) or K7 needs for x [B, N, C] with H
 // heads and G slices; -1 where no kernel takes the shape (outside the JAX
-// package's fusing condition, C above 1024, or no tile that fits a block's
-// shared memory).
+// package's fusing condition, or no tile that fits a block's shared
+// memory).
 extern "C" long long gfvgn_slice_pool_workspace(int c, int h, int g, int B,
                                                 int N, int backward) {
     PoolRun P;

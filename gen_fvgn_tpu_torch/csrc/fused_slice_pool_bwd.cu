@@ -2,14 +2,15 @@
 // tiles of slice_pool_tiles.cuh (its design note is there), then the
 // weight-gradient pass and the fixed-order reductions.
 //
-// Every shape the tiles do not take (up to C = 1024) runs the run-time path:
+// Every shape the tiles do not take runs the run-time path:
 // pool_bwd_generic, a block a (chunk, batch lane, head), recomputes the
 // head's fx, xm, logits and softmax (float32 sums over C on the CUDA cores,
 // the forward's rounding points), takes the softmax backward a warp a row,
 // writes the head's dfx16 and dxm16 columns, and adds its tile's rows in
 // order into the block's partials of dWsl, dbsl, dinv_temp, dbfx and dbx;
 // then pool_dx forms dx = bf16(dfx16 Wfx^T + dxm16 Wx^T) on the tensor cores
-// (block products, the weights streamed). Right, not fast.
+// (pass products: the rows and the weights streamed, so that its shared
+// memory does not grow with C). Right, not fast.
 //
 // Plain C interface, no allocation (the caller passes a workspace of the
 // size gfvgn_slice_pool_workspace gives), launches on the caller's stream and
@@ -171,48 +172,36 @@ __global__ void __launch_bounds__(BK_THREADS) pool_bwd_generic(GenBwdParams p) {
     }
 }
 
-// dx = bf16(dfx16 Wfx^T + dxm16 Wx^T) over all B*N rows, tiles of tm rows,
-// the weights streamed through the ring
+// dx = bf16(dfx16 Wfx^T + dxm16 Wx^T) over all B*N rows: a block a tile of
+// DX_TM rows by one pass of output columns (grid: row tiles, passes), the
+// rows and the weights streamed through the ring (pass_product), so the
+// shared memory does not grow with C
 __global__ void __launch_bounds__(BK_THREADS) pool_dx(
         const bf16* __restrict__ dfxs, const bf16* __restrict__ dxms,
         const bf16* __restrict__ wfx, const bf16* __restrict__ wx,
-        bf16* __restrict__ dx, int M, int c, int tm) {
+        bf16* __restrict__ dx, int M, int c) {
     extern __shared__ __align__(128) unsigned char smem[];
-    const int ld = c + 8, pw = (8 / (tm / 16)) * 64;
-    bf16* ring = reinterpret_cast<bf16*>(smem);
-    bf16* sA = reinterpret_cast<bf16*>(
-        smem + align128((size_t)2 * ring_slot(pw) * 2));
-    bf16* sB = sA + (align128((size_t)tm * ld * 2) / 2);
-    const Blk b = make_blk(tm, ring);
+    const Blk b = make_blk(DX_TM, reinterpret_cast<bf16*>(smem));
     const WSrc Wf{wfx, c, nullptr, 0}, Wm{wx, c, nullptr, 0};
-    const int n_tiles = (M + tm - 1) / tm;
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        const int r0 = tile * tm, nrow = min(tm, M - r0);
-        __syncthreads();                     // the last tile is read
-        load_tile_rows(sA, ld, dfxs, c, r0, nrow, tm);
-        load_tile_rows(sB, ld, dxms, c, r0, nrow, tm);
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-        for (int n0 = 0; n0 < c; n0 += b.pw) {
-            float acc[8][4];
-            const int nv = block_product<true>(b, acc, sA, ld, c, Wf, n0, c);
-            block_product<true>(b, acc, sB, ld, c, Wm, n0, c, true);
+    const int r0 = blockIdx.x * DX_TM, nrow = min(DX_TM, M - r0);
+    const int n0 = blockIdx.y * b.pw;
+    float acc[8][4];
+    const int nv = pass_product<true>(b, acc, dfxs, c, r0, nrow, c, Wf, n0, c);
+    pass_product<true>(b, acc, dxms, c, r0, nrow, c, Wm, n0, c, true);
 #pragma unroll
-            for (int nt = 0; nt < 8; ++nt) {
-                if (nt < nv) {
-                    const int col = n0 + b.wcol * 64 + nt * 8 + 2 * b.t;
+    for (int nt = 0; nt < 8; ++nt) {
+        if (nt < nv) {
+            const int col = n0 + b.wcol * 64 + nt * 8 + 2 * b.t;
 #pragma unroll
-                    for (int hf = 0; hf < 2; ++hf) {
-                        const int row = b.wrow * 16 + b.g + 8 * hf;
-                        if (row < nrow)
-                            store_bf16x2(dx + (size_t)(r0 + row) * c + col,
-                                         acc[nt][2 * hf], acc[nt][2 * hf + 1]);
-                    }
-                }
+            for (int hf = 0; hf < 2; ++hf) {
+                const int row = b.wrow * 16 + b.g + 8 * hf;
+                if (row < nrow)
+                    store_bf16x2(dx + (size_t)(r0 + row) * c + col,
+                                 acc[nt][2 * hf], acc[nt][2 * hf + 1]);
             }
         }
     }
+    cp_async_wait<0>();
 }
 
 }  // namespace
@@ -279,15 +268,12 @@ extern "C" int gfvgn_fused_slice_pool_bwd(
             p);
         err = (int)cudaGetLastError();
         if (err != 0) return err;
-        e = cudaFuncSetAttribute(pool_dx,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)P.dx_smem);
-        if (e != cudaSuccess) return (int)e;
-        const int m = B * N, tiles = (m + P.dx_tm - 1) / P.dx_tm;
-        pool_dx<<<tiles < P.n_sm ? tiles : P.n_sm, BK_THREADS, P.dx_smem,
-                  st>>>(dfxs, dxms, static_cast<const bf16*>(wfx),
-                        static_cast<const bf16*>(wx), static_cast<bf16*>(dx),
-                        m, c, P.dx_tm);
+        const int m = B * N;
+        const int pw = (8 / (DX_TM / 16)) * 64;
+        pool_dx<<<dim3((m + DX_TM - 1) / DX_TM, c / pw), BK_THREADS,
+                  dx_smem(), st>>>(dfxs, dxms, static_cast<const bf16*>(wfx),
+                                   static_cast<const bf16*>(wx),
+                                   static_cast<bf16*>(dx), m, c);
         err = (int)cudaGetLastError();
     }
     if (err != 0) return err;

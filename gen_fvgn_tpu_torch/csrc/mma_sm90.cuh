@@ -4,7 +4,8 @@
 // strip (K2/K3 at H = 128, K5f at C = 128: A fragments, their rows loaded
 // and stored, quad sums), the block product
 // of the row tiles (weights resident in shared memory or streamed through a
-// two-slot cp.async ring), and the weight-gradient pass of the backward
+// two-slot cp.async ring), the pass product (both operands streamed), and
+// the weight-gradient pass of the backward
 // kernels (one kernel, `fused_mlp_wgrad` in fused_mlp.cu, reached by every
 // backward through the C entry `gfvgn_wgrad`).
 #pragma once
@@ -475,6 +476,75 @@ __device__ __forceinline__ int block_product(const Blk& b, float acc[8][4],
                                    s + b.wcol * 64 * (BK_KC + 8), BK_KC + 8,
                                    ks, nv);
             else warp_mma<false>(acc, a + kc * BK_KC, lda, s + b.wcol * 64,
+                                 b.pw + 8, ks, nv);
+        }
+    }
+    return nv;
+}
+
+// ===== the pass product: both operands streamed =====
+//
+// The same block product with A streamed from device memory too, so that
+// a block's shared memory does not grow with the contraction width (the
+// passes of K5f/K5b from C = 256 on, K7's run-time dx pass): each ring slot
+// holds A's chunk of BK_KC contraction columns for the tile's rows, then
+// W's chunk, and the next slot is in flight while the warps multiply.
+
+// elements of a pass-product ring slot for a tile of tm rows
+__host__ __device__ inline int pass_slot(int tm, int pw) {
+    return tm * (BK_KC + 8) + ring_slot(pw);
+}
+
+// contraction chunk kc of rows r0 .. r0 + tm of A [*, lda] (device
+// memory; rows past nrow zero-filled) -> dst [tm][BK_KC + 8]
+__device__ __forceinline__ void fetch_achunk(bf16* dst, const bf16* a,
+                                             int lda, int r0, int nrow,
+                                             int tm, int k, int kc) {
+    const int k0 = kc * BK_KC, cpr = min(BK_KC, k - k0) >> 3;
+    for (int i = threadIdx.x; i < tm * cpr; i += BK_THREADS) {
+        const int r = i / cpr, ch = i - r * cpr;
+        const bool ok = r < nrow;
+        cp_async16(dst + r * (BK_KC + 8) + ch * 8,
+                   a + (size_t)(ok ? r0 + r : r0) * lda + k0 + ch * 8, ok);
+    }
+}
+
+// acc (+)= A[rows r0 .. r0 + tm (real rows < nrow), 0..k) * op(W)[:, pass
+// columns n0 .. n0 + pw) (n columns in all), A [*, lda] in device memory;
+// the ring (b.ring) holds two pass_slot(b.tm, b.pw) slots. k % 16 == 0.
+// Returns the warp's valid 8-column tiles.
+template <bool BT>
+__device__ __forceinline__ int pass_product(const Blk& b, float acc[8][4],
+                                            const bf16* a, int lda, int r0,
+                                            int nrow, int k, const WSrc& w,
+                                            int n0, int n,
+                                            bool keep = false) {
+    if (!keep) zero_acc(acc);
+    const int nw0 = n0 + b.wcol * 64;
+    const int nv = max(0, min(8, (n - nw0) / 8));
+    const int slot = pass_slot(b.tm, b.pw), aw = b.tm * (BK_KC + 8);
+    const int nk = (k + BK_KC - 1) / BK_KC;
+    __syncthreads();                 // the slots are free
+    fetch_achunk(b.ring, a, lda, r0, nrow, b.tm, k, 0);
+    fetch_wchunk<BT>(b, b.ring + aw, w, k, 0, n0, n);
+    cp_async_commit();
+    for (int kc = 0; kc < nk; ++kc) {
+        cp_async_wait<0>();
+        __syncthreads();
+        if (kc + 1 < nk) {
+            bf16* nxt = b.ring + ((kc + 1) & 1) * slot;
+            fetch_achunk(nxt, a, lda, r0, nrow, b.tm, k, kc + 1);
+            fetch_wchunk<BT>(b, nxt + aw, w, k, kc + 1, n0, n);
+        }
+        cp_async_commit();
+        const bf16* s = b.ring + (kc & 1) * slot;
+        const bf16* sa = s + b.wrow * 16 * (BK_KC + 8);
+        const int ks = min(BK_KC, k - kc * BK_KC) / 16;
+        if (nv > 0) {
+            if (BT) warp_mma<true>(acc, sa, BK_KC + 8,
+                                   s + aw + b.wcol * 64 * (BK_KC + 8),
+                                   BK_KC + 8, ks, nv);
+            else warp_mma<false>(acc, sa, BK_KC + 8, s + aw + b.wcol * 64,
                                  b.pw + 8, ks, nv);
         }
     }

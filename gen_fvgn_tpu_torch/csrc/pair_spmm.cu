@@ -24,12 +24,23 @@
 // flight (csr_rows_ahead): 0.043 / 0.038 ms for the gather / node pair at
 // the paired path's shapes against 0.050 / 0.044 without (H100).
 //
-// K9 (pair_transpose_kernel) is still the first design: one warp per
-// (output row, batch lane), each lane owning VEC contiguous features of
-// every (32 * VEC)-feature chunk of the H-wide half (VEC 4 for H % 128 ==
-// 0, 2 for H % 64 == 0, else 1); it writes both halves of its 2H-wide
-// output row, each half from its own float32 accumulator and its own
-// single rounding.
+// K9 (pair_transpose_kernel) is the same row machinery in its split form
+// (csr_row_split): a warp owns an output row [A row | B row] for all B
+// batch lanes; A's and B's indices are loaded once as one list and
+// broadcast, both operators read g[b] from column 0, and each operator's
+// products go into ITS OWN float32 accumulators, rounded once and stored
+// at its own half of the output row (RowOp::o_off = 0 and H). Each
+// operator's share of a row goes in groups of up to eight loads a lane
+// (the last group masked); the warps are persistent with the next row's
+// indices loaded ahead (csr_rows_ahead), and the written-once output is
+// streamed past L2. Vectors of 16 bytes where H and the addresses allow
+// it, else 8, 4 or 2 bytes. At the paired path's shapes (four non-zeros a
+// row in each operator) it takes 0.042 ms against its byte bound of 0.016
+// on the H100, and about as long on random columns or with every row
+// reading the same eight rows of g (tools/pair_probe.py): neither L2
+// bandwidth nor g's locality bounds it, but a warp's row waiting on its
+// two groups of loads in turn, at 16 warps an SM (the registers of two
+// accumulator sets).
 //
 // A row with no non-zeros in either operator comes out exactly zero (the
 // padding).
@@ -45,134 +56,6 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-
-template <int VEC>
-struct Vec;
-
-template <>
-struct Vec<1> {
-    static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                                float v[1]) {
-        v[0] = __bfloat162float(*p);
-    }
-    static __device__ __forceinline__ void load(const float* p, float v[1]) {
-        v[0] = *p;
-    }
-    static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                                 const float v[1]) {
-        *p = __float2bfloat16_rn(v[0]);
-    }
-    static __device__ __forceinline__ void store(float* p, const float v[1]) {
-        *p = v[0];
-    }
-};
-
-template <>
-struct Vec<2> {
-    static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                                float v[2]) {
-        float2 f = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(p));
-        v[0] = f.x; v[1] = f.y;
-    }
-    static __device__ __forceinline__ void load(const float* p, float v[2]) {
-        float2 f = *reinterpret_cast<const float2*>(p);
-        v[0] = f.x; v[1] = f.y;
-    }
-    static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                                 const float v[2]) {
-        *reinterpret_cast<__nv_bfloat162*>(p) =
-            __floats2bfloat162_rn(v[0], v[1]);
-    }
-    static __device__ __forceinline__ void store(float* p, const float v[2]) {
-        *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-    }
-};
-
-template <>
-struct Vec<4> {
-    static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                                float v[4]) {
-        uint2 raw = *reinterpret_cast<const uint2*>(p);
-        float2 a = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-        float2 b = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-        v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-    }
-    static __device__ __forceinline__ void load(const float* p, float v[4]) {
-        float4 f = *reinterpret_cast<const float4*>(p);
-        v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
-    }
-    static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                                 const float v[4]) {
-        __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-        __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-        uint2 raw;
-        raw.x = *reinterpret_cast<uint32_t*>(&a);
-        raw.y = *reinterpret_cast<uint32_t*>(&b);
-        *reinterpret_cast<uint2*>(p) = raw;
-    }
-    static __device__ __forceinline__ void store(float* p, const float v[4]) {
-        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-    }
-};
-
-// acc += sum over the CSR row [start, end) of val * x[col * stride + f0 ...]
-template <int VEC, typename XT>
-__device__ __forceinline__ void accumulate(const int* __restrict__ col,
-                                           const float* __restrict__ val,
-                                           int start, int end,
-                                           const XT* __restrict__ x,
-                                           size_t stride, int f0,
-                                           float acc[VEC]) {
-    for (int j = start; j < end; ++j) {
-        const float w = val[j];
-        float v[VEC];
-        Vec<VEC>::load(x + (size_t)col[j] * stride + f0, v);
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) acc[k] = fmaf(w, v[k], acc[k]);
-    }
-}
-
-// K9: g [B, n_in, H] -> out [B, n_out, 2H]
-template <int VEC, typename XT, typename OT>
-__global__ void pair_transpose_kernel(const int* __restrict__ a_crow,
-                                      const int* __restrict__ a_col,
-                                      const float* __restrict__ a_val,
-                                      const int* __restrict__ b_crow,
-                                      const int* __restrict__ b_col,
-                                      const float* __restrict__ b_val,
-                                      const XT* __restrict__ g,
-                                      OT* __restrict__ out,
-                                      int n_in, int n_out, int H) {
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int row = blockIdx.x * kWarpsPerBlock + warp;
-    if (row >= n_out) return;
-    const int b = blockIdx.y;
-    const int a0 = a_crow[row], a1 = a_crow[row + 1];
-    const int b0 = b_crow[row], b1 = b_crow[row + 1];
-    const XT* gb = g + (size_t)b * n_in * H;
-    OT* ob = out + ((size_t)b * n_out + row) * 2 * (size_t)H;
-    for (int f0 = lane * VEC; f0 < H; f0 += 32 * VEC) {
-        float acc_a[VEC], acc_b[VEC];
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) acc_a[k] = acc_b[k] = 0.f;
-        accumulate<VEC>(a_col, a_val, a0, a1, gb, (size_t)H, f0, acc_a);
-        accumulate<VEC>(b_col, b_val, b0, b1, gb, (size_t)H, f0, acc_b);
-        Vec<VEC>::store(ob + f0, acc_a);
-        Vec<VEC>::store(ob + H + f0, acc_b);
-    }
-}
-
-struct Csr {
-    const int* crow;
-    const int* col;
-    const float* val;
-};
-
 // K8: y [B, n_in, 2H] -> out [B, n_out, H]: a warp a row at a time over
 // rows warp, warp + all warps, ..., each row's indices loaded while the
 // row before it computes (csr_rows_ahead, spmm_rows.cuh). Registers capped
@@ -183,109 +66,90 @@ __global__ void __launch_bounds__(kRowWarps * 32, 2)
 pair_sum_kernel(RowArgs a) {
     csr_rows_ahead<XT, OT, VEC, IPL, 2>(
         a, blockIdx.x * kRowWarps + (threadIdx.x >> 5),
-        gridDim.x * kRowWarps);
+        gridDim.x * kRowWarps, a.n_out);
+}
+
+// K9: g [B, n_in, H] -> out [B, n_out, 2H], the split form; registers
+// capped as K8's (its two accumulator sets at IPL 2 are K8's one at IPL
+// 4). A block walks one contiguous range of rows, its warps on
+// neighbouring rows, so each warp's rows lie together in crow, col and
+// val: 0.042 ms at the paired path's shapes against 0.045 in K8's order
+// (rows warp, warp + all warps, ...) on the H100.
+template <typename XT, typename OT, int VEC, int IPL>
+__global__ void __launch_bounds__(kRowWarps * 32, 2)
+pair_transpose_kernel(RowArgs a) {
+    const int per = (a.n_out + gridDim.x - 1) / gridDim.x;
+    const int r0 = blockIdx.x * per;
+    csr_rows_ahead<XT, OT, VEC, IPL, 2, true>(
+        a, r0 + (threadIdx.x >> 5), kRowWarps, min(a.n_out, r0 + per));
 }
 
 // as many blocks as are resident on the card at once, at most a row a warp
-template <typename XT, typename OT, int VEC, int IPL>
-int launch_pair_sum_rows(const RowArgs& a, cudaStream_t s) {
+template <bool TRANSPOSE, typename XT, typename OT, int VEC, int IPL>
+int launch_pair_rows(const RowArgs& a, cudaStream_t s) {
     static int per_sm = 0;       // blocks of this kernel an SM holds
+    void (*kernel)(RowArgs);
+    if constexpr (TRANSPOSE) kernel = pair_transpose_kernel<XT, OT, VEC, IPL>;
+    else kernel = pair_sum_kernel<XT, OT, VEC, IPL>;
     int dev = 0, n_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
         e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess && per_sm == 0)
         e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, pair_sum_kernel<XT, OT, VEC, IPL>, kRowWarps * 32, 0);
+            &per_sm, kernel, kRowWarps * 32, 0);
     if (e != cudaSuccess) return (int)e;
     const int rows = (a.n_out + kRowWarps - 1) / kRowWarps;
     const int resident = n_sm * (per_sm > 0 ? per_sm : 1);
-    pair_sum_kernel<XT, OT, VEC, IPL>
-        <<<rows < resident ? rows : resident, kRowWarps * 32, 0, s>>>(a);
+    kernel<<<rows < resident ? rows : resident, kRowWarps * 32, 0, s>>>(a);
     return (int)cudaGetLastError();
 }
 
-template <typename XT, typename OT, int VEC>
-int launch_pair_sum(const RowArgs& a, cudaStream_t s) {
+// K9 keeps two accumulator sets: at most 2 vectors a lane (4 spilled at 16
+// bytes under the cap of 128 registers), more items walking the row again
+template <bool TRANSPOSE, typename XT, typename OT, int VEC>
+int launch_pair(const RowArgs& a, cudaStream_t s) {
     const int ipl = row_ipl(a.B, a.F, VEC);
-    if (ipl == 4) return launch_pair_sum_rows<XT, OT, VEC, 4>(a, s);
-    if (ipl == 2) return launch_pair_sum_rows<XT, OT, VEC, 2>(a, s);
-    return launch_pair_sum_rows<XT, OT, VEC, 1>(a, s);
+    if constexpr (!TRANSPOSE) {
+        if (ipl == 4) return launch_pair_rows<false, XT, OT, VEC, 4>(a, s);
+    }
+    if (ipl == 2) return launch_pair_rows<TRANSPOSE, XT, OT, VEC, 2>(a, s);
+    return launch_pair_rows<TRANSPOSE, XT, OT, VEC, 1>(a, s);
 }
 
 bool aligned_to(const void* p, int bytes) {
     return reinterpret_cast<uintptr_t>(p) % (uintptr_t)bytes == 0;
 }
 
-// the widest vector (at most 16 bytes of the operand) that the width H and
+// the widest vector (at most 16 bytes of the operand) that the width F and
 // the operand's and the output's addresses allow
-template <typename XT, typename OT>
-int pair_sum_vec(const RowArgs& a, cudaStream_t s) {
+template <bool TRANSPOSE, typename XT, typename OT>
+int pair_vec(const RowArgs& a, cudaStream_t s) {
     auto fits = [&](int vec) {
         return a.F % vec == 0 && aligned_to(a.x, vec * (int)sizeof(XT)) &&
                aligned_to(a.out, vec * (int)sizeof(OT));
     };
     if constexpr (sizeof(XT) == 2) {
-        if (fits(8)) return launch_pair_sum<XT, OT, 8>(a, s);
+        if (fits(8)) return launch_pair<TRANSPOSE, XT, OT, 8>(a, s);
     }
-    if (fits(4)) return launch_pair_sum<XT, OT, 4>(a, s);
-    if (fits(2)) return launch_pair_sum<XT, OT, 2>(a, s);
-    return launch_pair_sum<XT, OT, 1>(a, s);
+    if (fits(4)) return launch_pair<TRANSPOSE, XT, OT, 4>(a, s);
+    if (fits(2)) return launch_pair<TRANSPOSE, XT, OT, 2>(a, s);
+    return launch_pair<TRANSPOSE, XT, OT, 1>(a, s);
 }
 
-int pair_sum(const Csr& a, const Csr& b, const void* y, void* out, int B,
-             int n_in, int n_out, int H, int y_is_bf16, int out_is_bf16,
-             cudaStream_t s) {
-    RowArgs r{};
-    r.op[0] = RowOp{a.crow, a.col, a.val, 0};
-    r.op[1] = RowOp{b.crow, b.col, b.val, H};
-    r.x = y;
-    r.out = out;
-    r.B = B;
-    r.n_out = n_out;
-    r.F = H;
-    r.x_ld = 2 * (long long)H;
-    r.x_bs = (long long)n_in * 2 * H;
-    r.o_ld = H;
-    r.o_bs = (long long)n_out * H;
-    if (y_is_bf16 && out_is_bf16)
-        return pair_sum_vec<__nv_bfloat16, __nv_bfloat16>(r, s);
-    if (y_is_bf16) return pair_sum_vec<__nv_bfloat16, float>(r, s);
-    if (out_is_bf16) return pair_sum_vec<float, __nv_bfloat16>(r, s);
-    return pair_sum_vec<float, float>(r, s);
+template <bool TRANSPOSE>
+int pair_types(const RowArgs& r, int x_is_bf16, int out_is_bf16,
+               cudaStream_t s) {
+    if (x_is_bf16 && out_is_bf16)
+        return pair_vec<TRANSPOSE, __nv_bfloat16, __nv_bfloat16>(r, s);
+    if (x_is_bf16) return pair_vec<TRANSPOSE, __nv_bfloat16, float>(r, s);
+    if (out_is_bf16) return pair_vec<TRANSPOSE, float, __nv_bfloat16>(r, s);
+    return pair_vec<TRANSPOSE, float, float>(r, s);
 }
 
-template <int VEC, typename XT, typename OT>
-void launch_pair_transpose(const Csr& a, const Csr& b, const void* x,
-                           void* out, int B, int n_in, int n_out, int H,
-                           cudaStream_t s) {
-    dim3 grid((n_out + kWarpsPerBlock - 1) / kWarpsPerBlock, B);
-    dim3 block(kWarpsPerBlock * 32);
-    pair_transpose_kernel<VEC, XT, OT><<<grid, block, 0, s>>>(
-        a.crow, a.col, a.val, b.crow, b.col, b.val,
-        static_cast<const XT*>(x), static_cast<OT*>(out), n_in, n_out, H);
-}
-
-template <int VEC>
-int pair_transpose_types(const Csr& a, const Csr& b, const void* x,
-                         void* out, int B, int n_in, int n_out, int H,
-                         int x_is_bf16, int out_is_bf16, cudaStream_t s) {
-    if (x_is_bf16 && out_is_bf16) {
-        launch_pair_transpose<VEC, __nv_bfloat16, __nv_bfloat16>(
-            a, b, x, out, B, n_in, n_out, H, s);
-    } else if (x_is_bf16) {
-        launch_pair_transpose<VEC, __nv_bfloat16, float>(a, b, x, out, B,
-                                                         n_in, n_out, H, s);
-    } else if (out_is_bf16) {
-        launch_pair_transpose<VEC, float, __nv_bfloat16>(a, b, x, out, B,
-                                                         n_in, n_out, H, s);
-    } else {
-        launch_pair_transpose<VEC, float, float>(a, b, x, out, B, n_in,
-                                                 n_out, H, s);
-    }
-    return (int)cudaGetLastError();
-}
-
+// K8 (TRANSPOSE false): A's row and B's row summed, B reading the operand
+// [B, n_in, 2H] at column H, into out [B, n_out, H]; K9: each operator
+// into its own half of out [B, n_out, 2H] from g [B, n_in, H]
 template <bool TRANSPOSE>
 int dispatch(const void* a_crow, const void* a_col, const void* a_val,
              const void* b_crow, const void* b_col, const void* b_val,
@@ -294,22 +158,25 @@ int dispatch(const void* a_crow, const void* a_col, const void* a_val,
     if (H < 1 || B < 1 || B > 65535 || n_out < 0 || n_in < 0)
         return (int)cudaErrorInvalidValue;
     if (n_out == 0) return (int)cudaSuccess;
-    Csr a{static_cast<const int*>(a_crow), static_cast<const int*>(a_col),
-          static_cast<const float*>(a_val)};
-    Csr b{static_cast<const int*>(b_crow), static_cast<const int*>(b_col),
-          static_cast<const float*>(b_val)};
-    cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-    if (!TRANSPOSE)
-        return pair_sum(a, b, x, out, B, n_in, n_out, H, x_is_bf16,
-                        out_is_bf16, s);
-    if (H % 128 == 0)
-        return pair_transpose_types<4>(a, b, x, out, B, n_in, n_out, H,
-                                       x_is_bf16, out_is_bf16, s);
-    if (H % 64 == 0)
-        return pair_transpose_types<2>(a, b, x, out, B, n_in, n_out, H,
-                                       x_is_bf16, out_is_bf16, s);
-    return pair_transpose_types<1>(a, b, x, out, B, n_in, n_out, H,
-                                   x_is_bf16, out_is_bf16, s);
+    RowArgs r{};
+    r.op[0] = RowOp{static_cast<const int*>(a_crow),
+                    static_cast<const int*>(a_col),
+                    static_cast<const float*>(a_val), 0, 0};
+    r.op[1] = RowOp{static_cast<const int*>(b_crow),
+                    static_cast<const int*>(b_col),
+                    static_cast<const float*>(b_val), TRANSPOSE ? 0 : H,
+                    TRANSPOSE ? H : 0};
+    r.x = x;
+    r.out = out;
+    r.B = B;
+    r.n_out = n_out;
+    r.F = H;
+    r.x_ld = (TRANSPOSE ? 1 : 2) * (long long)H;
+    r.x_bs = (long long)n_in * r.x_ld;
+    r.o_ld = (TRANSPOSE ? 2 : 1) * (long long)H;
+    r.o_bs = (long long)n_out * r.o_ld;
+    return pair_types<TRANSPOSE>(r, x_is_bf16, out_is_bf16,
+                                 reinterpret_cast<cudaStream_t>(stream));
 }
 
 }  // namespace

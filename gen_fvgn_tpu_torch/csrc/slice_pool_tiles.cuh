@@ -731,7 +731,7 @@ slice_pool_tiles(PoolParams p) {
 
 // ===================== the plans of K6 and K7 =====================
 //
-// Every shape the JAX package fuses up to C = 1024 (jax_pool_shape). K6
+// Every shape the JAX package fuses (jax_pool_shape). K6
 // runs its row kernel (fused_slice_pool.cu, pool_fwd_rows) where the head
 // width and slices are compiled in (rows_variant: the nets' 8 heads of 16,
 // 32 or 64 with 32 slices), K7 the block row tiles above where pool_shape
@@ -741,10 +741,10 @@ slice_pool_tiles(PoolParams p) {
 // pool_bwd_generic and pool_dx). Right, not fast.
 
 // the JAX package's fusing condition (C % 128 == 0, H*G % 128 == 0, H*D ==
-// C), up to C = 1024
+// C)
 bool jax_pool_shape(int c, int h, int g) {
-    return c >= 128 && c % 128 == 0 && c <= 1024 && h >= 1 && c % h == 0 &&
-           g >= 1 && (h * g) % 128 == 0;
+    return c >= 128 && c % 128 == 0 && h >= 1 && c % h == 0 && g >= 1 &&
+           (h * g) % 128 == 0;
 }
 
 // K6's row kernel: 8 heads (a warp each) of 16, 32 or 64 columns, 32
@@ -773,11 +773,13 @@ size_t generic_smem(int c, int h, int g, int tm, bool bwd) {
            align128((size_t)tm * 4);
 }
 
-// K7's run-time dx pass with tiles of tm rows: the ring, dfx16 and dxm16
-size_t dx_smem(int c, int tm) {
-    const int pw = (8 / (tm / 16)) * 64;
-    return align128((size_t)2 * ring_slot(pw) * 2) +
-           2 * align128((size_t)tm * (c + 8) * 2);
+// K7's run-time dx pass (pool_dx): a block a tile of DX_TM rows by 128
+// output columns, both operands streamed through the ring, so its shared
+// memory does not grow with C
+constexpr int DX_TM = 64;
+
+inline size_t dx_smem() {
+    return (size_t)2 * pass_slot(DX_TM, (8 / (DX_TM / 16)) * 64) * 2;
 }
 
 // The run-time paths' start of a tile (K6 and K7 alike): rows r0 .. r0 +
@@ -821,8 +823,8 @@ enum PoolPath { POOL_ROWS = 0, POOL_TILES = 1, POOL_GENERIC = 2 };
 struct PoolRun {
     PoolShape s;
     PoolPlan L;             // POOL_TILES: the tile and its layout
-    int path, tm, resident, blocks_per_sm, dx_tm;
-    size_t smem, dx_smem;   // POOL_ROWS / POOL_GENERIC, K7's dx pass
+    int path, tm, resident, blocks_per_sm;
+    size_t smem;            // POOL_ROWS / POOL_GENERIC
     int rows_per_chunk, n_chunks, part_len, n_sm;
     size_t o_part, o_dfx, o_dxm, o_wg, bytes;
     gfvgn::WgParams q;
@@ -879,13 +881,7 @@ int pool_run(int c, int h, int g, int B, int N, bool bwd, PoolRun& P) {
                 found = true;
             }
         }
-        bool dx = !bwd;
-        for (int t = 64; t >= 16 && !dx; t >>= 1)
-            if (dx_smem(c, t) <= (size_t)max_smem) {
-                P.dx_tm = t; P.dx_smem = dx_smem(c, t);
-                dx = true;
-            }
-        found = found && dx;
+        found = found && (!bwd || dx_smem() <= (size_t)max_smem);
     }
     if (!found) return (int)cudaErrorInvalidValue;
     // row chunks: the row kernel's resident blocks over the batch; one

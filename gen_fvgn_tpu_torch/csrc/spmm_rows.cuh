@@ -17,6 +17,11 @@
 //     into float32 accumulators (explicit fmaf), so two runs give the same
 //     bits; rows without non-zeros come out exactly zero. Each vector is
 //     stored whole.
+//   * Two forms of a row over two operators: a sum (K8: both operators'
+//     products into one accumulator, each operator reading its own column
+//     offset of the operand) and a split (K9: each operator's products into
+//     its own accumulators, rounded once and stored at its own column
+//     offset of the output row, both reading the operand from column 0).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -29,13 +34,15 @@ namespace {
 
 constexpr int kRowWarps = 8;       // rows (warps) a block
 
-// One operator of a row sum: CSR arrays and the column offset (elements)
-// at which it reads the operand (0 for a sum over one operator).
+// One operator of a row: CSR arrays, the column offset (elements) at which
+// it reads the operand in a sum (0 for a sum over one operator) and the one
+// at which it writes the output row in a split.
 struct RowOp {
     const int* crow;
     const int* col;
     const float* val;
     int x_off;
+    int o_off;
 };
 
 // A row sum over NOPS operators: out[b, r, 0:F] = sum over the operators,
@@ -289,14 +296,106 @@ __device__ __forceinline__ void csr_row(const RowArgs& a, int row,
     }
 }
 
-// The warp's rows row, row + step, ... below n_out, each as csr_row, with
-// the index loads taken out of the rows' latency chain: while a row's
-// operand loads are in flight, the next row's first index chunk and the
-// extents of the row after it are already being loaded.
-template <typename XT, typename OT, int VEC, int IPL, int NOPS>
+// acc += the chunk's non-zeros j0 .. j1 (lane j's index in cl, vl), in
+// order, U at a time, the last group masked: one operator's share of a
+// chunk in the split form (K9), so that its FMAs have one fixed target
+template <typename XT, int VEC, int IPL>
+__device__ __forceinline__ void group_sum(const RowArgs& a, int cl, float vl,
+                                          int j0, int j1,
+                                          const long long xo[IPL],
+                                          const bool ok[IPL],
+                                          float acc[IPL][VEC]) {
+    constexpr int U = 8 / IPL;
+    const XT* __restrict__ x = static_cast<const XT*>(a.x);
+    for (int j = j0; j < j1; j += U) {
+        Raw<XT, VEC> raw[U][IPL];
+        float w[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const bool live = j + u < j1;
+            const long long c = __shfl_sync(0xffffffffu, cl, (j + u) & 31);
+            w[u] = __shfl_sync(0xffffffffu, vl, (j + u) & 31);
+#pragma unroll
+            for (int k = 0; k < IPL; ++k)
+                raw[u][k] = live && ok[k]
+                    ? load_raw<XT, VEC>(x + c * a.x_ld + xo[k])
+                    : Raw<XT, VEC>{};
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            if (j + u >= j1) break;
+#pragma unroll
+            for (int k = 0; k < IPL; ++k) {
+                float v[VEC];
+                unpack<XT, VEC>(raw[u][k], v);
+#pragma unroll
+                for (int e = 0; e < VEC; ++e)
+                    acc[k][e] = fmaf(w[u], v[e], acc[k][e]);
+            }
+        }
+    }
+}
+
+// The warp's output row `row` in the split form: [A row | B row] at the
+// operators' output offsets, each half its own float32 sum rounded once.
+// `first` as in csr_row (AHEAD: loaded by the caller, streaming stores).
+template <typename XT, typename OT, int VEC, int IPL, bool AHEAD>
+__device__ __forceinline__ void csr_row_split(const RowArgs& a, int row,
+                                              const int start[2],
+                                              const int len[2], int total,
+                                              const int first[3]) {
+    const int lane = threadIdx.x & 31;
+    OT* __restrict__ out = static_cast<OT*>(a.out);
+    const int cpr = a.F / VEC, items = a.B * cpr;
+    for (int base = 0; base < items; base += 32 * IPL) {
+        long long xo[IPL], oo[IPL];
+        bool ok[IPL];
+        float acc[2][IPL][VEC];
+#pragma unroll
+        for (int k = 0; k < IPL; ++k) {
+            const int it = base + lane + 32 * k;
+            ok[k] = it < items;
+            const int b = ok[k] ? it / cpr : 0, c = it - b * cpr;
+            xo[k] = b * a.x_bs + (long long)c * VEC;
+            oo[k] = b * a.o_bs + row * a.o_ld + (long long)c * VEC;
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[0][k][e] = acc[1][k][e] = 0.0f;
+        }
+        for (int j0 = 0; j0 < total; j0 += 32) {
+            const int nj = min(32, total - j0);
+            int cl, ol;
+            float vl;
+            if (AHEAD && j0 == 0) {
+                cl = first[0];
+                vl = __int_as_float(first[2]);
+            } else {
+                lane_index<2>(a, start, len, j0, nj, cl, ol, vl);
+            }
+            // lanes below sp hold A's non-zeros, the rest B's
+            const int sp = min(max(len[0] - j0, 0), nj);
+            group_sum<XT, VEC, IPL>(a, cl, vl, 0, sp, xo, ok, acc[0]);
+            group_sum<XT, VEC, IPL>(a, cl, vl, sp, nj, xo, ok, acc[1]);
+        }
+#pragma unroll
+        for (int o = 0; o < 2; ++o)
+#pragma unroll
+            for (int k = 0; k < IPL; ++k)
+                if (ok[k])
+                    store_vec<VEC, AHEAD>(out + oo[k] + a.op[o].o_off,
+                                          acc[o][k]);
+    }
+}
+
+// The warp's rows row, row + step, ... below end, each as csr_row (or,
+// SPLIT, csr_row_split), with the index loads taken out of the rows'
+// latency chain: while a row's operand loads are in flight, the next row's
+// first index chunk and the extents of the row after it are already being
+// loaded.
+template <typename XT, typename OT, int VEC, int IPL, int NOPS,
+          bool SPLIT = false>
 __device__ __forceinline__ void csr_rows_ahead(const RowArgs& a, int row,
-                                               int step) {
-    if (row >= a.n_out) return;
+                                               int step, int end) {
+    if (row >= end) return;
     int st[NOPS], ln[NOPS], st1[NOPS], ln1[NOPS];
     int tot = row_extents<NOPS>(a, row, st, ln), tot1 = 0;
     int cur[3];
@@ -304,26 +403,29 @@ __device__ __forceinline__ void csr_rows_ahead(const RowArgs& a, int row,
     lane_index<NOPS>(a, st, ln, NOPS == 1 ? st[0] : 0, min(32, tot), cur[0],
                      cur[1], v0);
     cur[2] = __float_as_int(v0);
-    if (row + step < a.n_out)
+    if (row + step < end)
         tot1 = row_extents<NOPS>(a, row + step, st1, ln1);
-    for (; row < a.n_out; row += step) {
+    for (; row < end; row += step) {
         const int r1 = row + step, r2 = row + 2 * step;
         int nxt[3] = {0, 0, 0};
-        if (r1 < a.n_out) {
+        if (r1 < end) {
             float v1;
             lane_index<NOPS>(a, st1, ln1, NOPS == 1 ? st1[0] : 0,
                              min(32, tot1), nxt[0], nxt[1], v1);
             nxt[2] = __float_as_int(v1);
         }
         int st2[NOPS], ln2[NOPS], tot2 = 0;
-        if (r2 < a.n_out) tot2 = row_extents<NOPS>(a, r2, st2, ln2);
-        csr_row<XT, OT, VEC, IPL, NOPS, true>(a, row, st, ln, tot, cur);
+        if (r2 < end) tot2 = row_extents<NOPS>(a, r2, st2, ln2);
+        if constexpr (SPLIT)
+            csr_row_split<XT, OT, VEC, IPL, true>(a, row, st, ln, tot, cur);
+        else
+            csr_row<XT, OT, VEC, IPL, NOPS, true>(a, row, st, ln, tot, cur);
 #pragma unroll
         for (int o = 0; o < NOPS; ++o) {
             st[o] = st1[o];
             ln[o] = ln1[o];
-            st1[o] = r2 < a.n_out ? st2[o] : 0;
-            ln1[o] = r2 < a.n_out ? ln2[o] : 0;
+            st1[o] = r2 < end ? st2[o] : 0;
+            ln1[o] = r2 < end ? ln2[o] : 0;
         }
         tot = tot1;
         tot1 = tot2;

@@ -142,7 +142,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp,        # w1 [C, 2C] bf16, b1, w2 [2C, C] bf16, b2
         vp,                    # out [M, C] bf16
         ci, ci,                # C, M
-        vp]                    # stream
+        vp, vp]                # workspace, stream
     lib.gfvgn_slice_pool_workspace.restype = ctypes.c_longlong
     lib.gfvgn_slice_pool_workspace.argtypes = [
         ci, ci, ci, ci, ci, ci]   # C, H, G, B, N, backward

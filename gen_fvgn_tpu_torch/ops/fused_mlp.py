@@ -50,10 +50,11 @@ K5f `fused_premlp_res` replaces `_premlp_fwd_kernel` (:691-711, called at
     out = x + W2·gelu(W1·(LN(x)·γ + β) + b1) + b2,   hidden width 2C
 
 in its own kernels (csrc/fused_premlp.cu), at any width C that is a
-multiple of 128 up to 1024 (`premlp_shape_ok`; the forward at C = 128 on
-K2's row design, a warp a 16-row strip with u, h and y in registers; wider
-C on block row tiles with streamed weights, the backward above 512 taking
-the hidden width in chunks): the LayerNorm
+multiple of 128 (`premlp_shape_ok`; at C = 128 the forward on K2's row
+design, a warp a 16-row strip with u, h and y in registers, the backward
+on block row tiles; every wider C as passes through device memory, each
+product a block's 64 × 128 tile with both operands streamed,
+`premlp_plan`): the LayerNorm
 comes first and its rounding points differ from K2's: u = LN(x)·γ + β is
 rounded to bf16 before W1, h before W2, and the residual x is added in
 float32 BEFORE the one final bf16 rounding (K2 rounds first and adds in
@@ -738,41 +739,44 @@ PREMLP_ROWS_SMEM = (128 * 264 * 2 + 256 * 136 * 2 + (3 * 128 + 256) * 4
                     + PREMLP_ROWS_WARPS * 2 * 16 * 136 * 2)
 
 
+# K5f/K5b's passes from C = 256 on (csrc/fused_premlp.cu `premlp_pass`): a
+# block's 64-row tile of 128 output columns, two ring slots each holding a
+# 32-column chunk of A ([64][40] bf16) and of the weight (the ring slot of
+# a 128-wide pass), and the row warps' column sums [4][128] float32
+PREMLP_PASS_TM = 64
+PREMLP_PASS_SMEM = 2 * (64 * 40 * 2 + _ring_bytes(64) // 2) + 4 * 128 * 4
+
+
 def premlp_plan(c: int, backward: bool):
     """How K5f (backward False) or K5b runs width c with hidden width 2c,
-    as csrc/fused_premlp.cu decides it: the forward at c = 128 on the strip
-    kernel, ("rows", warps, shared-memory bytes); every other shape on the
-    block row tiles `tile_plan` chooses, ("tiles", tm, weights resident,
-    row buffers, shared-memory bytes); None where no tile fits a block's
-    shared memory or c is not a multiple of 128 up to 1024. From C = 640
-    on the backward takes the hidden width in chunks of one 512-wide pass
-    (16-row tiles, streamed weights, du staged where the ring was)."""
-    if c < 128 or c % 128 or c > 1024:
+    as csrc/fused_premlp.cu decides it (`premlp_form`): at c = 128 the
+    forward on the strip kernel, ("rows", warps, shared-memory bytes), and
+    the backward on the block row tiles `tile_plan` chooses, ("tiles", tm,
+    weights resident, row buffers, shared-memory bytes); every wider c as
+    passes through device memory, ("passes", tile rows, shared-memory
+    bytes), whose shared memory does not grow with c; None where c is not
+    a multiple of 128."""
+    if c < 128 or c % 128:
         return None
-    if c == 128 and not backward:
+    if c > 128:
+        return (("passes", PREMLP_PASS_TM, PREMLP_PASS_SMEM)
+                if PREMLP_PASS_SMEM <= SMEM_PER_BLOCK else None)
+    if not backward:
         return (("rows", PREMLP_ROWS_WARPS, PREMLP_ROWS_SMEM)
                 if PREMLP_ROWS_SMEM <= SMEM_PER_BLOCK else None)
     hd = 2 * c
-    chunk = backward and c >= 640
     for resident in (True, False):
         for tm in (64, 32, 16):
             for nbuf in (2, 1):
-                if chunk and (tm != 16 or resident):
-                    continue
                 wr = tm // 16
-                pw = (8 // wr) * 64
-                w = ((c * (hd + 8) + hd * (c + 8)) * 2 if resident
-                     else _ring_bytes(tm))
-                size = _align128(max(w, tm * (c + 4) * 4) if chunk else w)
-                size += _align128(nbuf * tm * (c + 8) * 2)
+                size = _align128((c * (hd + 8) + hd * (c + 8)) * 2
+                                 if resident else _ring_bytes(tm))
+                size += 2 * _align128(nbuf * tm * (c + 8) * 2)
                 size += _align128(tm * (c + 8) * 2)
-                size += _align128(tm * ((pw if chunk else hd) + 8) * 2)
-                if backward:
-                    size += (_align128(nbuf * tm * (c + 8) * 2)
-                             + (0 if chunk else _align128(tm * (c + 4) * 4))
-                             + _align128(tm * 2 * 4)
-                             + _align128(wr * hd * 4) + _align128(hd * 4))
-                    size = max(size, 8 * 3 * c * 4)
+                size += _align128(tm * (hd + 8) * 2)
+                size += (_align128(tm * (c + 4) * 4) + _align128(tm * 2 * 4)
+                         + _align128(wr * hd * 4) + _align128(hd * 4))
+                size = max(size, 8 * 3 * c * 4)
                 if size <= SMEM_PER_BLOCK:
                     return "tiles", tm, resident, nbuf, size
     return None
@@ -780,11 +784,10 @@ def premlp_plan(c: int, backward: bool):
 
 def premlp_shape_ok(c: int, hd: int) -> bool:
     """Whether K5f and K5b take the pre-LN MLP branch at width c and hidden
-    width hd: hd = 2c (mlp_ratio 2), c a multiple of 128 up to 1024 whose
-    tiles fit a block's shared memory (the kernels' size query,
-    `gfvgn_premlp_workspace`, decides the same on the card). The JAX
-    package fuses every c % 128 == 0 with hd % 128 == 0; above 1024 the
-    kernels raise."""
+    width hd: hd = 2c (mlp_ratio 2) and c a multiple of 128, the JAX
+    package's condition at mlp_ratio 2 (`c % 128 == 0 and hd % 128 == 0`;
+    the kernels' size query, `gfvgn_premlp_workspace`, decides the same on
+    the card)."""
     return hd == 2 * c and premlp_plan(c, True) is not None \
         and premlp_plan(c, False) is not None
 
@@ -799,10 +802,8 @@ def _premlp_operands(x, gamma, beta, w1, b1, w2, b2, what):
     if x.ndim != 2 or tuple(w1.shape) != (c, hd) \
             or not premlp_shape_ok(c, hd):
         raise NotImplementedError(
-            f"{what} takes x [M, C] with C a multiple of 128 up to 1024 and a "
-            f"hidden width 2C whose row tile fits a block's "
-            f"{SMEM_PER_BLOCK} bytes of shared memory, got x "
-            f"{tuple(x.shape)}, w1 {tuple(w1.shape)}")
+            f"{what} takes x [M, C] with C a multiple of 128 and a hidden "
+            f"width 2C, got x {tuple(x.shape)}, w1 {tuple(w1.shape)}")
     return (_check(x, tuple(x.shape), bf16, "x"), _vec(gamma, c, "gamma"),
             _vec(beta, c, "beta"), _check(w1, (c, hd), bf16, "w1"),
             _vec(b1, hd, "b1"), _check(w2, (hd, c), bf16, "w2"),
@@ -823,12 +824,19 @@ def fused_premlp_res(x, gamma, beta, w1, b1, w2, b2) -> torch.Tensor:
     x, gamma, beta, w1, b1, w2, b2 = _premlp_operands(
         x, gamma, beta, w1, b1, w2, b2, "fused_premlp_res kernel")
     m, c = x.shape
+    lib = load_library()
     out = torch.empty((m, c), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
-        err = load_library().gfvgn_fused_premlp(
+        # the passes from C = 256 on keep u16 and h16 in a workspace
+        n = lib.gfvgn_premlp_workspace(c, m, 1, 0)
+        if n < 0:
+            raise NotImplementedError(
+                f"fused_premlp_res kernel: no kernel takes C = {c}")
+        ws = torch.empty((max(n, 1),), dtype=torch.uint8, device=x.device)
+        err = lib.gfvgn_fused_premlp(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), c, m,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            ws.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"fused_premlp_res kernel launch failed: CUDA error {err}")
@@ -870,9 +878,11 @@ def fused_premlp_res_bwd(x, gamma, beta, w1, b1, w2, b2, dout,
                          lanes: int = 1):
     """K5b on the operands of `fused_premlp_res` and dout [M, C] bf16,
     the rows `lanes` batch lanes: (dx, dgamma, dbeta, dw1, db1, dw2,
-    db2). Three launches: the row pass, the weight-gradient pass and the
-    fixed-order reductions, over a workspace of bf16 rows (u16, h16,
-    dh1pre16: 5 [M, C] streams) and float32 partials freed on return.
+    db2). At C = 128 three launches: the row pass, the weight-gradient
+    pass and the fixed-order reductions, over a workspace of bf16 rows
+    (u16, h16, dh1pre16: 5 [M, C] streams) and float32 partials freed on
+    return; wider C runs the row pass as five passes (`premlp_plan`), with
+    du [M, C] float32 and the rows' statistics in the workspace too.
 
     CUDA operands launch the kernel (or raise); CPU operands take
     `fused_premlp_res_bwd_reference`."""
@@ -895,7 +905,7 @@ def fused_premlp_res_bwd(x, gamma, beta, w1, b1, w2, b2, dout,
     with torch.cuda.device(dev):
         n = lib.gfvgn_premlp_workspace(c, m, lanes, 1)
         if n < 0:
-            raise NotImplementedError(f"{what}: no tile takes C = {c}")
+            raise NotImplementedError(f"{what}: no kernel takes C = {c}")
         ws = torch.empty((max(n, 1),), dtype=torch.uint8, device=dev)
         dx = torch.empty((m, c), dtype=bf16, device=dev)
         total = torch.empty((2 * c * hd + 5 * c,), dtype=f32, device=dev)

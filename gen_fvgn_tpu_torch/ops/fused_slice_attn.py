@@ -20,8 +20,9 @@ from run to run. The nets' shapes (8 heads of 16, 32 or 64, 32 slices) run
 its row kernel: projections on the tensor cores into bf16 tiles, a warp a
 head with the logits, the softmax and the pooling (w·mask split into bf16
 hi + lo against the exact bf16 fx) in mma fragments. Every other shape the
-JAX package fuses up to C = 1024 (`slice_pool_shape_ok`) runs a run-time
-path (a block a head, float32 sums on the CUDA cores). The backward K7 runs
+JAX package fuses (`slice_pool_shape_ok`) runs a run-time path (a block a
+head, float32 sums on the CUDA cores, K7's dx on the tensor cores with its
+operands streamed, so no shared memory grows with C). The backward K7 runs
 the block row tiles of csrc/slice_pool_tiles.cuh where their slot mapping
 takes the shape, the run-time path otherwise (`slice_pool_plan`).
 
@@ -47,7 +48,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from gen_fvgn_tpu_torch.ops.fused_mlp import _check, _dot_f32, weight_grad
+from gen_fvgn_tpu_torch.ops.fused_mlp import (_check, _dot_f32, _ring_bytes,
+                                              weight_grad)
 
 # incremented once per kernel launch, and nowhere else
 LAUNCHES = 0
@@ -192,22 +194,23 @@ def _tiles_plan(c: int, h: int, g: int):
     return None
 
 
+# K7's run-time dx pass (csrc/fused_slice_pool_bwd.cu `pool_dx`): a block a
+# 64-row tile of 128 output columns, two ring slots each holding a
+# 32-column chunk of the rows ([64][40] bf16) and of the weight
+POOL_DX_SMEM = 2 * 64 * 40 * 2 + _ring_bytes(64)
+
+
 def _generic_plan(c: int, h: int, g: int, backward: bool):
     """The run-time path of K6 (or K7): the largest tile of 32 to 1 rows
     whose x, the head's fx and xm, w (K7: also l and ds) and the mask fit a
-    block; K7 also needs a tile of its dx pass (the ring and two row
-    tiles)."""
-    from gen_fvgn_tpu_torch.ops.fused_mlp import (SMEM_PER_BLOCK, _align128,
-                                                  _ring_bytes)
+    block; K7's dx pass streams its operands (`POOL_DX_SMEM` at any C)."""
+    from gen_fvgn_tpu_torch.ops.fused_mlp import SMEM_PER_BLOCK, _align128
     d = c // h
     tm = next((t for t in (32, 16, 8, 4, 2, 1)
                if _align128(t * c * 2) + 2 * _align128(t * d * 4)
                + (3 if backward else 1) * _align128(t * g * 4)
                + _align128(t * 4) <= SMEM_PER_BLOCK), None)
-    dx = next((t for t in (64, 32, 16)
-               if _ring_bytes(t) + 2 * _align128(t * (c + 8) * 2)
-               <= SMEM_PER_BLOCK), None)
-    if tm is None or (backward and dx is None):
+    if tm is None or (backward and POOL_DX_SMEM > SMEM_PER_BLOCK):
         return None
     return "generic", tm
 
@@ -217,8 +220,8 @@ def slice_pool_plan(c: int, h: int, g: int, backward: bool):
     slices, as csrc/slice_pool_tiles.cuh `pool_run` decides it: K6's row
     kernel at the nets' shapes, K7's block row tiles where their slot
     mapping and a tile fit, the run-time path for every other shape the JAX
-    package fuses up to C = 1024; None above 1024 or where no tile fits."""
-    if not jax_fuses_slice_pool(c, h, g) or c > 1024:
+    package fuses; None outside the JAX package's condition."""
+    if not jax_fuses_slice_pool(c, h, g):
         return None
     first = _tiles_plan(c, h, g) if backward else _rows_plan(c, h, g)
     return first or _generic_plan(c, h, g, backward)
@@ -227,7 +230,7 @@ def slice_pool_plan(c: int, h: int, g: int, backward: bool):
 def slice_pool_shape_ok(c: int, h: int, g: int) -> bool:
     """Whether K6 and K7 take width c with h heads and g slices (the
     kernels' size query, `gfvgn_slice_pool_workspace`, decides the same on
-    the card): every shape the JAX package fuses up to C = 1024."""
+    the card): every shape the JAX package fuses."""
     return slice_pool_plan(c, h, g, True) is not None \
         and slice_pool_plan(c, h, g, False) is not None
 
@@ -243,9 +246,9 @@ def _pool_operands(x, mask, wfx, bfx, wx, bx, wsl, bsl, inv_temp, what):
     if x.ndim != 3 or not d or c % d or not slice_pool_shape_ok(c, h, g):
         raise NotImplementedError(
             f"{what} takes x [B, N, C] and a [C / H, G] slice kernel with C "
-            f"a multiple of 128 up to 1024 and H·G a multiple of 128 (the "
-            f"JAX package's condition) and a row tile within a block's "
-            f"shared memory; got x {tuple(x.shape)}, wsl {tuple(wsl.shape)}")
+            f"a multiple of 128 and H·G a multiple of 128 (the JAX "
+            f"package's condition); got x {tuple(x.shape)}, wsl "
+            f"{tuple(wsl.shape)}")
     b, n, _ = x.shape
     if mask.ndim == 1:
         mask, stride = _check(mask, (n,), f32, "mask"), 0

@@ -15,9 +15,10 @@ output row for all batch lanes, loads the indices of A's row and B's row
 once as one list (A's non-zeros, then B's) and broadcasts them by shuffles,
 and each lane keeps eight independent loads in flight, of 16 bytes where H
 and the addresses allow it (8, 4 or 2 bytes otherwise: any H, any
-address). K9 is still the first design: a warp per (output row, batch
-lane), each lane owning 4, 2 or 1 contiguous features of the H-wide half
-(H % 128, H % 64, otherwise).
+address). K9 runs the same rows in their split form: one index list for A
+and B, each operator's products in its own accumulators and its own half
+of the output row, the same vector widths, so neither wrapper copies an
+unaligned operand.
 
 K8 serves two uses: the EdgeBlock's gather pair (one-hot `gather_s` /
 `gather_r`, H = hidden) and the NodeBlock's pair sum (`nbr_r` / `nbr_s`,
@@ -145,9 +146,6 @@ def pair_transpose(a, b, g: torch.Tensor,
         return pair_transpose_reference(a, b, g, out_dtype)
     global LAUNCHES_PAIR_TRANSPOSE
     xin, out_dtype = _operand(a, b, g, out_dtype)
-    xin = xin.contiguous()
-    if xin.data_ptr() % 16 != 0:     # K9's vector loads; K8 narrows its own
-        xin = xin.clone()
     h = g.shape[-1]
     out = _launch("gfvgn_pair_transpose", a, b, xin, out_dtype, h, 2 * h)
     LAUNCHES_PAIR_TRANSPOSE += 1

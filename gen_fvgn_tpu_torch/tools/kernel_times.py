@@ -17,9 +17,14 @@ of
   does;
 * K8 (`pair_sum`) in both forms: the gather pair (gather_s / gather_r on
   [8, N, 256]) and the node pair (nbr_r / nbr_s on [8, E, 128]);
+* K9 (`pair_transpose`) on the node pair's transposes (nbr_r.bwd /
+  nbr_s.bwd on [8, N, 64]);
+* the registers of every K1 and K8 instantiation, from the tree's build
+  log (`-Xptxas -v`), so that a change to their shared row code shows;
 * K6 at (128, 8, 32) and at (256, 8, 32) (`check_slice_pool`), K5f
-  (`check_premlp`), K5b and K7 (`check_backward`), each also held against
-  its plain version by the tree's check.
+  (`check_premlp`), K5b and K7 (`check_backward`), and K5f and K5b at C =
+  256 (hidden 512, the same rows), each also held against its plain
+  version by the tree's check.
 
 Run it by path, not as a module: it imports `chip_smoke` and
 `gen_fvgn_tpu_torch` from the tree it is given. Needs one CUDA card.
@@ -28,6 +33,7 @@ Run it by path, not as a module: it imports `chip_smoke` and
 import inspect
 import json
 import os
+import re
 import sys
 
 
@@ -77,7 +83,7 @@ def main(argv):
 
     import chip_smoke as cs
     from gen_fvgn_tpu_torch.ops import _cuda_build
-    from gen_fvgn_tpu_torch.ops.pair_spmm import pair_sum
+    from gen_fvgn_tpu_torch.ops.pair_spmm import pair_sum, pair_transpose
     from gen_fvgn_tpu_torch.ops.spmm import spmm
     from gen_fvgn_tpu_torch.tools.profile_rollout import build_main_path
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -99,14 +105,29 @@ def main(argv):
         y = torch.randn(8, a.n_in, width, generator=gen8,
                         device="cuda").to(torch.bfloat16)
         k8[name] = cs.median_ms(lambda: pair_sum(a, b, y), flush)
+    a9, b9 = static.ops.nbr_r.bwd, static.ops.nbr_s.bwd
+    g9 = torch.randn(8, a9.n_in, 64, generator=torch.Generator(
+        device="cuda").manual_seed(9), device="cuda").to(torch.bfloat16)
+    k9 = cs.median_ms(lambda: pair_transpose(a9, b9, g9), flush)
+    regs = {u["function"]: u["registers"] for frag in ("spmm_csr_kernel",
+                                                       "pair_sum_kernel")
+            for u in cs.ptxas_usage(_cuda_build.BUILD_LOG, frag)}
     rows = {"fused_premlp_res": cs.check_premlp(n_pad, flush, gen),
             "fused_slice_pool": cs.check_slice_pool(static, flush, gen)}
     rows.update(cs.check_backward(n_pad, static, flush, gen))
-    rows["fused_slice_pool_c256"] = cs.check_slice_pool(
-        static, flush, torch.Generator(device="cuda").manual_seed(256), 256)
+    g256 = torch.Generator(device="cuda").manual_seed(256)
+    rows["fused_slice_pool_c256"] = cs.check_slice_pool(static, flush, g256,
+                                                        256)
+    rows["fused_premlp_res_c256"] = cs.check_premlp(n_pad, flush, g256, 256)
+    rows["fused_premlp_res_bwd_c256"] = cs.check_backward(
+        n_pad, static, flush, g256, 256, pool=False)["fused_premlp_res_bwd"]
     times = {"spmm": {k: round(v, 4) for k, v in k1.items()},
              "spmm_train_step": round(step, 4),
-             "pair_sum": {k: round(v, 4) for k, v in k8.items()}}
+             "pair_sum": {k: round(v, 4) for k, v in k8.items()},
+             "pair_transpose": round(k9, 4),
+             "registers_k1_k8": {
+                 re.sub(r".*?(spmm_csr|pair_sum)_kernelI(.*)EEEvNS_.*",
+                        r"\1<\2>", k): v for k, v in sorted(regs.items())}}
     times.update({k: round(v["ms"], 4) for k, v in rows.items()})
     print("TIMES", label, json.dumps(times))
     return 0

@@ -42,9 +42,9 @@ torch.set_num_threads(1)
 
 M, H = 300, 128          # M not a multiple of the JAX row tile
 # by hidden width (measured at 768 and 1024: >= 0.988; the slice pool's
-# Wfx, Wx at 384 and 512 likewise)
+# Wfx, Wx at 384 and 512 likewise; 1152 the same limit as the widths below)
 BF16_EQUAL_SHARE = {128: 0.9, 256: 0.85, 384: 0.85, 512: 0.85, 768: 0.85,
-                    1024: 0.85}
+                    1024: 0.85, 1152: 0.85}
 
 
 def _ulps(ref, n=2):
@@ -213,10 +213,10 @@ def test_fused_premlp_res_backward_matches_jax_at_c256():
     _premlp_backward(2 * H)
 
 
-@pytest.mark.parametrize("c", [768, 1024])
+@pytest.mark.parametrize("c", [768, 1024, 1152])
 def test_fused_premlp_res_backward_matches_jax_at_wide_c(c):
-    """The same at C = 768 and 1024 (hidden 2C), which the kernels take
-    from this slice on (the backward in hidden chunks on the card)."""
+    """The same at C = 768, 1024 and 1152 (hidden 2C; on the card passes
+    through device memory)."""
     _premlp_backward(c)
 
 
@@ -261,12 +261,12 @@ def test_fused_slice_pool_backward_matches_jax():
 
 @pytest.mark.parametrize("c,h,g", [(2 * H, 8, 32), (H, 8, 16),
                                    (H, 16, 8), (4 * H, 4, 128),
-                                   (3 * H, 6, 64)])
+                                   (3 * H, 6, 64), (9 * H, 8, 32)])
 def test_fused_slice_pool_backward_matches_jax_at_other_shapes(c, h, g):
     """The same at C = 256 (8 heads of 32), with 16 slices, and at the
-    shapes the kernels take from this slice on: 16 heads of 8 with 8
-    slices, 4 heads of 128 with 128 slices, 6 heads of 64 with 64 slices
-    (no powers of two)."""
+    shapes the kernels took later: 16 heads of 8 with 8 slices, 4 heads of
+    128 with 128 slices, 6 heads of 64 with 64 slices (no powers of two),
+    8 heads of 144 with 32 slices (C 1152)."""
     _slice_pool_backward(c, h, g)
 
 
@@ -333,8 +333,10 @@ def _slice_pool_backward(c, h, g):
     # 4.5e-4 of its scale when one element of x moves by 3e-2 (a few bf16
     # ulps); the port's float32 sums differ from XLA's in every element:
     # 5e-3 of the scale there (measured 1.3e-3 for dbx, 2.1e-3 for dbsl,
-    # 2.5e-3 for dtemp), 1e-3 at up to 64 slices
-    rel = 5e-3 if g >= 128 else 1e-3
+    # 2.5e-3 for dtemp), 1e-3 at up to 64 slices. Above C = 1024 xm sums
+    # more products, so a logit's rounding flips as often as at 128 slices
+    # (measured at C 1152: 1.4e-3 for dtemp): the same 5e-3
+    rel = 5e-3 if g >= 128 or c > 1024 else 1e-3
     for k in ("bfx", "bx", "bsl"):
         _check_vec(tw[k].grad.numpy(), jw[k], k, rel)
     np.testing.assert_allclose(tw["temp"].grad.numpy(), jw["temp"],

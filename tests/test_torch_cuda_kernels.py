@@ -10,12 +10,13 @@ these cover the edges: ragged row counts, every operand/output type of the
 sparse apply (K1 also on column windows of wider tensors, at F 64 to 256,
 B = 1, float32, and in the windowed composed node aggregation forward and
 backward) and of the paired applies (K8, K9: B = 1, empty rows, float32
-operands, H = 64 and 128; a row whose float32 sum lies next to a bf16
+operands, H = 48 to 256, rows of one to forty non-zeros in either
+operator, unaligned operands; a row whose float32 sum lies next to a bf16
 rounding midpoint), unbatched operands, all-zero and partial node masks,
 shared and per-lane masks, the fused MLP kernels (K2, K3, K4f, K4b) at
 hidden widths 128 and 256 (and 384 for the 32-row tiles) in every form the
-nets use, the pre-LN branch (K5f, K5b) at C 128 to 1024 and the slice pool
-(K6, K7) at fifteen (C, H, G) shapes, with lanes of one row, ragged lanes
+nets use, the pre-LN branch (K5f, K5b) at C 128 to 2048 and the slice pool
+(K6, K7) at seventeen (C, H, G) shapes up to C 2048, with lanes of one row, ragged lanes
 and ragged last tiles, the bitwise repeatability of the backward kernels
 and the slice pool, the shapes each kernel refuses, and the kernels' size
 queries against the Python predicates."""
@@ -328,6 +329,53 @@ def test_pair_sum_rows_for_all_lanes(h, b, op_dtype, x_dtype, aligned):
     assert bool((out[:, 200:203] != 0).any(dim=-1).all())
 
 
+@pytest.mark.parametrize("op_dtype,x_dtype", [
+    ("bfloat16", torch.bfloat16), ("float32", torch.float32),
+    ("bfloat16", torch.float32)])
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("h", [48, 64, 128, 256])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_pair_transpose_rows_for_all_lanes(h, b, op_dtype, x_dtype, aligned):
+    """K9, a warp a row [A row | B row] for all batch lanes, against its
+    plain version on the operators of `test_pair_sum_rows_for_all_lanes`:
+    rows of one non-zero in each operator, forty in A alone (its B half
+    exactly zero), twenty + twenty-five (the list crosses from A to B
+    inside a 32-index load), thirty-three in B alone (its A half exactly
+    zero), empty rows exactly zero, two runs the same bits. `aligned` False
+    hands it an operand 2 or 4 bytes off a 16-byte boundary, which it reads
+    in narrower vectors without a copy. Tolerance: a bf16 output within one
+    bf16 ulp of each element, a float32 one 1e-5."""
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import pair_spmm as mod
+    a, bop = _pair_ops(op_dtype)
+    gen = torch.Generator("cuda").manual_seed(h + b + 1)
+    g = torch.randn(b, a.n_in, h, device="cuda", generator=gen).to(x_dtype)
+    if not aligned:
+        flat = torch.empty(g.numel() + 1, device="cuda", dtype=x_dtype)
+        g = flat[1:].view(g.shape).copy_(g)
+        assert g.data_ptr() % 16 != 0
+    before = mod.LAUNCHES_PAIR_TRANSPOSE
+    out = mod.pair_transpose(a, bop, g)
+    again = mod.pair_transpose(a, bop, g)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES_PAIR_TRANSPOSE == before + 2
+    ref = mod.pair_transpose_reference(a, bop, g)
+    assert out.dtype == ref.dtype and out.shape == ref.shape == (b, 300, 2 * h)
+    assert torch.equal(out, again)
+    got, want = out.float(), ref.float()
+    if out.dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(
+            2.0 ** -100))) - 7)
+        assert bool(((got - want).abs() <= ulp + 1e-5).all())
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert bool((out[:, 250:] == 0).all())
+    assert bool((out[:, 200, h:] == 0).all())
+    assert bool((out[:, 202, :h] == 0).all())
+    assert bool((out[:, 200, :h] != 0).any() and (out[:, 201] != 0).any()
+                and (out[:, 202, h:] != 0).any())
+
+
 def _mlp_args(m, widths, has_pre, d_out, seed, h=128):
     g = torch.Generator("cuda").manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
@@ -454,9 +502,10 @@ def _premlp_args(m, seed, c=128):
             0.1 * rnd(c))
 
 
-# every width the pre-LN branch's kernels take (hidden width 2C); the
-# C = 128 forward is its own kernel, the others the block row tiles
-_PREMLP_C = [128, 256, 384, 512, 640, 768, 896, 1024]
+# every width the pre-LN branch's kernels take (hidden width 2C); at C = 128
+# the forward is the strip kernel and the backward the block row tiles,
+# every wider C runs as passes through device memory
+_PREMLP_C = [128, 256, 384, 512, 640, 768, 896, 1024, 1152, 2048]
 _PREMLP_M = [(128, m) for m in (1, 63, 64, 65, 1000, 8 * 1251)] + [
     (c, m) for c in _PREMLP_C[1:] for m in (1, 65, 1000)]
 
@@ -468,18 +517,19 @@ def test_fused_premlp_res_kernel_matches_plain_version(c, m):
     args = _premlp_args(m, seed=m + c - 128, c=c)
     before = mod.LAUNCHES_PREMLP
     out = mod.fused_premlp_res(*args)
+    again = mod.fused_premlp_res(*args)
     torch.cuda.synchronize()
-    assert mod.LAUNCHES_PREMLP == before + 1
+    assert mod.LAUNCHES_PREMLP == before + 2
+    assert torch.equal(out, again)
     ref = mod.fused_premlp_res_reference(*args)
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape == (m, c)
     torch.testing.assert_close(out.float(), ref.float(), rtol=0,
                                atol=_ulps(ref))
 
 
-# what the pre-LN kernels refuse: a width above the named limit of 1024
-# (C = 1152: JAX fuses it), a width that is no multiple of 128, a hidden
-# width other than 2C
-_PREMLP_REFUSED = [(1152, 2304), (192, 384), (128, 128)]
+# what the pre-LN kernels refuse, as the JAX package does not fuse it: a
+# width that is no multiple of 128, a hidden width other than 2C
+_PREMLP_REFUSED = [(192, 384), (128, 128)]
 
 
 @pytest.mark.parametrize("c,hd", _PREMLP_REFUSED)
@@ -494,9 +544,9 @@ def test_fused_premlp_res_kernel_refuses_what_it_does_not_take(c, hd):
     args = (z(64, c).to(bf), z(c), z(c), z(c, hd).to(bf), z(hd),
             z(hd, c).to(bf), z(c))
     assert not mod.premlp_shape_ok(c, hd)
-    with pytest.raises(NotImplementedError, match="shared memory"):
+    with pytest.raises(NotImplementedError, match="multiple of 128"):
         mod.fused_premlp_res(*args)
-    with pytest.raises(NotImplementedError, match="shared memory"):
+    with pytest.raises(NotImplementedError, match="multiple of 128"):
         mod.fused_premlp_res_bwd(*args, args[0], 1)
 
 
@@ -561,13 +611,15 @@ def test_fused_premlp_res_strip_kernel_clamps_and_scales(rows):
 # (C, H, G): the default, then wider C, fewer heads, fewer and more slices,
 # more heads; K6's row kernel takes the first three, the run-time path the
 # rest (and K7's tiles their general variant for the next three); the last
-# four are shapes the tiles refuse (a head width of 8 split in 4, more than
-# 64 pooled sums a thread, heads and slices no powers of two, C above 512)
+# six are shapes the tiles refuse (a head width of 8 split in 4, more than
+# 64 pooled sums a thread, heads and slices no powers of two, C above 512,
+# and above 1024: a bf16 net at hidden 1152, 16 heads of 128 at 2048)
 _POOL_SHAPES = [(128, 8, 32), (256, 8, 32), (512, 8, 32), (128, 4, 32),
                 (128, 8, 16), (128, 8, 64), (128, 2, 64), (256, 16, 32),
                 (384, 8, 32), (256, 4, 32), (128, 16, 32), (128, 16, 8),
-                (512, 4, 128), (384, 6, 64), (1024, 8, 128)]
-_POOL_RUNTIME_ONLY = _POOL_SHAPES[-4:]
+                (512, 4, 128), (384, 6, 64), (1024, 8, 128), (1152, 8, 32),
+                (2048, 16, 8)]
+_POOL_RUNTIME_ONLY = _POOL_SHAPES[-6:]
 _POOL_ID = lambda s: "C{}-H{}-G{}".format(*s)
 
 
@@ -659,9 +711,9 @@ def test_fused_slice_pool_kernel_shared_mask_and_repeatable_bits(shape):
         assert torch.equal(x, y)            # no atomics: the same bits
 
 
-# (C, H, G) the JAX package fuses and the kernels refuse: C above the named
-# limit of 1024
-_POOL_REFUSED = [(1152, 8, 32), (2048, 16, 8)]
+# (C, H, G) the JAX package does not fuse, which the kernels refuse: C no
+# multiple of 128, H·G no multiple of 128
+_POOL_REFUSED = [(192, 8, 32), (128, 16, 6)]
 
 
 @pytest.mark.parametrize("shape", _POOL_REFUSED, ids=_POOL_ID)
@@ -673,9 +725,9 @@ def test_fused_slice_pool_kernel_refuses_what_it_does_not_take(shape):
         mod.fused_slice_pool_kernel(args[0].float(), *args[1:])
     assert not mod.slice_pool_shape_ok(*shape)
     bad = _pool_args(2, 64, "ones", seed=0, shape=shape)
-    with pytest.raises(NotImplementedError, match="shared memory"):
+    with pytest.raises(NotImplementedError, match="JAX package"):
         mod.fused_slice_pool_kernel(*bad)
-    with pytest.raises(NotImplementedError, match="shared memory"):
+    with pytest.raises(NotImplementedError, match="JAX package"):
         mod.fused_slice_pool_bwd_kernel(*bad, *_pool_cotangents(
             2, 64, seed=0, shape=shape))
 
@@ -689,7 +741,7 @@ def test_kernel_size_queries_agree_with_the_predicates():
     from gen_fvgn_tpu_torch.ops import fused_slice_attn as fsa
     from gen_fvgn_tpu_torch.ops._cuda_build import load_library
     lib = load_library()
-    for c in range(64, 1153, 64):
+    for c in range(64, 4097, 64):
         for bwd in (0, 1):
             took = lib.gfvgn_premlp_workspace(c, 64, 1, bwd) >= 0
             assert took == (fm.premlp_plan(c, bool(bwd)) is not None), c

@@ -117,7 +117,7 @@ def test_pair_sum_reference_matches_pallas_gather_pair(h, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("h", [64, 128])
+@pytest.mark.parametrize("h", [64, 128, 48, 256])
 def test_pair_transpose_reference_matches_pallas_pair_transpose(h, dtype):
     from gen_fvgn_tpu.ops.pallas_spmm import pallas_pair_transpose
     from gen_fvgn_tpu_torch.ops.pair_spmm import (pair_transpose,

@@ -71,10 +71,10 @@ def test_premlp_reference_matches_jax_at_c256():
     _premlp_vs_jax(256, seed=2)
 
 
-@pytest.mark.parametrize("c", [768, 1024])
+@pytest.mark.parametrize("c", [768, 1024, 1152])
 def test_premlp_reference_matches_jax_at_wide_c(c):
-    """The same at C = 768 and 1024 (hidden 2C), the widest the kernels
-    take."""
+    """The same at C = 768, 1024 and 1152 (hidden 2C; on the card passes
+    through device memory)."""
     _premlp_vs_jax(c, seed=c)
 
 
@@ -100,21 +100,38 @@ def test_premlp_reference_matches_jax_on_strip_edge_rows(rows):
 
 
 def test_premlp_plan_names_the_strip_kernel():
-    """K5f at C = 128 runs on the strip kernel ("rows"), every other width
-    and the backward on the block row tiles ("tiles"); the widths the
-    pre-LN kernels take are unchanged: C % 128 == 0 up to 1024, hidden 2C."""
+    """K5f at C = 128 runs on the strip kernel ("rows") and K5b at C = 128
+    on the block row tiles ("tiles"); every wider width, both directions,
+    as passes through device memory ("passes"); the pre-LN kernels take
+    C % 128 == 0 with hidden 2C."""
     from gen_fvgn_tpu_torch.ops import fused_mlp as fm
     plan = fm.premlp_plan(128, False)
     assert plan[0] == "rows" and plan[2] <= fm.SMEM_PER_BLOCK
     assert fm.premlp_plan(128, True)[0] == "tiles"
-    for c in range(128, 1025, 128):
+    for c in range(256, 1025, 128):
         for bwd in (False, True):
-            if (c, bwd) != (128, False):
-                assert fm.premlp_plan(c, bwd)[0] == "tiles", (c, bwd)
+            assert fm.premlp_plan(c, bwd)[0] == "passes", (c, bwd)
     for c in range(0, 1281, 32):
         for hd in (c, 2 * c, 3 * c):
             assert fm.premlp_shape_ok(c, hd) == (
-                hd == 2 * c and c > 0 and c % 128 == 0 and c <= 1024), (c, hd)
+                hd == 2 * c and c > 0 and c % 128 == 0), (c, hd)
+
+
+def test_plans_name_the_forms_above_c1024():
+    """Above C = 1024 K5f and K5b run as passes through device memory
+    ("passes", tiles of 64 rows) and K6/K7 on their run-time path
+    ("generic"), and neither plan's shared memory grows with C: the same
+    bytes at 1152, 2048 and 4096, within a block's."""
+    from gen_fvgn_tpu_torch.ops import fused_mlp as fm
+    from gen_fvgn_tpu_torch.ops import fused_slice_attn as fsa
+    passes = {fm.premlp_plan(c, bwd) for c in (1152, 2048, 4096)
+              for bwd in (False, True)}
+    assert passes == {("passes", 64, fm.PREMLP_PASS_SMEM)}
+    assert fm.PREMLP_PASS_SMEM <= fm.SMEM_PER_BLOCK
+    for c, h, g in ((1152, 8, 32), (2048, 16, 8), (4096, 32, 32)):
+        for bwd in (False, True):
+            assert fsa.slice_pool_plan(c, h, g, bwd)[0] == "generic"
+    assert fsa.POOL_DX_SMEM <= fm.SMEM_PER_BLOCK
 
 
 def _premlp_vs_jax(c, seed, ops=None):
@@ -225,16 +242,17 @@ def _torch_slice_pool(ops, mask=None):
     return w.float().numpy(), tok.numpy(), norm.numpy()
 
 
-def _close_scaled(got, ref, rel):
+def _close_scaled(got, ref, rel, extra=0.0):
     scale = max(float(np.abs(ref).max()), 1e-6)
-    np.testing.assert_allclose(got, ref, rtol=0, atol=rel * scale)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=rel * scale + extra)
 
 
 # (C, H, G) beyond the default that the kernels take: wider C, fewer heads,
 # fewer and more slices; then 16 heads of 8 with 8 slices, 4 heads of 128
-# with 128 slices, and 6 heads of 64 with 64 slices (the run-time path)
+# with 128 slices, 6 heads of 64 with 64 slices and 8 heads of 144 with 32
+# slices (C 1152: the run-time path)
 _OTHER_SHAPES = [(256, 8, 32), (128, 4, 32), (128, 8, 16), (128, 8, 64),
-                 (128, 16, 8), (512, 4, 128), (384, 6, 64)]
+                 (128, 16, 8), (512, 4, 128), (384, 6, 64), (1152, 8, 32)]
 
 
 @pytest.mark.parametrize("mask,spread,shape", [
@@ -265,35 +283,61 @@ def test_slice_pool_reference_matches_jax(mask, spread, shape):
         assert float((s.amax(-1) - s.amin(-1)).max()) > 88.0
     for a in (tw, ttok, tnorm):
         assert np.isfinite(a).all()
-    np.testing.assert_allclose(tw, jw, rtol=0, atol=2.0 ** -7)
+    tok_extra = norm_extra = 0.0
+    if c > 1024:
+        # above C = 1024 xm and fx sum more products, in another order than
+        # XLA's, and a few of their roundings and the logits' flip
+        # (measured at C 1152: 2 of 131,072 weights 2^-6 off, 106 of
+        # 73,728 token elements beyond 1e-3 of the scale): held as the
+        # card test holds the run-time path against the plain version
+        # (`_check_pool`): slice_w within the flipped-logit tolerance and
+        # fewer than 1e-4 of the weights beyond 2^-7; the tokens also one
+        # bf16 ulp of max|fx| and that tolerance times max|fx|, the norm
+        # that tolerance
+        from gen_fvgn_tpu_torch.ops.fused_slice_attn import (
+            slice_logits, slice_w_tolerance)
+        t = {k: torch.from_numpy(v) for k, v in ops.items()}
+        bf = torch.bfloat16
+        l_max = float(slice_logits(t["x"].to(bf), t["wx"].to(bf), t["bx"],
+                                   t["wsl"].to(bf), t["bsl"]).float()
+                      .abs().max())
+        tol = slice_w_tolerance(l_max, float(ops["it"].max()))
+        diff = np.abs(tw - jw)
+        assert diff.max() <= tol
+        assert (diff > 2.0 ** -7).mean() < 1e-4
+        fx = (t["x"].to(bf).float() @ t["wfx"].to(bf).float()
+              + t["bfx"]).to(bf).float().numpy()
+        tok_extra = _ulps(fx, 1) + tol * float(np.abs(fx).max())
+        norm_extra = tol
+    else:
+        np.testing.assert_allclose(tw, jw, rtol=0, atol=2.0 ** -7)
     if mask == "zero":
         assert not ttok.any() and not tnorm.any()
         assert not jtok.any() and not jnorm.any()
     else:
-        _close_scaled(ttok, jtok, 1e-3)
-        _close_scaled(tnorm, jnorm, 1e-3)
+        _close_scaled(ttok, jtok, 1e-3, tok_extra)
+        _close_scaled(tnorm, jnorm, 1e-3, norm_extra)
 
 
 def test_transolver_kernel_shape_predicates():
     """The shapes the Transolver kernels take, decided the same on any
-    device: exactly what the JAX package fuses up to C = 1024. K5 at every
-    C % 128 == 0 up to 1024 with the hidden width 2C (JAX: `c % 128 == 0
-    and hd % 128 == 0`, models/transolver.py:152, with mlp_ratio 2); K6/K7
-    at every (C, H, G) with C % 128 == 0, H·G % 128 == 0 and H·D == C
-    (:63-64), over a grid of heads and slices. Above C = 1024 both raise
-    (the named limit), and a hidden width other than 2C is refused."""
+    device: exactly what the JAX package fuses, over a grid to C = 4096. K5
+    at every C % 128 == 0 with the hidden width 2C (JAX: `c % 128 == 0 and
+    hd % 128 == 0`, models/transolver.py:152, with mlp_ratio 2); K6/K7 at
+    every (C, H, G) with C % 128 == 0, H·G % 128 == 0 and H·D == C
+    (:63-64), over a grid of heads and slices. A hidden width other than
+    2C is refused."""
     from gen_fvgn_tpu_torch.ops import fused_mlp as fm
     from gen_fvgn_tpu_torch.ops import fused_slice_attn as fsa
-    for c in range(64, 1153, 64):
-        assert fm.premlp_shape_ok(c, 2 * c) == (c % 128 == 0 and c <= 1024), c
+    for c in range(64, 4097, 64):
+        assert fm.premlp_shape_ok(c, 2 * c) == (c % 128 == 0), c
     assert not fm.premlp_shape_ok(128, 128)
-    for c in range(128, 1153, 128):
+    for c in range(128, 4097, 128):
         for h in (1, 2, 3, 4, 5, 6, 8, 12, 16, 32, 64, 128):
             for g in (1, 2, 8, 16, 24, 32, 48, 64, 128, 256):
                 fused = c % h == 0 and (h * g) % 128 == 0
                 assert fused == fsa.jax_fuses_slice_pool(c, h, g)
-                assert fsa.slice_pool_shape_ok(c, h, g) == (
-                    fused and c <= 1024), (c, h, g)
+                assert fsa.slice_pool_shape_ok(c, h, g) == fused, (c, h, g)
     for shape in [(C, H, G), (256, 8, 32), (512, 8, 32)]:
         assert fsa.slice_pool_plan(*shape, False)[0] == "rows", shape
     for shape in [(128, 16, 8), (512, 4, 128), (384, 6, 64)]:
