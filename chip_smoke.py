@@ -12,9 +12,8 @@ K5-K7 also at the shapes the JAX package fuses beyond the nets', C 768,
 1024, 1152 and 2048, (C, H, G) = (128, 16, 8), (512, 4, 128), (384, 6,
 64), (1152, 8, 32), (2048, 16, 8), at batch 2, and one TransolverBlock at
 hidden 1152 forward and backward against its plain versions; the paired
-sparse applies K8 and K9 at the paired path's), then drives six paths on
-the
-101x101-node synthetic cavity at batch 8, with weights from
+sparse applies K8 and K9 at the paired path's), then drives eight paths
+on the 101x101-node synthetic cavity at batch 8, with weights from
 torch.Generator().manual_seed(0), all with the Config's defaults
 (TransFVGN_v2: hidden 128, 2 processors of 3 message-passing blocks and a
 Transolver block each, 8 heads, 32 slices, bf16 stream) unless named:
@@ -50,7 +49,29 @@ Transolver block each, 8 heads, 32 slices, bf16 stream) unless named:
     at C = 256: K5f/K5b with the hidden width 512, K6/K7 with 8 heads of 32
     and 32 slices; the MLP kernels at H = 256): one rollout step with the
     main path's rollout launches and one train step with its train-step
-    launches.
+    launches;
+  * the training run: `train()` (training/loop.py) with the main path's
+    Config on two cases of the same cavity, the main path's Navier-Stokes
+    case and a wave case (dt 0.05, source strength 0.02): 16 environments,
+    8 a case, batch 8, 20 inner steps, 3 epochs (120 train steps), a
+    boundary-condition re-roll after epochs 1 and 2 exported to Tecplot,
+    the wave sources after every epoch, checkpoint slots 0 and 2. Checks
+    the steps and epochs, the three rows of Loss_monitor.dat (finite, lr as
+    `step_exp_lr`), the re-rolled slots and their exports, that the
+    injections moved the wave environments' p and nothing else, and the
+    launches (120 x the main path's per step); then 2.state restored into
+    a fresh state (bit-equal to the run's) and one more step from each on
+    the same batch (the same bits); then the per-epoch work and a
+    checkpoint save timed alone;
+  * the solves, from the training run's final state on its Navier-Stokes
+    case: `solve_adam_block` at batch 1, 2 time steps x 20 inner steps
+    (its first step's gradients held against the plain versions on the
+    card; launches 40 x a train step's plus two forwards), the chunked form
+    at batch 12 with microbatch 8 (two chunks, four pad rows; 1 x 3) held
+    against the same solve unchunked, and `solve_lbfgs_block` at batch 1,
+    memory 100, 5 iterations (launches a train step's per function
+    evaluation plus one forward; the evaluations per iteration logged).
+    Each loss must fall.
 
 Each path's launch counters are set to 0 just before it and read just
 after; the script checks them, finite outputs, zero padded nodes, a state
@@ -80,6 +101,7 @@ stays out). A train step is timed on the host clock, ending in a
 synchronize.
 """
 
+import copy
 import json
 import re
 import subprocess
@@ -1011,10 +1033,10 @@ def drive(name, cfg, sim, norm_state, dyn, static, steps, per_step, n_real):
     return counts, hist
 
 
-def step1_grads(cfg, sim, norm_state, dyn, static, plain):
+def step1_grads(cfg, sim, norm_state, dyn, static, plain, accumulate=True):
     """d loss / d parameter of one training step's loss (forward with
-    normalizer accumulation, then `training_loss`), with the kernels or
-    with their plain versions."""
+    normalizer accumulation, or without it as in a solve, then
+    `training_loss`), with the kernels or with their plain versions."""
     import contextlib
 
     from gen_fvgn_tpu_torch.ops import plain_versions
@@ -1024,19 +1046,22 @@ def step1_grads(cfg, sim, norm_state, dyn, static, plain):
     with (plain_versions() if plain else contextlib.nullcontext()), \
             torch.enable_grad():
         out = forward_batch_block(sim, norm_state, dyn, static, cfg,
-                                  accumulate_normalizer=True)
+                                  accumulate_normalizer=accumulate)
         loss = training_loss(out, cfg)
         grads = torch.autograd.grad(loss, params)
     return float(loss.detach()), grads
 
 
-def hold_step1_grads(name, cfg, sim, norm_state, dyn, static):
+def hold_step1_grads(name, cfg, sim, norm_state, dyn, static,
+                     accumulate=True):
     """Step 1's gradients with the kernels against those with the plain
     versions on the card, on the same batch; raises outside the limits.
     Returns (loss, gradients) with the kernels."""
-    loss_k, g_k = step1_grads(cfg, sim, norm_state, dyn, static, False)
+    loss_k, g_k = step1_grads(cfg, sim, norm_state, dyn, static, False,
+                              accumulate)
     counts = launch_counts()
-    loss_p, g_p = step1_grads(cfg, sim, norm_state, dyn, static, True)
+    loss_p, g_p = step1_grads(cfg, sim, norm_state, dyn, static, True,
+                              accumulate)
     if launch_counts() != counts:
         raise RuntimeError(f"{name}: the plain versions' pass launched a "
                            f"kernel")
@@ -1235,6 +1260,357 @@ def drive_hidden256(cfg, pool, static, norm_state, n_real, net, per_step,
     return counts
 
 
+class PoolSpy:
+    """While active, records what `train()` does to its EnvPool: the pool
+    itself, the slot each `reset_env_block` re-rolls (and in which epoch),
+    and what each `inject_wave_sources` added to each case pool's states
+    (kept on the card; read after the run)."""
+
+    def __init__(self):
+        from gen_fvgn_tpu_torch.training.pool import EnvPool
+        self.cls, self.pools, self.rerolled, self.added = EnvPool, [], [], []
+
+    def __enter__(self):
+        cls, spy = self.cls, self
+        self.saved = init, reset, inject = (
+            cls.__init__, cls.reset_env_block, cls.inject_wave_sources)
+
+        def _init(pool, *a, **k):
+            init(pool, *a, **k)
+            spy.pools.append(pool)
+
+        def _reset(pool, *a, **k):
+            spy.rerolled.append((len(spy.added), pool._age_order[0]))
+            reset(pool, *a, **k)
+
+        def _inject(pool):
+            before = {ci: p.uvp.clone() for ci, p in pool._dyn_pools.items()}
+            inject(pool)
+            spy.added.append({ci: p.uvp - before[ci]
+                              for ci, p in pool._dyn_pools.items()})
+        cls.__init__, cls.reset_env_block = _init, _reset
+        cls.inject_wave_sources = _inject
+        return self
+
+    def __exit__(self, *exc):
+        (self.cls.__init__, self.cls.reset_env_block,
+         self.cls.inject_wave_sources) = self.saved
+
+
+def timed_ms(fn, reps=5):
+    """Median host-clock ms of fn(), each call between two synchronizes."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def drive_training_run(cfg, per_step, bare_ms):
+    """Phase "training run": `train()` (training/loop.py) at the main path's
+    widths on two cases of the 101x101-node cavity, the main path's
+    Navier-Stokes case and a wave case: 16 environments (8 a case, one
+    batch of 8 a case an inner step), 20 inner steps, 3 epochs (120 train
+    steps), a re-roll after every epoch from epoch 1 with export on reset,
+    wave sources after every epoch, checkpoints at epochs 0 and 2. Checks
+    the counts, the log, the re-rolls, the injections, the checkpoints and
+    the launches (120 x the main path's per-step counts); then restores
+    2.state into a fresh state (bit-equal) and takes one more step from
+    each on the same batch (the same bits). Returns (state, pool, timings)."""
+    import glob
+    import os
+    import tempfile
+
+    from gen_fvgn_tpu_torch.io.checkpoint import load_state, save_state
+    from gen_fvgn_tpu_torch.meshes.synthetic import (cavity_quad_mesh,
+                                                     synthetic_case, wave_case)
+    from gen_fvgn_tpu_torch.training import loop
+    from gen_fvgn_tpu_torch.training.train import step_exp_lr
+    from gen_fvgn_tpu_torch.training.train_block import (
+        init_train_state_block, make_train_step_block)
+    t_phase = time.perf_counter()
+    name = "training run"
+    rcfg = cfg.replace(engine="block", n_epochs=3, dataset_size=16,
+                       average_sequence_length=16, export_on_reset=True,
+                       max_inner_steps=20)
+    mesh = cavity_quad_mesh(MESH_N)
+    cases = [synthetic_case(mesh, continuity=1, convection=1, grad_p=1,
+                            mu=0.05, sigma=(1, 1, 1)),
+             wave_case(mesh, dt=0.05, source_strength=(0.02,) * 3)]
+    tmp = tempfile.TemporaryDirectory()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 20
+    zero_counts()
+    t0 = time.perf_counter()
+    with PoolSpy() as spy:
+        state = loop.train(rcfg, cases=cases, log_base_dir=tmp.name, seed=0)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    pool, = spy.pools
+    steps = rcfg.n_epochs * rcfg.max_inner_steps * 2
+    expected = {k: per_step.get(k, 0) * steps for k in counts}
+    run_dir, = glob.glob(os.path.join(tmp.name, "*", "*"))
+    lines = open(os.path.join(run_dir, "Loss_monitor.dat")).read() \
+        .splitlines()
+    cols = lines[0].split("=")[1].replace('"', "").split(",")
+    rows = [dict(zip(cols, map(float, ln.split(",")))) for ln in lines[1:]]
+    schedule = step_exp_lr(rcfg)
+    exports = sorted(os.path.basename(p) for p in glob.glob(
+        os.path.join(run_dir, "traing_results", "*.dat")))
+    slots = sorted(os.listdir(os.path.join(run_dir, "states")))
+    for r in rows:
+        log(f"{name} epoch {int(r['step'])}: loss={r['loss']:.6g} "
+            f"loss_cont={r['loss_cont']:.6g} loss_mom={r['loss_mom']:.6g} "
+            f"grad_norm={r['grad_norm']:.6g} lr={r['lr']:.6g} "
+            f"epoch_seconds={r['epoch_seconds']:.4f}")
+    wave = {i for i, e in enumerate(pool.envs)
+            if e.theta_sample.source_frequency != 0}
+    moved = []
+    for added in spy.added:
+        for ci, d in added.items():
+            rows_w = [pool._env_local[i] for i in wave
+                      if pool.envs[i].case_idx == ci]
+            rows_n = [pool._env_local[i] for i in range(len(pool.envs))
+                      if i not in wave and pool.envs[i].case_idx == ci]
+            if float(d[..., :2].abs().max()) != 0 or (
+                    rows_n and float(d[rows_n].abs().max()) != 0):
+                raise RuntimeError(f"{name}: the injection touched u, v or "
+                                   f"an NS environment")
+            if rows_w:
+                moved.append(float(d[rows_w, :, 2].abs().amax(1).min()))
+    log(f"{name}: {state.step} train steps, epoch {state.epoch}, "
+        f"{run_s:.2f} s (host clock, statics of the two cases included); "
+        f"peak device memory {peak:.0f} MiB ({base:.0f} held before it); "
+        f"re-rolled (epoch, slot) "
+        f"{spy.rerolled}; exports {exports}; checkpoint slots {slots}; "
+        f"injections {len(spy.added)}, each wave environment's p moved by "
+        f"at least {min(moved) if moved else 0:.3g}; launches {counts}")
+    lr_ok = all(float(f"{schedule(int(r['step'])):.9e}") == r["lr"]
+                for r in rows)
+    if state.step != steps or state.epoch != 3 or len(rows) != 3 \
+            or not all(np.isfinite([r["loss"], r["loss_cont"], r["loss_mom"],
+                                    r["grad_norm"]]).all() for r in rows) \
+            or not lr_ok or [e for e, _ in spy.rerolled] != [1, 2] \
+            or len(exports) != 2 or slots != ["0.state", "2.state"] \
+            or len(spy.added) != 3 or len(moved) != 3 or min(moved) <= 0:
+        raise RuntimeError(f"{name}: a check failed (steps {state.step}, "
+                           f"epoch {state.epoch}, rows {len(rows)}, lr as "
+                           f"the schedule {lr_ok}, re-rolls {spy.rerolled}, "
+                           f"exports {exports}, slots {slots})")
+    if counts != expected:
+        raise RuntimeError(f"{name}: launch counts {counts} != expected "
+                           f"{expected}")
+
+    # resume: 2.state into a fresh state, then one step from each
+    fresh, fsim = init_train_state_block(rcfg.replace(dataset_size=16),
+                                         seed=1)
+    load_state(os.path.join(run_dir, "states", "2.state"), like=fresh)
+    pairs = [(a, b) for a, b in zip(state.simulator.parameters(),
+                                    fsim.parameters())]
+    ost, fst = state.optimizer.state_dict()["state"], \
+        fresh.optimizer.state_dict()["state"]
+    same = all(torch.equal(a, b) for a, b in pairs) and all(
+        torch.equal(ost[i][k], fst[i][k]) for i in ost
+        for k in ("exp_avg", "exp_avg_sq", "step")) and all(
+        torch.equal(getattr(state.norm_state, f), getattr(fresh.norm_state, f))
+        for f in ("acc_sum", "acc_sum_sq", "acc_count", "num_acc")) \
+        and (fresh.step, fresh.epoch) == (state.step, state.epoch)
+    ci, idxs = pool.block_batches(step_seed=10 ** 6)[0]
+    dyn = pool.gather_block(idxs)
+    going = copy.deepcopy(state)          # the run's state, one step on
+    _, ma, ua = make_train_step_block(rcfg, going.simulator)(
+        going, dyn, pool.statics[ci])
+    _, mb, ub = make_train_step_block(rcfg, fsim)(fresh, dyn,
+                                                  pool.statics[ci])
+    step_same = torch.equal(ma.loss, mb.loss) and torch.equal(ua, ub) and all(
+        torch.equal(a, b) for a, b in zip(going.simulator.parameters(),
+                                          fsim.parameters()))
+    del going, fresh, fsim
+    log(f"{name} resume: 2.state restored into a fresh state, parameters, "
+        f"Adam moments, normalizer and counters bit-equal: {same}; one more "
+        f"step from each on the same batch, loss {float(ma.loss):.7g} / "
+        f"{float(mb.loss):.7g}, the same bits: {step_same}")
+    if not same or not step_same:
+        raise RuntimeError(f"{name}: the restored state or its next step "
+                           f"differs")
+
+    # the per-epoch work outside the steps, each between two synchronizes
+    ci, idxs = pool.block_batches(step_seed=1)[0]
+    uvp = pool.gather_block(idxs).uvp
+    logger = type("L", (), {"log_scalars": lambda *a: None})()
+    t = dict(
+        payback_ms=timed_ms(lambda: pool.payback_block(idxs, uvp)),
+        reroll_ms=timed_ms(lambda: pool.reset_env_block()),
+        reroll_export_ms=timed_ms(
+            lambda: pool.reset_env_block(export_dir=tmp.name)),
+        inject_ms=timed_ms(pool.inject_wave_sources),
+        log_ms=timed_ms(lambda: loop._log_epoch(logger, 0, ma, 0.0)))
+    path = os.path.join(tmp.name, "timed.state")
+    t["checkpoint_ms"] = timed_ms(lambda: save_state(state, path))
+    t["checkpoint_bytes"] = os.path.getsize(path)
+    inner = [r["epoch_seconds"] for r in rows]
+    overhead = t["payback_ms"] * 2 + t["reroll_ms"] + t["inject_ms"] \
+        + t["log_ms"]
+    with_export = overhead - t["reroll_ms"] + t["reroll_export_ms"]
+    t["epoch_seconds"] = inner
+    t["inner_step_ms"] = [1e3 * s / steps * rcfg.n_epochs for s in inner]
+    # epochs 1 and 2 (epoch 0 has the first calls' set-up), their per-epoch
+    # work (with the export on reset) taken out
+    t["inner_step_ms_without_overhead"] = [
+        (1e3 * s - with_export) / steps * rcfg.n_epochs for s in inner[1:]]
+    t["overhead_ms"] = overhead
+    t["peak_mib"], t["held_before_mib"] = peak, base
+    t["phase_s"] = time.perf_counter() - t_phase
+    log(f"{name} timings (host clock): epoch seconds {inner} (each ends in "
+        f"the log's one transfer), so ms per inner step "
+        f"{[round(x, 3) for x in t['inner_step_ms']]}, without the "
+        f"per-epoch work (epochs 1, 2) "
+        f"{[round(x, 3) for x in t['inner_step_ms_without_overhead']]}, "
+        f"against the bare step's median {bare_ms:.2f}; per-epoch work: "
+        f"payback "
+        f"{t['payback_ms']:.3f} ms (x2 cases), re-roll {t['reroll_ms']:.3f} "
+        f"ms ({t['reroll_export_ms']:.3f} with the export), injection "
+        f"{t['inject_ms']:.3f} ms, log {t['log_ms']:.3f} ms: {overhead:.3f} "
+        f"ms an epoch without export and checkpoint; checkpoint save "
+        f"{t['checkpoint_ms']:.3f} ms, {t['checkpoint_bytes']} bytes; phase "
+        f"{t['phase_s']:.1f} s")
+    tmp.cleanup()
+    return state, pool, t
+
+
+def drive_solves(state, pool, per_step, fwd_per_step):
+    """Phase "solves", from the training run's final state on its
+    Navier-Stokes case: `solve_adam_block` at batch 1 (2 time steps x 20
+    inner steps; step 1's gradients held against the plain versions on the
+    card; launches 40 x a train step's plus the two final forwards); the
+    chunked form at batch 12, microbatch 8 (two chunks, four pad rows; 1 x
+    3) held against the same solve unchunked; `solve_lbfgs_block` at batch
+    1, memory 100, 1 time step x 5 iterations, its function evaluations per
+    iteration logged. Each loss must fall. Returns the timings."""
+    from gen_fvgn_tpu_torch.solve import lbfgs
+    from gen_fvgn_tpu_torch.solve.instance_opt import (solve_adam_block,
+                                                       solve_lbfgs_block)
+    t_phase = time.perf_counter()
+    cfg = pool.cfg
+    ns = [i for i, e in enumerate(pool.envs)
+          if e.theta_sample.source_frequency == 0]
+    ci = pool.envs[ns[0]].case_idx
+    static, norm, sim = pool.statics[ci], state.norm_state, state.simulator
+    dyn1 = pool.gather_block(np.asarray(ns[:1]))
+    t, held = {}, []          # device memory held as each solve starts
+
+    def run(name, fn, dyn, n_inner, n_chunks, **kw):
+        stamps = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held.append(torch.cuda.memory_allocated() / 2 ** 20)
+        zero_counts()
+        over = kw.pop("cfg", {})
+        stamps.append(time.perf_counter())
+        _, hist = fn(cfg.replace(**over), sim, norm, dyn, static,
+                     export_fn=lambda *a: stamps.append(time.perf_counter()),
+                     **kw)
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        ms = [1e3 * (b - a) / n_inner for a, b in zip(stamps, stamps[1:])]
+        for rec in hist:
+            v = rec["inner_losses"]
+            log(f"solve {name} time step {rec['step']}: inner losses "
+                f"{v[0]:.7g} -> {v[-1]:.7g} ({len(v)}); max|uvp| "
+                f"{np.abs(rec['uvp_node']).max():.4g}")
+            if not np.isfinite(v).all() or not v[-1] < v[0] \
+                    or not np.isfinite(rec["uvp_node"]).all():
+                raise RuntimeError(f"solve {name}: the loss did not fall or "
+                                   f"is not finite")
+        return hist, counts, ms, peak
+
+    # Adam at batch 1; first its step-1 gradients against the plain versions
+    hold_step1_grads("solve adam batch 1", cfg, sim, norm, dyn1, static,
+                     accumulate=False)
+    hist, counts, ms, peak = run("adam batch 1", solve_adam_block, dyn1, 20,
+                                 1, n_time_steps=2, inner_steps=20)
+    expected = {k: 40 * per_step.get(k, 0) + 2 * fwd_per_step.get(k, 0)
+                for k in counts}
+    log(f"solve adam batch 1: {ms[0]:.2f} / {ms[1]:.2f} ms an inner step "
+        f"(host clock, time steps 1 / 2, the final forward and host copies "
+        f"included); peak device memory {peak:.0f} MiB; launches {counts}")
+    if counts != expected:
+        raise RuntimeError(f"solve adam batch 1: launch counts {counts} != "
+                           f"expected {expected}")
+    t.update(adam_b1_ms=ms, adam_b1_peak_mib=peak,
+             launches_per_inner_step={k: (v - 2 * fwd_per_step.get(k, 0))
+                                      // 40 for k, v in counts.items()})
+
+    # batch 12 in chunks of 8 (four pad rows) against the unchunked solve
+    dyn12 = pool.gather_block(np.asarray([ns[i % len(ns)]
+                                          for i in range(12)]))
+    hc, counts, ms_c, peak_c = run("adam batch 12 chunked", solve_adam_block,
+                                   dyn12, 3, 2, n_time_steps=1,
+                                   inner_steps=3, cfg=dict(microbatch=8))
+    expected = {k: 6 * per_step.get(k, 0) + 2 * fwd_per_step.get(k, 0)
+                for k in counts}
+    hu, _, ms_u, peak_u = run("adam batch 12 unchunked", solve_adam_block,
+                              dyn12, 3, 1, n_time_steps=1, inner_steps=3,
+                              cfg=dict(microbatch=0))
+    loss_gap = float(np.abs(hc[0]["inner_losses"] - hu[0]["inner_losses"]).max()
+                     / np.abs(hu[0]["inner_losses"]).max())
+    uvp_gap = float(np.abs(hc[0]["uvp_node"] - hu[0]["uvp_node"]).max())
+    # set from this check's first reading on an H100 (losses 4.7e-6
+    # relative, states 6.7e-4 after 3 Adam steps of the bf16 net): about
+    # 10x the losses' gap, and two flipped bf16 roundings of a state of
+    # scale 1 (2^-8 each) plus the measured gap
+    loss_tol, uvp_tol = 5e-5, 1e-2
+    log(f"solve adam batch 12 chunked (microbatch 8) vs unchunked: inner "
+        f"losses relative gap {loss_gap:.3g} (tolerance {loss_tol}), "
+        f"uvp_node max gap {uvp_gap:.3g} (tolerance {uvp_tol}); "
+        f"{ms_c[0]:.2f} / {ms_u[0]:.2f} ms an inner step; peak device "
+        f"memory {peak_c:.0f} / {peak_u:.0f} MiB; chunked launches {counts}")
+    if counts != expected or not loss_gap <= loss_tol \
+            or not uvp_gap <= uvp_tol:
+        raise RuntimeError(f"solve adam batch 12: chunked launches {counts} "
+                           f"(expected {expected}) or chunked vs unchunked "
+                           f"outside the tolerance")
+    t.update(adam_b12_chunked_ms=ms_c[0], adam_b12_unchunked_ms=ms_u[0],
+             adam_b12_chunked_peak_mib=peak_c,
+             adam_b12_unchunked_peak_mib=peak_u,
+             chunked_loss_gap=loss_gap, chunked_uvp_gap=uvp_gap)
+
+    # L-BFGS at batch 1, memory 100
+    evals = []
+    step = lbfgs.LBFGS.step
+
+    def counted(opt, f):
+        v = step(opt, f)
+        evals.append(opt.evaluations)
+        return v
+    lbfgs.LBFGS.step = counted
+    try:
+        hist, counts, ms, peak = run("lbfgs batch 1", solve_lbfgs_block, dyn1,
+                                     5, 1, n_time_steps=1, max_iter=5,
+                                     memory_size=100)
+    finally:
+        lbfgs.LBFGS.step = step
+    expected = {k: sum(evals) * per_step.get(k, 0) + fwd_per_step.get(k, 0)
+                for k in counts}
+    log(f"solve lbfgs batch 1 (memory 100): {ms[0]:.2f} ms an iteration; "
+        f"function evaluations per iteration {evals}; peak device memory "
+        f"{peak:.0f} MiB; launches {counts}")
+    if counts != expected:
+        raise RuntimeError(f"solve lbfgs: launch counts {counts} != "
+                           f"{expected}")
+    t.update(lbfgs_ms=ms[0], lbfgs_evaluations=evals, lbfgs_peak_mib=peak,
+             held_before_mib=held, phase_s=time.perf_counter() - t_phase)
+    log(f"solves: phase {t['phase_s']:.1f} s; device memory held as each "
+        f"solve started {[round(h) for h in held]} MiB")
+    return t
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1339,8 +1715,8 @@ def main():
                     fused_premlp_res=2, fused_slice_pool=2,
                     fused_mlp_ln_bwd=14, fused_mlp_noln_bwd=1,
                     fused_premlp_res_bwd=2, fused_slice_pool_bwd=2)
-    counts, _, _ = drive_training(cfg, pool, static, TRAIN_STEPS, per_step,
-                                  n_real)
+    counts, bare_ms, _ = drive_training(cfg, pool, static, TRAIN_STEPS,
+                                        per_step, n_real)
 
     # ---- phase 7: the paired path, TransFVGN_v2 with the EdgeBlocks'
     # gather pair and the NodeBlocks' node pair (K8 forward, K9 backward),
@@ -1375,7 +1751,16 @@ def main():
     drive_hidden256(cfg, pool, static, norm_state, n_real, "TransFVGN_v2",
                     tv, per_step)
 
-    # ---- phase 9: the kernels line (launches: the main path's run; the
+    # ---- phase 9: the training run around the step: train() over 3
+    # epochs with re-rolls, wave sources, checkpoints, then a resume ----
+    run_state, run_pool, run_t = drive_training_run(
+        cfg, per_step, float(np.median(bare_ms)))
+
+    # ---- phase 10: the solves from the run's final state ----
+    solve_t = drive_solves(run_state, run_pool, per_step, tv)
+    log(json.dumps({"training_run": run_t, "solves": solve_t}))
+
+    # ---- phase 11: the kernels line (launches: the main path's run; the
     # pair kernels', which the main path does not run: the paired path's) --
     big = {r["op"]: r for r in spmm_rows}["nbr_r"]
     edge = {h: [r for r in rows if r["variant"].startswith("edge_mlp")][0]
@@ -1390,6 +1775,8 @@ def main():
                     replaces=f"gen_fvgn_tpu/ops/{replaces}",
                     launches=run[0][name],
                     launches_per_train_step=run[1][name],
+                    launches_per_solve_inner_step=solve_t[
+                        "launches_per_inner_step"][name],
                     max_abs_err=row["max_abs_err"], **pick(row),
                     library_ms=library_ms, measured_on=measured_on,
                     **({"err_over_tolerance": row["err_over_tolerance"]}

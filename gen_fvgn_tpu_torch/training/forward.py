@@ -1,9 +1,10 @@
 """Shared pieces of the forward pass.
 
 Counterpart of `gen_fvgn_tpu/training/forward.py`, cut to what the block
-engine's rollout and training use: `ForwardOutputs`, the hard Dirichlet
-overwrite and `training_loss`. The segment-engine `forward_batch` and the
-weighted loss of the mixed-case step belong to later slices.
+engine's rollout, training and solves use: `ForwardOutputs`, the hard
+Dirichlet overwrite, `training_loss` and its per-sample-weighted form
+`training_loss_weighted` (the chunked solves). The segment-engine
+`forward_batch` belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -44,13 +45,28 @@ def enforce_boundary_conditions(uvp: torch.Tensor, node_type: torch.Tensor,
     return torch.cat([uv, p], dim=-1)
 
 
-def training_loss(outputs: ForwardOutputs, cfg: Config) -> torch.Tensor:
-    """mean(log(w_p·press + w_c·cont + w_m·(mom_x + mom_y))) over the batch,
-    each sample's weighted residual floored at `cfg.loss_log_floor` (at
-    least 1e-30) inside the log."""
+def _log_loss(outputs: ForwardOutputs, cfg: Config) -> torch.Tensor:
+    """log(w_p·press + w_c·cont + w_m·(mom_x + mom_y)) per sample, each
+    sample's weighted residual floored at `cfg.loss_log_floor` (at least
+    1e-30) inside the log."""
     loss_batch = (cfg.loss_press * outputs.loss_press
                   + cfg.loss_cont * outputs.loss_cont
                   + cfg.loss_mom * outputs.loss_mom_x
                   + cfg.loss_mom * outputs.loss_mom_y)
     floor = max(cfg.loss_log_floor, 1e-30)
-    return torch.log(torch.clamp(loss_batch, min=floor)).mean()
+    return torch.log(torch.clamp(loss_batch, min=floor))
+
+
+def training_loss(outputs: ForwardOutputs, cfg: Config) -> torch.Tensor:
+    """The per-sample log loss (`_log_loss`) averaged over the batch."""
+    return _log_loss(outputs, cfg).mean()
+
+
+def training_loss_weighted(outputs: ForwardOutputs, cfg: Config,
+                           weights: torch.Tensor) -> torch.Tensor:
+    """Σ_b w_b · log(loss_b), the per-sample-weighted form of
+    `training_loss`: with w_b = 1/B on real rows and 0 on padded rows, its
+    sum over a batch's chunks is the batch-mean log loss over the real
+    rows."""
+    logp = _log_loss(outputs, cfg)
+    return torch.sum(weights.reshape(logp.shape) * logp)

@@ -5,15 +5,25 @@ Counterpart of `gen_fvgn_tpu/training/pool.py`, cut to `engine="block"`
 with in-memory `cases=[...]`: environments hold an autoregressive uvp state;
 every environment is a padded `MeshSample`, so a batch is a stack and
 boundary-condition re-rolls change only values, never shapes. Stencils and
-WLSQ moments are computed once per mesh.
+WLSQ moments are computed once per mesh. The oldest environment is
+re-rolled to a fresh boundary condition (`reset_env_block`, with the
+retiring solution exported to Tecplot where asked), and the wave family's
+point pressure source is added to its environments' p channel once an
+epoch (`inject_wave_sources`).
 
-Waiting for later slices: `load_case` from a directory, the
-oldest-environment re-roll and the wave sources.
+Host-to-device copies inside a training epoch (batch indices, re-rolled
+values, wave signals) go through pinned memory without blocking, so they
+do not wait for the device.
+
+Waiting for a later slice: `load_case` from a directory (the mesh
+readers).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import warnings
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
@@ -21,12 +31,17 @@ import numpy as np
 import torch
 
 from gen_fvgn_tpu_torch.config import Config
-from gen_fvgn_tpu_torch.graph.physics import init_environment, theta_vector
+from gen_fvgn_tpu_torch.graph.physics import (init_environment,
+                                             pressure_point_source,
+                                             theta_vector)
 from gen_fvgn_tpu_torch.graph.sample import (MeshSample, PadSizes,
                                              pad_mesh_to_sample)
 from gen_fvgn_tpu_torch.meshes.bc import ThetaSample
 from gen_fvgn_tpu_torch.meshes.geometry import build_stencil, compile_mesh
 from gen_fvgn_tpu_torch.utils.device import resolve_device
+
+# what a boundary-condition re-roll changes (the geometry is static)
+_REROLL_FIELDS = ("uvp", "target_uv", "theta", "sigma", "uvp_dim", "dt")
 
 
 def prepare_mesh_statics(mesh: Dict[str, np.ndarray], order: str,
@@ -122,6 +137,7 @@ class EnvPool:
             ci = i % len(self.cases)
             self.envs.append(self._make_env(self.cases[ci], ci))
             i += 1
+        self._age_order = list(range(len(self.envs)))   # oldest first
         self._init_block_pool()
 
     # ---- per-case StaticPacks + device dynamic pool ----
@@ -169,10 +185,17 @@ class EnvPool:
         rng.shuffle(out)
         return out
 
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the pool's device: to a card through pinned
+        memory, without waiting for the device."""
+        t = torch.from_numpy(np.asarray(a, order="C"))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _local(self, idxs: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(
-            [self._env_local[int(i)] for i in idxs], dtype=torch.int64,
-            device=self.device)
+        return self._put(np.asarray([self._env_local[int(i)] for i in idxs],
+                                    np.int64))
 
     def gather_block(self, idxs: np.ndarray):
         """The stacked DynamicPack [B, ...] of environments `idxs` (all of
@@ -195,6 +218,88 @@ class EnvPool:
                              uvp_new.detach().to(pool.uvp.dtype))
         for i in idxs:
             self.envs[int(i)].age += 1
+
+    def reset_env_block(self, export_dir: Optional[str] = None) -> None:
+        """Re-roll the boundary condition of the oldest environment (values
+        only: uvp, target_uv, theta, sigma, uvp_dim and dt of its slot in
+        the device pool, written in place). The new condition is drawn from
+        `self.rng` as the JAX pool draws it. With `export_dir` set, the
+        retiring solution is exported first (a failing export warns)."""
+        if export_dir is not None:
+            self._try_export(self._age_order[0], export_dir)
+        pos = self._age_order.pop(0)
+        new_env = self._make_env(self.envs[pos].case, self.envs[pos].case_idx)
+        self.envs[pos] = new_env
+        self._age_order.append(pos)
+        from gen_fvgn_tpu_torch.graph.packs import dynamic_from_sample
+        dyn = dynamic_from_sample(new_env.sample)
+        pool = self._dyn_pools[new_env.case_idx]
+        for f in _REROLL_FIELDS:
+            getattr(pool, f)[self._env_local[pos]].copy_(
+                self._put(getattr(dyn, f).numpy()))
+
+    def has_wave_envs(self) -> bool:
+        return any(e.theta_sample.source_frequency != 0 for e in self.envs)
+
+    def inject_wave_sources(self) -> None:
+        """Add each wave environment's Gaussian point pressure source, at
+        time index age + 1, to its p channel in the device pool: the
+        signals are computed on the host, and each case pool takes one
+        in-place add for all of its wave environments. No-op for the other
+        families."""
+        groups: Dict[int, list] = {}
+        for i, env in enumerate(self.envs):
+            ts = env.theta_sample
+            if ts.source_frequency == 0:
+                continue
+            pos = env.case["mesh"]["node|pos"].astype(np.float32)
+            signal = pressure_point_source(
+                pos, pos.mean(axis=0), ts.source_frequency,
+                ts.source_strength, ts.dt, env.age + 1
+            ).reshape(-1).astype(np.float32)
+            groups.setdefault(env.case_idx, []).append(
+                (self._env_local[i], signal))
+        for ci, items in groups.items():
+            pool = self._dyn_pools[ci]
+            sigs = np.zeros((len(items), pool.uvp.shape[1]), np.float32)
+            for row, (_, signal) in enumerate(items):
+                sigs[row, : signal.shape[0]] = signal
+            local = np.asarray([loc for loc, _ in items], np.int64)
+            pool.uvp[:, :, 2].index_add_(0, self._put(local),
+                                         self._put(sigs))
+
+    def host_uvp(self, idx: int) -> np.ndarray:
+        """One environment's current state [Np, 3], on the host."""
+        ci = self.envs[idx].case_idx
+        return self._dyn_pools[ci].uvp[self._env_local[idx]].cpu().numpy()
+
+    def _try_export(self, pos: int, export_dir: str) -> None:
+        """Export on reset: a failing export (full disk, a mixed mesh)
+        must not stop training, but it warns."""
+        try:
+            self.export_env(pos, export_dir, tag="_reset")
+        except Exception as exc:                      # noqa: BLE001
+            env = self.envs[pos]
+            warnings.warn(
+                f"export-on-reset failed for case "
+                f"{env.case.get('case_name', '?')} (env {pos}, "
+                f"dir {export_dir!r}): {type(exc).__name__}: {exc}")
+
+    def export_env(self, pos: int, out_dir: str, tag: str = "") -> str:
+        """Write environment `pos`'s current solution as a Tecplot zone
+        `<case name><tag>_age<age>.dat` in `out_dir`; returns the path."""
+        from gen_fvgn_tpu_torch.io.tecplot import write_tecplot_zone
+        env = self.envs[pos]
+        mesh = env.case["mesh"]
+        n = mesh["node|pos"].shape[0]
+        uvp = self.host_uvp(pos)[:n]
+        path = os.path.join(
+            out_dir, f"{env.case['case_name']}{tag}_age{env.age}.dat")
+        write_tecplot_zone(
+            path, mesh["node|pos"], mesh["cells_node"], mesh["cells_index"],
+            {"U": uvp[:, 0], "V": uvp[:, 1], "P": uvp[:, 2]},
+            zone_title=env.case["case_name"], solution_time=float(env.age))
+        return path
 
     # ---- environment construction ----
 

@@ -53,7 +53,11 @@ def test_importing_the_port_loads_no_jax_module():
             "gen_fvgn_tpu_torch.ops.fused_slice_attn",
             "gen_fvgn_tpu_torch.ops.pair_spmm",
             "gen_fvgn_tpu_torch.training.train",
-            "gen_fvgn_tpu_torch.training.train_block"} <= set(mods)
+            "gen_fvgn_tpu_torch.training.train_block",
+            "gen_fvgn_tpu_torch.training.loop",
+            "gen_fvgn_tpu_torch.io.checkpoint",
+            "gen_fvgn_tpu_torch.solve.lbfgs",
+            "gen_fvgn_tpu_torch.solve.instance_opt"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -72,7 +76,7 @@ def _small_case():
                           grad_p=1, mu=0.05, sigma=(1, 1, 1))
 
 
-def _entry_points():
+def _entry_points(tmp_path):
     from gen_fvgn_tpu_torch.config import Config
     from gen_fvgn_tpu_torch.convert import normalizer_from_numpy
     from gen_fvgn_tpu_torch.graph.packs import build_static_pack
@@ -89,7 +93,23 @@ def _entry_points():
                                  **kw)
     from gen_fvgn_tpu_torch.training.train_block import (
         init_train_state_block, make_train_step_block)
+    from gen_fvgn_tpu_torch.solve.instance_opt import (solve_adam_block,
+                                                       solve_lbfgs_block)
+    from gen_fvgn_tpu_torch.training.loop import train
+
+    def solve(fn, **kw):
+        pool = EnvPool([], cfg, cases=[_small_case()], device="cpu")
+        sim = make_simulator_block(cfg, device="cpu")
+        return fn(cfg, sim, init_normalizer(9, device="cpu"),
+                  pool.gather_block(np.arange(1)), pool.statics[0], 1, 1,
+                  **kw)
     return {
+        "train": lambda **kw: train(
+            cfg.replace(engine="block", max_inner_steps=1),
+            cases=[_small_case()], log_base_dir=str(tmp_path), n_epochs=1,
+            **kw),
+        "solve_adam_block": lambda **kw: solve(solve_adam_block, **kw),
+        "solve_lbfgs_block": lambda **kw: solve(solve_lbfgs_block, **kw),
         "EnvPool": lambda **kw: EnvPool([], cfg, cases=[_small_case()], **kw),
         "init_train_state_block": lambda **kw: init_train_state_block(
             cfg, **kw),
@@ -107,11 +127,13 @@ def _entry_points():
                                   "init_normalizer", "build_static_pack",
                                   "normalizer_from_numpy",
                                   "init_train_state_block",
-                                  "make_train_step_block"])
-def test_entry_point_defaults_to_cuda_and_raises_without_a_card(name):
+                                  "make_train_step_block", "train",
+                                  "solve_adam_block", "solve_lbfgs_block"])
+def test_entry_point_defaults_to_cuda_and_raises_without_a_card(name,
+                                                                tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this test is about a machine without a card")
-    fn = _entry_points()[name]
+    fn = _entry_points(tmp_path)[name]
     with pytest.raises(RuntimeError, match="cuda"):
         fn()                                    # the default device
     with pytest.raises(RuntimeError, match="cuda"):
