@@ -12,7 +12,7 @@ K5-K7 also at the shapes the JAX package fuses beyond the nets', C 768,
 1024, 1152 and 2048, (C, H, G) = (128, 16, 8), (512, 4, 128), (384, 6,
 64), (1152, 8, 32), (2048, 16, 8), at batch 2, and one TransolverBlock at
 hidden 1152 forward and backward against its plain versions; the paired
-sparse applies K8 and K9 at the paired path's), then drives eight paths
+sparse applies K8 and K9 at the paired path's), then drives nine paths
 on the 101x101-node synthetic cavity at batch 8, with weights from
 torch.Generator().manual_seed(0), all with the Config's defaults
 (TransFVGN_v2: hidden 128, 2 processors of 3 message-passing blocks and a
@@ -71,7 +71,20 @@ Transolver block each, 8 heads, 32 slices, bf16 stream) unless named:
     against the same solve unchunked, and `solve_lbfgs_block` at batch 1,
     memory 100, 5 iterations (launches a train step's per function
     evaluation plus one forward; the evaluations per iteration logged).
-    Each loss must fall.
+    Each loss must fall;
+  * the CLIs, as a user starts the port: two COMSOL case directories of
+    10,201 nodes written by `tools/case_files.py` (the main path's
+    lid-driven quad cavity; a triangle cavity of 20,000 cells with an
+    inflow, an outflow and other coefficients), `load_case` timed on each,
+    `scripts.pre_train.main` at the Config defaults (batch 8, 16
+    environments, 2 epochs of 2 inner steps) with per-case and with
+    mixed-case batches (finite losses, the loss monitor, checkpoint slots
+    0 and 1, launches the train steps' or the mixed steps' groups' x the
+    main path's per step), the summed gradients of one mixed step of two
+    groups held against the plain versions on the card, and
+    `scripts.solve.main --engine block` from the mixed run's checkpoint in
+    the modes rollout, adam and lbfgs, 2 time steps of 2 inner steps
+    (exports and launches checked).
 
 Each path's launch counters are set to 0 just before it and read just
 after; the script checks them, finite outputs, zero padded nodes, a state
@@ -1057,11 +1070,18 @@ def hold_step1_grads(name, cfg, sim, norm_state, dyn, static,
     """Step 1's gradients with the kernels against those with the plain
     versions on the card, on the same batch; raises outside the limits.
     Returns (loss, gradients) with the kernels."""
-    loss_k, g_k = step1_grads(cfg, sim, norm_state, dyn, static, False,
-                              accumulate)
+    return hold_grads(name, sim, lambda plain: step1_grads(
+        cfg, sim, norm_state, dyn, static, plain, accumulate))
+
+
+def hold_grads(name, sim, grads_of):
+    """The gradients of `sim`'s parameters that grads_of(plain) returns
+    with (loss, gradients), with the kernels (plain=False) against those
+    with their plain versions on the card; raises outside the limits.
+    Returns (loss, gradients) with the kernels."""
+    loss_k, g_k = grads_of(False)
     counts = launch_counts()
-    loss_p, g_p = step1_grads(cfg, sim, norm_state, dyn, static, True,
-                              accumulate)
+    loss_p, g_p = grads_of(True)
     if launch_counts() != counts:
         raise RuntimeError(f"{name}: the plain versions' pass launched a "
                            f"kernel")
@@ -1611,6 +1631,294 @@ def drive_solves(state, pool, per_step, fwd_per_step):
     return t
 
 
+
+class CliSpy:
+    """While active, records what the CLIs do: the EnvPools they make, the
+    train steps and mixed-step groups and batches they run, the seconds of
+    each `load_case`, and a host-clock stamp at the start of each solve and
+    after each time step's export."""
+
+    def __init__(self):
+        from gen_fvgn_tpu_torch.io import tecplot
+        from gen_fvgn_tpu_torch.solve import instance_opt, lbfgs, rollout_block
+        from gen_fvgn_tpu_torch.training import loop, pool
+        from gen_fvgn_tpu_torch.training.train_block import \
+            MixedTrainStepBlock
+        self.mods = dict(tecplot=tecplot, loop=loop, pool=pool,
+                         mixed=MixedTrainStepBlock, lbfgs=lbfgs.LBFGS,
+                         instance_opt=instance_opt, rollout=rollout_block)
+        self.reset()
+
+    def reset(self):
+        self.pools, self.steps, self.groups, self.batches = [], 0, 0, 0
+        self.stamps, self.evaluations = [], []
+
+    def __enter__(self):
+        m, spy = self.mods, self
+        self.saved = [
+            (m["pool"].EnvPool, "__init__"), (m["loop"], "make_train_step_block"),
+            (m["mixed"], "group_grads"), (m["mixed"], "run_batch"),
+            (m["tecplot"], "write_tecplot_zone"), (m["lbfgs"], "step"),
+            (m["rollout"], "rollout_block"),
+            (m["instance_opt"], "solve_adam_block"),
+            (m["instance_opt"], "solve_lbfgs_block")]
+        self.saved = [(obj, name, getattr(obj, name))
+                      for obj, name in self.saved]
+        orig = {name: fn for _, name, fn in self.saved}
+
+        def init(pool, *a, **k):
+            orig["__init__"](pool, *a, **k)
+            spy.pools.append(pool)
+
+        def make_step(*a, **k):
+            step = orig["make_train_step_block"](*a, **k)
+
+            def counted(*sa, **sk):
+                spy.steps += 1
+                return step(*sa, **sk)
+            return counted
+
+        def group_grads(mixed, *a, **k):
+            spy.groups += 1
+            return orig["group_grads"](mixed, *a, **k)
+
+        def run_batch(mixed, *a, **k):
+            spy.batches += 1
+            return orig["run_batch"](mixed, *a, **k)
+
+        def write(*a, **k):
+            orig["write_tecplot_zone"](*a, **k)
+            spy.stamps.append(time.perf_counter())
+
+        def lbfgs_step(opt, f):
+            v = orig["step"](opt, f)
+            spy.evaluations.append(opt.evaluations)
+            return v
+
+        def timed(fn):
+            def run(*a, **k):
+                spy.stamps.append(time.perf_counter())
+                return fn(*a, **k)
+            return run
+        m["pool"].EnvPool.__init__ = init
+        m["loop"].make_train_step_block = make_step
+        m["mixed"].group_grads, m["mixed"].run_batch = group_grads, run_batch
+        m["tecplot"].write_tecplot_zone = write
+        m["lbfgs"].step = lbfgs_step
+        m["rollout"].rollout_block = timed(orig["rollout_block"])
+        for f in ("solve_adam_block", "solve_lbfgs_block"):
+            setattr(m["instance_opt"], f, timed(orig[f]))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self.saved:
+            setattr(obj, name, fn)
+
+
+def mixed_step_grads(cfg, sim, pool, batch, plain):
+    """(weighted loss, summed gradients) of one `MixedTrainStepBlock` step
+    on `batch` from a fresh normalizer, with the kernels or with their
+    plain versions."""
+    import contextlib
+
+    from gen_fvgn_tpu_torch.ops import plain_versions
+    from gen_fvgn_tpu_torch.training.normalizer import init_normalizer
+    from gen_fvgn_tpu_torch.training.train_block import MixedTrainStepBlock
+    from gen_fvgn_tpu_torch.utils.device import to_device
+    mixed = MixedTrainStepBlock(cfg, sim)
+    weights = [to_device(w, torch.device("cuda")) for _, _, w, _ in batch]
+    with plain_versions() if plain else contextlib.nullcontext():
+        sums = mixed.init_sums()
+        for (ci, idxs, _, _), w in zip(batch, weights):
+            sums = mixed.group_stats(sums, pool.gather_block(idxs),
+                                     pool.statics[ci], w)
+        norm = mixed.norm_update(init_normalizer(
+            cfg.node_input_size - cfg.node_phi_size), sums)
+        acc = mixed.init_acc()
+        for (ci, idxs, _, _), w in zip(batch, weights):
+            acc, _ = mixed.group_grads(norm, acc, pool.gather_block(idxs),
+                                       pool.statics[ci], w)
+    return float(acc["loss"]), acc["gsum"]
+
+
+def drive_cli(card, per_step, fwd_per_step):
+    """Phase "CLI": the user's entry points on case directories on disk.
+    Writes two COMSOL cases of 10,201 nodes with `tools/case_files.py` (the
+    main path's lid-driven quad cavity, and a triangle cavity of 20,000
+    cells with an inflow, an outflow and other coefficients), times
+    `load_case` on each, then runs `scripts.pre_train.main` at the Config
+    defaults (TransFVGN_v2, hidden 128, bf16, batch 8, 16 environments)
+    for 2 epochs of 2 inner steps with per-case batches and again with
+    mixed-case batches, each checked for finite losses, its loss monitor,
+    its checkpoint slots and its launches (the train steps, or the mixed
+    steps' groups, x the main path's per-step counts); holds the summed
+    gradients of a mixed step of two groups against the plain versions;
+    and runs `scripts.solve.main --engine block` from the mixed run's
+    checkpoint in the three modes, 2 time steps of 2 inner steps, each
+    checked for its exports and launches. Returns the timings."""
+    import glob
+    import os
+    import tempfile
+
+    from gen_fvgn_tpu_torch.meshes.synthetic import synthetic_bc
+    from gen_fvgn_tpu_torch.scripts import pre_train, solve
+    from gen_fvgn_tpu_torch.tools.case_files import write_cavity_case
+    from gen_fvgn_tpu_torch.training.pool import load_case
+    from gen_fvgn_tpu_torch.training.train_block import init_train_state_block
+    t_phase = time.perf_counter()
+    name = "CLI"
+    tmp = tempfile.TemporaryDirectory()
+    data = os.path.join(tmp.name, "data")
+    channel = synthetic_bc(continuity=1, convection=1, grad_p=1, mu=0.02,
+                           sigma=(1, 1, 1))
+    channel["theta_PDE"]["inlet"] = [0.5, 0.5, 1.0]
+    dirs = [write_cavity_case(os.path.join(data, "cavity_quad"), n=MESH_N),
+            write_cavity_case(os.path.join(data, "channel_tri"), n=MESH_N,
+                              kind="tri", boundary="channel", bc=channel)]
+    t = {"load_case_s": {}}
+    for d in dirs:
+        t0 = time.perf_counter()
+        case = load_case(d)
+        t["load_case_s"][os.path.basename(d)] = time.perf_counter() - t0
+        mesh = case["mesh"]
+        log(f"{name} load_case {os.path.basename(d)}: "
+            f"{t['load_case_s'][os.path.basename(d)]:.3f} s; nodes "
+            f"{mesh['node|pos'].shape[0]}, cells "
+            f"{mesh['cell|centroid'].shape[0]}, faces "
+            f"{mesh['face|face_node'].shape[1]}")
+    torch.cuda.synchronize()
+    t["held_before_mib"] = torch.cuda.memory_allocated() / 2 ** 20
+    t["peak_mib"] = {}
+
+    def start_peak():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def read_peak(key):
+        torch.cuda.synchronize()
+        t["peak_mib"][key] = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    spy = CliSpy()
+    runs = {}
+    with spy:
+        for mode, mixed in (("stratified", "0"), ("mixed", "1")):
+            spy.reset()
+            pool = None               # the last run's statics go
+            log_dir = os.path.join(tmp.name, f"runs_{mode}")
+            start_peak()
+            zero_counts()
+            t0 = time.perf_counter()
+            pre_train.main(["--dataset-dir", data, "--log-dir", log_dir,
+                            "--epochs", "2", "--max-inner-steps", "2",
+                            "--dataset-size", "16",
+                            "--mixed-case-batches", mixed])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            counts = launch_counts()
+            read_peak(f"pre_train {mode}")
+            run_dir, = glob.glob(os.path.join(log_dir, "*", "*"))
+            lines = open(os.path.join(run_dir, "Loss_monitor.dat")) \
+                .read().splitlines()
+            cols = lines[0].split("=")[1].replace('"', "").split(",")
+            rows = [dict(zip(cols, map(float, ln.split(","))))
+                    for ln in lines[1:]]
+            slots = sorted(os.listdir(os.path.join(run_dir, "states")))
+            n = spy.groups if mixed == "1" else spy.steps
+            expected = {k: per_step.get(k, 0) * n for k in counts}
+            inner_ms = 1e3 * rows[-1]["epoch_seconds"] / 2
+            runs[mode] = dict(seconds=run_s, inner_step_ms=inner_ms,
+                              steps=spy.steps, batches=spy.batches,
+                              groups=spy.groups, launches=counts,
+                              losses=[r["loss"] for r in rows],
+                              run_dir=run_dir)
+            pool = spy.pools[-1]      # the mixed run's is kept, below
+            for r in rows:
+                log(f"{name} pre_train {mode} epoch {int(r['step'])}: "
+                    f"loss={r['loss']:.6g} loss_cont={r['loss_cont']:.6g} "
+                    f"loss_mom={r['loss_mom']:.6g} "
+                    f"grad_norm={r['grad_norm']:.6g} "
+                    f"epoch_seconds={r['epoch_seconds']:.4f}")
+            log(f"{name} pre_train {mode}: {run_s:.2f} s (host clock, "
+                f"reading both cases and their statics included); "
+                f"{inner_ms:.2f} ms an inner step (epoch 1); train steps "
+                f"{spy.steps}, mixed batches {spy.batches}, groups "
+                f"{spy.groups}; checkpoint slots {slots}; peak device "
+                f"memory {t['peak_mib'][f'pre_train {mode}']:.0f} MiB; "
+                f"launches {counts}")
+            if len(rows) != 2 or not all(np.isfinite(
+                    [r["loss"], r["loss_cont"], r["loss_mom"],
+                     r["grad_norm"]]).all() for r in rows) \
+                    or slots != ["0.state", "1.state"] or n == 0 \
+                    or (mixed == "0" and spy.batches) \
+                    or (mixed == "1" and spy.steps):
+                raise RuntimeError(f"{name} pre_train {mode}: a check failed "
+                                   f"(rows {len(rows)}, slots {slots}, steps "
+                                   f"{spy.steps}, groups {spy.groups})")
+            if counts != expected:
+                raise RuntimeError(f"{name} pre_train {mode}: launch counts "
+                                   f"{counts} != expected {expected}")
+        mix = runs["mixed"]
+        t.update(inner_step_ms={m: r["inner_step_ms"]
+                                for m, r in runs.items()},
+                 train_s={m: r["seconds"] for m, r in runs.items()},
+                 groups_per_mixed_batch=mix["groups"] / mix["batches"],
+                 launches={m: r["launches"] for m, r in runs.items()})
+
+        # the summed gradients of one mixed step of two groups, kernels
+        # against plain versions, from the runs' initial weights
+        batch = next(b for s in range(1, 50)
+                     for b in pool.mixed_block_batches(step_seed=s)
+                     if len(b) == 2)
+        _, sim = init_train_state_block(pool.cfg, seed=0)
+        log(f"{name} mixed step: groups (case, rows, real rows) "
+            f"{[(ci, len(ix), g) for ci, ix, _, g in batch]}")
+        hold_grads(f"{name} mixed", sim,
+                   lambda plain: mixed_step_grads(pool.cfg, sim, pool, batch,
+                                                  plain))
+        del sim, pool
+
+        # serving: solve from the mixed run's last checkpoint
+        state = os.path.join(mix["run_dir"], "states", "1.state")
+        t["checkpoint_bytes"] = os.path.getsize(state)
+        t["solve_ms_per_time_step"] = {}
+        for mode in ("rollout", "adam", "lbfgs"):
+            spy.reset()
+            out = os.path.join(tmp.name, f"solve_{mode}")
+            start_peak()
+            zero_counts()
+            solve.main(["--case", dirs[0], "--engine", "block",
+                        "--checkpoint", state, "--mode", mode, "--steps", "2",
+                        "--inner-steps", "2", "--out-dir", out])
+            counts = launch_counts()
+            read_peak(f"solve {mode}")
+            files = sorted(os.listdir(out))
+            ms = [1e3 * (b - a) for a, b in zip(spy.stamps, spy.stamps[1:])]
+            t["solve_ms_per_time_step"][mode] = ms
+            n_train = {"rollout": 0, "adam": 4,
+                       "lbfgs": sum(spy.evaluations)}[mode]
+            expected = {k: n_train * per_step.get(k, 0)
+                        + 2 * fwd_per_step.get(k, 0) for k in counts}
+            log(f"{name} solve {mode}: {[round(x, 2) for x in ms]} ms a time "
+                f"step (host clock, the export of the time step's Tecplot "
+                f"file included; adam and lbfgs: 2 inner steps); exports "
+                f"{files}; L-BFGS evaluations {spy.evaluations}; launches "
+                f"{counts}")
+            if files != ["step_00000.dat", "step_00001.dat"] \
+                    or counts != expected:
+                raise RuntimeError(f"{name} solve {mode}: exports {files}, "
+                                   f"launches {counts} (expected {expected})")
+    t["phase_s"] = time.perf_counter() - t_phase
+    log(f"{name}: load_case {t['load_case_s']} s; ms an inner step "
+        f"{t['inner_step_ms']}; groups per mixed batch "
+        f"{t['groups_per_mixed_batch']}; solve ms a time step "
+        f"{t['solve_ms_per_time_step']}; checkpoint {t['checkpoint_bytes']} "
+        f"bytes; peak device memory {t['peak_mib']} MiB "
+        f"({t['held_before_mib']:.0f} held before the phase); phase "
+        f"{t['phase_s']:.1f} s; card: {card}")
+    tmp.cleanup()
+    return t
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1758,9 +2066,13 @@ def main():
 
     # ---- phase 10: the solves from the run's final state ----
     solve_t = drive_solves(run_state, run_pool, per_step, tv)
-    log(json.dumps({"training_run": run_t, "solves": solve_t}))
+    del run_state, run_pool
 
-    # ---- phase 11: the kernels line (launches: the main path's run; the
+    # ---- phase 11: the CLIs on case directories on disk ----
+    cli_t = drive_cli(card, per_step, tv)
+    log(json.dumps({"training_run": run_t, "solves": solve_t, "cli": cli_t}))
+
+    # ---- phase 12: the kernels line (launches: the main path's run; the
     # pair kernels', which the main path does not run: the paired path's) --
     big = {r["op"]: r for r in spmm_rows}["nbr_r"]
     edge = {h: [r for r in rows if r["variant"].startswith("edge_mlp")][0]

@@ -158,7 +158,8 @@ def build_mesh_operators(mesh: Dict[str, np.ndarray], order: str,
 
     if edge_gather != "take":
         raise NotImplementedError(
-            f"edge_gather={edge_gather!r}: only 'take' is ported")
+            f"edge_gather={edge_gather!r}: only 'take' is ported; "
+            f"'composed' belongs to a later slice of the port")
 
     pos = mesh["node|pos"].astype(np.float64)
     face_node = mesh["face|face_node"].astype(np.int64)

@@ -81,13 +81,11 @@ def cavity_tri_mesh(n: int = 8, lid: str = "top") -> Dict[str, np.ndarray]:
     return compile_mesh(mesh)
 
 
-def synthetic_case(mesh: Dict[str, np.ndarray], unsteady=0, continuity=0,
-                   convection=0, grad_p=0, mu=0.1, source=1.0, u=1.0,
-                   sigma=(1.0, 0.0, 0.0), dt=0.1, name="synthetic") -> Dict:
-    """Wrap a compiled mesh into the case dict the EnvPool consumes, with a
-    single-combination BC (Poisson defaults)."""
-    from gen_fvgn_tpu_torch.meshes.bc import generate_theta_combinations
-    bc = {
+def synthetic_bc(unsteady=0, continuity=0, convection=0, grad_p=0, mu=0.1,
+                 source=1.0, u=1.0, sigma=(1.0, 0.0, 0.0), dt=0.1) -> Dict:
+    """The physics part of a BC.json with a single coefficient combination
+    (Poisson defaults)."""
+    return {
         "theta_PDE": {
             "unsteady": unsteady, "continuity": continuity,
             "convection": convection, "grad_p": grad_p,
@@ -100,6 +98,16 @@ def synthetic_case(mesh: Dict[str, np.ndarray], unsteady=0, continuity=0,
         "init_field_type": "uniform",
         "stencil|khops": 2,
     }
+
+
+def synthetic_case(mesh: Dict[str, np.ndarray], unsteady=0, continuity=0,
+                   convection=0, grad_p=0, mu=0.1, source=1.0, u=1.0,
+                   sigma=(1.0, 0.0, 0.0), dt=0.1, name="synthetic") -> Dict:
+    """Wrap a compiled mesh into the case dict the EnvPool consumes, with a
+    single-combination BC (`synthetic_bc`)."""
+    from gen_fvgn_tpu_torch.meshes.bc import generate_theta_combinations
+    bc = synthetic_bc(unsteady, continuity, convection, grad_p, mu, source,
+                      u, sigma, dt)
     return {
         "mesh": mesh,
         "bc": bc,

@@ -1,22 +1,24 @@
 """Environment pool: the (mesh × boundary-condition) environments of the
 block engine.
 
-Counterpart of `gen_fvgn_tpu/training/pool.py`, cut to `engine="block"`
-with in-memory `cases=[...]`: environments hold an autoregressive uvp state;
-every environment is a padded `MeshSample`, so a batch is a stack and
-boundary-condition re-rolls change only values, never shapes. Stencils and
-WLSQ moments are computed once per mesh. The oldest environment is
+Counterpart of `gen_fvgn_tpu/training/pool.py`, cut to `engine="block"`:
+cases come from case directories on disk (`load_case`: a `.h5` where one
+is present, else the COMSOL `.mphtxt` or the Tecplot `.dat` parsed in
+place) or in memory (`cases=[...]`). Environments hold an autoregressive
+uvp state; every environment is a padded `MeshSample`, so a batch is a
+stack and boundary-condition re-rolls change only values, never shapes.
+Stencils and WLSQ moments are computed once per mesh. The oldest environment is
 re-rolled to a fresh boundary condition (`reset_env_block`, with the
 retiring solution exported to Tecplot where asked), and the wave family's
 point pressure source is added to its environments' p channel once an
-epoch (`inject_wave_sources`).
+epoch (`inject_wave_sources`). Batches hold one case each
+(`block_batches`), or are drawn from one permutation across the cases and
+split into per-case groups (`mixed_block_batches`, for
+`MixedTrainStepBlock`).
 
 Host-to-device copies inside a training epoch (batch indices, re-rolled
 values, wave signals) go through pinned memory without blocking, so they
 do not wait for the device.
-
-Waiting for a later slice: `load_case` from a directory (the mesh
-readers).
 """
 
 from __future__ import annotations
@@ -36,9 +38,11 @@ from gen_fvgn_tpu_torch.graph.physics import (init_environment,
                                              theta_vector)
 from gen_fvgn_tpu_torch.graph.sample import (MeshSample, PadSizes,
                                              pad_mesh_to_sample)
-from gen_fvgn_tpu_torch.meshes.bc import ThetaSample
+from gen_fvgn_tpu_torch.meshes.bc import (ThetaSample,
+                                          generate_theta_combinations,
+                                          load_bc)
 from gen_fvgn_tpu_torch.meshes.geometry import build_stencil, compile_mesh
-from gen_fvgn_tpu_torch.utils.device import resolve_device
+from gen_fvgn_tpu_torch.utils.device import resolve_device, to_device
 
 # what a boundary-condition re-roll changes (the geometry is static)
 _REROLL_FIELDS = ("uvp", "target_uv", "theta", "sigma", "uvp_dim", "dt")
@@ -78,6 +82,45 @@ def ensure_rcm(mesh: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return compile_mesh(rcm_reorder(raw))
 
 
+def _read_case(case_dir: str) -> Dict:
+    """One case directory without the WLSQ statics: the compiled mesh of
+    its `.h5` where one is present (which needs h5py: without it this
+    raises, and never reads another mesh file instead), else of its COMSOL
+    `.mphtxt`, else of its Tecplot `.dat`; and its BC.json."""
+    from gen_fvgn_tpu_torch.meshes.comsol import comsol_to_mesh
+    from gen_fvgn_tpu_torch.meshes.hdf5 import read_mesh_h5
+    from gen_fvgn_tpu_torch.meshes.tecplot import tecplot_to_mesh
+    bc = load_bc(os.path.join(case_dir, "BC.json"))
+    name = os.path.basename(os.path.abspath(case_dir))
+    files = os.listdir(case_dir)
+    h5s = [f for f in files if f.endswith(".h5")]
+    mphtxt = [f for f in files if f.endswith(".mphtxt")]
+    dats = [f for f in files if f.endswith(".dat")]
+    if h5s:
+        mesh = read_mesh_h5(os.path.join(case_dir, h5s[0]))
+    elif mphtxt:
+        mesh = compile_mesh(
+            comsol_to_mesh(os.path.join(case_dir, mphtxt[0]), bc))
+    elif dats:
+        mesh = compile_mesh(
+            tecplot_to_mesh(os.path.join(case_dir, dats[0]), name))
+    else:
+        raise FileNotFoundError(f"{case_dir}: no .h5, .mphtxt, or .dat mesh")
+    return {"mesh": mesh, "bc": bc,
+            "combos": generate_theta_combinations(bc["theta_PDE"]),
+            "case_name": name}
+
+
+def load_case(case_dir: str, order: str = "2nd") -> Dict:
+    """Load one case directory (`_read_case`) with its WLSQ stencil and
+    moments attached. Returns {"mesh", "bc", "combos", "case_name"}, the
+    JAX package's `load_case` (`gen_fvgn_tpu/training/pool.py:89-119`)."""
+    case = _read_case(case_dir)
+    case["mesh"] = prepare_mesh_statics(
+        case["mesh"], order, k_hop=int(case["bc"].get("stencil|khops", 2)))
+    return case
+
+
 @dataclass
 class Environment:
     case: Dict                       # shared per-case statics
@@ -90,9 +133,10 @@ class Environment:
 class EnvPool:
     """Pool of padded environments for the block engine.
 
-    Per case one `StaticPack` on `device`; per case one stacked
-    `DynamicPack` on `device`, from which `gather_block` takes a batch
-    without touching the host. device="cuda" without a card raises."""
+    The cases are `cases` where given, else read from `case_dirs`. Per case
+    one `StaticPack` on `device`; per case one stacked `DynamicPack` on
+    `device`, from which `gather_block` takes a batch without touching the
+    host. device="cuda" without a card raises."""
 
     def __init__(self, case_dirs: Sequence[str], cfg: Config,
                  seed: int = 0, pad_multiple: int = 128,
@@ -106,10 +150,9 @@ class EnvPool:
             raise NotImplementedError(
                 f"engine={engine!r}: only the block engine is ported")
         if cases is None:
-            raise NotImplementedError(
-                "loading cases from directories (load_case and the mesh "
-                "readers) belongs to a later slice of the port; pass "
-                "cases=[...]")
+            # the block engine renumbers each mesh (RCM) before its statics
+            # are made, so the statics of load_case would be thrown away
+            cases = [_read_case(d) for d in case_dirs]
         self.cfg = cfg
         self.engine = engine
         self.tile = tile
@@ -185,17 +228,40 @@ class EnvPool:
         rng.shuffle(out)
         return out
 
-    def _put(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the pool's device: to a card through pinned
-        memory, without waiting for the device."""
-        t = torch.from_numpy(np.asarray(a, order="C"))
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+    def mixed_block_batches(self, step_seed: int):
+        """Batches from ONE permutation of all environments (the JAX pool's
+        draw, from `step_seed`), cut into batch_size chunks, each chunk
+        split into per-case groups so that one StaticPack serves each
+        group. Returns a list of batches; a batch is a list of (case_idx,
+        idxs, weights, n_real), groups in case order. A group is padded to
+        the next power of two by repeating its rows at weight 0; real rows
+        weigh 1/batch_size, so the sum of the groups' weighted gradients is
+        the batch-mean gradient of the mixed batch."""
+        rng = np.random.default_rng(step_seed)
+        bs = self.cfg.batch_size
+        perm = rng.permutation(len(self.envs))
+        out = []
+        for j in range(len(perm) // bs):
+            groups: Dict[int, list] = {}
+            for i in perm[j * bs:(j + 1) * bs]:
+                groups.setdefault(self.envs[int(i)].case_idx,
+                                  []).append(int(i))
+            batch = []
+            for ci in sorted(groups):
+                ix = groups[ci]
+                g = len(ix)
+                gp = 1 << (g - 1).bit_length()
+                idxs = np.asarray(ix + [ix[k % g] for k in range(gp - g)],
+                                  np.int32)
+                w = np.zeros(gp, np.float32)
+                w[:g] = 1.0 / bs
+                batch.append((ci, idxs, w, g))
+            out.append(batch)
+        return out
 
     def _local(self, idxs: np.ndarray) -> torch.Tensor:
-        return self._put(np.asarray([self._env_local[int(i)] for i in idxs],
-                                    np.int64))
+        return to_device(np.asarray([self._env_local[int(i)] for i in idxs],
+                                    np.int64), self.device)
 
     def gather_block(self, idxs: np.ndarray):
         """The stacked DynamicPack [B, ...] of environments `idxs` (all of
@@ -236,7 +302,7 @@ class EnvPool:
         pool = self._dyn_pools[new_env.case_idx]
         for f in _REROLL_FIELDS:
             getattr(pool, f)[self._env_local[pos]].copy_(
-                self._put(getattr(dyn, f).numpy()))
+                to_device(getattr(dyn, f).numpy(), self.device))
 
     def has_wave_envs(self) -> bool:
         return any(e.theta_sample.source_frequency != 0 for e in self.envs)
@@ -265,8 +331,8 @@ class EnvPool:
             for row, (_, signal) in enumerate(items):
                 sigs[row, : signal.shape[0]] = signal
             local = np.asarray([loc for loc, _ in items], np.int64)
-            pool.uvp[:, :, 2].index_add_(0, self._put(local),
-                                         self._put(sigs))
+            pool.uvp[:, :, 2].index_add_(0, to_device(local, self.device),
+                                         to_device(sigs, self.device))
 
     def host_uvp(self, idx: int) -> np.ndarray:
         """One environment's current state [Np, 3], on the host."""

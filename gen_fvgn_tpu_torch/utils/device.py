@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -28,3 +29,12 @@ def same_device(a, b) -> bool:
     current = torch.cuda.current_device()
     return (current if a.index is None else a.index) == \
         (current if b.index is None else b.index)
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device`: to a card through pinned memory, without
+    waiting for the device."""
+    t = torch.from_numpy(np.asarray(a, order="C"))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -937,3 +937,69 @@ def test_fused_slice_pool_bwd_kernel_shared_mask_and_refusals():
         fm.fused_premlp_res_bwd(x, ga, be, w1, b1, w2, b2, x.float(), 1)
     with pytest.raises(ValueError):
         fm.fused_premlp_res_bwd(x, ga, be, w1, b1, w2, b2, x, 3)   # 64 % 3
+
+
+def test_mixed_step_kernels_match_plain_versions():
+    """One `MixedTrainStepBlock` step of two groups (a quad and a triangle
+    cavity, one group padded with a weight-0 row) at the Config's widths
+    (TransFVGN_v2, hidden 128, bf16): the summed gradients with the kernels
+    against those with their plain versions, held to chip_smoke.py's limits
+    for step 1 (relative norm 2e-2, per tensor 3e-2, cosine 0.999, loss
+    1e-4), and every group launching a train step's kernels."""
+    _need_card()
+    import contextlib
+
+    from gen_fvgn_tpu_torch import Config
+    from gen_fvgn_tpu_torch.meshes.synthetic import (cavity_quad_mesh,
+                                                     cavity_tri_mesh,
+                                                     synthetic_case)
+    from gen_fvgn_tpu_torch.ops import fused_mlp, plain_versions, spmm
+    from gen_fvgn_tpu_torch.training.normalizer import init_normalizer
+    from gen_fvgn_tpu_torch.training.pool import EnvPool
+    from gen_fvgn_tpu_torch.training.train_block import (
+        MixedTrainStepBlock, init_train_state_block)
+    cfg = Config(batch_size=4, dataset_size=8, mixed_case_batches=True,
+                 engine="block")
+    kw = dict(continuity=1, convection=1, grad_p=1, mu=0.05, sigma=(1, 1, 1))
+    pool = EnvPool([], cfg, seed=0, cases=[
+        synthetic_case(cavity_quad_mesh(16), **kw),
+        synthetic_case(cavity_tri_mesh(12), **kw)])
+    batch = [(0, np.asarray([0, 2, 4, 0], np.int32),
+              np.asarray([0.25, 0.25, 0.25, 0.0], np.float32), 3),
+             (1, np.asarray([1], np.int32), np.full(1, 0.25, np.float32), 1)]
+    _, sim = init_train_state_block(cfg, seed=0)
+    params = list(sim.parameters())
+
+    def run(plain):
+        mixed = MixedTrainStepBlock(cfg, sim)
+        weights = [torch.from_numpy(w).cuda() for _, _, w, _ in batch]
+        with plain_versions() if plain else contextlib.nullcontext():
+            sums = mixed.init_sums()
+            for (ci, idxs, _, _), w in zip(batch, weights):
+                sums = mixed.group_stats(sums, pool.gather_block(idxs),
+                                         pool.statics[ci], w)
+            norm = mixed.norm_update(init_normalizer(9), sums)
+            acc = mixed.init_acc()
+            for (ci, idxs, _, _), w in zip(batch, weights):
+                acc, _ = mixed.group_grads(norm, acc, pool.gather_block(idxs),
+                                           pool.statics[ci], w)
+        torch.cuda.synchronize()
+        return float(acc["loss"]), acc["gsum"]
+
+    before = (spmm.LAUNCHES, fused_mlp.LAUNCHES_LN, fused_mlp.LAUNCHES_LN_BWD)
+    loss_k, g_k = run(False)
+    after = (spmm.LAUNCHES, fused_mlp.LAUNCHES_LN, fused_mlp.LAUNCHES_LN_BWD)
+    assert [a - b for a, b in zip(after, before)] == [2 * 48, 2 * 14, 2 * 14]
+    loss_p, g_p = run(True)
+    assert (spmm.LAUNCHES, fused_mlp.LAUNCHES_LN,
+            fused_mlp.LAUNCHES_LN_BWD) == after
+    flat = lambda g: torch.cat([x.reshape(-1).double() for x in g])
+    k, p = flat(g_k), flat(g_p)
+    assert float((k - p).norm() / p.norm()) <= 2e-2
+    for a, b in zip(g_k, g_p):
+        a, b = a.double().reshape(-1), b.double().reshape(-1)
+        if bool(b.any()):
+            assert float((a - b).norm() / b.norm()) <= 3e-2
+            assert float(a @ b / (a.norm() * b.norm())) >= 1 - 1e-3
+    assert abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)
+    assert len(g_k) == len(params)

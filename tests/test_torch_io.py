@@ -122,8 +122,13 @@ def test_code_snapshot_leaves_out_builds_and_tensorboard_raises(tmp_path):
     assert "csrc" in found and "training" in found
     assert not found & {"_build", "__pycache__"}
     assert os.path.isfile(os.path.join(snap, "training", "loop.py"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        RunLogger(str(tmp_path), Config(), use_tensorboard=True)
+    # TensorBoard is ported now (tests/test_torch_readers.py holds its
+    # events against the JAX writer's): the logger makes its event file
+    tb = RunLogger(str(tmp_path), Config(), run_name="tb",
+                   use_tensorboard=True)
+    tb.log_scalars(0, {"loss": 1.0})
+    tb.close()
+    assert len(os.listdir(os.path.join(tb.run_dir, "tb"))) == 1
 
 
 def _state(seed=0, hidden=32, steps=2):
