@@ -12,7 +12,7 @@ K5-K7 also at the shapes the JAX package fuses beyond the nets', C 768,
 1024, 1152 and 2048, (C, H, G) = (128, 16, 8), (512, 4, 128), (384, 6,
 64), (1152, 8, 32), (2048, 16, 8), at batch 2, and one TransolverBlock at
 hidden 1152 forward and backward against its plain versions; the paired
-sparse applies K8 and K9 at the paired path's), then drives nine paths
+sparse applies K8 and K9 at the paired path's), then drives ten paths
 on the 101x101-node synthetic cavity at batch 8, with weights from
 torch.Generator().manual_seed(0), all with the Config's defaults
 (TransFVGN_v2: hidden 128, 2 processors of 3 message-passing blocks and a
@@ -86,6 +86,23 @@ Transolver block each, 8 heads, 32 slices, bf16 stream) unless named:
     the modes rollout, adam and lbfgs, 2 time steps of 2 inner steps
     (exports and launches checked).
 
+  * the segment engine (the JAX package's default, phase "segment"), at the
+    Config defaults and batch 8 with its own pool (padded to multiples of
+    128: 10,240 nodes and 20,224 faces): a 3-step `rollout` (per step 14
+    fused_mlp_ln, 1 fused_mlp_noln, 2 fused_premlp_res and 2
+    fused_slice_pool launches and no spmm or pair kernel), step 1's
+    gradients against the plain versions, the run-to-run spread of its
+    atomic segment sums, 3 train steps of `make_train_step` (14 + 14,
+    1 + 1, 2 + 2, 2 + 2 launches a step), one time step of `solve_adam` at
+    batch 1 (20 inner steps), and on the 100 x 100-node cavity (10,112
+    nodes, 19,840 faces: odd multiples of 128, where the slice attention
+    takes its plain form, as in JAX) two rollout steps and a train step
+    with step 1 held against the plain versions; before it, K2 and K3 at the
+    segment engine's two part forms (one plain 384-wide part; one 192-wide
+    part the wrapper pads to 256), against their plain versions. The CLI
+    phase also runs `scripts.solve.main` with no `--engine` (the segment
+    engine) on both case directories in the three modes.
+
 Each path's launch counters are set to 0 just before it and read just
 after; the script checks them, finite outputs, zero padded nodes, a state
 or parameters that move, and step 1 of each rollout against the same step
@@ -115,6 +132,7 @@ synchronize.
 """
 
 import copy
+import functools
 import json
 import re
 import subprocess
@@ -979,29 +997,42 @@ def zero_counts():
     fused_slice_attn.LAUNCHES = fused_slice_attn.LAUNCHES_BWD = 0
 
 
-def drive(name, cfg, sim, norm_state, dyn, static, steps, per_step, n_real):
+def drive(name, cfg, sim, norm_state, dyn, static, steps, per_step, n_real,
+          batch=BATCH):
     """`steps` rollout steps of `sim` with the counters set to 0 just before
     and read just after; then step 1 again with the plain versions on the
-    card. Returns the counts of the rollout and its records."""
-    from gen_fvgn_tpu_torch.solve.rollout_block import (make_eval_step_block,
-                                                        rollout_block)
-    n_pad = static.pos.shape[0]
-    make_eval_step_block(cfg, sim)(norm_state, dyn, static)   # warm-up
+    card. `static` None: the segment engine (`rollout` on the stacked
+    MeshSample `dyn`), else the block engine. Returns the counts of the
+    rollout and its records."""
+    from gen_fvgn_tpu_torch.solve import rollout as seg
+    from gen_fvgn_tpu_torch.solve import rollout_block as blk
+    if static is None:
+        eval_step = lambda plain=False: seg.make_eval_step(
+            cfg, sim, plain_kernels=plain)
+        run = lambda **kw: seg.rollout(cfg, sim, norm_state, dyn, steps,
+                                       **kw)
+    else:
+        eval_step = lambda plain=False: functools.partial(
+            blk.make_eval_step_block(cfg, sim, plain_kernels=plain),
+            static=static)
+        run = lambda **kw: blk.rollout_block(cfg, sim, norm_state, dyn,
+                                             static, steps, **kw)
+    n_pad = dyn.uvp.shape[1]
+    eval_step()(norm_state, dyn)                               # warm-up
     torch.cuda.synchronize()
     zero_counts()
     stamps = [time.perf_counter()]
-    hist = rollout_block(
-        cfg, sim, norm_state, dyn, static, steps,
+    hist = run(
         export_fn=lambda t, un, uc, rec: stamps.append(time.perf_counter()))
     counts = launch_counts()
     step_ms = [1e3 * (b - a) for a, b in zip(stamps[:-1], stamps[1:])]
     for rec, ms in zip(hist, step_ms):
         for key in ("loss_cont", "loss_mom_x", "loss_mom_y", "loss_press"):
-            if rec[key].shape != (BATCH,) or not np.isfinite(rec[key]).all():
+            if rec[key].shape != (batch,) or not np.isfinite(rec[key]).all():
                 raise RuntimeError(f"{name} step {rec['step']}: {key} not "
                                    f"finite")
         un, uc = rec["uvp_node"], rec["uvp_cell"]
-        if un.shape != (BATCH, n_pad, 3) or not np.isfinite(un).all() \
+        if un.shape != (batch, n_pad, 3) or not np.isfinite(un).all() \
                 or not np.isfinite(uc).all():
             raise RuntimeError(f"{name} step {rec['step']}: state not finite "
                                f"or of the wrong shape {un.shape}")
@@ -1015,7 +1046,7 @@ def drive(name, cfg, sim, norm_state, dyn, static, steps, per_step, n_real):
             f"loss_press={rec['loss_press'].mean():.6g} "
             f"max|uvp|={np.abs(un).max():.4g} ms={ms:.2f}")
     expected = {k: per_step.get(k, 0) * steps for k in counts}
-    log(f"{name} rollout: {steps} steps, batch {BATCH}, median "
+    log(f"{name} rollout: {steps} steps, batch {batch}, median "
         f"{float(np.median(step_ms)):.2f} ms/step (host clock, state copied "
         f"to the host each step); launches {counts}")
     if counts != expected:
@@ -1025,8 +1056,7 @@ def drive(name, cfg, sim, norm_state, dyn, static, steps, per_step, n_real):
         raise RuntimeError(f"{name}: the rollout did not move the state")
 
     # step 1 again with the kernels' plain versions on the card
-    plain = make_eval_step_block(cfg, sim, plain_kernels=True)(
-        norm_state, dyn, static)
+    plain = eval_step(plain=True)(norm_state, dyn)
     if launch_counts() != expected:
         raise RuntimeError(f"{name}: the plain step launched a kernel")
     gap = np.abs(plain.uvp_node_new.cpu().numpy() - hist[0]["uvp_node"])
@@ -1049,17 +1079,23 @@ def drive(name, cfg, sim, norm_state, dyn, static, steps, per_step, n_real):
 def step1_grads(cfg, sim, norm_state, dyn, static, plain, accumulate=True):
     """d loss / d parameter of one training step's loss (forward with
     normalizer accumulation, or without it as in a solve, then
-    `training_loss`), with the kernels or with their plain versions."""
+    `training_loss`), with the kernels or with their plain versions;
+    `static` None: the segment engine's forward on the MeshSample `dyn`."""
     import contextlib
 
     from gen_fvgn_tpu_torch.ops import plain_versions
-    from gen_fvgn_tpu_torch.training.forward import training_loss
+    from gen_fvgn_tpu_torch.training.forward import (forward_batch,
+                                                     training_loss)
     from gen_fvgn_tpu_torch.training.forward_block import forward_batch_block
     params = list(sim.parameters())
     with (plain_versions() if plain else contextlib.nullcontext()), \
             torch.enable_grad():
-        out = forward_batch_block(sim, norm_state, dyn, static, cfg,
-                                  accumulate_normalizer=accumulate)
+        if static is None:
+            out = forward_batch(sim, norm_state, dyn, cfg,
+                                accumulate_normalizer=accumulate)
+        else:
+            out = forward_batch_block(sim, norm_state, dyn, static, cfg,
+                                      accumulate_normalizer=accumulate)
         loss = training_loss(out, cfg)
         grads = torch.autograd.grad(loss, params)
     return float(loss.detach()), grads
@@ -1280,9 +1316,259 @@ def drive_hidden256(cfg, pool, static, norm_state, n_real, net, per_step,
     return counts
 
 
+def check_segment_forms(n_pad, e_pad, flush_buf, gen, h=128):
+    """K2 and K3 at the segment engine's two part forms, which the block
+    engine never gives them: the edge MLP's one plain 3h-wide part (384)
+    and the node MLP's one (h/2 + h)-wide part (192), which the wrapper
+    zero-pads with its W1 rows to 256; no pre-projected input, no residual;
+    rows batch-major, 8 lanes of 8 * padded faces or nodes. Each against
+    its plain version (2 bf16 ulps of each output's scale; the backward
+    twice for the same bits). The bound is that of the function on its
+    real width. Returns {form: {"fused_mlp_ln": row, "fused_mlp_ln_bwd":
+    row}}."""
+    from gen_fvgn_tpu_torch.ops import fused_mlp as fm
+    bf = torch.bfloat16
+    g = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    rows = {}
+    for form, m, k, k_run in (("edge_mlp(part 3h)", BATCH * e_pad, 3 * h,
+                               3 * h),
+                              (f"node_mlp(part {h // 2 + h}, padded)",
+                               BATCH * n_pad, h // 2 + h,
+                               -(-(h // 2 + h) // 128) * 128)):
+        w = mlp_weights(gen, k, h, h)
+        part = torch.nn.functional.pad(g(m, k), (0, k_run - k)).to(bf)
+        w1 = torch.nn.functional.pad(w["w1"], (0, 0, 0, k_run - k)).to(bf)
+        fwd = ([part], [w1.contiguous()], w["b1"], w["w2"].to(bf), w["b2"],
+               w["w3"].to(bf), w["b3"], w["gamma"], w["beta"], ())
+        run, run_ref = (lambda: fm.fused_mlp_ln(*fwd),
+                        lambda: fm.fused_mlp_ln_reference(*fwd))
+        out, ref = run(), run_ref()
+        torch.cuda.synchronize()
+        err, _ = err_stats(out, ref)
+        tol = ulps_of_scale(ref, 2)
+        if err > tol or out.dtype != bf or not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"fused_mlp_ln[{form}] disagrees with its "
+                               f"plain version: max abs {err} > {tol}")
+        moved = nbytes(out, fwd[2 + 1], fwd[5]) + m * k * 2 + k * h * 2 \
+            + 4 * 5 * h
+        fwd_row = with_bound(dict(max_abs_err=err, ms=median_ms(run, flush_buf),
+                                  plain_ms=median_ms(run_ref, flush_buf,
+                                                     iters=5, warmup=1)),
+                             m, moved, 2.0 * m * (k * h + 2 * h * h))
+        log(f"kernel fused_mlp_ln[{form}] H={h} M={m} bf16: max_abs_err="
+            f"{err:.3g} (tolerance {tol:.3g} = 2 bf16 ulps of the output "
+            f"scale) ms={fwd_row['ms']:.4f} plain_ms={fwd_row['plain_ms']:.4f}"
+            f" bound_ms={fwd_row['bound_ms']:.4f} ({fwd_row['bound_by']})")
+        dout = g(m, h).to(bf)
+        bwd = (fwd[0], fwd[1], w["b1"], fwd[3], w["b2"], fwd[5], w["b3"],
+               w["gamma"], (), [dout], None, False, BATCH)
+        got, row = hold_backward(
+            f"fused_mlp_ln_bwd[{form}] H={h}",
+            lambda: fm.fused_mlp_ln_bwd(*bwd),
+            lambda: fm.fused_mlp_ln_bwd_reference(*bwd), flush_buf)
+        moved = nbytes(dout, fwd[3], fwd[5], got.dw2, got.dw3) \
+            + 2 * (2 * m * k + 2 * k * h) + 4 * 8 * h
+        # remat: x W1, h1 W2, h2 W3; backward: dW3, dh2, dW2, dh1, dW1, dx
+        rows[form] = dict(fused_mlp_ln=fwd_row, fused_mlp_ln_bwd=with_bound(
+            row, m, moved, 2.0 * m * (3 * k * h + 6 * h * h)))
+        log(f"  fused_mlp_ln_bwd[{form}] H={h}: M={m} bound_ms="
+            f"{rows[form]['fused_mlp_ln_bwd']['bound_ms']:.4f} "
+            f"({rows[form]['fused_mlp_ln_bwd']['bound_by']})")
+    return rows
+
+
+# launches of one segment step at the Config defaults (TransFVGN_v2, 2
+# processors of 3 GnBlocks): the encoders and 6 x (edge, node) MLPs, the
+# decoder, a pre-LN MLP and a slice pool a Transolver block where the
+# padded node count is a multiple of 256 (the JAX package's condition for
+# the fused attention), and no sparse-apply kernel at all
+SEG_FWD = dict(fused_mlp_ln=14, fused_mlp_noln=1, fused_premlp_res=2,
+               fused_slice_pool=2)
+SEG_TRAIN = dict(SEG_FWD, fused_mlp_ln_bwd=14, fused_mlp_noln_bwd=1,
+                 fused_premlp_res_bwd=2, fused_slice_pool_bwd=2)
+
+
+def drive_segment(card):
+    """Phase "segment": the JAX package's default engine through the
+    kernels, at the Config defaults, batch 8. On the 101 x 101-node cavity
+    (padded to 10,240 nodes and 20,224 faces): a 3-step `rollout` (step 1
+    against the plain versions), step 1's gradients against the plain
+    versions, the run-to-run spread of the segment sums (an eval step and
+    step 1's gradients twice with the kernels), 3 train steps of
+    `make_train_step` from `init_train_state` (batches from
+    `batch_indices`, `payback` after the last), one time step of
+    `solve_adam` at batch 1 (20 inner steps); on the 100 x 100-node cavity
+    (10,112 nodes and 19,840 faces: odd multiples of 128, so the slice
+    attention takes its plain form, as in JAX) two rollout steps and one
+    train step with step 1's gradients against the plain versions. Each
+    path's counters are set to 0 just before it and read just after: K2-K7
+    at SEG_FWD / SEG_TRAIN a step, K1, K8, K9 never. Returns the timings."""
+    from gen_fvgn_tpu_torch import Config
+    from gen_fvgn_tpu_torch.meshes.synthetic import (cavity_quad_mesh,
+                                                     synthetic_case)
+    from gen_fvgn_tpu_torch.solve.instance_opt import solve_adam
+    from gen_fvgn_tpu_torch.solve.rollout import make_eval_step
+    from gen_fvgn_tpu_torch.training.pool import EnvPool
+    from gen_fvgn_tpu_torch.training.train import (init_train_state,
+                                                   make_train_step)
+    name = "segment"
+    t_phase = time.perf_counter()
+    cfg = Config(batch_size=BATCH, dataset_size=BATCH)
+    if cfg.engine != "segment":
+        raise RuntimeError("the Config's default engine is not segment")
+    t = {}
+    out = {}
+    for key, n in (("main", MESH_N), ("odd", MESH_N - 1)):
+        t0 = time.perf_counter()
+        pool = EnvPool([], cfg, seed=0, engine="segment", cases=[
+            synthetic_case(cavity_quad_mesh(n), continuity=1, convection=1,
+                           grad_p=1, mu=0.05, sigma=(1, 1, 1))])
+        t[f"statics_s_{key}"] = time.perf_counter() - t0
+        sz = pool.sizes
+        log(f"{name} statics ({key}): {t[f'statics_s_{key}']:.2f} s; nodes "
+            f"{pool.cases[0]['mesh']['node|pos'].shape[0]} (padded "
+            f"{sz.n_nodes}), faces {sz.n_faces}, cells {sz.n_cells}, slots "
+            f"{sz.n_slots}, stencil {sz.n_stencil} (padded); a multiple of "
+            f"256: nodes {sz.n_nodes % 256 == 0}, faces "
+            f"{sz.n_faces % 256 == 0}")
+        out[key] = pool
+    pool = out["main"]
+    n_real = pool.cases[0]["mesh"]["node|pos"].shape[0]
+    batch = pool.gather_batch(np.arange(BATCH))
+    state, sim = init_train_state(cfg, seed=0)
+    ns = state.norm_state
+
+    # rollout, 3 steps, and step 1 against the plain versions
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts, hist = drive(f"{name} {cfg.net}", cfg, sim, ns, batch, None, 3,
+                         SEG_FWD, n_real)
+    t["rollout_peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    t["rollout_launches"] = counts
+
+    # the run-to-run spread of the segment sums (atomics): the same eval
+    # step and the same step-1 gradients twice with the kernels
+    eval_step = make_eval_step(cfg, sim)
+    a, b = eval_step(ns, batch), eval_step(ns, batch)
+    spread_state = float((a.uvp_node_new - b.uvp_node_new).abs().max())
+    spread_loss = float(((a.loss_cont - b.loss_cont).abs()
+                         / b.loss_cont.abs()).max())
+    loss_1, g_1 = step1_grads(cfg, sim, ns, batch, None, False)
+    loss_2, g_2 = step1_grads(cfg, sim, ns, batch, None, False)
+    diff = torch.sqrt(sum(((x.float() - y.float()) ** 2).sum()
+                          for x, y in zip(g_1, g_2)))
+    spread_grad = float(diff / torch.sqrt(sum((y.float() ** 2).sum()
+                                              for y in g_2)))
+    same_bits = all(torch.equal(x, y) for x, y in zip(g_1, g_2))
+    del g_1, g_2
+    t["spread"] = dict(uvp_node_max_abs=spread_state,
+                       loss_cont_rel=spread_loss, grad_rel_norm=spread_grad,
+                       loss_rel=abs(loss_1 - loss_2) / abs(loss_2),
+                       grads_same_bits=same_bits)
+    log(f"{name} run-to-run spread (the same step twice with the kernels; "
+        f"segment sums add by atomics): uvp_node max {spread_state:.3g}, "
+        f"loss_cont relative {spread_loss:.3g}; step 1 gradients relative "
+        f"norm {spread_grad:.3g}, the same bits {same_bits}, loss relative "
+        f"{t['spread']['loss_rel']:.3g} (limits: the kernel-vs-plain ones, "
+        f"2e-2 on the state and the gradients)")
+    if not spread_state <= 2e-2 or not spread_grad <= 2e-2:
+        raise RuntimeError(f"{name}: the run-to-run spread exceeds the bf16 "
+                           f"bounds")
+
+    # step 1's gradients against the plain versions, then 3 train steps
+    hold_step1_grads(f"{name} {cfg.net} train", cfg, sim, ns, batch, None)
+    train_step = make_train_step(cfg, sim)
+    start = [p.detach().clone() for p in sim.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    step_ms = []
+    for k in range(3):
+        idxs = pool.batch_indices(step_seed=k)[0]
+        t0 = time.perf_counter()
+        state, m, uvp_new = train_step(state, pool.gather_batch(idxs))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        loss, gnorm = float(m.loss), float(m.grad_norm)
+        log(f"{name} train step {k + 1}: loss={loss:.6g} "
+            f"loss_cont={float(m.loss_cont):.6g} "
+            f"loss_mom={float(m.loss_mom):.6g} grad_norm={gnorm:.6g} "
+            f"ms={step_ms[-1]:.2f}")
+        if not np.isfinite(loss) or not np.isfinite(gnorm) or gnorm <= 0:
+            raise RuntimeError(f"{name} train step {k + 1}: loss {loss}, "
+                               f"grad_norm {gnorm}")
+    pool.payback(idxs, uvp_new)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    t["train_peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    expected = {k: SEG_TRAIN.get(k, 0) * 3 for k in counts}
+    log(f"{name} train: 3 steps, batch {BATCH}, ms {[round(x, 2) for x in step_ms]}"
+        f" (host clock, gather and step, ending in a synchronize); peak "
+        f"device memory {t['train_peak_mib']:.0f} MiB; launches {counts}")
+    if counts != expected:
+        raise RuntimeError(f"{name} train: launch counts {counts} != "
+                           f"expected {expected}")
+    moved = max(float((p.detach() - p0).abs().max())
+                for p, p0 in zip(sim.parameters(), start))
+    back = pool.gather_batch(idxs).uvp
+    if not moved > 0 or not torch.equal(back, uvp_new) \
+            or bool((uvp_new[:, n_real:] != 0).any()):
+        raise RuntimeError(f"{name} train: parameters did not move, or the "
+                           f"payback did not write the new states")
+    t.update(train_step_ms=step_ms, train_launches=counts)
+
+    # one time step of solve_adam at batch 1, from the trained weights
+    one = pool.gather_batch(np.asarray([0]))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    _, h = solve_adam(cfg, sim, state.norm_state, one, n_time_steps=1)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = launch_counts()
+    n_inner = cfg.max_inner_steps
+    expected = {k: n_inner * SEG_TRAIN.get(k, 0) + SEG_FWD.get(k, 0)
+                for k in counts}
+    losses = h[0]["inner_losses"]
+    log(f"{name} solve_adam: 1 time step of {n_inner} inner steps at batch "
+        f"1: {solve_s:.2f} s ({1e3 * solve_s / n_inner:.2f} ms an inner "
+        f"step, the final forward included); inner losses {losses[0]:.6g} "
+        f"-> {losses[-1]:.6g}; launches {counts}")
+    if counts != expected or not losses[-1] < losses[0] \
+            or not np.isfinite(h[0]["uvp_node"]).all():
+        raise RuntimeError(f"{name} solve_adam: launches {counts} (expected "
+                           f"{expected}) or losses {losses}")
+    t["solve_adam_ms_per_inner_step"] = 1e3 * solve_s / n_inner
+    del sim, state, pool, batch
+
+    # the odd multiples of 128: K6/K7 idle there, as in JAX
+    pool = out.pop("odd")
+    n_real = pool.cases[0]["mesh"]["node|pos"].shape[0]
+    batch = pool.gather_batch(np.arange(BATCH))
+    state, sim = init_train_state(cfg, seed=0)
+    odd_fwd = dict(SEG_FWD, fused_slice_pool=0)
+    drive(f"{name} {cfg.net} (10,112 nodes)", cfg, sim, state.norm_state,
+          batch, None, 2, odd_fwd, n_real)
+    hold_step1_grads(f"{name} {cfg.net} train (10,112 nodes)", cfg, sim,
+                     state.norm_state, batch, None)
+    zero_counts()
+    state, m, _ = make_train_step(cfg, sim)(state, batch)
+    counts = launch_counts()
+    expected = dict({c: 0 for c in counts}, **SEG_TRAIN)
+    expected.update(fused_slice_pool=0, fused_slice_pool_bwd=0)
+    log(f"{name} train step (10,112 nodes): loss={float(m.loss):.6g} "
+        f"grad_norm={float(m.grad_norm):.6g}; launches {counts}")
+    if counts != expected or not np.isfinite(float(m.loss)):
+        raise RuntimeError(f"{name} (10,112 nodes): launches {counts} != "
+                           f"{expected}")
+    t["phase_s"] = time.perf_counter() - t_phase
+    log(f"{name}: phase {t['phase_s']:.1f} s; card: {card}")
+    return t
+
+
 class PoolSpy:
     """While active, records what `train()` does to its EnvPool: the pool
-    itself, the slot each `reset_env_block` re-rolls (and in which epoch),
+    itself, the slot each `reset_env` re-rolls (and in which epoch),
     and what each `inject_wave_sources` added to each case pool's states
     (kept on the card; read after the run)."""
 
@@ -1293,7 +1579,7 @@ class PoolSpy:
     def __enter__(self):
         cls, spy = self.cls, self
         self.saved = init, reset, inject = (
-            cls.__init__, cls.reset_env_block, cls.inject_wave_sources)
+            cls.__init__, cls.reset_env, cls.inject_wave_sources)
 
         def _init(pool, *a, **k):
             init(pool, *a, **k)
@@ -1308,12 +1594,12 @@ class PoolSpy:
             inject(pool)
             spy.added.append({ci: p.uvp - before[ci]
                               for ci, p in pool._dyn_pools.items()})
-        cls.__init__, cls.reset_env_block = _init, _reset
+        cls.__init__, cls.reset_env = _init, _reset
         cls.inject_wave_sources = _inject
         return self
 
     def __exit__(self, *exc):
-        (self.cls.__init__, self.cls.reset_env_block,
+        (self.cls.__init__, self.cls.reset_env,
          self.cls.inject_wave_sources) = self.saved
 
 
@@ -1640,13 +1926,15 @@ class CliSpy:
 
     def __init__(self):
         from gen_fvgn_tpu_torch.io import tecplot
-        from gen_fvgn_tpu_torch.solve import instance_opt, lbfgs, rollout_block
+        from gen_fvgn_tpu_torch.solve import (instance_opt, lbfgs, rollout,
+                                              rollout_block)
         from gen_fvgn_tpu_torch.training import loop, pool
         from gen_fvgn_tpu_torch.training.train_block import \
             MixedTrainStepBlock
         self.mods = dict(tecplot=tecplot, loop=loop, pool=pool,
                          mixed=MixedTrainStepBlock, lbfgs=lbfgs.LBFGS,
-                         instance_opt=instance_opt, rollout=rollout_block)
+                         instance_opt=instance_opt, rollout=rollout_block,
+                         rollout_seg=rollout)
         self.reset()
 
     def reset(self):
@@ -1659,9 +1947,11 @@ class CliSpy:
             (m["pool"].EnvPool, "__init__"), (m["loop"], "make_train_step_block"),
             (m["mixed"], "group_grads"), (m["mixed"], "run_batch"),
             (m["tecplot"], "write_tecplot_zone"), (m["lbfgs"], "step"),
-            (m["rollout"], "rollout_block"),
+            (m["rollout"], "rollout_block"), (m["rollout_seg"], "rollout"),
             (m["instance_opt"], "solve_adam_block"),
-            (m["instance_opt"], "solve_lbfgs_block")]
+            (m["instance_opt"], "solve_lbfgs_block"),
+            (m["instance_opt"], "solve_adam"),
+            (m["instance_opt"], "solve_lbfgs")]
         self.saved = [(obj, name, getattr(obj, name))
                       for obj, name in self.saved]
         orig = {name: fn for _, name, fn in self.saved}
@@ -1706,7 +1996,9 @@ class CliSpy:
         m["tecplot"].write_tecplot_zone = write
         m["lbfgs"].step = lbfgs_step
         m["rollout"].rollout_block = timed(orig["rollout_block"])
-        for f in ("solve_adam_block", "solve_lbfgs_block"):
+        m["rollout_seg"].rollout = timed(orig["rollout"])
+        for f in ("solve_adam_block", "solve_lbfgs_block", "solve_adam",
+                  "solve_lbfgs"):
             setattr(m["instance_opt"], f, timed(orig[f]))
         return self
 
@@ -1907,11 +2199,46 @@ def drive_cli(card, per_step, fwd_per_step):
                     or counts != expected:
                 raise RuntimeError(f"{name} solve {mode}: exports {files}, "
                                    f"launches {counts} (expected {expected})")
+
+        # solve at its default engine (segment, no --engine flag) on both
+        # cases, from the same (block-trained) checkpoint
+        t["segment_solve_ms_per_time_step"] = {}
+        for d in dirs:
+            case = os.path.basename(d)
+            for mode in ("rollout", "adam", "lbfgs"):
+                spy.reset()
+                out = os.path.join(tmp.name, f"seg_{case}_{mode}")
+                start_peak()
+                zero_counts()
+                solve.main(["--case", d, "--checkpoint", state, "--mode",
+                            mode, "--steps", "2", "--inner-steps", "2",
+                            "--out-dir", out])
+                counts = launch_counts()
+                read_peak(f"segment solve {case} {mode}")
+                files = sorted(os.listdir(out))
+                ms = [1e3 * (b - a)
+                      for a, b in zip(spy.stamps, spy.stamps[1:])]
+                t["segment_solve_ms_per_time_step"][f"{case} {mode}"] = ms
+                n_train = {"rollout": 0, "adam": 4,
+                           "lbfgs": sum(spy.evaluations)}[mode]
+                expected = {k: n_train * SEG_TRAIN.get(k, 0)
+                            + 2 * SEG_FWD.get(k, 0) for k in counts}
+                log(f"{name} solve (default engine: segment) {case} {mode}: "
+                    f"{[round(x, 2) for x in ms]} ms a time step (host "
+                    f"clock, the export included); exports {files}; L-BFGS "
+                    f"evaluations {spy.evaluations}; launches {counts}")
+                if files != ["step_00000.dat", "step_00001.dat"] \
+                        or counts != expected:
+                    raise RuntimeError(
+                        f"{name} segment solve {case} {mode}: exports "
+                        f"{files}, launches {counts} (expected {expected})")
     t["phase_s"] = time.perf_counter() - t_phase
     log(f"{name}: load_case {t['load_case_s']} s; ms an inner step "
         f"{t['inner_step_ms']}; groups per mixed batch "
         f"{t['groups_per_mixed_batch']}; solve ms a time step "
-        f"{t['solve_ms_per_time_step']}; checkpoint {t['checkpoint_bytes']} "
+        f"{t['solve_ms_per_time_step']}; at the default engine (segment) "
+        f"{t['segment_solve_ms_per_time_step']}; checkpoint "
+        f"{t['checkpoint_bytes']} "
         f"bytes; peak device memory {t['peak_mib']} MiB "
         f"({t['held_before_mib']:.0f} held before the phase); phase "
         f"{t['phase_s']:.1f} s; card: {card}")
@@ -2002,6 +2329,11 @@ def main():
     # the shapes repaired in this slice (their own generator)
     repaired = check_repaired_shapes(
         n_pad, static, flush_buf, torch.Generator(device="cuda").manual_seed(9))
+    # K2/K3 at the segment engine's part forms (their own generator; the
+    # segment pool pads the same cavity to the same 10,240 / 20,224 rows)
+    seg_forms = check_segment_forms(
+        n_pad, e_pad, flush_buf,
+        torch.Generator(device="cuda").manual_seed(14))
     del flush_buf
     # the net that raised above C = 1024: a Transolver block at hidden 1152
     check_wide_block()
@@ -2058,6 +2390,10 @@ def main():
               fused_premlp_res=2, fused_slice_pool=2)
     drive_hidden256(cfg, pool, static, norm_state, n_real, "TransFVGN_v2",
                     tv, per_step)
+
+    # ---- phase 8b: the segment engine, the JAX package's default ----
+    seg_t = drive_segment(card)
+    log(json.dumps({"segment": seg_t}))
 
     # ---- phase 9: the training run around the step: train() over 3
     # epochs with re-rolls, wave sources, checkpoints, then a resume ----
@@ -2162,6 +2498,17 @@ def main():
     for k in kernels:
         if k["name"] in regs:
             k["registers"] = regs[k["name"]]
+    # the segment engine (phase 8b): its launches a train step (checked in
+    # that phase's run) and a rollout step, and K2/K3 at its part forms
+    for k in kernels:
+        k["segment"] = dict(
+            launches_per_train_step=SEG_TRAIN.get(k["name"], 0),
+            launches_per_rollout_step=SEG_FWD.get(k["name"], 0),
+            launches_in_3_train_steps=seg_t["train_launches"][k["name"]])
+        if k["name"] in ("fused_mlp_ln", "fused_mlp_ln_bwd"):
+            k["segment"]["forms"] = {form: {f: r[k["name"]][f] for f in (
+                "m", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+                for form, r in seg_forms.items()}
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
         raise RuntimeError(f"the path that should run them launched no "

@@ -5,17 +5,20 @@ names so a reader finds each counterpart. It imports torch, numpy and scipy
 only. Entry points take `device=` and default to "cuda"; with no card they
 raise instead of running on the CPU.
 
-Ported so far, on the block engine: the rollout and the train step of
-the FVGN and Transolver nets, the training run around the step, and the
-instance-optimisation solves
+Ported so far, on both engines (the segment engine, the Config's
+default, and the block engine): the rollout and the train step of the
+FVGN and Transolver nets, the training run around the step, the
+instance-optimisation solves, and the `pre_train` / `solve` CLIs
 
     from gen_fvgn_tpu_torch import Config
     from gen_fvgn_tpu_torch.training.pool import EnvPool
-    from gen_fvgn_tpu_torch.models.simulator_block import make_simulator_block
-    from gen_fvgn_tpu_torch.solve.rollout_block import rollout_block
-    from gen_fvgn_tpu_torch.training.train_block import make_train_step_block
+    from gen_fvgn_tpu_torch.training.train import (init_train_state,
+                                                   make_train_step)
+    from gen_fvgn_tpu_torch.solve.rollout import rollout
+    from gen_fvgn_tpu_torch.solve.instance_opt import solve_adam, solve_lbfgs
     from gen_fvgn_tpu_torch.training.loop import train
-    from gen_fvgn_tpu_torch.solve.instance_opt import solve_adam_block
+    # the block engine: make_simulator_block, make_train_step_block,
+    # rollout_block, solve_adam_block, solve_lbfgs_block
 
 with hand-written CUDA kernels (csrc/*.cu) built by nvcc at first use into
 `_build/`.

@@ -1649,31 +1649,38 @@ __global__ void __launch_bounds__(RW * 32, 1) fused_mlp_bwd_rows(BwdParams p) {
             warp_load_strip(c, rc.sx, rc.sp, (s + stride) * 16,
                             min(16, c.M - (s + stride) * 16));
         cp_async_commit();
-        // ---- 6. dx_i = dh1pre16 W1_i^T (+ the residual's cotangent) ----
+        // ---- 6. dx_i = dh1pre16 W1_i^T (+ the residual's cotangent), in
+        // pieces of at most 128 columns (the accumulator's width): a part
+        // wider than 128 (the segment engine's one 256-wide node part)
+        // takes two ----
         int off = 0;
         for (int pi = 0; pi < c.n_parts; ++pi) {
             const int w = c.width[pi];
-            const bool has_res = pi == c.res_idx;
+            const bool has_res = pi == c.res_idx;   // then w == 128
             uint32_t rr[16][2];          // the residual's cotangent rows
             if (has_res) load_pairs(rr, c.res_dual ? p.dout1 : p.dout0, r0,
                                     nrow);
-            zero_acc16(acc);
-            rows_mma_reg<true>(acc, ha, sW1 + (size_t)off * LDR, LDR, 8, w / 8);
-            uint32_t dxa[8][4];
+            for (int c0 = 0; c0 < w; c0 += 128) {
+                const int wc = min(128, w - c0);
+                zero_acc16(acc);
+                rows_mma_reg<true>(acc, ha, sW1 + (size_t)(off + c0) * LDR,
+                                   LDR, 8, wc / 8);
+                uint32_t dxa[8][4];
 #pragma unroll
-            for (int nt = 0; nt < 16; ++nt) {
+                for (int nt = 0; nt < 16; ++nt) {
 #pragma unroll
-                for (int hf = 0; hf < 2; ++hf) {
-                    float v0 = acc[nt][2 * hf], v1 = acc[nt][2 * hf + 1];
-                    if (has_res) {
-                        const float2 r = unpack_bf16(rr[nt][hf]);
-                        v0 += r.x;
-                        v1 += r.y;
+                    for (int hf = 0; hf < 2; ++hf) {
+                        float v0 = acc[nt][2 * hf], v1 = acc[nt][2 * hf + 1];
+                        if (has_res) {
+                            const float2 r = unpack_bf16(rr[nt][hf]);
+                            v0 += r.x;
+                            v1 += r.y;
+                        }
+                        put_a(dxa, nt, hf, pack_bf16(v0, v1));
                     }
-                    put_a(dxa, nt, hf, pack_bf16(v0, v1));
                 }
+                store_frag_rows(p.dx[pi] + c0, w, r0, nrow, dxa, wc / 16);
             }
-            store_frag_rows(p.dx[pi], w, r0, nrow, dxa, w / 16);
             off += w;
         }
     }

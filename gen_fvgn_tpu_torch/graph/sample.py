@@ -1,7 +1,8 @@
-"""Static-shape padded mesh samples (host-side NumPy).
+"""Static-shape padded mesh samples and batch assembly.
 
 Counterpart of `gen_fvgn_tpu/graph/sample.py`: every mesh is padded once to a
-bucket shape and a batch is a leading-axis stack `[B, ...]`.
+bucket shape (host-side NumPy) and a batch is a leading-axis stack
+`[B, ...]` of torch tensors on a device (`stack_samples`).
 
 Padding conventions:
   * index arrays point at slot 0 when padded; every padded slot carries a
@@ -12,10 +13,13 @@ Padding conventions:
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
+
+from gen_fvgn_tpu_torch.utils.device import resolve_device, to_device
 
 
 def _round_up(x: int, m: int) -> int:
@@ -48,7 +52,9 @@ class PadSizes:
 
 @dataclass
 class MeshSample:
-    """One padded (mesh × boundary-condition) environment, NumPy arrays."""
+    """One padded (mesh × boundary-condition) environment, NumPy arrays; or
+    a batch of them, every field a [B, ...] torch tensor (`stack_samples`).
+    """
     # nodes
     pos: np.ndarray           # [Np, 2] f32
     node_type: np.ndarray     # [Np] i32
@@ -82,6 +88,9 @@ class MeshSample:
     sigma: np.ndarray         # [3] f32 — output channel mask
     uvp_dim: np.ndarray       # [3] f32 — [U, U, U²]
     dt: np.ndarray            # [] f32 — dimensionless time step (dt·U)
+
+    def replace(self, **kw) -> "MeshSample":
+        return dataclasses.replace(self, **kw)
 
 
 def _pad(arr: np.ndarray, size: int, axis: int = 0, fill=0) -> np.ndarray:
@@ -146,3 +155,14 @@ def pad_mesh_to_sample(mesh: Dict[str, np.ndarray], sizes: PadSizes,
         dt=np.asarray(mesh["dt_graph"], dtype=f32).reshape(()),
     )
 
+
+
+def stack_samples(samples: List[MeshSample], device="cuda") -> MeshSample:
+    """Stack samples into a [B, ...] batch of torch tensors on `device`
+    (the JAX function stacks NumPy arrays on the host). device="cuda"
+    without a card raises."""
+    dev = resolve_device(device)
+    return MeshSample(**{
+        f.name: to_device(np.stack([getattr(s, f.name) for s in samples]),
+                          dev)
+        for f in dataclasses.fields(MeshSample)})

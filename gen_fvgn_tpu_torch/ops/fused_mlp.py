@@ -19,7 +19,9 @@ the same chain without LayerNorm for the decoder. The TPU wrapper pads the
 Widths: any hidden width H that is a multiple of 128 (the LayerNorm as
 wide), part widths that are multiples of 16 below 128 or multiples of 128
 (`part_width_ok`: JAX's `k % 128 == 0 or k < 128`), a head of at most 16
-columns without LayerNorm; `_mlp_operands` raises on anything else, and
+columns without LayerNorm; `_mlp_operands` raises on anything else (the
+wrapper `fused_mlp_ln_parts` first zero-pads a part wider than 128 to the
+next multiple of 128, as the JAX wrapper does), and
 the kernel library on a shape whose tile does not fit a block's shared
 memory (`gfvgn_fused_mlp_workspace`).
 
@@ -100,6 +102,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+from torch.nn import functional as F
 
 LN_EPS = 1e-6            # flax.linen.LayerNorm default epsilon
 _SQRT_2_OVER_PI = 0.7978845608028654
@@ -606,8 +609,11 @@ def fused_mlp_ln_parts(parts: Sequence[torch.Tensor], w1, b1, w2, b2, w3, b3,
     is row-sliced per part here — by cumulative part widths, or by explicit
     `w1_rows` (o0, o1) spans when some rows of w1 were consumed by external
     projections (`pres`, already [M, H] in the first hidden basis). pres
-    keep their incoming type. The row count M need not be a multiple of
-    anything: the kernel masks its ragged tile. The M rows are `lanes`
+    keep their incoming type. A part whose width is neither a multiple of
+    128 nor below 128 is zero-padded, with its W1 rows, to the next
+    multiple of 128, as the JAX wrapper pads it (on both devices). The row
+    count M need not be a multiple of anything: the kernel masks its
+    ragged tile. The M rows are `lanes`
     batch lanes of equal size (the backward rounds the weight gradients
     per lane, see `weight_grad`)."""
     widths = [p.shape[1] for p in parts]
@@ -621,8 +627,20 @@ def fused_mlp_ln_parts(parts: Sequence[torch.Tensor], w1, b1, w2, b2, w3, b3,
     if not parts and res_idx is not None:
         raise ValueError("the pres-only form has no part to add as residual")
     from gen_fvgn_tpu_torch.ops import plain_versions_active
-    parts16 = [p.to(dtype) for p in parts]
-    w1s = [w1[o0:o1].to(dtype) for o0, o1 in w1_rows]
+    parts16, w1s = [], []
+    for p, (o0, o1) in zip(parts, w1_rows):
+        p16, w1p = p.to(dtype), w1[o0:o1].to(dtype)
+        k = p.shape[1]
+        if not (k % 128 == 0 or k < 128):
+            # as the JAX wrapper does: a part of another width is zero-padded,
+            # with its W1 rows, to the next multiple of 128 (the segment
+            # node MLP's one 192-wide part); inside autograd, so dx and dW1
+            # come back k wide
+            k_pad = -(-k // 128) * 128
+            p16 = F.pad(p16, (0, k_pad - k))
+            w1p = F.pad(w1p, (0, 0, 0, k_pad - k))
+        parts16.append(p16)
+        w1s.append(w1p)
     meta = (len(parts16), len(pres), res_idx, bool(res_dual),
             plain_versions_active(), lanes)
     outs = _MlpLnFn.apply(meta, *parts16, *w1s, *pres, b1, w2.to(dtype), b2,

@@ -1,10 +1,14 @@
-"""Weighted-least-squares (WLSQ) gradient reconstruction: the per-mesh statics.
+"""Weighted-least-squares (WLSQ) gradient reconstruction.
 
-Counterpart of `gen_fvgn_tpu/ops/wlsq.py`, cut to what the block engine
-needs once per mesh: the moments (normal matrix, one-way B rows, column
-scaling) and the float64 fold of the per-node solve into one static matrix.
-These run on the host in NumPy; the runtime gradient is one sparse apply of
-the folded operator (graph/operators.py).
+Counterpart of `gen_fvgn_tpu/ops/wlsq.py`. The per-mesh statics run on the
+host in NumPy: the moments (normal matrix, one-way B rows, column scaling)
+and the float64 fold of the per-node solve into one static matrix. The
+block engine's runtime gradient is one sparse apply of the folded operator
+(graph/operators.py); the segment engine's is `node_based_wlsq_precomputed`
+below (batch-major torch tensors): the weighted differences accumulated
+per node by segment sums, then the folded solve as a batched product.
+`node_based_wlsq`, the LU form, is used only by the JAX package's
+gradient-reconstruction scripts and is not ported.
 
 The moments are evaluated in float32, operation by operation as the JAX
 function evaluates them, so the two packages fold the same numbers.
@@ -15,6 +19,9 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
+
+from gen_fvgn_tpu_torch.ops.segment import gather_rows, segment_sum
 
 # derivative-vector length per order
 WLSQ_DIM = {"1st": 2, "2nd": 5, "3rd": 9, "4th": 14}
@@ -177,3 +184,43 @@ def wlsq_solve_matrix(A: np.ndarray, colscale: np.ndarray,
     if node_mask is not None:
         S = S * np.asarray(node_mask, np.float64)[:, None, None]
     return S.astype(np.float32)
+
+
+def accumulate_B(phi: torch.Tensor, stencil: torch.Tensor,
+                 single_B: torch.Tensor, order: str,
+                 colscale: Optional[torch.Tensor],
+                 stencil_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Two-direction weighted Δφ accumulation: phi [B, N, C], stencil
+    [B, 2, Es], single_B [B, Es, k], colscale [B, N, k] -> [B, N, k, C]."""
+    s, r = stencil[:, 0], stencil[:, 1]
+    n_nodes = phi.shape[1]
+    k = single_B.shape[-1]
+    if colscale is None:
+        colscale = torch.ones(phi.shape[:2] + (k,), dtype=phi.dtype,
+                              device=phi.device)
+    dphi = gather_rows(phi, s) - gather_rows(phi, r)             # [B,Es,C]
+    signs = torch.from_numpy(odd_sign_vector(order)).to(single_B.device)
+    row_fwd = single_B * gather_rows(colscale, r)
+    row_rev = (single_B * signs) * gather_rows(colscale, s)
+    contrib_fwd = row_fwd[..., :, None] * dphi[..., None, :]      # [B,Es,k,C]
+    contrib_rev = row_rev[..., :, None] * (-dphi)[..., None, :]
+    return segment_sum(contrib_fwd, r, n_nodes, stencil_mask) + \
+        segment_sum(contrib_rev, s, n_nodes, stencil_mask)       # [B,N,k,C]
+
+
+def node_based_wlsq_precomputed(
+    phi: torch.Tensor,            # [B, N, C]
+    stencil: torch.Tensor,        # [B, 2, Es]
+    solve_matrix: torch.Tensor,   # [B, N, k, k] from wlsq_solve_matrix
+    single_B: torch.Tensor,       # [B, Es, k]
+    order: str,
+    colscale: torch.Tensor,       # [B, N, k]
+    stencil_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Runtime WLSQ with the static solve folded into a batched product:
+    [B, N, C, k] derivatives per node and channel (float32)."""
+    acc = accumulate_B(phi, stencil, single_B, order, colscale,
+                       stencil_mask)
+    nabla = torch.matmul(solve_matrix.to(torch.float32),
+                         acc.to(torch.float32))                   # [B,N,k,C]
+    return nabla.transpose(-1, -2)

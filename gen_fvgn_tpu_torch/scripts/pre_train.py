@@ -7,10 +7,12 @@
 Counterpart of `scripts/pre_train.py`: the same flags, defaults and
 Config, plus `--device` (default "cuda"; "cpu" must be asked for). Every
 directory under --dataset-dir that holds a BC.json is a case
-(`training/pool.py::load_case`). Flags the port cannot honour yet raise
-NotImplementedError: `--engine segment`, `--dp-devices` or `--sp-devices`
-above 1. `--bucket-tiers` is a segment-engine option: the block engine
-ignores it, as in JAX.
+(`training/pool.py::load_case`). `--engine` is "block" by default, as in
+the JAX script, or "segment" (the Config's default engine). Flags the port
+cannot honour yet raise NotImplementedError: `--dp-devices` or
+`--sp-devices` above 1, and `--bucket-tiers 1` with `--engine segment`.
+`--bucket-tiers` is a segment-engine option: the block engine ignores it,
+as in JAX.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ def main(argv=None):
                     choices=["bfloat16", "float32"])
     ap.add_argument("--engine", default="block",
                     choices=["segment", "block"],
-                    help="sparse-op engine (only block is ported)")
+                    help="sparse-op engine")
     ap.add_argument("--resume", default=None,
                     help="path to a .state checkpoint slot")
     ap.add_argument("--bucket-tiers", type=int, default=0,
@@ -61,10 +63,10 @@ def main(argv=None):
                     help="torch device (\"cpu\" only when asked)")
     args = ap.parse_args(argv)
 
-    if args.engine != "block":
+    if args.engine == "segment" and args.bucket_tiers:
         raise NotImplementedError(
-            f"--engine {args.engine}: the segment engine belongs to a later "
-            f"slice of the port; pass --engine block")
+            "--bucket-tiers 1: the segment engine's per-size padding tiers "
+            "belong to a later slice of the port")
     if args.dp_devices > 1 or args.sp_devices > 1:
         raise NotImplementedError(
             "--dp-devices / --sp-devices above 1: data and spatial "

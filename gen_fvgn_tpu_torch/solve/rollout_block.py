@@ -14,6 +14,7 @@ import torch
 
 from gen_fvgn_tpu_torch.config import Config
 from gen_fvgn_tpu_torch.graph.packs import DynamicPack, StaticPack
+from gen_fvgn_tpu_torch.solve.rollout import march
 from gen_fvgn_tpu_torch.training.forward import ForwardOutputs
 from gen_fvgn_tpu_torch.training.forward_block import forward_batch_block
 from gen_fvgn_tpu_torch.training.normalizer import NormalizerState
@@ -82,30 +83,8 @@ def rollout_block(
     """n_steps autoregressive steps; returns one record per step with the
     per-sample residuals and the new node/cell states as NumPy arrays."""
     step_fn = make_eval_step_block(cfg, simulator)
-    history = []
-    for t in range(n_steps):
-        if wave_source_fn is not None:
-            sig = torch.as_tensor(wave_source_fn(t + 1),   # time_index >= 1
-                                  dtype=dyn.uvp.dtype, device=dyn.uvp.device)
-            uvp = dyn.uvp.clone()
-            uvp[..., 2] += sig
-            dyn = dyn.replace(uvp=uvp)
-        out = step_fn(norm_state, dyn, static)
-        host = lambda a: a.detach().to("cpu", torch.float32).numpy()
-        rec = {
-            "step": t,
-            "loss_cont": host(out.loss_cont).reshape(-1),
-            "loss_mom_x": host(out.loss_mom_x).reshape(-1),
-            "loss_mom_y": host(out.loss_mom_y).reshape(-1),
-            "loss_press": host(out.loss_press).reshape(-1),
-            "uvp_node": host(out.uvp_node_new),
-            "uvp_cell": host(out.uvp_cell_new),
-        }
-        history.append(rec)
-        if export_fn is not None:
-            export_fn(t, rec["uvp_node"], rec["uvp_cell"], rec)
-        dyn = dyn.replace(uvp=out.uvp_node_new)
-    return history
+    return march(lambda d: step_fn(norm_state, d, static), dyn, n_steps,
+                 export_fn, wave_source_fn)
 
 
 def rollout_block_scan(cfg: Config, simulator, norm_state: NormalizerState,

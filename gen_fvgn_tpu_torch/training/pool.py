@@ -1,20 +1,29 @@
-"""Environment pool: the (mesh × boundary-condition) environments of the
-block engine.
+"""Environment pool: the (mesh × boundary-condition) environments of a
+training run or a solve, on one device.
 
-Counterpart of `gen_fvgn_tpu/training/pool.py`, cut to `engine="block"`:
-cases come from case directories on disk (`load_case`: a `.h5` where one
-is present, else the COMSOL `.mphtxt` or the Tecplot `.dat` parsed in
-place) or in memory (`cases=[...]`). Environments hold an autoregressive
-uvp state; every environment is a padded `MeshSample`, so a batch is a
-stack and boundary-condition re-rolls change only values, never shapes.
-Stencils and WLSQ moments are computed once per mesh. The oldest environment is
-re-rolled to a fresh boundary condition (`reset_env_block`, with the
-retiring solution exported to Tecplot where asked), and the wave family's
-point pressure source is added to its environments' p channel once an
-epoch (`inject_wave_sources`). Batches hold one case each
-(`block_batches`), or are drawn from one permutation across the cases and
-split into per-case groups (`mixed_block_batches`, for
-`MixedTrainStepBlock`).
+Counterpart of `gen_fvgn_tpu/training/pool.py`, for both engines: cases
+come from case directories on disk (`load_case`: a `.h5` where one is
+present, else the COMSOL `.mphtxt` or the Tecplot `.dat` parsed in place)
+or in memory (`cases=[...]`). Environments hold an autoregressive uvp
+state; every environment is a padded `MeshSample`, so a batch is a stack
+and boundary-condition re-rolls change only values, never shapes. Stencils
+and WLSQ moments are computed once per mesh.
+
+`engine="block"` (this constructor's default; the JAX one defaults to
+"segment") renumbers each mesh (RCM), pads each case to its own multiple of
+the tile and keeps per case one `StaticPack` and one stacked `DynamicPack`;
+batches hold one case each (`block_batches`), or are drawn from one
+permutation across the cases and split into per-case groups
+(`mixed_block_batches`, for `MixedTrainStepBlock`). `engine="segment"` pads
+every case to one `PadSizes` of `pad_multiple` (128), keeps the mesh order,
+and holds the whole pool as one stacked `MeshSample` on the device (the
+JAX pool's `device_resident` form, which its training loop uses); batches
+are cut from one permutation of all environments (`batch_indices`) and
+gathered on the device (`gather_batch`). Both engines pay states back in
+place, re-roll the oldest environment's boundary condition (`reset_env`,
+with the retiring solution exported to Tecplot where asked) and add the
+wave family's point pressure source to its environments' p channel once an
+epoch (`inject_wave_sources`).
 
 Host-to-device copies inside a training epoch (batch indices, re-rolled
 values, wave signals) go through pinned memory without blocking, so they
@@ -37,7 +46,8 @@ from gen_fvgn_tpu_torch.graph.physics import (init_environment,
                                              pressure_point_source,
                                              theta_vector)
 from gen_fvgn_tpu_torch.graph.sample import (MeshSample, PadSizes,
-                                             pad_mesh_to_sample)
+                                             pad_mesh_to_sample,
+                                             stack_samples)
 from gen_fvgn_tpu_torch.meshes.bc import (ThetaSample,
                                           generate_theta_combinations,
                                           load_bc)
@@ -131,12 +141,11 @@ class Environment:
 
 
 class EnvPool:
-    """Pool of padded environments for the block engine.
-
-    The cases are `cases` where given, else read from `case_dirs`. Per case
-    one `StaticPack` on `device`; per case one stacked `DynamicPack` on
-    `device`, from which `gather_block` takes a batch without touching the
-    host. device="cuda" without a card raises."""
+    """Pool of padded environments on `device`, for `engine` "block" or
+    "segment" (see the module's docstring). The cases are `cases` where
+    given, else read from `case_dirs`. `bucket_tiers` (per-size tiers of
+    the segment engine) raises NotImplementedError. device="cuda" without a
+    card raises."""
 
     def __init__(self, case_dirs: Sequence[str], cfg: Config,
                  seed: int = 0, pad_multiple: int = 128,
@@ -144,23 +153,32 @@ class EnvPool:
                  cases: Optional[List[Dict]] = None,
                  engine: str = "block",
                  tile: int = 256,
+                 bucket_tiers: bool = False,
                  device="cuda"):
         self.device = resolve_device(device)
-        if engine != "block":
+        if engine not in ("block", "segment"):
+            raise ValueError(f"unknown engine {engine!r}")
+        if bucket_tiers:
             raise NotImplementedError(
-                f"engine={engine!r}: only the block engine is ported")
+                "bucket_tiers=True: the segment engine's per-size padding "
+                "tiers belong to a later slice of the port")
+        block = engine == "block"
         if cases is None:
             # the block engine renumbers each mesh (RCM) before its statics
             # are made, so the statics of load_case would be thrown away
-            cases = [_read_case(d) for d in case_dirs]
+            cases = [_read_case(d) if block else load_case(d, cfg.order)
+                     for d in case_dirs]
         self.cfg = cfg
         self.engine = engine
         self.tile = tile
         self.rng = np.random.default_rng(seed)
-        pad_multiple = max(pad_multiple, tile)
+        if block:
+            pad_multiple = max(pad_multiple, tile)
         self.cases = [dict(c) for c in cases]
         for c in self.cases:
-            mesh = ensure_rcm(dict(c["mesh"]))
+            mesh = dict(c["mesh"])
+            if block:
+                mesh = ensure_rcm(mesh)
             c["mesh"] = prepare_mesh_statics(
                 mesh, cfg.order, k_hop=int(c["bc"].get("stencil|khops", 2)))
 
@@ -169,11 +187,13 @@ class EnvPool:
 
         self.sizes = PadSizes.for_meshes([c["mesh"] for c in self.cases],
                                          multiple=pad_multiple)
-        # per-case buckets: batches are single-case, so every case uses its
-        # own minimal padded shape
-        self.case_sizes = [
-            PadSizes.for_meshes([c["mesh"]], multiple=pad_multiple)
-            for c in self.cases]
+        # block engine: per-case buckets (batches are single-case, so every
+        # case uses its own minimal padded shape); segment engine: one
+        # bucket for all
+        self.case_sizes = (
+            [PadSizes.for_meshes([c["mesh"]], multiple=pad_multiple)
+             for c in self.cases] if block
+            else [self.sizes] * len(self.cases))
         self.envs: List[Environment] = []
         i = 0
         while len(self.envs) < size:
@@ -181,9 +201,34 @@ class EnvPool:
             self.envs.append(self._make_env(self.cases[ci], ci))
             i += 1
         self._age_order = list(range(len(self.envs)))   # oldest first
-        self._init_block_pool()
+        if block:
+            self._init_block_pool()
+        else:
+            self._device_data = stack_samples([e.sample for e in self.envs],
+                                              self.device)
 
-    # ---- per-case StaticPacks + device dynamic pool ----
+    def _slot(self, i: int):
+        """(the device pool that holds environment i, its row there): the
+        case's DynamicPack (block) or the one stacked MeshSample
+        (segment)."""
+        if self.engine == "block":
+            return self._dyn_pools[self.envs[i].case_idx], self._env_local[i]
+        return self._device_data, i
+
+    def _rows(self, idxs: np.ndarray):
+        """The pool of environments `idxs` (all in one pool) and their rows
+        there, on the device."""
+        pool, _ = self._slot(int(idxs[0]))
+        rows = [self._slot(int(i))[1] for i in idxs]
+        return pool, to_device(np.asarray(rows, np.int64), self.device)
+
+    def _gather(self, idxs: np.ndarray):
+        pool, rows = self._rows(idxs)
+        return type(pool)(**{
+            f.name: getattr(pool, f.name).index_select(0, rows)
+            for f in dataclasses.fields(pool)})
+
+    # ---- block engine: per-case StaticPacks + device dynamic pool ----
 
     def _init_block_pool(self) -> None:
         from gen_fvgn_tpu_torch.graph.packs import (DynamicPack,
@@ -259,33 +304,48 @@ class EnvPool:
             out.append(batch)
         return out
 
-    def _local(self, idxs: np.ndarray) -> torch.Tensor:
-        return to_device(np.asarray([self._env_local[int(i)] for i in idxs],
-                                    np.int64), self.device)
-
     def gather_block(self, idxs: np.ndarray):
         """The stacked DynamicPack [B, ...] of environments `idxs` (all of
         one case), gathered on the device."""
-        from gen_fvgn_tpu_torch.graph.packs import DynamicPack
-        ci = self.envs[int(idxs[0])].case_idx
-        local = self._local(idxs)
-        pool = self._dyn_pools[ci]
-        return DynamicPack(**{
-            f.name: getattr(pool, f.name).index_select(0, local)
-            for f in dataclasses.fields(DynamicPack)})
+        return self._gather(idxs)
 
     def payback_block(self, idxs: np.ndarray, uvp_new: torch.Tensor) -> None:
+        """`payback` for a batch of one case."""
+        self.payback(idxs, uvp_new)
+
+    def reset_env_block(self, export_dir: Optional[str] = None) -> None:
+        """`reset_env` (the block loop's name for it)."""
+        self.reset_env(export_dir)
+
+    # ---- segment engine: one device-resident stacked pool ----
+
+    def batch_indices(self, step_seed: int) -> List[np.ndarray]:
+        """A permutation of all environments from `step_seed` (NumPy's draw,
+        so the JAX pool's), cut into batches of batch_size; the ragged tail
+        is dropped."""
+        rng = np.random.default_rng(step_seed)
+        bs = self.cfg.batch_size
+        perm = rng.permutation(len(self.envs))
+        return [perm[i * bs:(i + 1) * bs]
+                for i in range(len(self.envs) // bs)]
+
+    def gather_batch(self, idxs: np.ndarray) -> MeshSample:
+        """The stacked MeshSample [B, ...] of environments `idxs`, gathered
+        on the device."""
+        return self._gather(idxs)
+
+    # ---- both engines ----
+
+    def payback(self, idxs: np.ndarray, uvp_new: torch.Tensor) -> None:
         """Write the new states uvp_new [B, Np, 3] of environments `idxs`
-        (all of one case) into the device pool, in place (the JAX pool
-        donates its buffer instead), and age them by one step."""
-        ci = self.envs[int(idxs[0])].case_idx
-        pool = self._dyn_pools[ci]
-        pool.uvp.index_copy_(0, self._local(idxs),
-                             uvp_new.detach().to(pool.uvp.dtype))
+        into the device pool, in place (the JAX pool donates its buffer
+        instead), and age them by one step."""
+        pool, rows = self._rows(idxs)
+        pool.uvp.index_copy_(0, rows, uvp_new.detach().to(pool.uvp.dtype))
         for i in idxs:
             self.envs[int(i)].age += 1
 
-    def reset_env_block(self, export_dir: Optional[str] = None) -> None:
+    def reset_env(self, export_dir: Optional[str] = None) -> None:
         """Re-roll the boundary condition of the oldest environment (values
         only: uvp, target_uv, theta, sigma, uvp_dim and dt of its slot in
         the device pool, written in place). The new condition is drawn from
@@ -297,12 +357,10 @@ class EnvPool:
         new_env = self._make_env(self.envs[pos].case, self.envs[pos].case_idx)
         self.envs[pos] = new_env
         self._age_order.append(pos)
-        from gen_fvgn_tpu_torch.graph.packs import dynamic_from_sample
-        dyn = dynamic_from_sample(new_env.sample)
-        pool = self._dyn_pools[new_env.case_idx]
+        pool, row = self._slot(pos)
         for f in _REROLL_FIELDS:
-            getattr(pool, f)[self._env_local[pos]].copy_(
-                to_device(getattr(dyn, f).numpy(), self.device))
+            getattr(pool, f)[row].copy_(to_device(
+                np.asarray(getattr(new_env.sample, f)), self.device))
 
     def has_wave_envs(self) -> bool:
         return any(e.theta_sample.source_frequency != 0 for e in self.envs)
@@ -310,8 +368,8 @@ class EnvPool:
     def inject_wave_sources(self) -> None:
         """Add each wave environment's Gaussian point pressure source, at
         time index age + 1, to its p channel in the device pool: the
-        signals are computed on the host, and each case pool takes one
-        in-place add for all of its wave environments. No-op for the other
+        signals are computed on the host, and each pool takes one in-place
+        add for all of its wave environments. No-op for the other
         families."""
         groups: Dict[int, list] = {}
         for i, env in enumerate(self.envs):
@@ -323,21 +381,20 @@ class EnvPool:
                 pos, pos.mean(axis=0), ts.source_frequency,
                 ts.source_strength, ts.dt, env.age + 1
             ).reshape(-1).astype(np.float32)
-            groups.setdefault(env.case_idx, []).append(
-                (self._env_local[i], signal))
-        for ci, items in groups.items():
-            pool = self._dyn_pools[ci]
+            key = env.case_idx if self.engine == "block" else 0
+            groups.setdefault(key, []).append((i, signal))
+        for items in groups.values():
+            pool, rows = self._rows(np.asarray([i for i, _ in items]))
             sigs = np.zeros((len(items), pool.uvp.shape[1]), np.float32)
             for row, (_, signal) in enumerate(items):
                 sigs[row, : signal.shape[0]] = signal
-            local = np.asarray([loc for loc, _ in items], np.int64)
-            pool.uvp[:, :, 2].index_add_(0, to_device(local, self.device),
+            pool.uvp[:, :, 2].index_add_(0, rows,
                                          to_device(sigs, self.device))
 
     def host_uvp(self, idx: int) -> np.ndarray:
         """One environment's current state [Np, 3], on the host."""
-        ci = self.envs[idx].case_idx
-        return self._dyn_pools[ci].uvp[self._env_local[idx]].cpu().numpy()
+        pool, row = self._slot(idx)
+        return pool.uvp[row].cpu().numpy()
 
     def _try_export(self, pos: int, export_dir: str) -> None:
         """Export on reset: a failing export (full disk, a mixed mesh)

@@ -37,8 +37,9 @@ from gen_fvgn_tpu_torch.training.forward_block import forward_batch_block
 from gen_fvgn_tpu_torch.training.normalizer import (NormalizerState,
                                                     init_normalizer)
 from gen_fvgn_tpu_torch.training.train import (StepMetrics, TrainState,
-                                               global_norm, make_optimizer,
-                                               step_exp_lr)
+                                               apply_update, global_norm,
+                                               make_optimizer, step_exp_lr,
+                                               step_metrics)
 from gen_fvgn_tpu_torch.utils.device import (resolve_device, same_device,
                                              to_device)
 
@@ -143,21 +144,11 @@ def make_train_step_block(cfg: Config, simulator,
             loss, grads, norm_state, out = grads_and_outputs(state, dyn,
                                                              static)
         lr = schedule(state.epoch)
-        opt = state.optimizer
-        for group in opt.param_groups:
-            group["lr"] = lr
-        for p, g in zip(params, grads):
-            p.grad = g
-        opt.step()
-        opt.zero_grad(set_to_none=True)
+        apply_update(state, params, grads, lr)
         state.norm_state = norm_state
         state.step += 1
-        metrics = StepMetrics(
-            loss=loss, loss_cont=out.loss_cont.detach().mean(),
-            loss_mom=(out.loss_mom_x + out.loss_mom_y).detach().mean(),
-            loss_press=out.loss_press.detach().mean(),
-            grad_norm=global_norm(grads), lr=lr)
-        return state, metrics, out.uvp_node_new.detach()
+        return (state, step_metrics(loss, out, grads, lr),
+                out.uvp_node_new.detach())
     return step
 
 
@@ -247,13 +238,7 @@ class MixedTrainStepBlock:
         """One Adam step with the summed gradients; `state` is updated in
         place and returned with the step's metrics."""
         lr = self.schedule(state.epoch)
-        opt = state.optimizer
-        for group in opt.param_groups:
-            group["lr"] = lr
-        for p, g in zip(self.params, acc["gsum"]):
-            p.grad = g
-        opt.step()
-        opt.zero_grad(set_to_none=True)
+        apply_update(state, self.params, acc["gsum"], lr)
         state.norm_state = norm_state
         state.step += 1
         metrics = StepMetrics(

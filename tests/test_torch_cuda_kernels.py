@@ -18,8 +18,11 @@ hidden widths 128 and 256 (and 384 for the 32-row tiles) in every form the
 nets use, the pre-LN branch (K5f, K5b) at C 128 to 2048 and the slice pool
 (K6, K7) at seventeen (C, H, G) shapes up to C 2048, with lanes of one row, ragged lanes
 and ragged last tiles, the bitwise repeatability of the backward kernels
-and the slice pool, the shapes each kernel refuses, and the kernels' size
-queries against the Python predicates."""
+and the slice pool, the shapes each kernel refuses, the kernels' size
+queries against the Python predicates, K2/K3 at the segment engine's part
+forms (one 3h-wide part, one 2h-wide part; the node MLP's 192-wide part
+through the padding wrapper) on row counts that are odd multiples of 128,
+and one segment train step's gradients against the plain versions."""
 
 import numpy as np
 import pytest
@@ -1003,3 +1006,135 @@ def test_mixed_step_kernels_match_plain_versions():
             assert float(a @ b / (a.norm() * b.norm())) >= 1 - 1e-3
     assert abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)
     assert len(g_k) == len(params)
+
+
+# the segment engine's forms of K2/K3: the edge MLP's one plain part 3h
+# wide, the node MLP's one part 1.5h wide (at h = 128 zero-padded to 256 by
+# `fused_mlp_ln_parts`), neither with a pre-projected input or a residual;
+# row counts that are odd multiples of 128 (the segment pool pads to 128)
+_SEGMENT_M = [(1, 1), (3 * 128, 1), (8 * 81 * 128, 8), (8 * 79 * 128, 8)]
+
+
+@pytest.mark.parametrize("units", [[3], [2]], ids=["edge-3h", "node-2h"])
+@pytest.mark.parametrize("m,lanes", _SEGMENT_M)
+@pytest.mark.parametrize("h", [128, 256])
+def test_fused_mlp_segment_forms_match_plain_versions(units, m, lanes, h):
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import fused_mlp as mod
+    widths = _widths(units, h)
+    parts, w1s, b1, w2, b2, w3, b3, gamma, beta, _ = _mlp_args(
+        m, widths, False, h, seed=m + h, h=h)
+    fwd = (parts, w1s, b1, w2, b2, w3, b3, gamma, beta, ())
+    before = (mod.LAUNCHES_LN, mod.LAUNCHES_LN_BWD)
+    out = mod.fused_mlp_ln(*fwd)
+    g = torch.Generator("cuda").manual_seed(m)
+    dout = torch.randn(m, h, device="cuda", generator=g).to(torch.bfloat16)
+    bwd = (parts, w1s, b1, w2, b2, w3, b3, gamma, (), [dout], None, False,
+           lanes)
+    got = mod.fused_mlp_ln_bwd(*bwd)
+    again = mod.fused_mlp_ln_bwd(*bwd)
+    torch.cuda.synchronize()
+    assert (mod.LAUNCHES_LN, mod.LAUNCHES_LN_BWD) == (before[0] + 1,
+                                                      before[1] + 2)
+    ref = mod.fused_mlp_ln_reference(*fwd)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape == (m, h)
+    _close(out, ref, "out")
+    assert _grads_equal(got, again)
+    want = mod.fused_mlp_ln_bwd_reference(*bwd)
+    for name in got._fields:
+        a, r = getattr(got, name), getattr(want, name)
+        for i, (x, y) in enumerate(zip(*((a, r) if isinstance(a, tuple)
+                                          else ((a,), (r,))))):
+            assert x.dtype == y.dtype, name
+            _close(x, y, f"{name}[{i}]")
+
+
+def test_node_mlp_192_wide_part_through_the_wrapper():
+    """The segment node MLP's 192-wide part through `fused_mlp_ln_parts`
+    with autograd on the card: K2 and K3 launch on the part padded to 256,
+    dx and dW1 come back 192 wide, all against the plain versions."""
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import fused_mlp as mod
+    from gen_fvgn_tpu_torch.ops import plain_versions
+    m, h = 8 * 81 * 128, 128
+    parts, w1s, b1, w2, b2, w3, b3, gamma, beta, _ = _mlp_args(
+        m, [192], False, h, seed=3, h=h)
+    x = parts[0].float().requires_grad_()
+    w1 = w1s[0].float().requires_grad_()
+    g = torch.randn(m, h, device="cuda").to(torch.bfloat16)
+
+    def run():
+        out = mod.fused_mlp_ln_parts([x], w1, b1, w2, b2, w3, b3, gamma,
+                                     beta, lanes=8)
+        dx, dw1 = torch.autograd.grad(out, [x, w1], g)
+        return out, dx, dw1
+    before = (mod.LAUNCHES_LN, mod.LAUNCHES_LN_BWD)
+    got = run()
+    torch.cuda.synchronize()
+    assert (mod.LAUNCHES_LN, mod.LAUNCHES_LN_BWD) == (before[0] + 1,
+                                                      before[1] + 1)
+    with plain_versions():
+        want = run()
+    assert tuple(got[1].shape) == (m, 192) and tuple(got[2].shape) == (192, h)
+    for name, a, r in zip(("out", "dx", "dW1"), got, want):
+        _close(a, r, name)
+
+
+def test_segment_train_step_kernels_match_plain_versions():
+    """One segment train step's gradients at the Config's widths
+    (TransFVGN_v2, hidden 128, bf16, 3 blocks a processor) on a 16 x 16
+    cavity padded to 384 nodes and 640 faces (odd multiples of 128, so the
+    slice attention takes its plain form there, as in JAX: N % 256 != 0),
+    with the kernels against the plain versions, held to chip_smoke.py's
+    step-1 limits; the launches of one step: 14 + 14 fused_mlp_ln, 1 + 1
+    fused_mlp_noln, 2 + 2 fused_premlp_res, no slice pool and no spmm."""
+    _need_card()
+    import contextlib
+
+    from gen_fvgn_tpu_torch import Config
+    from gen_fvgn_tpu_torch.meshes.synthetic import (cavity_quad_mesh,
+                                                     synthetic_case)
+    from gen_fvgn_tpu_torch.ops import (fused_mlp, fused_slice_attn,
+                                        plain_versions, spmm)
+    from gen_fvgn_tpu_torch.training.forward import (forward_batch,
+                                                     training_loss)
+    from gen_fvgn_tpu_torch.training.pool import EnvPool
+    from gen_fvgn_tpu_torch.training.train import init_train_state
+    cfg = Config(batch_size=4, dataset_size=4)
+    assert cfg.engine == "segment"
+    pool = EnvPool([], cfg, seed=0, engine="segment", cases=[synthetic_case(
+        cavity_quad_mesh(16), continuity=1, convection=1, grad_p=1, mu=0.05,
+        sigma=(1, 1, 1))])
+    assert (pool.sizes.n_nodes, pool.sizes.n_faces) == (384, 640)
+    batch = pool.gather_batch(np.arange(4))
+    state, sim = init_train_state(cfg, seed=0)
+    params = list(sim.parameters())
+
+    def grads(plain):
+        with plain_versions() if plain else contextlib.nullcontext():
+            loss = training_loss(forward_batch(sim, state.norm_state, batch,
+                                               cfg), cfg)
+            g = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        return float(loss), g
+
+    count = lambda: (spmm.LAUNCHES, fused_mlp.LAUNCHES_LN,
+                     fused_mlp.LAUNCHES_LN_BWD, fused_mlp.LAUNCHES_NOLN,
+                     fused_mlp.LAUNCHES_NOLN_BWD, fused_mlp.LAUNCHES_PREMLP,
+                     fused_mlp.LAUNCHES_PREMLP_BWD, fused_slice_attn.LAUNCHES)
+    before = count()
+    loss_k, g_k = grads(False)
+    after = count()
+    assert [a - b for a, b in zip(after, before)] == [0, 14, 14, 1, 1, 2, 2,
+                                                      0]
+    loss_p, g_p = grads(True)
+    assert count() == after
+    flat = lambda g: torch.cat([x.reshape(-1).double() for x in g])
+    k, p = flat(g_k), flat(g_p)
+    assert float((k - p).norm() / p.norm()) <= 2e-2
+    for a, b in zip(g_k, g_p):
+        a, b = a.double().reshape(-1), b.double().reshape(-1)
+        if bool(b.any()):
+            assert float((a - b).norm() / b.norm()) <= 3e-2
+            assert float(a @ b / (a.norm() * b.norm())) >= 1 - 1e-3
+    assert abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)

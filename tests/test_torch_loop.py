@@ -231,7 +231,8 @@ def test_train_loop_matches_jax(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(engine="segment"), dict(dp_devices=2), dict(sp_devices=2),
+    dict(engine="segment", bucket_tiers=True), dict(dp_devices=2),
+    dict(sp_devices=2),
     dict(node_agg="split"), dict(edge_gather="composed"),
     dict(fv_packed=False)])
 def test_train_raises_on_what_is_not_ported(tmp_path, change):

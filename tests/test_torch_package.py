@@ -67,7 +67,10 @@ def test_importing_the_port_loads_no_jax_module():
             "gen_fvgn_tpu_torch.io.tb_events",
             "gen_fvgn_tpu_torch.scripts.pre_train",
             "gen_fvgn_tpu_torch.scripts.solve",
-            "gen_fvgn_tpu_torch.tools.case_files"} <= set(mods)
+            "gen_fvgn_tpu_torch.tools.case_files",
+            "gen_fvgn_tpu_torch.models.simulator",
+            "gen_fvgn_tpu_torch.ops.interp",
+            "gen_fvgn_tpu_torch.solve.rollout"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -105,7 +108,22 @@ def _entry_points(tmp_path):
         init_train_state_block, make_train_step_block)
     from gen_fvgn_tpu_torch.solve.instance_opt import (solve_adam_block,
                                                        solve_lbfgs_block)
+    from gen_fvgn_tpu_torch.graph.sample import stack_samples
+    from gen_fvgn_tpu_torch.models.simulator import make_simulator
+    from gen_fvgn_tpu_torch.solve.instance_opt import solve_adam, solve_lbfgs
     from gen_fvgn_tpu_torch.training.loop import train
+    from gen_fvgn_tpu_torch.training.train import (init_train_state,
+                                                   make_train_step)
+
+    def segment_pool(**kw):
+        return EnvPool([], cfg, cases=[_small_case()], engine="segment",
+                       **kw)
+
+    def segment_solve(fn, **kw):
+        pool = segment_pool(device="cpu")
+        return fn(cfg, make_simulator(cfg, device="cpu"),
+                  init_normalizer(9, device="cpu"),
+                  pool.gather_batch(np.arange(1)), 1, 1, **kw)
 
     def solve(fn, **kw):
         pool = EnvPool([], cfg, cases=[_small_case()], device="cpu")
@@ -130,6 +148,19 @@ def _entry_points(tmp_path):
         "build_static_pack": static_pack,
         "normalizer_from_numpy": lambda **kw: normalizer_from_numpy(
             np.zeros(9), np.ones(9), 1.0, 1.0, **kw),
+        "train[segment]": lambda **kw: train(
+            cfg.replace(engine="segment", max_inner_steps=1),
+            cases=[_small_case()], log_base_dir=str(tmp_path), n_epochs=1,
+            **kw),
+        "EnvPool[segment]": segment_pool,
+        "stack_samples": lambda **kw: stack_samples(
+            [segment_pool(device="cpu").envs[0].sample], **kw),
+        "make_simulator": lambda **kw: make_simulator(cfg, **kw),
+        "init_train_state": lambda **kw: init_train_state(cfg, **kw),
+        "make_train_step": lambda **kw: make_train_step(
+            cfg, make_simulator(cfg, device="cpu"), **kw),
+        "solve_adam": lambda **kw: segment_solve(solve_adam, **kw),
+        "solve_lbfgs": lambda **kw: segment_solve(solve_lbfgs, **kw),
     }
 
 
@@ -138,7 +169,11 @@ def _entry_points(tmp_path):
                                   "normalizer_from_numpy",
                                   "init_train_state_block",
                                   "make_train_step_block", "train",
-                                  "solve_adam_block", "solve_lbfgs_block"])
+                                  "solve_adam_block", "solve_lbfgs_block",
+                                  "train[segment]", "EnvPool[segment]",
+                                  "stack_samples", "make_simulator",
+                                  "init_train_state", "make_train_step",
+                                  "solve_adam", "solve_lbfgs"])
 def test_entry_point_defaults_to_cuda_and_raises_without_a_card(name,
                                                                 tmp_path):
     if torch.cuda.is_available():
@@ -236,7 +271,7 @@ def test_unknown_net_and_unported_options_raise():
         EnvPool(["some_dir"], Config(net="FVGN"), device="cpu")
     with pytest.raises(NotImplementedError):
         EnvPool([], Config(net="FVGN"), cases=[_small_case()],
-                engine="segment", device="cpu")
+                engine="segment", bucket_tiers=True, device="cpu")
 
 
 def test_normalizer_from_numpy_and_types():
