@@ -12,8 +12,9 @@ K5-K7 also at the shapes the JAX package fuses beyond the nets', C 768,
 1024, 1152 and 2048, (C, H, G) = (128, 16, 8), (512, 4, 128), (384, 6,
 64), (1152, 8, 32), (2048, 16, 8), at batch 2, and one TransolverBlock at
 hidden 1152 forward and backward against its plain versions; the paired
-sparse applies K8 and K9 at the paired path's), then drives ten paths
-on the 101x101-node synthetic cavity at batch 8, with weights from
+sparse applies K8 and K9 at the paired path's; K1 at the operator forms
+only the block engine's options launch, `OPTION_SPMM_FORMS`), then drives
+eleven paths on the 101x101-node synthetic cavity at batch 8, with weights from
 torch.Generator().manual_seed(0), all with the Config's defaults
 (TransFVGN_v2: hidden 128, 2 processors of 3 message-passing blocks and a
 Transolver block each, 8 heads, 32 slices, bf16 stream) unless named:
@@ -50,6 +51,17 @@ Transolver block each, 8 heads, 32 slices, bf16 stream) unless named:
     and 32 slices; the MLP kernels at H = 256): one rollout step with the
     main path's rollout launches and one train step with its train-step
     launches;
+  * the block engine's options (phase "forms", `FORM_OPTIONS`): node_agg
+    "split" and "wide" and the composed gathers (edge_gather "composed",
+    on statics that carry gsadj / gradj), each 3 rollout steps (step 1
+    against the plain versions) and 3 train steps (step 1's gradients
+    against the plain versions) with its launches checked (spmm a rollout
+    / train step: 6 / 24, 18 / 48, 24 / 48; the MLP and attention kernels
+    as the main path's; fv_packed=False and fv_ell run the main path's FV
+    products, so they have no run here), then the LSFD residual of both
+    engines on the card
+    against the same on the CPU (the block form on the full folded WLSQ
+    rows);
   * the training run: `train()` (training/loop.py) with the main path's
     Config on two cases of the same cavity, the main path's Navier-Stokes
     case and a wave case (dt 0.05, source strength 0.02): 16 environments,
@@ -81,7 +93,10 @@ Transolver block each, 8 heads, 32 slices, bf16 stream) unless named:
     mixed-case batches (finite losses, the loss monitor, checkpoint slots
     0 and 1, launches the train steps' or the mixed steps' groups' x the
     main path's per step), the summed gradients of one mixed step of two
-    groups held against the plain versions on the card, and
+    groups held against the plain versions on the card, `pre_train
+    --engine segment --bucket-tiers 1` (the two cases' face counts differ,
+    so they form two tiers; its launches the segment step's a train step),
+    and
     `scripts.solve.main --engine block` from the mixed run's checkpoint in
     the modes rollout, adam and lbfgs, 2 time steps of 2 inner steps
     (exports and launches checked).
@@ -117,7 +132,9 @@ itself; K5f, K8 and K9, redesigned for this card, carry their kernels'
 registers and spill bytes from nvcc's -Xptxas -v ("registers": K5f's
 strip kernel `premlp_rows`, K8's `pair_sum_kernel` and K9's
 `pair_transpose_kernel` over their instantiations and at the main forms'
-bf16 16-byte vectors).
+bf16 16-byte vectors). K1's entry also carries "option_forms", its times
+at OPTION_SPMM_FORMS with each form's launches a train and a rollout step
+of the option that launches it.
 
 Needs one CUDA card and nvcc; exits non-zero without them, and on any phase
 that fails. float32 products run in full float32: TF32 is switched off
@@ -281,15 +298,16 @@ def spmm_form(static, form, gen, batch=BATCH):
     return op, xw, ow, full
 
 
-def check_spmm(static, flush_buf, gen):
-    """K1 in every form a train step launches (SPMM_FORMS) at [8, n, 128]
-    bf16: each against its plain version on the same window (one bf16
-    rounding, padded rows zero, the same bits twice), timed beside its
-    bound and the library call (torch.sparse.mm on the same operator, the
-    batch folded into the columns outside the timing)."""
+def check_spmm(static, flush_buf, gen, forms=SPMM_FORMS):
+    """K1 in every form a train step launches (`forms`, SPMM_FORMS by
+    default) at [8, n, 128] bf16: each against its plain version on the
+    same window (one bf16 rounding, padded rows zero, the same bits
+    twice), timed beside its bound and the library call (torch.sparse.mm
+    on the same operator, the batch folded into the columns outside the
+    timing)."""
     from gen_fvgn_tpu_torch.ops.spmm import spmm, spmm_reference
     rows = []
-    for form in SPMM_FORMS:
+    for form in forms:
         name, _, width, c0, out_w, per_train, per_roll = form
         op, xw, ow, full = spmm_form(static, form, gen)
         f = xw.shape[-1]
@@ -349,10 +367,32 @@ def check_spmm(static, flush_buf, gen):
     step = sum(r["ms"] * r["launches_per_train_step"] for r in rows)
     step_bound = sum(r["bound_ms"] * r["launches_per_train_step"]
                      for r in rows)
-    log(f"  spmm in a train step: {step:.4f} ms in "
-        f"{sum(r['launches_per_train_step'] for r in rows)} launches "
-        f"(bound {step_bound:.4f} ms)")
+    if forms is SPMM_FORMS:
+        log(f"  spmm in a train step: {step:.4f} ms in "
+            f"{sum(r['launches_per_train_step'] for r in rows)} launches "
+            f"(bound {step_bound:.4f} ms)")
     return rows
+
+
+# K1's forms that only the block engine's other options launch, as
+# SPMM_FORMS (launches per train / rollout step of TransFVGN_v2 in the
+# option that launches them): the composed gathers gsadj = Gs@adj and
+# gradj = Gr@adj (E <- N, edge_gather "composed") and their transposes;
+# the "wide" aggregation's scatters on the two kept 64-column windows of
+# the edge stream (N <- E) and their transposes (E <- N into a half of one
+# gradient). The "split" aggregation's 64-wide scatters and every adj at
+# 64 columns take `csr_matmul`, as the JAX dispatch rule sends them outside
+# its kernel.
+OPTION_SPMM_FORMS = (
+    ("gsadj", "gsadj.fwd", 128, 0, 128, 6, 6),
+    ("gradj", "gradj.fwd", 128, 0, 128, 6, 6),
+    ("gsadj^T", "gsadj.bwd", 128, 0, 128, 6, 0),
+    ("gradj^T", "gradj.bwd", 128, 0, 128, 6, 0),
+    ("scat_r[:64]", "scat_r.fwd", 128, 0, 64, 6, 6),
+    ("scat_s[64:]", "scat_s.fwd", 128, 64, 64, 6, 6),
+    ("scat_r^T->[:64]", "scat_r.bwd", 64, 0, 128, 6, 0),
+    ("scat_s^T->[64:]", "scat_s.bwd", 64, 64, 128, 6, 0),
+)
 
 
 def _csr_cat(parts, n_out, n_in):
@@ -998,12 +1038,13 @@ def zero_counts():
 
 
 def drive(name, cfg, sim, norm_state, dyn, static, steps, per_step, n_real,
-          batch=BATCH):
+          batch=BATCH, timing=None):
     """`steps` rollout steps of `sim` with the counters set to 0 just before
     and read just after; then step 1 again with the plain versions on the
     card. `static` None: the segment engine (`rollout` on the stacked
     MeshSample `dyn`), else the block engine. Returns the counts of the
-    rollout and its records."""
+    rollout and its records; `timing` (a dict) takes the steps' host-clock
+    ms under "step_ms"."""
     from gen_fvgn_tpu_torch.solve import rollout as seg
     from gen_fvgn_tpu_torch.solve import rollout_block as blk
     if static is None:
@@ -1026,6 +1067,8 @@ def drive(name, cfg, sim, norm_state, dyn, static, steps, per_step, n_real,
         export_fn=lambda t, un, uc, rec: stamps.append(time.perf_counter()))
     counts = launch_counts()
     step_ms = [1e3 * (b - a) for a, b in zip(stamps[:-1], stamps[1:])]
+    if timing is not None:
+        timing["step_ms"] = step_ms
     for rec, ms in zip(hist, step_ms):
         for key in ("loss_cont", "loss_mom_x", "loss_mom_y", "loss_press"):
             if rec[key].shape != (batch,) or not np.isfinite(rec[key]).all():
@@ -1156,7 +1199,7 @@ def hold_grads(name, sim, grads_of):
 
 
 def drive_training(cfg, pool, static, steps, per_step, n_real, pairs=None,
-                   compare=None):
+                   compare=None, name=None):
     """The main path: `steps` train steps of cfg.net from
     `init_train_state_block` (seed 0; with `pairs` its GraphNet blocks take
     the paired sparse applies), each on the batch
@@ -1169,7 +1212,7 @@ def drive_training(cfg, pool, static, steps, per_step, n_real, pairs=None,
     peak memory."""
     from gen_fvgn_tpu_torch.training.train_block import (
         init_train_state_block, make_train_step_block)
-    name = f"{cfg.net}{' paired' if pairs else ''} train"
+    name = name or f"{cfg.net}{' paired' if pairs else ''} train"
     state, sim = init_train_state_block(cfg, seed=0, **(pairs or {}))
     train_step = make_train_step_block(cfg, sim)
     start = [p.detach().clone() for p in sim.parameters()]
@@ -1314,6 +1357,120 @@ def drive_hidden256(cfg, pool, static, norm_state, n_real, net, per_step,
         raise RuntimeError(f"{name}: train launches {counts} != {expected},"
                            f" or loss {loss}, grad_norm {gnorm}")
     return counts
+
+
+# the block engine's other options: the Config fields of each, and its
+# spmm launches a rollout and a train step of TransFVGN_v2 (6 GnBlocks;
+# the MLP and attention kernels launch as on the main path). "split":
+# only adj at 128 columns and the gathers' transposes reach K1 (1 + 3 a
+# block); "wide": adj, the two scatter windows, and in the backward adj^T,
+# the gathers' and the windows' transposes (3 + 5); the composed gathers:
+# gsadj, gradj and the two node-aggregation windows, and their transposes
+# (4 + 4)
+FORM_OPTIONS = {
+    "split": (dict(node_agg="split"), 6, 24),
+    "wide": (dict(node_agg="wide"), 18, 48),
+    "composed_gather": (dict(edge_gather="composed"), 24, 48),
+}
+FORM_STEPS = 3                  # rollout and train steps of each option
+
+
+def drive_forms(cfg, pool, static, norm_state, dyn, n_real, per_step,
+                card):
+    """Phase "forms": the block engine's options that the main path does
+    not take, at its full width (TransFVGN_v2, hidden 128, batch 8, the
+    101 x 101-node cavity). K1 at the operator forms only these options
+    launch (OPTION_SPMM_FORMS) against its plain version; for each option
+    of FORM_OPTIONS a 3-step rollout (step 1 against the plain versions)
+    and 3 train steps (step 1's gradients against the plain versions, the
+    main path's limits), each with the counters set to 0 just before and
+    read just after and checked; the LSFD residual of both engines on the
+    card against the same on the CPU. Returns the K1 rows and the timings."""
+    import dataclasses
+
+    from gen_fvgn_tpu_torch.fv.lsfd import lsfd_residual, lsfd_residual_block
+    from gen_fvgn_tpu_torch.graph.packs import build_static_pack
+    from gen_fvgn_tpu_torch.models.simulator_block import make_simulator_block
+    from gen_fvgn_tpu_torch.training.pool import EnvPool
+    name = "forms"
+    t_phase = time.perf_counter()
+    mesh = pool.cases[0]["mesh"]
+    t0 = time.perf_counter()
+    cg_static = build_static_pack(mesh, cfg.order, pool.case_sizes[0],
+                                  cfg.tile, node_agg="composed",
+                                  edge_gather="composed")
+    ops = cg_static.ops
+    t = dict(statics_s=time.perf_counter() - t0, ms_per_train_step={},
+             ms_per_rollout_step={}, launches={})
+    per_row = lambda op: op.nnz / int((op.crow[1:] > op.crow[:-1]).sum())
+    log(f"{name} statics with the composed gathers: {t['statics_s']:.1f} s; "
+        f"non-zeros a non-empty row: gsadj {per_row(ops.gsadj.fwd):.2f}, "
+        f"gradj {per_row(ops.gradj.fwd):.2f}, their transposes "
+        f"{per_row(ops.gsadj.bwd):.2f} and {per_row(ops.gradj.bwd):.2f}; "
+        f"scat_r^T {per_row(ops.scat_r.bwd):.2f}")
+    flush_buf = torch.zeros(64 * 1024 * 1024, device="cuda")
+    rows = check_spmm(cg_static, flush_buf,
+                      torch.Generator(device="cuda").manual_seed(15),
+                      OPTION_SPMM_FORMS)
+    del flush_buf
+
+    for form, (fields, roll_spmm, train_spmm) in FORM_OPTIONS.items():
+        fcfg = cfg.replace(**fields)
+        st = cg_static if form == "composed_gather" else static
+        fwd = dict(spmm=roll_spmm, fused_mlp_ln=14, fused_mlp_noln=1,
+                   fused_premlp_res=2, fused_slice_pool=2)
+        timing = {}
+        drive(f"{name} {form}", fcfg, make_simulator_block(fcfg, seed=0),
+              norm_state, dyn, st, FORM_STEPS, fwd, n_real, timing=timing)
+        counts, step_ms, _ = drive_training(
+            fcfg, pool, st, FORM_STEPS, dict(per_step, spmm=train_spmm),
+            n_real, name=f"{name} {form} train")
+        t["ms_per_rollout_step"][form] = timing["step_ms"]
+        t["ms_per_train_step"][form] = step_ms
+        t["launches"][form] = counts
+    rounded = lambda d: {k: [round(x, 2) for x in v] for k, v in d.items()}
+    log(f"{name}: ms per train step (host clock, gather and step, batch "
+        f"{BATCH}) {rounded(t['ms_per_train_step'])}; ms per rollout step "
+        f"(host clock, state copied to the host) "
+        f"{rounded(t['ms_per_rollout_step'])}; card: {card}")
+
+    # LSFD: the block residual on the full folded WLSQ rows, and the
+    # segment residual, on the card against the same on the CPU
+    full = build_static_pack(mesh, cfg.order, pool.case_sizes[0], cfg.tile,
+                             wlsq_rows="full", node_agg="composed")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    hat = torch.randn(dyn.uvp.shape[:-1] + (2,), generator=gen,
+                      device="cuda") * static.node_mask[None, :, None]
+    got = lsfd_residual_block(dyn.uvp, hat, dyn, full)[1]
+    ref = lsfd_residual_block(dyn.uvp.cpu(), hat.cpu(), dyn.to("cpu"),
+                              full.to("cpu"))[1]
+    block_gap = float(((got.cpu() - ref).abs() / ref.abs()).max())
+    seg_pool = EnvPool([], cfg.replace(engine="segment"), seed=0,
+                       cases=[pool.cases[0]], engine="segment",
+                       dataset_size=BATCH)
+    batch = seg_pool.gather_batch(np.arange(BATCH))
+    hat_s = torch.randn(batch.uvp.shape[:-1] + (2,), generator=gen,
+                        device="cuda") * batch.node_mask[..., None]
+    seg = lsfd_residual(batch.uvp, hat_s, batch)[1]
+    cpu_batch = type(batch)(**{f.name: getattr(batch, f.name).cpu()
+                               for f in dataclasses.fields(batch)})
+    seg_ref = lsfd_residual(batch.uvp.cpu(), hat_s.cpu(), cpu_batch)[1]
+    seg_gap = float(((seg.cpu() - seg_ref).abs() / seg_ref.abs()).max())
+    t["lsfd_rel_gap"] = dict(block=block_gap, segment=seg_gap)
+    # float32 sums of the same products in another order
+    lsfd_tol = 1e-4
+    log(f"{name} LSFD raw residual, card vs CPU (float32, batch {BATCH}): "
+        f"block {got.cpu().numpy().round(4).tolist()} (rows "
+        f"{full.ops.wlsq_n_q} a node), relative gap {block_gap:.3g}; "
+        f"segment relative gap {seg_gap:.3g} (tolerance {lsfd_tol})")
+    if not (block_gap <= lsfd_tol and seg_gap <= lsfd_tol
+            and bool(torch.isfinite(got).all())):
+        raise RuntimeError(f"{name}: the LSFD residual on the card disagrees "
+                           f"with the CPU")
+    del full, seg_pool, batch, cg_static
+    t["phase_s"] = time.perf_counter() - t_phase
+    log(f"{name}: phase {t['phase_s']:.1f} s; card: {card}")
+    return rows, t
 
 
 def check_segment_forms(n_pad, e_pad, flush_buf, gen, h=128):
@@ -2048,6 +2205,7 @@ def drive_cli(card, per_step, fwd_per_step):
     and runs `scripts.solve.main --engine block` from the mixed run's
     checkpoint in the three modes, 2 time steps of 2 inner steps, each
     checked for its exports and launches. Returns the timings."""
+    import dataclasses
     import glob
     import os
     import tempfile
@@ -2168,6 +2326,53 @@ def drive_cli(card, per_step, fwd_per_step):
                    lambda plain: mixed_step_grads(pool.cfg, sim, pool, batch,
                                                   plain))
         del sim, pool
+
+        # the segment engine with bucket tiers: the two cases have the same
+        # node count but not the same face count, so each pads to its own
+        # sizes and they form two tiers; batches stay within a tier
+        spy.reset()
+        log_dir = os.path.join(tmp.name, "runs_segment_tiers")
+        start_peak()
+        zero_counts()
+        t0 = time.perf_counter()
+        pre_train.main(["--dataset-dir", data, "--log-dir", log_dir,
+                        "--epochs", "2", "--max-inner-steps", "2",
+                        "--dataset-size", "16", "--engine", "segment",
+                        "--bucket-tiers", "1"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = launch_counts()
+        read_peak("pre_train segment tiers")
+        tiers = spy.pools[-1]
+        n_steps = 2 * 2 * len(tiers.batch_indices(1))
+        expected = {k: SEG_TRAIN.get(k, 0) * n_steps for k in counts}
+        run_dir, = glob.glob(os.path.join(log_dir, "*", "*"))
+        lines = open(os.path.join(run_dir, "Loss_monitor.dat")) \
+            .read().splitlines()
+        cols = lines[0].split("=")[1].replace('"', "").split(",")
+        rows = [dict(zip(cols, map(float, ln.split(","))))
+                for ln in lines[1:]]
+        losses = [r["loss"] for r in rows]
+        t["segment_tiers"] = dict(
+            n_tiers=tiers.n_tiers, seconds=run_s, train_steps=n_steps,
+            inner_step_ms=1e3 * rows[-1]["epoch_seconds"] / 2,
+            tier_sizes=[dataclasses.astuple(tiers.case_sizes[c])
+                        for c in range(len(tiers.cases))],
+            losses=losses, launches=counts)
+        log(f"{name} pre_train --engine segment --bucket-tiers 1: "
+            f"{tiers.n_tiers} tiers (padded nodes, faces, cells, slots, "
+            f"stencil edges {t['segment_tiers']['tier_sizes']}); "
+            f"{n_steps} train steps, losses {losses}; {run_s:.2f} s (host "
+            f"clock, reading both cases included); peak device memory "
+            f"{t['peak_mib']['pre_train segment tiers']:.0f} MiB; launches "
+            f"{counts}")
+        if tiers.n_tiers != 2 or len(losses) != 2 \
+                or not np.isfinite(losses).all() or counts != expected:
+            raise RuntimeError(f"{name} pre_train segment tiers: tiers "
+                               f"{tiers.n_tiers}, losses {losses}, launches "
+                               f"{counts} (expected {expected})")
+        del tiers
+        spy.reset()
 
         # serving: solve from the mixed run's last checkpoint
         state = os.path.join(mix["run_dir"], "states", "1.state")
@@ -2391,6 +2596,12 @@ def main():
     drive_hidden256(cfg, pool, static, norm_state, n_real, "TransFVGN_v2",
                     tv, per_step)
 
+    # ---- phase 8a: the block engine's other options (node_agg split and
+    # wide, the composed gathers) and LSFD ----
+    option_rows, forms_t = drive_forms(cfg, pool, static, norm_state, dyn,
+                                       n_real, per_step, card)
+    log(json.dumps({"forms": forms_t}))
+
     # ---- phase 8b: the segment engine, the JAX package's default ----
     seg_t = drive_segment(card)
     log(json.dumps({"segment": seg_t}))
@@ -2439,7 +2650,7 @@ def main():
     kernels = [
         entry("spmm", "spmm.cu", "pallas_spmm.py:228",
               dict(big, max_abs_err=max(r["max_abs_err"]
-                                        for r in spmm_rows)),
+                                        for r in spmm_rows + option_rows)),
               "nbr_r", big["library_ms"]),
         entry("fused_mlp_ln", "fused_mlp.cu", "fused_mlp.py:385",
               dict(edge[128], max_abs_err=max(r["max_abs_err"]
@@ -2477,6 +2688,15 @@ def main():
         "launches_per_rollout_step")} for r in spmm_rows]
     kernels[0]["train_step_ms"] = sum(
         r["ms"] * r["launches_per_train_step"] for r in spmm_rows)
+    # K1 in the forms only the block engine's other options launch (phase
+    # "forms"), each with its launches a train and a rollout step of the
+    # option that launches it
+    kernels[0]["option_forms"] = [{k: r[k] for k in (
+        "op", "f", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err", "launches_per_train_step",
+        "launches_per_rollout_step")} for r in option_rows]
+    kernels[0]["option_launches_in_3_train_steps"] = {
+        form: c["spmm"] for form, c in forms_t["launches"].items()}
     # the same four kernels at hidden width 256 (same forms and method)
     wide = dict(fused_mlp_ln=edge[256], fused_mlp_noln=noln_row[256],
                 **{k: mlp_bwd_rows[256][k]

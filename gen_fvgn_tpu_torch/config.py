@@ -67,6 +67,7 @@ class Config:
     fv_packed: bool = True             # block engine: run the FV residual
                                        # section once for the whole batch on
                                        # channel-major [rows, C*B] arrays
+                                       # (the port does so either way)
     fv_ell: bool = False               # block engine + fv_packed: apply the
                                        # low-degree FV operators through
                                        # k-take tables

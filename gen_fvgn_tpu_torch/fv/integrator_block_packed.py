@@ -19,9 +19,14 @@ section boundary (a few MB of float32).
 These applies are float32 and narrow (C·B is not a multiple of 128 at the
 batch sizes in use), so they are `torch.sparse` products, not the spmm
 kernel — the same split as in the JAX package, whose Pallas kernels only
-take 128-lane multiples. `fv_ell` (k-take tables for the low-degree
-operators) was a layout option of the tiled engine; CSR already reads only
-the non-zeros, so it has nothing to switch here and only False is accepted.
+take 128-lane multiples.
+
+`fv_ell=True` makes the JAX package apply the low-degree FV operators
+(n2c, n2f, c2n, flux) through ELL tables (k row-takes and fmas) instead of
+its dense tiles: a TPU layout of the same operators, which reads only the
+non-zeros. CSR reads only the non-zeros already, so here both settings run
+the same CSR products and give the JAX package's losses within float32
+summation order.
 """
 
 from __future__ import annotations
@@ -70,11 +75,10 @@ def integrate_residuals_block_packed(
     ncn_smooth: bool = True,
     fv_ell: bool = False,
 ) -> Tuple[FVLosses, torch.Tensor, torch.Tensor]:
-    """Returns (losses [B] each, rt_uvp [B, Np, 3], uvp_cell [B, Nc, 3])."""
-    if fv_ell:
-        raise NotImplementedError(
-            "fv_ell=True selects a layout of the tiled engine; the CSR "
-            "operators have no such variant")
+    """Returns (losses [B] each, rt_uvp [B, Np, 3], uvp_cell [B, Nc, 3]).
+    `fv_ell` is accepted for the JAX signature and changes nothing here
+    (see the module's docstring)."""
+    del fv_ell
     ops = static.ops
     b, n_pad, _ = uvp_new.shape
     ap = apply_linop

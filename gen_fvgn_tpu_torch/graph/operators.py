@@ -5,8 +5,10 @@ every sparse linear operator the forward pass needs, as CSR `LinOp`s
 (ops/blocksparse.py):
 
   model:  adj (neighbour sum), gather_s/gather_r (edge←node), edge_diff,
-          scat_r/scat_s (node←edge halves), degree vector, and the composed
-          nbr_r = adj @ scat_r, nbr_s = adj @ scat_s
+          scat_r/scat_s (node←edge halves), degree vector, the composed
+          nbr_r = adj @ scat_r, nbr_s = adj @ scat_s (node_agg "composed"),
+          and the composed gathers gsadj = Gs @ adj, gradj = Gr @ adj
+          (edge_gather "composed")
   wlsq:   the folded gradient operator [N·2 ← N] — accumulation,
           conditioning and the per-node solve collapse into one static
           sparse matrix
@@ -32,7 +34,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from gen_fvgn_tpu_torch.ops.blocksparse import (LinOp, build_linop,
+from gen_fvgn_tpu_torch.ops.blocksparse import (CsrOp, LinOp, build_linop,
                                                 gather_coo, signed_diff_coo)
 from gen_fvgn_tpu_torch.utils.types import NodeType
 
@@ -120,15 +122,31 @@ class MeshOperators:
     # nbr_r = adj @ scat_r, nbr_s = adj @ scat_s [N←E]
     nbr_r: Optional[LinOp] = None
     nbr_s: Optional[LinOp] = None
+    # composed EdgeBlock gathers (cfg.edge_gather "composed"): gsadj =
+    # Gs @ adj, gradj = Gr @ adj [E←N]; take_side(adj @ (x·W)) ==
+    # gsadj @ (x·W), and padded rows are zero (no take row-0 carve-out)
+    gsadj: Optional[LinOp] = None
+    gradj: Optional[LinOp] = None
     # number of folded WLSQ derivative rows per node (static metadata)
     wlsq_n_q: int = 2
 
     def to(self, device) -> "MeshOperators":
+        # a direction shared by two operators (gsadj / gradj are nbr_s /
+        # nbr_r transposed) moves once and stays shared
+        done = {}
+
+        def move(op: CsrOp) -> CsrOp:
+            if id(op) not in done:
+                done[id(op)] = op.to(device)
+            return done[id(op)]
         moved = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
-            moved[f.name] = (v.to(device)
-                             if isinstance(v, (LinOp, torch.Tensor)) else v)
+            if isinstance(v, LinOp):
+                v = LinOp(fwd=move(v.fwd), bwd=move(v.bwd))
+            elif isinstance(v, torch.Tensor):
+                v = v.to(device)
+            moved[f.name] = v
         return MeshOperators(**moved)
 
 
@@ -153,13 +171,17 @@ def build_mesh_operators(mesh: Dict[str, np.ndarray], order: str,
 
     wlsq_rows: "grad" folds only the gradient rows q=0,1; "full" folds all
     k rows of the order-k solve. `tile` only sets the padded row count of
-    the WLSQ operator, as in the JAX package."""
+    the WLSQ operator, as in the JAX package.
+
+    node_agg "composed" builds nbr_r / nbr_s; edge_gather "composed" builds
+    gsadj / gradj. (The JAX package builds both pairs whenever node_agg is
+    "composed" and takes the gathers only under its process-wide switch
+    `use_composed_gather()`; here each pair follows its own Config field.)"""
     from gen_fvgn_tpu_torch.ops.wlsq import WLSQ_DIM, odd_sign_vector
 
-    if edge_gather != "take":
-        raise NotImplementedError(
-            f"edge_gather={edge_gather!r}: only 'take' is ported; "
-            f"'composed' belongs to a later slice of the port")
+    if edge_gather not in ("take", "composed"):
+        raise ValueError(f"edge_gather must be 'take' or 'composed', got "
+                         f"{edge_gather!r}")
 
     pos = mesh["node|pos"].astype(np.float64)
     face_node = mesh["face|face_node"].astype(np.int64)
@@ -202,19 +224,31 @@ def build_mesh_operators(mesh: Dict[str, np.ndarray], order: str,
     scat_r = build_linop(r, e_idx, np.ones(e, np.float32), np_pad, e_pad, mdt)
     scat_s = build_linop(s, e_idx, np.ones(e, np.float32), np_pad, e_pad, mdt)
 
-    nbr_r = nbr_s = None
-    if node_agg == "composed":
-        # nbr_r = adj @ scat_r, nbr_s = adj @ scat_s — composed on the host
-        # as sparse products. Entries are path counts (small integers),
-        # exactly representable in bf16.
-        import scipy.sparse as sp
-        A = sp.csr_matrix((np.ones(2 * e, np.float64), (rows, cols)),
-                          shape=(n, n))
+    # the composed operators, products of the structural ones on the host.
+    # Entries are path counts (small integers), exactly representable in
+    # bf16; rows past the real ones stay empty, so padded rows are zero
+    import scipy.sparse as sp
+    A = sp.csr_matrix((np.ones(2 * e, np.float64), (rows, cols)),
+                      shape=(n, n))
+
+    def composed(left, right, n_out, n_in):
+        c = (left @ right).tocoo()
+        return build_linop(c.row, c.col, c.data, n_out, n_in, mdt)
+
+    nbr_r = nbr_s = gsadj = gradj = None
+    if node_agg == "composed" or edge_gather == "composed":
+        # nbr_r = adj @ scat_r, nbr_s = adj @ scat_s [N←E]
         Sr = sp.csr_matrix((np.ones(e, np.float64), (r, e_idx)), shape=(n, e))
         Ss = sp.csr_matrix((np.ones(e, np.float64), (s, e_idx)), shape=(n, e))
-        Cr, Cs = (A @ Sr).tocoo(), (A @ Ss).tocoo()
-        nbr_r = build_linop(Cr.row, Cr.col, Cr.data, np_pad, e_pad, mdt)
-        nbr_s = build_linop(Cs.row, Cs.col, Cs.data, np_pad, e_pad, mdt)
+        nbr_r = composed(A, Sr, np_pad, e_pad)
+        nbr_s = composed(A, Ss, np_pad, e_pad)
+    if edge_gather == "composed":
+        # gsadj = Gs @ adj, gradj = Gr @ adj [E←N]: adj is symmetric, so
+        # they are nbr_s and nbr_r transposed, and share their arrays
+        gsadj = LinOp(fwd=nbr_s.bwd, bwd=nbr_s.fwd)
+        gradj = LinOp(fwd=nbr_r.bwd, bwd=nbr_r.fwd)
+    if node_agg != "composed":
+        nbr_r = nbr_s = None
 
     # ---- folded WLSQ operator ----
     stencil = mesh["stencil"].astype(np.int64)
@@ -299,5 +333,5 @@ def build_mesh_operators(mesh: Dict[str, np.ndarray], order: str,
         face_inflow=torch.from_numpy(face_inflow),
         face_wall=torch.from_numpy(face_wall),
         s_out=torch.from_numpy(s_out),
-        nbr_r=nbr_r, nbr_s=nbr_s, wlsq_n_q=n_q,
+        nbr_r=nbr_r, nbr_s=nbr_s, gsadj=gsadj, gradj=gradj, wlsq_n_q=n_q,
     )

@@ -2,10 +2,13 @@
 identical to the JAX package's `models/simulator_block.py` so converted
 checkpoints load key by key.
 
-`gather_pair` / `node_pair` pick the paired sparse applies in every
-GraphNet block (models/gn_block.py), the counterparts of the JAX package's
-process-wide `use_gather_pair()` / `use_node_pair()`; both default to off,
-as there, and leave the parameter tree as it is."""
+The GraphNet blocks take their forms from the Config: cfg.node_agg
+("composed", "wide" or "split") and cfg.edge_gather ("take" or "composed",
+the JAX package's process-wide `use_composed_gather()`). `gather_pair` /
+`node_pair` pick the paired sparse applies in every GraphNet block
+(models/gn_block.py), the counterparts of the JAX package's process-wide
+`use_gather_pair()` / `use_node_pair()`; both default to off, as there.
+No form changes the parameter tree."""
 
 from __future__ import annotations
 
@@ -26,6 +29,13 @@ def _stream_dtype(cfg: Config) -> Optional[torch.dtype]:
     return torch.bfloat16 if cfg.mxu_dtype == "bfloat16" else None
 
 
+def _composed_gather(cfg: Config) -> bool:
+    if cfg.edge_gather not in ("take", "composed"):
+        raise ValueError(f"edge_gather must be 'take' or 'composed', got "
+                         f"{cfg.edge_gather!r}")
+    return cfg.edge_gather == "composed"
+
+
 class AttnProcessorB(nn.Module):
     """message_passing_num GraphNet blocks, then a Transolver block on the
     blocks' output plus the processor's input."""
@@ -35,13 +45,14 @@ class AttnProcessorB(nn.Module):
                  dtype: Optional[torch.dtype] = None,
                  node_agg: str = "composed",
                  generator: Optional[torch.Generator] = None,
-                 gather_pair: bool = False, node_pair: bool = False):
+                 gather_pair: bool = False, node_pair: bool = False,
+                 composed_gather: bool = False):
         super().__init__()
         self.n_blocks = message_passing_num
         for i in range(message_passing_num):
             setattr(self, f"gn_{i}",
                     GnBlockB(hidden_size, dtype, node_agg, generator,
-                             gather_pair, node_pair))
+                             gather_pair, node_pair, composed_gather))
         self.transolver = TransolverBlock(hidden_size, heads, slice_num,
                                           dtype=dtype, generator=generator)
 
@@ -71,7 +82,7 @@ class FVGNSimulatorB(nn.Module):
         for i in range(c.message_passing_num):
             setattr(self, f"gn_{i}",
                     GnBlockB(c.hidden_size, dtype, c.node_agg, generator,
-                             gather_pair, node_pair))
+                             gather_pair, node_pair, _composed_gather(c)))
         self.decoder = Decoder(c.node_output_size, c.hidden_size, dtype,
                                generator)
 
@@ -117,7 +128,7 @@ class TransFVGNv2B(nn.Module):
             setattr(self, f"processor_{i}", AttnProcessorB(
                 c.hidden_size, c.message_passing_num, c.attn_heads,
                 c.slice_num, dtype, c.node_agg, generator, gather_pair,
-                node_pair))
+                node_pair, _composed_gather(c)))
         self.decoder = Decoder(c.node_output_size, c.hidden_size, dtype,
                                generator)
 
@@ -138,8 +149,9 @@ def make_simulator_block(cfg: Config, device="cuda", seed: int = 0,
                          ) -> nn.Module:
     """The block-engine simulator for cfg.net on `device`, weights drawn
     from torch.Generator().manual_seed(seed) (truncated normal 0.02, zero
-    bias, orthogonal slice kernels, temperature 0.5), with the paired
-    sparse applies where asked (the same weights either way).
+    bias, orthogonal slice kernels, temperature 0.5), its GraphNet blocks
+    in cfg.node_agg / cfg.edge_gather's forms, with the paired sparse
+    applies where asked (the same weights in every form).
     device="cuda" without a card raises."""
     dev = resolve_device(device)
     if cfg.net not in NETS:

@@ -2,7 +2,8 @@
 
 `plain_versions()` is the one switch between the kernels and their plain
 PyTorch versions: inside it the dispatching callers (`apply_linop`,
-`apply_node_agg`, `apply_gather_pair`, `apply_node_pair`, `fused_mlp_ln_parts`,
+`apply_half_agg` / `apply_node_agg`, `apply_gather_pair`, `apply_node_pair`,
+`fused_mlp_ln_parts`,
 `fused_mlp_noln_parts`, `fused_premlp_res_parts`, `fused_slice_pool`) call
 `spmm_reference`, `pair_sum_reference`, `fused_mlp_ln_reference`,
 `fused_mlp_noln_reference`, `fused_premlp_res_reference` and

@@ -298,40 +298,40 @@ class _NodePair(torch.autograd.Function):
         return dy.to(ctx.y_dtype), None, None
 
 
-class _NodeAgg(torch.autograd.Function):
-    """The composed NodeBlock aggregation nbr_sum = nbr_r·e[..., :h2] +
-    nbr_s·e[..., h2:] as two applies on column windows of the edge stream
+class _HalfAgg(torch.autograd.Function):
+    """a·e[..., :h2] + b·e[..., h2:] for two N←E operators a, b with the
+    same rows, as two applies on column windows of the edge stream
     e [(B,) E, h] (h2 = h / 2): each product at width h2, rounded to its
     output type as the full-width applies round (`_out_dtype`), the two
-    added in that type. The backward writes nbr_rᵀ·g and nbr_sᵀ·g straight
-    into the two halves of one [(B,) E, h] gradient. It gives the bits of
-    `(nbr_r·e)[..., :h2] + (nbr_s·e)[..., h2:]` and of that expression's
-    autograd backward (whose other halves are exact zeros), with half the
-    operand bytes, no zero-filled cotangent and no add of two half-zero
-    edge gradients. Windows of a multiple of 64 columns go to K1 (spmm)
-    on the card; the plain version (`plain`, or CPU tensors) computes the
-    same windows through `spmm_reference`, and narrower ones take
-    `csr_matmul`, as the full-width applies do below 128."""
+    added in that type. The backward writes aᵀ·g and bᵀ·g straight into
+    the two halves of one [(B,) E, h] gradient. It gives the bits of
+    `(a·e)[..., :h2] + (b·e)[..., h2:]` and of that expression's autograd
+    backward (whose other halves are exact zeros), with half the operand
+    bytes, no zero-filled cotangent and no add of two half-zero edge
+    gradients. Windows of a multiple of 64 columns go to K1 (spmm) on the
+    card; the plain version (`plain`, or CPU tensors) computes the same
+    windows through `spmm_reference`, and narrower ones take `csr_matmul`,
+    as the full-width applies do below 128."""
 
     @staticmethod
-    def forward(ctx, e, ops, plain):
-        ctx.ops, ctx.plain, ctx.e_dtype = ops, plain, e.dtype
+    def forward(ctx, e, a, b, plain):
+        ctx.a, ctx.b, ctx.plain, ctx.e_dtype = a, b, plain, e.dtype
         h2 = e.shape[-1] // 2
-        t = _apply_window(ops.nbr_r.fwd, e[..., :h2], plain)
-        u = _apply_window(ops.nbr_s.fwd, e[..., h2:], plain)
+        t = _apply_window(a.fwd, e[..., :h2], plain)
+        u = _apply_window(b.fwd, e[..., h2:], plain)
         return t + u
 
     @staticmethod
     def backward(ctx, g):
-        ops, plain = ctx.ops, ctx.plain
+        a, b, plain = ctx.a, ctx.b, ctx.plain
         g = g.contiguous()
         h2 = g.shape[-1]
-        out_dtype = _out_dtype(ops.nbr_r.bwd, g)
-        de = torch.empty(g.shape[:-2] + (ops.nbr_r.bwd.n_out, 2 * h2),
+        out_dtype = _out_dtype(a.bwd, g)
+        de = torch.empty(g.shape[:-2] + (a.bwd.n_out, 2 * h2),
                          dtype=out_dtype, device=g.device)
-        _apply_window(ops.nbr_r.bwd, g, plain, de[..., :h2])
-        _apply_window(ops.nbr_s.bwd, g, plain, de[..., h2:])
-        return de.to(ctx.e_dtype), None, None
+        _apply_window(a.bwd, g, plain, de[..., :h2])
+        _apply_window(b.bwd, g, plain, de[..., h2:])
+        return de.to(ctx.e_dtype), None, None, None
 
 
 def _apply_window(op: CsrOp, x: torch.Tensor, plain: bool,
@@ -348,13 +348,19 @@ def _apply_window(op: CsrOp, x: torch.Tensor, plain: bool,
     return out
 
 
+def apply_half_agg(a: LinOp, b: LinOp, e: torch.Tensor) -> torch.Tensor:
+    """`(a·e)[..., :h2] + (b·e)[..., h2:]` for two N←E operators: e
+    [(B,) n_edges, h] -> [(B,) n_nodes, h/2], computed on the kept column
+    windows only (see `_HalfAgg`)."""
+    from gen_fvgn_tpu_torch.ops import plain_versions_active
+    return _HalfAgg.apply(e, a, b, plain_versions_active())
+
+
 def apply_node_agg(ops, e: torch.Tensor) -> torch.Tensor:
     """The composed NodeBlock aggregation (JAX `models/gn_block.py`
-    :110-112, `t[..., :h2] + u[..., h2:]` of two full-width applies):
-    e [(B,) n_edges, h] -> [(B,) n_nodes, h/2], computed on the kept
-    column windows only (see `_NodeAgg`)."""
-    from gen_fvgn_tpu_torch.ops import plain_versions_active
-    return _NodeAgg.apply(e, ops, plain_versions_active())
+    :110-112, `t[..., :h2] + u[..., h2:]` of the full-width nbr_r / nbr_s
+    applies), on the kept column windows."""
+    return apply_half_agg(ops.nbr_r, ops.nbr_s, e)
 
 
 def apply_node_pair(ops, y: torch.Tensor) -> torch.Tensor:

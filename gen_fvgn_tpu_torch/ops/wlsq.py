@@ -7,8 +7,9 @@ block engine's runtime gradient is one sparse apply of the folded operator
 (graph/operators.py); the segment engine's is `node_based_wlsq_precomputed`
 below (batch-major torch tensors): the weighted differences accumulated
 per node by segment sums, then the folded solve as a batched product.
-`node_based_wlsq`, the LU form, is used only by the JAX package's
-gradient-reconstruction scripts and is not ported.
+`node_based_wlsq` is the LU form: the per-node system row-normalized,
+with the order-dependent ridge, solved at run time by a batched LU in the
+operands' type (and the condition numbers with `rt_cond`).
 
 The moments are evaluated in float32, operation by operation as the JAX
 function evaluates them, so the two packages fold the same numbers.
@@ -224,3 +225,57 @@ def node_based_wlsq_precomputed(
     nabla = torch.matmul(solve_matrix.to(torch.float32),
                          acc.to(torch.float32))                   # [B,N,k,C]
     return nabla.transpose(-1, -2)
+
+
+def node_based_wlsq(
+    phi: torch.Tensor,            # [B, N, C] (or [N, C])
+    stencil: torch.Tensor,        # [B, 2, Es] (or [2, Es])
+    A: torch.Tensor,              # [B, N, k, k] from wlsq_moments
+    single_B: torch.Tensor,       # [B, Es, k] from wlsq_moments (unscaled)
+    order: str,
+    colscale: Optional[torch.Tensor] = None,      # [B, N, k]
+    stencil_mask: Optional[torch.Tensor] = None,  # [B, Es]
+    node_mask: Optional[torch.Tensor] = None,     # [B, N]
+    rt_cond: bool = False,
+):
+    """Solve the WLSQ normal equations of every node (JAX
+    `ops/wlsq.py::node_based_wlsq`). Returns the derivatives [B, N, C, k]
+    ([..., 0:2] the gradient; 2:5 uxx, uyy, uxy at 2nd order, and so on);
+    with rt_cond also the condition number of each node's row-normalized
+    A [B, N] (largest over smallest singular value). Without a batch axis
+    ([N, C], [2, Es], [N, k, k], ...) the results have none either.
+
+    The rows of A and B are divided by the row norms of A (plus 1e-8) for
+    conditioning, orders 3 and 4 add a 1e-6 ridge, padded nodes
+    (node_mask False) solve an identity system with a zero right-hand
+    side, and the solution is multiplied by colscale."""
+    if phi.ndim == 2:
+        add = lambda t: None if t is None else t[None]
+        out = node_based_wlsq(phi[None], stencil[None], A[None],
+                              single_B[None], order, add(colscale),
+                              add(stencil_mask), add(node_mask), rt_cond)
+        return tuple(o[0] for o in out) if rt_cond else out[0]
+    k = single_B.shape[-1]
+    if colscale is None:
+        colscale = torch.ones(phi.shape[:2] + (k,), dtype=phi.dtype,
+                              device=phi.device)
+    B = accumulate_B(phi, stencil, single_B, order, colscale, stencil_mask)
+
+    row_norms = torch.linalg.vector_norm(A, dim=-1, keepdim=True)  # [B,N,k,1]
+    A_n = A / (row_norms + 1e-8)
+    B_n = B / (row_norms + 1e-8)
+    if _RIDGE[order]:
+        A_n = A_n + _RIDGE[order] * torch.eye(k, dtype=A_n.dtype,
+                                              device=A_n.device)
+    if node_mask is not None:
+        eye = torch.eye(k, dtype=A_n.dtype, device=A_n.device)
+        m = node_mask.to(A_n.dtype)[..., None, None]
+        A_n = A_n * m + eye * (1.0 - m)
+        B_n = B_n * m
+
+    nabla = torch.linalg.solve(A_n, B_n)                      # [B,N,k,C]
+    nabla = (nabla * colscale[..., None]).transpose(-1, -2)   # [B,N,C,k]
+    if rt_cond:
+        sv = torch.linalg.svdvals(A_n)
+        return nabla, sv[..., 0] / torch.clamp(sv[..., -1], min=1e-30)
+    return nabla

@@ -10,9 +10,9 @@ directory under --dataset-dir that holds a BC.json is a case
 (`training/pool.py::load_case`). `--engine` is "block" by default, as in
 the JAX script, or "segment" (the Config's default engine). Flags the port
 cannot honour yet raise NotImplementedError: `--dp-devices` or
-`--sp-devices` above 1, and `--bucket-tiers 1` with `--engine segment`.
-`--bucket-tiers` is a segment-engine option: the block engine ignores it,
-as in JAX.
+`--sp-devices` above 1. `--bucket-tiers 1` pads each case of the segment
+engine to its own sizes, with batches within a tier of equal sizes; the
+block engine pads per case anyway and ignores it, as in JAX.
 """
 
 from __future__ import annotations
@@ -63,10 +63,6 @@ def main(argv=None):
                     help="torch device (\"cpu\" only when asked)")
     args = ap.parse_args(argv)
 
-    if args.engine == "segment" and args.bucket_tiers:
-        raise NotImplementedError(
-            "--bucket-tiers 1: the segment engine's per-size padding tiers "
-            "belong to a later slice of the port")
     if args.dp_devices > 1 or args.sp_devices > 1:
         raise NotImplementedError(
             "--dp-devices / --sp-devices above 1: data and spatial "

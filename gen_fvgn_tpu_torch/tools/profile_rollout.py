@@ -2,16 +2,17 @@
 
     python -m gen_fvgn_tpu_torch.tools.profile_rollout [--net TransFVGN_v2]
         [--steps 20] [--batch 8] [--train] [--engine block|segment]
-        [--gather-pair] [--node-pair]
+        [--gather-pair] [--node-pair] [--node-agg composed|wide|split]
+        [--edge-gather take|composed]
 
 Sets up the port's main path (the Config defaults: TransFVGN_v2, hidden
 128, 2 processors of 3 blocks and a Transolver block, 8 heads, 32 slices,
 bf16 stream; or --net FVGN / TransFVGN_v1 at the same widths; batch 8,
 101x101-node synthetic cavity, seeded random weights; with --gather-pair
 and --node-pair the GraphNet blocks take the paired sparse applies, kernels
-K8 and K9, on the same weights; with --engine segment the segment engine's
-step on the same cavity, padded to multiples of 128, with the same
-weights), then prints
+K8 and K9, on the same weights; --node-agg and --edge-gather set the
+block engine's forms of the Config fields of those names; with --engine segment the segment engine's step on the same cavity,
+padded to multiples of 128, with the same weights), then prints
 
   * the card's name and power limit;
   * ms per step on the host clock (ending in a synchronize) for
@@ -44,11 +45,13 @@ import torch
 def build_main_path(batch: int = 8, mesh_n: int = 100, device="cuda",
                     seed: int = 0, net: str = "TransFVGN_v2",
                     gather_pair: bool = False, node_pair: bool = False,
-                    engine: str = "block"):
+                    engine: str = "block", node_agg: str = "composed",
+                    edge_gather: str = "take"):
     """(cfg, pool, static, dyn, simulator, norm_state) of the main path at
     full width: the Config defaults (net "TransFVGN_v2"), or another net
-    at the same widths; the simulator with the paired sparse applies where
-    asked. With engine "segment": the segment pool, static None, the
+    at the same widths, or other block-engine forms (node_agg,
+    edge_gather); the simulator with the paired sparse applies
+    where asked. With engine "segment": the segment pool, static None, the
     stacked MeshSample batch and the segment simulator (the same
     weights)."""
     from gen_fvgn_tpu_torch import Config
@@ -58,8 +61,8 @@ def build_main_path(batch: int = 8, mesh_n: int = 100, device="cuda",
     from gen_fvgn_tpu_torch.training.normalizer import init_normalizer
     from gen_fvgn_tpu_torch.training.pool import EnvPool
     cfg = Config(net=net, hidden_size=128, message_passing_num=3,
-                 mxu_dtype="bfloat16", node_agg="composed",
-                 edge_gather="take", fv_packed=True, order="2nd",
+                 mxu_dtype="bfloat16", node_agg=node_agg,
+                 edge_gather=edge_gather, fv_packed=True, order="2nd",
                  integrator="imex", batch_size=batch, dataset_size=batch,
                  engine=engine)
     case = synthetic_case(cavity_quad_mesh(mesh_n), continuity=1,
@@ -95,6 +98,12 @@ def main(argv=None) -> int:
                     help="the NodeBlocks' paired aggregation (K8, K9)")
     ap.add_argument("--engine", default="block", choices=["block", "segment"],
                     help="the sparse-op engine whose step is timed")
+    ap.add_argument("--node-agg", default="composed",
+                    choices=["composed", "wide", "split"],
+                    help="the NodeBlocks' aggregation (block engine)")
+    ap.add_argument("--edge-gather", default="take",
+                    choices=["take", "composed"],
+                    help="the EdgeBlocks' gathers (block engine)")
     args = ap.parse_args(argv)
     segment = args.engine == "segment"
     if segment and (args.gather_pair or args.node_pair):
@@ -111,10 +120,12 @@ def main(argv=None) -> int:
         check=True, capture_output=True, text=True).stdout.strip()
     print(f"card: {card}")
     pairs = dict(gather_pair=args.gather_pair, node_pair=args.node_pair)
+    forms = dict(node_agg=args.node_agg, edge_gather=args.edge_gather)
     cfg, pool, static, dyn, sim, ns = build_main_path(
-        batch=args.batch, net=args.net, engine=args.engine, **pairs)
+        batch=args.batch, net=args.net, engine=args.engine, **pairs,
+        **forms)
     print(f"net {cfg.net}, engine {args.engine}, batch {args.batch}, "
-          f"{dyn.uvp.shape[1]} padded nodes, {pairs}")
+          f"{dyn.uvp.shape[1]} padded nodes, {pairs}, {forms}")
     n = args.steps
 
     def timed(fn):

@@ -1,10 +1,15 @@
 """Block-engine forward pass: normalization → GNN backbone → BC enforcement
 → IMEX time mixing → FV residual → re-dimensionalization.
 
-Counterpart of `gen_fvgn_tpu/training/forward_block.py::forward_batch_block`
-(the `fv_packed` branch). The StaticPack is shared across the batch;
-per-environment dynamics are stacked [B, ...]; where the JAX function vmaps
-a per-sample body, the batch axis is written out here.
+Counterpart of `gen_fvgn_tpu/training/forward_block.py::forward_batch_block`.
+The StaticPack is shared across the batch; per-environment dynamics are
+stacked [B, ...]; where the JAX function vmaps a per-sample body, the batch
+axis is written out here. The FV residual runs on channel-major packed
+arrays (fv/integrator_block_packed.py) whatever `fv_packed` says: JAX's
+`fv_packed=False` vmaps a per-sample body over the same operators, and
+here both settings run the same CSR products, whose losses are per sample
+anyway (they agree with JAX's per-sample losses within float32 summation
+order), as `fv_ell` does.
 """
 
 from __future__ import annotations
@@ -31,10 +36,6 @@ def forward_batch_block(
     cfg: Config,
     accumulate_normalizer: bool = True,
 ) -> ForwardOutputs:
-    if not cfg.fv_packed:
-        raise NotImplementedError(
-            "fv_packed=False (the per-sample FV residual) belongs to a later "
-            "slice of the port")
     b, n_pad = dyn.uvp.shape[0], dyn.uvp.shape[1]
     theta_nodes = dyn.theta[:, None, :].expand(b, n_pad, dyn.theta.shape[-1])
     x = torch.cat([dyn.uvp, theta_nodes], dim=-1)              # [B,Np,12]

@@ -13,8 +13,9 @@ parameter histogram where TensorBoard is on.
 
 cfg.engine picks the engine. "segment" (the Config's default): batches cut
 from one permutation of all environments of the one device-resident pool,
-`make_train_step` (cfg.mixed_case_batches changes nothing there: its
-batches mix the cases already; cfg.bucket_tiers raises). "block": per-case
+or with cfg.bucket_tiers within each per-size tier of it, all through one
+`make_train_step` callable (cfg.mixed_case_batches changes nothing there:
+its batches mix the cases already). "block": per-case
 (stratified) batches, which is what the JAX package's `pre_train` script
 runs at its defaults, or mixed-case batches (cfg.mixed_case_batches,
 `MixedTrainStepBlock`); cfg.bucket_tiers is a segment-engine option, which

@@ -19,7 +19,10 @@ every case to one `PadSizes` of `pad_multiple` (128), keeps the mesh order,
 and holds the whole pool as one stacked `MeshSample` on the device (the
 JAX pool's `device_resident` form, which its training loop uses); batches
 are cut from one permutation of all environments (`batch_indices`) and
-gathered on the device (`gather_batch`). Both engines pay states back in
+gathered on the device (`gather_batch`). With `bucket_tiers` the segment
+engine pads each case to its own sizes instead; cases whose padded sizes
+are equal share a tier, each tier is one stacked `MeshSample` on the
+device, and batches are cut within a tier. Both engines pay states back in
 place, re-roll the oldest environment's boundary condition (`reset_env`,
 with the retiring solution exported to Tecplot where asked) and add the
 wave family's point pressure source to its environments' p channel once an
@@ -131,6 +134,17 @@ def load_case(case_dir: str, order: str = "2nd") -> Dict:
     return case
 
 
+def _group_rows(keys: Sequence[int]):
+    """(each item's row within its group, {group: its items in order}) for
+    the group keys `keys`, one per item."""
+    rows: List[int] = []
+    members: Dict[int, list] = {}
+    for i, k in enumerate(keys):
+        rows.append(len(members.setdefault(k, [])))
+        members[k].append(i)
+    return rows, members
+
+
 @dataclass
 class Environment:
     case: Dict                       # shared per-case statics
@@ -143,9 +157,9 @@ class Environment:
 class EnvPool:
     """Pool of padded environments on `device`, for `engine` "block" or
     "segment" (see the module's docstring). The cases are `cases` where
-    given, else read from `case_dirs`. `bucket_tiers` (per-size tiers of
-    the segment engine) raises NotImplementedError. device="cuda" without a
-    card raises."""
+    given, else read from `case_dirs`. `bucket_tiers`: the segment
+    engine's per-size tiers (the block engine pads per case anyway).
+    device="cuda" without a card raises."""
 
     def __init__(self, case_dirs: Sequence[str], cfg: Config,
                  seed: int = 0, pad_multiple: int = 128,
@@ -158,10 +172,6 @@ class EnvPool:
         self.device = resolve_device(device)
         if engine not in ("block", "segment"):
             raise ValueError(f"unknown engine {engine!r}")
-        if bucket_tiers:
-            raise NotImplementedError(
-                "bucket_tiers=True: the segment engine's per-size padding "
-                "tiers belong to a later slice of the port")
         block = engine == "block"
         if cases is None:
             # the block engine renumbers each mesh (RCM) before its statics
@@ -187,13 +197,18 @@ class EnvPool:
 
         self.sizes = PadSizes.for_meshes([c["mesh"] for c in self.cases],
                                          multiple=pad_multiple)
-        # block engine: per-case buckets (batches are single-case, so every
-        # case uses its own minimal padded shape); segment engine: one
-        # bucket for all
+        # block engine, and the segment engine's bucket tiers: per-case
+        # sizes (a batch holds one case, or one tier); else one bucket for
+        # all. A tier is a distinct padded-size signature.
         self.case_sizes = (
             [PadSizes.for_meshes([c["mesh"]], multiple=pad_multiple)
-             for c in self.cases] if block
+             for c in self.cases] if block or bucket_tiers
             else [self.sizes] * len(self.cases))
+        tier_keys: Dict[tuple, int] = {}
+        self._case_tier = [
+            tier_keys.setdefault(dataclasses.astuple(cs), len(tier_keys))
+            for cs in self.case_sizes]
+        self.n_tiers = len(tier_keys)
         self.envs: List[Environment] = []
         i = 0
         while len(self.envs) < size:
@@ -204,23 +219,30 @@ class EnvPool:
         if block:
             self._init_block_pool()
         else:
-            self._device_data = stack_samples([e.sample for e in self.envs],
-                                              self.device)
+            self._init_tier_pool()
 
     def _slot(self, i: int):
         """(the device pool that holds environment i, its row there): the
-        case's DynamicPack (block) or the one stacked MeshSample
+        case's DynamicPack (block) or its tier's stacked MeshSample
         (segment)."""
         if self.engine == "block":
             return self._dyn_pools[self.envs[i].case_idx], self._env_local[i]
-        return self._device_data, i
+        return self._tier_data[self._env_tier[i]], self._env_tlocal[i]
 
     def _rows(self, idxs: np.ndarray):
-        """The pool of environments `idxs` (all in one pool) and their rows
-        there, on the device."""
-        pool, _ = self._slot(int(idxs[0]))
-        rows = [self._slot(int(i))[1] for i in idxs]
-        return pool, to_device(np.asarray(rows, np.int64), self.device)
+        """The pool of environments `idxs` and their rows there, on the
+        device; raises ValueError where they lie in more than one pool (a
+        batch across cases of the block engine, or across the segment
+        engine's tiers)."""
+        slots = [self._slot(int(i)) for i in idxs]
+        pool = slots[0][0]
+        if any(p is not pool for p, _ in slots):
+            raise ValueError(
+                "batch mixes bucket tiers; use batch_indices() to form "
+                "batches" if self.engine == "segment" else
+                "batch mixes cases; use block_batches() to form batches")
+        return pool, to_device(np.asarray([r for _, r in slots], np.int64),
+                               self.device)
 
     def _gather(self, idxs: np.ndarray):
         pool, rows = self._rows(idxs)
@@ -243,11 +265,8 @@ class EnvPool:
             for ci, c in enumerate(self.cases)]
 
         # one device dynamic pool per case (shapes differ across cases)
-        self._env_local: List[int] = [0] * len(self.envs)
-        per_case: Dict[int, list] = {}
-        for i, env in enumerate(self.envs):
-            self._env_local[i] = len(per_case.setdefault(env.case_idx, []))
-            per_case[env.case_idx].append(i)
+        self._env_local, per_case = _group_rows(
+            [env.case_idx for env in self.envs])
         self._dyn_pools = {}
         for ci, env_ids in per_case.items():
             dyns = [dynamic_from_sample(self.envs[i].sample) for i in env_ids]
@@ -317,21 +336,43 @@ class EnvPool:
         """`reset_env` (the block loop's name for it)."""
         self.reset_env(export_dir)
 
-    # ---- segment engine: one device-resident stacked pool ----
+    # ---- segment engine: one device-resident stacked pool per tier ----
+
+    def _init_tier_pool(self) -> None:
+        """One stacked MeshSample on the device per tier (without
+        bucket_tiers one tier, the whole pool)."""
+        self._env_tier = [self._case_tier[e.case_idx] for e in self.envs]
+        self._env_tlocal, per_tier = _group_rows(self._env_tier)
+        self._tier_data = {
+            t: stack_samples([self.envs[i].sample for i in ids], self.device)
+            for t, ids in per_tier.items()}
 
     def batch_indices(self, step_seed: int) -> List[np.ndarray]:
         """A permutation of all environments from `step_seed` (NumPy's draw,
         so the JAX pool's), cut into batches of batch_size; the ragged tail
-        is dropped."""
+        is dropped. With more than one tier, each tier's environments are
+        permuted and cut apart (tiers in order of their first environment)
+        and the batches shuffled, as the JAX pool draws them."""
         rng = np.random.default_rng(step_seed)
         bs = self.cfg.batch_size
-        perm = rng.permutation(len(self.envs))
-        return [perm[i * bs:(i + 1) * bs]
-                for i in range(len(self.envs) // bs)]
+        if self.n_tiers == 1:
+            perm = rng.permutation(len(self.envs))
+            return [perm[i * bs:(i + 1) * bs]
+                    for i in range(len(self.envs) // bs)]
+        by_tier: Dict[int, list] = {}
+        for i, env in enumerate(self.envs):
+            by_tier.setdefault(self._case_tier[env.case_idx], []).append(i)
+        out = []
+        for ids in by_tier.values():
+            perm = rng.permutation(ids)
+            out += [perm[i * bs:(i + 1) * bs].astype(np.int64)
+                    for i in range(len(ids) // bs)]
+        rng.shuffle(out)
+        return out
 
     def gather_batch(self, idxs: np.ndarray) -> MeshSample:
-        """The stacked MeshSample [B, ...] of environments `idxs`, gathered
-        on the device."""
+        """The stacked MeshSample [B, ...] of environments `idxs` (all of
+        one tier), gathered on the device."""
         return self._gather(idxs)
 
     # ---- both engines ----
@@ -381,7 +422,8 @@ class EnvPool:
                 pos, pos.mean(axis=0), ts.source_frequency,
                 ts.source_strength, ts.dt, env.age + 1
             ).reshape(-1).astype(np.float32)
-            key = env.case_idx if self.engine == "block" else 0
+            key = (env.case_idx if self.engine == "block"
+                   else self._env_tier[i])
             groups.setdefault(key, []).append((i, signal))
         for items in groups.values():
             pool, rows = self._rows(np.asarray([i for i, _ in items]))

@@ -165,8 +165,8 @@ def test_solve_at_its_default_engine_on_the_cpu(tmp_path, train_engine):
 
 
 @pytest.mark.parametrize("cli,argv,exc,match", [
-    ("pre_train", ["--engine", "segment", "--bucket-tiers", "1"],
-     NotImplementedError, "--bucket-tiers"),
+    ("pre_train", ["--engine", "segment", "--bucket-tiers", "1",
+                   "--dp-devices", "2"], NotImplementedError, "--dp-devices"),
     ("pre_train", ["--dp-devices", "2"], NotImplementedError, "later slice"),
     ("pre_train", ["--sp-devices", "2"], NotImplementedError, "later slice"),
     ("solve", ["--sp-devices", "2"], SystemExit, "--engine block"),
@@ -176,8 +176,8 @@ def test_solve_at_its_default_engine_on_the_cpu(tmp_path, train_engine):
          "solve-segment-default", "solve-sp"])
 def test_unported_flags_raise(tmp_path, cli, argv, exc, match):
     """A flag the port cannot honour yet raises NotImplementedError that
-    names the later slice, before anything is read (on the segment engine:
-    its bucket tiers). At solve's default engine, the segment engine,
+    names the later slice, before anything is read (on the segment engine
+    with its bucket tiers too). At solve's default engine, the segment engine,
     `--sp-devices` exits before anything is read, as the JAX script does
     (the segment engine has no sharded form in either package)."""
     from gen_fvgn_tpu_torch.scripts import pre_train, solve

@@ -22,7 +22,12 @@ and the slice pool, the shapes each kernel refuses, the kernels' size
 queries against the Python predicates, K2/K3 at the segment engine's part
 forms (one 3h-wide part, one 2h-wide part; the node MLP's 192-wide part
 through the padding wrapper) on row counts that are odd multiples of 128,
-and one segment train step's gradients against the plain versions."""
+one segment train step's gradients against the plain versions, K1 at the
+operator forms of the block engine's options (the composed gathers gsadj /
+gradj and their transposes, the "wide" scatters' column windows and
+theirs) forward and backward, and one block train step of each option
+(node_agg split and wide, the composed gathers) against the plain
+versions with its launches."""
 
 import numpy as np
 import pytest
@@ -1130,6 +1135,127 @@ def test_segment_train_step_kernels_match_plain_versions():
     loss_p, g_p = grads(True)
     assert count() == after
     flat = lambda g: torch.cat([x.reshape(-1).double() for x in g])
+    k, p = flat(g_k), flat(g_p)
+    assert float((k - p).norm() / p.norm()) <= 2e-2
+    for a, b in zip(g_k, g_p):
+        a, b = a.double().reshape(-1), b.double().reshape(-1)
+        if bool(b.any()):
+            assert float((a - b).norm() / b.norm()) <= 3e-2
+            assert float(a @ b / (a.norm() * b.norm())) >= 1 - 1e-3
+    assert abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)
+
+
+def _option_static(n=16):
+    """The block StaticPack of an n x n-cell cavity on the card with the
+    operators of every block-engine option: nbr_r / nbr_s, and the
+    composed gathers gsadj / gradj."""
+    from gen_fvgn_tpu_torch import Config
+    from gen_fvgn_tpu_torch.meshes.synthetic import (cavity_quad_mesh,
+                                                     synthetic_case)
+    from gen_fvgn_tpu_torch.training.pool import EnvPool
+    cfg = Config(engine="block", batch_size=2, dataset_size=2,
+                 edge_gather="composed")
+    pool = EnvPool([], cfg, seed=0, cases=[synthetic_case(
+        cavity_quad_mesh(n), continuity=1, convection=1, grad_p=1, mu=0.05,
+        sigma=(1, 1, 1))])
+    return cfg, pool, pool.statics[0]
+
+
+def test_spmm_at_the_option_operator_forms():
+    """K1 at the operator forms only the block engine's options launch:
+    the composed gathers gsadj / gradj (E <- N) and their transposes
+    (N <- E) at 128 columns, and the "wide" aggregation's scatters on the
+    two kept 64-column windows with their transposes into the halves of
+    one gradient (`apply_half_agg`), forward and backward, against the
+    plain versions on the card: one bf16 rounding, padded rows zero, the
+    launches counted."""
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import plain_versions, spmm
+    from gen_fvgn_tpu_torch.ops.blocksparse import (apply_half_agg,
+                                                    apply_linop)
+    _, _, static = _option_static()
+    ops = static.ops
+    g = torch.Generator("cuda").manual_seed(21)
+    n, e = ops.adj.fwd.n_out, ops.scat_r.fwd.n_in
+    cases = [
+        (lambda x: apply_linop(ops.gsadj, x), n, e, 128, 2),
+        (lambda x: apply_linop(ops.gradj, x), n, e, 128, 2),
+        (lambda x: apply_half_agg(ops.scat_r, ops.scat_s, x), e, n, 64, 4)]
+    for fn, n_in, n_out, out_w, launches in cases:
+        x0 = torch.randn(3, n_in, 128, device="cuda", generator=g).to(
+            torch.bfloat16)
+        cot = torch.randn(3, n_out, out_w, device="cuda", generator=g).to(
+            torch.bfloat16)
+        outs = []
+        for plain in (False, True):
+            x = x0.clone().requires_grad_(True)
+            before = spmm.LAUNCHES
+            if plain:
+                with plain_versions():
+                    y = fn(x)
+                    y.backward(cot)
+            else:
+                y = fn(x)
+                y.backward(cot)
+                torch.cuda.synchronize()
+                assert spmm.LAUNCHES == before + launches
+            outs.append((y.detach(), x.grad))
+        for got, ref in zip(*outs):
+            assert got.dtype == ref.dtype == torch.bfloat16
+            torch.testing.assert_close(got.float(), ref.float(),
+                                       rtol=2 ** -7, atol=1e-5)
+    n_edges = int((ops.gather_s.fwd.crow[1:] > ops.gather_s.fwd.crow[:-1])
+                  .sum())
+    y = apply_linop(ops.gsadj, torch.randn(2, n, 128, device="cuda",
+                                           generator=g).to(torch.bfloat16))
+    assert bool((y[:, n_edges:] == 0).all())
+
+
+@pytest.mark.parametrize("form,fields,spmm_per_step", [
+    ("split", dict(node_agg="split"), 24),
+    ("wide", dict(node_agg="wide"), 48),
+    ("composed_gather", dict(edge_gather="composed"), 48)])
+def test_block_option_train_step_kernels_match_plain_versions(
+        form, fields, spmm_per_step):
+    """One block train step of TransFVGN_v2 at the Config's widths in each
+    option, on a 16 x 16 cavity, batch 2: the gradients with the kernels
+    against the plain versions (chip_smoke.py's step-1 limits) and the
+    launches of the step (the main path's MLP and attention counts; spmm
+    as the option launches it)."""
+    _need_card()
+    import contextlib
+
+    from gen_fvgn_tpu_torch.ops import (fused_mlp, fused_slice_attn,
+                                        plain_versions, spmm)
+    from gen_fvgn_tpu_torch.training.forward import training_loss
+    from gen_fvgn_tpu_torch.training.forward_block import forward_batch_block
+    from gen_fvgn_tpu_torch.training.train_block import init_train_state_block
+    cfg, pool, static = _option_static()
+    cfg = cfg.replace(**dict(dict(edge_gather="take"), **fields))
+    dyn = pool.gather_block(np.arange(2))
+    state, sim = init_train_state_block(cfg, seed=0)
+    params = list(sim.parameters())
+
+    def grads(plain):
+        with plain_versions() if plain else contextlib.nullcontext():
+            loss = training_loss(forward_batch_block(
+                sim, state.norm_state, dyn, static, cfg), cfg)
+            gr = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        return float(loss.detach()), gr
+
+    count = lambda: (spmm.LAUNCHES, fused_mlp.LAUNCHES_LN,
+                     fused_mlp.LAUNCHES_LN_BWD, fused_mlp.LAUNCHES_NOLN,
+                     fused_mlp.LAUNCHES_PREMLP, fused_slice_attn.LAUNCHES,
+                     fused_slice_attn.LAUNCHES_BWD)
+    before = count()
+    loss_k, g_k = grads(False)
+    after = count()
+    assert [a - b for a, b in zip(after, before)] == [
+        spmm_per_step, 14, 14, 1, 2, 2, 2]
+    loss_p, g_p = grads(True)
+    assert count() == after
+    flat = lambda gr: torch.cat([x.reshape(-1).double() for x in gr])
     k, p = flat(g_k), flat(g_p)
     assert float((k - p).norm() / p.norm()) <= 2e-2
     for a, b in zip(g_k, g_p):

@@ -14,6 +14,7 @@ from torch_port_common import (both_sides, f32_operator_statics,
                                jax_norm_state, numpy_norm_stats,
                                numpy_params, random_state, torch_norm_state,
                                torch_simulator)
+from torch_port_common import pin_jax_block_forms  # noqa: F401 (autouse)
 
 
 def _fields(seed, n_pad, mask, batch=2):

@@ -14,6 +14,7 @@ import torch
 import jax.numpy as jnp
 
 from torch_port_common import both_sides, jax_side, torch_side
+from torch_port_common import pin_jax_block_forms  # noqa: F401 (autouse)
 
 SMALL = (6, 32, 1, "float32", 2)
 

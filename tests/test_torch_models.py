@@ -22,6 +22,7 @@ import jax.numpy as jnp
 from torch_port_common import (both_sides, f32_operator_statics,
                                jax_kernels_on, numpy_params, to_plain_dict,
                                torch_simulator)
+from torch_port_common import pin_jax_block_forms  # noqa: F401 (autouse)
 
 
 def _inputs(tstatic, seed, batch=2, h=None):
@@ -80,6 +81,12 @@ def test_mlp_matches_flax(mxu, which):
 
 @pytest.mark.parametrize("mxu", ["float32", "bfloat16"])
 def test_gn_block_matches_flax(mxu):
+    _gn_block_against_flax(mxu)
+
+
+def _gn_block_against_flax(mxu, jax_composed_gather=False):
+    """The port's GnBlockB (take path) against JAX's, the JAX switch
+    `use_composed_gather` pinned to `jax_composed_gather`."""
     from gen_fvgn_tpu.models.gn_block import GnBlockB as JGn
     jc, tc, js, ts, tree, _ = _setup(mxu)
     sim = torch_simulator(tc, tree)
@@ -89,7 +96,7 @@ def test_gn_block_matches_flax(mxu):
     jgn = JGn(h, jdt, "composed")
     sub = tree["params"]["gn_0"]
     cast = (lambda a: jnp.asarray(a, jdt)) if jdt else jnp.asarray
-    with jax_kernels_on():
+    with jax_kernels_on(composed_gather=jax_composed_gather):
         jn, je = jax.vmap(lambda a, b: jgn.apply({"params": sub}, a, b, js))(
             cast(node), cast(edge))
     tdt = torch.bfloat16 if mxu == "bfloat16" else torch.float32
@@ -207,3 +214,26 @@ def test_state_dict_keys_are_the_flax_paths():
     assert "gn_0.edge_block.edge_mlp.ln.scale" in sd
     assert tuple(sd["gn_0.node_block.node_mlp.hidden_0.kernel"].shape) == \
         (jc.hidden_size // 2 + jc.hidden_size, jc.hidden_size)
+
+
+def test_jax_composed_gather_left_on_does_not_reach_the_port_tests(request):
+    """tests/test_block_engine.py::test_composed_gather_matches_take_path
+    leaves the JAX switch `use_composed_gather` on for the rest of its
+    process. Taken, that form zeroes the padded edge rows that the port's
+    take path fills with row 0's data, and the comparison of
+    test_gn_block_matches_flax[bfloat16] fails. With the switch left on,
+    that test still passes: its JAX calls go through `jax_kernels_on`,
+    which pins the form under test, and every test of this file runs under
+    the autouse fixture `pin_jax_block_forms`; both restore the switch."""
+    from gen_fvgn_tpu.models import gn_block as jgb
+    assert "pin_jax_block_forms" in request.fixturenames
+    assert jgb._COMPOSED_GATHER is False
+    saved = jgb._COMPOSED_GATHER
+    jgb.use_composed_gather(True)         # as the JAX test leaves it
+    try:
+        test_gn_block_matches_flax("bfloat16")
+        assert jgb._COMPOSED_GATHER is True
+        with pytest.raises(AssertionError):
+            _gn_block_against_flax("bfloat16", jax_composed_gather=True)
+    finally:
+        jgb.use_composed_gather(saved)

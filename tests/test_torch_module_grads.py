@@ -33,6 +33,7 @@ import jax.numpy as jnp
 from torch_port_common import (both_sides, f32_operator_statics, jax_flat,
                                jax_kernels_on, numpy_params, numpy_tree,
                                port_flat, torch_simulator)
+from torch_port_common import pin_jax_block_forms  # noqa: F401 (autouse)
 
 HEADS, SLICES = 8, 32
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}

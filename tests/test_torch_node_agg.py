@@ -12,6 +12,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
+from torch_port_common import pin_jax_block_forms  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -52,6 +52,7 @@ from torch_port_common import (both_sides, f32_operator_statics, jax_flat,
                                jax_kernels_on, jax_norm_state,
                                numpy_norm_stats, numpy_params, random_state,
                                torch_norm_state, torch_simulator)
+from torch_port_common import pin_jax_block_forms  # noqa: F401 (autouse)
 
 PAIRS = dict(gather_pair=True, node_pair=True)
 LOSSES = ("loss_cont", "loss_mom_x", "loss_mom_y", "loss_press")

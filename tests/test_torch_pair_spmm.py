@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 
 from torch_port_common import both_sides, jax_kernels_on
+from torch_port_common import pin_jax_block_forms  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -24,6 +24,7 @@ import time
 
 import numpy as np
 import pytest
+from torch_port_common import pin_jax_block_forms  # noqa: F401 (autouse)
 
 KINDS = [("quad", "lid", None), ("tri", "channel", None),
          ("mixed", "lid", 1)]

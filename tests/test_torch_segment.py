@@ -39,6 +39,7 @@ from torch_port_common import (CASE_KW, _with_outflow, jax_flat,
                                jax_kernels_on, jax_norm_state,
                                numpy_norm_stats, numpy_tree, port_flat,
                                to_plain_dict, torch_norm_state)
+from torch_port_common import pin_jax_block_forms  # noqa: F401 (autouse)
 
 LOSSES = ("loss_cont", "loss_mom_x", "loss_mom_y", "loss_press")
 

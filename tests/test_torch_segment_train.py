@@ -127,7 +127,7 @@ def test_payback_reroll_and_wave_sources_match_jax():
     drawn = set()
     for _ in range(len(tpool) + 2):
         before = {k: v.clone() for k, v in dataclasses.asdict(
-            tpool._device_data).items()}
+            tpool._tier_data[0]).items()}
         pos = tpool._age_order[0]
         jpool.reset_env()
         tpool.reset_env()
@@ -136,7 +136,7 @@ def test_payback_reroll_and_wave_sources_match_jax():
         assert dataclasses.astuple(jts) == dataclasses.astuple(tts)
         drawn.add(dataclasses.astuple(tts))
         jdata = _fields(jpool._device_data[0])
-        for f, now in dataclasses.asdict(tpool._device_data).items():
+        for f, now in dataclasses.asdict(tpool._tier_data[0]).items():
             if f.startswith("wlsq_"):
                 assert _rel(now.numpy(), jdata[f]) <= 1e-5, f
             else:
@@ -147,11 +147,11 @@ def test_payback_reroll_and_wave_sources_match_jax():
             assert torch.equal(now[keep], before[f][keep]), f
     assert len(drawn) > 2
     assert tpool.has_wave_envs() and jpool.has_wave_envs()
-    before = tpool._device_data.uvp.clone()
+    before = tpool._tier_data[0].uvp.clone()
     jpool.inject_wave_sources()
     tpool.inject_wave_sources()
-    d_t = (tpool._device_data.uvp - before).numpy()
-    np.testing.assert_allclose(tpool._device_data.uvp.numpy(),
+    d_t = (tpool._tier_data[0].uvp - before).numpy()
+    np.testing.assert_allclose(tpool._tier_data[0].uvp.numpy(),
                                np.asarray(jpool._device_data[0].uvp),
                                rtol=0, atol=1e-7)
     wave = np.asarray([e.theta_sample.source_frequency != 0
@@ -328,7 +328,7 @@ def test_train_three_epochs_matches_jax(tmp_path, monkeypatch, lr, limits):
     assert [dataclasses.astuple(e.theta_sample) for e in tp.envs] == \
         [dataclasses.astuple(e.theta_sample) for e in jp.envs]
     assert [e.age for e in tp.envs] == [e.age for e in jp.envs]
-    gap = np.abs(tp._device_data.uvp.numpy()
+    gap = np.abs(tp._tier_data[0].uvp.numpy()
                  - np.asarray(jp._device_data[0].uvp)).max()
     assert gap <= limits["state"]
     names = lambda base: sorted(os.path.basename(p) for p in glob.glob(

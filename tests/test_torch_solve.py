@@ -47,6 +47,7 @@ from torch_port_common import (both_sides, f32_operator_statics, jax_flat,
                                jax_norm_state, numpy_norm_stats,
                                numpy_params, port_flat, random_state,
                                torch_norm_state, torch_simulator)
+from torch_port_common import pin_jax_block_forms  # noqa: F401 (autouse)
 
 NET = "TransFVGN_v2"
 NEAR_ZERO = 1e-5    # a gradient element this small may flip sign at lr 1e-4

@@ -29,6 +29,7 @@ from torch_port_common import (both_sides, f32_operator_statics, jax_flat,
                                jax_norm_state, numpy_norm_stats,
                                numpy_params, port_flat, random_state,
                                torch_norm_state, torch_simulator)
+from torch_port_common import pin_jax_block_forms  # noqa: F401 (autouse)
 
 F32 = (6, 32, 1, "float32", 2)
 NEAR_EPS = 1e-6     # a gradient element this small moves on Adam's eps

@@ -33,6 +33,7 @@ from torch_port_common import (both_sides, f32_operator_statics, jax_flat,
                                numpy_norm_stats, numpy_params, port_flat,
                                random_state, torch_norm_state,
                                torch_simulator)
+from torch_port_common import pin_jax_block_forms  # noqa: F401 (autouse)
 
 F32 = (6, 32, 1, "float32", 2)
 BF16 = (6, 128, 1, "bfloat16", 2)

@@ -7,6 +7,7 @@ import contextlib
 import functools
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -199,12 +200,39 @@ def random_state(jdyn, tdyn, node_mask, seed=2):
 
 
 @contextlib.contextmanager
-def jax_kernels_on(pairs=False):
+def jax_block_forms(composed_gather=False):
+    """The JAX block EdgeBlock's process-wide switch
+    `gen_fvgn_tpu.models.gn_block._COMPOSED_GATHER` (`use_composed_gather`)
+    pinned to `composed_gather` (default off, as the JAX package has it),
+    and restored on exit. A JAX test that leaves the switch on would
+    otherwise change the form of every JAX block net built or applied
+    after it in the same process."""
+    from gen_fvgn_tpu.models import gn_block as jgb
+    saved = jgb._COMPOSED_GATHER
+    jgb.use_composed_gather(composed_gather)
+    try:
+        yield
+    finally:
+        jgb.use_composed_gather(saved)
+
+
+@pytest.fixture(autouse=True)
+def pin_jax_block_forms():
+    """Every test of a file that imports this fixture runs with the JAX
+    block forms pinned to the defaults (`jax_block_forms`); a test of
+    another form enters `jax_block_forms(...)` itself."""
+    with jax_block_forms():
+        yield
+
+
+@contextlib.contextmanager
+def jax_kernels_on(pairs=False, composed_gather=False):
     """The JAX package's Pallas kernels on (the fused MLPs, the fused slice
     attention and the spmm; interpret mode on the CPU), with `pairs` also
     its paired sparse applies (`use_gather_pair`, `use_node_pair`: the
-    kernels `pallas_gather_pair` and `pallas_pair_transpose`); its
-    module-level switches restored on exit."""
+    kernels `pallas_gather_pair` and `pallas_pair_transpose`), and its
+    composed-gather switch pinned to `composed_gather`
+    (`jax_block_forms`); its module-level switches restored on exit."""
     from gen_fvgn_tpu.models import mlp as jmlp
     from gen_fvgn_tpu.models import transolver as jtr
     from gen_fvgn_tpu.ops import blocksparse as jbs
@@ -217,7 +245,8 @@ def jax_kernels_on(pairs=False):
         jbs.use_gather_pair(True)
         jbs.use_node_pair(True)
     try:
-        yield
+        with jax_block_forms(composed_gather):
+            yield
     finally:
         jmlp.use_fused_mlp(saved[0])
         jtr.use_fused_attn(saved[1])
