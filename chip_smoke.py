@@ -14,7 +14,7 @@ K5-K7 also at the shapes the JAX package fuses beyond the nets', C 768,
 hidden 1152 forward and backward against its plain versions; the paired
 sparse applies K8 and K9 at the paired path's; K1 at the operator forms
 only the block engine's options launch, `OPTION_SPMM_FORMS`), then drives
-eleven paths on the 101x101-node synthetic cavity at batch 8, with weights from
+thirteen paths on the 101x101-node synthetic cavity at batch 8, with weights from
 torch.Generator().manual_seed(0), all with the Config's defaults
 (TransFVGN_v2: hidden 128, 2 processors of 3 message-passing blocks and a
 Transolver block each, 8 heads, 32 slices, bf16 stream) unless named:
@@ -117,6 +117,25 @@ Transolver block each, 8 heads, 32 slices, bf16 stream) unless named:
     part the wrapper pads to 256), against their plain versions. The CLI
     phase also runs `scripts.solve.main` with no `--engine` (the segment
     engine) on both case directories in the three modes.
+
+  * data parallelism (phase "dp", `drive_dp`): ranks spawned after the
+    build, each its own process under torch.distributed
+    (`parallel/launch.py`, `tools/dp_check.py`): (a) one rank under NCCL
+    on the main path, 3 steps with and without the dp wrapper (the same
+    parameter bits) and 12 more of each timed in turns without the
+    payback, the wrapper's cost; (b) two ranks on the one card under gloo (NCCL puts no two
+    ranks on one card), 3 steps at global batch 8: the ranks' parameter
+    bits equal, rank 0 against the same steps in this process at batch 8,
+    each rank's launches 3 x a train step's (its ms a step measure
+    correctness only); (c) `pre_train --dp-devices 2` on two gloo ranks
+    on the CLI phase's cases, the segment engine and mixed-case batches,
+    2 epochs each: rank 0's run directory alone, its checkpoint loads.
+    A dp speed-up needs two cards and is not measured here;
+
+  * the Hilbert-curve node ordering (phase "ordering", `drive_ordering`):
+    the main case's statics under GFVGN_ORDERING=hilbert beside RCM, K1 at
+    each main-path form on each (against its plain version; timed in
+    turns) and a train step's device-busy ms on each.
 
 Each path's launch counters are set to 0 just before it and read just
 after; the script checks them, finite outputs, zero padded nodes, a state
@@ -1010,31 +1029,13 @@ def check_wide_block(c=1152, heads=8, slices=32, batch=2, nodes=2048):
 
 
 def launch_counts():
-    from gen_fvgn_tpu_torch.ops import (fused_mlp, fused_slice_attn,
-                                        pair_spmm, spmm)
-    return dict(spmm=spmm.LAUNCHES,
-                pair_sum=pair_spmm.LAUNCHES_PAIR_SUM,
-                pair_transpose=pair_spmm.LAUNCHES_PAIR_TRANSPOSE,
-                fused_mlp_ln=fused_mlp.LAUNCHES_LN,
-                fused_mlp_noln=fused_mlp.LAUNCHES_NOLN,
-                fused_premlp_res=fused_mlp.LAUNCHES_PREMLP,
-                fused_slice_pool=fused_slice_attn.LAUNCHES,
-                fused_mlp_ln_bwd=fused_mlp.LAUNCHES_LN_BWD,
-                fused_mlp_noln_bwd=fused_mlp.LAUNCHES_NOLN_BWD,
-                fused_premlp_res_bwd=fused_mlp.LAUNCHES_PREMLP_BWD,
-                fused_slice_pool_bwd=fused_slice_attn.LAUNCHES_BWD)
+    from gen_fvgn_tpu_torch.ops import launch_counts as counts
+    return counts()
 
 
 def zero_counts():
-    from gen_fvgn_tpu_torch.ops import (fused_mlp, fused_slice_attn,
-                                        pair_spmm, spmm)
-    spmm.LAUNCHES = 0
-    pair_spmm.LAUNCHES_PAIR_SUM = pair_spmm.LAUNCHES_PAIR_TRANSPOSE = 0
-    fused_mlp.LAUNCHES_LN = fused_mlp.LAUNCHES_NOLN = 0
-    fused_mlp.LAUNCHES_PREMLP = 0
-    fused_mlp.LAUNCHES_LN_BWD = fused_mlp.LAUNCHES_NOLN_BWD = 0
-    fused_mlp.LAUNCHES_PREMLP_BWD = 0
-    fused_slice_attn.LAUNCHES = fused_slice_attn.LAUNCHES_BWD = 0
+    from gen_fvgn_tpu_torch.ops import zero_launch_counts
+    zero_launch_counts()
 
 
 def drive(name, cfg, sim, norm_state, dyn, static, steps, per_step, n_real,
@@ -2190,7 +2191,7 @@ def mixed_step_grads(cfg, sim, pool, batch, plain):
     return float(acc["loss"]), acc["gsum"]
 
 
-def drive_cli(card, per_step, fwd_per_step):
+def drive_cli(card, per_step, fwd_per_step, root):
     """Phase "CLI": the user's entry points on case directories on disk.
     Writes two COMSOL cases of 10,201 nodes with `tools/case_files.py` (the
     main path's lid-driven quad cavity, and a triangle cavity of 20,000
@@ -2204,11 +2205,11 @@ def drive_cli(card, per_step, fwd_per_step):
     gradients of a mixed step of two groups against the plain versions;
     and runs `scripts.solve.main --engine block` from the mixed run's
     checkpoint in the three modes, 2 time steps of 2 inner steps, each
-    checked for its exports and launches. Returns the timings."""
+    checked for its exports and launches. Everything is written under
+    `root`. Returns the timings and the directory of the two cases."""
     import dataclasses
     import glob
     import os
-    import tempfile
 
     from gen_fvgn_tpu_torch.meshes.synthetic import synthetic_bc
     from gen_fvgn_tpu_torch.scripts import pre_train, solve
@@ -2217,8 +2218,7 @@ def drive_cli(card, per_step, fwd_per_step):
     from gen_fvgn_tpu_torch.training.train_block import init_train_state_block
     t_phase = time.perf_counter()
     name = "CLI"
-    tmp = tempfile.TemporaryDirectory()
-    data = os.path.join(tmp.name, "data")
+    data = os.path.join(root, "data")
     channel = synthetic_bc(continuity=1, convection=1, grad_p=1, mu=0.02,
                            sigma=(1, 1, 1))
     channel["theta_PDE"]["inlet"] = [0.5, 0.5, 1.0]
@@ -2254,7 +2254,7 @@ def drive_cli(card, per_step, fwd_per_step):
         for mode, mixed in (("stratified", "0"), ("mixed", "1")):
             spy.reset()
             pool = None               # the last run's statics go
-            log_dir = os.path.join(tmp.name, f"runs_{mode}")
+            log_dir = os.path.join(root, f"runs_{mode}")
             start_peak()
             zero_counts()
             t0 = time.perf_counter()
@@ -2331,7 +2331,7 @@ def drive_cli(card, per_step, fwd_per_step):
         # node count but not the same face count, so each pads to its own
         # sizes and they form two tiers; batches stay within a tier
         spy.reset()
-        log_dir = os.path.join(tmp.name, "runs_segment_tiers")
+        log_dir = os.path.join(root, "runs_segment_tiers")
         start_peak()
         zero_counts()
         t0 = time.perf_counter()
@@ -2380,7 +2380,7 @@ def drive_cli(card, per_step, fwd_per_step):
         t["solve_ms_per_time_step"] = {}
         for mode in ("rollout", "adam", "lbfgs"):
             spy.reset()
-            out = os.path.join(tmp.name, f"solve_{mode}")
+            out = os.path.join(root, f"solve_{mode}")
             start_peak()
             zero_counts()
             solve.main(["--case", dirs[0], "--engine", "block",
@@ -2412,7 +2412,7 @@ def drive_cli(card, per_step, fwd_per_step):
             case = os.path.basename(d)
             for mode in ("rollout", "adam", "lbfgs"):
                 spy.reset()
-                out = os.path.join(tmp.name, f"seg_{case}_{mode}")
+                out = os.path.join(root, f"seg_{case}_{mode}")
                 start_peak()
                 zero_counts()
                 solve.main(["--case", d, "--checkpoint", state, "--mode",
@@ -2447,8 +2447,272 @@ def drive_cli(card, per_step, fwd_per_step):
         f"bytes; peak device memory {t['peak_mib']} MiB "
         f"({t['held_before_mib']:.0f} held before the phase); phase "
         f"{t['phase_s']:.1f} s; card: {card}")
-    tmp.cleanup()
-    return t
+    return t, data
+
+
+def _spread(ms):
+    """best / median / worst of a list of ms, rounded for the log."""
+    return (f"best {min(ms):.2f}, median {float(np.median(ms)):.2f}, "
+            f"worst {max(ms):.2f}")
+
+
+def drive_dp(cfg, per_step, data, root, card):
+    """Phase "dp": data parallelism over torch.distributed, one process a
+    rank (`parallel/`), each rank spawned with the spawn start method
+    after the kernel library is built (`parallel/launch.py`; the rank
+    functions are `tools/dp_check.py`'s).
+
+    (a) One rank under NCCL (file:// store), the main path at full width
+        (the 101x101 cavity, batch 8, block TransFVGN_v2): 3 steps with
+        and without the dp wrapper from the same start give the same
+        parameter bits (the collectives of one rank are the identity);
+        then 12 more steps of each, alternating, timed on the host clock
+        without the payback (the loop pays back one inner step in
+        max_inner_steps): the wrapper's cost.
+    (b) Two ranks on cuda:0 under gloo (NCCL puts no two ranks on one
+        card): 3 steps at global batch 8, 4 rows a rank. The ranks' parameters
+        the same bits, rank 0 against the same 3 steps in this process at
+        batch 8 within the JAX dp test's limits (`dp_check.compare`), each
+        rank's launches 3 x a train step's. Its ms a step measure
+        correctness only: gloo stages through the host, and the two ranks
+        share one card.
+    (c) `pre_train --dp-devices 2 --device cuda:0` on two gloo ranks on the
+        CLI phase's two case directories, with the segment engine and with
+        mixed-case batches, 2 epochs of 2 inner steps: one run directory
+        (rank 0's), its checkpoint loads, finite losses, each rank's
+        launches a whole number of train steps or groups.
+
+    A failure in any rank fails the phase. Returns its numbers."""
+    import dataclasses
+    import glob
+    import os
+
+    from gen_fvgn_tpu_torch.config import load_config
+    from gen_fvgn_tpu_torch.io.checkpoint import load_state
+    from gen_fvgn_tpu_torch.meshes.synthetic import (cavity_quad_mesh,
+                                                     synthetic_case)
+    from gen_fvgn_tpu_torch.parallel.launch import spawn
+    from gen_fvgn_tpu_torch.tools.dp_check import (compare, pre_train_rank,
+                                                   run_steps, wrapper_cost)
+    from gen_fvgn_tpu_torch.training.train import init_train_state
+    from gen_fvgn_tpu_torch.training.train_block import \
+        init_train_state_block
+    name = "dp"
+    t_phase = time.perf_counter()
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    case = synthetic_case(cavity_quad_mesh(MESH_N), continuity=1,
+                          convection=1, grad_p=1, mu=0.05, sigma=(1, 1, 1))
+    spec = dict(cfg=fields, cases=[case], device="cuda:0", steps=3,
+                timed=12, seed=0)
+    out = {}
+
+    # (a) the wrapper on one rank, NCCL
+    t0 = time.perf_counter()
+    a, = spawn(wrapper_cost, 1, spec, backend="nccl", timeout=600)
+    out["world1_nccl"] = dict(same_bits=a["same_bits"],
+                              ms_without=a["ms_plain"], ms_with=a["ms_dp"],
+                              busy_without=a["busy_plain"],
+                              busy_with=a["busy_dp"],
+                              seconds=time.perf_counter() - t0)
+    busy = lambda b: (f"{b[0]:.3f} ms in {b[1]:.0f} kernels"
+                      if b and b[0] is not None else "not measured")
+    log(f"{name} (a) world size 1, NCCL: parameters after 3 steps with and "
+        f"without the dp wrapper the same bits: {a['same_bits']}; ms a "
+        f"train step (host clock, batch gather and step, no payback, ending in "
+        f"a synchronize; "
+        f"12 steps of each, alternating) without {_spread(a['ms_plain'])}, "
+        f"with {_spread(a['ms_dp'])}; median difference "
+        f"{np.median(a['ms_dp']) - np.median(a['ms_plain']):.2f} ms; device "
+        f"busy a step (torch.profiler, 5 steps) without "
+        f"{busy(a['busy_plain'])}, with {busy(a['busy_dp'])}; card: {card}")
+    if not a["same_bits"]:
+        raise RuntimeError(f"{name} (a): the dp wrapper on one rank changed "
+                           f"the parameters")
+
+    # (b) two ranks on one card, gloo
+    spec2 = dict(spec, cfg=dict(fields, dp_devices=2))
+    t0 = time.perf_counter()
+    ranks = spawn(run_steps, 2, dict(spec2, dp=True), backend="gloo",
+                  timeout=600)
+    spawn_s = time.perf_counter() - t0
+    single = run_steps(0, 1, dict(spec2, dp=False))
+    gaps = compare(single, ranks, cfg.lr, steps=3)
+    expected = {k: 3 * per_step.get(k, 0) for k in single["launches"]}
+    counts = [r["launches"] for r in ranks]
+    out["world2_gloo"] = dict(
+        gaps=gaps, launches_per_rank=counts, seconds=spawn_s,
+        ms_per_step=[r["step_ms"] for r in ranks],
+        single_ms_per_step=single["step_ms"],
+        losses=[m["loss"] for m in ranks[0]["metrics"]])
+    log(f"{name} (b) world size 2 on one card, gloo, global batch 8: ranks' "
+        f"parameters the same bits {gaps['ranks_same_bits']}, pools "
+        f"{gaps['ranks_same_pool']}; against this process at batch 8: step 1 "
+        f"loss rel {gaps['loss_rel']:.3g} (limit 1e-5), grad_norm rel "
+        f"{gaps['grad_norm_rel']:.3g} (1e-3), states excess over rtol 1e-4 + "
+        f"atol 1e-5 {gaps['uvp_excess']:.3g}, normalizer rel "
+        f"{gaps['norm_rel']:.3g}, parameters after 3 steps max abs "
+        f"{gaps['params_max_abs']:.3g} (atol {gaps['params_atol']:.3g} + rtol "
+        f"1e-3), later losses rel {gaps['later_loss_rel']}; losses "
+        f"{out['world2_gloo']['losses']}; launches a rank {counts}")
+    log(f"{name} (b) ms a step (host clock; correctness only: gloo stages "
+        f"through the host and the two ranks share one card): rank 0 "
+        f"{[round(x, 2) for x in ranks[0]['step_ms']]}, rank 1 "
+        f"{[round(x, 2) for x in ranks[1]['step_ms']]}; one process at batch "
+        f"8 {[round(x, 2) for x in single['step_ms']]}")
+    if not gaps["ok"] or any(c != expected for c in counts) \
+            or single["launches"] != expected:
+        raise RuntimeError(f"{name} (b): gaps {gaps}, launches {counts} "
+                           f"(expected {expected} a rank)")
+
+    # (c) the CLI on two ranks
+    out["pre_train"] = {}
+    for mode, extra in (("segment", ["--engine", "segment"]),
+                        ("mixed", ["--mixed-case-batches", "1"])):
+        log_dir = os.path.join(root, f"dp_runs_{mode}")
+        argv = ["--dataset-dir", data, "--log-dir", log_dir, "--epochs", "2",
+                "--max-inner-steps", "2", "--dataset-size", "16",
+                "--dp-devices", "2", "--device", "cuda:0"] + extra
+        t0 = time.perf_counter()
+        res = spawn(pre_train_rank, 2, argv, backend="gloo", timeout=900)
+        run_s = time.perf_counter() - t0
+        run_dirs = glob.glob(os.path.join(log_dir, "*", "*"))
+        if len(run_dirs) != 1:
+            raise RuntimeError(f"{name} (c) {mode}: run directories "
+                               f"{run_dirs}, not rank 0's alone")
+        run_dir = run_dirs[0]
+        slots = sorted(os.listdir(os.path.join(run_dir, "states")))
+        rcfg = load_config(os.path.join(run_dir, "config.json"))
+        init = (init_train_state if rcfg.engine == "segment"
+                else init_train_state_block)
+        state, _ = init(rcfg, seed=1)
+        load_state(os.path.join(run_dir, "states", "1.state"), like=state)
+        lines = open(os.path.join(run_dir, "Loss_monitor.dat")) \
+            .read().splitlines()
+        cols = lines[0].split("=")[1].replace('"', "").split(",")
+        losses = [dict(zip(cols, map(float, ln.split(","))))["loss"]
+                  for ln in lines[1:]]
+        counts = [r["launches"] for r in res]
+        unit = SEG_TRAIN if mode == "segment" else per_step
+        n_units = {counts[0][k] // unit[k] for k in unit if unit[k]}
+        whole = all(c == counts[0] for c in counts) and len(n_units) == 1 \
+            and all(counts[0][k] == unit.get(k, 0) * next(iter(n_units))
+                    for k in counts[0])
+        if mode == "segment":
+            whole = whole and n_units == {2 * 2 * 2}
+        out["pre_train"][mode] = dict(
+            seconds=run_s, rank_seconds=[r["seconds"] for r in res],
+            losses=losses, slots=slots, launches_per_rank=counts,
+            units=sorted(n_units), state_epoch=state.epoch)
+        log(f"{name} (c) pre_train --dp-devices 2 {mode}: {run_s:.1f} s "
+            f"(spawn, reading both cases and their statics included); one "
+            f"run directory; slots {slots}; checkpoint 1.state loads (epoch "
+            f"{state.epoch}); losses {losses}; launches a rank {counts} "
+            f"({sorted(n_units)} train steps or groups)")
+        if slots != ["0.state", "1.state"] or len(losses) != 2 \
+                or not np.isfinite(losses).all() or not whole \
+                or state.epoch != 2:
+            raise RuntimeError(f"{name} (c) {mode}: a check failed (slots "
+                               f"{slots}, losses {losses}, launches "
+                               f"{counts})")
+        del state
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"{name}: phase {out['phase_s']:.1f} s; card: {card}")
+    return out
+
+
+def drive_ordering(flush_buf, card):
+    """Phase "ordering": the main case's statics under the Hilbert-curve
+    node ordering (`ensure_rcm(method="hilbert")`, through
+    GFVGN_ORDERING) beside the default RCM: K1 at every main-path form
+    (SPMM_FORMS) on each, checked against its plain version and timed in
+    turns (RCM, Hilbert, Hilbert, RCM; CUDA events, median of 20, cold
+    L2), and one block train step under each: the host clock (8 steps of
+    each, in turns, after 3 warm-up steps) and device-busy ms
+    (torch.profiler over 5 steps). A measurement only: nothing is held to
+    a speed."""
+    import os
+
+    from gen_fvgn_tpu_torch.ops.spmm import spmm, spmm_reference
+    from gen_fvgn_tpu_torch.tools.profile_rollout import (build_main_path,
+                                                          device_profile)
+    from gen_fvgn_tpu_torch.training.train_block import (
+        init_train_state_block, make_train_step_block)
+    name = "ordering"
+    t_phase = time.perf_counter()
+    built = {}
+    saved = os.environ.get("GFVGN_ORDERING")
+    try:
+        for method in ("rcm", "hilbert"):
+            os.environ["GFVGN_ORDERING"] = method
+            built[method] = build_main_path(batch=BATCH, mesh_n=MESH_N,
+                                            seed=0)
+    finally:
+        if saved is None:
+            os.environ.pop("GFVGN_ORDERING", None)
+        else:
+            os.environ["GFVGN_ORDERING"] = saved
+    out = {"k1": {}, "train_step": {}}
+    main_forms = [f for f in SPMM_FORMS if f[5] or f[6]]
+    for form in main_forms:
+        gens = {m: torch.Generator(device="cuda").manual_seed(16)
+                for m in built}
+        calls = {}
+        for m, (_, _, static, _, _, _) in built.items():
+            op, xw, ow, _ = spmm_form(static, form, gens[m])
+            spmm(op, xw, out=ow)
+            ref = spmm_reference(op, xw)
+            bad = ((ow.float() - ref.float()).abs()
+                   > BF16_EPS * ref.float().abs() + 1e-6)
+            if bool(bad.any()):
+                raise RuntimeError(f"{name}: spmm[{form[0]}] under {m} "
+                                   f"disagrees with its plain version")
+            calls[m] = functools.partial(spmm, op, xw, out=ow)
+        ms = {m: [] for m in built}
+        for m in ("rcm", "hilbert", "hilbert", "rcm"):
+            ms[m].append(median_ms(calls[m], flush_buf))
+        out["k1"][form[0]] = {m: float(np.mean(v)) for m, v in ms.items()}
+        log(f"{name} K1 spmm[{form[0]}]: RCM {ms['rcm']} ms, Hilbert "
+            f"{ms['hilbert']} ms (two medians of 20 each, in turns)")
+    windows = {}
+    for m, (cfg, pool, static, _, _, _) in built.items():
+        state, sim = init_train_state_block(cfg, seed=0)
+        step = make_train_step_block(cfg, sim)
+        _, idxs = pool.block_batches(step_seed=0)[0]
+        dyn = pool.gather_block(idxs)
+
+        def window(k, state=state, step=step, dyn=dyn, static=static):
+            for _ in range(k):
+                step(state, dyn, static)
+        window(3)
+        windows[m] = window
+    host = {m: [] for m in built}
+    for i in range(8):                  # host clock, in turns
+        for m in (("rcm", "hilbert") if i % 2 == 0 else ("hilbert", "rcm")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            windows[m](1)
+            torch.cuda.synchronize()
+            host[m].append(1e3 * (time.perf_counter() - t0))
+    for m, window in windows.items():
+        _, rows = device_profile(window, 5)
+        busy = sum(r[0] for r in rows)
+        out["train_step"][m] = dict(
+            device_busy_ms=busy if rows else None, host_ms=host[m],
+            kernels=sum(r[1] for r in rows))
+        log(f"{name} train step under {m}: device busy "
+            f"{f'{busy:.3f} ms' if rows else 'not measured'} a step "
+            f"(torch.profiler over 5 steps) in "
+            f"{out['train_step'][m]['kernels']:.0f} kernels; host "
+            f"{_spread(host[m])} ms (8 steps of each, in turns)")
+    del windows
+    step_k1 = {m: sum(out["k1"][f[0]][m] * f[5] for f in main_forms)
+               for m in built}
+    out["k1_train_step_ms"] = step_k1
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"{name}: K1 in a train step (48 launches) RCM {step_k1['rcm']:.4f} "
+        f"ms, Hilbert {step_k1['hilbert']:.4f} ms; phase "
+        f"{out['phase_s']:.1f} s; card: {card}")
+    return out
 
 
 def main():
@@ -2616,8 +2880,19 @@ def main():
     del run_state, run_pool
 
     # ---- phase 11: the CLIs on case directories on disk ----
-    cli_t = drive_cli(card, per_step, tv)
-    log(json.dumps({"training_run": run_t, "solves": solve_t, "cli": cli_t}))
+    import tempfile
+    with tempfile.TemporaryDirectory() as root:
+        cli_t, cli_data = drive_cli(card, per_step, tv, root)
+        log(json.dumps({"training_run": run_t, "solves": solve_t,
+                        "cli": cli_t}))
+
+        # ---- phase 11a: data parallelism (spawned ranks) ----
+        dp_t = drive_dp(cfg, per_step, cli_data, root, card)
+
+    # ---- phase 11b: the Hilbert-curve ordering against RCM ----
+    order_t = drive_ordering(torch.zeros(64 * 1024 * 1024, device="cuda"),
+                             card)
+    log(json.dumps({"dp": dp_t, "ordering": order_t}))
 
     # ---- phase 12: the kernels line (launches: the main path's run; the
     # pair kernels', which the main path does not run: the paired path's) --

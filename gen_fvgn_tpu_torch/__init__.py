@@ -8,15 +8,17 @@ raise instead of running on the CPU.
 Ported so far, on both engines (the segment engine, the Config's
 default, and the block engine): the rollout and the train step of the
 FVGN and Transolver nets, the training run around the step, the
-instance-optimisation solves, and the `pre_train` / `solve` CLIs
+instance-optimisation solves, the `pre_train` / `solve` CLIs, and data
+parallelism over `torch.distributed` (`parallel/`)
 
-    from gen_fvgn_tpu_torch import Config
+    from gen_fvgn_tpu_torch import Config, train
+    state = train(Config(engine="block"), case_dirs=[...])
+
     from gen_fvgn_tpu_torch.training.pool import EnvPool
     from gen_fvgn_tpu_torch.training.train import (init_train_state,
                                                    make_train_step)
     from gen_fvgn_tpu_torch.solve.rollout import rollout
     from gen_fvgn_tpu_torch.solve.instance_opt import solve_adam, solve_lbfgs
-    from gen_fvgn_tpu_torch.training.loop import train
     # the block engine: make_simulator_block, make_train_step_block,
     # rollout_block, solve_adam_block, solve_lbfgs_block
 
@@ -28,4 +30,12 @@ from gen_fvgn_tpu_torch.config import Config, load_config, save_config
 
 __version__ = "0.1.0"
 
-__all__ = ["Config", "load_config", "save_config", "__version__"]
+
+def train(*args, **kwargs):
+    """`training.loop.train`, imported on first call (the JAX package's
+    top-level `train`)."""
+    from gen_fvgn_tpu_torch.training.loop import train as _train
+    return _train(*args, **kwargs)
+
+
+__all__ = ["Config", "load_config", "save_config", "train", "__version__"]

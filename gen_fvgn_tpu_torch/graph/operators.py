@@ -22,7 +22,8 @@ and has no counterpart here.
 
 Mesh orderings: callers RCM-reorder the mesh first (rcm_reorder) so every
 operator is banded — on the GPU that keeps a row's gathered operand rows
-close together in memory.
+close together in memory; the Hilbert-curve order (`hilbert_order`) is the
+alternative.
 """
 
 from __future__ import annotations
@@ -39,11 +40,42 @@ from gen_fvgn_tpu_torch.ops.blocksparse import (CsrOp, LinOp, build_linop,
 from gen_fvgn_tpu_torch.utils.types import NodeType
 
 
-def rcm_reorder(raw_mesh: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """Reverse-Cuthill-McKee node reordering on the face adjacency + cell
-    reordering by minimum new node id, applied to a RAW mesh dict (before
-    compile_mesh). The JAX package's alternative Hilbert-curve ordering is
-    an experiment knob and is not ported."""
+def hilbert_order(pos: np.ndarray, bits: int = 16) -> np.ndarray:
+    """Node permutation by the Hilbert space-filling-curve index of the 2-D
+    positions (locality without explicit banding). Coordinates normalize
+    into a 2^bits grid; the d2xy rotation recurrence runs vectorized over
+    all nodes per bit level. The JAX package's permutation, bit for bit."""
+    p = pos[:, :2].astype(np.float64)
+    lo, hi = p.min(axis=0), p.max(axis=0)
+    span = np.maximum(hi - lo, 1e-300)
+    n_side = 1 << bits
+    xy = np.minimum((p - lo) / span * n_side, n_side - 1).astype(np.uint64)
+    x, y = xy[:, 0].copy(), xy[:, 1].copy()
+    d = np.zeros(pos.shape[0], np.uint64)
+    s = np.uint64(n_side // 2)
+    while s > 0:
+        rx = ((x & s) > 0).astype(np.uint64)
+        ry = ((y & s) > 0).astype(np.uint64)
+        d += s * s * ((np.uint64(3) * rx) ^ ry)
+        # rotate the quadrant
+        swap = ry == 0
+        flip = swap & (rx == 1)
+        x_f, y_f = x.copy(), y.copy()
+        x = np.where(swap, y_f, x)
+        y = np.where(swap, x_f, y)
+        x = np.where(flip, np.uint64(s - 1) - x, x)
+        y = np.where(flip, np.uint64(s - 1) - y, y)
+        s >>= np.uint64(1)
+    return np.argsort(d, kind="stable")
+
+
+def rcm_reorder(raw_mesh: Dict[str, np.ndarray],
+                method: str = "rcm") -> Dict[str, np.ndarray]:
+    """Node reordering + cell reordering by minimum new node id, applied to
+    a RAW mesh dict (before compile_mesh). method="rcm" (default):
+    Reverse-Cuthill-McKee on the face adjacency, so every derived operator
+    is banded; method="hilbert": the Hilbert-curve order of the node
+    positions (`hilbert_order`)."""
     import scipy.sparse as sp
     from scipy.sparse.csgraph import reverse_cuthill_mckee
 
@@ -54,12 +86,17 @@ def rcm_reorder(raw_mesh: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     cells_index = raw_mesh["cells_index"]
     n = pos.shape[0]
 
-    face_node, _ = unique_faces(cells_node, cells_index)
-    adj = sp.csr_matrix(
-        (np.ones(2 * face_node.shape[1], bool),
-         (np.concatenate([face_node[0], face_node[1]]),
-          np.concatenate([face_node[1], face_node[0]]))), shape=(n, n))
-    perm = np.asarray(reverse_cuthill_mckee(adj, symmetric_mode=True))
+    if method == "hilbert":
+        perm = hilbert_order(pos)
+    elif method == "rcm":
+        face_node, _ = unique_faces(cells_node, cells_index)
+        adj = sp.csr_matrix(
+            (np.ones(2 * face_node.shape[1], bool),
+             (np.concatenate([face_node[0], face_node[1]]),
+              np.concatenate([face_node[1], face_node[0]]))), shape=(n, n))
+        perm = np.asarray(reverse_cuthill_mckee(adj, symmetric_mode=True))
+    else:
+        raise ValueError(f"unknown ordering method {method!r}")
     rank = np.empty(n, np.int64)
     rank[perm] = np.arange(n)
 

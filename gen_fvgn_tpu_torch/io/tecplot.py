@@ -1,7 +1,8 @@
 """ASCII Tecplot finite-element zone writer (NumPy only).
 
 Counterpart of `gen_fvgn_tpu/io/tecplot.py::write_tecplot_zone` and the
-helpers it uses: FETRIANGLE / FEQUADRILATERAL zones for uniform meshes,
+helpers it uses, and of `write_tecplot_async` (the same zone written by a
+child process): FETRIANGLE / FEQUADRILATERAL zones for uniform meshes,
 FEPOLYGON zones for mixed or polygonal ones, each variable node- or
 cell-centred by its length. The file is byte for byte the JAX package's.
 """
@@ -9,6 +10,8 @@ cell-centred by its length. The file is byte for byte the JAX package's.
 from __future__ import annotations
 
 import os
+import subprocess
+import sys
 from typing import Dict, Optional
 
 import numpy as np
@@ -109,3 +112,26 @@ def write_tecplot_zone(
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wt") as f:
         f.write("\n".join(out) + "\n")
+
+
+def write_tecplot_async(path: str, **kwargs) -> subprocess.Popen:
+    """`write_tecplot_zone(path, **kwargs)` in a child process, not waited
+    for: the arguments are pickled to a temporary file that the child reads
+    and deletes. Returns the child (`wait()` on it where the file is
+    needed)."""
+    import pickle
+    import tempfile
+    with tempfile.NamedTemporaryFile(suffix=".pkl", delete=False) as tmp:
+        pickle.dump({"path": path, **kwargs}, tmp)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    code = ("import os, pickle, sys\n"
+            "sys.path.insert(0, sys.argv[2])\n"
+            "from gen_fvgn_tpu_torch.io.tecplot import write_tecplot_zone\n"
+            "with open(sys.argv[1], 'rb') as f:\n"
+            "    d = pickle.load(f)\n"
+            "os.unlink(sys.argv[1])\n"
+            "write_tecplot_zone(**d)\n")
+    return subprocess.Popen([sys.executable, "-c", code, tmp.name, root],
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL)

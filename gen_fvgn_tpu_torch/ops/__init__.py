@@ -37,3 +37,33 @@ def plain_versions():
         yield
     finally:
         _PLAIN_VERSIONS = old
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count in this process, by kernel."""
+    from gen_fvgn_tpu_torch.ops import (fused_mlp, fused_slice_attn,
+                                        pair_spmm, spmm)
+    return dict(spmm=spmm.LAUNCHES,
+                pair_sum=pair_spmm.LAUNCHES_PAIR_SUM,
+                pair_transpose=pair_spmm.LAUNCHES_PAIR_TRANSPOSE,
+                fused_mlp_ln=fused_mlp.LAUNCHES_LN,
+                fused_mlp_noln=fused_mlp.LAUNCHES_NOLN,
+                fused_premlp_res=fused_mlp.LAUNCHES_PREMLP,
+                fused_slice_pool=fused_slice_attn.LAUNCHES,
+                fused_mlp_ln_bwd=fused_mlp.LAUNCHES_LN_BWD,
+                fused_mlp_noln_bwd=fused_mlp.LAUNCHES_NOLN_BWD,
+                fused_premlp_res_bwd=fused_mlp.LAUNCHES_PREMLP_BWD,
+                fused_slice_pool_bwd=fused_slice_attn.LAUNCHES_BWD)
+
+
+def zero_launch_counts() -> None:
+    """Every kernel wrapper's launch count set to 0."""
+    from gen_fvgn_tpu_torch.ops import (fused_mlp, fused_slice_attn,
+                                        pair_spmm, spmm)
+    spmm.LAUNCHES = 0
+    pair_spmm.LAUNCHES_PAIR_SUM = pair_spmm.LAUNCHES_PAIR_TRANSPOSE = 0
+    fused_mlp.LAUNCHES_LN = fused_mlp.LAUNCHES_NOLN = 0
+    fused_mlp.LAUNCHES_PREMLP = 0
+    fused_mlp.LAUNCHES_LN_BWD = fused_mlp.LAUNCHES_NOLN_BWD = 0
+    fused_mlp.LAUNCHES_PREMLP_BWD = 0
+    fused_slice_attn.LAUNCHES = fused_slice_attn.LAUNCHES_BWD = 0

@@ -241,6 +241,15 @@ def apply_linop(op: LinOp, x: torch.Tensor) -> torch.Tensor:
     return _ApplyLinop.apply(x, op, plain_versions_active())
 
 
+def apply_linop_multi(op: LinOp, x: torch.Tensor) -> torch.Tensor:
+    """`apply_linop` on [n_in, ...trailing], the trailing axes flattened
+    into one lane axis (not the batch-major [B, n_in, F] form, which
+    `apply_linop` takes directly)."""
+    trailing = tuple(x.shape[1:])
+    out = apply_linop(op, x.reshape(x.shape[0], -1))
+    return out.reshape((op.fwd.n_out,) + trailing)
+
+
 class _GatherPair(torch.autograd.Function):
     """pres = Gs·y[..., :H] + Gr·y[..., H:] through K8, and the JAX rule's
     backward dy = [Gsᵀ·g | Grᵀ·g]: two applies on the stored transposes

@@ -36,6 +36,11 @@ _COLUMN_PARITY = np.asarray(
      1.0, 1.0, 1.0, 1.0, 1.0],        # quartic terms         (degree 4)
     np.float32)
 
+# Monomial total degree of each basis column (for local length scaling).
+_COLUMN_DEGREE = np.asarray(
+    [1.0, 1.0, 2.0, 2.0, 2.0, 3.0, 3.0, 3.0, 3.0, 4.0, 4.0, 4.0, 4.0, 4.0],
+    np.float32)
+
 # Per-axis monomial degrees (ax, ay) of each column — anisotropic scaling:
 # each column is scaled by Lx^-ax · Ly^-ay.
 _COLUMN_DEGREE_X = np.asarray(
@@ -48,6 +53,10 @@ _COLUMN_DEGREE_Y = np.asarray(
 
 def odd_sign_vector(order: str) -> np.ndarray:
     return _COLUMN_PARITY[: WLSQ_DIM[order]]
+
+
+def column_degrees(order: str) -> np.ndarray:
+    return _COLUMN_DEGREE[: WLSQ_DIM[order]]
 
 
 def column_degrees_xy(order: str):

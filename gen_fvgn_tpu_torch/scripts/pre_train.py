@@ -8,16 +8,29 @@ Counterpart of `scripts/pre_train.py`: the same flags, defaults and
 Config, plus `--device` (default "cuda"; "cpu" must be asked for). Every
 directory under --dataset-dir that holds a BC.json is a case
 (`training/pool.py::load_case`). `--engine` is "block" by default, as in
-the JAX script, or "segment" (the Config's default engine). Flags the port
-cannot honour yet raise NotImplementedError: `--dp-devices` or
-`--sp-devices` above 1. `--bucket-tiers 1` pads each case of the segment
-engine to its own sizes, with batches within a tier of equal sizes; the
-block engine pads per case anyway and ignores it, as in JAX.
+the JAX script, or "segment" (the Config's default engine).
+`--bucket-tiers 1` pads each case of the segment engine to its own sizes,
+with batches within a tier of equal sizes; the block engine pads per case
+anyway and ignores it, as in JAX. `--sp-devices` above 1 raises
+NotImplementedError: spatial parallelism is not ported yet.
+
+Data parallelism, `--dp-devices N`, runs one process a rank:
+
+    torchrun --nproc_per_node N -m gen_fvgn_tpu_torch.scripts.pre_train \
+        --dataset-dir <dir> --dp-devices N ...
+
+(or under any launcher that sets RANK, WORLD_SIZE, LOCAL_RANK and
+MASTER_ADDR / MASTER_PORT; or in a process whose group is initialised
+already). Each rank runs on cuda:LOCAL_RANK (a LOCAL_RANK beyond the
+cards raises; no two ranks share a card unless `--device` names one), or
+on the device `--device` names; NCCL for CUDA, gloo for the CPU. N must
+equal the world size; only rank 0 writes the run directory.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 
@@ -63,37 +76,73 @@ def main(argv=None):
                     help="torch device (\"cpu\" only when asked)")
     args = ap.parse_args(argv)
 
-    if args.dp_devices > 1 or args.sp_devices > 1:
+    if args.sp_devices > 1:
         raise NotImplementedError(
-            "--dp-devices / --sp-devices above 1: data and spatial "
-            "parallelism belong to a later slice of the port")
+            "--sp-devices above 1: spatial parallelism belongs to a later "
+            "slice of the port")
 
     from gen_fvgn_tpu_torch.config import Config
     from gen_fvgn_tpu_torch.training import loop
 
-    cfg = Config(
-        net=args.net, n_epochs=args.epochs, batch_size=args.batch_size,
-        dataset_size=args.dataset_size, lr=args.lr, order=args.order,
-        integrator=args.integrator, conserved_form=bool(args.conserved_form),
-        max_inner_steps=args.max_inner_steps, dataset_dir=args.dataset_dir,
-        dp_devices=args.dp_devices, sp_devices=args.sp_devices,
-        mxu_dtype=args.mxu_dtype,
-        engine=args.engine, bucket_tiers=bool(args.bucket_tiers),
-        export_on_reset=bool(args.export_on_reset),
-        microbatch=args.microbatch,
-        mixed_case_batches=bool(args.mixed_case_batches))
+    group = (_dp_group(args.dp_devices, args.device) if args.dp_devices > 1
+             else contextlib.nullcontext(args.device))
+    with group as device:
+        cfg = Config(
+            net=args.net, n_epochs=args.epochs, batch_size=args.batch_size,
+            dataset_size=args.dataset_size, lr=args.lr, order=args.order,
+            integrator=args.integrator,
+            conserved_form=bool(args.conserved_form),
+            max_inner_steps=args.max_inner_steps,
+            dataset_dir=args.dataset_dir,
+            dp_devices=args.dp_devices, sp_devices=args.sp_devices,
+            mxu_dtype=args.mxu_dtype,
+            engine=args.engine, bucket_tiers=bool(args.bucket_tiers),
+            export_on_reset=bool(args.export_on_reset),
+            microbatch=args.microbatch,
+            mixed_case_batches=bool(args.mixed_case_batches))
 
-    case_dirs = sorted(
-        {os.path.dirname(os.path.join(sub, f))
-         for sub, _, files in os.walk(args.dataset_dir)
-         for f in files if f == "BC.json"})
-    if not case_dirs:
-        raise SystemExit(f"no case dirs with BC.json under {args.dataset_dir}")
+        case_dirs = sorted(
+            {os.path.dirname(os.path.join(sub, f))
+             for sub, _, files in os.walk(args.dataset_dir)
+             for f in files if f == "BC.json"})
+        if not case_dirs:
+            raise SystemExit(
+                f"no case dirs with BC.json under {args.dataset_dir}")
 
-    loop.train(cfg, case_dirs=case_dirs, log_base_dir=args.log_dir,
-               seed=args.seed, resume_from=args.resume,
-               use_tensorboard=bool(args.tensorboard), device=args.device)
+        loop.train(cfg, case_dirs=case_dirs, log_base_dir=args.log_dir,
+                   seed=args.seed, resume_from=args.resume,
+                   use_tensorboard=bool(args.tensorboard), device=device)
 
+
+@contextlib.contextmanager
+def _dp_group(dp_devices: int, device: str):
+    """The process group of `dp_devices` ranks (joined here from the
+    launcher's environment unless this process has one already, and left
+    on exit if joined here), yielding the rank's device: "cuda" is
+    cuda:LOCAL_RANK, which must exist (two ranks share a card only where
+    `--device` names it); any other name is taken as given. A world size
+    other than `dp_devices` raises before anything is read."""
+    import torch
+    import torch.distributed as dist
+
+    from gen_fvgn_tpu_torch.parallel import dp, multihost
+    ours = not dist.is_initialized()
+    multihost.initialize(device=device)
+    try:
+        dp.check_world(dp_devices)
+        if device == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            if local >= torch.cuda.device_count():
+                raise RuntimeError(
+                    f"LOCAL_RANK {local} but {torch.cuda.device_count()} "
+                    f"CUDA device(s): one rank a card, or name the card "
+                    f"with --device")
+            device = f"cuda:{local}"
+            torch.cuda.set_device(device)
+        yield device
+    finally:
+        if ours and dist.is_initialized():
+            dist.destroy_process_group()
 
 if __name__ == "__main__":
     main()

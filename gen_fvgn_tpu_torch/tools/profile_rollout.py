@@ -83,6 +83,33 @@ def build_main_path(batch: int = 8, mesh_n: int = 100, device="cuda",
     return cfg, pool, pool.statics[0], dyn, sim, norm_state
 
 
+def device_profile(window, n: int):
+    """`window(n)` under torch.profiler: (wall ms a step with the profiler
+    on, its start-up included; [(device ms a step, calls a step, kernel
+    name)], largest first). Device kernels only: the operator rows of
+    key_averages() repeat their kernels' device time, and so does the
+    device-side range of the optimizer's step annotation
+    ("Optimizer.step#Adam.step"). An empty list where the profiler
+    reports no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        window(n)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0 and ev.device_type == DeviceType.CUDA \
+                and not ev.key.startswith("Optimizer."):
+            rows.append((dev_us / 1e3 / n, ev.count / n, ev.key))
+    rows.sort(reverse=True)
+    return wall_ms, rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--net", default="TransFVGN_v2",
@@ -187,25 +214,7 @@ def main(argv=None) -> int:
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
 
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        window(n)
-        torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / n
-    # device kernels only: the operator rows of key_averages() repeat their
-    # kernels' device time, and so does the device-side range of the
-    # optimizer's step annotation ("Optimizer.step#Adam.step")
-    from torch.autograd import DeviceType
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0) or 0
-        if dev_us > 0 and ev.device_type == DeviceType.CUDA \
-                and not ev.key.startswith("Optimizer."):
-            rows.append((dev_us / 1e3 / n, ev.count / n, ev.key))
-    rows.sort(reverse=True)
+    wall_ms, rows = device_profile(window, n)
     busy = sum(r[0] for r in rows)
     wall = min(runs)
     print(f"profiled window: {wall_ms:.3f} ms/step wall with the profiler "

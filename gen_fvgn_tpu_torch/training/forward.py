@@ -68,6 +68,7 @@ def forward_batch(
     batch,                         # MeshSample, stacked [B, ...] tensors
     cfg: Config,
     accumulate_normalizer: bool = True,
+    norm_reduce=None,
 ) -> ForwardOutputs:
     b = batch.uvp.shape[0]
     theta_nodes = batch.theta[:, None, :].expand(
@@ -88,7 +89,7 @@ def forward_batch(
         theta_ch, norm_state = norm_mod.normalize(
             norm_state, theta_ch, batch.node_mask,
             max_accumulations=float(cfg.dataset_size),
-            accumulate=accumulate_normalizer)
+            accumulate=accumulate_normalizer, reduce=norm_reduce)
     x = torch.cat([phi, theta_ch], dim=-1)
 
     edge_attr = relative_edge_features(x, batch.pos, batch.face_node)

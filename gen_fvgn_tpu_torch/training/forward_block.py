@@ -35,6 +35,7 @@ def forward_batch_block(
     static: StaticPack,           # shared
     cfg: Config,
     accumulate_normalizer: bool = True,
+    norm_reduce=None,
 ) -> ForwardOutputs:
     b, n_pad = dyn.uvp.shape[0], dyn.uvp.shape[1]
     theta_nodes = dyn.theta[:, None, :].expand(b, n_pad, dyn.theta.shape[-1])
@@ -51,7 +52,7 @@ def forward_batch_block(
         theta_ch, norm_state = norm_mod.normalize(
             norm_state, theta_ch, mask_b,
             max_accumulations=float(cfg.dataset_size),
-            accumulate=accumulate_normalizer)
+            accumulate=accumulate_normalizer, reduce=norm_reduce)
     x = torch.cat([phi, theta_ch], dim=-1)
 
     # the θ channels of dx are identically zero (per-graph constants); they

@@ -8,7 +8,7 @@ plain dataclass of tensors that travels beside the model's parameters.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -48,24 +48,47 @@ def _mean_std(state: NormalizerState, epsilon: float = 1e-8):
     return mean, std
 
 
+def reduce_sums(sums, reduce: Optional[Callable] = None):
+    """(Σx [F], Σx² [F], count []) through `reduce` as ONE packed [2F+1]
+    vector (data parallelism passes the all-reduce over the ranks, so that
+    the statistics are the global batch's); unchanged where `reduce` is
+    None."""
+    if reduce is None:
+        return sums
+    s, s2, count = sums
+    f = s.shape[0]
+    packed = reduce(torch.cat([s, s2, count.reshape(1)]))
+    return packed[:f], packed[f:2 * f], packed[2 * f]
+
+
 def normalize(state: NormalizerState, rows: torch.Tensor,
               row_mask: torch.Tensor, max_accumulations: float,
-              accumulate: bool = True
+              accumulate: bool = True, reduce: Optional[Callable] = None
               ) -> Tuple[torch.Tensor, NormalizerState]:
     """Normalize `rows` [..., F] with the running statistics, optionally
     accumulating the (masked) rows first — accumulate, then normalize with
-    the UPDATED stats."""
+    the UPDATED stats. `reduce` takes the packed sums of the rows before
+    the update (`reduce_sums`)."""
     if accumulate:
         should = (state.num_acc < max_accumulations).to(torch.float32)
         m = row_mask.to(torch.float32).reshape(row_mask.shape + (1,))
         flat = (rows * m).reshape(-1, rows.shape[-1])
-        count = row_mask.to(torch.float32).sum()
+        s, s2, count = reduce_sums(
+            (flat.sum(dim=0), (flat ** 2).sum(dim=0),
+             row_mask.to(torch.float32).sum()), reduce)
         state = NormalizerState(
-            acc_sum=state.acc_sum + should * flat.sum(dim=0),
-            acc_sum_sq=state.acc_sum_sq + should * (flat ** 2).sum(dim=0),
+            acc_sum=state.acc_sum + should * s,
+            acc_sum_sq=state.acc_sum_sq + should * s2,
             acc_count=state.acc_count + should * count,
             num_acc=state.num_acc + should,
         )
     mean, std = _mean_std(state)
     return (rows - mean) / std, state
+
+
+def inverse(state: NormalizerState, normalized: torch.Tensor) -> torch.Tensor:
+    """The rows `normalize` would map to `normalized`, with the current
+    statistics."""
+    mean, std = _mean_std(state)
+    return normalized * std + mean
 

@@ -80,9 +80,15 @@ def prepare_mesh_statics(mesh: Dict[str, np.ndarray], order: str,
     return mesh
 
 
-def ensure_rcm(mesh: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """Re-derive a compiled mesh with RCM node ordering (banded operators)."""
+def ensure_rcm(mesh: Dict[str, np.ndarray],
+               method: str = "rcm") -> Dict[str, np.ndarray]:
+    """Re-derive a compiled mesh with RCM node ordering (banded operators),
+    or with method="hilbert" the Hilbert-curve ordering of the nodes'
+    positions. The environment variable GFVGN_ORDERING, where set,
+    overrides `method` for the whole process, as in the JAX package (the
+    block pool calls this with the default)."""
     from gen_fvgn_tpu_torch.graph.operators import rcm_reorder
+    method = os.environ.get("GFVGN_ORDERING", method)
     raw = {
         "node|pos": mesh["node|pos"],
         "node|node_type": np.asarray(mesh["node|node_type"]).reshape(-1),
@@ -92,7 +98,7 @@ def ensure_rcm(mesh: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         "cells_node": mesh["cells_node"],
         "cells_index": mesh["cells_index"],
     }
-    return compile_mesh(rcm_reorder(raw))
+    return compile_mesh(rcm_reorder(raw, method=method))
 
 
 def _read_case(case_dir: str) -> Dict:
@@ -292,7 +298,7 @@ class EnvPool:
         rng.shuffle(out)
         return out
 
-    def mixed_block_batches(self, step_seed: int):
+    def mixed_block_batches(self, step_seed: int, n_dev: int = 1):
         """Batches from ONE permutation of all environments (the JAX pool's
         draw, from `step_seed`), cut into batch_size chunks, each chunk
         split into per-case groups so that one StaticPack serves each
@@ -300,7 +306,9 @@ class EnvPool:
         idxs, weights, n_real), groups in case order. A group is padded to
         the next power of two by repeating its rows at weight 0; real rows
         weigh 1/batch_size, so the sum of the groups' weighted gradients is
-        the batch-mean gradient of the mixed batch."""
+        the batch-mean gradient of the mixed batch. With `n_dev` > 1 (data
+        parallelism over that many ranks) a group is also padded to a
+        multiple of n_dev, so that it splits evenly over the ranks."""
         rng = np.random.default_rng(step_seed)
         bs = self.cfg.batch_size
         perm = rng.permutation(len(self.envs))
@@ -315,6 +323,8 @@ class EnvPool:
                 ix = groups[ci]
                 g = len(ix)
                 gp = 1 << (g - 1).bit_length()
+                if n_dev > 1:
+                    gp = -(-max(gp, n_dev) // n_dev) * n_dev
                 idxs = np.asarray(ix + [ix[k % g] for k in range(gp - g)],
                                   np.int32)
                 w = np.zeros(gp, np.float32)

@@ -10,6 +10,14 @@ written into the parameter group from `step_exp_lr(epoch)` before every
 step (`apply_update`, shared with the block engine's steps). The segment
 step takes the whole batch at once, as the JAX step does (no microbatch
 chunking).
+
+Data parallelism (`dp=True`, the JAX step jitted over a dp-sharded batch):
+every rank calls the step on its own rows of the global batch
+(`parallel.dp.local_rows`); the normalizer accumulates the global batch's
+sums, the gradients of the rank's mean loss are all-reduced to the global
+batch's mean before Adam, the metrics are the global batch's, and the new
+states come back for the rank's own rows; the caller gathers the global
+batch's (`parallel.dp.all_gather_rows`) where it pays the pool back.
 """
 
 from __future__ import annotations
@@ -96,13 +104,16 @@ def apply_update(state: TrainState, params, grads, lr: float) -> None:
     opt.zero_grad(set_to_none=True)
 
 
-def step_metrics(loss, out, grads, lr: float) -> StepMetrics:
-    """The step's metrics from its loss, ForwardOutputs and gradients."""
-    return StepMetrics(
-        loss=loss, loss_cont=out.loss_cont.detach().mean(),
-        loss_mom=(out.loss_mom_x + out.loss_mom_y).detach().mean(),
-        loss_press=out.loss_press.detach().mean(),
-        grad_norm=global_norm(grads), lr=lr)
+def step_metrics(loss, out, grads, lr: float, mean=None) -> StepMetrics:
+    """The step's metrics from its loss, ForwardOutputs and gradients;
+    `mean` (data parallelism: the mean over the ranks) takes the four
+    losses as one stacked vector."""
+    parts = [loss, out.loss_cont.detach().mean(),
+             (out.loss_mom_x + out.loss_mom_y).detach().mean(),
+             out.loss_press.detach().mean()]
+    if mean is not None:
+        parts = list(mean(torch.stack(parts)))
+    return StepMetrics(*parts, grad_norm=global_norm(grads), lr=lr)
 
 
 def init_train_state(cfg: Config, seed: int = 0, device="cuda"):
@@ -121,34 +132,45 @@ def init_train_state(cfg: Config, seed: int = 0, device="cuda"):
     return state, sim
 
 
-def make_train_step(cfg: Config, simulator, device="cuda") -> Callable:
+def make_train_step(cfg: Config, simulator, device="cuda",
+                    dp: bool = False) -> Callable:
     """(state, batch) -> (state, metrics, uvp_node_new) for a stacked
     MeshSample batch: forward with normalizer accumulation, the log loss,
     its backward, one Adam step at `step_exp_lr(state.epoch)`. `state` is
     updated in place and returned; `uvp_node_new` [B, Np, 3] is detached,
-    for the pool's payback. device="cuda" without a card raises; the step
-    refuses a batch on another device."""
+    for the pool's payback. With `dp`, `batch` is this rank's rows of the
+    global batch and the step is the global batch's (the module's
+    docstring); `uvp_node_new` is then this rank's rows. device="cuda"
+    without a card raises; the step refuses a batch on another device."""
+    from gen_fvgn_tpu_torch.parallel import dp as dp_mod
     from gen_fvgn_tpu_torch.training.forward import (forward_batch,
                                                      training_loss)
     dev = resolve_device(device)
     schedule = step_exp_lr(cfg)
     params = list(simulator.parameters())
+    n_ranks = dp_mod.require_group() if dp else 1
 
     def step(state: TrainState, batch):
         if not same_device(batch.uvp.device, dev):
             raise ValueError(f"the train step was made for {dev}, got a "
                              f"batch on {batch.uvp.device}")
         with torch.enable_grad():
-            out = forward_batch(simulator, state.norm_state, batch, cfg,
-                                accumulate_normalizer=True)
+            out = forward_batch(
+                simulator, state.norm_state, batch, cfg,
+                accumulate_normalizer=True,
+                norm_reduce=dp_mod.all_reduce_sum if dp else None)
             loss = training_loss(out, cfg)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        uvp_new = out.uvp_node_new.detach()
+        if dp:
+            grads = dp_mod.all_reduce_grads(grads, 1.0 / n_ranks)
         lr = schedule(state.epoch)
         apply_update(state, params, grads, lr)
         state.norm_state = out.norm_state
         state.step += 1
-        return (state, step_metrics(loss.detach(), out, grads, lr),
-                out.uvp_node_new.detach())
+        return (state, step_metrics(
+            loss.detach(), out, grads, lr,
+            mean=dp_mod.all_reduce_mean if dp else None), uvp_new)
     return step

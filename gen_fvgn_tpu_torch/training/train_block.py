@@ -2,7 +2,7 @@
 
 Counterpart of `gen_fvgn_tpu/training/train_block.py`
 (`init_train_state_block`, `make_train_step_block`, :26-164, and
-`MixedTrainStepBlock`, :167-324, on one device): forward with
+`MixedTrainStepBlock`, :167-324): forward with
 normalizer accumulation, the log loss, the backward through the kernels'
 backward passes (K1 on the stored transposes, K3, K4b, K5b, K7, and K9
 where the NodeBlocks take the node pair), one Adam step with the learning
@@ -17,6 +17,20 @@ sequential gradient-accumulation chunks: the whole batch's normalizer
 accumulation is hoisted out of the chunk loop (accumulate every row first,
 then normalize every chunk with the updated statistics), and the gradient
 is the mean over the chunks — the JAX step's semantics.
+
+Data parallelism (`dp=True`; the JAX steps jitted over a dp-sharded
+batch): every rank calls a step on its own contiguous rows of the global
+batch (`parallel.dp.local_rows`). The normalizer accumulates the global
+batch's sums (one all-reduce of the packed sums), the gradients are
+all-reduced before Adam (the rank's mean loss's with scale 1/world; the
+mixed step's weighted sums with scale 1), the metrics are the global
+batch's, and the new states come back for the rank's own rows. The
+caller gathers the global batch's states only where the pool is paid
+back (`parallel.dp.all_gather_rows`), so that every rank's pool stays the
+same; the mixed step's `run_batch` does so for its `payback`.
+Under microbatching the JAX step decides on the global batch against
+microbatch × dp_devices and gives device r's chunk k the rows k·mb to
+(k+1)·mb of its own block: rank r's chunk k holds the same rows.
 """
 
 from __future__ import annotations
@@ -29,6 +43,7 @@ import torch
 from gen_fvgn_tpu_torch.config import Config
 from gen_fvgn_tpu_torch.graph.packs import DynamicPack, StaticPack
 from gen_fvgn_tpu_torch.models.simulator_block import make_simulator_block
+from gen_fvgn_tpu_torch.parallel import dp as dp_mod
 from gen_fvgn_tpu_torch.training import normalizer as norm_mod
 from gen_fvgn_tpu_torch.training.forward import (ForwardOutputs,
                                                  training_loss,
@@ -68,22 +83,42 @@ def _rows(dyn: DynamicPack, rows: torch.Tensor) -> DynamicPack:
                           for f in dataclasses.fields(DynamicPack)})
 
 
-def make_train_step_block(cfg: Config, simulator,
-                          device="cuda") -> Callable:
+def microbatch_order(b: int, mb: int, n_dev: int):
+    """The JAX step's row-to-chunk assignment of a batch of `b` rows laid
+    out as `n_dev` contiguous device blocks: [n_k, n_dev·mb], chunk k
+    holding rows k·mb to (k+1)·mb of every block, device-major; None where
+    the batch runs unchunked (mb 0, b at most mb·n_dev, or not divisible
+    into equal chunks)."""
+    eff_mb = mb * n_dev
+    if not mb or b <= eff_mb or b % eff_mb:
+        return None
+    n_k = b // eff_mb
+    return torch.arange(b).reshape(n_dev, n_k, mb).permute(1, 0, 2) \
+        .reshape(n_k, eff_mb)
+
+
+def make_train_step_block(cfg: Config, simulator, device="cuda",
+                          dp: bool = False) -> Callable:
     """(state, dyn_batch, static) -> (state, metrics, uvp_node_new).
 
     `state` is updated in place (parameters, optimizer moments, normalizer,
     step) and returned. `uvp_node_new` [B, Np, 3] is detached, for the
-    pool's payback. Inside `ops.plain_versions()` forward and backward take
-    the kernels' plain versions. device="cuda" without a card raises; the step refuses a batch on
-    another device."""
+    pool's payback. With `dp`, `dyn_batch` is this rank's rows of the
+    global batch and the step is the global batch's (the module's
+    docstring); `uvp_node_new` is then this rank's rows. Inside
+    `ops.plain_versions()` forward and backward take the kernels' plain
+    versions. device="cuda" without a card raises; the step refuses a
+    batch on another device."""
     dev = resolve_device(device)
     schedule = step_exp_lr(cfg)
     params = [p for p in simulator.parameters()]
+    n_ranks = dp_mod.require_group() if dp else 1
+    reduce = dp_mod.all_reduce_sum if dp else None
 
     def loss_and_grads(norm_state, dyn, static, accumulate):
         out = forward_batch_block(simulator, norm_state, dyn, static, cfg,
-                                  accumulate_normalizer=accumulate)
+                                  accumulate_normalizer=accumulate,
+                                  norm_reduce=reduce)
         loss = training_loss(out, cfg)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
@@ -92,14 +127,15 @@ def make_train_step_block(cfg: Config, simulator,
 
     def grads_and_outputs(state: TrainState, dyn, static):
         b = dyn.uvp.shape[0]
-        mb = cfg.microbatch
-        n_dev = max(cfg.dp_devices, 1)
-        eff_mb = mb * n_dev
-        if not mb or b <= eff_mb or b % eff_mb:
+        # under dp the rank's rows are one device block of the global batch
+        order = microbatch_order(b, cfg.microbatch,
+                                 1 if dp else max(cfg.dp_devices, 1))
+        if order is None:
             loss, grads, out = loss_and_grads(state.norm_state, dyn, static,
                                               True)
             return loss, grads, out.norm_state, out
-        n_k = b // eff_mb
+        order = order.to(dyn.uvp.device)
+        n_k = order.shape[0]
         norm_state = state.norm_state
         if cfg.norm_global:
             # the whole batch's accumulation, once, before any chunk
@@ -109,10 +145,8 @@ def make_train_step_block(cfg: Config, simulator,
             mask_b = static.node_mask[None].expand(b, n_pad)
             _, norm_state = norm_mod.normalize(
                 norm_state, theta_nodes, mask_b,
-                max_accumulations=float(cfg.dataset_size), accumulate=True)
-        # the JAX row-to-chunk assignment: device-major blocks of mb rows
-        order = torch.arange(b, device=dyn.uvp.device).reshape(
-            n_dev, n_k, mb).permute(1, 0, 2).reshape(n_k, eff_mb)
+                max_accumulations=float(cfg.dataset_size), accumulate=True,
+                reduce=reduce)
         gacc = [torch.zeros_like(p) for p in params]
         lsum = torch.zeros((), dtype=torch.float32, device=dyn.uvp.device)
         outs = []
@@ -143,12 +177,16 @@ def make_train_step_block(cfg: Config, simulator,
         with torch.enable_grad():
             loss, grads, norm_state, out = grads_and_outputs(state, dyn,
                                                              static)
+        uvp_new = out.uvp_node_new.detach()
+        if dp:
+            grads = dp_mod.all_reduce_grads(grads, 1.0 / n_ranks)
         lr = schedule(state.epoch)
         apply_update(state, params, grads, lr)
         state.norm_state = norm_state
         state.step += 1
-        return (state, step_metrics(loss, out, grads, lr),
-                out.uvp_node_new.detach())
+        return (state, step_metrics(
+            loss, out, grads, lr,
+            mean=dp_mod.all_reduce_mean if dp else None), uvp_new)
     return step
 
 
@@ -168,10 +206,21 @@ class MixedTrainStepBlock:
          one Adam step.
 
     Each group runs the same forward and backward as a single-case step,
-    so a group launches the kernels a train step launches."""
+    so a group launches the kernels a train step launches.
 
-    def __init__(self, cfg: Config, simulator, device="cuda"):
+    With `dp`, every group is padded to a multiple of the world size
+    (`mixed_block_batches(n_dev=...)`) and each rank runs its block of
+    every group's rows; the group sums, the summed gradients (scale 1: the
+    weights are already 1/batch_size) and the summed metrics are
+    all-reduced, and every group's new states are gathered for the
+    payback (the module's docstring)."""
+
+    def __init__(self, cfg: Config, simulator, device="cuda",
+                 dp: bool = False):
         self.cfg = cfg
+        self.dp = dp
+        if dp:
+            dp_mod.require_group()
         self.dev = resolve_device(device)
         self.schedule = step_exp_lr(cfg)
         self.simulator = simulator
@@ -237,33 +286,44 @@ class MixedTrainStepBlock:
     def apply_update(self, state: TrainState, acc, norm_state):
         """One Adam step with the summed gradients; `state` is updated in
         place and returned with the step's metrics."""
+        gsum = acc["gsum"]
+        parts = [acc["loss"], acc["cont"], acc["mom"], acc["press"]]
+        if self.dp:
+            gsum = dp_mod.all_reduce_grads(gsum, 1.0)
+            parts = list(dp_mod.all_reduce_sum(torch.stack(parts)))
         lr = self.schedule(state.epoch)
-        apply_update(state, self.params, acc["gsum"], lr)
+        apply_update(state, self.params, gsum, lr)
         state.norm_state = norm_state
         state.step += 1
-        metrics = StepMetrics(
-            loss=acc["loss"], loss_cont=acc["cont"], loss_mom=acc["mom"],
-            loss_press=acc["press"], grad_norm=global_norm(acc["gsum"]),
-            lr=lr)
-        return state, metrics
+        return state, StepMetrics(*parts, grad_norm=global_norm(gsum), lr=lr)
 
     def run_batch(self, state: TrainState, batch, gather, statics,
                   payback=None):
         """One step on `batch` (an element of `mixed_block_batches`: [(ci,
         idxs, weights, n_real), ...]); `gather(idxs)` gives a group's
         DynamicPack and `payback(idxs, uvp)`, where given, takes each
-        group's real rows. Returns (state, metrics)."""
-        weights = [to_device(w, self.dev) for _, _, w, _ in batch]
+        group's real rows (with `dp`: gathered from every rank). Returns
+        (state, metrics)."""
+        if self.dp:       # this rank's rows of each group
+            mine = [(dp_mod.local_rows(idxs, len(idxs)),
+                     dp_mod.local_rows(w, len(idxs))) for _, idxs, w, _ in batch]
+        else:
+            mine = [(idxs, w) for _, idxs, w, _ in batch]
+        weights = [to_device(w, self.dev) for _, w in mine]
         norm_state = state.norm_state
         if self.cfg.norm_global:
             sums = self.init_sums()
-            for (ci, idxs, _, _), w in zip(batch, weights):
+            for (ci, _, _, _), (idxs, _), w in zip(batch, mine, weights):
                 sums = self.group_stats(sums, gather(idxs), statics[ci], w)
+            sums = norm_mod.reduce_sums(
+                sums, dp_mod.all_reduce_sum if self.dp else None)
             norm_state = self.norm_update(norm_state, sums)
         acc = self.init_acc()
-        for (ci, idxs, _, g), w in zip(batch, weights):
-            acc, uvp_new = self.group_grads(norm_state, acc, gather(idxs),
+        for (ci, idxs, _, g), (mine_idxs, _), w in zip(batch, mine, weights):
+            acc, uvp_new = self.group_grads(norm_state, acc, gather(mine_idxs),
                                             statics[ci], w)
             if payback is not None:
+                if self.dp:
+                    uvp_new = dp_mod.all_gather_rows(uvp_new, len(idxs))
                 payback(idxs[:g], uvp_new[:g])
         return self.apply_update(state, acc, norm_state)

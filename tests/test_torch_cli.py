@@ -166,8 +166,8 @@ def test_solve_at_its_default_engine_on_the_cpu(tmp_path, train_engine):
 
 @pytest.mark.parametrize("cli,argv,exc,match", [
     ("pre_train", ["--engine", "segment", "--bucket-tiers", "1",
-                   "--dp-devices", "2"], NotImplementedError, "--dp-devices"),
-    ("pre_train", ["--dp-devices", "2"], NotImplementedError, "later slice"),
+                   "--dp-devices", "2"], RuntimeError, "torchrun"),
+    ("pre_train", ["--dp-devices", "2"], RuntimeError, "torchrun"),
     ("pre_train", ["--sp-devices", "2"], NotImplementedError, "later slice"),
     ("solve", ["--sp-devices", "2"], SystemExit, "--engine block"),
     ("solve", ["--engine", "block", "--sp-devices", "2"], NotImplementedError,
@@ -176,10 +176,13 @@ def test_solve_at_its_default_engine_on_the_cpu(tmp_path, train_engine):
          "solve-segment-default", "solve-sp"])
 def test_unported_flags_raise(tmp_path, cli, argv, exc, match):
     """A flag the port cannot honour yet raises NotImplementedError that
-    names the later slice, before anything is read (on the segment engine
-    with its bucket tiers too). At solve's default engine, the segment engine,
-    `--sp-devices` exits before anything is read, as the JAX script does
-    (the segment engine has no sharded form in either package)."""
+    names the later slice, before anything is read. `--dp-devices 2`
+    outside a process group of 2 ranks raises a RuntimeError that says to
+    launch under torchrun, before anything is read (on the segment engine
+    with its bucket tiers too). At solve's default engine, the segment
+    engine, `--sp-devices` exits before anything is read, as the JAX
+    script does (the segment engine has no sharded form in either
+    package)."""
     from gen_fvgn_tpu_torch.scripts import pre_train, solve
     missing = str(tmp_path / "missing")
     if cli == "pre_train":

@@ -238,13 +238,20 @@ def test_train_loop_matches_jax(tmp_path, monkeypatch):
     dict(edge_gather="composed", sp_devices=2),
     dict(mixed_case_batches=True, dp_devices=2)])
 def test_train_raises_on_what_is_not_ported(tmp_path, change):
-    """Data and spatial parallelism (dp_devices / sp_devices > 1) are the
-    options still to port; they raise whatever else the Config asks."""
+    """Spatial parallelism (sp_devices > 1) is the option still to port: it
+    raises NotImplementedError whatever else the Config asks. Data
+    parallelism (dp_devices > 1) runs only under a process group of that
+    many ranks: without one it raises a RuntimeError that says to launch
+    under torchrun, and never trains on one process."""
     from gen_fvgn_tpu_torch.training.loop import train
     cfg = _config(T, batch_size=2, dataset_size=2, max_inner_steps=1)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    exc, match = ((NotImplementedError, "later slice")
+                  if change.get("sp_devices", 1) > 1
+                  else (RuntimeError, "torchrun"))
+    with pytest.raises(exc, match=match):
         train(cfg.replace(**change), cases=_cases(T)[:1],
               log_base_dir=str(tmp_path), n_epochs=1, device="cpu")
+    assert not os.listdir(tmp_path)
 
 
 # ---- cases read from directories, mixed-case batches ----

@@ -262,9 +262,10 @@ def test_transolver_net_builds_with_the_flax_paths(net):
 
 
 def test_unknown_net_and_unported_options_raise():
-    """Unknown names raise ValueError; of the options, only parallelism
-    (dp_devices / sp_devices > 1) is still to port and raises
-    NotImplementedError."""
+    """Unknown names raise ValueError; of the options, only spatial
+    parallelism (sp_devices > 1) is still to port and raises
+    NotImplementedError; data parallelism (dp_devices > 1) without a
+    process group of that size raises a RuntimeError naming torchrun."""
     from gen_fvgn_tpu_torch.config import Config
     from gen_fvgn_tpu_torch.models.gn_block import NodeBlockB
     from gen_fvgn_tpu_torch.models.simulator_block import make_simulator_block
@@ -283,8 +284,11 @@ def test_unknown_net_and_unported_options_raise():
     pool = EnvPool([], Config(net="FVGN"), cases=[_small_case()],
                    engine="segment", bucket_tiers=True, device="cpu")
     assert pool.n_tiers == 1
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         train(Config(net="FVGN", dp_devices=2), cases=[_small_case()],
+              device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        train(Config(net="FVGN", sp_devices=2), cases=[_small_case()],
               device="cpu")
 
 
