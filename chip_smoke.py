@@ -132,6 +132,20 @@ Transolver block each, 8 heads, 32 slices, bf16 stream) unless named:
     2 epochs each: rank 0's run directory alone, its checkpoint loads.
     A dp speed-up needs two cards and is not measured here;
 
+  * spatial parallelism (phase "sp", `drive_sp`): one mesh cut by rows
+    over gloo ranks sharing the card (`parallel/sp.py`,
+    `tools/sp_check.py`): (a) sp = 2 on two ranks, the main path padded
+    to 512-row multiples, 3 steps against the same steps in this process
+    on the same pool (the same bits on both ranks, step 1's loss,
+    gradient norm, states and gradients, the parameters after 3 steps),
+    each rank's launches the single-process step's, the MiB each rank
+    all-reduces a step, ms a step; (b) dp 2 x sp 2 on four ranks, 1 step;
+    (c) `pre_train --sp-devices 2` on the CLI cases, per-case and mixed,
+    and `solve --engine block --sp-devices 2` in rollout against
+    `--sp-devices 1`. Correctness only: an sp speed-up needs several
+    cards. Each kernel's entry in the kernels line carries "sp", a rank's
+    launches in an sp = 2 train step;
+
   * the Hilbert-curve node ordering (phase "ordering", `drive_ordering`):
     the main case's statics under GFVGN_ORDERING=hilbert beside RCM, K1 at
     each main-path form on each (against its plain version; timed in
@@ -2620,6 +2634,199 @@ def drive_dp(cfg, per_step, data, root, card):
     return out
 
 
+def drive_sp(cfg, per_step, data, root, card):
+    """Phase "sp": spatial parallelism (`parallel/sp.py`), one mesh cut by
+    rows over gloo ranks that share cuda:0 (NCCL puts no two ranks on one
+    card), each rank spawned after the kernel library is built; the rank
+    functions are `tools/sp_check.py`'s and `tools/dp_check.py`'s. Every
+    number here checks correctness: the ranks pass their all-reduces
+    through the host and share one card, so a speed-up or a memory saving
+    of sp is not measured.
+
+    (a) sp = 2 on two ranks, the main path (the 101x101 cavity, block
+        TransFVGN_v2, global batch 8), every entity padded to tile x 2 =
+        512 rows (10,240 nodes, 20,480 faces, 10,240 cells): 3 train
+        steps. Step 1's loss, gradient norm, states and gradients and the
+        parameters after 3 steps against the same 3 steps in this process
+        on the same pool (`sp_check.compare` at the bf16 limits); the
+        ranks' parameters the same bits; each rank's launches of K1-K7
+        (3 x the single-process step's); the MB each rank all-reduces a
+        step; ms a step.
+    (b) dp = 2 x sp = 2 on four ranks: 1 step against this process.
+    (c) `pre_train --sp-devices 2 --device cuda:0` on the CLI phase's two
+        case directories, per-case and mixed-case batches, 2 epochs of 2
+        inner steps: one run directory, its checkpoint loads, finite
+        losses, each rank's launches a whole number of train steps or
+        groups; then `solve --engine block --sp-devices 2 --mode rollout`
+        (2 time steps from the initial weights, as the JAX package's test)
+        against `--sp-devices 1` in this process, at the JAX package's sp
+        limits of the net's bf16 stream (rtol 1e-3 + atol 1e-3; the
+        sums over rows change order, and a last-bit change of a float32
+        statistic flips a bf16 rounding); the gap to the float32 limits
+        of the JAX solve test (rtol 1e-4 + atol 1e-5) is printed.
+
+    A failure in any rank fails the phase. Returns its numbers."""
+    import dataclasses
+    import glob
+    import os
+
+    from gen_fvgn_tpu_torch.config import load_config
+    from gen_fvgn_tpu_torch.io.checkpoint import load_state
+    from gen_fvgn_tpu_torch.meshes.synthetic import (cavity_quad_mesh,
+                                                     synthetic_case)
+    from gen_fvgn_tpu_torch.parallel.launch import spawn
+    from gen_fvgn_tpu_torch.tools.dp_check import pre_train_rank
+    from gen_fvgn_tpu_torch.tools.sp_check import (LIMITS, compare,
+                                                   run_steps, solve_rank)
+    from gen_fvgn_tpu_torch.training.train_block import \
+        init_train_state_block
+    name = "sp"
+    t_phase = time.perf_counter()
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    case = synthetic_case(cavity_quad_mesh(MESH_N), continuity=1,
+                          convection=1, grad_p=1, mu=0.05, sigma=(1, 1, 1))
+    out = {}
+    mb = lambda r: [round(x["bytes"] / 2 ** 20, 3) for x in r["reduced"]]
+
+    for part, grid, steps in (("a", dict(sp_devices=2), 3),
+                              ("b", dict(dp_devices=2, sp_devices=2), 1)):
+        spec = dict(cfg=dict(fields, **grid), cases=[case], device="cuda:0",
+                    steps=steps, seed=0)
+        n = grid.get("dp_devices", 1) * grid["sp_devices"]
+        t0 = time.perf_counter()
+        ranks = spawn(run_steps, n, dict(spec, ranks=True), backend="gloo",
+                      timeout=900)
+        spawn_s = time.perf_counter() - t0
+        single = run_steps(0, 1, dict(spec, ranks=False))
+        gaps = compare(single, ranks, cfg.lr, steps=steps,
+                       dtype=cfg.mxu_dtype)
+        expected = {k: steps * per_step.get(k, 0) for k in single["launches"]}
+        counts = [r["launches"] for r in ranks]
+        key = "sp2" if part == "a" else "dp2xsp2"
+        out[key] = dict(
+            gaps=gaps, launches_per_rank=counts, seconds=spawn_s,
+            ms_per_step=[r["step_ms"] for r in ranks],
+            single_ms_per_step=single["step_ms"],
+            all_reduce_mib_per_step=[mb(r) for r in ranks],
+            all_reduce_calls_per_step=[[x["calls"] for x in r["reduced"]]
+                                       for r in ranks],
+            losses=[m["loss"] for m in ranks[0]["metrics"]])
+        log(f"{name} ({part}) {key}, {n} gloo ranks on one card, global "
+            f"batch 8, padded to {ranks[0]['uvp_first'].shape[1]} nodes: "
+            f"ranks' parameters the same bits {gaps['ranks_same_bits']}, "
+            f"pools {gaps['ranks_same_pool']}; against this process: step 1 "
+            f"loss rel {gaps['loss_rel']:.3g} (limit {gaps['loss_limit']}), "
+            f"grad_norm rel {gaps['grad_norm_rel']:.3g} (1e-3), states "
+            f"max abs {gaps['uvp_max_abs']:.3g}, excess "
+            f"{gaps['uvp_excess']:.3g} (<= 0), gradients "
+            f"{gaps['grads_rel']:.3g} ({gaps['grads_limit']}), normalizer "
+            f"rel {gaps['norm_rel']:.3g}, parameters after {steps} steps max "
+            f"abs {gaps['params_max_abs']:.3g} (atol "
+            f"{gaps['params_atol']:.3g} + rtol 1e-3); losses "
+            f"{out[key]['losses']}; launches a rank {counts}")
+        log(f"{name} ({part}) all-reduced a step, rank 0: "
+            f"{out[key]['all_reduce_mib_per_step'][0]} MiB in "
+            f"{out[key]['all_reduce_calls_per_step'][0]} calls; ms a step "
+            f"(host clock; correctness only: gloo stages through the host "
+            f"and the ranks share one card): rank 0 "
+            f"{[round(x, 2) for x in ranks[0]['step_ms']]}; one process "
+            f"{[round(x, 2) for x in single['step_ms']]}; card: {card}")
+        if not gaps["ok"] or any(c != expected for c in counts) \
+                or single["launches"] != expected:
+            raise RuntimeError(f"{name} ({part}): gaps {gaps}, launches "
+                               f"{counts} (expected {expected} a rank)")
+        del ranks, single
+
+    # (c) the CLIs on two ranks
+    out["pre_train"] = {}
+    for mode, extra in (("stratified", []),
+                        ("mixed", ["--mixed-case-batches", "1"])):
+        log_dir = os.path.join(root, f"sp_runs_{mode}")
+        argv = ["--dataset-dir", data, "--log-dir", log_dir, "--epochs", "2",
+                "--max-inner-steps", "2", "--dataset-size", "16",
+                "--sp-devices", "2", "--device", "cuda:0"] + extra
+        t0 = time.perf_counter()
+        res = spawn(pre_train_rank, 2, argv, backend="gloo", timeout=900)
+        run_s = time.perf_counter() - t0
+        run_dirs = glob.glob(os.path.join(log_dir, "*", "*"))
+        if len(run_dirs) != 1:
+            raise RuntimeError(f"{name} (c) {mode}: run directories "
+                               f"{run_dirs}, not rank 0's alone")
+        run_dir = run_dirs[0]
+        slots = sorted(os.listdir(os.path.join(run_dir, "states")))
+        state, _ = init_train_state_block(
+            load_config(os.path.join(run_dir, "config.json")), seed=1)
+        load_state(os.path.join(run_dir, "states", "1.state"), like=state)
+        lines = open(os.path.join(run_dir, "Loss_monitor.dat")) \
+            .read().splitlines()
+        cols = lines[0].split("=")[1].replace('"', "").split(",")
+        losses = [dict(zip(cols, map(float, ln.split(","))))["loss"]
+                  for ln in lines[1:]]
+        counts = [r["launches"] for r in res]
+        n_units = {counts[0][k] // per_step[k] for k in per_step
+                   if per_step[k]}
+        whole = all(c == counts[0] for c in counts) and len(n_units) == 1 \
+            and all(counts[0][k] == per_step.get(k, 0) * next(iter(n_units))
+                    for k in counts[0])
+        out["pre_train"][mode] = dict(
+            seconds=run_s, losses=losses, slots=slots,
+            launches_per_rank=counts, units=sorted(n_units))
+        log(f"{name} (c) pre_train --sp-devices 2 {mode}: {run_s:.1f} s "
+            f"(spawn, reading both cases and their statics included); one "
+            f"run directory; slots {slots}; checkpoint 1.state loads (epoch "
+            f"{state.epoch}); losses {losses}; launches a rank {counts} "
+            f"({sorted(n_units)} train steps or groups)")
+        if slots != ["0.state", "1.state"] or len(losses) != 2 \
+                or not np.isfinite(losses).all() or not whole \
+                or state.epoch != 2:
+            raise RuntimeError(f"{name} (c) {mode}: a check failed (slots "
+                               f"{slots}, losses {losses}, launches "
+                               f"{counts})")
+        del state
+    case_dir = os.path.join(data, "cavity_quad")
+
+    def solve_argv(sp):
+        return ["--case", case_dir, "--engine", "block", "--mode", "rollout",
+                "--steps", "2", "--out-dir",
+                os.path.join(root, f"sp_solve_{sp}"), "--device", "cuda:0",
+                "--sp-devices", str(sp)]
+    t0 = time.perf_counter()
+    res = spawn(solve_rank, 2, solve_argv(2), backend="gloo", timeout=600)
+    solve_s = time.perf_counter() - t0
+    one = solve_rank(0, 1, solve_argv(1))
+    n_real = 10201
+    # the solve's net streams bf16 (the Config default): held at the JAX
+    # package's bf16 sp limits (tests/test_sp_fused.py:193); the float32
+    # limits of its solve test (tests/test_solve_cli.py:46) are printed
+    lim = LIMITS[cfg.mxu_dtype]
+    gaps = {"max_abs": 0.0, "excess": -np.inf, "excess_f32_limits": -np.inf}
+    for hist in [r["hist"] for r in res]:
+        for rec, ref in zip(hist, one["hist"]):
+            a = rec["uvp_node"][:, :n_real].astype(np.float64)
+            b = ref["uvp_node"][:, :n_real].astype(np.float64)
+            d = np.abs(a - b)
+            gaps["max_abs"] = max(gaps["max_abs"], float(d.max()))
+            gaps["excess"] = max(gaps["excess"], float(
+                (d - (lim["rtol"] * np.abs(b) + lim["atol"])).max()))
+            gaps["excess_f32_limits"] = max(gaps["excess_f32_limits"], float(
+                (d - (1e-4 * np.abs(b) + 1e-5)).max()))
+    files = sorted(os.listdir(os.path.join(root, "sp_solve_2")))
+    out["solve_rollout"] = dict(seconds=solve_s, files=files,
+                                launches_per_rank=[r["launches"]
+                                                   for r in res], **gaps)
+    log(f"{name} (c) solve --engine block --sp-devices 2 --mode rollout, 2 "
+        f"time steps: {solve_s:.1f} s; fields against --sp-devices 1: max "
+        f"abs {gaps['max_abs']:.3g}, excess over rtol {lim['rtol']} + atol "
+        f"{lim['atol']} ({cfg.mxu_dtype}) {gaps['excess']:.3g} (<= 0), over "
+        f"rtol 1e-4 + atol 1e-5 {gaps['excess_f32_limits']:.3g}; rank 0 "
+        f"wrote {files}; launches a rank {[r['launches'] for r in res]}")
+    if gaps["excess"] > 0 or len(files) != 2:
+        raise RuntimeError(f"{name} (c) solve: gaps {gaps}, files {files}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"{name}: phase {out['phase_s']:.1f} s; card: {card}")
+    return out
+
+
 def drive_ordering(flush_buf, card):
     """Phase "ordering": the main case's statics under the Hilbert-curve
     node ordering (`ensure_rcm(method="hilbert")`, through
@@ -2889,10 +3096,13 @@ def main():
         # ---- phase 11a: data parallelism (spawned ranks) ----
         dp_t = drive_dp(cfg, per_step, cli_data, root, card)
 
+        # ---- phase 11c: spatial parallelism (spawned ranks) ----
+        sp_t = drive_sp(cfg, per_step, cli_data, root, card)
+
     # ---- phase 11b: the Hilbert-curve ordering against RCM ----
     order_t = drive_ordering(torch.zeros(64 * 1024 * 1024, device="cuda"),
                              card)
-    log(json.dumps({"dp": dp_t, "ordering": order_t}))
+    log(json.dumps({"dp": dp_t, "ordering": order_t, "sp": sp_t}))
 
     # ---- phase 12: the kernels line (launches: the main path's run; the
     # pair kernels', which the main path does not run: the paired path's) --
@@ -3004,6 +3214,12 @@ def main():
             k["segment"]["forms"] = {form: {f: r[k["name"]][f] for f in (
                 "m", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
                 for form, r in seg_forms.items()}
+    # spatial parallelism (phase 11c): a rank's launches in an sp = 2 train
+    # step, read from its counters (K8/K9 take their two-apply form there)
+    sp_launches = sp_t["sp2"]["launches_per_rank"][0]
+    for k in kernels:
+        k["sp"] = dict(launches_per_rank_per_train_step=sp_launches.get(
+            k["name"], 0) // 3)
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
         raise RuntimeError(f"the path that should run them launched no "

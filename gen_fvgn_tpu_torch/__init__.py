@@ -8,8 +8,9 @@ raise instead of running on the CPU.
 Ported so far, on both engines (the segment engine, the Config's
 default, and the block engine): the rollout and the train step of the
 FVGN and Transolver nets, the training run around the step, the
-instance-optimisation solves, the `pre_train` / `solve` CLIs, and data
-parallelism over `torch.distributed` (`parallel/`)
+instance-optimisation solves, the `pre_train` / `solve` CLIs, data
+parallelism over `torch.distributed` and the block engine's spatial
+parallelism (`parallel/`)
 
     from gen_fvgn_tpu_torch import Config, train
     state = train(Config(engine="block"), case_dirs=[...])

@@ -27,6 +27,11 @@ its dense tiles: a TPU layout of the same operators, which reads only the
 non-zeros. CSR reads only the non-zeros already, so here both settings run
 the same CSR products and give the JAX package's losses within float32
 summation order.
+
+Under spatial parallelism (`parallel/sp.py`) the section runs on the
+rank's node, face and cell rows, and each loss's sum of squares over faces
+or cells is summed over the sp group (`sp_sum`) before its square root, so
+every rank holds the whole losses.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from gen_fvgn_tpu_torch.fv.integrator import FVLosses
 from gen_fvgn_tpu_torch.graph.packs import DynamicPack, StaticPack
 from gen_fvgn_tpu_torch.ops.blocksparse import apply_linop
 from gen_fvgn_tpu_torch.ops.segment import safe_sqrt
+from gen_fvgn_tpu_torch.parallel.sp import sp_sum
 
 
 def pack_cm(x: torch.Tensor) -> torch.Tensor:
@@ -130,14 +136,15 @@ def integrate_residuals_block_packed(
                         + gy_face[:, : 2 * b] * ops.s_out[:, 1:2])
     resid_out = visc_out - _tile_ch(p_face_new, 2) * \
         ops.s_out.repeat_interleave(b, dim=1)          # [E, 2B]
-    loss_press = safe_sqrt(
-        (resid_out.reshape(-1, 2, b) ** 2).sum(dim=(0, 1)))       # [B]
+    loss_press = safe_sqrt(sp_sum(
+        (resid_out.reshape(-1, 2, b) ** 2).sum(dim=(0, 1))))      # [B]
 
     unsteady_cell = ((uvp_cell_new[:, : 2 * b] - uv_cell_old) / dt2) \
         * cells_area
 
     def pool2(per_cell):                               # [Nc, 2B] -> [2, B]
-        return safe_sqrt((per_cell.reshape(-1, 2, b) ** 2).sum(dim=0))
+        return safe_sqrt(sp_sum((per_cell.reshape(-1, 2, b) ** 2)
+                                .sum(dim=0)))
 
     if conserved_form:
         conv2 = _row(theta[:, 2], 2)
@@ -154,7 +161,8 @@ def integrate_residuals_block_packed(
         fy = ap(ops.flux_y, torch.cat(
             [uv_face_new[:, b: 2 * b], my], dim=-1))
         cell_div = fx[:, : b] + fy[:, : b]             # [Nc, B]
-        loss_cont = safe_sqrt((cell_div ** 2).sum(dim=0)) * theta[:, 1]
+        loss_cont = safe_sqrt(sp_sum((cell_div ** 2).sum(dim=0))) \
+            * theta[:, 1]
         j_x = fx[:, b:] + fy[:, b:]                    # [Nc, 2B]
         rhs = j_x - _row(theta[:, 5], 2) * cells_area
         loss_mom_cell = _row(theta[:, 0], 2) * unsteady_cell + rhs
@@ -165,7 +173,8 @@ def integrate_residuals_block_packed(
         uv_cell_hat = phi_cell[:, 3 * b: 5 * b]
 
         cell_div = (gx_cell[:, : b] + gy_cell[:, b: 2 * b]) * cells_area
-        loss_cont = safe_sqrt((cell_div ** 2).sum(dim=0)) * theta[:, 1]
+        loss_cont = safe_sqrt(sp_sum((cell_div ** 2).sum(dim=0))) \
+            * theta[:, 1]
 
         conv2 = _row(theta[:, 2], 2)
         convection_cell = (gx_cell[:, 3 * b: 5 * b]

@@ -20,7 +20,10 @@ process-wide switches `use_gather_pair()`, `use_node_pair()` and
 `use_composed_gather()`, all off by default; here they are the constructor
 arguments `gather_pair`, `node_pair` and `composed_gather`, also off by
 default (the nets set `composed_gather` from cfg.edge_gather). The
-parameter tree is the same either way. Where the JAX package meets a pack
+parameter tree is the same either way. Under spatial parallelism
+(`parallel/sp.py`) both paired forms give way to their two-apply forms
+(JAX's `node_pair_enabled()` is False under an sp mesh), whose applies
+run on the rank's rows. Where the JAX package meets a pack
 without the operators a form needs, it takes another form; here asking
 for a form whose operators the pack lacks raises.
 """
@@ -36,7 +39,7 @@ from gen_fvgn_tpu_torch.graph.packs import StaticPack
 from gen_fvgn_tpu_torch.models.mlp import Gathered, GatheredPair, Mlp
 from gen_fvgn_tpu_torch.ops.blocksparse import (apply_half_agg, apply_linop,
                                                 apply_node_agg,
-                                                apply_node_pair)
+                                                apply_node_pair, sp_layout)
 
 NODE_AGGS = ("composed", "wide", "split")
 
@@ -80,7 +83,8 @@ class EdgeBlockB(nn.Module):
         # Gathered parts: the MLP projects agg by the sender/receiver W1
         # row-slices on the NODE side and row-gathers the projections —
         # the same math as gathering first
-        if self.gather_pair:
+        if self.gather_pair and sp_layout() is None:
+            # (under sp the two gathers: K8 is a single-device pass)
             gathered = (GatheredPair(agg, ops),)
         else:
             gathered = (Gathered(agg, ops.gather_s),
@@ -117,9 +121,11 @@ class NodeBlockB(nn.Module):
                 raise ValueError("the StaticPack was built without the "
                                  "composed nbr_r/nbr_s operators "
                                  "(node_agg='composed')")
-            if self.node_pair:
+            if self.node_pair and sp_layout() is None:
                 # nbr_r·e[..., :h2] + nbr_s·e[..., h2:] in ONE pass (K8),
-                # and ONE dual-output transpose pass (K9) in the backward
+                # and ONE dual-output transpose pass (K9) in the backward;
+                # under sp the two windowed applies, as JAX's
+                # node_pair_enabled() falls back
                 nbr_sum = apply_node_pair(ops, edge_attr)
             else:
                 # the precomputed adj@scat operators, each on its kept

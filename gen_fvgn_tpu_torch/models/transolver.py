@@ -19,7 +19,13 @@ places:
   as the flax `nn.Dense`/`nn.LayerNorm` path.
 
 The JAX package's process-wide `use_fused_attn` switch has no counterpart:
-the fused form runs whenever its conditions hold. `to_q`/`to_k`/`to_v`, the
+the fused form runs whenever its conditions hold, N being the whole
+mesh's node count under spatial parallelism. There (`parallel/sp.py`)
+each rank pools its own node rows (K6, or the plain einsums) and the
+unnormalised tokens and slice norms are summed over the sp group before
+the division; the G-token attention is then the same on every rank and
+the de-slice is row-local. (JAX takes its plain form under sp; both forms
+compute the same function.) `to_q`/`to_k`/`to_v`, the
 G-token attention and the folded de-slice product are plain torch ops in
 both forms (the JAX package leaves them to XLA outside any kernel).
 """
@@ -33,6 +39,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from gen_fvgn_tpu_torch.models.mlp import _DenseParams, _LnParams
+from gen_fvgn_tpu_torch.ops.blocksparse import sp_layout
+from gen_fvgn_tpu_torch.parallel.sp import sp_sum
 
 
 def _flax_layer_norm(h, scale, bias, out_dtype, eps: float = 1e-6):
@@ -95,7 +103,8 @@ class PhysicsAttention(nn.Module):
         dt, f32 = self.dtype, torch.float32
         x3 = x.reshape(-1, n, c)
         b = x3.shape[0]
-        if self.fused(n, c):
+        sp = sp_layout()
+        if self.fused(n * (sp.sp if sp is not None else 1), c):
             from gen_fvgn_tpu_torch.ops.fused_slice_attn import \
                 fused_slice_pool
             p_fx, p_x, p_sl = (self.in_project_fx, self.in_project_x,
@@ -104,6 +113,8 @@ class PhysicsAttention(nn.Module):
             slice_w, tok, norm = fused_slice_pool(
                 x3, node_mask, p_fx.kernel, p_fx.bias, p_x.kernel, p_x.bias,
                 p_sl.kernel, p_sl.bias, inv_temp, heads=h, slice_num=g)
+            if sp is not None:
+                tok, norm = sp_sum(tok), sp_sum(norm)
             token = tok / (norm[..., None] + 1e-5)          # [B, H, G, D]
         else:
             fx_mid = _dense(x3, self.in_project_fx, dt).reshape(b, n, h, d)
@@ -116,6 +127,8 @@ class PhysicsAttention(nn.Module):
             slice_norm = slice_w_masked.sum(dim=1)           # [B, H, G]
             token = torch.einsum("bnhg,bnhd->bhgd", slice_w_masked,
                                  fx_mid.to(f32))
+            if sp is not None:
+                token, slice_norm = sp_sum(token), sp_sum(slice_norm)
             token = token / (slice_norm[..., None] + 1e-5)
 
         q = _dense(token, self.to_q, dt)

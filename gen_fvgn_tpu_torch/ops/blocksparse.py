@@ -29,6 +29,17 @@ JAX package's `use_gather_pair()` / `use_node_pair()` forms: two operators
 with the same rows applied to the two halves of one operand and summed
 through one float32 accumulator (kernel K8, ops/pair_spmm.py); the node
 pair's backward applies both stored transposes in one pass (K9).
+
+Spatial parallelism (`set_sp_group`, entered by `parallel/sp.py::
+sp_context`; the counterpart of the JAX package's `set_sp_mesh` and
+`_sp_spmm`): each operator direction holds the rank's output rows
+(`parallel/sp.py::shard_static_sp`), so every apply first gathers the
+operand's rows over the sp group, then applies the rank's block by the
+same dispatch rule (K1, the take route with the rank's `take_idx`, or
+`csr_matmul`); its backward gathers the cotangent and applies the rank's
+block of the stored transpose. The paired applies are single-device
+passes and raise there: the modules take their two-apply forms under sp,
+as JAX's `node_pair_enabled` does.
 """
 
 from __future__ import annotations
@@ -214,6 +225,42 @@ def _apply_csr_op(op: CsrOp, x: torch.Tensor,
     return csr_matmul(op, x)
 
 
+# The SpLayout of the active sp context (parallel/sp.py), or None: one
+# process holds every row. Process-global like the JAX package's _SP_MESH.
+_SP = None
+
+
+def set_sp_group(layout) -> None:
+    """layout: a parallel.sp.SpLayout whose rows every apply runs on (None,
+    or one of sp 1, restores the single-process applies)."""
+    global _SP
+    _SP = layout if layout is not None and layout.sp > 1 else None
+
+
+def sp_layout():
+    """The active SpLayout, or None."""
+    return _SP
+
+
+def _gather_rows(x: torch.Tensor, n_rows: int, sp) -> torch.Tensor:
+    """The operand's (or cotangent's) rows of every rank of the sp group;
+    `x` itself without one."""
+    if sp is None:
+        return x
+    if x.shape[-2] * sp.sp != n_rows:
+        raise ValueError(f"{x.shape[-2]} rows on each of {sp.sp} sp ranks, "
+                         f"but the operator takes {n_rows}")
+    from gen_fvgn_tpu_torch.parallel.sp import all_gather_rows_sp
+    return all_gather_rows_sp(x.contiguous(), sp)
+
+
+def _no_sp(what: str) -> None:
+    if _SP is not None:
+        raise NotImplementedError(
+            f"{what} is a single-device pass; under sp the modules take its "
+            f"two-apply form")
+
+
 class _ApplyLinop(torch.autograd.Function):
     """out = A·x, with the backward dx = Aᵀ·g applied through the stored
     transpose `op.bwd` under the forward's dispatch rule (the spmm kernel
@@ -221,24 +268,27 @@ class _ApplyLinop(torch.autograd.Function):
     has no row-gather indices, so the take route's backward is the
     transpose product too). It never scatters. As in JAX, the cotangent
     takes the operand cast of a bf16-stored operator: a float32 cotangent
-    is rounded to bf16 before the product."""
+    is rounded to bf16 before the product. Under sp (`sp`, a SpLayout) the
+    operand and the cotangent are gathered over the sp group first."""
 
     @staticmethod
-    def forward(ctx, x, op, plain):
-        ctx.op, ctx.plain, ctx.x_dtype = op, plain, x.dtype
-        return _apply_csr_op(op.fwd, x, plain)
+    def forward(ctx, x, op, plain, sp):
+        ctx.op, ctx.plain, ctx.x_dtype, ctx.sp = op, plain, x.dtype, sp
+        return _apply_csr_op(op.fwd, _gather_rows(x, op.fwd.n_in, sp), plain)
 
     @staticmethod
     def backward(ctx, g):
-        dx = _apply_csr_op(ctx.op.bwd, g.contiguous(), ctx.plain)
-        return dx.to(ctx.x_dtype), None, None
+        g = _gather_rows(g.contiguous(), ctx.op.bwd.n_in, ctx.sp)
+        dx = _apply_csr_op(ctx.op.bwd, g, ctx.plain)
+        return dx.to(ctx.x_dtype), None, None, None
 
 
 def apply_linop(op: LinOp, x: torch.Tensor) -> torch.Tensor:
     """out = A @ x. x is [n_in, F] or batch-major [B, n_in, F]; under
-    autograd the backward applies `op.bwd` (see `_ApplyLinop`)."""
+    autograd the backward applies `op.bwd` (see `_ApplyLinop`). Under sp,
+    x holds the rank's rows and so does the output."""
     from gen_fvgn_tpu_torch.ops import plain_versions_active
-    return _ApplyLinop.apply(x, op, plain_versions_active())
+    return _ApplyLinop.apply(x, op, plain_versions_active(), _SP)
 
 
 def apply_linop_multi(op: LinOp, x: torch.Tensor) -> torch.Tensor:
@@ -278,6 +328,7 @@ def apply_gather_pair(ops, y: torch.Tensor) -> torch.Tensor:
     [(B,) n_edges, H] in y's type. Unlike the take route, padded edge rows
     come out zero (the gather operators have no entries there)."""
     from gen_fvgn_tpu_torch.ops import plain_versions_active
+    _no_sp("the gather pair")
     return _GatherPair.apply(y, ops, plain_versions_active())
 
 
@@ -323,8 +374,9 @@ class _HalfAgg(torch.autograd.Function):
     as the full-width applies do below 128."""
 
     @staticmethod
-    def forward(ctx, e, a, b, plain):
-        ctx.a, ctx.b, ctx.plain, ctx.e_dtype = a, b, plain, e.dtype
+    def forward(ctx, e, a, b, plain, sp):
+        ctx.a, ctx.b, ctx.plain, ctx.e_dtype, ctx.sp = a, b, plain, e.dtype, sp
+        e = _gather_rows(e, a.fwd.n_in, sp)
         h2 = e.shape[-1] // 2
         t = _apply_window(a.fwd, e[..., :h2], plain)
         u = _apply_window(b.fwd, e[..., h2:], plain)
@@ -333,14 +385,14 @@ class _HalfAgg(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, b, plain = ctx.a, ctx.b, ctx.plain
-        g = g.contiguous()
+        g = _gather_rows(g.contiguous(), a.bwd.n_in, ctx.sp)
         h2 = g.shape[-1]
         out_dtype = _out_dtype(a.bwd, g)
         de = torch.empty(g.shape[:-2] + (a.bwd.n_out, 2 * h2),
                          dtype=out_dtype, device=g.device)
         _apply_window(a.bwd, g, plain, de[..., :h2])
         _apply_window(b.bwd, g, plain, de[..., h2:])
-        return de.to(ctx.e_dtype), None, None, None
+        return de.to(ctx.e_dtype), None, None, None, None
 
 
 def _apply_window(op: CsrOp, x: torch.Tensor, plain: bool,
@@ -362,7 +414,7 @@ def apply_half_agg(a: LinOp, b: LinOp, e: torch.Tensor) -> torch.Tensor:
     [(B,) n_edges, h] -> [(B,) n_nodes, h/2], computed on the kept column
     windows only (see `_HalfAgg`)."""
     from gen_fvgn_tpu_torch.ops import plain_versions_active
-    return _HalfAgg.apply(e, a, b, plain_versions_active())
+    return _HalfAgg.apply(e, a, b, plain_versions_active(), _SP)
 
 
 def apply_node_agg(ops, e: torch.Tensor) -> torch.Tensor:
@@ -380,6 +432,7 @@ def apply_node_pair(ops, y: torch.Tensor) -> torch.Tensor:
     float32 configuration with bf16-stored operators the aggregation comes
     out bf16, as in JAX (a reference quirk, kept)."""
     from gen_fvgn_tpu_torch.ops import plain_versions_active
+    _no_sp("the node pair")
     return _NodePair.apply(y, ops, plain_versions_active())
 
 

@@ -76,14 +76,26 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
                                  + (1,) * (total.ndim - count.ndim))
 
 
-def masked_mean_var(x: torch.Tensor, mask: torch.Tensor, axis: int = 0):
+def masked_mean_var(x: torch.Tensor, mask: torch.Tensor, axis: int = 0,
+                    reduce=None):
     """Mean and (biased) variance of `x` over `axis`, counting only rows
-    where `mask` is True. Used for per-graph feature standardization."""
+    where `mask` is True. Used for per-graph feature standardization.
+    `reduce` (spatial parallelism: `parallel/sp.py::sp_sum`) sums each
+    pass's partial sums over the ranks that hold the other rows: the sum
+    and the count of the mean in one call, then the squared deviations'."""
     m = mask.to(x.dtype).reshape(mask.shape + (1,) * (x.ndim - mask.ndim))
-    count = torch.clamp(m.sum(dim=axis, keepdim=True), min=1.0)
-    mean = (x * m).sum(dim=axis, keepdim=True) / count
-    var = (((x - mean) ** 2) * m).sum(dim=axis, keepdim=True) / count
-    return mean, var
+    total = (x * m).sum(dim=axis, keepdim=True)
+    count = m.sum(dim=axis, keepdim=True)
+    if reduce is not None:
+        c = x.shape[-1]
+        packed = reduce(torch.cat([total, count], dim=-1))
+        total, count = packed[..., :c], packed[..., c:]
+    count = torch.clamp(count, min=1.0)
+    mean = total / count
+    sq = (((x - mean) ** 2) * m).sum(dim=axis, keepdim=True)
+    if reduce is not None:
+        sq = reduce(sq)
+    return mean, sq / count
 
 
 def safe_sqrt(x: torch.Tensor) -> torch.Tensor:

@@ -31,12 +31,14 @@ import torch.distributed as dist
 from gen_fvgn_tpu_torch.parallel.multihost import local_batch_rows, world
 
 
-def local_rows(data, global_b: int):
+def local_rows(data, global_b: int, process_id=None, process_count=None):
     """This rank's contiguous block of the leading (batch) axis of `data`:
     a tensor or array, or a dataclass (MeshSample, DynamicPack) whose
     fields with leading size `global_b` are cut and whose other fields are
-    kept."""
-    rows = local_batch_rows(global_b)
+    kept. `process_id` / `process_count` (default: the rank and the world
+    size) place the rank on the batch axis; under dp × sp they are its dp
+    index and dp_devices (`parallel/sp.py::SpLayout`)."""
+    rows = local_batch_rows(global_b, process_id, process_count)
     lo, hi = int(rows[0]), int(rows[-1]) + 1
 
     def cut(x):

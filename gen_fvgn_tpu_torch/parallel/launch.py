@@ -3,8 +3,10 @@ starts `world_size` processes with the `spawn` start method, each joins a
 process group through a `file://` store (no TCP port, so that concurrent
 runs cannot collide), runs `fn(rank, world_size, *args)`, and leaves the
 group. The parent returns every rank's result. torchrun is the launcher of
-record (`scripts/pre_train.py --dp-devices N`); this serves the tests, the
-dry run and `chip_smoke.py`.
+record (`scripts/pre_train.py --dp-devices N`, `--sp-devices N`); this
+serves the tests, the dry run and `chip_smoke.py`. `rank_group` is the
+CLIs' side of a launch: the process group a script joins, checked against
+the grid it was asked for.
 
 `fn` must be importable by name in a fresh interpreter (a module-level
 function), and so must its arguments be picklable.
@@ -12,6 +14,7 @@ function), and so must its arguments be picklable.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import tempfile
 import time
@@ -84,3 +87,35 @@ def spawn(fn: Callable, world_size: int, *args: Any, backend: str = "gloo",
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                            weights_only=False)
                 for r in range(world_size)]
+
+
+@contextlib.contextmanager
+def rank_group(dp_devices: int, sp_devices: int, device: str):
+    """The process group of dp_devices × sp_devices ranks (joined here from
+    the launcher's environment unless this process has one already, and
+    left on exit if joined here), yielding the rank's device: "cuda" is
+    cuda:LOCAL_RANK, which must exist (two ranks share a card only where
+    `device` names it); any other name is taken as given. A world size
+    other than dp_devices × sp_devices raises RuntimeError, naming both,
+    before anything is read."""
+    from gen_fvgn_tpu_torch.parallel import dp, multihost, sp
+    ours = not dist.is_initialized()
+    multihost.initialize(device=device)
+    try:
+        if sp_devices > 1:
+            sp.check_world(dp_devices, sp_devices)
+        else:
+            dp.check_world(dp_devices)
+        if device == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            if local >= torch.cuda.device_count():
+                raise RuntimeError(
+                    f"LOCAL_RANK {local} but {torch.cuda.device_count()} "
+                    f"CUDA device(s): one rank a card, or name the card "
+                    f"with --device")
+            device = f"cuda:{local}"
+            torch.cuda.set_device(device)
+        yield device
+    finally:
+        if ours and dist.is_initialized():
+            dist.destroy_process_group()

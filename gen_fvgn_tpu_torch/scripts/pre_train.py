@@ -11,20 +11,21 @@ directory under --dataset-dir that holds a BC.json is a case
 the JAX script, or "segment" (the Config's default engine).
 `--bucket-tiers 1` pads each case of the segment engine to its own sizes,
 with batches within a tier of equal sizes; the block engine pads per case
-anyway and ignores it, as in JAX. `--sp-devices` above 1 raises
-NotImplementedError: spatial parallelism is not ported yet.
+anyway and ignores it, as in JAX.
 
-Data parallelism, `--dp-devices N`, runs one process a rank:
+Data parallelism, `--dp-devices N`, and spatial parallelism (the block
+engine), `--sp-devices S`, run one process a rank, N × S ranks:
 
-    torchrun --nproc_per_node N -m gen_fvgn_tpu_torch.scripts.pre_train \
-        --dataset-dir <dir> --dp-devices N ...
+    torchrun --nproc_per_node N*S -m gen_fvgn_tpu_torch.scripts.pre_train \
+        --dataset-dir <dir> --dp-devices N --sp-devices S ...
 
 (or under any launcher that sets RANK, WORLD_SIZE, LOCAL_RANK and
 MASTER_ADDR / MASTER_PORT; or in a process whose group is initialised
 already). Each rank runs on cuda:LOCAL_RANK (a LOCAL_RANK beyond the
 cards raises; no two ranks share a card unless `--device` names one), or
-on the device `--device` names; NCCL for CUDA, gloo for the CPU. N must
-equal the world size; only rank 0 writes the run directory.
+on the device `--device` names; NCCL for CUDA, gloo for the CPU. N × S
+must equal the world size (else a RuntimeError naming both, before any
+case is read); only rank 0 writes the run directory.
 """
 
 from __future__ import annotations
@@ -76,15 +77,12 @@ def main(argv=None):
                     help="torch device (\"cpu\" only when asked)")
     args = ap.parse_args(argv)
 
-    if args.sp_devices > 1:
-        raise NotImplementedError(
-            "--sp-devices above 1: spatial parallelism belongs to a later "
-            "slice of the port")
-
     from gen_fvgn_tpu_torch.config import Config
+    from gen_fvgn_tpu_torch.parallel.launch import rank_group
     from gen_fvgn_tpu_torch.training import loop
 
-    group = (_dp_group(args.dp_devices, args.device) if args.dp_devices > 1
+    group = (rank_group(args.dp_devices, args.sp_devices, args.device)
+             if args.dp_devices * args.sp_devices > 1
              else contextlib.nullcontext(args.device))
     with group as device:
         cfg = Config(
@@ -113,36 +111,6 @@ def main(argv=None):
                    seed=args.seed, resume_from=args.resume,
                    use_tensorboard=bool(args.tensorboard), device=device)
 
-
-@contextlib.contextmanager
-def _dp_group(dp_devices: int, device: str):
-    """The process group of `dp_devices` ranks (joined here from the
-    launcher's environment unless this process has one already, and left
-    on exit if joined here), yielding the rank's device: "cuda" is
-    cuda:LOCAL_RANK, which must exist (two ranks share a card only where
-    `--device` names it); any other name is taken as given. A world size
-    other than `dp_devices` raises before anything is read."""
-    import torch
-    import torch.distributed as dist
-
-    from gen_fvgn_tpu_torch.parallel import dp, multihost
-    ours = not dist.is_initialized()
-    multihost.initialize(device=device)
-    try:
-        dp.check_world(dp_devices)
-        if device == "cuda":
-            local = int(os.environ.get("LOCAL_RANK", "0"))
-            if local >= torch.cuda.device_count():
-                raise RuntimeError(
-                    f"LOCAL_RANK {local} but {torch.cuda.device_count()} "
-                    f"CUDA device(s): one rank a card, or name the card "
-                    f"with --device")
-            device = f"cuda:{local}"
-            torch.cuda.set_device(device)
-        yield device
-    finally:
-        if ours and dist.is_initialized():
-            dist.destroy_process_group()
 
 if __name__ == "__main__":
     main()

@@ -13,15 +13,25 @@ and `solve_lbfgs`; on the block engine (`_solve_block`) over
 source added in a rollout of a wave case. The checkpoint is one the port's
 training wrote (io/checkpoint.py), by either engine: the nets of both share
 one parameter tree. The flags and defaults are the JAX script's, plus
-`--device` (default "cuda"; "cpu" must be asked for). `--sp-devices` above
-1 raises NotImplementedError on the block engine (spatial parallelism is a
-later slice) and exits on the segment engine, as the JAX script does. Each
-time step's solution is written to `<out-dir>/step_<t>.dat`.
+`--device` (default "cuda"; "cpu" must be asked for). Each time step's
+solution is written to `<out-dir>/step_<t>.dat`.
+
+`--sp-devices S` above 1 (the block engine only; without `--engine block`
+the script exits, as the JAX script does) solves one mesh cut over S
+ranks, one process a rank (`parallel/sp.py`):
+
+    torchrun --nproc_per_node S -m gen_fvgn_tpu_torch.scripts.solve \
+        --case <case_dir> --engine block --sp-devices S ...
+
+The world size must be S (else a RuntimeError before the case is read);
+the pool pads every entity to tile × S rows, each rank runs its rows, and
+rank 0 writes the whole mesh's solution.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 import numpy as np
@@ -46,20 +56,20 @@ def main(argv=None):
                     help="torch device (\"cpu\" only when asked)")
     args = ap.parse_args(argv)
 
-    if args.sp_devices > 1:
-        if args.engine == "block":
-            raise NotImplementedError(
-                "--sp-devices above 1: spatial parallelism belongs to a "
-                "later slice of the port")
+    if args.sp_devices > 1 and args.engine != "block":
         raise SystemExit("--sp-devices requires --engine block")
 
     from gen_fvgn_tpu_torch.config import Config
+    from gen_fvgn_tpu_torch.parallel.launch import rank_group
     cfg = Config(batch_size=1, dataset_size=1, order=args.order, net=args.net,
-                 engine=args.engine)
-    if args.engine == "block":
-        _solve_block(cfg, args)
-    else:
-        _solve_segment(cfg, args)
+                 engine=args.engine, sp_devices=args.sp_devices)
+    if args.engine != "block":
+        return _solve_segment(cfg, args)
+    group = (rank_group(1, args.sp_devices, args.device)
+             if args.sp_devices > 1 else contextlib.nullcontext(args.device))
+    with group as device:
+        args.device = device
+        return _solve_block(cfg, args)
 
 
 def _pool(cfg, args):
@@ -75,7 +85,7 @@ def _solve_segment(cfg, args):
     pool = _pool(cfg, args)
     batch = pool.gather_batch(np.asarray([0]))
     state, sim = init_train_state(cfg, seed=0, device=args.device)
-    _run(args, pool, state, batch, "", lambda export, src_fn: dict(
+    return _run(args, pool, state, batch, "", lambda export, src_fn: dict(
         rollout=lambda: rollout(cfg, sim, state.norm_state, batch,
                                 n_steps=args.steps, export_fn=export,
                                 wave_source_fn=src_fn),
@@ -90,6 +100,9 @@ def _solve_segment(cfg, args):
 
 
 def _solve_block(cfg, args):
+    """The block engine's solve; with cfg.sp_devices > 1 on the rank's rows
+    (in the joined process group), every rank holding the same weights."""
+    from gen_fvgn_tpu_torch.parallel import sp as sp_mod
     from gen_fvgn_tpu_torch.solve.instance_opt import (solve_adam_block,
                                                        solve_lbfgs_block)
     from gen_fvgn_tpu_torch.solve.rollout_block import rollout_block
@@ -98,26 +111,36 @@ def _solve_block(cfg, args):
     dyn = pool.gather_block(np.asarray([0]))
     static = pool.statics[0]
     state, sim = init_train_state_block(cfg, seed=0, device=args.device)
-    _run(args, pool, state, dyn, "block ", lambda export, src_fn: dict(
+    sp = cfg.sp_devices > 1
+    if sp:
+        lay = sp_mod.groups(1, cfg.sp_devices)
+        static = sp_mod.shard_static_sp(static, lay.sp, lay.sp_index)
+        dyn = sp_mod.local_rows_sp(dyn, lay)
+    return _run(args, pool, state, dyn, "block ", lambda export, src_fn: dict(
         rollout=lambda: rollout_block(cfg, sim, state.norm_state, dyn,
                                       static, n_steps=args.steps,
-                                      export_fn=export,
+                                      export_fn=export, sp=sp,
                                       wave_source_fn=src_fn),
         adam=lambda: solve_adam_block(cfg, sim, state.norm_state, dyn,
                                       static, n_time_steps=args.steps,
                                       inner_steps=args.inner_steps,
-                                      export_fn=export,
+                                      export_fn=export, sp=sp,
                                       device=args.device)[1],
         lbfgs=lambda: solve_lbfgs_block(cfg, sim, state.norm_state, dyn,
                                         static, n_time_steps=args.steps,
                                         max_iter=args.inner_steps,
-                                        export_fn=export,
-                                        device=args.device)[1]))
+                                        export_fn=export, sp=sp,
+                                        device=args.device)[1]),
+        n_pad=pool.statics[0].pos.shape[0])
 
 
-def _run(args, pool, state, data, label, modes):
-    """Load the checkpoint into `state` (in place), then run args.mode of
-    modes(export, wave source) on `data`, exporting every time step."""
+def _run(args, pool, state, data, label, modes, n_pad=None):
+    """Load the checkpoint into `state` (in place; every rank loads the
+    same weights), then run args.mode of modes(export, wave source) on `data`, exporting every
+    time step (on rank 0 alone under a process group); returns the run's
+    history. `n_pad`: the whole mesh's padded node count (default
+    `data`'s)."""
+    from gen_fvgn_tpu_torch.parallel.multihost import world
     from gen_fvgn_tpu_torch.graph.physics import make_wave_source_fn
     from gen_fvgn_tpu_torch.io.checkpoint import load_state
     from gen_fvgn_tpu_torch.io.tecplot import write_tecplot_zone
@@ -125,8 +148,11 @@ def _run(args, pool, state, data, label, modes):
         load_state(args.checkpoint, like=state)
     mesh = pool.cases[0]["mesh"]
     n_nodes = mesh["node|pos"].shape[0]
+    rank0 = world()[0] == 0
 
     def export(t, uvp_node, uvp_cell, rec):
+        if not rank0:
+            return
         write_tecplot_zone(
             os.path.join(args.out_dir, f"step_{t:05d}.dat"),
             mesh["node|pos"], mesh["cells_node"], mesh["cells_index"],
@@ -139,8 +165,9 @@ def _run(args, pool, state, data, label, modes):
     src_fn = None
     ts = pool.envs[0].theta_sample
     if args.mode == "rollout" and ts.source_frequency != 0:
-        src_fn = make_wave_source_fn(mesh["node|pos"], ts,
-                                     n_pad=data.uvp.shape[1], batch_size=1)
+        src_fn = make_wave_source_fn(
+            mesh["node|pos"], ts, n_pad=n_pad or data.uvp.shape[1],
+            batch_size=1)
     hist = modes(export, src_fn)[args.mode]()
     if args.mode == "rollout":
         print(f"{label}rollout finished: final cont residual "
@@ -148,6 +175,7 @@ def _run(args, pool, state, data, label, modes):
     else:
         print(f"{label}{args.mode} solve finished: last inner loss "
               f"{hist[-1]['inner_losses'][-1]:.5f}")
+    return hist
 
 
 if __name__ == "__main__":

@@ -43,12 +43,16 @@ def make_eval_step(cfg: Config, simulator,
 
 def march(step_fn: Callable, data, n_steps: int,
           export_fn: Optional[Callable] = None,
-          wave_source_fn: Optional[Callable] = None) -> List[dict]:
+          wave_source_fn: Optional[Callable] = None,
+          whole: Optional[Callable] = None) -> List[dict]:
     """n_steps autoregressive steps of step_fn(data) -> ForwardOutputs on
     `data` (any batch with a `uvp` field and `replace`); before each step
     the wave source of time index t + 1 is added to the p channel where
     `wave_source_fn` is given. Returns one record per step with the
-    per-sample residuals and the new node/cell states as NumPy arrays."""
+    per-sample residuals and the new node/cell states as NumPy arrays;
+    `whole` (spatial parallelism: the gather of every rank's rows) maps
+    each state to the one recorded."""
+    whole = whole or (lambda t: t)
     history = []
     for t in range(n_steps):
         if wave_source_fn is not None:
@@ -65,8 +69,8 @@ def march(step_fn: Callable, data, n_steps: int,
             "loss_mom_x": host(out.loss_mom_x).reshape(-1),
             "loss_mom_y": host(out.loss_mom_y).reshape(-1),
             "loss_press": host(out.loss_press).reshape(-1),
-            "uvp_node": host(out.uvp_node_new),
-            "uvp_cell": host(out.uvp_cell_new),
+            "uvp_node": host(whole(out.uvp_node_new)),
+            "uvp_cell": host(whole(out.uvp_cell_new)),
         }
         history.append(rec)
         if export_fn is not None:

@@ -3,6 +3,11 @@
 Counterpart of `gen_fvgn_tpu/solve/rollout_block.py`. Every step runs under
 `torch.no_grad()`; states stay on the device between steps and only the
 per-step records are copied to the host.
+
+Spatial parallelism (`sp=True`; JAX `scripts/solve.py:113-134`): `dyn`
+and `static` are the rank's node rows and cut statics
+(`parallel/sp.py`), every step runs in `parallel.sp.sp_context`, and the
+records hold the whole mesh's states, gathered over the sp group.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import torch
 
 from gen_fvgn_tpu_torch.config import Config
 from gen_fvgn_tpu_torch.graph.packs import DynamicPack, StaticPack
+from gen_fvgn_tpu_torch.parallel import sp as sp_mod
 from gen_fvgn_tpu_torch.solve.rollout import march
 from gen_fvgn_tpu_torch.training.forward import ForwardOutputs
 from gen_fvgn_tpu_torch.training.forward_block import forward_batch_block
@@ -79,12 +85,30 @@ def rollout_block(
     n_steps: int,
     export_fn: Optional[Callable] = None,
     wave_source_fn: Optional[Callable] = None,  # t -> [B, Np] p-source signal
+    sp: bool = False,
 ) -> List[dict]:
     """n_steps autoregressive steps; returns one record per step with the
-    per-sample residuals and the new node/cell states as NumPy arrays."""
+    per-sample residuals and the new node/cell states as NumPy arrays.
+    With `sp`, `dyn` and `static` are the rank's rows of the current sp
+    layout (the module's docstring)."""
     step_fn = make_eval_step_block(cfg, simulator)
-    return march(lambda d: step_fn(norm_state, d, static), dyn, n_steps,
-                 export_fn, wave_source_fn)
+    if not sp:
+        return march(lambda d: step_fn(norm_state, d, static), dyn, n_steps,
+                     export_fn, wave_source_fn)
+    lay = sp_mod.layout()
+
+    def step(d):
+        with sp_mod.sp_context(lay):
+            return step_fn(norm_state, d, static)
+
+    src = None
+    if wave_source_fn is not None:
+        def src(t):       # the rank's nodes of the whole mesh's signal
+            sig = torch.as_tensor(wave_source_fn(t))
+            lo, hi = sp_mod.entity_rows(sig.shape[-1], lay.sp, lay.sp_index)
+            return sig[..., lo:hi]
+    return march(step, dyn, n_steps, export_fn, src,
+                 whole=lambda t: sp_mod.all_gather_rows_sp(t, lay))
 
 
 def rollout_block_scan(cfg: Config, simulator, norm_state: NormalizerState,

@@ -10,6 +10,13 @@ arrays (fv/integrator_block_packed.py) whatever `fv_packed` says: JAX's
 here both settings run the same CSR products, whose losses are per sample
 anyway (they agree with JAX's per-sample losses within float32 summation
 order), as `fv_ell` does.
+
+Under spatial parallelism (`parallel/sp.py::sp_context`) `dyn` and
+`static` hold the rank's node, face and cell rows: the applies gather
+their operands over the sp group, and the sums over rows (norm_uvp's
+statistics here, the slice pool's tokens, the FV losses) are all-reduced
+over it, so every rank holds the whole batch's losses. `norm_reduce` sums
+the normalizer's rows over every rank that holds other rows.
 """
 
 from __future__ import annotations
@@ -20,8 +27,9 @@ from gen_fvgn_tpu_torch.config import Config
 from gen_fvgn_tpu_torch.fv.integrator_block_packed import (
     integrate_residuals_block_packed)
 from gen_fvgn_tpu_torch.graph.packs import DynamicPack, StaticPack
-from gen_fvgn_tpu_torch.ops.blocksparse import apply_linop
+from gen_fvgn_tpu_torch.ops.blocksparse import apply_linop, sp_layout
 from gen_fvgn_tpu_torch.ops.segment import masked_mean_var
+from gen_fvgn_tpu_torch.parallel.sp import sp_sum
 from gen_fvgn_tpu_torch.training import normalizer as norm_mod
 from gen_fvgn_tpu_torch.training.forward import (ForwardOutputs,
                                                  enforce_boundary_conditions)
@@ -44,7 +52,9 @@ def forward_batch_block(
 
     phi = x[..., : cfg.node_phi_size]
     if cfg.norm_uvp:
-        mean, var = masked_mean_var(phi, mask_b, axis=1)
+        mean, var = masked_mean_var(
+            phi, mask_b, axis=1,
+            reduce=sp_sum if sp_layout() is not None else None)
         phi = (phi - mean) / (torch.sqrt(var) + 1e-8)
 
     theta_ch = x[..., cfg.node_phi_size:]

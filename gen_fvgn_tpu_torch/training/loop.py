@@ -34,6 +34,16 @@ batch, and pays back the global batch's states, which the dp steps return
 on every rank. Rank 0's parameters and Adam state go to every rank after
 init and resume. Only rank 0 makes the run directory: the loss monitor,
 checkpoints and exports.
+
+Spatial parallelism (cfg.sp_devices > 1, the block engine only; JAX
+`training/loop.py:66-81`, `:169-217`): dp_devices × sp_devices ranks, each
+on the (dp, sp) grid of `parallel.sp.groups`. The pool pads every entity
+to tile × sp_devices rows; every rank builds the whole pool and cuts its
+rows of every case's statics (`parallel.sp.shard_static_sp`) and of every
+batch (its batch rows over dp, its node rows over sp), and the global
+batch's states come back to every rank for the payback
+(`parallel.sp.gather_states`). The segment engine under sp raises JAX's
+ValueError.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ from gen_fvgn_tpu_torch.io.checkpoint import RotatingCheckpointer, load_state
 from gen_fvgn_tpu_torch.io.logger import RunLogger
 from gen_fvgn_tpu_torch.parallel import dp as dp_mod
 from gen_fvgn_tpu_torch.parallel import multihost
+from gen_fvgn_tpu_torch.parallel import sp as sp_mod
 from gen_fvgn_tpu_torch.training.pool import EnvPool
 from gen_fvgn_tpu_torch.training.train import (TrainState,
                                                init_train_state,
@@ -82,13 +93,6 @@ def _log_param_histograms(logger, state, epoch):
     logger.log_param_histogram(state.simulator, epoch)
 
 
-def _unported(cfg: Config) -> Optional[str]:
-    if cfg.sp_devices > 1:
-        return ("sp_devices > 1: spatial parallelism belongs to a later "
-                "slice of the port")
-    return None
-
-
 def train(
     cfg: Config,
     case_dirs: Sequence[str] = (),
@@ -112,23 +116,27 @@ def train(
     is made under `log_base_dir` unless `logger` is given; under data
     parallelism on rank 0 only (the other ranks ignore `logger`).
     `resume_from` names a checkpoint slot to start from. device="cuda"
-    without a card raises; cfg.dp_devices > 1 without a process group of
-    that size raises RuntimeError; options of the JAX loop that the port
-    does not carry yet raise NotImplementedError. (The JAX loop draws a
-    first batch to shape its parameters; the port's modules know their
-    shapes from cfg, so none is drawn.)"""
-    why = _unported(cfg)
-    if why:
-        raise NotImplementedError(why)
+    without a card raises; cfg.dp_devices > 1 (or dp_devices ×
+    sp_devices > 1) without a process group of that size raises
+    RuntimeError; cfg.sp_devices > 1 on the segment engine raises
+    ValueError, as in JAX. (The JAX loop draws a first batch to shape its
+    parameters; the port's modules know their shapes from cfg, so none is
+    drawn.)"""
+    block = cfg.engine == "block"
+    if cfg.sp_devices > 1 and not block:
+        raise ValueError("sp_devices > 1 requires engine='block' (the "
+                         "segment engine has no sharded-operator form)")
     dp = cfg.dp_devices > 1
-    if dp:
+    lay = None
+    if cfg.sp_devices > 1:
+        lay = sp_mod.groups(max(cfg.dp_devices, 1), cfg.sp_devices)
+    elif dp:
         dp_mod.check_world(cfg.dp_devices)
-        if cfg.batch_size % cfg.dp_devices:
-            raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
-                             f"dp_devices {cfg.dp_devices}")
+    if dp and cfg.batch_size % cfg.dp_devices:
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
+                         f"dp_devices {cfg.dp_devices}")
     dev = resolve_device(device)
     n_epochs = n_epochs if n_epochs is not None else cfg.n_epochs
-    block = cfg.engine == "block"
     pool = EnvPool(case_dirs, cfg, seed=seed, pad_multiple=pad_multiple,
                    cases=cases, engine=cfg.engine, tile=cfg.tile,
                    bucket_tiers=cfg.bucket_tiers and not block, device=dev)
@@ -137,9 +145,9 @@ def train(
     state, simulator = init(cfg, seed=seed, device=dev)
     if resume_from is not None:
         state = load_state(resume_from, like=state)
-    if dp:
+    if dp or lay is not None:
         dp_mod.broadcast_state(state)
-    inner = (_block_inner(cfg, pool, simulator, dev, dp) if block
+    inner = (_block_inner(cfg, pool, simulator, dev, dp, lay) if block
              else _segment_inner(cfg, pool, simulator, dev, dp))
 
     rank0 = multihost.world()[0] == 0
@@ -155,15 +163,22 @@ def train(
             logger.close()
 
 
-def _mine(idxs, dp: bool):
+def _mine(idxs, dp: bool, lay=None):
     """The environments of a batch this process runs: all of them, or
-    under data parallelism the rank's contiguous block."""
-    return dp_mod.local_rows(idxs, len(idxs)) if dp else idxs
+    under data parallelism the rank's contiguous block (under dp × sp the
+    block of its dp index)."""
+    if not dp:
+        return idxs
+    at = (dict(process_id=lay.dp_index, process_count=lay.dp)
+          if lay is not None else {})
+    return dp_mod.local_rows(idxs, len(idxs), **at)
 
 
-def _global(uvp_new, idxs, dp: bool):
-    """The new states of the whole batch `idxs` for the payback: a dp
-    step's rows gathered from every rank."""
+def _global(uvp_new, idxs, dp: bool, lay=None):
+    """The new states of the whole batch `idxs` for the payback: a dp or
+    sp step's rows gathered from every rank."""
+    if lay is not None:
+        return sp_mod.gather_states(uvp_new, len(idxs), lay)
     return dp_mod.all_gather_rows(uvp_new, len(idxs)) if dp else uvp_new
 
 
@@ -183,13 +198,17 @@ def _segment_inner(cfg, pool, simulator, dev, dp):
     return inner
 
 
-def _block_inner(cfg, pool, simulator, dev, dp):
+def _block_inner(cfg, pool, simulator, dev, dp, lay=None):
     """One inner iteration of the block loop against the shared per-case
-    StaticPacks: batches of one case each, or with cfg.mixed_case_batches
-    drawn across the cases and run as `MixedTrainStepBlock`."""
-    step = make_train_step_block(cfg, simulator, device=dev, dp=dp)
-    mixed = (MixedTrainStepBlock(cfg, simulator, device=dev, dp=dp)
+    StaticPacks (under sp the rank's cuts of them): batches of one case
+    each, or with cfg.mixed_case_batches drawn across the cases and run as
+    `MixedTrainStepBlock`."""
+    sp = lay is not None
+    step = make_train_step_block(cfg, simulator, device=dev, dp=dp, sp=sp)
+    mixed = (MixedTrainStepBlock(cfg, simulator, device=dev, dp=dp, sp=sp)
              if cfg.mixed_case_batches else None)
+    statics = ([sp_mod.shard_static_sp(s, lay.sp, lay.sp_index)
+                for s in pool.statics] if sp else pool.statics)
 
     def inner(state, train_steps, payback):
         last = None
@@ -197,14 +216,16 @@ def _block_inner(cfg, pool, simulator, dev, dp):
             for batch in pool.mixed_block_batches(
                     step_seed=train_steps, n_dev=max(cfg.dp_devices, 1)):
                 state, last = mixed.run_batch(
-                    state, batch, pool.gather_block, pool.statics,
+                    state, batch, pool.gather_block, statics,
                     payback=pool.payback_block if payback else None)
             return state, last
         for ci, idxs in pool.block_batches(step_seed=train_steps):
-            state, last, uvp_new = step(
-                state, pool.gather_block(_mine(idxs, dp)), pool.statics[ci])
+            dyn = pool.gather_block(_mine(idxs, dp, lay))
+            if sp:
+                dyn = sp_mod.local_rows_sp(dyn, lay)
+            state, last, uvp_new = step(state, dyn, statics[ci])
             if payback:
-                pool.payback_block(idxs, _global(uvp_new, idxs, dp))
+                pool.payback_block(idxs, _global(uvp_new, idxs, dp, lay))
         return state, last
     return inner
 

@@ -11,7 +11,10 @@ and WLSQ moments are computed once per mesh.
 
 `engine="block"` (this constructor's default; the JAX one defaults to
 "segment") renumbers each mesh (RCM), pads each case to its own multiple of
-the tile and keeps per case one `StaticPack` and one stacked `DynamicPack`;
+the tile (times cfg.sp_devices, so that every entity divides over the sp
+ranks: JAX `training/loop.py:169-172`) and keeps per case one `StaticPack`
+(whole: `parallel/sp.py::shard_static_sp` cuts a rank's rows from it) and
+one stacked `DynamicPack`;
 batches hold one case each (`block_batches`), or are drawn from one
 permutation across the cases and split into per-case groups
 (`mixed_block_batches`, for `MixedTrainStepBlock`). `engine="segment"` pads
@@ -189,7 +192,7 @@ class EnvPool:
         self.tile = tile
         self.rng = np.random.default_rng(seed)
         if block:
-            pad_multiple = max(pad_multiple, tile)
+            pad_multiple = max(pad_multiple, tile * max(cfg.sp_devices, 1))
         self.cases = [dict(c) for c in cases]
         for c in self.cases:
             mesh = dict(c["mesh"])

@@ -31,11 +31,26 @@ same; the mixed step's `run_batch` does so for its `payback`.
 Under microbatching the JAX step decides on the global batch against
 microbatch × dp_devices and gives device r's chunk k the rows k·mb to
 (k+1)·mb of its own block: rank r's chunk k holds the same rows.
+
+Spatial parallelism (`sp=True`; the JAX steps under an sp mesh, with the
+statics `shard_static_sp`-ed): over the (dp, sp) layout of
+`parallel.sp.groups`, the step takes the rank's batch rows (over dp) of
+its node rows (over sp, `parallel.sp.local_rows_sp`) against the rank's
+cut of the StaticPack, and runs inside `parallel.sp.sp_context`: every
+apply gathers its operand over the sp group, and every sum over rows is
+all-reduced there (`parallel.sp.sp_sum`, whose backward is an all-reduce
+too). Every rank of an sp group thus holds the same loss, and its
+gradients are its rows' share times sp_devices; the step sums them over
+the world with the scale 1 / (dp·sp), as it does under dp alone. The
+normalizer's sums are reduced over the world, and the new states come
+back for the rank's rows (`parallel.sp.gather_states` assembles the
+global batch's for the payback).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import contextlib
 from typing import Callable
 
 import torch
@@ -44,6 +59,7 @@ from gen_fvgn_tpu_torch.config import Config
 from gen_fvgn_tpu_torch.graph.packs import DynamicPack, StaticPack
 from gen_fvgn_tpu_torch.models.simulator_block import make_simulator_block
 from gen_fvgn_tpu_torch.parallel import dp as dp_mod
+from gen_fvgn_tpu_torch.parallel import sp as sp_mod
 from gen_fvgn_tpu_torch.training import normalizer as norm_mod
 from gen_fvgn_tpu_torch.training.forward import (ForwardOutputs,
                                                  training_loss,
@@ -97,23 +113,42 @@ def microbatch_order(b: int, mb: int, n_dev: int):
         .reshape(n_k, eff_mb)
 
 
+def _sp_layout(cfg: Config, sp: bool):
+    """The current (dp, sp) layout for an sp step, checked against cfg;
+    None without sp."""
+    if not sp:
+        return None
+    lay = sp_mod.layout()
+    if (lay.dp, lay.sp) != (max(cfg.dp_devices, 1), cfg.sp_devices):
+        raise ValueError(f"the sp layout is dp {lay.dp} x sp {lay.sp}, the "
+                         f"Config dp_devices {cfg.dp_devices} x sp_devices "
+                         f"{cfg.sp_devices}")
+    return lay
+
+
 def make_train_step_block(cfg: Config, simulator, device="cuda",
-                          dp: bool = False) -> Callable:
+                          dp: bool = False, sp: bool = False) -> Callable:
     """(state, dyn_batch, static) -> (state, metrics, uvp_node_new).
 
     `state` is updated in place (parameters, optimizer moments, normalizer,
     step) and returned. `uvp_node_new` [B, Np, 3] is detached, for the
     pool's payback. With `dp`, `dyn_batch` is this rank's rows of the
     global batch and the step is the global batch's (the module's
-    docstring); `uvp_node_new` is then this rank's rows. Inside
-    `ops.plain_versions()` forward and backward take the kernels' plain
-    versions. device="cuda" without a card raises; the step refuses a
-    batch on another device."""
+    docstring); `uvp_node_new` is then this rank's rows. With `sp`,
+    `dyn_batch` and `static` are also cut to the rank's node rows (the
+    layout of `parallel.sp.groups`, which must match cfg, and whose dp
+    decides `dp`), and so is `uvp_node_new`. Inside `ops.plain_versions()` forward and backward
+    take the kernels' plain versions. device="cuda" without a card raises;
+    the step refuses a batch on another device."""
     dev = resolve_device(device)
     schedule = step_exp_lr(cfg)
     params = [p for p in simulator.parameters()]
-    n_ranks = dp_mod.require_group() if dp else 1
-    reduce = dp_mod.all_reduce_sum if dp else None
+    lay = _sp_layout(cfg, sp)
+    if lay is not None:      # the grid decides whether the batch is cut
+        dp = lay.dp > 1
+    ranks = dp or sp
+    n_ranks = dp_mod.require_group() if ranks else 1
+    reduce = dp_mod.all_reduce_sum if ranks else None
 
     def loss_and_grads(norm_state, dyn, static, accumulate):
         out = forward_batch_block(simulator, norm_state, dyn, static, cfg,
@@ -174,11 +209,12 @@ def make_train_step_block(cfg: Config, simulator, device="cuda",
                 and same_device(static.node_mask.device, dev)):
             raise ValueError(f"the train step was made for {dev}, got a "
                              f"batch on {dyn.uvp.device}")
-        with torch.enable_grad():
+        with torch.enable_grad(), (sp_mod.sp_context(lay) if sp
+                                   else contextlib.nullcontext()):
             loss, grads, norm_state, out = grads_and_outputs(state, dyn,
                                                              static)
         uvp_new = out.uvp_node_new.detach()
-        if dp:
+        if ranks:
             grads = dp_mod.all_reduce_grads(grads, 1.0 / n_ranks)
         lr = schedule(state.epoch)
         apply_update(state, params, grads, lr)
@@ -186,7 +222,7 @@ def make_train_step_block(cfg: Config, simulator, device="cuda",
         state.step += 1
         return (state, step_metrics(
             loss, out, grads, lr,
-            mean=dp_mod.all_reduce_mean if dp else None), uvp_new)
+            mean=dp_mod.all_reduce_mean if ranks else None), uvp_new)
     return step
 
 
@@ -208,18 +244,23 @@ class MixedTrainStepBlock:
     Each group runs the same forward and backward as a single-case step,
     so a group launches the kernels a train step launches.
 
-    With `dp`, every group is padded to a multiple of the world size
+    With `dp`, every group is padded to a multiple of dp_devices
     (`mixed_block_batches(n_dev=...)`) and each rank runs its block of
     every group's rows; the group sums, the summed gradients (scale 1: the
     weights are already 1/batch_size) and the summed metrics are
     all-reduced, and every group's new states are gathered for the
-    payback (the module's docstring)."""
+    payback (the module's docstring). With `sp`, `statics` are the rank's
+    cuts, each group's DynamicPack is cut to the rank's node rows here,
+    and the gradients and metrics, which every rank of an sp group holds
+    sp_devices-fold, take the scale 1/sp_devices."""
 
     def __init__(self, cfg: Config, simulator, device="cuda",
-                 dp: bool = False):
+                 dp: bool = False, sp: bool = False):
         self.cfg = cfg
-        self.dp = dp
-        if dp:
+        self.lay = _sp_layout(cfg, sp)
+        self.dp = dp if self.lay is None else self.lay.dp > 1
+        self.ranks = self.dp or sp
+        if self.ranks:
             dp_mod.require_group()
         self.dev = resolve_device(device)
         self.schedule = step_exp_lr(cfg)
@@ -288,9 +329,10 @@ class MixedTrainStepBlock:
         place and returned with the step's metrics."""
         gsum = acc["gsum"]
         parts = [acc["loss"], acc["cont"], acc["mom"], acc["press"]]
-        if self.dp:
-            gsum = dp_mod.all_reduce_grads(gsum, 1.0)
-            parts = list(dp_mod.all_reduce_sum(torch.stack(parts)))
+        if self.ranks:
+            scale = 1.0 / (self.lay.sp if self.lay is not None else 1)
+            gsum = dp_mod.all_reduce_grads(gsum, scale)
+            parts = list(dp_mod.all_reduce_sum(torch.stack(parts)) * scale)
         lr = self.schedule(state.epoch)
         apply_update(state, self.params, gsum, lr)
         state.norm_state = norm_state
@@ -304,11 +346,18 @@ class MixedTrainStepBlock:
         DynamicPack and `payback(idxs, uvp)`, where given, takes each
         group's real rows (with `dp`: gathered from every rank). Returns
         (state, metrics)."""
+        lay = self.lay
         if self.dp:       # this rank's rows of each group
-            mine = [(dp_mod.local_rows(idxs, len(idxs)),
-                     dp_mod.local_rows(w, len(idxs))) for _, idxs, w, _ in batch]
+            at = (dict(process_id=lay.dp_index, process_count=lay.dp)
+                  if lay is not None else {})
+            mine = [(dp_mod.local_rows(idxs, len(idxs), **at),
+                     dp_mod.local_rows(w, len(idxs), **at))
+                    for _, idxs, w, _ in batch]
         else:
             mine = [(idxs, w) for _, idxs, w, _ in batch]
+        if lay is not None:     # and of each group its node rows
+            gather_all = gather
+            gather = lambda ix: sp_mod.local_rows_sp(gather_all(ix), lay)
         weights = [to_device(w, self.dev) for _, w in mine]
         norm_state = state.norm_state
         if self.cfg.norm_global:
@@ -316,14 +365,21 @@ class MixedTrainStepBlock:
             for (ci, _, _, _), (idxs, _), w in zip(batch, mine, weights):
                 sums = self.group_stats(sums, gather(idxs), statics[ci], w)
             sums = norm_mod.reduce_sums(
-                sums, dp_mod.all_reduce_sum if self.dp else None)
+                sums, dp_mod.all_reduce_sum if self.ranks else None)
             norm_state = self.norm_update(norm_state, sums)
         acc = self.init_acc()
-        for (ci, idxs, _, g), (mine_idxs, _), w in zip(batch, mine, weights):
-            acc, uvp_new = self.group_grads(norm_state, acc, gather(mine_idxs),
-                                            statics[ci], w)
-            if payback is not None:
-                if self.dp:
-                    uvp_new = dp_mod.all_gather_rows(uvp_new, len(idxs))
-                payback(idxs[:g], uvp_new[:g])
+        with (sp_mod.sp_context(lay) if lay is not None
+              else contextlib.nullcontext()):
+            for (ci, idxs, _, g), (mine_idxs, _), w in zip(batch, mine,
+                                                           weights):
+                acc, uvp_new = self.group_grads(norm_state, acc,
+                                                gather(mine_idxs),
+                                                statics[ci], w)
+                if payback is not None:
+                    if lay is not None:
+                        uvp_new = sp_mod.gather_states(uvp_new, len(idxs),
+                                                       lay)
+                    elif self.dp:
+                        uvp_new = dp_mod.all_gather_rows(uvp_new, len(idxs))
+                    payback(idxs[:g], uvp_new[:g])
         return self.apply_update(state, acc, norm_state)

@@ -35,10 +35,15 @@ def test_package_top_train_is_the_loop(monkeypatch):
 
 
 @pytest.mark.parametrize("kind", ["quad", "tri"])
-def test_write_tecplot_async_matches_jax(tmp_path, kind):
+def test_write_tecplot_async_matches_jax(tmp_path, kind, monkeypatch):
     """The zone the child process writes is the JAX async writer's, byte
     for byte (JAX `tests/test_io.py::test_tecplot_async_writer`); the
-    pickled arguments are gone once the child is done."""
+    pickled arguments are gone once the child is done. Both writers put
+    their pickles in a temporary directory of this test's own, so that a
+    pickle of another test's writer running at the same time is not
+    counted."""
+    import tempfile
+
     from gen_fvgn_tpu.io.tecplot import write_tecplot_async as jwrite
     from gen_fvgn_tpu_torch.io.tecplot import write_tecplot_async
     from gen_fvgn_tpu_torch.meshes.synthetic import (cavity_quad_mesh,
@@ -49,14 +54,17 @@ def test_write_tecplot_async_matches_jax(tmp_path, kind):
               cells_index=mesh["cells_index"],
               variables={"U": np.linspace(0.0, 1.0, n), "P": np.ones(n)},
               zone_title=kind, solution_time=1.5)
-    before = set(os.listdir(os.environ.get("TMPDIR", "/tmp")))
+    own = tmp_path / "tmp"
+    own.mkdir()
+    monkeypatch.setattr(tempfile, "tempdir", str(own))
+    before = set(os.listdir(own))
     mine = write_tecplot_async(str(tmp_path / "port" / "a.dat"), **kw)
     ref = jwrite(str(tmp_path / "jax" / "a.dat"), **kw)
     assert mine.wait(timeout=120) == 0 and ref.wait(timeout=120) == 0
     got = open(tmp_path / "port" / "a.dat").read()
     assert got == open(tmp_path / "jax" / "a.dat").read()
     assert ("FEQUADRILATERAL" if kind == "quad" else "FETRIANGLE") in got
-    left = set(os.listdir(os.environ.get("TMPDIR", "/tmp"))) - before
+    left = set(os.listdir(own)) - before
     assert not [f for f in left if f.endswith(".pkl")]
 
 

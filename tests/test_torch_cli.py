@@ -168,21 +168,22 @@ def test_solve_at_its_default_engine_on_the_cpu(tmp_path, train_engine):
     ("pre_train", ["--engine", "segment", "--bucket-tiers", "1",
                    "--dp-devices", "2"], RuntimeError, "torchrun"),
     ("pre_train", ["--dp-devices", "2"], RuntimeError, "torchrun"),
-    ("pre_train", ["--sp-devices", "2"], NotImplementedError, "later slice"),
+    ("pre_train", ["--sp-devices", "2"], RuntimeError,
+     "sp_devices=2 needs .* world size 2 .*torchrun"),
     ("solve", ["--sp-devices", "2"], SystemExit, "--engine block"),
-    ("solve", ["--engine", "block", "--sp-devices", "2"], NotImplementedError,
-     "later slice")],
+    ("solve", ["--engine", "block", "--sp-devices", "2"], RuntimeError,
+     "sp_devices=2 needs .* world size 2 .*torchrun")],
     ids=["pre_train-segment", "pre_train-dp", "pre_train-sp",
          "solve-segment-default", "solve-sp"])
 def test_unported_flags_raise(tmp_path, cli, argv, exc, match):
-    """A flag the port cannot honour yet raises NotImplementedError that
-    names the later slice, before anything is read. `--dp-devices 2`
-    outside a process group of 2 ranks raises a RuntimeError that says to
-    launch under torchrun, before anything is read (on the segment engine
-    with its bucket tiers too). At solve's default engine, the segment
-    engine, `--sp-devices` exits before anything is read, as the JAX
-    script does (the segment engine has no sharded form in either
-    package)."""
+    """A flag that needs more ranks than the process has raises before
+    anything is read: `--dp-devices 2` or `--sp-devices 2` outside a
+    process group of 2 ranks raises a RuntimeError that names the grid
+    and the world size and says to launch under torchrun (on the segment
+    engine with its bucket tiers too; pre_train and solve --engine block
+    alike). At solve's default engine, the segment engine, `--sp-devices`
+    exits before anything is read, as the JAX script does (the segment
+    engine has no sharded form in either package)."""
     from gen_fvgn_tpu_torch.scripts import pre_train, solve
     missing = str(tmp_path / "missing")
     if cli == "pre_train":

@@ -25,9 +25,12 @@ through the padding wrapper) on row counts that are odd multiples of 128,
 one segment train step's gradients against the plain versions, K1 at the
 operator forms of the block engine's options (the composed gathers gsadj /
 gradj and their transposes, the "wide" scatters' column windows and
-theirs) forward and backward, and one block train step of each option
+theirs) forward and backward, one block train step of each option
 (node_agg split and wide, the composed gathers) against the plain
-versions with its launches."""
+versions with its launches, and what spatial parallelism asks of the
+kernels: K1 on a row block of an operator is those rows of the whole
+apply, the same bits, and K6 on two row halves, summed, is K6 on the
+whole."""
 
 import numpy as np
 import pytest
@@ -1264,3 +1267,47 @@ def test_block_option_train_step_kernels_match_plain_versions(
             assert float((a - b).norm() / b.norm()) <= 3e-2
             assert float(a @ b / (a.norm() * b.norm())) >= 1 - 1e-3
     assert abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)
+
+
+# ---- spatial parallelism: the kernels on a rank's rows ----
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_spmm_kernel_on_a_row_block_is_those_rows(b):
+    """K1 on each of 4 row blocks of an operator (`parallel/sp.py::
+    cut_rows`: crow rebased, col global), against the whole operand, gives
+    those rows of the whole apply, the same bits: each row is summed in
+    the same order."""
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import spmm as mod
+    from gen_fvgn_tpu_torch.parallel.sp import cut_rows, entity_rows
+    op = _op("bfloat16", n_out=1024, n_in=777)
+    x = torch.randn(b, op.n_in, 128, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(2)
+                    ).to(torch.bfloat16)
+    whole = mod.spmm(op, x)
+    for s in range(4):
+        lo, hi = entity_rows(op.n_out, 4, s)
+        part = mod.spmm(cut_rows(op, lo, hi), x)
+        torch.cuda.synchronize()
+        assert torch.equal(part, whole[:, lo:hi]), s
+
+
+def test_fused_slice_pool_kernel_on_row_halves_sums_to_the_whole():
+    """Under sp each rank pools its own node rows and the tokens and slice
+    norms are summed over the ranks (`models/transolver.py`): K6 on two
+    row halves of the main path's 10,240 rows, the halves' tokens and
+    norms added, against K6 on the whole, within `_check_pool`'s limits
+    (the slice weights are row-local)."""
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import fused_slice_attn as mod
+    args = _pool_args(2, 10240, "partial", seed=3)
+    whole = mod.fused_slice_pool_kernel(*args)
+    x, m = args[0], args[1]
+    halves = [mod.fused_slice_pool_kernel(x[:, lo:hi].contiguous(),
+                                          m[:, lo:hi].contiguous(),
+                                          *args[2:])
+              for lo, hi in ((0, 5120), (5120, 10240))]
+    torch.cuda.synchronize()
+    summed = (torch.cat([h[0] for h in halves], dim=1),
+              halves[0][1] + halves[1][1], halves[0][2] + halves[1][2])
+    _check_pool(args, summed, whole)

@@ -235,18 +235,20 @@ def test_train_loop_matches_jax(tmp_path, monkeypatch):
     dict(engine="segment", bucket_tiers=True, dp_devices=2),
     dict(dp_devices=2), dict(sp_devices=2),
     dict(node_agg="split", dp_devices=2),
-    dict(edge_gather="composed", sp_devices=2),
+    dict(engine="segment", sp_devices=2),
     dict(mixed_case_batches=True, dp_devices=2)])
 def test_train_raises_on_what_is_not_ported(tmp_path, change):
-    """Spatial parallelism (sp_devices > 1) is the option still to port: it
-    raises NotImplementedError whatever else the Config asks. Data
-    parallelism (dp_devices > 1) runs only under a process group of that
-    many ranks: without one it raises a RuntimeError that says to launch
-    under torchrun, and never trains on one process."""
+    """Data parallelism (dp_devices > 1) and spatial parallelism
+    (sp_devices > 1) run only under a process group of dp_devices x
+    sp_devices ranks: without one they raise a RuntimeError that says to
+    launch under torchrun, and never train on one process. The segment
+    engine under sp raises JAX's ValueError (it has no sharded form).
+    Nothing is written either way."""
     from gen_fvgn_tpu_torch.training.loop import train
     cfg = _config(T, batch_size=2, dataset_size=2, max_inner_steps=1)
-    exc, match = ((NotImplementedError, "later slice")
-                  if change.get("sp_devices", 1) > 1
+    exc, match = ((ValueError, "requires engine='block'")
+                  if change.get("engine") == "segment"
+                  and change.get("sp_devices", 1) > 1
                   else (RuntimeError, "torchrun"))
     with pytest.raises(exc, match=match):
         train(cfg.replace(**change), cases=_cases(T)[:1],

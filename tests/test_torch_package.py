@@ -262,10 +262,10 @@ def test_transolver_net_builds_with_the_flax_paths(net):
 
 
 def test_unknown_net_and_unported_options_raise():
-    """Unknown names raise ValueError; of the options, only spatial
-    parallelism (sp_devices > 1) is still to port and raises
-    NotImplementedError; data parallelism (dp_devices > 1) without a
-    process group of that size raises a RuntimeError naming torchrun."""
+    """Unknown names raise ValueError; data parallelism (dp_devices > 1)
+    and spatial parallelism (sp_devices > 1) without a process group of
+    dp_devices x sp_devices ranks raise a RuntimeError naming torchrun;
+    spatial parallelism on the segment engine raises JAX's ValueError."""
     from gen_fvgn_tpu_torch.config import Config
     from gen_fvgn_tpu_torch.models.gn_block import NodeBlockB
     from gen_fvgn_tpu_torch.models.simulator_block import make_simulator_block
@@ -287,9 +287,12 @@ def test_unknown_net_and_unported_options_raise():
     with pytest.raises(RuntimeError, match="torchrun"):
         train(Config(net="FVGN", dp_devices=2), cases=[_small_case()],
               device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        train(Config(net="FVGN", sp_devices=2), cases=[_small_case()],
-              device="cpu")
+    with pytest.raises(RuntimeError, match="sp_devices=2 .*torchrun"):
+        train(Config(net="FVGN", sp_devices=2, engine="block"),
+              cases=[_small_case()], device="cpu")
+    with pytest.raises(ValueError, match="requires engine='block'"):
+        train(Config(net="FVGN", sp_devices=2, engine="segment"),
+              cases=[_small_case()], device="cpu")
 
 
 def test_normalizer_from_numpy_and_types():
