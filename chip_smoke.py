@@ -809,9 +809,12 @@ def with_bound(row, m, moved, tensor_flops, f32_flops=0.0):
 
 def check_mlp_backward(n_pad, e_pad, flush_buf, gen, h=128):
     """K3 on the edge MLP's form at hidden width h (an h-wide part owning
-    the last W1 rows, a pre, the residual on the part with both outputs)
-    and K4b at the decoder's shape, each against its plain version and
-    twice for the same bits; rows batch-major, 8 lanes."""
+    the last W1 rows, a pre, the residual on the part with both outputs),
+    at h = 128 also on the encoders' pre-only forms (the row kernel's only
+    K3 forms: "fused_mlp_ln_bwd_rows", the edge encoder's with the node
+    encoder's beside it), and K4b at the decoder's shape, each against its
+    plain version and twice for the same bits; rows batch-major, 8
+    lanes."""
     from gen_fvgn_tpu_torch.ops import fused_mlp as fm
     bf = torch.bfloat16
     g = lambda *s: torch.randn(*s, generator=gen, device="cuda")
@@ -835,6 +838,40 @@ def check_mlp_backward(n_pad, e_pad, flush_buf, gen, h=128):
         + 4 * 8 * h
     # remat: 3 products; backward: dW3, dh2, dW2, dh1, dW1, dx
     rows["fused_mlp_ln_bwd"] = with_bound(row, m, moved, 2.0 * m * 9 * sq)
+
+    if h == 128:
+        # K3 at the encoders: a pre and no first-layer part (the W1 of 12
+        # and 15 rows is applied before, to the features), on the row
+        # kernel: the warpgroup kernel's counter does not move
+        enc = {}
+        for name, m in (("node_encoder(pre only)", BATCH * n_pad),
+                        ("edge_encoder(pre only)", BATCH * e_pad)):
+            w = mlp_weights(gen, 12 if name.startswith("node") else 15, h,
+                            h)
+            pre, dout = g(m, h).to(bf), g(m, h).to(bf)
+            args = ([], [], w["b1"], w["w2"].to(bf), w["b2"],
+                    w["w3"].to(bf), w["b3"], w["gamma"], [pre], [dout],
+                    None, False, BATCH)
+            wg0 = fm.LAUNCHES_LN_BWD_WG
+            out, row = hold_backward(
+                f"fused_mlp_ln_bwd[{name}] H={h}",
+                lambda: fm.fused_mlp_ln_bwd(*args),
+                lambda: fm.fused_mlp_ln_bwd_reference(*args), flush_buf)
+            if fm.LAUNCHES_LN_BWD_WG != wg0:
+                raise RuntimeError(f"K3 at {name} ran on the warpgroup "
+                                   f"kernel, not on the row kernel")
+            moved = nbytes(pre, dout, *out.dpres, args[3], args[5], out.dw2,
+                           out.dw3) + 4 * 8 * h
+            # remat: h1 W2, h2 W3; backward: dW3, dh2, dW2, dh1
+            enc[name] = with_bound(row, m, moved, 2.0 * m * 6 * sq)
+        edge_enc = enc["edge_encoder(pre only)"]
+        rows["fused_mlp_ln_bwd_rows"] = dict(
+            edge_enc, max_abs_err=max(r["max_abs_err"] for r in enc.values()),
+            err_over_tolerance=max(r["err_over_tolerance"]
+                                   for r in enc.values()),
+            node_encoder={k: enc["node_encoder(pre only)"][k] for k in (
+                "m", "ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err")})
 
     # K4b: decoder, [8 * padded nodes, h] -> 3
     m = BATCH * n_pad
@@ -1488,11 +1525,57 @@ def drive_forms(cfg, pool, static, norm_state, dyn, n_real, per_step,
     return rows, t
 
 
+# every fused MLP form the nets launch: (name, part widths, hidden width,
+# pre-projected input, LayerNorm)
+MLP_NET_FORMS = (
+    ("block edge", [128], 128, True, True),
+    ("block node", [64, 128], 128, False, True),
+    ("segment edge 384", [384], 128, False, True),
+    ("segment node 256", [256], 128, False, True),
+    ("encoders (pre only)", [], 128, True, True),
+    ("decoder", [128], 128, False, False),
+    ("block edge H=256", [256], 256, True, True),
+    ("block node H=256", [128, 256], 256, False, True),
+    ("segment edge H=256", [768], 256, False, True),
+)
+
+
+def check_mlp_plan():
+    """The library's plan (the form `gfvgn_fused_mlp_workspace` reports)
+    against its Python mirror (`ops.fused_mlp.mlp_plan`) at every form of
+    MLP_NET_FORMS in both directions: {name: [forward form, backward
+    form]}."""
+    from gen_fvgn_tpu_torch.ops import _cuda_build
+    from gen_fvgn_tpu_torch.ops import fused_mlp as fm
+    lib = _cuda_build.load_library()
+    out = {}
+    for name, widths, h, pre, ln in MLP_NET_FORMS:
+        got = []
+        for bwd in (False, True):
+            card = fm.library_plan(lib, widths, h, pre, ln, bwd)
+            mirror = fm.mlp_plan(widths, h, pre, ln, bwd)
+            if card != mirror:
+                raise RuntimeError(f"fused MLP plan of {name} "
+                                   f"({'backward' if bwd else 'forward'}): "
+                                   f"the library {card}, the mirror {mirror}")
+            got.append(card)
+        out[name] = got
+        log(f"plan {name}: forward {got[0][0]} ({got[0][1]} B), backward "
+            f"{got[1][0]} ({got[1][1]} B); the library and mlp_plan agree")
+    if out["segment edge 384"][0][0] != "wg" \
+            or out["segment edge 384"][1][0] != "wg":
+        raise RuntimeError("the segment edge MLP is not planned on the "
+                           "warpgroup kernels")
+    return out
+
+
 def check_segment_forms(n_pad, e_pad, flush_buf, gen, h=128):
     """K2 and K3 at the segment engine's two part forms, which the block
-    engine never gives them: the edge MLP's one plain 3h-wide part (384)
-    and the node MLP's one (h/2 + h)-wide part (192), which the wrapper
-    zero-pads with its W1 rows to 256; no pre-projected input, no residual;
+    engine never gives them: the edge MLP's one plain 3h-wide part (384,
+    at h = 128 the warpgroup kernels: their counters must show it) and
+    the node MLP's one (h/2 + h)-wide part (192), which the wrapper
+    zero-pads with its W1 rows to 256 (at h = 128 its backward on the
+    warpgroup kernel); no pre-projected input, no residual;
     rows batch-major, 8 lanes of 8 * padded faces or nodes. Each against
     its plain version (2 bf16 ulps of each output's scale; the backward
     twice for the same bits). The bound is that of the function on its
@@ -1507,6 +1590,9 @@ def check_segment_forms(n_pad, e_pad, flush_buf, gen, h=128):
                               (f"node_mlp(part {h // 2 + h}, padded)",
                                BATCH * n_pad, h // 2 + h,
                                -(-(h // 2 + h) // 128) * 128)):
+        plan = [fm.mlp_plan([k_run], h, False, True, bwd)[0]
+                for bwd in (False, True)]
+        wg_before = (fm.LAUNCHES_LN_WG, fm.LAUNCHES_LN_BWD_WG)
         w = mlp_weights(gen, k, h, h)
         part = torch.nn.functional.pad(g(m, k), (0, k_run - k)).to(bf)
         w1 = torch.nn.functional.pad(w["w1"], (0, 0, 0, k_run - k)).to(bf)
@@ -1543,9 +1629,22 @@ def check_segment_forms(n_pad, e_pad, flush_buf, gen, h=128):
         # remat: x W1, h1 W2, h2 W3; backward: dW3, dh2, dW2, dh1, dW1, dx
         rows[form] = dict(fused_mlp_ln=fwd_row, fused_mlp_ln_bwd=with_bound(
             row, m, moved, 2.0 * m * (3 * k * h + 6 * h * h)))
+        # the forward's run and its timing, the backward's two runs and its
+        # timing: on the warpgroup kernels where the plan says "wg"
+        n_fwd = 1 + 3 + 20
+        n_wg = (fm.LAUNCHES_LN_WG - wg_before[0],
+                fm.LAUNCHES_LN_BWD_WG - wg_before[1])
+        want = (n_fwd if plan[0] == "wg" else 0,
+                n_fwd + 1 if plan[1] == "wg" else 0)
+        for r, pl in zip(rows[form].values(), plan):
+            r["plan"] = pl
         log(f"  fused_mlp_ln_bwd[{form}] H={h}: M={m} bound_ms="
             f"{rows[form]['fused_mlp_ln_bwd']['bound_ms']:.4f} "
-            f"({rows[form]['fused_mlp_ln_bwd']['bound_by']})")
+            f"({rows[form]['fused_mlp_ln_bwd']['bound_by']}); plan "
+            f"(forward, backward) {plan}, warpgroup launches {n_wg}")
+        if n_wg != want:
+            raise RuntimeError(f"{form}: warpgroup launches {n_wg}, expected "
+                               f"{want} (plan {plan})")
     return rows
 
 
@@ -1554,10 +1653,13 @@ def check_segment_forms(n_pad, e_pad, flush_buf, gen, h=128):
 # decoder, a pre-LN MLP and a slice pool a Transolver block where the
 # padded node count is a multiple of 256 (the JAX package's condition for
 # the fused attention), and no sparse-apply kernel at all
+# (on the warpgroup kernels: the 6 edge MLPs' forward and backward, their
+# one 384-wide part, and the 6 node MLPs' backward, their 256-wide part)
 SEG_FWD = dict(fused_mlp_ln=14, fused_mlp_noln=1, fused_premlp_res=2,
-               fused_slice_pool=2)
+               fused_slice_pool=2, fused_mlp_ln_wg=6)
 SEG_TRAIN = dict(SEG_FWD, fused_mlp_ln_bwd=14, fused_mlp_noln_bwd=1,
-                 fused_premlp_res_bwd=2, fused_slice_pool_bwd=2)
+                 fused_premlp_res_bwd=2, fused_slice_pool_bwd=2,
+                 fused_mlp_ln_bwd_wg=12)
 
 
 def drive_segment(card):
@@ -2959,7 +3061,11 @@ def main():
             main=("I13__nv_bfloat16S1_Li8ELi4E", "I13__nv_bfloat16S1_Li8ELi2E")),
         pair_transpose=register_summary(
             _cuda_build.BUILD_LOG, "pair_transpose_kernel",
-            main=("I13__nv_bfloat16S1_Li8ELi2E",)))
+            main=("I13__nv_bfloat16S1_Li8ELi2E",)),
+        fused_mlp_ln_wg=register_summary(_cuda_build.BUILD_LOG,
+                                         "fused_mlp_fwd_wg"),
+        fused_mlp_ln_bwd_wg=register_summary(_cuda_build.BUILD_LOG,
+                                             "fused_mlp_bwd_wg"))
     for name, r in regs.items():
         log(f"registers {name}: {json.dumps(r)}")
 
@@ -3005,8 +3111,10 @@ def main():
     # the shapes repaired in this slice (their own generator)
     repaired = check_repaired_shapes(
         n_pad, static, flush_buf, torch.Generator(device="cuda").manual_seed(9))
-    # K2/K3 at the segment engine's part forms (their own generator; the
-    # segment pool pads the same cavity to the same 10,240 / 20,224 rows)
+    # the fused MLP plan on the card against its mirror, then K2/K3 at the
+    # segment engine's part forms (their own generator; the segment pool
+    # pads the same cavity to the same 10,240 / 20,224 rows)
+    plan_forms = check_mlp_plan()
     seg_forms = check_segment_forms(
         n_pad, e_pad, flush_buf,
         torch.Generator(device="cuda").manual_seed(14))
@@ -3026,11 +3134,13 @@ def main():
           n_real)
     del sim
 
-    # ---- phase 6: the main path, training TransFVGN_v2 ----
+    # ---- phase 6: the main path, training TransFVGN_v2 (K3 of the 6 edge
+    # and 6 node MLPs on the warpgroup kernel, the encoders' on the rows) --
     per_step = dict(spmm=48, fused_mlp_ln=14, fused_mlp_noln=1,
                     fused_premlp_res=2, fused_slice_pool=2,
                     fused_mlp_ln_bwd=14, fused_mlp_noln_bwd=1,
-                    fused_premlp_res_bwd=2, fused_slice_pool_bwd=2)
+                    fused_premlp_res_bwd=2, fused_slice_pool_bwd=2,
+                    fused_mlp_ln_bwd_wg=12)
     counts, bare_ms, _ = drive_training(cfg, pool, static, TRAIN_STEPS,
                                         per_step, n_real)
 
@@ -3065,7 +3175,7 @@ def main():
     tv = dict(spmm=18, fused_mlp_ln=14, fused_mlp_noln=1,
               fused_premlp_res=2, fused_slice_pool=2)
     drive_hidden256(cfg, pool, static, norm_state, n_real, "TransFVGN_v2",
-                    tv, per_step)
+                    tv, dict(per_step, fused_mlp_ln_bwd_wg=0))
 
     # ---- phase 8a: the block engine's other options (node_agg split and
     # wide, the composed gathers) and LSFD ----
@@ -3142,7 +3252,7 @@ def main():
                                               for r in ln_rows[128])),
               "edge_mlp"),
         entry("fused_mlp_ln_bwd", "fused_mlp.cu", "fused_mlp.py:421",
-              bwd_rows["fused_mlp_ln_bwd"], "edge_mlp"),
+              bwd_rows["fused_mlp_ln_bwd_rows"], "edge_encoder(pre only)"),
         entry("fused_mlp_noln", "fused_mlp.cu", "fused_mlp.py:960",
               noln_row[128], "decoder"),
         entry("fused_mlp_noln_bwd", "fused_mlp.cu", "fused_mlp.py:980",
@@ -3163,7 +3273,41 @@ def main():
         entry("pair_transpose", "pair_spmm.cu", "pallas_spmm.py:574",
               ptrans, "node_pair", ptrans["library_ms"], paired),
     ]
-    kernels[-2]["node_pair"] = {k: npair[k] for k in (
+    # K3's row kernel: the encoders' launches (the main path's K3 launches
+    # less those on the warpgroup kernel), timed and held at the encoders'
+    # pre-only forms in check_mlp_backward
+    k3 = {k["name"]: k for k in kernels}["fused_mlp_ln_bwd"]
+    k3["launches_on_rows_kernel"] = (counts["fused_mlp_ln_bwd"]
+                                     - counts["fused_mlp_ln_bwd_wg"])
+    k3["launches_on_rows_kernel_per_train_step"] = (
+        per_step["fused_mlp_ln_bwd"] - per_step["fused_mlp_ln_bwd_wg"])
+    k3["node_encoder"] = bwd_rows["fused_mlp_ln_bwd_rows"]["node_encoder"]
+    if k3["launches_on_rows_kernel"] <= 0:
+        raise RuntimeError("the main path launched K3's row kernel no time")
+    # K2 and K3 on the warpgroup kernels: K2 at the segment engine's edge
+    # MLP (its one 384-wide part), launched by phase "segment" (its 3 train
+    # steps' counts); K3 at every H = 128 form with a first layer, launched
+    # by the main path (the block edge and node MLPs) and by phase
+    # "segment"; timed and held at the 384-wide part in
+    # check_segment_forms, at the block edge form in check_mlp_backward
+    seg_run = (seg_t["train_launches"], SEG_TRAIN)
+    seg_edge = seg_forms["edge_mlp(part 3h)"]
+    seg_node = [r for f, r in seg_forms.items() if f.startswith("node")][0]
+    kernels += [
+        entry("fused_mlp_ln_wg", "fused_mlp.cu", "fused_mlp.py:385",
+              seg_edge["fused_mlp_ln"], "segment edge_mlp", run=seg_run),
+        entry("fused_mlp_ln_bwd_wg", "fused_mlp.cu", "fused_mlp.py:421",
+              seg_edge["fused_mlp_ln_bwd"], "segment edge_mlp")]
+    pick_f = lambda r: {f: r[f] for f in (
+        "m", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+    kernels[-1]["segment_node_mlp"] = pick_f(seg_node["fused_mlp_ln_bwd"])
+    kernels[-1]["block_edge_mlp"] = pick_f(bwd_rows["fused_mlp_ln_bwd"])
+    for k in kernels[-2:]:
+        k["plan"] = {form: plan_forms[form] for form in (
+            "block edge", "block node", "segment edge 384",
+            "segment node 256")}
+    {k["name"]: k for k in kernels}["pair_sum"]["node_pair"] = {
+        k: npair[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     # K1 in every form a train step launches (the "ms" above: nbr_r at
     # full width, the parent's form, for comparison), and their sum

@@ -17,7 +17,8 @@
 // cores (mma.sync m16n8k16, bf16 operands, float32 accumulators in
 // registers; operands from shared memory by ldmatrix, a weight read as its
 // transpose by the other ldmatrix form from the same staged copy). Every
-// intermediate of a row stays on the SM. Two designs:
+// intermediate of a row stays on the SM. Three designs (make_plan picks
+// one by the rule above it):
 //
 // * H = 128 (fused_mlp_fwd_rows, fused_mlp_bwd_rows), the nets' width: a
 //   block stages W1, W2, W3 once; after that each of its 8 warps walks over its
@@ -30,6 +31,13 @@
 //   32-byte sectors (the four lanes of a quad trade their column pairs first:
 //   4-byte pieces leave half sectors that the memory completes by a
 //   read-modify-write).
+// * H = 128 with LayerNorm, the forward where the rows' layout does not fit
+//   (the segment engine's edge MLP, one 384-wide part: fused_mlp_fwd_wg),
+//   the backward of every form with a first layer (fused_mlp_bwd_wg): the
+//   same strips and epilogues, the products on warpgroups (wgmma, sm_90a)
+//   that read the weights from one unpadded swizzled copy in shared
+//   memory; x streamed in 64-column pieces. See the section of these
+//   kernels below.
 // * Wider H (fused_mlp_fwd_tiles, fused_mlp_bwd_tiles): tiles of TM rows (64;
 //   32 or 16 where H leaves no room) shared by the block's 8 warps, WR = TM/16
 //   warps over the rows and WC = 8/WR over the columns, each warp owning a 16 x
@@ -1159,35 +1167,48 @@ __device__ __forceinline__ RowsCtx rows_init(const Common& c, bool ln,
 }
 
 // h = bf16(gelu(bias (+ pre) (+ acc))) for the warp's 16 rows, as the next
-// product's A fragments; with GRAD, gelu'(.) into gk; with `gout`, h also
-// into rows r0.. of gout (real rows)
-template <bool GRAD>
+// product's A fragments; the pre rows from the warp's buffer sp, or as
+// column pairs pv (load_pairs); with GRAD, gelu'(.) into gk, or with
+// TO_SLOT straight into a [16][32] float4 slot, gk[nt][0..3] of this lane
+// at gs[nt * 32 + lane] (no registers held for it; one 16-byte store a
+// tile); with `gout`, h also into rows r0.. of gout (real rows)
+template <bool GRAD, bool TO_SLOT = false>
 __device__ __forceinline__ void rows_hidden(const float acc[16][4],
                                             bool has_acc, const float* bias,
                                             const bf16* sp,
+                                            const uint32_t (*pv)[2],
                                             uint32_t a[8][4],
                                             float gk[16][4], bf16* gout,
-                                            int r0, int nrow) {
+                                            int r0, int nrow,
+                                            float4* gs = nullptr) {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int nt = 0; nt < 16; ++nt) {
         const int col = nt * 8 + 2 * t;
         const float2 bb = *reinterpret_cast<const float2*>(bias + col);
+        float d[4];
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
             const int row = g + 8 * hf;
             float v0 = bb.x, v1 = bb.y;
             if (sp != nullptr) {
-                const float2 pv = load_bf16x2(sp + row * LDR + col);
-                v0 += pv.x;
-                v1 += pv.y;
+                const float2 q = load_bf16x2(sp + row * LDR + col);
+                v0 += q.x;
+                v1 += q.y;
+            } else if (pv != nullptr) {
+                const float2 q = unpack_bf16(pv[nt][hf]);
+                v0 += q.x;
+                v1 += q.y;
             }
             if (has_acc) {
                 v0 += acc[nt][2 * hf];
                 v1 += acc[nt][2 * hf + 1];
             }
             float h0, h1;
-            if (GRAD) {
+            if (GRAD && TO_SLOT) {
+                h0 = gelu_and_grad(v0, d[2 * hf]);
+                h1 = gelu_and_grad(v1, d[2 * hf + 1]);
+            } else if (GRAD) {
                 h0 = gelu_and_grad(v0, gk[nt][2 * hf]);
                 h1 = gelu_and_grad(v1, gk[nt][2 * hf + 1]);
             } else {
@@ -1196,6 +1217,8 @@ __device__ __forceinline__ void rows_hidden(const float acc[16][4],
             }
             put_a(a, nt, hf, pack_bf16(h0, h1));
         }
+        if (GRAD && TO_SLOT)
+            __stcg(gs + nt * 32 + lane, make_float4(d[0], d[1], d[2], d[3]));
     }
     if (gout != nullptr) store_frag_rows(gout, 128, r0, nrow, a, 8);
 }
@@ -1253,6 +1276,238 @@ __device__ __forceinline__ void col_add8(const float v[8][2], int base,
     c[1] += r[1];
 }
 
+// ---- the epilogues of a warp's 16-row strip at H = 128 (load_pairs and
+// strip_ln_out also the row kernels'; bias, gamma, beta in shared or device
+// memory) ----
+
+// rows r0 + g + 8 hf (clamped to the strip's real rows; row r0 where it
+// has none) of a [*, 128] bf16 array as this thread's column pairs:
+// v[nt][hf] = columns nt*8 + 2t, +1
+__device__ __forceinline__ void load_pairs(uint32_t v[16][2], const bf16* src,
+                                           int r0, int nrow) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+            const int row = max(0, min(g + 8 * hf, nrow - 1));
+            v[nt][hf] = *reinterpret_cast<const uint32_t*>(
+                src + (size_t)(r0 + row) * 128 + nt * 8 + 2 * t);
+        }
+}
+
+// y = acc + b3, its LayerNorm and the outputs: out = bf16(LN(y) gamma +
+// beta) into out0; with a residual (its rows in rv) out + res into out0, or
+// with res_dual into out1 beside out in out0
+__device__ __forceinline__ void strip_ln_out(float acc[16][4], const float* b3,
+                                             const float* gamma,
+                                             const float* beta,
+                                             const uint32_t rv[16][2],
+                                             bool has_res, bool res_dual,
+                                             bf16* out0, bf16* out1, int r0,
+                                             int nrow) {
+    const int t = threadIdx.x & 3;
+    float sm[2] = {0.0f, 0.0f}, ss[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+        const float2 bb = *reinterpret_cast<const float2*>(b3 + nt * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float y = acc[nt][e] + (e & 1 ? bb.y : bb.x);
+            acc[nt][e] = y;
+            sm[e >> 1] += y;
+            ss[e >> 1] += y * y;
+        }
+    }
+    float mu[2], rstd[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+        mu[hf] = quad_sum(sm[hf]) / 128.0f;
+        const float var =
+            fmaxf(quad_sum(ss[hf]) / 128.0f - mu[hf] * mu[hf], 0.0f);
+        rstd[hf] = 1.0f / sqrtf(var + kLnEps);
+    }
+    uint32_t o0a[8][4], o1a[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+        const int col = nt * 8 + 2 * t;
+        const float2 ga = *reinterpret_cast<const float2*>(gamma + col);
+        const float2 be = *reinterpret_cast<const float2*>(beta + col);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+            // round to bf16 BEFORE the residual add
+            const float o0 = round_bf16(
+                (acc[nt][2 * hf] - mu[hf]) * rstd[hf] * ga.x + be.x);
+            const float o1 = round_bf16(
+                (acc[nt][2 * hf + 1] - mu[hf]) * rstd[hf] * ga.y + be.y);
+            float s0 = o0, s1 = o1;
+            if (has_res) {
+                const float2 r2 = unpack_bf16(rv[nt][hf]);
+                s0 = o0 + r2.x;
+                s1 = o1 + r2.y;
+            }
+            put_a(o0a, nt, hf, pack_bf16(o0, o1));
+            put_a(o1a, nt, hf, pack_bf16(s0, s1));
+        }
+    }
+    if (!has_res || res_dual) store_frag_rows(out0, 128, r0, nrow, o0a, 8);
+    if (has_res)
+        store_frag_rows(res_dual ? out1 : out0, 128, r0, nrow, o1a, 8);
+}
+
+// the LayerNorm backward of the strip: y = acc + b3 recomputed, g = dout0
+// (+ dout1 with dual), their rows given as column pairs (load_pairs), zero
+// past the strip; dy = rstd ((g gamma - mean) - xhat mean(g gamma xhat))
+// as the A fragments of dy16 in ha; the column sums of g xhat, g and dy
+// added to cdg, cdbe, cdb3
+__device__ __forceinline__ void strip_ln_bwd(float acc[16][4],
+                                             uint32_t ha[8][4],
+                                             const float* b3,
+                                             const float* gamma,
+                                             const uint32_t d0[16][2],
+                                             const uint32_t d1[16][2],
+                                             bool dual, int nrow, float* cdg,
+                                             float* cdbe, float* cdb3) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    float sm[2] = {0.0f, 0.0f}, ss[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+        const float2 bb = *reinterpret_cast<const float2*>(b3 + nt * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float y = acc[nt][e] + (e & 1 ? bb.y : bb.x);
+            acc[nt][e] = y;
+            sm[e >> 1] += y;
+            ss[e >> 1] += y * y;
+        }
+    }
+    float mu[2], rstd[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+        mu[hf] = quad_sum(sm[hf]) * (1.0f / 128.0f);
+        const float var = fmaxf(
+            quad_sum(ss[hf]) * (1.0f / 128.0f) - mu[hf] * mu[hf], 0.0f);
+        rstd[hf] = 1.0f / sqrtf(var + kLnEps);
+    }
+    auto load_g = [&](int nt, int hf, float& g0, float& g1) {
+        g0 = g1 = 0.0f;
+        if (g + 8 * hf < nrow) {
+            const float2 a = unpack_bf16(d0[nt][hf]);
+            g0 = a.x;
+            g1 = a.y;
+            if (dual) {
+                const float2 b = unpack_bf16(d1[nt][hf]);
+                g0 += b.x;
+                g1 += b.y;
+            }
+        }
+    };
+    float m1[2] = {0.0f, 0.0f}, m2[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int ch = 0; ch < 2; ++ch) {
+        float pg[8][2], pb[8][2];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const int nt = ch * 8 + i, col = nt * 8 + 2 * t;
+            const float2 ga = *reinterpret_cast<const float2*>(gamma + col);
+            pg[i][0] = pg[i][1] = pb[i][0] = pb[i][1] = 0.0f;
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+                float gv[2];
+                load_g(nt, hf, gv[0], gv[1]);
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const float xh = (acc[nt][2 * hf + e] - mu[hf]) * rstd[hf];
+                    const float gx = gv[e] * (e ? ga.y : ga.x);
+                    m1[hf] += gx;
+                    m2[hf] += gx * xh;
+                    pg[i][e] += gv[e] * xh;
+                    pb[i][e] += gv[e];
+                }
+            }
+        }
+        col_add8(pg, ch * 8, cdg);
+        col_add8(pb, ch * 8, cdbe);
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+        m1[hf] = quad_sum(m1[hf]) * (1.0f / 128.0f);
+        m2[hf] = quad_sum(m2[hf]) * (1.0f / 128.0f);
+    }
+#pragma unroll
+    for (int ch = 0; ch < 2; ++ch) {
+        float pd[8][2];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const int nt = ch * 8 + i, col = nt * 8 + 2 * t;
+            const float2 ga = *reinterpret_cast<const float2*>(gamma + col);
+            pd[i][0] = pd[i][1] = 0.0f;
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+                float gv[2], dy[2];
+                load_g(nt, hf, gv[0], gv[1]);
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const float xh = (acc[nt][2 * hf + e] - mu[hf]) * rstd[hf];
+                    const float gx = gv[e] * (e ? ga.y : ga.x);
+                    dy[e] = rstd[hf] * ((gx - m1[hf]) - xh * m2[hf]);
+                    pd[i][e] += dy[e];
+                }
+                put_a(ha, nt, hf, pack_bf16(dy[0], dy[1]));
+            }
+        }
+        col_add8(pd, ch * 8, cdb3);
+    }
+}
+
+// d = acc * gate (gelu'(.) of the layer): its bf16 A fragments into ha,
+// its column sums added to col
+__device__ __forceinline__ void strip_gate(const float acc[16][4],
+                                           const float gk[16][4],
+                                           uint32_t ha[8][4], float* col) {
+#pragma unroll
+    for (int ch = 0; ch < 2; ++ch) {
+        float ps[8][2];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const int nt = ch * 8 + i;
+            ps[i][0] = ps[i][1] = 0.0f;
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+                const float v0 = acc[nt][2 * hf] * gk[nt][2 * hf];
+                const float v1 = acc[nt][2 * hf + 1] * gk[nt][2 * hf + 1];
+                ps[i][0] += v0;
+                ps[i][1] += v1;
+                put_a(ha, nt, hf, pack_bf16(v0, v1));
+            }
+        }
+        col_add8(ps, ch * 8, col);
+    }
+}
+
+// dx = bf16(acc (+ the residual's cotangent rr, in float32)) into the
+// strip's rows of dst (row stride ld), its first 16 npairs columns
+__device__ __forceinline__ void strip_dx(const float acc[16][4],
+                                         const uint32_t rr[16][2],
+                                         bool has_res, bf16* dst, int ld,
+                                         int r0, int nrow, int npairs) {
+    uint32_t dxa[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+            float v0 = acc[nt][2 * hf], v1 = acc[nt][2 * hf + 1];
+            if (has_res) {
+                const float2 r = unpack_bf16(rr[nt][hf]);
+                v0 += r.x;
+                v1 += r.y;
+            }
+            put_a(dxa, nt, hf, pack_bf16(v0, v1));
+        }
+    }
+    store_frag_rows(dst, ld, r0, nrow, dxa, npairs);
+}
+
 template <bool LN>
 __global__ void __launch_bounds__(RW * 32, 1) fused_mlp_fwd_rows(FwdParams p) {
     const Common& c = p.c;
@@ -1282,8 +1537,8 @@ __global__ void __launch_bounds__(RW * 32, 1) fused_mlp_fwd_rows(FwdParams p) {
         if (c.k1 > 0)
             rows_mma_smem<false>(acc, rc.sx, c.k1 + 8, sW1, LDR, c.k1 / 16, 16);
         rows_hidden<false>(acc, c.k1 > 0, rc.sB,
-                           c.pre != nullptr ? rc.sp : nullptr, ha, unused,
-                           nullptr, r0, nrow);
+                           c.pre != nullptr ? rc.sp : nullptr, nullptr, ha,
+                           unused, nullptr, r0, nrow);
         __syncwarp();
         if (s + stride < n_strips)
             warp_load_strip(c, rc.sx, rc.sp, (s + stride) * 16,
@@ -1292,73 +1547,18 @@ __global__ void __launch_bounds__(RW * 32, 1) fused_mlp_fwd_rows(FwdParams p) {
         // ---- layer 2 ----
         zero_acc16(acc);
         rows_mma_reg<false>(acc, ha, sW2, LDR, 8, 16);
-        rows_hidden<false>(acc, true, rc.sB + 128, nullptr, ha, unused,
-                           nullptr, r0, nrow);
+        rows_hidden<false>(acc, true, rc.sB + 128, nullptr, nullptr, ha,
+                           unused, nullptr, r0, nrow);
         // ---- layer 3 ----
         if (LN) {
             // the residual's rows, loaded ahead of the product
             uint32_t rv[16][2];
-            if (res != nullptr) {
-#pragma unroll
-                for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-                    for (int hf = 0; hf < 2; ++hf) {
-                        const int row = min(g + 8 * hf, nrow - 1);
-                        rv[nt][hf] = *reinterpret_cast<const uint32_t*>(
-                            res + (size_t)(r0 + row) * 128 + nt * 8 + 2 * t);
-                    }
-            }
+            if (res != nullptr) load_pairs(rv, res, r0, nrow);
             zero_acc16(acc);
             rows_mma_reg<false>(acc, ha, sW3, LDR, 8, 16);
-            float sm[2] = {0.0f, 0.0f}, ss[2] = {0.0f, 0.0f};
-#pragma unroll
-            for (int nt = 0; nt < 16; ++nt) {
-                const float2 bb =
-                    *reinterpret_cast<const float2*>(rc.sB + 256 + nt * 8 + 2 * t);
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const float y = acc[nt][e] + (e & 1 ? bb.y : bb.x);
-                    acc[nt][e] = y;
-                    sm[e >> 1] += y;
-                    ss[e >> 1] += y * y;
-                }
-            }
-            float mu[2], rstd[2];
-#pragma unroll
-            for (int hf = 0; hf < 2; ++hf) {
-                mu[hf] = quad_sum(sm[hf]) / 128.0f;
-                const float var =
-                    fmaxf(quad_sum(ss[hf]) / 128.0f - mu[hf] * mu[hf], 0.0f);
-                rstd[hf] = 1.0f / sqrtf(var + kLnEps);
-            }
-            uint32_t o0a[8][4], o1a[8][4];
-#pragma unroll
-            for (int nt = 0; nt < 16; ++nt) {
-                const int col = nt * 8 + 2 * t;
-                const float2 ga = *reinterpret_cast<const float2*>(rc.sB + 384 + col);
-                const float2 be = *reinterpret_cast<const float2*>(rc.sB + 512 + col);
-#pragma unroll
-                for (int hf = 0; hf < 2; ++hf) {
-                    // round to bf16 BEFORE the residual add
-                    const float o0 = round_bf16(
-                        (acc[nt][2 * hf] - mu[hf]) * rstd[hf] * ga.x + be.x);
-                    const float o1 = round_bf16(
-                        (acc[nt][2 * hf + 1] - mu[hf]) * rstd[hf] * ga.y + be.y);
-                    float s0 = o0, s1 = o1;
-                    if (res != nullptr) {
-                        const float2 r2 = unpack_bf16(rv[nt][hf]);
-                        s0 = o0 + r2.x;
-                        s1 = o1 + r2.y;
-                    }
-                    put_a(o0a, nt, hf, pack_bf16(o0, o1));
-                    put_a(o1a, nt, hf, pack_bf16(s0, s1));
-                }
-            }
-            if (res == nullptr || c.res_dual)
-                store_frag_rows(p.out0, 128, r0, nrow, o0a, 8);
-            if (res != nullptr)
-                store_frag_rows(c.res_dual ? p.out1 : p.out0, 128, r0, nrow,
-                                o1a, 8);
+            strip_ln_out(acc, rc.sB + 256, rc.sB + 384, rc.sB + 512, rv,
+                         res != nullptr, c.res_dual != 0, p.out0, p.out1, r0,
+                         nrow);
         } else {
             // narrow head: 16 zero-padded columns
             zero_acc16(acc);
@@ -1377,21 +1577,6 @@ __global__ void __launch_bounds__(RW * 32, 1) fused_mlp_fwd_rows(FwdParams p) {
         }
     }
     cp_async_wait<0>();
-}
-
-// rows r0 + g + 8 hf (clamped to the strip's real rows) of a [*, 128]
-// bf16 array as this thread's column pairs: v[nt][hf] = columns nt*8 + 2t, +1
-__device__ __forceinline__ void load_pairs(uint32_t v[16][2], const bf16* src,
-                                           int r0, int nrow) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-            const int row = min(g + 8 * hf, nrow - 1);
-            v[nt][hf] = *reinterpret_cast<const uint32_t*>(
-                src + (size_t)(r0 + row) * 128 + nt * 8 + 2 * t);
-        }
 }
 
 template <bool LN>
@@ -1434,8 +1619,8 @@ __global__ void __launch_bounds__(RW * 32, 1) fused_mlp_bwd_rows(BwdParams p) {
             rows_mma_smem<false>(acc, rc.sx, c.k1 + 8, sW1, LDR, c.k1 / 16,
                                  16);
         rows_hidden<true>(acc, c.k1 > 0, rc.sB,
-                          c.pre != nullptr ? rc.sp : nullptr, ha, gk, p.h1s,
-                          r0, nrow);
+                          c.pre != nullptr ? rc.sp : nullptr, nullptr, ha, gk,
+                          p.h1s, r0, nrow);
         __syncwarp();                 // every lane is past its x reads
 #pragma unroll
         for (int nt = 0; nt < 16; ++nt)
@@ -1444,8 +1629,8 @@ __global__ void __launch_bounds__(RW * 32, 1) fused_mlp_bwd_rows(BwdParams p) {
         // ---- 2. h2, gelu'(h2pre) in registers ----
         zero_acc16(acc);
         rows_mma_reg<false>(acc, ha, sW2, LDR, 8, 16);
-        rows_hidden<true>(acc, true, rc.sB + 128, nullptr, ha, gk, p.h2s, r0,
-                          nrow);
+        rows_hidden<true>(acc, true, rc.sB + 128, nullptr, nullptr, ha, gk,
+                          p.h2s, r0, nrow);
         // ---- 3. dy -> ha (the A fragments of dy16) ----
         if (LN) {
             zero_acc16(acc);
@@ -1697,6 +1882,400 @@ __global__ void __launch_bounds__(RW * 32, 1) fused_mlp_bwd_rows(BwdParams p) {
     }
 }
 
+// ============ H = 128, a first layer too wide for the rows: wgmma ==========
+//
+// The segment engine's edge MLP feeds the chain one 384-wide part. Resident
+// at leading dimension 136, W1 | W2 | W3 and the rows kernels' x strips
+// take more shared memory than a block has, and the tiles that stream the
+// weights pull all of them from L2 again for every 64 rows. Here a block
+// holds the weights once, unpadded, in the 128-byte-swizzled panel layout
+// of the warpgroup products (384 x 128, 128 x 128, 128 x 128 bf16: 160 KB
+// at k1 = 384), read MN-major by x W and K-major by dh W^T from the same
+// copy. Two warpgroups a block each own a 64-row tile, a warp its 16-row
+// strip; every product is one wgmma m64n128k16 a 16-deep slice, A from the
+// warp's registers (the strip's bf16 fragments, exactly as in the row
+// kernels: h1, h2, dy16, dh2pre16, dh1pre16 never touch shared memory), B
+// from the resident panels, the tensor cores reading each weight once per 64
+// rows instead of each warp loading it into registers. x comes in 64-column
+// pieces ([16][64] bf16 a warp, swizzled, no padding) through a ring of
+// slots by cp.async, the next pieces in flight while a piece is multiplied;
+// the pre and residual rows go to registers ahead of their products. The
+// epilogues are the row kernels' (strip_*). The backward keeps
+// gelu'(h1pre) and gelu'(h2pre) in a per-warp slot of the workspace from
+// their layer to the step that takes them (device memory, L2-resident; each
+// load overlaps that step's product), so that the LayerNorm backward has
+// their registers, and its column sums per warp in shared memory, written
+// once a block. Code size matters as much as registers here: each strip
+// epilogue unrolls to thousands of instructions, and a loop body holding
+// every one of them runs out of the instruction cache (per-phase clock
+// counters on an H100 showed the backward's GELU epilogues 7x slower than
+// the same code in the forward); so the backward's two hidden layers, and
+// its two gate steps, run through one loop body each (K3 at the 384-wide
+// part 1.13 -> 0.66 ms; the forward, a third of the code, stays unrolled:
+// rolled it took 4% longer).
+//
+// The plan takes them for every backward at H = 128 with LayerNorm and a
+// first layer (the rows' backward keeps the encoders' pre-only form), and
+// for the forward where the rows' layout does not fit: on an H100 the
+// backward here took 0.49 ms at the block edge form against the rows'
+// 1.01, 0.31 at the segment node form against 0.57, while the rows'
+// forward stays faster (0.134 against 0.173 at the block edge form). Persistent blocks, grid = min(SMs, tile pairs). Bound: bytes (the
+// row streams); the products are a few % of the tensor cores' time.
+
+constexpr int WG_SLOT = 16 * 128;     // bytes of an x piece: 16 rows x 64 bf16
+constexpr int WG_SLOTS_FWD = 4;       // the forward's ring, pieces a warp
+constexpr int WG_SLOTS_BWD = 2;       // the backward's
+
+struct WgSmem {
+    size_t w2, w3, x, col, vec, total;     // W1 panels at 0
+};
+
+// the weights' panels, each warp's ring, the backward's column sums and
+// its vectors b1 | b2 | b3 | gamma (read by every epilogue; from device
+// memory they would miss an L1 that the backward's row streams keep
+// evicting); and 1024 bytes to align the panels
+__host__ __device__ inline WgSmem wg_layout(int k1, bool bwd) {
+    WgSmem L;
+    size_t o = (size_t)k1 * 256;
+    L.w2 = o;
+    o += 128 * 256;
+    L.w3 = o;
+    o += 128 * 256;
+    L.x = o;
+    o += (size_t)RW * (bwd ? WG_SLOTS_BWD : WG_SLOTS_FWD) * WG_SLOT;
+    L.col = o;
+    o += bwd ? (size_t)RW * (4 * 128 + 128) * 4 : 0;
+    L.vec = o;
+    o += bwd ? (size_t)4 * 128 * 4 : 0;
+    L.total = o + 1024;
+    return L;
+}
+
+struct WgCtx {
+    unsigned char* sm;   // 1024-aligned: W1 panels
+    unsigned char* w2;
+    unsigned char* w3;
+    bf16* sx;            // this warp's ring
+    float* col;          // this warp's column sums (backward)
+    float* vec;          // b1 | b2 | b3 | gamma (backward)
+    int warp, wi, lane;  // wi: the warp's strip in its warpgroup's tile
+    int tile0, tstride, n_tiles, npc;   // npc: x pieces a strip
+};
+
+// x piece p of a strip: columns c0 .. c0 + w (w <= 64) of part pi; kr: the
+// W1 row of its first column
+__device__ __forceinline__ void wg_piece(const Common& c, int p, int& pi,
+                                         int& c0, int& w, int& kr) {
+    kr = 0;
+    for (pi = 0; pi < c.n_parts; ++pi) {
+        const int n = (c.width[pi] + 63) >> 6;
+        if (p < n) {
+            c0 = p * 64;
+            w = min(64, c.width[pi] - c0);
+            kr += c0;
+            return;
+        }
+        p -= n;
+        kr += c.width[pi];
+    }
+    pi = c0 = w = 0;
+}
+
+// this warp's rows of a tile: r0, nrow (0 past M, and then r0 = 0, so that
+// the clamped loads stay inside the arrays)
+__device__ __forceinline__ void wg_rows(const Common& c, int tile, int wi,
+                                        int& r0, int& nrow) {
+    r0 = tile * 64 + wi * 16;
+    nrow = min(16, c.M - r0);
+    if (nrow <= 0) {
+        r0 = 0;
+        nrow = 0;
+    }
+}
+
+// piece q of this warp's walk (its k-th tile, k = q / npc) into slot q % NS,
+// rows past the strip zero-filled; one commit group, empty past the walk
+template <int NS>
+__device__ __forceinline__ void wg_fetch(const Common& c, const WgCtx& w,
+                                         int q) {
+    const int k = q / w.npc, p = q - k * w.npc;
+    const int tile = w.tile0 + k * w.tstride;
+    if (tile < w.n_tiles) {
+        int r0, nrow, pi, c0, wd, kr;
+        wg_rows(c, tile, w.wi, r0, nrow);
+        wg_piece(c, p, pi, c0, wd, kr);
+        unsigned char* slot =
+            reinterpret_cast<unsigned char*>(w.sx) + (q % NS) * WG_SLOT;
+        const int cw = wd >> 3;
+        const bf16* src = c.part[pi];
+        const int ld = c.width[pi];
+        for (int i = w.lane; i < 16 * cw; i += 32) {
+            const int r = i / cw, ch = i - r * cw;
+            const bool ok = r < nrow;
+            cp_async16(slot + r * 128 + ((ch ^ (r & 7)) << 4),
+                       src + (size_t)(ok ? r0 + r : 0) * ld + c0 + ch * 8, ok);
+        }
+    }
+    cp_async_commit();
+}
+
+// the weights staged, the ring's first pieces in flight, one barrier
+template <int NS>
+__device__ __forceinline__ void wg_init(const Common& c, WgCtx& w,
+                                        unsigned char* raw, bool bwd) {
+    unsigned char* sm = raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+    const WgSmem L = wg_layout(c.k1, bwd);
+    w.sm = sm;
+    w.w2 = sm + L.w2;
+    w.w3 = sm + L.w3;
+    w.warp = threadIdx.x >> 5;
+    w.wi = w.warp & 3;
+    w.lane = threadIdx.x & 31;
+    w.sx = reinterpret_cast<bf16*>(sm + L.x + (size_t)w.warp * NS * WG_SLOT);
+    w.col = bwd ? reinterpret_cast<float*>(sm + L.col) +
+                      w.warp * (4 * 128 + 128)
+                : nullptr;
+    w.vec = reinterpret_cast<float*>(sm + L.vec);
+    if (bwd) {
+        const float* src[4] = {c.b1, c.b2, c.b3, c.gamma};
+        for (int i = threadIdx.x; i < 4 * 128; i += THREADS)
+            w.vec[i] = src[i >> 7][i & 127];
+    }
+    w.tile0 = blockIdx.x * 2 + (w.warp >> 2);
+    w.tstride = gridDim.x * 2;
+    w.n_tiles = (c.M + 63) / 64;
+    w.npc = 0;
+    for (int pi = 0; pi < c.n_parts; ++pi) w.npc += (c.width[pi] + 63) >> 6;
+    stage_panels(sm, c.w1, c.k1, THREADS);
+    stage_panels(w.w2, c.w2, 128, THREADS);
+    stage_panels(w.w3, c.w3, 128, THREADS);
+    cp_async_commit();
+    for (int q = 0; q < NS; ++q) wg_fetch<NS>(c, w, q);
+    cp_async_wait<NS>();             // the weights
+    fence_proxy_async();
+    __syncthreads();
+}
+
+// acc = x W1 for this warp's strip of its warpgroup's tile: pieces q0 ..
+// q0 + npc of the walk from the ring, each slot refilled with the piece NS
+// further on as soon as its fragments are in registers
+template <int NS>
+__device__ __forceinline__ void wg_layer1(const Common& c, const WgCtx& w,
+                                          int q0, float acc[16][4]) {
+    zero_acc16(acc);
+    const int row = w.lane & 15;
+    for (int p = 0; p < w.npc; ++p) {
+        const int q = q0 + p;
+        int pi, c0, wd, kr;
+        wg_piece(c, p, pi, c0, wd, kr);
+        const int ks = wd >> 4;
+        cp_async_wait<NS - 1>();
+        __syncwarp();
+        const bf16* slot = w.sx + (q % NS) * (WG_SLOT / 2);
+        uint32_t a[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            if (j < ks) {
+                const int ch = 2 * j + (w.lane >> 4);
+                ldsm_x4(a[j], slot + row * 64 + ((ch ^ (row & 7)) << 3));
+            }
+        }
+        __syncwarp();
+        wg_fetch<NS>(c, w, q + NS);
+        wg_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            if (j < ks)
+                wgmma_128<1>(acc, a[j],
+                             wg_desc(w.sm + (size_t)(kr + 16 * j) * 128,
+                                     c.k1 * 128, 1024));
+        }
+        wg_commit();
+        wg_wait<0>();
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wg_keep(a[j]);
+    }
+    wg_fence_acc(acc);
+}
+
+// acc = A W (MN-major, W 128 x 128 at w) over 8 slices of A's fragments a;
+// wg_done completes it
+__device__ __forceinline__ void wg_mma_mn(float acc[16][4],
+                                          const uint32_t a[8][4],
+                                          const unsigned char* w) {
+    zero_acc16(acc);
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < 8; ++s)
+        wgmma_128<1>(acc, a[s], wg_desc(w + s * 2048, 16384, 1024));
+    wg_commit();
+}
+
+// acc = A W[n0 .. n0 + 128, :]^T (K-major: a W of `rows` rows at w)
+__device__ __forceinline__ void wg_mma_k(float acc[16][4],
+                                         const uint32_t a[8][4],
+                                         const unsigned char* w, int rows,
+                                         int n0) {
+    zero_acc16(acc);
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < 8; ++s)
+        wgmma_128<0>(acc, a[s],
+                     wg_desc(w + (size_t)(s >> 2) * rows * 128 +
+                                 (size_t)n0 * 128 + (s & 3) * 32,
+                             16, 1024));
+    wg_commit();
+}
+
+__device__ __forceinline__ void wg_done(float acc[16][4],
+                                        const uint32_t a[8][4]) {
+    wg_wait<0>();
+#pragma unroll
+    for (int s = 0; s < 8; ++s) wg_keep(a[s]);
+    wg_fence_acc(acc);
+}
+
+__global__ void __launch_bounds__(THREADS, 1) fused_mlp_fwd_wg(FwdParams p) {
+    const Common& c = p.c;
+    extern __shared__ __align__(1024) unsigned char wg_smem[];
+    WgCtx w;
+    wg_init<WG_SLOTS_FWD>(c, w, wg_smem, false);
+    const bf16* res = c.res_idx >= 0 ? c.part[c.res_idx] : nullptr;
+    for (int k = 0;; ++k) {
+        const int tile = w.tile0 + k * w.tstride;
+        if (tile >= w.n_tiles) break;
+        int r0, nrow;
+        wg_rows(c, tile, w.wi, r0, nrow);
+        float acc[16][4], unused[16][4];
+        uint32_t ha[8][4], pv[16][2], rv[16][2];
+        if (c.pre != nullptr) load_pairs(pv, c.pre, r0, nrow);
+        // ---- layer 1 ----
+        wg_layer1<WG_SLOTS_FWD>(c, w, k * w.npc, acc);
+        rows_hidden<false>(acc, true, c.b1, nullptr,
+                           c.pre != nullptr ? pv : nullptr, ha, unused,
+                           nullptr, r0, nrow);
+        // ---- layer 2 ----
+        wg_mma_mn(acc, ha, w.w2);
+        wg_done(acc, ha);
+        rows_hidden<false>(acc, true, c.b2, nullptr, nullptr, ha, unused,
+                           nullptr, r0, nrow);
+        // ---- layer 3, the residual's rows loaded while it runs ----
+        wg_mma_mn(acc, ha, w.w3);
+        if (res != nullptr) load_pairs(rv, res, r0, nrow);
+        wg_done(acc, ha);
+        strip_ln_out(acc, c.b3, c.gamma, c.beta, rv, res != nullptr,
+                     c.res_dual != 0, p.out0, p.out1, r0, nrow);
+    }
+    cp_async_wait<0>();
+}
+
+// DUAL: the residual's two output cotangents (res_dual), a compile-time
+// choice so that the single-cotangent form holds no registers for a second
+template <bool DUAL>
+__global__ void __launch_bounds__(THREADS, 1) fused_mlp_bwd_wg(BwdParams p) {
+    const Common& c = p.c;
+    extern __shared__ __align__(1024) unsigned char wg_smem[];
+    WgCtx w;
+    wg_init<WG_SLOTS_BWD>(c, w, wg_smem, true);
+    const int n_bias = 4 * 128 + c.dp;
+    // column sums: db1 | db2 | db3 | dgamma | dbeta
+    float* cdb1 = w.col;
+    float* cdb2 = w.col + 128;
+    float* cdb3 = w.col + 256;
+    float* cdg = w.col + 256 + c.dp;
+    float* cdbe = cdg + 128;
+    for (int i = w.lane; i < n_bias; i += 32) w.col[i] = 0.0f;
+    __syncwarp();
+    // gelu'(h1pre) between layer 1 and step 5, gelu'(h2pre) between layer 2
+    // and step 4 (so that the LayerNorm backward has their registers): this
+    // warp's two [16][32] float4 slots of the workspace
+    float4* g1s = reinterpret_cast<float4*>(c.spill) +
+                  ((size_t)blockIdx.x * RW + w.warp) * 2 * 16 * 32;
+    float4* g2s = g1s + 16 * 32;
+    // gk from a slot, 16 bytes a tile
+    auto reload = [&](float gk[16][4], const float4* gs) {
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt) {
+            const float4 v = __ldcg(gs + nt * 32 + w.lane);
+            gk[nt][0] = v.x;
+            gk[nt][1] = v.y;
+            gk[nt][2] = v.z;
+            gk[nt][3] = v.w;
+        }
+    };
+    for (int k = 0;; ++k) {
+        const int tile = w.tile0 + k * w.tstride;
+        if (tile >= w.n_tiles) break;
+        int r0, nrow;
+        wg_rows(c, tile, w.wi, r0, nrow);
+        float acc[16][4], gk[16][4];
+        uint32_t ha[8][4], pv[16][2];
+        if (c.pre != nullptr) load_pairs(pv, c.pre, r0, nrow);
+        // ---- 1, 2. h1 and h2; gelu'(h1pre), gelu'(h2pre) -> the
+        // workspace (one loop body for both layers: see below) ----
+        wg_layer1<WG_SLOTS_BWD>(c, w, k * w.npc, acc);
+#pragma unroll 1
+        for (int l = 0; l < 2; ++l) {
+            if (l == 1) {
+                wg_mma_mn(acc, ha, w.w2);
+                wg_done(acc, ha);
+            }
+            rows_hidden<true, true>(
+                acc, true, w.vec + 128 * l, nullptr,
+                l == 0 && c.pre != nullptr ? pv : nullptr, ha, gk,
+                l ? p.h2s : p.h1s, r0, nrow, l ? g2s : g1s);
+        }
+        // ---- 3. dy -> ha (the A fragments of dy16); the output
+        // cotangent's rows come in while the product runs ----
+        wg_mma_mn(acc, ha, w.w3);
+        uint32_t d0[16][2], d1[16][2];
+        load_pairs(d0, p.dout0, r0, nrow);
+        if (DUAL) load_pairs(d1, p.dout1, r0, nrow);
+        wg_done(acc, ha);
+        strip_ln_bwd(acc, ha, w.vec + 256, w.vec + 384, d0, d1, DUAL, nrow,
+                     cdg, cdbe, cdb3);
+        store_frag_rows(p.dys, 128, r0, nrow, ha, 8);
+        // ---- 4, 5. dh2pre = (dy16 W3^T) * gelu'(h2pre), db2; dh1pre =
+        // (dh2pre16 W2^T) * gelu'(h1pre), db1, dpre; each gelu' comes back
+        // while its product runs ----
+#pragma unroll 1
+        for (int l = 0; l < 2; ++l) {
+            wg_mma_k(acc, ha, l ? w.w2 : w.w3, 128, 0);
+            reload(gk, l ? g1s : g2s);
+            wg_done(acc, ha);
+            strip_gate(acc, gk, ha, l ? cdb1 : cdb2);
+            store_frag_rows(l ? p.dh1s : p.dh2s, 128, r0, nrow, ha, 8);
+        }
+        if (p.dpre != nullptr) store_frag_rows(p.dpre, 128, r0, nrow, ha, 8);
+        // ---- 6. dx_i = dh1pre16 W1_i^T (+ the residual's cotangent), 128
+        // columns (W1 rows) a product ----
+        int off = 0;
+        for (int pi = 0; pi < c.n_parts; ++pi) {
+            const int wd = c.width[pi];
+            const bool has_res = pi == c.res_idx;   // then wd == 128
+            uint32_t rr[16][2];
+            for (int c0 = 0; c0 < wd; c0 += 128) {
+                wg_mma_k(acc, ha, w.sm, c.k1, off + c0);
+                if (has_res)
+                    load_pairs(rr, c.res_dual ? p.dout1 : p.dout0, r0, nrow);
+                wg_done(acc, ha);
+                strip_dx(acc, rr, has_res, p.dx[pi] + c0, wd, r0, nrow,
+                         min(128, wd - c0) / 16);
+            }
+            off += wd;
+        }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    // the block's column sums: its warps' in order
+    const float* cols = w.col - w.warp * (4 * 128 + 128);
+    for (int i = threadIdx.x; i < n_bias; i += THREADS) {
+        float v = 0.0f;
+        for (int u = 0; u < RW; ++u) v += cols[u * (4 * 128 + 128) + i];
+        p.colsum[(size_t)blockIdx.x * n_bias + i] = v;
+    }
+}
+
 // ============================ weight gradients =============================
 
 // grid (output tiles of all jobs, row chunks, lanes); 128 x 128 tile, warps
@@ -1823,12 +2402,18 @@ __global__ void __launch_bounds__(THREADS) fused_mlp_wgrad(gfvgn::WgParams p) {
 
 // ================================ host side ================================
 
+// The kernels of a shape, in the order make_plan tries them: the row
+// kernels (H = 128 where their layout fits a block), the warpgroup kernels
+// (H = 128 with LayerNorm where it does not, and first for every such
+// backward with a first layer), the tiles (any other shape).
+enum Form { FORM_ROWS = 0, FORM_WG = 1, FORM_TILES = 2 };
+
 struct Shape {
     int w0, w1, h, has_pre, ln, d_out, M, lanes, bwd;
 };
 
 struct Plan {
-    bool rows;           // H = 128: one warp a 16-row strip (fused_mlp_*_rows)
+    int form;
     int tm, pw, np;
     bool stream;
     size_t smem;
@@ -1859,19 +2444,25 @@ int make_plan(const Shape& s, Plan& P) {
     P.k1 = s.w0 + s.w1;
     P.dp = s.ln ? s.h : 16;
     bool found = false;
-    P.rows = false;
-    if (s.h == 128) {
-        const RowsSmem R = rows_layout(P.k1, P.dp, s.has_pre != 0, s.ln != 0,
-                                       s.bwd != 0);
-        if (R.total <= (size_t)max_smem) {
-            P.rows = true;
-            P.tm = 16;
-            P.pw = 128;
-            P.np = 1;
-            P.stream = false;
-            P.smem = R.total;
-            found = true;
-        }
+    P.form = FORM_TILES;
+    P.tm = 16;
+    P.pw = 128;
+    P.np = 1;
+    P.stream = false;
+    const bool wg_ok = s.h == 128 && s.ln && P.k1 > 0 &&
+                       wg_layout(P.k1, s.bwd != 0).total <= (size_t)max_smem;
+    const RowsSmem R = rows_layout(P.k1, P.dp, s.has_pre != 0, s.ln != 0,
+                                   s.bwd != 0);
+    const bool rows_ok = s.h == 128 && R.total <= (size_t)max_smem;
+    if (wg_ok && (!rows_ok || s.bwd)) {
+        P.form = FORM_WG;
+        P.tm = 64;
+        P.smem = wg_layout(P.k1, s.bwd != 0).total;
+        found = true;
+    } else if (rows_ok) {
+        P.form = FORM_ROWS;
+        P.smem = R.total;
+        found = true;
     }
     for (int tm = 64; tm >= 16 && !found; tm >>= 1) {
         for (int st = 0; st < 2 && !found; ++st) {
@@ -1889,14 +2480,19 @@ int make_plan(const Shape& s, Plan& P) {
         }
     }
     if (!found) return (int)cudaErrorInvalidValue;
-    const int n_tiles = P.rows ? (s.M + 16 * RW - 1) / (16 * RW)
-                               : (s.M + P.tm - 1) / P.tm;
+    // a rows block takes 8 strips of 16 rows, a warpgroup block two tiles
+    // of 64
+    const int n_tiles = P.form == FORM_ROWS ? (s.M + 16 * RW - 1) / (16 * RW)
+                      : P.form == FORM_WG ? (s.M + 127) / 128
+                                          : (s.M + P.tm - 1) / P.tm;
     P.grid = n_tiles < n_sm ? n_tiles : n_sm;
     if (P.grid < 1) P.grid = 1;
     size_t o = 0;
     P.o_spill = o;
-    if (!P.rows && P.np > 1)
+    if (P.form == FORM_TILES && P.np > 1)
         o += align128((size_t)P.grid * 3 * (P.np - 1) * 32 * THREADS * 4);
+    if (P.form == FORM_WG && s.bwd)     // gelu': [2][64][32] a warp
+        o += align128((size_t)P.grid * RW * 2 * 64 * 32 * 4);
     P.n_w = P.k1 * s.h + s.h * s.h + s.h * P.dp;
     P.n_bias = 4 * s.h + P.dp;
     if (s.bwd) {
@@ -1952,7 +2548,8 @@ void fill_common(Common& c, const Shape& s, const Plan& P, const void* part0,
     c.wr = P.tm / 16;
     c.pw = P.pw;
     c.np = P.np;
-    c.spill = !P.rows && P.np > 1
+    c.spill = (P.form == FORM_TILES && P.np > 1) ||
+                      (P.form == FORM_WG && s.bwd)
         ? reinterpret_cast<float*>(ws + P.o_spill) : nullptr;
     // the weight products of a tile, in the order the kernels take them
     const int h = s.h;
@@ -2019,14 +2616,20 @@ extern "C" int gfvgn_wgrad(const gfvgn::WgParams* q, int lanes, float* total,
 
 // Bytes of workspace the forward (backward = 0) or the backward needs for
 // this shape, or -1 when no kernel takes it (widths, or shared memory).
+// The same plan's kernels go to *form (where not null): FORM_ROWS (0),
+// FORM_WG (1) or FORM_TILES (2), and a block's shared-memory bytes to
+// *smem (where not null).
 extern "C" long long gfvgn_fused_mlp_workspace(int width0, int width1, int h,
                                                int has_pre, int layer_norm,
                                                int d_out, int M, int lanes,
-                                               int backward) {
+                                               int backward, int* form,
+                                               long long* smem) {
     const Shape s{width0, width1, h, has_pre, layer_norm, d_out, M, lanes,
                   backward};
     Plan P;
     if (make_plan(s, P) != 0) return -1;
+    if (form != nullptr) *form = P.form;
+    if (smem != nullptr) *smem = (long long)P.smem;
     return (long long)P.bytes;
 }
 
@@ -2056,9 +2659,10 @@ extern "C" int gfvgn_fused_mlp(const void* part0, const void* part1,
     p.out0 = static_cast<bf16*>(out0);
     p.out1 = static_cast<bf16*>(out1);
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-    if (P.rows)
+    if (P.form == FORM_ROWS)
         return layer_norm ? launch(fused_mlp_fwd_rows<true>, P.grid, P.smem, st, p)
                           : launch(fused_mlp_fwd_rows<false>, P.grid, P.smem, st, p);
+    if (P.form == FORM_WG) return launch(fused_mlp_fwd_wg, P.grid, P.smem, st, p);
     if (layer_norm)
         return P.stream ? launch(fused_mlp_fwd_tiles<true, true>, P.grid, P.smem, st, p)
                         : launch(fused_mlp_fwd_tiles<true, false>, P.grid, P.smem, st, p);
@@ -2079,7 +2683,8 @@ extern "C" int gfvgn_fused_mlp_bwd(const void* part0, const void* part1,
                                    void* dx0, void* dx1, void* dpre,
                                    void* total, int M, int res_idx,
                                    int res_dual, int layer_norm, int d_out,
-                                   int lanes, void* workspace, void* stream) {
+                                   int lanes, void* workspace,
+                                   void* stream) {
     const Shape s{width0, width1, h, pre != nullptr, layer_norm, d_out, M,
                   lanes, 1};
     Plan P;
@@ -2111,9 +2716,13 @@ extern "C" int gfvgn_fused_mlp_bwd(const void* part0, const void* part1,
     p.dh2s = reinterpret_cast<bf16*>(ws + P.o_dh2);
     p.dh1s = reinterpret_cast<bf16*>(ws + P.o_dh1);
     p.colsum = reinterpret_cast<float*>(ws + P.o_colsum);
-    if (P.rows)
+    if (P.form == FORM_ROWS)
         err = layer_norm ? launch(fused_mlp_bwd_rows<true>, P.grid, P.smem, st, p)
                          : launch(fused_mlp_bwd_rows<false>, P.grid, P.smem, st, p);
+    else if (P.form == FORM_WG)
+        err = res_idx >= 0 && res_dual
+            ? launch(fused_mlp_bwd_wg<true>, P.grid, P.smem, st, p)
+            : launch(fused_mlp_bwd_wg<false>, P.grid, P.smem, st, p);
     else if (layer_norm)
         err = P.stream ? launch(fused_mlp_bwd_tiles<true, true>, P.grid, P.smem, st, p)
                        : launch(fused_mlp_bwd_tiles<true, false>, P.grid, P.smem, st, p);

@@ -2,7 +2,9 @@
 // share: the sm_90 primitives (ldmatrix, mma.sync m16n8k16, cp.async), bf16
 // packing, the GELU of the MLP chains and its derivative, a warp's 16-row
 // strip (K2/K3 at H = 128, K5f at C = 128: A fragments, their rows loaded
-// and stored, quad sums), the block product
+// and stored, quad sums), the warpgroup product (wgmma m64n128k16 with A
+// from a strip's registers and B from a weight's swizzled panels: K2/K3's
+// warpgroup kernels), the block product
 // of the row tiles (weights resident in shared memory or streamed through a
 // two-slot cp.async ring), the pass product (both operands streamed), and
 // the weight-gradient pass of the backward
@@ -550,6 +552,106 @@ __device__ __forceinline__ int pass_product(const Blk& b, float acc[8][4],
     }
     return nv;
 }
+
+// ===== warpgroup products (wgmma, sm_90a) =====
+//
+// A weight W [rows][128] bf16 resident in the canonical 128-byte-swizzled
+// layout, without padding: two panels of 64 columns, each [rows][64] with
+// 128-byte rows, the 16-byte chunk c of row r stored at chunk c ^ (r % 8),
+// every panel 1024-byte aligned (rows a multiple of 8). One staged copy
+// serves both products: x W reads it MN-major (the 64 columns of a panel
+// contiguous; LBO = the panel stride, SBO = 8 rows), h W^T K-major (a W row
+// is the contraction; SBO = 8 rows, a k-step 32 bytes further in the row).
+
+// byte offset of 16-byte chunk ch (0..15) of row r in the panel layout
+__host__ __device__ inline size_t panel_at(int rows, int r, int ch) {
+    return (size_t)(ch >> 3) * rows * 128 + (size_t)r * 128 +
+           (((ch & 7) ^ (r & 7)) << 4);
+}
+
+// W [rows][128] (device memory) -> its panel layout at dst, by cp.async
+// over `threads` threads; the caller commits and waits
+__device__ __forceinline__ void stage_panels(void* dst, const bf16* src,
+                                             int rows, int threads) {
+    unsigned char* d = static_cast<unsigned char*>(dst);
+    for (int i = threadIdx.x; i < rows * 16; i += threads) {
+        const int r = i >> 4, ch = i & 15;
+        cp_async16(d + panel_at(rows, r, ch), src + (size_t)r * 128 + ch * 8,
+                   true);
+    }
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle
+__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo,
+                                            uint32_t sbo) {
+    const uint32_t a = smem_addr(p);
+    return (uint64_t)((a & 0x3FFFF) >> 4) |
+           ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+           ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// generic-proxy writes (cp.async, st.shared) made visible to wgmma
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// after wg_wait: the accumulators are read only from here on
+__device__ __forceinline__ void wg_fence_acc(float d[16][4]) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+
+// after wg_wait: the A fragments stay in their registers until here (the
+// compiler does not see the asynchronous reads of the products)
+__device__ __forceinline__ void wg_keep(const uint32_t a[4]) {
+    asm volatile("" ::"r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]) : "memory");
+}
+
+#define GFVGN_ACC16(i)                                                         \
+    "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+
+// d[64 x 128] += A[64 x 16] B[16 x 128] over the warpgroup: A from
+// registers (this warp's 16 rows as an m16n8k16 A fragment), B by
+// descriptor, K-major (TB 0) or MN-major (TB 1); d[nt][e] is the m16n8
+// accumulator layout of this warp's rows, column tile nt. Asynchronous:
+// wg_fence before, wg_commit and wg_wait after.
+template <int TB>
+__device__ __forceinline__ void wgmma_128(float d[16][4], const uint32_t a[4],
+                                          uint64_t desc) {
+    const int accumulate = 1;
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %70, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %69;\n}\n"
+        : GFVGN_ACC16(0), GFVGN_ACC16(1), GFVGN_ACC16(2), GFVGN_ACC16(3),
+          GFVGN_ACC16(4), GFVGN_ACC16(5), GFVGN_ACC16(6), GFVGN_ACC16(7),
+          GFVGN_ACC16(8), GFVGN_ACC16(9), GFVGN_ACC16(10), GFVGN_ACC16(11),
+          GFVGN_ACC16(12), GFVGN_ACC16(13), GFVGN_ACC16(14), GFVGN_ACC16(15)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(TB),
+          "r"(accumulate));
+}
+
+#undef GFVGN_ACC16
 
 // column sums of a warp's 16 rows for one 8-column tile (v0: column 2t, v1:
 // 2t + 1, each already the sum of this thread's two rows) -> red[0..1]

@@ -53,7 +53,9 @@ def launch_counts() -> dict:
                 fused_mlp_ln_bwd=fused_mlp.LAUNCHES_LN_BWD,
                 fused_mlp_noln_bwd=fused_mlp.LAUNCHES_NOLN_BWD,
                 fused_premlp_res_bwd=fused_mlp.LAUNCHES_PREMLP_BWD,
-                fused_slice_pool_bwd=fused_slice_attn.LAUNCHES_BWD)
+                fused_slice_pool_bwd=fused_slice_attn.LAUNCHES_BWD,
+                fused_mlp_ln_wg=fused_mlp.LAUNCHES_LN_WG,
+                fused_mlp_ln_bwd_wg=fused_mlp.LAUNCHES_LN_BWD_WG)
 
 
 def zero_launch_counts() -> None:
@@ -66,4 +68,5 @@ def zero_launch_counts() -> None:
     fused_mlp.LAUNCHES_PREMLP = 0
     fused_mlp.LAUNCHES_LN_BWD = fused_mlp.LAUNCHES_NOLN_BWD = 0
     fused_mlp.LAUNCHES_PREMLP_BWD = 0
+    fused_mlp.LAUNCHES_LN_WG = fused_mlp.LAUNCHES_LN_BWD_WG = 0
     fused_slice_attn.LAUNCHES = fused_slice_attn.LAUNCHES_BWD = 0

@@ -122,7 +122,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gfvgn_fused_mlp_workspace.argtypes = [
         ci, ci, ci,            # width0, width1, H
         ci, ci, ci,            # has_pre, layer_norm, d_out
-        ci, ci, ci]            # M, lanes, backward
+        ci, ci, ci,            # M, lanes, backward
+        ctypes.POINTER(ci),    # the plan's form (out, or null)
+        ctypes.POINTER(cl)]    # a block's shared memory (out, or null)
     lib.gfvgn_fused_mlp.restype = ci
     lib.gfvgn_fused_mlp.argtypes = [
         vp, vp, ci, ci, ci,    # part0, part1, width0, width1 (0 = absent), H

@@ -26,12 +26,20 @@ the kernel library on a shape whose tile does not fit a block's shared
 memory (`gfvgn_fused_mlp_workspace`).
 
 Both are kernels of csrc/fused_mlp.cu, products on the tensor cores
-(mma.sync m16n8k16, bf16 in, float32 accumulators) in the kernels' own
-bodies. At H = 128 (`fused_mlp_fwd_rows`) a block stages W1, W2, W3 once and
-each warp walks over its own 16-row strips: a 16 × 128 accumulator whose
-fragments feed the next product as bf16 registers (h1, h2 never touch
-shared memory), LayerNorm by quad shuffles, no block barrier after the
-staging, the next strip's rows in flight by cp.async. Wider H
+(bf16 in, float32 accumulators) in the kernels' own bodies. Which kernels
+take a shape is the library's plan (`make_plan`, mirrored by `mlp_plan`
+below): at H = 128 (`fused_mlp_fwd_rows`, mma.sync m16n8k16) a block stages
+W1, W2, W3 once and each warp walks over its own 16-row strips: a 16 × 128
+accumulator whose fragments feed the next product as bf16 registers (h1, h2
+never touch shared memory), LayerNorm by quad shuffles, no block barrier
+after the staging, the next strip's rows in flight by cp.async. At H = 128
+with LayerNorm where that layout does not fit a block (the segment engine's
+edge MLP, one 384-wide part) the same strips run their products on
+warpgroups (`fused_mlp_fwd_wg`, wgmma m64n128k16): the weights resident
+once, unpadded and swizzled, x streamed in 64-column pieces; K3 takes
+them (`fused_mlp_bwd_wg`) at every such form with a first layer, where
+they measured faster than the rows (the encoders' pre-only form keeps the
+rows). Wider H
 (`fused_mlp_fwd_tiles`) takes 64-, 32- or 16-row tiles shared by 8 warps,
 h1/h2 in shared memory, weights resident while they fit and streamed in
 32-row chunks through a 3-stage cp.async ring otherwise.
@@ -78,8 +86,9 @@ dh2pre and dh1pre to bf16 before the products that take them, runs the
 LayerNorm backward in float32, and returns the weight gradients rounded to
 the weights' type (bf16) after one float32 sum per batch lane; biases, γ
 and β get float32 gradients. No float atomics: two runs give the same
-bits. K3/K4b run as two passes: the row pass (`fused_mlp_bwd_rows` at H = 128,
-`fused_mlp_bwd_tiles` wider) recomputes the forward once per tile, writes dx,
+bits. K3/K4b run as two passes: the row pass (`fused_mlp_bwd_wg` or
+`fused_mlp_bwd_rows` at H = 128, `fused_mlp_bwd_tiles` wider, by
+`mlp_plan`) recomputes the forward once per tile, writes dx,
 dpre and the bf16 rows h1, h2, dy16, dh2pre16, dh1pre16 (the operands the
 TPU kernel rounds before its weight-gradient products) into a workspace of
 4 + (d_pad / H) [M, H] bf16 streams, and keeps the bias/γ/β column sums per
@@ -108,13 +117,20 @@ LN_EPS = 1e-6            # flax.linen.LayerNorm default epsilon
 _SQRT_2_OVER_PI = 0.7978845608028654
 _GELU_C = 0.044715
 
-# incremented once per kernel launch, and nowhere else
+# incremented once per kernel launch, and nowhere else; K2 and K3 also
+# count their launches on the warpgroup kernels (the plan's form "wg")
 LAUNCHES_LN = 0
 LAUNCHES_NOLN = 0
 LAUNCHES_PREMLP = 0
 LAUNCHES_LN_BWD = 0
 LAUNCHES_NOLN_BWD = 0
 LAUNCHES_PREMLP_BWD = 0
+LAUNCHES_LN_WG = 0
+LAUNCHES_LN_BWD_WG = 0
+
+# the library's kernels of a shape, by the code its plan gives
+# (`gfvgn_fused_mlp_workspace`)
+MLP_FORMS = ("rows", "wg", "tiles")
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -378,17 +394,21 @@ def _mlp_operands(parts, w1s, b1, w2, b2, w3, b3, gamma, pres, res_idx,
 
 def _workspace(lib, widths, h, has_pre, layer_norm, d_out, m, lanes,
                backward, dev, what):
-    """The kernels' workspace (uint8 on `dev`); raises where the library
-    takes no kernel for the shape (it does not fit a block's shared
-    memory)."""
+    """The kernels' workspace (uint8 on `dev`) and the code of the kernels
+    that take the shape, from one call of the library's plan; raises where
+    none does (it does not fit a block's shared memory)."""
+    import ctypes
+    form = ctypes.c_int(-1)
     n = lib.gfvgn_fused_mlp_workspace(
         widths[0] if widths else 0, widths[1] if len(widths) > 1 else 0, h,
-        int(has_pre), int(layer_norm), d_out, m, lanes, int(backward))
+        int(has_pre), int(layer_norm), d_out, m, lanes, int(backward),
+        ctypes.byref(form), None)
     if n < 0:
         raise NotImplementedError(
             f"{what}: no kernel takes parts {widths} at hidden width {h} "
             f"(the tile does not fit a block's shared memory)")
-    return torch.empty((max(n, 1),), dtype=torch.uint8, device=dev)
+    return torch.empty((max(n, 1),), dtype=torch.uint8, device=dev), \
+        form.value
 
 
 def _cuda_lead(lead, what):
@@ -401,7 +421,7 @@ def _cuda_lead(lead, what):
 def _launch(parts, w1s, b1, w2, b2, w3, b3, gamma, beta, pres, res_idx,
             res_dual, layer_norm):
     """Checks, output allocation and the one launch shared by K2 and
-    K4f."""
+    K4f: returns the outputs and the code of the kernels that ran."""
     from gen_fvgn_tpu_torch.ops._cuda_build import load_library
     what = "fused MLP kernel"
     dev = _cuda_lead(parts[0] if parts else pres[0], what)
@@ -413,8 +433,8 @@ def _launch(parts, w1s, b1, w2, b2, w3, b3, gamma, beta, pres, res_idx,
     m = (parts[0] if parts else pres[0]).shape[0]
     lib = load_library()
     n_out = 2 if (res_idx is not None and res_dual) else 1
-    ws = _workspace(lib, widths, h, bool(pres), layer_norm, d_out, m, 1,
-                    False, dev, what)
+    ws, ran = _workspace(lib, widths, h, bool(pres), layer_norm, d_out, m,
+                         1, False, dev, what)
     outs = [torch.empty((m, d_out), dtype=torch.bfloat16, device=dev)
             for _ in range(n_out)]
     ptr = lambda t: 0 if t is None else t.data_ptr()
@@ -432,7 +452,7 @@ def _launch(parts, w1s, b1, w2, b2, w3, b3, gamma, beta, pres, res_idx,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused MLP kernel launch failed: CUDA error {err}")
-    return outs
+    return outs, ran
 
 
 def _launch_bwd(parts, w1s, b1, w2, b2, w3, b3, gamma, pres, douts, res_idx,
@@ -440,7 +460,7 @@ def _launch_bwd(parts, w1s, b1, w2, b2, w3, b3, gamma, pres, douts, res_idx,
     """Checks, allocation and the launches of K3 / K4b (the row pass, the
     weight-gradient pass and the fixed-order reductions): returns (dxs, dpre
     or None, the float32 gradient slab, Σkᵢ, H, the slab's padded out
-    width)."""
+    width, the code of the row pass's kernels)."""
     from gen_fvgn_tpu_torch.ops._cuda_build import load_library
     bf16, f32 = torch.bfloat16, torch.float32
     what = "fused MLP backward kernel"
@@ -460,8 +480,8 @@ def _launch_bwd(parts, w1s, b1, w2, b2, w3, b3, gamma, pres, douts, res_idx,
     # the workspace holds the rows the weight-gradient pass reads (h1, h2,
     # dy16, dh2pre16, dh1pre16: 4 + d_pad/H streams of [M, H] bf16) and the
     # float32 partials; it is freed when the call returns
-    ws = _workspace(lib, widths, h, bool(pres), layer_norm, d_out, m, lanes,
-                    True, dev, what)
+    ws, ran = _workspace(lib, widths, h, bool(pres), layer_norm, d_out, m,
+                         lanes, True, dev, what)
     dxs = [torch.empty((m, w), dtype=bf16, device=dev) for w in widths]
     dpre = torch.empty((m, h), dtype=bf16, device=dev) if pres else None
     k1 = sum(widths)
@@ -485,7 +505,7 @@ def _launch_bwd(parts, w1s, b1, w2, b2, w3, b3, gamma, pres, douts, res_idx,
     if err != 0:
         raise RuntimeError(
             f"fused MLP backward kernel launch failed: CUDA error {err}")
-    return dxs, dpre, total, k1, h, d_pad
+    return dxs, dpre, total, k1, h, d_pad, ran
 
 
 def _split_slab(total, k1, h, d_out, d_pad, widths):
@@ -518,7 +538,7 @@ def fused_mlp_ln_bwd(parts, w1s, b1, w2, b2, w3, b3, gamma, pres, douts,
 
     CUDA operands launch the kernel (or raise); CPU operands take
     `fused_mlp_ln_bwd_reference`."""
-    global LAUNCHES_LN_BWD
+    global LAUNCHES_LN_BWD, LAUNCHES_LN_BWD_WG
     lead = parts[0] if parts else pres[0]
     if lead.device.type != "cuda":
         return fused_mlp_ln_bwd_reference(parts, w1s, b1, w2, b2, w3, b3,
@@ -526,10 +546,12 @@ def fused_mlp_ln_bwd(parts, w1s, b1, w2, b2, w3, b3, gamma, pres, douts,
                                           res_dual, lanes)
     if res_idx is not None and not 0 <= res_idx < len(parts):
         raise ValueError(f"res_idx {res_idx} names no part")
-    dxs, dpre, total, k1, h, d_pad = _launch_bwd(
+    dxs, dpre, total, k1, h, d_pad, form = _launch_bwd(
         list(parts), list(w1s), b1, w2, b2, w3, b3, gamma, list(pres),
         list(douts), res_idx, res_dual, lanes, layer_norm=True)
     LAUNCHES_LN_BWD += 1
+    if MLP_FORMS[form] == "wg":
+        LAUNCHES_LN_BWD_WG += 1
     dw1s, dw2, dw3, db1, db2, db3, dgamma, dbeta = _split_slab(
         total, k1, h, h, d_pad, [p.shape[1] for p in parts])
     bf16 = torch.bfloat16
@@ -550,7 +572,7 @@ def fused_mlp_noln_bwd(x, w1, b1, w2, b2, w3, b3, dout, lanes: int = 1):
         return fused_mlp_noln_bwd_reference(x, w1, b1, w2, b2, w3, b3, dout,
                                             lanes)
     d_out = w3.shape[1]
-    dxs, _, total, k1, h, d_pad = _launch_bwd(
+    dxs, _, total, k1, h, d_pad, _ = _launch_bwd(
         [x], [w1], b1, w2, b2, w3, b3, None, [], [dout], None, False,
         lanes, layer_norm=False)
     LAUNCHES_NOLN_BWD += 1
@@ -571,16 +593,18 @@ def fused_mlp_ln(parts, w1s, b1, w2, b2, w3, b3, gamma, beta, pres=(),
 
     CUDA operands launch the kernel (or raise); CPU operands take
     `fused_mlp_ln_reference`."""
-    global LAUNCHES_LN
+    global LAUNCHES_LN, LAUNCHES_LN_WG
     lead = parts[0] if parts else pres[0]
     if lead.device.type != "cuda":
         return fused_mlp_ln_reference(parts, w1s, b1, w2, b2, w3, b3, gamma,
                                       beta, pres, res_idx, res_dual)
     if res_idx is not None and not 0 <= res_idx < len(parts):
         raise ValueError(f"res_idx {res_idx} names no part")
-    outs = _launch(list(parts), list(w1s), b1, w2, b2, w3, b3, gamma, beta,
-                   list(pres), res_idx, res_dual, layer_norm=True)
+    outs, form = _launch(list(parts), list(w1s), b1, w2, b2, w3, b3, gamma,
+                         beta, list(pres), res_idx, res_dual, layer_norm=True)
     LAUNCHES_LN += 1
+    if MLP_FORMS[form] == "wg":
+        LAUNCHES_LN_WG += 1
     return tuple(outs) if len(outs) == 2 else outs[0]
 
 
@@ -590,8 +614,8 @@ def fused_mlp_noln(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     global LAUNCHES_NOLN
     if x.device.type != "cuda":
         return fused_mlp_noln_reference(x, w1, b1, w2, b2, w3, b3)
-    outs = _launch([x], [w1], b1, w2, b2, w3, b3, None, None, [], None,
-                   False, layer_norm=False)
+    outs, _ = _launch([x], [w1], b1, w2, b2, w3, b3, None, None, [], None,
+                      False, layer_norm=False)
     LAUNCHES_NOLN += 1
     return outs[0]
 
@@ -763,6 +787,106 @@ PREMLP_ROWS_SMEM = (128 * 264 * 2 + 256 * 136 * 2 + (3 * 128 + 256) * 4
 # a 128-wide pass), and the row warps' column sums [4][128] float32
 PREMLP_PASS_TM = 64
 PREMLP_PASS_SMEM = 2 * (64 * 40 * 2 + _ring_bytes(64) // 2) + 4 * 128 * 4
+
+
+# csrc/fused_mlp.cu's constants: a block's threads and warps, the rows
+# kernels' staged leading dimension, the noLN head's, the tiles' streamed
+# weight chunks and ring stages
+_MLP_THREADS, _MLP_RW, _MLP_LDR, _MLP_LDN, _MLP_KC, _MLP_STAGES = \
+    256, 8, 136, 24, 32, 3
+
+
+def _mlp_rows_bytes(k1, dp, pre, ln, bwd):
+    """`rows_layout(...).total`: the staged weights [k1 + 128 (+ 128)][136]
+    (the noLN head [128][24]), the vectors, each warp's x rows (in the
+    backward at least [64][32] float32, gelu'(h1pre)) and pre rows, the
+    backward's column sums a warp."""
+    x = 16 * (k1 + 8) * 2 if k1 > 0 else 0
+    if bwd and x < 8192:
+        x = 8192
+    return (_align128((k1 + 128 + (128 if ln else 0)) * _MLP_LDR * 2)
+            + _align128(0 if ln else 128 * _MLP_LDN * 2)
+            + _align128(5 * 128 * 4) + _align128(_MLP_RW * x)
+            + _align128(_MLP_RW * 16 * _MLP_LDR * 2 if pre else 0)
+            + _align128(_MLP_RW * (4 * 128 + dp) * 4 if bwd else 0))
+
+
+def _mlp_wg_bytes(k1, bwd):
+    """`wg_layout(...).total`: the weights' swizzled panels (k1 + 256 rows
+    of 256 bytes), each warp's ring of 2 KB x pieces (4 forward, 2
+    backward), the backward's column sums a warp and its vectors b1 | b2 |
+    b3 | γ, 1 KB of alignment."""
+    return (k1 * 256 + 2 * 128 * 256 + _MLP_RW * (2 if bwd else 4) * 2048
+            + (_MLP_RW * 640 * 4 + 4 * 128 * 4 if bwd else 0) + 1024)
+
+
+def _mlp_tiles_bytes(tm, k1, h, dp, pre, ln, stream, bwd):
+    """`smem_layout(...).total` of the tiles at tm rows: the weights
+    resident [k1 + h (+ h)][h + 8] or a ring of streamed chunks, x, pre,
+    h1, h2 (and dy) rows, the noLN head, the LayerNorm exchange, the
+    backward's column sums."""
+    wr = tm // 16
+    wc = 8 // wr
+    pw = wc * 64
+    slot = max(_MLP_KC * (pw + 8), pw * (_MLP_KC + 8))
+    res_rows = k1 + h + (h if ln else 0)
+    return (_align128(_MLP_STAGES * slot * 2 if stream
+                      else res_rows * (h + 8) * 2)
+            + _align128(tm * (k1 + 8) * 2 if k1 > 0 else 0)
+            + _align128(tm * (h + 8) * 2 if pre else 0)
+            + 2 * _align128(tm * (h + 8) * 2)
+            + _align128(tm * (dp + 8) * 2 if bwd else 0)
+            + _align128(0 if ln else h * _MLP_LDN * 2)
+            + _align128(2 * wc * tm * 2 * 4)
+            + _align128(5 * wr * h * 4 if bwd else 0)
+            + _align128((4 * h + dp) * 4 if bwd else 0))
+
+
+def mlp_plan(widths: Sequence[int], h: int, has_pre: bool, ln: bool,
+             bwd: bool):
+    """Which kernels of csrc/fused_mlp.cu take the fused MLP chain with
+    first-layer parts `widths`, hidden width h, an optional pre-projected
+    input and LayerNorm (K2/K3) or not (K4f/K4b), as the library's
+    `make_plan` decides it: (form, shared-memory bytes of a block), form
+    "rows" (H = 128 where the strips' layout fits a block), "wg" (H = 128
+    with LayerNorm where it does not, and every such backward with a first
+    layer, which runs faster there: the warpgroup kernels), "tiles" (the
+    first tile layout that fits); None where no kernel takes the shape.
+    The card's answer is `gfvgn_fused_mlp_workspace`'s form."""
+    k1 = sum(widths)
+    if (h < 128 or h % 128 or len(widths) > 2
+            or not all(part_width_ok(w) for w in widths)
+            or not (widths or has_pre)):
+        return None
+    dp = h if ln else 16
+    if h == 128:
+        rows = _mlp_rows_bytes(k1, dp, has_pre, ln, bwd)
+        wg = _mlp_wg_bytes(k1, bwd) if ln and k1 > 0 else None
+        wg_ok = wg is not None and wg <= SMEM_PER_BLOCK
+        if wg_ok and (rows > SMEM_PER_BLOCK or bwd):
+            return "wg", wg
+        if rows <= SMEM_PER_BLOCK:
+            return "rows", rows
+    for tm in (64, 32, 16):
+        for stream in (False, True):
+            n = _mlp_tiles_bytes(tm, k1, h, dp, has_pre, ln, stream, bwd)
+            if n <= SMEM_PER_BLOCK:
+                return "tiles", n
+    return None
+
+
+def library_plan(lib, widths: Sequence[int], h: int, has_pre: bool,
+                 ln: bool, bwd: bool):
+    """The kernel library's own answer to `mlp_plan` (the form and shared
+    memory `gfvgn_fused_mlp_workspace` reports for the shape, d_out 3
+    without LayerNorm): (form, bytes), or None where no kernel takes it."""
+    import ctypes
+    form, smem = ctypes.c_int(-1), ctypes.c_longlong(-1)
+    n = lib.gfvgn_fused_mlp_workspace(
+        widths[0] if widths else 0, widths[1] if len(widths) > 1 else 0, h,
+        int(has_pre), int(ln), h if ln else 3, 0, 1, int(bwd),
+        ctypes.byref(form), ctypes.byref(smem))
+    return None if n < 0 else (MLP_FORMS[form.value], smem.value)
 
 
 def premlp_plan(c: int, backward: bool):

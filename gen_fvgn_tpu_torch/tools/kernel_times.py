@@ -24,7 +24,18 @@ of
 * K6 at (128, 8, 32) and at (256, 8, 32) (`check_slice_pool`), K5f
   (`check_premlp`), K5b and K7 (`check_backward`), and K5f and K5b at C =
   256 (hidden 512, the same rows), each also held against its plain
-  version by the tree's check.
+  version by the tree's check;
+* K2 and K3 at the block engine's edge form (a 128-wide part, a pre, the
+  residual with both outputs) and node form (parts 64 + 128, the residual
+  on the second) and at the
+  segment engine's two part forms (the edge MLP's 384-wide part, the node
+  MLP's 192-wide part padded to 256), by the tree's `check_fused_ln`,
+  `check_mlp_backward` and `check_segment_forms`, and K3's kernels at the
+  384-wide part under torch.profiler (device ms a call by kernel: the row
+  pass, `fused_mlp_wgrad`, `lane_reduce`);
+* K3 at the encoders' pre-only forms (no first-layer part, a pre, M = 8 x
+  nodes and 8 x faces), held against its plain version;
+* the registers and spills of every fused MLP kernel.
 
 Run it by path, not as a module: it imports `chip_smoke` and
 `gen_fvgn_tpu_torch` from the tree it is given. Needs one CUDA card.
@@ -73,6 +84,106 @@ def pair_forms(static):
     ops = static.ops
     return [("gather_pair", ops.gather_s.fwd, ops.gather_r.fwd, 256),
             ("node_pair", ops.nbr_r.fwd, ops.nbr_s.fwd, 128)]
+
+
+def mlp_times(cs, n_pad, e_pad, flush):
+    """K2 and K3 at the block engine's forms and the segment engine's part
+    forms, by the tree's checks (each against its plain version): {name:
+    ms}."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    out = {}
+    for r in cs.check_fused_ln(n_pad, e_pad, flush, gen):
+        for key in ("edge", "node"):
+            if r["variant"].startswith(key):
+                out[f"K2 block {key}"] = r["ms"]
+    out["K3 block edge"] = cs.check_mlp_backward(
+        n_pad, e_pad, flush, gen)["fused_mlp_ln_bwd"]["ms"]
+    # the block node MLP: parts 64 + 128, the residual on the second
+    from gen_fvgn_tpu_torch.ops import fused_mlp as fm
+    m = cs.BATCH * n_pad
+    parts, w1s, b1, w2, b2, w3, b3, gamma, _, _ = _mlp_case(
+        gen, m, [64, 128], False, 192)
+    dout = torch.randn(m, 128, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    args = (parts, w1s, b1, w2, b2, w3, b3, gamma, (), [dout], 1, False,
+            cs.BATCH)
+    out["K3 block node"] = cs.hold_backward(
+        "fused_mlp_ln_bwd[block node]", lambda: fm.fused_mlp_ln_bwd(*args),
+        lambda: fm.fused_mlp_ln_bwd_reference(*args), flush)[1]["ms"]
+    # the encoders: a pre and no first-layer part
+    for key, m in (("node", cs.BATCH * n_pad), ("edge", cs.BATCH * e_pad)):
+        _, _, b1, w2, b2, w3, b3, gamma, _, pres = _mlp_case(
+            gen, m, [], True, 128)
+        dout = torch.randn(m, 128, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        args = ([], [], b1, w2, b2, w3, b3, gamma, pres, [dout], None,
+                False, cs.BATCH)
+        out[f"K3 {key} encoder"] = cs.hold_backward(
+            f"fused_mlp_ln_bwd[{key} encoder]",
+            lambda: fm.fused_mlp_ln_bwd(*args),
+            lambda: fm.fused_mlp_ln_bwd_reference(*args), flush)[1]["ms"]
+    for form, r in cs.check_segment_forms(n_pad, e_pad, flush, gen).items():
+        key = "edge 384" if form.startswith("edge") else "node 256"
+        out[f"K2 segment {key}"] = r["fused_mlp_ln"]["ms"]
+        out[f"K3 segment {key}"] = r["fused_mlp_ln_bwd"]["ms"]
+    return out
+
+
+def _mlp_case(gen, m, widths, has_pre, k_total, h=128):
+    """Operands of K2/K3 at a form: parts owning the last rows of a W1 of
+    k_total rows, weights scaled as the nets' initialisers scale them."""
+    import torch
+    bf = torch.bfloat16
+    g = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    w1 = g(k_total, h) / k_total ** 0.5
+    w1s, off = [], k_total - sum(widths)
+    for k in widths:
+        w1s.append(w1[off:off + k].to(bf).contiguous())
+        off += k
+    return ([g(m, k).to(bf) for k in widths], w1s, 0.1 * g(h),
+            (g(h, h) / h ** 0.5).to(bf), 0.1 * g(h),
+            (g(h, h) / h ** 0.5).to(bf), 0.1 * g(h), 1 + 0.1 * g(h),
+            0.1 * g(h), [g(m, h).to(bf)] if has_pre else [])
+
+
+def k3_profile(e_pad):
+    """K3 at the segment edge MLP's 384-wide part (8 lanes of the padded
+    faces) under torch.profiler: device ms a call of each of its kernels
+    (the row pass, the weight-gradient pass, the reductions)."""
+    import torch
+    from gen_fvgn_tpu_torch.ops import fused_mlp as fm
+    from gen_fvgn_tpu_torch.tools.profile_rollout import device_profile
+    import chip_smoke as cs
+    gen = torch.Generator(device="cuda").manual_seed(183)
+    m = cs.BATCH * e_pad
+    parts, w1s, b1, w2, b2, w3, b3, gamma, _, _ = _mlp_case(
+        gen, m, [384], False, 384)
+    dout = torch.randn(m, 128, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    args = (parts, w1s, b1, w2, b2, w3, b3, gamma, (), [dout], None, False,
+            cs.BATCH)
+    fm.fused_mlp_ln_bwd(*args)
+
+    def window(n):
+        for _ in range(n):
+            fm.fused_mlp_ln_bwd(*args)
+    _, rows = device_profile(window, 10)
+    return {_kernel_name(k): [round(ms, 4), calls] for ms, calls, k in rows}
+
+
+def _kernel_name(name):
+    """A fused MLP kernel's name with its template arguments, from a
+    mangled (ptxas) or demangled (profiler) name; other names as given."""
+    m = re.search(r"\d*(fused_mlp_(?:fwd_|bwd_)?(?:rows|tiles|wgrad|wg)"
+                  r"|lane_reduce)(I(?:Lb[01]E)+E|<[^>]*>)?", name)
+    if m is None:
+        return name
+    args = m.group(2) or ""
+    if args.startswith("I"):
+        args = "<" + ", ".join("true" if b == "1" else "false"
+                               for b in re.findall(r"Lb([01])E", args)) + ">"
+    return m.group(1) + args
 
 
 def main(argv):
@@ -129,6 +240,14 @@ def main(argv):
                  re.sub(r".*?(spmm_csr|pair_sum)_kernelI(.*)EEEvNS_.*",
                         r"\1<\2>", k): v for k, v in sorted(regs.items())}}
     times.update({k: round(v["ms"], 4) for k, v in rows.items()})
+    e_pad = static.edge_pos_feat.shape[0]
+    times["fused_mlp"] = {k: round(v, 4) for k, v in
+                          mlp_times(cs, n_pad, e_pad, flush).items()}
+    times["k3_segment_edge_profile"] = k3_profile(e_pad)
+    times["registers_fused_mlp"] = {
+        _kernel_name(u["function"]): [u["registers"], u["spill_stores"],
+                                      u["spill_loads"]]
+        for u in cs.ptxas_usage(_cuda_build.BUILD_LOG, "fused_mlp_")}
     print("TIMES", label, json.dumps(times))
     return 0
 

@@ -1019,8 +1019,11 @@ def test_mixed_step_kernels_match_plain_versions():
 # the segment engine's forms of K2/K3: the edge MLP's one plain part 3h
 # wide, the node MLP's one part 1.5h wide (at h = 128 zero-padded to 256 by
 # `fused_mlp_ln_parts`), neither with a pre-projected input or a residual;
-# row counts that are odd multiples of 128 (the segment pool pads to 128)
-_SEGMENT_M = [(1, 1), (3 * 128, 1), (8 * 81 * 128, 8), (8 * 79 * 128, 8)]
+# row counts that are odd multiples of 128 (the segment pool pads to 128),
+# and ragged ones, multiples of neither 64 nor 128 (the warpgroup kernels'
+# last tile then has strips without a row)
+_SEGMENT_M = [(1, 1), (3 * 128, 1), (8 * 81 * 128, 8), (8 * 79 * 128, 8),
+              (1000, 1), (8 * 1337, 8)]
 
 
 @pytest.mark.parametrize("units", [[3], [2]], ids=["edge-3h", "node-2h"])
@@ -1033,7 +1036,13 @@ def test_fused_mlp_segment_forms_match_plain_versions(units, m, lanes, h):
     parts, w1s, b1, w2, b2, w3, b3, gamma, beta, _ = _mlp_args(
         m, widths, False, h, seed=m + h, h=h)
     fwd = (parts, w1s, b1, w2, b2, w3, b3, gamma, beta, ())
-    before = (mod.LAUNCHES_LN, mod.LAUNCHES_LN_BWD)
+    # at h = 128 the edge MLP's 384-wide part runs on the warpgroup kernels,
+    # the node MLP's 256-wide part its backward only
+    wg = mod.mlp_plan(widths, h, False, True, False)[0] == "wg"
+    wg_bwd = mod.mlp_plan(widths, h, False, True, True)[0] == "wg"
+    assert wg == (units == [3] and h == 128) and wg_bwd == (h == 128)
+    before = (mod.LAUNCHES_LN, mod.LAUNCHES_LN_BWD, mod.LAUNCHES_LN_WG,
+              mod.LAUNCHES_LN_BWD_WG)
     out = mod.fused_mlp_ln(*fwd)
     g = torch.Generator("cuda").manual_seed(m)
     dout = torch.randn(m, h, device="cuda", generator=g).to(torch.bfloat16)
@@ -1042,8 +1051,9 @@ def test_fused_mlp_segment_forms_match_plain_versions(units, m, lanes, h):
     got = mod.fused_mlp_ln_bwd(*bwd)
     again = mod.fused_mlp_ln_bwd(*bwd)
     torch.cuda.synchronize()
-    assert (mod.LAUNCHES_LN, mod.LAUNCHES_LN_BWD) == (before[0] + 1,
-                                                      before[1] + 2)
+    assert (mod.LAUNCHES_LN, mod.LAUNCHES_LN_BWD, mod.LAUNCHES_LN_WG,
+            mod.LAUNCHES_LN_BWD_WG) == (before[0] + 1, before[1] + 2,
+                                        before[2] + wg, before[3] + 2 * wg_bwd)
     ref = mod.fused_mlp_ln_reference(*fwd)
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape == (m, h)
     _close(out, ref, "out")
@@ -1055,6 +1065,87 @@ def test_fused_mlp_segment_forms_match_plain_versions(units, m, lanes, h):
                                           else ((a,), (r,))))):
             assert x.dtype == y.dtype, name
             _close(x, y, f"{name}[{i}]")
+
+
+# the residual forms the warpgroup kernels take at H = 128 (k1 = 384 in two
+# parts, the residual part 128 wide), with and without a pre-projected
+# input; (1000, 1) and (8 * 1337, 8) end in a ragged tile
+@pytest.mark.parametrize("m,lanes", [(1, 1), (1000, 1), (8 * 1337, 8)])
+@pytest.mark.parametrize("widths,has_pre,res_idx,res_dual", [
+    ([384], True, None, False), ([256, 128], False, 1, False),
+    ([256, 128], False, 1, True), ([128, 256], True, 0, True),
+    ([128, 256], False, 0, False)])
+def test_fused_mlp_wg_residual_forms_match_plain_versions(
+        m, lanes, widths, has_pre, res_idx, res_dual):
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import fused_mlp as mod
+    assert mod.mlp_plan(widths, 128, has_pre, True, False)[0] == "wg"
+    assert mod.mlp_plan(widths, 128, has_pre, True, True)[0] == "wg"
+    args = _mlp_args(m, widths, has_pre, 128, seed=m + len(widths))
+    before = (mod.LAUNCHES_LN_WG, mod.LAUNCHES_LN_BWD_WG)
+    outs = mod.fused_mlp_ln(*args, res_idx=res_idx, res_dual=res_dual)
+    g = torch.Generator("cuda").manual_seed(m)
+    douts = [torch.randn(m, 128, device="cuda", generator=g).to(
+        torch.bfloat16) for _ in range(2 if res_dual else 1)]
+    bwd = (*args[:8], args[9], douts, res_idx, res_dual, lanes)
+    got = mod.fused_mlp_ln_bwd(*bwd)
+    again = mod.fused_mlp_ln_bwd(*bwd)
+    torch.cuda.synchronize()
+    assert (mod.LAUNCHES_LN_WG, mod.LAUNCHES_LN_BWD_WG) == (before[0] + 1,
+                                                            before[1] + 2)
+    refs = mod.fused_mlp_ln_reference(*args, res_idx=res_idx,
+                                      res_dual=res_dual)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    refs = refs if isinstance(refs, tuple) else (refs,)
+    assert len(outs) == len(refs) == (2 if res_dual else 1)
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        assert o.dtype == torch.bfloat16
+        _close(o, r, f"out[{i}]")
+    assert _grads_equal(got, again)
+    want = mod.fused_mlp_ln_bwd_reference(*bwd)
+    for name in got._fields:
+        a, r = getattr(got, name), getattr(want, name)
+        for i, (x, y) in enumerate(zip(*((a, r) if isinstance(a, tuple)
+                                          else ((a,), (r,))))):
+            assert x.dtype == y.dtype, name
+            _close(x, y, f"{name}[{i}]")
+
+
+def test_fused_mlp_wg_refuses_a_residual_it_does_not_take():
+    """At the edge MLP's one 384-wide part no part can be the residual
+    (it must be H wide): both kernels raise, and count nothing."""
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import fused_mlp as mod
+    args = _mlp_args(64, [384], False, 128, seed=0)
+    dout = torch.zeros(64, 128, device="cuda", dtype=torch.bfloat16)
+    before = (mod.LAUNCHES_LN, mod.LAUNCHES_LN_BWD)
+    for dual in (False, True):
+        with pytest.raises(NotImplementedError):
+            mod.fused_mlp_ln(*args, res_idx=0, res_dual=dual)
+        with pytest.raises(NotImplementedError):
+            mod.fused_mlp_ln_bwd(*args[:8], (), [dout] * (1 + dual), 0, dual)
+    assert (mod.LAUNCHES_LN, mod.LAUNCHES_LN_BWD) == before
+
+
+def test_mlp_plan_matches_the_library():
+    """The Python mirror of the plan against the library's own answer
+    (the form `gfvgn_fused_mlp_workspace` reports) at every form the nets
+    launch and more."""
+    _need_card()
+    from gen_fvgn_tpu_torch.ops import fused_mlp as mod
+    from gen_fvgn_tpu_torch.ops._cuda_build import load_library
+    lib = load_library()
+    for widths, h, pre, ln in [([128], 128, True, True), ([64, 128], 128,
+                               False, True), ([384], 128, False, True),
+                               ([256], 128, False, True), ([], 128, True, True),
+                               ([128], 128, False, False), ([256], 256, True,
+                               True), ([128, 256], 256, False, True),
+                               ([128, 128], 128, True, True), ([512], 128,
+                               False, True), ([256, 384], 128, False, True)]:
+        for bwd in (False, True):
+            want = mod.mlp_plan(widths, h, pre, ln, bwd)
+            got = mod.library_plan(lib, widths, h, pre, ln, bwd)
+            assert got == want, (widths, h, pre, ln, bwd)
 
 
 def test_node_mlp_192_wide_part_through_the_wrapper():

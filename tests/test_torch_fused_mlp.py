@@ -191,3 +191,61 @@ def test_mlp_operands_take_the_widths_jax_fuses(h, widths, d_out, takes):
     else:
         with pytest.raises(NotImplementedError):
             _mlp_operands(*args)
+
+
+# every fused MLP form the nets launch, with the kernels the library's
+# plan gives it (forward, backward): the block engine's edge MLP (a 128-wide
+# part and the gathered pre) and node MLP (parts 64 + 128), the segment
+# engine's edge MLP (one 384-wide part: the warpgroup kernels both ways)
+# and node MLP (one 192-wide part padded to 256): every backward at hidden
+# 128 with a first layer on the warpgroup kernel (faster there), every
+# forward where the rows fit on the rows; the encoders' pres-only form, the
+# decoder (no LayerNorm), and hidden width 256 (the tiles)
+_NET_FORMS = [
+    ("block-edge", [128], 128, True, True, "rows", "wg"),
+    ("block-node", [64, 128], 128, False, True, "rows", "wg"),
+    ("segment-edge-384", [384], 128, False, True, "wg", "wg"),
+    ("segment-node-256", [256], 128, False, True, "rows", "wg"),
+    ("encoders-pre-only", [], 128, True, True, "rows", "rows"),
+    ("decoder", [128], 128, False, False, "rows", "rows"),
+    ("block-edge-h256", [256], 256, True, True, "tiles", "tiles"),
+    ("segment-edge-h256", [768], 256, False, True, "tiles", "tiles"),
+]
+
+
+@pytest.mark.parametrize("widths,h,pre,ln,fwd,bwd",
+                         [f[1:] for f in _NET_FORMS],
+                         ids=[f[0] for f in _NET_FORMS])
+def test_mlp_plan_names_the_kernels_of_every_net_form(widths, h, pre, ln,
+                                                      fwd, bwd):
+    """`mlp_plan`, the mirror of csrc/fused_mlp.cu's `make_plan` (the card
+    tests and chip_smoke.py hold it against the library's own answer):
+    the form of every MLP the nets launch, and its shared memory within a
+    block's 232,448 bytes."""
+    from gen_fvgn_tpu_torch.ops.fused_mlp import SMEM_PER_BLOCK, mlp_plan
+    for bwd_, want in ((False, fwd), (True, bwd)):
+        form, smem = mlp_plan(widths, h, pre, ln, bwd_)
+        assert form == want
+        assert 0 < smem <= SMEM_PER_BLOCK
+
+
+def test_mlp_plan_layouts():
+    """The plan's byte counts at the segment edge MLP's form, which the
+    warpgroup kernels were written for: the rows' layout of the 384-wide
+    part does not fit
+    (276,992 B forward, 297,472 backward), the warpgroup layout does
+    (weights 163,840 B, 4 or 2 x pieces of 2 KB a warp, the backward's
+    column sums, 1 KB of alignment); no kernel takes parts the kernels'
+    widths refuse."""
+    from gen_fvgn_tpu_torch.ops import fused_mlp as fm
+    assert fm._mlp_rows_bytes(384, 128, False, True, False) == 276_992
+    assert fm._mlp_rows_bytes(384, 128, False, True, True) == 297_472
+    assert fm.mlp_plan([384], 128, False, True, False) == ("wg", 230_400)
+    assert fm.mlp_plan([384], 128, False, True, True) == ("wg", 220_160)
+    # a first layer too wide for the warpgroup layout too: the tiles
+    assert fm.mlp_plan([512], 128, False, True, False)[0] == "tiles"
+    # no LayerNorm (K4f/K4b) never takes the warpgroup kernels
+    assert fm.mlp_plan([256, 256], 128, False, False, False)[0] == "tiles"
+    for widths, h in (([136], 256), ([40], 128), ([128], 192), ([], 128)):
+        assert fm.mlp_plan(widths, h, False, True, False) is None
+    assert fm.MLP_FORMS == ("rows", "wg", "tiles")
