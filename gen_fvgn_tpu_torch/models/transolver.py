@@ -41,6 +41,7 @@ from torch.nn import functional as F
 from gen_fvgn_tpu_torch.models.mlp import _DenseParams, _LnParams
 from gen_fvgn_tpu_torch.ops.blocksparse import sp_layout
 from gen_fvgn_tpu_torch.parallel.sp import sp_sum
+from gen_fvgn_tpu_torch.utils.spans import span
 
 
 def _flax_layer_norm(h, scale, bias, out_dtype, eps: float = 1e-6):
@@ -173,6 +174,10 @@ class TransolverBlock(nn.Module):
                                      generator)
 
     def forward(self, x, node_mask):
+        with span("gfvgn.model.attention"):
+            return self._forward(x, node_mask)
+
+    def _forward(self, x, node_mask):
         x = self.attn(x, node_mask) + x
         c, hd, dt = self.hidden_dim, self.hidden_dim * self.mlp_ratio, \
             self.dtype

@@ -19,6 +19,7 @@ import torch
 from gen_fvgn_tpu_torch.config import Config
 from gen_fvgn_tpu_torch.training.forward import ForwardOutputs, forward_batch
 from gen_fvgn_tpu_torch.training.normalizer import NormalizerState
+from gen_fvgn_tpu_torch.utils import spans
 
 
 def make_eval_step(cfg: Config, simulator,
@@ -53,29 +54,37 @@ def march(step_fn: Callable, data, n_steps: int,
     `whole` (spatial parallelism: the gather of every rank's rows) maps
     each state to the one recorded."""
     whole = whole or (lambda t: t)
+    host = lambda a: a.detach().to("cpu", torch.float32).numpy()
     history = []
-    for t in range(n_steps):
-        if wave_source_fn is not None:
-            sig = torch.as_tensor(wave_source_fn(t + 1),   # time_index >= 1
-                                  dtype=data.uvp.dtype, device=data.uvp.device)
-            uvp = data.uvp.clone()
-            uvp[..., 2] += sig
-            data = data.replace(uvp=uvp)
-        out = step_fn(data)
-        host = lambda a: a.detach().to("cpu", torch.float32).numpy()
-        rec = {
-            "step": t,
-            "loss_cont": host(out.loss_cont).reshape(-1),
-            "loss_mom_x": host(out.loss_mom_x).reshape(-1),
-            "loss_mom_y": host(out.loss_mom_y).reshape(-1),
-            "loss_press": host(out.loss_press).reshape(-1),
-            "uvp_node": host(whole(out.uvp_node_new)),
-            "uvp_cell": host(whole(out.uvp_cell_new)),
-        }
-        history.append(rec)
-        if export_fn is not None:
-            export_fn(t, rec["uvp_node"], rec["uvp_cell"], rec)
-        data = data.replace(uvp=out.uvp_node_new)
+    with spans.span("gfvgn.rollout.request", steps=n_steps):
+        for t in range(n_steps):
+            if wave_source_fn is not None:
+                sig = torch.as_tensor(wave_source_fn(t + 1),  # time index >= 1
+                                      dtype=data.uvp.dtype,
+                                      device=data.uvp.device)
+                uvp = data.uvp.clone()
+                uvp[..., 2] += sig
+                data = data.replace(uvp=uvp)
+            with spans.span("gfvgn.rollout.step", t=t):
+                out = step_fn(data)
+            with spans.span("gfvgn.rollout.record", t=t):
+                rec = {
+                    "step": t,
+                    "loss_cont": host(out.loss_cont).reshape(-1),
+                    "loss_mom_x": host(out.loss_mom_x).reshape(-1),
+                    "loss_mom_y": host(out.loss_mom_y).reshape(-1),
+                    "loss_press": host(out.loss_press).reshape(-1),
+                    "uvp_node": host(whole(out.uvp_node_new)),
+                    "uvp_cell": host(whole(out.uvp_cell_new)),
+                }
+                if spans.enabled():
+                    spans.note(bytes=sum(a.nbytes for a in rec.values()
+                                         if hasattr(a, "nbytes")))
+            history.append(rec)
+            if export_fn is not None:
+                with spans.span("gfvgn.rollout.export", t=t):
+                    export_fn(t, rec["uvp_node"], rec["uvp_cell"], rec)
+            data = data.replace(uvp=out.uvp_node_new)
     return history
 
 

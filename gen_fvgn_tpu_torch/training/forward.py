@@ -21,6 +21,7 @@ from gen_fvgn_tpu_torch.fv.integrator import integrate_residuals
 from gen_fvgn_tpu_torch.ops.segment import gather_rows, masked_mean_var
 from gen_fvgn_tpu_torch.training import normalizer as norm_mod
 from gen_fvgn_tpu_torch.training.normalizer import NormalizerState
+from gen_fvgn_tpu_torch.utils.spans import span
 from gen_fvgn_tpu_torch.utils.types import NodeType
 
 
@@ -111,9 +112,10 @@ def forward_batch(
     else:
         raise ValueError(f"unknown integrator {cfg.integrator!r}")
 
-    losses, rt_uvp, uvp_cell = integrate_residuals(
-        uvp_new, uv_hat, uv_old, batch, order=cfg.order,
-        conserved_form=cfg.conserved_form, ncn_smooth=cfg.ncn_smooth)
+    with span("gfvgn.fv.residual"):
+        losses, rt_uvp, uvp_cell = integrate_residuals(
+            uvp_new, uv_hat, uv_old, batch, order=cfg.order,
+            conserved_form=cfg.conserved_form, ncn_smooth=cfg.ncn_smooth)
     rt_uvp = enforce_boundary_conditions(rt_uvp, batch.node_type,
                                          batch.target_uv)
 

@@ -34,6 +34,7 @@ from gen_fvgn_tpu_torch.training import normalizer as norm_mod
 from gen_fvgn_tpu_torch.training.forward import (ForwardOutputs,
                                                  enforce_boundary_conditions)
 from gen_fvgn_tpu_torch.training.normalizer import NormalizerState
+from gen_fvgn_tpu_torch.utils.spans import span
 
 
 def forward_batch_block(
@@ -88,10 +89,11 @@ def forward_batch_block(
         raise ValueError(f"unknown integrator {cfg.integrator!r}")
 
     # FV residual ONCE for the whole batch (channel-major packed arrays)
-    losses, rt_uvp, uvp_cell = integrate_residuals_block_packed(
-        uvp_new, uv_hat, uv_old, dyn, static,
-        order=cfg.order, conserved_form=cfg.conserved_form,
-        ncn_smooth=cfg.ncn_smooth, fv_ell=cfg.fv_ell)
+    with span("gfvgn.fv.residual"):
+        losses, rt_uvp, uvp_cell = integrate_residuals_block_packed(
+            uvp_new, uv_hat, uv_old, dyn, static,
+            order=cfg.order, conserved_form=cfg.conserved_form,
+            ncn_smooth=cfg.ncn_smooth, fv_ell=cfg.fv_ell)
     rt_uvp = enforce_boundary_conditions(rt_uvp, static.node_type,
                                          dyn.target_uv)
     scale = (dyn.uvp_dim * dyn.sigma)[:, None, :]              # [B,1,3]

@@ -59,6 +59,7 @@ from gen_fvgn_tpu_torch.meshes.bc import (ThetaSample,
                                           load_bc)
 from gen_fvgn_tpu_torch.meshes.geometry import build_stencil, compile_mesh
 from gen_fvgn_tpu_torch.utils.device import resolve_device, to_device
+from gen_fvgn_tpu_torch.utils.spans import span
 
 # what a boundary-condition re-roll changes (the geometry is static)
 _REROLL_FIELDS = ("uvp", "target_uv", "theta", "sigma", "uvp_dim", "dt")
@@ -219,16 +220,17 @@ class EnvPool:
             for cs in self.case_sizes]
         self.n_tiers = len(tier_keys)
         self.envs: List[Environment] = []
-        i = 0
-        while len(self.envs) < size:
-            ci = i % len(self.cases)
-            self.envs.append(self._make_env(self.cases[ci], ci))
-            i += 1
-        self._age_order = list(range(len(self.envs)))   # oldest first
-        if block:
-            self._init_block_pool()
-        else:
-            self._init_tier_pool()
+        with span("gfvgn.setup.envs", n=size):
+            i = 0
+            while len(self.envs) < size:
+                ci = i % len(self.cases)
+                self.envs.append(self._make_env(self.cases[ci], ci))
+                i += 1
+            self._age_order = list(range(len(self.envs)))   # oldest first
+            if block:
+                self._init_block_pool()
+            else:
+                self._init_tier_pool()
 
     def _slot(self, i: int):
         """(the device pool that holds environment i, its row there): the
@@ -254,10 +256,11 @@ class EnvPool:
                                self.device)
 
     def _gather(self, idxs: np.ndarray):
-        pool, rows = self._rows(idxs)
-        return type(pool)(**{
-            f.name: getattr(pool, f.name).index_select(0, rows)
-            for f in dataclasses.fields(pool)})
+        with span("gfvgn.pool.gather", n=len(idxs)):
+            pool, rows = self._rows(idxs)
+            return type(pool)(**{
+                f.name: getattr(pool, f.name).index_select(0, rows)
+                for f in dataclasses.fields(pool)})
 
     # ---- block engine: per-case StaticPacks + device dynamic pool ----
 
@@ -394,10 +397,12 @@ class EnvPool:
         """Write the new states uvp_new [B, Np, 3] of environments `idxs`
         into the device pool, in place (the JAX pool donates its buffer
         instead), and age them by one step."""
-        pool, rows = self._rows(idxs)
-        pool.uvp.index_copy_(0, rows, uvp_new.detach().to(pool.uvp.dtype))
-        for i in idxs:
-            self.envs[int(i)].age += 1
+        with span("gfvgn.pool.payback", n=len(idxs)):
+            pool, rows = self._rows(idxs)
+            pool.uvp.index_copy_(0, rows,
+                                 uvp_new.detach().to(pool.uvp.dtype))
+            for i in idxs:
+                self.envs[int(i)].age += 1
 
     def reset_env(self, export_dir: Optional[str] = None) -> None:
         """Re-roll the boundary condition of the oldest environment (values

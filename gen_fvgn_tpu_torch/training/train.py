@@ -33,6 +33,7 @@ from gen_fvgn_tpu_torch.config import Config
 from gen_fvgn_tpu_torch.training.normalizer import (NormalizerState,
                                                     init_normalizer)
 from gen_fvgn_tpu_torch.utils.device import resolve_device, same_device
+from gen_fvgn_tpu_torch.utils.spans import span
 
 
 def step_exp_lr(cfg: Config) -> Callable[[int], float]:
@@ -95,13 +96,14 @@ def global_norm(tensors) -> torch.Tensor:
 def apply_update(state: TrainState, params, grads, lr: float) -> None:
     """One Adam step of `state.optimizer` on `params` with `grads` at
     learning rate `lr` (written into every parameter group first)."""
-    opt = state.optimizer
-    for group in opt.param_groups:
-        group["lr"] = lr
-    for p, g in zip(params, grads):
-        p.grad = g
-    opt.step()
-    opt.zero_grad(set_to_none=True)
+    with span("gfvgn.train.optimizer"):
+        opt = state.optimizer
+        for group in opt.param_groups:
+            group["lr"] = lr
+        for p, g in zip(params, grads):
+            p.grad = g
+        opt.step()
+        opt.zero_grad(set_to_none=True)
 
 
 def step_metrics(loss, out, grads, lr: float, mean=None) -> StepMetrics:
@@ -154,23 +156,26 @@ def make_train_step(cfg: Config, simulator, device="cuda",
         if not same_device(batch.uvp.device, dev):
             raise ValueError(f"the train step was made for {dev}, got a "
                              f"batch on {batch.uvp.device}")
-        with torch.enable_grad():
-            out = forward_batch(
-                simulator, state.norm_state, batch, cfg,
-                accumulate_normalizer=True,
-                norm_reduce=dp_mod.all_reduce_sum if dp else None)
-            loss = training_loss(out, cfg)
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
-        uvp_new = out.uvp_node_new.detach()
-        if dp:
-            grads = dp_mod.all_reduce_grads(grads, 1.0 / n_ranks)
-        lr = schedule(state.epoch)
-        apply_update(state, params, grads, lr)
-        state.norm_state = out.norm_state
-        state.step += 1
-        return (state, step_metrics(
-            loss.detach(), out, grads, lr,
-            mean=dp_mod.all_reduce_mean if dp else None), uvp_new)
+        with span("gfvgn.train.step", step=state.step):
+            with torch.enable_grad():
+                out = forward_batch(
+                    simulator, state.norm_state, batch, cfg,
+                    accumulate_normalizer=True,
+                    norm_reduce=dp_mod.all_reduce_sum if dp else None)
+                loss = training_loss(out, cfg)
+                with span("gfvgn.train.backward"):
+                    grads = torch.autograd.grad(loss, params,
+                                                allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(params, grads)]
+            uvp_new = out.uvp_node_new.detach()
+            if dp:
+                grads = dp_mod.all_reduce_grads(grads, 1.0 / n_ranks)
+            lr = schedule(state.epoch)
+            apply_update(state, params, grads, lr)
+            state.norm_state = out.norm_state
+            state.step += 1
+            return (state, step_metrics(
+                loss.detach(), out, grads, lr,
+                mean=dp_mod.all_reduce_mean if dp else None), uvp_new)
     return step

@@ -73,6 +73,7 @@ from gen_fvgn_tpu_torch.training.train import (StepMetrics, TrainState,
                                                step_metrics)
 from gen_fvgn_tpu_torch.utils.device import (resolve_device, same_device,
                                              to_device)
+from gen_fvgn_tpu_torch.utils.spans import span
 
 
 def init_train_state_block(cfg: Config, seed: int = 0, device="cuda",
@@ -155,7 +156,8 @@ def make_train_step_block(cfg: Config, simulator, device="cuda",
                                   accumulate_normalizer=accumulate,
                                   norm_reduce=reduce)
         loss = training_loss(out, cfg)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with span("gfvgn.train.backward"):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         return loss.detach(), grads, out
@@ -209,20 +211,21 @@ def make_train_step_block(cfg: Config, simulator, device="cuda",
                 and same_device(static.node_mask.device, dev)):
             raise ValueError(f"the train step was made for {dev}, got a "
                              f"batch on {dyn.uvp.device}")
-        with torch.enable_grad(), (sp_mod.sp_context(lay) if sp
-                                   else contextlib.nullcontext()):
-            loss, grads, norm_state, out = grads_and_outputs(state, dyn,
-                                                             static)
-        uvp_new = out.uvp_node_new.detach()
-        if ranks:
-            grads = dp_mod.all_reduce_grads(grads, 1.0 / n_ranks)
-        lr = schedule(state.epoch)
-        apply_update(state, params, grads, lr)
-        state.norm_state = norm_state
-        state.step += 1
-        return (state, step_metrics(
-            loss, out, grads, lr,
-            mean=dp_mod.all_reduce_mean if ranks else None), uvp_new)
+        with span("gfvgn.train.step", step=state.step):
+            with torch.enable_grad(), (sp_mod.sp_context(lay) if sp
+                                       else contextlib.nullcontext()):
+                loss, grads, norm_state, out = grads_and_outputs(state, dyn,
+                                                                 static)
+            uvp_new = out.uvp_node_new.detach()
+            if ranks:
+                grads = dp_mod.all_reduce_grads(grads, 1.0 / n_ranks)
+            lr = schedule(state.epoch)
+            apply_update(state, params, grads, lr)
+            state.norm_state = norm_state
+            state.step += 1
+            return (state, step_metrics(
+                loss, out, grads, lr,
+                mean=dp_mod.all_reduce_mean if ranks else None), uvp_new)
     return step
 
 
@@ -310,8 +313,9 @@ class MixedTrainStepBlock:
             out = forward_batch_block(self.simulator, norm_state, dyn, static,
                                       self.cfg, accumulate_normalizer=False)
             loss_w = training_loss_weighted(out, self.cfg, weights)
-            grads = torch.autograd.grad(loss_w, self.params,
-                                        allow_unused=True)
+            with span("gfvgn.train.backward"):
+                grads = torch.autograd.grad(loss_w, self.params,
+                                            allow_unused=True)
         w = weights.reshape(-1, 1)
         acc = {
             "gsum": [a if g is None else a + g
@@ -346,6 +350,10 @@ class MixedTrainStepBlock:
         DynamicPack and `payback(idxs, uvp)`, where given, takes each
         group's real rows (with `dp`: gathered from every rank). Returns
         (state, metrics)."""
+        with span("gfvgn.train.step", step=state.step):
+            return self._run_batch(state, batch, gather, statics, payback)
+
+    def _run_batch(self, state, batch, gather, statics, payback):
         lay = self.lay
         if self.dp:       # this rank's rows of each group
             at = (dict(process_id=lay.dp_index, process_count=lay.dp)
