@@ -105,16 +105,25 @@ Transolver block each, 8 heads, 32 slices, bf16 stream) unless named:
     Config defaults and batch 8 with its own pool (padded to multiples of
     128: 10,240 nodes and 20,224 faces): a 3-step `rollout` (per step 14
     fused_mlp_ln, 1 fused_mlp_noln, 2 fused_premlp_res and 2
-    fused_slice_pool launches and no spmm or pair kernel), step 1's
-    gradients against the plain versions, the run-to-run spread of its
-    atomic segment sums, 3 train steps of `make_train_step` (14 + 14,
-    1 + 1, 2 + 2, 2 + 2 launches a step), one time step of `solve_adam` at
+    fused_slice_pool launches, 12 seg_nbr_sum, 6 seg_inc_sum and 6
+    seg_collect, every GraphNet transfer (a block without its lists raises
+    on the card), no spmm or pair kernel), step 1's gradients against the plain versions, the run-to-run
+    spread (the GraphNet blocks' sums in a fixed order, the FV residual's
+    by atomics), 3 train steps of `make_train_step` (14 + 14, 1 + 1,
+    2 + 2, 2 + 2 launches a step; 24, 12, 12 of the three transfer
+    kernels), one time step of `solve_adam` at
     batch 1 (20 inner steps), and on the 100 x 100-node cavity (10,112
     nodes, 19,840 faces: odd multiples of 128, where the slice attention
     takes its plain form, as in JAX) two rollout steps and a train step
     with step 1 held against the plain versions; before it, K2 and K3 at the
     segment engine's two part forms (one plain 384-wide part; one 192-wide
-    part the wrapper pads to 256), against their plain versions. The CLI
+    part the wrapper pads to 256), against their plain versions, and the
+    transfer kernels (`check_segment_csr`) at each form of a GnBlock's
+    forward and backward at the benchmark cells' shapes (201 x 201 nodes,
+    batch 8): equal to their plain versions through the lists and to the
+    ops/segment.py chain on CPU copies of the same inputs, twice the same
+    bits, their times, bounds, plain and library times, and the lists'
+    build. The CLI
     phase also runs `scripts.solve.main` with no `--engine` (the segment
     engine) on both case directories in the three modes.
 
@@ -1655,11 +1664,171 @@ def check_segment_forms(n_pad, e_pad, flush_buf, gen, h=128):
 # the fused attention), and no sparse-apply kernel at all
 # (on the warpgroup kernels: the 6 edge MLPs' forward and backward, their
 # one 384-wide part, and the 6 node MLPs' backward, their 256-wide part)
+# The GraphNet transfers on the incidence lists (ops/segment_csr.py), a
+# GnBlock's forward: the EdgeBlock's neighbour sum and collect, the
+# NodeBlock's directed sums and second hop; its backward: the two
+# neighbour sums again, collect's backward on seg_inc_sum and the directed
+# sums' on seg_collect
 SEG_FWD = dict(fused_mlp_ln=14, fused_mlp_noln=1, fused_premlp_res=2,
-               fused_slice_pool=2, fused_mlp_ln_wg=6)
+               fused_slice_pool=2, fused_mlp_ln_wg=6, seg_nbr_sum=12,
+               seg_inc_sum=6, seg_collect=6)
 SEG_TRAIN = dict(SEG_FWD, fused_mlp_ln_bwd=14, fused_mlp_noln_bwd=1,
                  fused_premlp_res_bwd=2, fused_slice_pool_bwd=2,
-                 fused_mlp_ln_bwd_wg=12)
+                 fused_mlp_ln_bwd_wg=12, seg_nbr_sum=24, seg_inc_sum=12,
+                 seg_collect=12)
+
+
+SEG_CSR_N = 200     # the benchmark cells' 201 x 201-node cavity
+
+
+def check_segment_csr(flush_buf, gen, h=128):
+    """The segment GnBlock's transfers (ops/segment_csr.py) at the benchmark
+    cells' shapes: the 201 x 201-node cavity padded as the segment pool
+    pads it (multiples of 128), batch 8, bf16, h = 128 (the NodeBlock's at
+    h/2). Each form of a forward and of a backward: its kernel against its
+    plain version through the lists on the card and against the
+    ops/segment.py chain on CPU copies of the same inputs (equal bits, ±0
+    equal; the CPU's bf16 index_add rounds after every add, in face order,
+    as the kernels do), its time, its byte bound (each input read once, each output written once),
+    the plain version's time and `library_ms`, the ops/segment.py chain it
+    replaces (row gathers, mask products, bf16 index_add, cat; a backward's
+    by autograd, its graph built once); then the lists' build. Returns
+    ({form: row}, build ms)."""
+    from gen_fvgn_tpu_torch.meshes.synthetic import cavity_quad_mesh
+    from gen_fvgn_tpu_torch.ops import segment_csr as csr
+    from gen_fvgn_tpu_torch.ops.segment import gather_rows, segment_sum
+    mesh = cavity_quad_mesh(SEG_CSR_N)
+    fn = torch.from_numpy(mesh["face|face_node"].astype(np.int32))
+    n_real, e_real = mesh["node|pos"].shape[0], fn.shape[1]
+    n, e = [-(-k // 128) * 128 for k in (n_real, e_real)]
+    face_node = torch.zeros((BATCH, 2, e), dtype=torch.int32)
+    face_node[:, :, :e_real] = fn
+    mask = torch.zeros((BATCH, e), dtype=torch.bool)
+    mask[:, :e_real] = True
+    face_node, mask = face_node.cuda(), mask.cuda()
+    inc = csr.build_incidence(face_node, mask, n)
+    build_ms = median_ms(lambda: csr.build_incidence(face_node, mask, n),
+                         flush_buf)
+    s, r = face_node[:, 0], face_node[:, 1]
+    bf, half = torch.bfloat16, h // 2
+    g = lambda *shape: torch.randn(*shape, generator=gen,
+                                   device="cuda").to(bf)
+    x, x64, ea = g(BATCH, n, h), g(BATCH, n, half), g(BATCH, e, h)
+    gc = g(BATCH, e, 3 * h) * mask[..., None].to(bf)
+
+    def chain(s, r, mask):
+        """The ops/segment.py chains on the ids' device."""
+        def twoway(t):
+            return (segment_sum(gather_rows(t, s), r, n, mask)
+                    + segment_sum(gather_rows(t, r), s, n, mask))
+
+        def directed(t):
+            a, b = torch.chunk(t, 2, dim=-1)
+            return segment_sum(a, r, n, mask) + segment_sum(b, s, n, mask)
+
+        def collect(a, t):
+            return torch.cat([gather_rows(a, s), gather_rows(a, r), t],
+                             dim=-1)
+        return twoway, directed, collect
+
+    def vjp(fn, ins, cot):
+        ins = [t.detach().requires_grad_(True) for t in ins]
+        out = fn(*ins)
+        return lambda: torch.autograd.grad(out, ins, cot, retain_graph=True)
+
+    twoway, directed, collect = chain(s, r, mask)
+    cpu_twoway, cpu_directed, cpu_collect = chain(s.cpu(), r.cpu(),
+                                                  mask.cpu())
+    xc, x64c, eac, gcc = x.cpu(), x64.cpu(), ea.cpu(), gc.cpu()
+    # the CPU chain's result of each form (a backward's first gradient)
+    on_cpu = {
+        "nbr_sum h": lambda: cpu_twoway(xc),
+        "collect 3h": lambda: cpu_collect(xc, eac),
+        "inc_sum h/2": lambda: cpu_directed(eac),
+        "nbr_sum h/2": lambda: cpu_twoway(x64c),
+        "nbr_sum h backward": lambda: vjp(cpu_twoway, [xc], xc)()[0],
+        "collect 3h backward": lambda: vjp(cpu_collect, [xc, eac], gcc)()[0],
+        "inc_sum h/2 backward": lambda: vjp(cpu_directed, [eac], x64c)()[0],
+        "nbr_sum h/2 backward": lambda: vjp(cpu_twoway, [x64c], x64c)()[0],
+    }
+
+    col = ((x, "s", 0), (x, "r", h), (ea, None, 2 * h))
+    halves = ((x64, "r", 0), (x64, "s", half))
+    # name: (kernel, kernel call, plain version, library chain, bytes)
+    forms = {
+        "nbr_sum h": ("seg_nbr_sum",
+                      lambda: csr._list_sum(inc, x, False, 0, 0, h),
+                      lambda: csr.list_sum_reference(inc, x, False, 0, 0, h),
+                      lambda: twoway(x), 2 * nbytes(x)),
+        "collect 3h": ("seg_collect",
+                       lambda: csr._gather(inc, col, h, 3 * h, False),
+                       lambda: csr.gather_reference(inc, col, h, 3 * h,
+                                                    False),
+                       lambda: collect(x, ea), nbytes(x) + 4 * nbytes(ea)),
+        "inc_sum h/2": ("seg_inc_sum",
+                        lambda: csr._list_sum(inc, ea, True, 0, half, half),
+                        lambda: csr.list_sum_reference(inc, ea, True, 0,
+                                                       half, half),
+                        lambda: directed(ea), nbytes(ea) + nbytes(x64)),
+        "nbr_sum h/2": ("seg_nbr_sum",
+                        lambda: csr._list_sum(inc, x64, False, 0, 0, half),
+                        lambda: csr.list_sum_reference(inc, x64, False, 0, 0,
+                                                       half),
+                        lambda: twoway(x64), 2 * nbytes(x64)),
+        "nbr_sum h backward": ("seg_nbr_sum",
+                               lambda: csr._list_sum(inc, x, False, 0, 0, h),
+                               lambda: csr.list_sum_reference(
+                                   inc, x, False, 0, 0, h),
+                               vjp(twoway, [x], x), 2 * nbytes(x)),
+        "collect 3h backward": ("seg_inc_sum",
+                                lambda: csr._list_sum(inc, gc, True, h, 0, h),
+                                lambda: csr.list_sum_reference(
+                                    inc, gc, True, h, 0, h),
+                                vjp(collect, [x, ea], gc),
+                                2 * nbytes(ea) + nbytes(x)),
+        "inc_sum h/2 backward": ("seg_collect",
+                                 lambda: csr._gather(inc, halves, half, h,
+                                                     True),
+                                 lambda: csr.gather_reference(
+                                     inc, halves, half, h, True),
+                                 vjp(directed, [ea], x64),
+                                 nbytes(x64) + nbytes(ea)),
+        "nbr_sum h/2 backward": ("seg_nbr_sum",
+                                 lambda: csr._list_sum(inc, x64, False, 0, 0,
+                                                       half),
+                                 lambda: csr.list_sum_reference(
+                                     inc, x64, False, 0, 0, half),
+                                 vjp(twoway, [x64], x64), 2 * nbytes(x64)),
+    }
+    rows = {}
+    for form, (kernel, run, run_ref, library, moved) in forms.items():
+        out, ref = run(), run_ref()
+        again = run()
+        torch.cuda.synchronize()
+        n_diff = int((out != ref).sum())
+        n_cpu = int((out.cpu() != on_cpu[form]()).sum())
+        same_bits = torch.equal(out.view(torch.int16), again.view(torch.int16))
+        row = dict(kernel=kernel, n_rows=out.shape[0] * out.shape[1],
+                   width=out.shape[-1], values_differing=n_diff,
+                   values_differing_cpu_chain=n_cpu,
+                   two_runs_same_bits=same_bits,
+                   ms=median_ms(run, flush_buf),
+                   plain_ms=median_ms(run_ref, flush_buf, iters=5, warmup=1),
+                   library_ms=median_ms(library, flush_buf))
+        row["bound_ms"], row["bound_by"] = bound(moved, 0.0)
+        rows[form] = row
+        log(f"kernel {kernel}[{form}] B={BATCH} N={n} E={e} bf16: values "
+            f"differing from the plain version {n_diff}, from the CPU's "
+            f"ops/segment.py chain {n_cpu}, two runs the same "
+            f"bits {same_bits}; ms={row['ms']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={row['library_ms']:.4f} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+        if n_diff or n_cpu or not same_bits:
+            raise RuntimeError(f"{kernel}[{form}] differs from its plain "
+                               f"version, the CPU chain or itself")
+    log(f"segment lists: build {build_ms:.4f} ms for B={BATCH} N={n} E={e}")
+    return rows, build_ms
 
 
 def drive_segment(card):
@@ -1720,8 +1889,9 @@ def drive_segment(card):
     t["rollout_peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
     t["rollout_launches"] = counts
 
-    # the run-to-run spread of the segment sums (atomics): the same eval
-    # step and the same step-1 gradients twice with the kernels
+    # the run-to-run spread: the same eval step and the same step-1
+    # gradients twice with the kernels (the GraphNet blocks' sums run in a
+    # fixed order; the FV residual's float32 sums still add by atomics)
     eval_step = make_eval_step(cfg, sim)
     a, b = eval_step(ns, batch), eval_step(ns, batch)
     spread_state = float((a.uvp_node_new - b.uvp_node_new).abs().max())
@@ -1740,7 +1910,8 @@ def drive_segment(card):
                        loss_rel=abs(loss_1 - loss_2) / abs(loss_2),
                        grads_same_bits=same_bits)
     log(f"{name} run-to-run spread (the same step twice with the kernels; "
-        f"segment sums add by atomics): uvp_node max {spread_state:.3g}, "
+        f"the FV residual's sums add by atomics): uvp_node max "
+        f"{spread_state:.3g}, "
         f"loss_cont relative {spread_loss:.3g}; step 1 gradients relative "
         f"norm {spread_grad:.3g}, the same bits {same_bits}, loss relative "
         f"{t['spread']['loss_rel']:.3g} (limits: the kernel-vs-plain ones, "
@@ -3065,7 +3236,9 @@ def main():
         fused_mlp_ln_wg=register_summary(_cuda_build.BUILD_LOG,
                                          "fused_mlp_fwd_wg"),
         fused_mlp_ln_bwd_wg=register_summary(_cuda_build.BUILD_LOG,
-                                             "fused_mlp_bwd_wg"))
+                                             "fused_mlp_bwd_wg"),
+        **{k: register_summary(_cuda_build.BUILD_LOG, k)
+           for k in ("seg_nbr_sum", "seg_inc_sum", "seg_collect")})
     for name, r in regs.items():
         log(f"registers {name}: {json.dumps(r)}")
 
@@ -3118,6 +3291,8 @@ def main():
     seg_forms = check_segment_forms(
         n_pad, e_pad, flush_buf,
         torch.Generator(device="cuda").manual_seed(14))
+    seg_csr, seg_build_ms = check_segment_csr(
+        flush_buf, torch.Generator(device="cuda").manual_seed(22))
     del flush_buf
     # the net that raised above C = 1024: a Transolver block at hidden 1152
     check_wide_block()
@@ -3306,6 +3481,22 @@ def main():
         k["plan"] = {form: plan_forms[form] for form in (
             "block edge", "block node", "segment edge 384",
             "segment node 256")}
+    # the segment GnBlock's transfers (ops/segment_csr.py): no TPU kernel;
+    # they replace the JAX package's segment_sum and row takes in
+    # models/gn.py (XLA's scatter and gather), timed at the cells' shapes
+    for kname in ("seg_nbr_sum", "seg_inc_sum", "seg_collect"):
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source="gen_fvgn_tpu_torch/csrc/segment_csr.cu",
+            replaces="none: gen_fvgn_tpu/models/gn.py's jax.ops.segment_sum "
+                     "and take (XLA scatter and gather)",
+            launches=seg_t["train_launches"][kname],
+            launches_per_train_step=SEG_TRAIN[kname],
+            launches_per_rollout_step=SEG_FWD[kname],
+            forms={form: r for form, r in seg_csr.items()
+                   if r["kernel"] == kname},
+            lists_build_ms=seg_build_ms, registers=regs[kname],
+            measured_on=f"segment GnBlock, B={BATCH}, 201 x 201 nodes"))
     {k["name"]: k for k in kernels}["pair_sum"]["node_pair"] = {
         k: npair[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

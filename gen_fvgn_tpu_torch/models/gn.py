@@ -11,6 +11,16 @@ half a direction. The MLPs see one concatenated input part, as in JAX: the
 EdgeBlock's [agg@sender, agg@receiver, edge_attr] (3h wide), the
 NodeBlock's [nbr_avg, node_x] (h/2 + h wide); the residual adds of GnBlock
 are outside the MLPs.
+
+On CUDA tensors the blocks take the batch's incidence lists (`inc`,
+`ops/segment_csr.py`, built once a forward by the simulator) and each
+transfer is one kernel pass over them, with the plain version's bits:
+the EdgeBlock's `agg` and the NodeBlock's second hop are `nbr_sum`, the
+NodeBlock's directed sums `inc_sum`, the edge MLP's input `collect`, and
+the degree the lists' lengths. Without lists (CPU tensors, or inside
+`ops.plain_versions()`) they run the masked segment sums and row gathers
+of `ops/segment.py`; a CUDA tensor without lists outside
+`ops.plain_versions()` raises.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ import torch
 from torch import nn
 
 from gen_fvgn_tpu_torch.models.mlp import Mlp
+from gen_fvgn_tpu_torch.ops import segment_csr as csr
 from gen_fvgn_tpu_torch.ops.segment import gather_rows, segment_sum
 
 
@@ -29,6 +40,15 @@ def _twoway_sum(values_s, values_r, face_node, n_nodes: int, face_mask):
     s, r = face_node[:, 0], face_node[:, 1]
     return (segment_sum(values_s, r, n_nodes, face_mask) +
             segment_sum(values_r, s, n_nodes, face_mask))
+
+
+def _check_plain(x: torch.Tensor):
+    """The plain transfers run on the CPU, or on the card where the plain
+    versions are asked for; a block on the card has no other fallback."""
+    from gen_fvgn_tpu_torch.ops import plain_versions_active
+    if x.is_cuda and not plain_versions_active():
+        raise RuntimeError("a GraphNet block on CUDA tensors needs the "
+                           "batch's incidence lists (`inc`)")
 
 
 class EdgeBlock(nn.Module):
@@ -41,7 +61,11 @@ class EdgeBlock(nn.Module):
         self.edge_mlp = Mlp(3 * hidden_size, hidden_size, hidden_size,
                             dtype=dtype, generator=generator)
 
-    def forward(self, node_x, edge_attr, face_node, face_mask):
+    def forward(self, node_x, edge_attr, face_node, face_mask, inc=None):
+        if inc is not None:
+            agg = csr.nbr_sum(node_x, inc)
+            return self.edge_mlp(csr.collect(agg, edge_attr, inc))
+        _check_plain(node_x)
         n_nodes = node_x.shape[1]
         s, r = face_node[:, 0], face_node[:, 1]
         agg = _twoway_sum(gather_rows(node_x, s), gather_rows(node_x, r),
@@ -62,7 +86,21 @@ class NodeBlock(nn.Module):
         self.node_mlp = Mlp(hidden_size // 2 + hidden_size, hidden_size,
                             hidden_size, dtype=dtype, generator=generator)
 
-    def forward(self, node_x, edge_attr, face_node, face_mask):
+    def forward(self, node_x, edge_attr, face_node, face_mask, inc=None):
+        if inc is not None:
+            half = edge_attr.shape[-1] // 2
+            agg = csr.inc_sum(edge_attr, inc, 0, half, half)    # [B, N, h/2]
+            nbr_sum = csr.nbr_sum(agg, inc)
+            deg = inc.deg.to(node_x.dtype)
+        else:
+            _check_plain(node_x)
+            nbr_sum, deg = self._plain_sums(node_x, edge_attr, face_node,
+                                            face_mask)
+        nbr_avg = nbr_sum / torch.clamp(deg, min=1.0)
+        return self.node_mlp(torch.cat([nbr_avg, node_x], dim=-1))
+
+    @staticmethod
+    def _plain_sums(node_x, edge_attr, face_node, face_mask):
         n_nodes = node_x.shape[1]
         s, r = face_node[:, 0], face_node[:, 1]
         half_a, half_b = torch.chunk(edge_attr, 2, dim=-1)
@@ -72,9 +110,8 @@ class NodeBlock(nn.Module):
                               face_node, n_nodes, face_mask)
         ones = torch.ones(face_node.shape[:1] + face_node.shape[2:] + (1,),
                           dtype=node_x.dtype, device=node_x.device)
-        deg = _twoway_sum(ones, ones, face_node, n_nodes, face_mask)
-        nbr_avg = nbr_sum / torch.clamp(deg, min=1.0)
-        return self.node_mlp(torch.cat([nbr_avg, node_x], dim=-1))
+        return nbr_sum, _twoway_sum(ones, ones, face_node, n_nodes,
+                                    face_mask)
 
 
 class GnBlock(nn.Module):
@@ -86,9 +123,15 @@ class GnBlock(nn.Module):
         self.edge_block = EdgeBlock(hidden_size, dtype, generator)
         self.node_block = NodeBlock(hidden_size, dtype, generator)
 
-    def forward(self, node_x, edge_attr, face_node, face_mask):
-        edge_new = self.edge_block(node_x, edge_attr, face_node, face_mask)
-        node_new = self.node_block(node_x, edge_new, face_node, face_mask)
+    def forward(self, node_x, edge_attr, face_node, face_mask, inc=None):
+        """`inc`: the batch's incidence lists; built here where not given
+        (`incidence_for`: None, the plain version, on the CPU)."""
+        if inc is None:
+            inc = csr.incidence_for(face_node, face_mask, node_x.shape[1])
+        edge_new = self.edge_block(node_x, edge_attr, face_node, face_mask,
+                                   inc)
+        node_new = self.node_block(node_x, edge_new, face_node, face_mask,
+                                   inc)
         return node_x + node_new, edge_attr + edge_new
 
 

@@ -11,7 +11,10 @@ modules are built in the block nets' order, so `make_simulator` and
 
 forward(node_feats [B, N, 12], edge_feats [B, E, 15], face_node [B, 2, E],
 node_mask [B, N], face_mask [B, E]) -> [B, N, 3]: the batch is the leading
-axis where the JAX nets see one graph under a vmap.
+axis where the JAX nets see one graph under a vmap. On CUDA tensors a
+forward builds the batch's incidence lists once
+(`ops/segment_csr.py::incidence_for`) and every GnBlock runs its transfers
+on them.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from torch import nn
 from gen_fvgn_tpu_torch.config import Config
 from gen_fvgn_tpu_torch.models.gn import Decoder, Encoder, GnBlock
 from gen_fvgn_tpu_torch.models.transolver import TransolverBlock
+from gen_fvgn_tpu_torch.ops.segment_csr import incidence_for
 from gen_fvgn_tpu_torch.utils.device import resolve_device
 
 
@@ -39,10 +43,10 @@ class _Blocks(nn.Module):
         for i in range(n):
             setattr(self, f"gn_{i}", GnBlock(hidden_size, dtype, generator))
 
-    def _run_blocks(self, node_h, edge_h, face_node, face_mask):
+    def _run_blocks(self, node_h, edge_h, face_node, face_mask, inc):
         for i in range(self.n_blocks):
-            node_h, edge_h = getattr(self, f"gn_{i}")(node_h, edge_h,
-                                                     face_node, face_mask)
+            node_h, edge_h = getattr(self, f"gn_{i}")(
+                node_h, edge_h, face_node, face_mask, inc)
         return node_h, edge_h
 
 
@@ -59,10 +63,11 @@ class AttnProcessor(_Blocks):
         self.transolver = TransolverBlock(hidden_size, heads, slice_num,
                                           dtype=dtype, generator=generator)
 
-    def forward(self, node_h, edge_h, face_node, node_mask, face_mask):
+    def forward(self, node_h, edge_h, face_node, node_mask, face_mask,
+                inc=None):
         node_in = node_h
         node_h, edge_h = self._run_blocks(node_h, edge_h, face_node,
-                                          face_mask)
+                                          face_mask, inc)
         return self.transolver(node_h + node_in, node_mask), edge_h
 
 
@@ -83,8 +88,10 @@ class FVGNSimulator(_Blocks):
 
     def forward(self, node_feats, edge_feats, face_node, node_mask,
                 face_mask):
+        inc = incidence_for(face_node, face_mask, node_feats.shape[1])
         node_h, edge_h = self.encoder(node_feats, edge_feats)
-        node_h, _ = self._run_blocks(node_h, edge_h, face_node, face_mask)
+        node_h, _ = self._run_blocks(node_h, edge_h, face_node, face_mask,
+                                     inc)
         return self.decoder(node_h)
 
 
@@ -100,8 +107,10 @@ class TransFVGNv1(FVGNSimulator):
 
     def forward(self, node_feats, edge_feats, face_node, node_mask,
                 face_mask):
+        inc = incidence_for(face_node, face_mask, node_feats.shape[1])
         node_h, edge_h = self.encoder(node_feats, edge_feats)
-        node_h, _ = self._run_blocks(node_h, edge_h, face_node, face_mask)
+        node_h, _ = self._run_blocks(node_h, edge_h, face_node, face_mask,
+                                     inc)
         return self.decoder(self.transolver(node_h, node_mask))
 
 
@@ -124,10 +133,11 @@ class TransFVGNv2(nn.Module):
 
     def forward(self, node_feats, edge_feats, face_node, node_mask,
                 face_mask):
+        inc = incidence_for(face_node, face_mask, node_feats.shape[1])
         node_h, edge_h = self.encoder(node_feats, edge_feats)
         for i in range(2):
             node_h, edge_h = getattr(self, f"processor_{i}")(
-                node_h, edge_h, face_node, node_mask, face_mask)
+                node_h, edge_h, face_node, node_mask, face_mask, inc)
         return self.decoder(node_h)
 
 

@@ -11,7 +11,9 @@ PyTorch versions: inside it the dispatching callers (`apply_linop`,
 autograd Functions take the backward's plain versions
 (`pair_transpose_reference`, `fused_mlp_ln_bwd_reference`,
 `fused_mlp_noln_bwd_reference`, `fused_premlp_res_bwd_reference`,
-`fused_slice_pool_bwd_reference`). It is
+`fused_slice_pool_bwd_reference`); the segment engine's GraphNet blocks
+(`models/gn.py`) build no incidence lists (`segment_csr.incidence_for`) and
+take `ops/segment.py`'s sums and gathers. It is
 entered only by the eval step's `plain_kernels=True` argument and by
 `chip_smoke.py` (the on-card comparisons of a kernel step with a plain
 step, and of their gradients) and by tests.
@@ -42,7 +44,7 @@ def plain_versions():
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count in this process, by kernel."""
     from gen_fvgn_tpu_torch.ops import (fused_mlp, fused_slice_attn,
-                                        pair_spmm, spmm)
+                                        pair_spmm, segment_csr, spmm)
     return dict(spmm=spmm.LAUNCHES,
                 pair_sum=pair_spmm.LAUNCHES_PAIR_SUM,
                 pair_transpose=pair_spmm.LAUNCHES_PAIR_TRANSPOSE,
@@ -55,13 +57,16 @@ def launch_counts() -> dict:
                 fused_premlp_res_bwd=fused_mlp.LAUNCHES_PREMLP_BWD,
                 fused_slice_pool_bwd=fused_slice_attn.LAUNCHES_BWD,
                 fused_mlp_ln_wg=fused_mlp.LAUNCHES_LN_WG,
-                fused_mlp_ln_bwd_wg=fused_mlp.LAUNCHES_LN_BWD_WG)
+                fused_mlp_ln_bwd_wg=fused_mlp.LAUNCHES_LN_BWD_WG,
+                seg_nbr_sum=segment_csr.LAUNCHES_NBR_SUM,
+                seg_inc_sum=segment_csr.LAUNCHES_INC_SUM,
+                seg_collect=segment_csr.LAUNCHES_COLLECT)
 
 
 def zero_launch_counts() -> None:
     """Every kernel wrapper's launch count set to 0."""
     from gen_fvgn_tpu_torch.ops import (fused_mlp, fused_slice_attn,
-                                        pair_spmm, spmm)
+                                        pair_spmm, segment_csr, spmm)
     spmm.LAUNCHES = 0
     pair_spmm.LAUNCHES_PAIR_SUM = pair_spmm.LAUNCHES_PAIR_TRANSPOSE = 0
     fused_mlp.LAUNCHES_LN = fused_mlp.LAUNCHES_NOLN = 0
@@ -70,3 +75,5 @@ def zero_launch_counts() -> None:
     fused_mlp.LAUNCHES_PREMLP_BWD = 0
     fused_mlp.LAUNCHES_LN_WG = fused_mlp.LAUNCHES_LN_BWD_WG = 0
     fused_slice_attn.LAUNCHES = fused_slice_attn.LAUNCHES_BWD = 0
+    segment_csr.LAUNCHES_NBR_SUM = segment_csr.LAUNCHES_INC_SUM = 0
+    segment_csr.LAUNCHES_COLLECT = 0

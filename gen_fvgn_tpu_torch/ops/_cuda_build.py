@@ -25,7 +25,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("spmm.cu", "pair_spmm.cu", "fused_mlp.cu", "fused_premlp.cu",
-           "fused_slice_pool.cu", "fused_slice_pool_bwd.cu")
+           "fused_slice_pool.cu", "fused_slice_pool_bwd.cu",
+           "segment_csr.cu")
 # included by the sources: in the hash too
 HEADERS = ("lane_reduce.cuh", "mma_sm90.cuh", "slice_pool_tiles.cuh",
            "spmm_rows.cuh")
@@ -118,6 +119,21 @@ def _declare(lib: ctypes.CDLL) -> None:
             ci, ci, ci, ci,    # B, n_in, n_out, H
             ci, ci,            # operand_is_bf16, out_is_bf16
             vp]                # stream
+    lib.gfvgn_seg_list_sum.restype = ci
+    lib.gfvgn_seg_list_sum.argtypes = [
+        ci,                    # faces (seg_inc_sum) or node rows (seg_nbr_sum)
+        vp, vp, vp, vp,        # receiver ptr, entries; sender ptr, entries
+        vp, cl, ci, ci,        # src, its row stride, col_r, col_s
+        vp, cl,                # out, its row stride
+        ci, ci, ci, ci,        # rows, width, is_bf16, vec
+        vp]                    # stream
+    lib.gfvgn_seg_collect.restype = ci
+    lib.gfvgn_seg_collect.argtypes = [
+        ci,                    # windows (1 to 3)
+        *[vp, vp, cl, ci] * 3,  # each: idx (or null), src, row stride, col
+        vp, vp, cl,            # mask (or null), out, its row stride
+        ci, ci, ci, ci,        # rows, width, is_bf16, vec
+        vp]                    # stream
     lib.gfvgn_fused_mlp_workspace.restype = ctypes.c_longlong
     lib.gfvgn_fused_mlp_workspace.argtypes = [
         ci, ci, ci,            # width0, width1, H

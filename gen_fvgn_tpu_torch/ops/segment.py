@@ -13,8 +13,10 @@ The sums run in the data's type (a bf16 stream sums in bf16, as
 them with XLA's scatter-add, outside any Pallas kernel. On a card
 `index_add` adds by atomics, so the order of a segment's additions, and so
 the last bits of a sum, can change from run to run; `gather_rows` (whose
-backward is an `index_add`) likewise. Padded slots index row 0 and read its
-data; the mask zeroes what they contribute.
+backward is an `index_add`) likewise. On the card the GraphNet blocks take
+`ops/segment_csr.py` instead (each transfer one kernel pass over incidence
+lists, with these functions' CPU bits). Padded slots index row 0 and read
+its data; the mask zeroes what they contribute.
 """
 
 from __future__ import annotations

@@ -1186,7 +1186,8 @@ def test_segment_train_step_kernels_match_plain_versions():
     slice attention takes its plain form there, as in JAX: N % 256 != 0),
     with the kernels against the plain versions, held to chip_smoke.py's
     step-1 limits; the launches of one step: 14 + 14 fused_mlp_ln, 1 + 1
-    fused_mlp_noln, 2 + 2 fused_premlp_res, no slice pool and no spmm."""
+    fused_mlp_noln, 2 + 2 fused_premlp_res, no slice pool and no spmm, the
+    GraphNet transfers 24 seg_nbr_sum, 12 seg_inc_sum, 12 seg_collect."""
     _need_card()
     import contextlib
 
@@ -1194,7 +1195,7 @@ def test_segment_train_step_kernels_match_plain_versions():
     from gen_fvgn_tpu_torch.meshes.synthetic import (cavity_quad_mesh,
                                                      synthetic_case)
     from gen_fvgn_tpu_torch.ops import (fused_mlp, fused_slice_attn,
-                                        plain_versions, spmm)
+                                        plain_versions, segment_csr, spmm)
     from gen_fvgn_tpu_torch.training.forward import (forward_batch,
                                                      training_loss)
     from gen_fvgn_tpu_torch.training.pool import EnvPool
@@ -1220,12 +1221,15 @@ def test_segment_train_step_kernels_match_plain_versions():
     count = lambda: (spmm.LAUNCHES, fused_mlp.LAUNCHES_LN,
                      fused_mlp.LAUNCHES_LN_BWD, fused_mlp.LAUNCHES_NOLN,
                      fused_mlp.LAUNCHES_NOLN_BWD, fused_mlp.LAUNCHES_PREMLP,
-                     fused_mlp.LAUNCHES_PREMLP_BWD, fused_slice_attn.LAUNCHES)
+                     fused_mlp.LAUNCHES_PREMLP_BWD, fused_slice_attn.LAUNCHES,
+                     segment_csr.LAUNCHES_NBR_SUM,
+                     segment_csr.LAUNCHES_INC_SUM,
+                     segment_csr.LAUNCHES_COLLECT)
     before = count()
     loss_k, g_k = grads(False)
     after = count()
     assert [a - b for a, b in zip(after, before)] == [0, 14, 14, 1, 1, 2, 2,
-                                                      0]
+                                                      0, 24, 12, 12]
     loss_p, g_p = grads(True)
     assert count() == after
     flat = lambda g: torch.cat([x.reshape(-1).double() for x in g])
