@@ -3,11 +3,14 @@ with the plain reference, each against its limit.
 
 Training cells: the reference follows the first three steps that set-up
 drove through the window's own call, from the same weights and the same
-environments (its own statics, physics and start states). Compared: the
-largest gap of a step's loss; the worst channel's gap of the first step's
-new node states (as the rollouts' `node_gap`, below); the median leaf's
-gap between the norms of
-the first gradient (read from Adam's first moment after one step); the
+environments (its own statics, physics and start states). The numbers:
+the gap of the first step's loss (`loss1_gap`) and the largest gap of the
+three steps' losses (`loss_gap`: the later steps inherit Adam's first
+update, which is near sign(g) and so follows the rounding of gradient
+entries near nought where the batch's samples cancel); the worst
+channel's gap of the first step's new node states (as the rollouts'
+`node_gap`, below); the median leaf's gap between the norms of the first
+gradient (read from Adam's first moment after one step); the
 worst leaf's gap between the norms of the parameters' change after three
 steps. A leaf's change gap is measured against the larger of the
 reference's norm of that leaf and of the median leaf. A leaf's gradient
@@ -89,8 +92,8 @@ def train_numbers(side: Dict, ref: Dict) -> Dict[str, float]:
     # a step that left rows of its batch out has no state to match
     state = (float(np.max(channel_gaps(pn, rn, ref["scale1"])))
              if pn.shape == rn.shape else float("inf"))
-    return {"loss_gap": float(np.max(np.abs(np.asarray(side["loss"])
-                                            - np.asarray(ref["loss"])))),
+    loss = np.abs(np.asarray(side["loss"]) - np.asarray(ref["loss"]))
+    return {"loss1_gap": float(loss[0]), "loss_gap": float(np.max(loss)),
             "state_gap": state,
             "grad_gap": float(np.median(gaps("grad1", "grad1_scale"))),
             "change_gap": float(np.max(gaps("change")))}

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 from typing import Dict, List, NamedTuple
 
+from benchmark.harness import spec
+
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 HBM_BYTES_S = 3.35e12
@@ -28,7 +30,7 @@ class Op(NamedTuple):
     peak: float
 
 
-def _mlp(name, rows, k, h, out, in_bytes, batch, el=2):
+def mlp_op(name, rows, k, h, out, in_bytes, batch, el=2):
     """A two-hidden-layer MLP over `rows` rows of `k` inputs: products
     2·rows·(k·h + h·h + h·out); reads `in_bytes` a sample and its weights,
     writes its output."""
@@ -37,54 +39,61 @@ def _mlp(name, rows, k, h, out, in_bytes, batch, el=2):
               batch * (in_bytes + rows * out * el) + el * w, PEAK_BF16)
 
 
-def forward_ops(cfg: Dict, mesh: Dict, batch: int) -> List[Op]:
-    """mesh: n_nodes, n_faces, n_cells, n_slots, n_stencil (two-way)."""
+def encoder_ops(cfg: Dict, mesh: Dict, batch: int) -> List[Op]:
+    """The node encoder over the nodes, the edge encoder over the faces."""
+    n, e = mesh["n_nodes"], mesh["n_faces"]
+    h, k = cfg["hidden_size"], cfg["node_input_size"]
+    return [mlp_op("node_encoder", n, k, h, h, n * k * 2, batch),
+            mlp_op("edge_encoder", e, k + 3, h, h, e * (k + 3) * 2, batch)]
+
+
+def decoder_op(cfg: Dict, mesh: Dict, batch: int) -> Op:
+    n, h = mesh["n_nodes"], cfg["hidden_size"]
+    return mlp_op("decoder", n, h, h, cfg["node_output_size"], n * h * 2,
+                  batch)
+
+
+def gn_ops(cfg: Dict, mesh: Dict, batch: int, tag: str) -> List[Op]:
+    """A GraphNet block: the sums over each node's faces, the edge MLP, the
+    NodeBlock's two half-width sums and the node MLP."""
+    n, e = mesh["n_nodes"], mesh["n_faces"]
+    h, b, el = cfg["hidden_size"], batch, 2
+    return [
+        Op(f"{tag}.edge_sum", b * 2.0 * e * h,
+           b * 2 * n * h * el, PEAK_BF16),
+        mlp_op(f"{tag}.edge_mlp", e, 3 * h, h, h,
+               (n + e) * h * el, b),
+        Op(f"{tag}.node_sums", b * 2.0 * e * h,
+           b * (e * h + n * h // 2 + n * h // 2) * el, PEAK_BF16),
+        mlp_op(f"{tag}.node_mlp", n, h + h // 2, h, h,
+               n * (h + h // 2) * el, b)]
+
+
+def transolver_ops(cfg: Dict, mesh: Dict, batch: int, tag: str) -> List[Op]:
+    """A Transolver block: the physics attention and the pre-LayerNorm MLP
+    of ratio 2."""
+    n, h, b, el = mesh["n_nodes"], cfg["hidden_size"], batch, 2
+    g = cfg["slice_num"]
+    heads = cfg["attn_heads"]
+    d = h // heads
+    # in_project_fx and _x, slice logits, pooling and de-slice, to_out,
+    # q/k/v of the tokens, the token attention
+    attn = (2 * 2.0 * n * h * h + 2.0 * n * h * g
+            + 2 * 2.0 * n * h * g + 2.0 * n * h * h
+            + 3 * 2.0 * heads * g * d * d + 2 * 2.0 * heads * g * g * d)
+    return [Op(f"{tag}.attention", b * attn,
+               b * 2 * n * h * el + el * (4 * h * h), PEAK_BF16),
+            Op(f"{tag}.mlp", b * 8.0 * n * h * h,
+               b * 2 * n * h * el + el * 4 * h * h, PEAK_BF16)]
+
+
+def fv_ops(mesh: Dict, batch: int) -> List[Op]:
+    """The finite-volume residual, float32: WLSQ gradients, the node to
+    cell and face interpolations, the fluxes, the cell to node average."""
     n, e, c = mesh["n_nodes"], mesh["n_faces"], mesh["n_cells"]
     s, m = mesh["n_slots"], mesh["n_stencil"]
-    h, k = cfg["hidden_size"], cfg["node_input_size"]
-    b, el = batch, 2
-    ops = [Op("edge_features", b * 16.0 * e,
-              b * (n * k * 4 + e * (k + 3) * 4), PEAK_F32),
-           _mlp("node_encoder", n, k, h, h, n * k * el, b),
-           _mlp("edge_encoder", e, k + 3, h, h, e * (k + 3) * el, b)]
-
-    def gn(tag):
-        return [
-            Op(f"{tag}.edge_sum", b * 2.0 * e * h,
-               b * 2 * n * h * el, PEAK_BF16),
-            _mlp(f"{tag}.edge_mlp", e, 3 * h, h, h,
-                 (n + e) * h * el, b),
-            Op(f"{tag}.node_sums", b * 2.0 * e * h,
-               b * (e * h + n * h // 2 + n * h // 2) * el, PEAK_BF16),
-            _mlp(f"{tag}.node_mlp", n, h + h // 2, h, h,
-                 n * (h + h // 2) * el, b)]
-
-    def transolver(tag):
-        g = cfg["slice_num"]
-        heads = cfg["attn_heads"]
-        d = h // heads
-        # in_project_fx and _x, slice logits, pooling and de-slice, to_out,
-        # q/k/v of the tokens, the token attention
-        attn = (2 * 2.0 * n * h * h + 2.0 * n * h * g
-                + 2 * 2.0 * n * h * g + 2.0 * n * h * h
-                + 3 * 2.0 * heads * g * d * d + 2 * 2.0 * heads * g * g * d)
-        return [Op(f"{tag}.attention", b * attn,
-                   b * 2 * n * h * el + el * (4 * h * h), PEAK_BF16),
-                Op(f"{tag}.mlp", b * 8.0 * n * h * h,
-                   b * 2 * n * h * el + el * 4 * h * h, PEAK_BF16)]
-
-    if cfg["net"] == "FVGN":
-        for i in range(cfg["message_passing_num"]):
-            ops += gn(f"gn_{i}")
-    else:
-        for p in range(2):
-            for i in range(cfg["message_passing_num"]):
-                ops += gn(f"processor_{p}.gn_{i}")
-            ops += transolver(f"processor_{p}.transolver")
-    ops.append(_mlp("decoder", n, h, h, cfg["node_output_size"],
-                    n * h * el, b))
-    f4 = 4
-    ops += [
+    b, f4 = batch, 4
+    return [
         Op("wlsq", b * 35.0 * m, b * (n * 7 + n * 14) * f4, PEAK_F32),
         Op("node_to_cell", b * 35.0 * s, b * (n * 21 + c * 7) * f4,
            PEAK_F32),
@@ -94,7 +103,17 @@ def forward_ops(cfg: Dict, mesh: Dict, batch: int) -> List[Op]:
         Op("cell_to_node", b * 10.0 * s, b * (c * 3 + n * 3) * f4,
            PEAK_F32),
     ]
-    return ops
+
+
+def forward_ops(cfg: Dict, mesh: Dict, batch: int) -> List[Op]:
+    """mesh: n_nodes, n_faces, n_cells, n_slots, n_stencil (two-way). The
+    edge features, the network's own operations (`forward_ops` of its
+    file, `benchmark/reference/nets/<net>.py`), the FV residual."""
+    n, e, k = mesh["n_nodes"], mesh["n_faces"], cfg["node_input_size"]
+    feats = Op("edge_features", batch * 16.0 * e,
+               batch * (n * k * 4 + e * (k + 3) * 4), PEAK_F32)
+    return ([feats] + spec.net(cfg["net"]).forward_ops(cfg, mesh, batch)
+            + fv_ops(mesh, batch))
 
 
 def step_ops(cfg: Dict, mesh: Dict, batch: int, train: bool,

@@ -3,7 +3,10 @@
 A run record (`run.py`) holds: mode ("train" or "rollout"), trace, the
 set-up and statics seconds, the window (steps, seconds, each step's
 latency; a train step call's host seconds), the profiled stretch's summary
-(`trace.reduce`) and its steps, and the step's operations (`flops`).
+(`trace.reduce_device`: busy and wall seconds, kernels a step, the top
+operations, `ops_s`: every device operation's seconds a step by name) and
+its steps, the step's model operations by name (`flops`), and with
+`--trace 1` the program's spans (`program`: `spans.program_record`).
 Every reader returns None where its cell has nothing for it to read.
 """
 

@@ -1,7 +1,7 @@
 """From the program's own spans (`gen_fvgn_tpu_torch/utils/spans.py`) to
 per-layer numbers.
 
-Three sources, each one stretch of a traced run (`benchmark/run_spans.py`):
+Three sources, each one stretch of a traced run (`run.py --trace 1`):
 
 * set-up, the spans on: seconds in `gfvgn.setup.envs`;
 * the second profiled stretch (host and device activities), the spans on:
@@ -20,10 +20,12 @@ that opened `gfvgn.train.step`); anything else is `UNATTRIBUTED`.
 
 from __future__ import annotations
 
+import json
 import re
 import statistics
 from typing import Dict, List, Optional, Tuple
 
+from benchmark.harness import flops
 from benchmark.harness import trace as tr
 
 PREFIX = "gfvgn."
@@ -192,6 +194,58 @@ def device_summary(att: Dict, recorded) -> Dict:
             / att["total_ns"]}
 
 
+def program_record(got: Dict) -> Dict:
+    """The run record's `program` from what a traced run gathered:
+    `setup` (set-up's spans), `attribution` and `gaps` (`attribute`,
+    `name_gaps`) with `profiled` (the second stretch's spans), `third`
+    (the third stretches: steps, wall seconds with the spans on (True) and
+    off (False), the spans)."""
+    envs = [s.seconds for s in got["setup"] if s.name == "gfvgn.setup.envs"]
+    prog = {"setup": {"envs_s": sum(envs) if envs else None}}
+    if "attribution" in got and got.get("profiled"):
+        prog["device"] = device_summary(got["attribution"], got["profiled"])
+        prog["gaps"] = got["gaps"]
+    if "third" in got:
+        third = got["third"]
+        steps = third["steps"] * len(third[True])
+        prog["host"] = host_summary(third["spans"], steps, sum(third[True]))
+        prog["host"]["off_wall_ms"] = 1e3 * sum(third[False]) / steps
+    return prog
+
+
+def detail_lines(prog: Dict, mode: str, window: Dict) -> List[str]:
+    """Standard error's lines of the spans: device ms by span and the
+    share charged to none, the operations that take most by span, the idle
+    gaps by span, the third stretches with the spans on against off, a
+    rollout step's host + record + export against its wall time."""
+    lines = []
+    dev, host = prog.get("device"), prog.get("host")
+    if dev:
+        lines.append(f"detail spans: device ms a step by span "
+                     f"{json.dumps(dev['ms'], sort_keys=True)}; "
+                     f"unattributed share {dev['unattributed']!r}")
+        lines += [f"detail spans: {ms!r} ms a step in {where}: {op}"
+                  for where, op, ms in dev["top"]]
+        for op, where, s in prog["gaps"]:
+            lines.append(f"detail spans: idle gap {1e3 * s!r} ms in "
+                         f"{where} under {op}")
+    if host:
+        win_ms = (1e3 * window["seconds"] / window["steps"]
+                  if window and window["steps"] else None)
+        lines.append(f"detail spans: third stretches {host['wall_ms']!r} ms "
+                     f"a step with {host['spans_per_step']!r} spans a step "
+                     f"on, {host['off_wall_ms']!r} off (on / off - 1 = "
+                     f"{host['wall_ms'] / host['off_wall_ms'] - 1:+.4%}); "
+                     f"window {win_ms!r} ms a step, spans off")
+        if mode == "rollout":
+            ms = host["ms"]
+            parts = sum(ms.get(f"gfvgn.rollout.{k}", 0.0)
+                        for k in ("step", "record", "export"))
+            lines.append(f"detail spans: host + record + export {parts!r} "
+                         f"ms against {host['wall_ms']!r} ms a step")
+    return lines
+
+
 # ------------------------------------------------------------- readers
 
 def _program(run, mode: Optional[str], part: str) -> Optional[Dict]:
@@ -204,6 +258,18 @@ def device_ms(run, mode: str, name: str) -> Optional[float]:
     """Device ms a step charged to span `name` (second stretch)."""
     dev = _program(run, mode, "device")
     return dev["ms"].get(name) if dev else None
+
+
+def span_roofline(run, mode: str, name: str, part: str) -> Optional[float]:
+    """The least time of the forward's model operations whose names hold
+    `part` (`flops.bound_seconds`) over the device ms a step charged to
+    span `name`, %. None where no such operation or no device time."""
+    ms = device_ms(run, mode, name)
+    ops = [o for o in run.get("ops") or []
+           if part in o.name and not o.name.endswith(".backward")]
+    if not ms or not ops:
+        return None
+    return 100.0 * flops.bound_seconds(ops) / (ms * 1e-3)
 
 
 def span_host_ms(run, mode: str, name: str) -> Optional[float]:

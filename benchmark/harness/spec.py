@@ -9,7 +9,9 @@ file found by its name:
   batch, pool size, steps a request);
 * `benchmark/limits/<cell>.json`: the limits of the numbers the cell's
   check compares;
-* `benchmark/metrics/<metric>.py`: the reader of one metric.
+* `benchmark/metrics/<metric>.py`: the reader of one metric;
+* `benchmark/reference/nets/<net>.py`: one network (the Config's `net`):
+  its parameter layout, its plain reference forward and its operations.
 """
 
 from __future__ import annotations
@@ -18,10 +20,12 @@ import importlib.util
 import json
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH_DIR = ROOT / "benchmark"
+NETS_DIR = BENCH_DIR / "reference" / "nets"
 
 
 def _json(path: Path) -> Dict:
@@ -74,11 +78,26 @@ def load_cell(name: str, bench: Dict = None) -> Cell:
                 per_layer)
 
 
-def reader(metric: str) -> Callable:
-    """`read(run)` of `benchmark/metrics/<metric>.py`."""
-    path = BENCH_DIR / "metrics" / f"{metric}.py"
+def _load(path: Path, prefix: str, name: str) -> ModuleType:
     spec = importlib.util.spec_from_file_location(
-        "benchmark_metric_" + metric.replace(".", "_"), path)
+        prefix + name.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric: str) -> Callable:
+    """`read(run)` of `benchmark/metrics/<metric>.py`."""
+    return _load(BENCH_DIR / "metrics" / f"{metric}.py", "benchmark_metric_",
+                 metric).read
+
+
+def net(name: str) -> ModuleType:
+    """The module `benchmark/reference/nets/<name>.py` of the Config's
+    `net`: `layout(cfg)`, `forward(net, x, e, face_node)` and
+    `forward_ops(cfg, mesh, batch)`."""
+    path = NETS_DIR / f"{name}.py"
+    if not path.is_file():
+        raise ValueError(f"the benchmark has no net {name!r}: add {path} "
+                         "with layout, forward and forward_ops")
+    return _load(path, "benchmark_net_", name)

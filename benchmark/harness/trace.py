@@ -57,8 +57,9 @@ def _merge(ops) -> List[List[int]]:
 
 
 def reduce_device(prof, steps: int, wall_s: float) -> Dict:
-    """Busy seconds, the stretch's wall seconds, kernels a step and the
-    10 device operations that took most time, by name."""
+    """Busy seconds, the stretch's wall seconds, kernels a step, the 10
+    device operations that took most time, by name, and every operation's
+    device seconds a step by its full name (`ops_s`)."""
     ops = _device_ops(list(prof.profiler.kineto_results.events()))
     if not ops:
         return {}
@@ -71,7 +72,8 @@ def reduce_device(prof, steps: int, wall_s: float) -> Dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"window_s": wall_s, "busy_s": busy * 1e-9,
             "kernels_per_step": kernels / steps,
-            "device_ops": [[k[:160], v * 1e-9] for k, v in top]}
+            "device_ops": [[k[:160], v * 1e-9] for k, v in top],
+            "ops_s": {k: v * 1e-9 / steps for k, v in by_name.items()}}
 
 
 def idle_gaps(prof) -> List[List]:

@@ -3,9 +3,10 @@
 The names are the parameter tree that Gen-FVGN's networks share with the
 system under test: MLPs `hidden_0`, `hidden_1`, `out` (kernels [in, out])
 and `ln`; the Transolver block's attention projections, temperature,
-pre-LayerNorm MLP. Every leaf is drawn in one call of a generator on the
-device: kernels and biases N(0, 0.02²), LayerNorm scales 1 + N(0, 0.02²),
-the slice temperatures 0.5 + N(0, 0.05²).
+pre-LayerNorm MLP. Each network's file (`benchmark/reference/nets/`)
+lists its leaves from the pieces below. Every leaf is drawn in one call of
+a generator on the device: kernels and biases N(0, 0.02²), LayerNorm
+scales 1 + N(0, 0.02²), the slice temperatures 0.5 + N(0, 0.05²).
 """
 
 from __future__ import annotations
@@ -14,8 +15,12 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from benchmark.harness import spec
 
-def _mlp(name: str, k: int, h: int, out: int, ln: bool = True):
+
+def mlp_leaves(name: str, k: int, h: int, out: int, ln: bool = True):
+    """A two-hidden-layer MLP from `k` to `out` through `h`, with a
+    trailing LayerNorm where `ln`."""
     leaves = [(f"{name}.hidden_0.kernel", (k, h)), (f"{name}.hidden_0.bias", (h,)),
               (f"{name}.hidden_1.kernel", (h, h)), (f"{name}.hidden_1.bias", (h,)),
               (f"{name}.out.kernel", (h, out)), (f"{name}.out.bias", (out,))]
@@ -24,12 +29,29 @@ def _mlp(name: str, k: int, h: int, out: int, ln: bool = True):
     return leaves
 
 
-def _gn(name: str, h: int):
-    return (_mlp(f"{name}.edge_block.edge_mlp", 3 * h, h, h)
-            + _mlp(f"{name}.node_block.node_mlp", h // 2 + h, h, h))
+def encoder_leaves(cfg: Dict):
+    """The node and edge encoders (the edge's inputs: the nodes' difference
+    and the face's offset and length)."""
+    h, k = cfg["hidden_size"], cfg["node_input_size"]
+    return (mlp_leaves("encoder.node_encoder", k, h, h)
+            + mlp_leaves("encoder.edge_encoder", k + 3, h, h))
 
 
-def _transolver(name: str, h: int, heads: int, g: int):
+def decoder_leaves(cfg: Dict):
+    h = cfg["hidden_size"]
+    return mlp_leaves("decoder.node_decoder", h, h, cfg["node_output_size"],
+                      ln=False)
+
+
+def gn_leaves(name: str, h: int):
+    """A GraphNet block: the EdgeBlock's and the NodeBlock's MLPs."""
+    return (mlp_leaves(f"{name}.edge_block.edge_mlp", 3 * h, h, h)
+            + mlp_leaves(f"{name}.node_block.node_mlp", h // 2 + h, h, h))
+
+
+def transolver_leaves(name: str, h: int, heads: int, g: int):
+    """A Transolver block: physics attention over `g` slices in `heads`
+    heads, then a pre-LayerNorm MLP of ratio 2."""
     d = h // heads
     a = f"{name}.attn"
     return [(f"{a}.graph_temperature", (1, heads, 1)),
@@ -46,22 +68,9 @@ def _transolver(name: str, h: int, heads: int, g: int):
 
 
 def layout(cfg: Dict) -> List[Tuple[str, tuple]]:
-    h, k = cfg["hidden_size"], cfg["node_input_size"]
-    leaves = (_mlp("encoder.node_encoder", k, h, h)
-              + _mlp("encoder.edge_encoder", k + 3, h, h))
-    if cfg["net"] == "FVGN":
-        for i in range(cfg["message_passing_num"]):
-            leaves += _gn(f"gn_{i}", h)
-    elif cfg["net"] == "TransFVGN_v2":
-        for p in range(2):
-            for i in range(cfg["message_passing_num"]):
-                leaves += _gn(f"processor_{p}.gn_{i}", h)
-            leaves += _transolver(f"processor_{p}.transolver", h,
-                                  cfg["attn_heads"], cfg["slice_num"])
-    else:
-        raise ValueError(f"no parameter layout for net {cfg['net']!r}")
-    return leaves + _mlp("decoder.node_decoder", h, h, cfg["node_output_size"],
-                         ln=False)
+    """(name, shape) of every leaf in draw order: the `layout` of the net's
+    file, `benchmark/reference/nets/<net>.py`."""
+    return spec.net(cfg["net"]).layout(cfg)
 
 
 def draw(cfg: Dict, seed: int, device) -> Dict[str, torch.Tensor]:

@@ -1,6 +1,6 @@
 """Device ms a rollout step charged to the program's `gfvgn.model.attention`
 span (the Transolver blocks), over the second profiled stretch of
-`run_spans.py`; none for a net without them.
+`run.py --trace 1`; none for a net without them.
 """
 
 from benchmark.harness.spans import device_ms

@@ -1,6 +1,6 @@
 """Device ms a train step charged to the program's `gfvgn.train.backward`
 span (`torch.autograd.grad`), over the second profiled stretch of
-`run_spans.py`.
+`run.py --trace 1`.
 """
 
 from benchmark.harness.spans import device_ms

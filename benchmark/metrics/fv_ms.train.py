@@ -1,6 +1,6 @@
 """Device ms a train step charged to the program's `gfvgn.fv.residual` span
 (the FV residual's forward; its backward is in `backward_ms.train`), over
-the second profiled stretch of `run_spans.py`.
+the second profiled stretch of `run.py --trace 1`.
 """
 
 from benchmark.harness.spans import device_ms

@@ -1,6 +1,6 @@
 """Mean host ms of the program's `gfvgn.rollout.step` span (the step's call,
 to its return, no synchronize inside) over the third stretch of
-`run_spans.py`: one whole request, unprofiled.
+`run.py --trace 1`: one whole request, unprofiled.
 """
 
 from benchmark.harness.spans import span_host_ms

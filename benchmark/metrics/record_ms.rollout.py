@@ -1,6 +1,6 @@
 """Mean host ms of the program's `gfvgn.rollout.record` span (the record's
 copies to the host, which wait for the step's kernels) over the third
-stretch of `run_spans.py`: one whole request, unprofiled.
+stretch of `run.py --trace 1`: one whole request, unprofiled.
 """
 
 from benchmark.harness.spans import span_host_ms

@@ -1,8 +1,9 @@
-"""The two networks in plain PyTorch, one graph at a time.
+"""The networks' shared pieces in plain PyTorch, one graph at a time.
 
-FVGN (Encoder -> GraphNet blocks -> Decoder) and TransFVGN_v2 (Encoder ->
-two processors of GraphNet blocks then a Transolver block -> Decoder), as
-Gen-FVGN defines them (`src/FVMmodel/Models/FVGN/EPD.py`, `blocks.py`,
+Each network is a file of its own, `nets/<net>.py` by the Config's `net`
+(`FVGN.py`, `TransFVGN_v2.py`), whose `forward(net, x, e, face_node)` is
+written on the pieces of `Net` below, as Gen-FVGN writes its networks
+(`src/FVMmodel/Models/FVGN/EPD.py`, `blocks.py`,
 `Models/TransFVGN/TransFVGN_v2.py`): GELU (tanh form) MLPs of two hidden
 layers with a trailing LayerNorm (eps 1e-6) except in the decoder; the
 EdgeBlock's MLP sees [sum of the neighbours' features at the sender, at
@@ -13,7 +14,9 @@ streams are residual. The Transolver block is physics attention over
 learned slice tokens plus a pre-LayerNorm MLP of ratio 2.
 
 `params` maps the parameter names to float32 tensors. `Net(stream=
-"float8")` is the control: the same network computed on a float8 stream.
+"float8")` is the control: the same network computed on a float8 stream;
+every piece rounds through `Net.mm` and `Net.s`, so the control holds
+every net alike.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from typing import Dict
 
 import torch
 from torch.nn import functional as F
+
+from benchmark.harness import spec
 
 Params = Dict[str, torch.Tensor]
 
@@ -74,6 +79,7 @@ class Net:
 
     def __init__(self, params: Params, cfg: Dict, stream=None):
         self.p, self.cfg = params, cfg
+        self.net = spec.net(cfg["net"])
         if stream is None:
             self.mm, self.s = torch.matmul, _same
         else:
@@ -138,21 +144,15 @@ class Net:
                           approximate="tanh"))
         return self.s(x + self.dense(h, name + ".mlp_post"))
 
-    def __call__(self, x, e, face_node):
-        c = self.cfg
-        s, r = face_node[0], face_node[1]
-        x = self.mlp(self.s(x), "encoder.node_encoder")
-        e = self.mlp(self.s(e), "encoder.edge_encoder")
-        if c["net"] == "FVGN":
-            for i in range(c["message_passing_num"]):
-                x, e = self.gn_block(x, e, s, r, f"gn_{i}")
-        elif c["net"] == "TransFVGN_v2":
-            for p in range(2):
-                x_in = x
-                for i in range(c["message_passing_num"]):
-                    x, e = self.gn_block(x, e, s, r, f"processor_{p}.gn_{i}")
-                x = self.transolver(self.s(x + x_in),
-                                    f"processor_{p}.transolver")
-        else:
-            raise ValueError(f"the reference has no net {c['net']!r}")
+    def encode(self, x, e):
+        """The node and edge encoders."""
+        return (self.mlp(self.s(x), "encoder.node_encoder"),
+                self.mlp(self.s(e), "encoder.edge_encoder"))
+
+    def decode(self, x):
         return self.s(self.mlp(x, "decoder.node_decoder", ln=False))
+
+    def __call__(self, x, e, face_node):
+        """x [N, node inputs], e [E, node inputs + 3], face_node [2, E]:
+        the net file's `forward`, [N, outputs]."""
+        return self.net.forward(self, x, e, face_node)

@@ -6,12 +6,18 @@
 Builds the cell's system from the seed (case on disk, environment pool,
 weights on the card), warms up every shape the window uses, measures for
 `--seconds` seconds, and checks what the timed path produced against the
-plain reference. `--trace 0` reports the cell's end-to-end metrics,
-`--trace 1` its per-layer metrics from host spans over a stretch of that
-length and a `torch.profiler` trace of a shorter one. The last line of
+plain reference. `--trace 0` reports the cell's end-to-end metrics and
+turns none of the program's spans on. `--trace 1` reports its per-layer
+metrics: from the harness's clock over a window of that length (spans
+off), from a `torch.profiler` trace of a shorter stretch (spans off), and
+from the program's spans (`gen_fvgn_tpu_torch/utils/spans.py`, read by
+`harness/spans.py`), turned on in set-up, in a second profiled stretch
+(each device operation charged to the span that launched it, the idle
+gaps named by span) and in four third stretches, unprofiled, spans off,
+on, on, off (host ms by span; the cost of the spans). The last line of
 standard output is one JSON object: correct, attempted, failed, metrics,
-device, (breakdown), checks. The numbers compared, each beside its limit,
-are also the last lines of standard error.
+device, (breakdown, program), checks. The numbers compared, each beside
+its limit, are also the last lines of standard error.
 
 Needs the CUDA cards the cell asks for; the program is the package
 `gen_fvgn_tpu_torch`, and nothing here loads JAX or the JAX package.
@@ -52,22 +58,60 @@ def card_line() -> str:
         return "nvidia-smi not available"
 
 
+def recorded(fn, *args) -> list:
+    """Runs `fn(*args)` with the program's spans on; the spans it
+    recorded."""
+    from gen_fvgn_tpu_torch.utils import spans
+    spans.take()
+    spans.enable(True)
+    try:
+        fn(*args)
+    finally:
+        spans.enable(False)
+    return spans.take()
+
+
+def third_stretches(drv) -> dict:
+    """One pass over the pool (train) or one whole request (rollout), four
+    times: spans off, on, on, off. The wall seconds of each and the spans
+    recorded."""
+    from benchmark.harness import cells
+    steps = drv.dataset // drv.batch if drv.mode == "train" else drv.steps
+    third = {"steps": steps, True: [], False: [], "spans": []}
+    for on in (False, True, True, False):
+        cells.sync(drv.dev)
+        t0 = time.perf_counter()
+        if on:
+            third["spans"] += recorded(drv.stretch, steps)
+        else:
+            drv.stretch(steps)
+        cells.sync(drv.dev)
+        third[on].append(time.perf_counter() - t0)
+    return third
+
+
 def execute(workload: str, seed: int, seconds: float, trace: bool,
             device: str = "cuda", t0: float = T0, cell=None):
     """One run of a cell on `device` (`cell`: a `spec.Cell` in place of
-    the one BENCHMARK.json names). Returns (result, check lines)."""
+    the one BENCHMARK.json names). Returns (result, lines for standard
+    error)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from benchmark.harness import cells, check, flops, spec
+    from benchmark.harness import spans as hs
     from benchmark.harness import trace as tr
 
     cell = cell or spec.load_cell(workload)
     train = cell.traffic["mode"] == "train"
     drv = (cells.Train if train else cells.Rollout)(cell, seed, device)
     cuda = torch.device(device).type == "cuda"
+    got = {}
     try:
-        drv.setup()
+        if trace:
+            got["setup"] = recorded(drv.setup)
+        else:
+            drv.setup()
         setup_s = time.perf_counter() - t0
         win = drv.window(seconds)
         prof_sum, p_steps = {}, int(cell.traffic["trace_steps"])
@@ -85,11 +129,17 @@ def execute(workload: str, seed: int, seconds: float, trace: bool,
                                      ProfilerActivity.CUDA]) as prof:
                 with record_function(tr.STRETCH):
                     cells.sync(drv.dev)
-                    drv.stretch(max(1, p_steps // 3))
+                    got["profiled"] = recorded(drv.stretch,
+                                               max(1, p_steps // 3))
                     cells.sync(drv.dev)
+            evs = list(prof.profiler.kineto_results.events())
             prof_sum["idle_gaps"] = tr.idle_gaps(prof)
-            del prof
+            got["attribution"] = hs.attribute(*hs.from_kineto(evs))
+            got["gaps"] = hs.name_gaps(evs)
+            del prof, evs
         peak = int(torch.cuda.max_memory_allocated(drv.dev)) if cuda else 0
+        if trace:
+            got["third"] = third_stretches(drv)
         drv.free()
 
         st, numbers, _, details = check.compare(drv, cell, seed)
@@ -105,6 +155,8 @@ def execute(workload: str, seed: int, seconds: float, trace: bool,
                "window": win, "profile": prof_sum, "profile_steps": p_steps,
                "ops": flops.step_ops(cell.cfg, mesh, drv.batch, train,
                                      n_params)}
+        if trace:
+            run["program"] = hs.program_record(got)
         wanted = cell.per_layer if trace else cell.end_to_end
         metrics = {}
         for m in wanted:
@@ -124,6 +176,8 @@ def execute(workload: str, seed: int, seconds: float, trace: bool,
         if trace and prof_sum.get("device_ops"):
             result["breakdown"] = {"device_ops": prof_sum["device_ops"],
                                    "idle_gaps": prof_sum["idle_gaps"]}
+        if trace:
+            result["program"] = run["program"]
         result["checks"] = {k: {"value": numbers.get(k), "limit": v}
                             for k, v in cell.limits.items()}
         lines = [f"detail {d}" for d in details]
@@ -134,6 +188,8 @@ def execute(workload: str, seed: int, seconds: float, trace: bool,
                 f"detail traced stretch {1e3 * prof_sum['host_step_s']!r} "
                 f"ms a step, busy {1e3 * prof_sum['busy_s'] / p_steps!r}; "
                 f"untraced {1e3 * win['seconds'] / win['steps']!r}")
+        if trace:
+            lines += hs.detail_lines(run["program"], run["mode"], win)
         lines += [f"check {k}: {numbers.get(k)!r} (limit {v!r})"
                   for k, v in cell.limits.items()]
         lines.append(f"check correct: {correct}")

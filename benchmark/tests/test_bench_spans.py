@@ -1,14 +1,29 @@
-"""The reading of the program's spans (`harness/spans.py`,
-`run_spans.py`, the readers named in `span_metrics.json`): attribution of
-device time on synthetic event lists, each reader's None where it has
-nothing to read, and a whole traced run of a cut-down cell on the CPU."""
+"""The reading of the program's spans (`harness/spans.py`, `run.py
+--trace 1`, the readers of the per-layer metrics that read them) and of
+the device trace (`harness/trace.py`): attribution of device time on
+synthetic event lists, every operation's time in the record, each
+reader's None where it has nothing to read, and whole runs of a cut-down
+cell on the CPU, traced and not."""
 
 import pytest
 
-from benchmark import run, run_spans
+from benchmark import run
+from benchmark.harness import cells, flops
 from benchmark.harness import spans as hs
 from benchmark.harness import spec
+from benchmark.harness import trace as tr
 from benchmark.tests.bench_common import tiny_cell
+
+# the per-layer metrics read from the program's spans
+SPAN_METRICS = ("fv_ms.train", "fv_ms.rollout", "attn_ms.train",
+                "attn_ms.rollout", "backward_ms.train", "optimizer_ms.train",
+                "host_ms.rollout", "record_ms.rollout", "record_gbps.rollout",
+                "envs_s", "attn_roofline.train", "attn_roofline.rollout")
+
+
+def span_metrics():
+    return [m for m in spec.benchmark_file()["per_layer"]
+            if m["name"] in SPAN_METRICS]
 
 MAIN, AUTOGRAD = 1, 2
 MARKS = [("gfvgn.train.step", 100, 1000, MAIN),
@@ -135,13 +150,18 @@ def _record(mode, trace=True):
     host = {"steps": 2, "wall_ms": 30.0, "spans_per_step": 6.0,
             "ms": {"gfvgn.rollout.step": 20.0, "gfvgn.rollout.record": 9.0,
                    "gfvgn.rollout.export": 0.1}}
-    return {"mode": mode, "trace": trace,
+    ops = [flops.Op("processor_0.transolver.attention", 2e9, 4e6,
+                    flops.PEAK_BF16),
+           flops.Op("processor_0.transolver.mlp", 1e9, 8e6, flops.PEAK_BF16),
+           flops.Op("processor_0.transolver.attention.backward", 4e9, 8e6,
+                    flops.PEAK_BF16),
+           flops.Op("gn_0.edge_mlp", 9e9, 9e6, flops.PEAK_BF16)]
+    return {"mode": mode, "trace": trace, "ops": ops,
             "program": {"setup": {"envs_s": 4.0}, "device": dev,
                         "host": host, "gaps": []}}
 
 
-@pytest.mark.parametrize("m", run_spans.span_metrics(),
-                         ids=lambda m: m["name"])
+@pytest.mark.parametrize("m", span_metrics(), ids=lambda m: m["name"])
 def test_each_reader_reads_only_its_mode_and_traced_runs(m):
     read = spec.reader(m["name"])
     mode = "train" if m["moves"] == "train_ms" else "rollout"
@@ -153,40 +173,90 @@ def test_each_reader_reads_only_its_mode_and_traced_runs(m):
         assert read(_record(other)) is None
     if m["name"] == "record_gbps.rollout":
         assert read(_record(mode)) == pytest.approx(12.0)
+    if m["name"].startswith("attn_roofline."):
+        # the forward's two Transolver operations over the span's 2 ms:
+        # attention 2e9 / 989e12 s, MLP 8e6 B / 3.35e12 B/s
+        bound = 2e9 / 989e12 + 8e6 / 3.35e12
+        assert read(_record(mode)) == pytest.approx(100 * bound / 2e-3)
+        assert read(dict(_record(mode), ops=[])) is None
 
 
 def test_the_span_metrics_keep_to_the_contract():
     bench = spec.benchmark_file()
     cells = {w["name"] for w in bench["workloads"]}
-    have = {m["name"] for m in bench["end_to_end"] + bench["per_layer"]}
+    have = [m["name"] for m in bench["end_to_end"] + bench["per_layer"]]
     layers = {m["layer"] for m in bench["per_layer"]}
     names = []
-    for m in run_spans.span_metrics():
+    for m in span_metrics():
         assert set(m) == {"name", "unit", "better", "source", "layer",
                           "moves", "workloads"}
         assert m["source"] in ("device_trace", "program_span")
-        assert m["layer"] in layers and m["name"] not in have
+        assert m["layer"] in layers and have.count(m["name"]) == 1
         assert m["workloads"] and set(m["workloads"]) <= cells
         for w in m["workloads"]:
             e2e = {e["name"] for e in spec.load_cell(w).end_to_end}
             assert m["moves"] in e2e
         names.append(m["name"])
-    assert len(names) == len(set(names)) == 10
+    assert len(names) == len(set(names)) == len(SPAN_METRICS)
+
+
+class _Prof:
+    """What `trace.reduce_device` reads of a `torch.profiler.profile`."""
+
+    def __init__(self, events):
+        self.profiler = type("P", (), {})()
+        self.profiler.kineto_results = type("K", (), {})()
+        self.profiler.kineto_results.events = lambda: events
+
+
+def test_every_device_operation_is_in_the_record():
+    """`ops_s`: each of twelve operations' device seconds a step by its
+    full name; the breakdown keeps the ten longest, names cut to 160."""
+    long = "k" * 200
+    evs = [_Ev(f"op{i}", "kernel", 1000 * i, 10 * (i + 1))
+           for i in range(11)]
+    evs += [_Ev(long, "kernel", 20000, 5), _Ev(long, "kernel", 21000, 5)]
+    got = tr.reduce_device(_Prof(evs), 2, 1e-4)
+    assert got["ops_s"] == {**{f"op{i}": pytest.approx(5e-9 * (i + 1))
+                               for i in range(11)},
+                            long: pytest.approx(5e-9)}
+    assert len(got["device_ops"]) == 10
+    assert got["device_ops"][0] == ["op10", pytest.approx(110e-9)]
+    assert got["busy_s"] == pytest.approx(sum(10 * (i + 1)
+                                              for i in range(11)) * 1e-9
+                                          + 10e-9)
 
 
 @pytest.mark.parametrize("mode", ["train", "rollout"])
-def test_a_traced_run_with_spans_carries_program_and_every_key(mode):
-    """On the CPU `run.py` traces no stretch: the record has set-up's and
-    the third stretch's spans, and every key of `run.execute`'s result."""
+def test_a_traced_run_with_spans_carries_program_and_every_key(
+        mode, monkeypatch):
+    """On the CPU `run.py` profiles no stretch: a `--trace 1` record has
+    set-up's and the third stretches' spans, and every key of a
+    `--trace 0` result; the window runs with the spans off in both, and
+    `--trace 0` turns no span on."""
+    from gen_fvgn_tpu_torch.utils import spans
     name = next(w["name"] for w in spec.benchmark_file()["workloads"]
                 if spec.load_cell(w["name"]).traffic["mode"] == mode)
     cell = tiny_cell(name)
-    base, base_lines = run.execute(name, 2**31 + 23, 0.5, True,
-                                   device="cpu", cell=cell)
-    got, lines = run_spans.execute(name, 2**31 + 23, 0.5, device="cpu",
-                                   cell=cell)
+    turned_on = []
+    enable = spans.enable
+    monkeypatch.setattr(spans, "enable",
+                        lambda flag=True: (turned_on.append(bool(flag)),
+                                           enable(flag))[1])
+    for kind in (cells.Train, cells.Rollout):
+        def window(self, seconds, _base=kind.window):
+            assert not spans.enabled()
+            return _base(self, seconds)
+        monkeypatch.setattr(kind, "window", window)
+
+    base, _ = run.execute(name, 2**31 + 23, 0.5, False, device="cpu",
+                          cell=cell)
+    assert True not in turned_on and "program" not in base
+    got, lines = run.execute(name, 2**31 + 23, 0.5, True, device="cpu",
+                             cell=cell)
+    assert True in turned_on and not spans.enabled()
     assert set(base) <= set(got) and "program" in got
-    assert set(base["metrics"]) <= set(got["metrics"])
+    assert list(got)[-1] == "checks"
     assert got["correct"] and base["correct"]
     prog = got["program"]
     assert prog["setup"]["envs_s"] > 0 and "device" not in prog
@@ -195,6 +265,7 @@ def test_a_traced_run_with_spans_carries_program_and_every_key(mode):
     assert host["ms"][step] > 0 and host["spans_per_step"] >= 3
     assert host["wall_ms"] > 0 and host["off_wall_ms"] > 0
     assert any("on / off - 1" in line for line in lines)
+    assert lines[-1].startswith("check correct")
     assert "envs_s" in got["metrics"]
     if mode == "rollout":
         assert {"host_ms.rollout", "record_ms.rollout"} <= set(got["metrics"])

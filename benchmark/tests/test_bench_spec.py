@@ -32,8 +32,8 @@ def test_every_cell_loads_from_data(w):
     assert cell.per_layer
     for m in cell.per_layer:
         assert m["moves"] in e2e
-    assert set(cell.limits) <= ({"loss_gap", "state_gap", "grad_gap",
-                                 "change_gap"}
+    assert set(cell.limits) <= ({"loss1_gap", "loss_gap", "state_gap",
+                                 "grad_gap", "change_gap"}
                                 if cell.traffic["mode"] == "train" else
                                 {"node_gap", "cell_gap", "loss_gap"})
     assert cell.limits and all(v > 0 for v in cell.limits.values())
