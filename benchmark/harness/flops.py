@@ -105,14 +105,21 @@ def fv_ops(mesh: Dict, batch: int) -> List[Op]:
     ]
 
 
+def edge_features_op(cfg: Dict, mesh: Dict, batch: int) -> Op:
+    """The edge features [x_s - x_r, pos_s - pos_r, |pos_s - pos_r|] over
+    the faces, float32: put first in `forward_ops` by a net that reads
+    them."""
+    n, e, k = mesh["n_nodes"], mesh["n_faces"], cfg["node_input_size"]
+    return Op("edge_features", batch * 16.0 * e,
+              batch * (n * k * 4 + e * (k + 3) * 4), PEAK_F32)
+
+
 def forward_ops(cfg: Dict, mesh: Dict, batch: int) -> List[Op]:
     """mesh: n_nodes, n_faces, n_cells, n_slots, n_stencil (two-way). The
-    edge features, the network's own operations (`forward_ops` of its
-    file, `benchmark/reference/nets/<net>.py`), the FV residual."""
-    n, e, k = mesh["n_nodes"], mesh["n_faces"], cfg["node_input_size"]
-    feats = Op("edge_features", batch * 16.0 * e,
-               batch * (n * k * 4 + e * (k + 3) * 4), PEAK_F32)
-    return ([feats] + spec.net(cfg["net"]).forward_ops(cfg, mesh, batch)
+    network's own operations (`forward_ops` of its file,
+    `benchmark/reference/nets/<net>.py`, its input features among them),
+    then the FV residual."""
+    return (spec.net(cfg["net"]).forward_ops(cfg, mesh, batch)
             + fv_ops(mesh, batch))
 
 

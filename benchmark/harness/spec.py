@@ -11,7 +11,9 @@ file found by its name:
   check compares;
 * `benchmark/metrics/<metric>.py`: the reader of one metric;
 * `benchmark/reference/nets/<net>.py`: one network (the Config's `net`):
-  its parameter layout, its plain reference forward and its operations.
+  its parameter layout, its plain reference forward (handed the node
+  inputs, the edge features, the faces and the nodes' coordinates) and
+  its operations, its input features among them.
 """
 
 from __future__ import annotations
@@ -94,10 +96,11 @@ def reader(metric: str) -> Callable:
 
 def net(name: str) -> ModuleType:
     """The module `benchmark/reference/nets/<name>.py` of the Config's
-    `net`: `layout(cfg)`, `forward(net, x, e, face_node)` and
+    `net`: `layout(cfg)`, `forward(net, x, e, face_node, pos)` and
     `forward_ops(cfg, mesh, batch)`."""
     path = NETS_DIR / f"{name}.py"
     if not path.is_file():
         raise ValueError(f"the benchmark has no net {name!r}: add {path} "
-                         "with layout, forward and forward_ops")
+                         "with layout(cfg), forward(net, x, e, face_node, "
+                         "pos) and forward_ops(cfg, mesh, batch)")
     return _load(path, "benchmark_net_", name)

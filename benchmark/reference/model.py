@@ -1,8 +1,8 @@
 """The networks' shared pieces in plain PyTorch, one graph at a time.
 
 Each network is a file of its own, `nets/<net>.py` by the Config's `net`
-(`FVGN.py`, `TransFVGN_v2.py`), whose `forward(net, x, e, face_node)` is
-written on the pieces of `Net` below, as Gen-FVGN writes its networks
+(`FVGN.py`, `TransFVGN_v2.py`), whose `forward(net, x, e, face_node, pos)`
+is written on the pieces of `Net` below, as Gen-FVGN writes its networks
 (`src/FVMmodel/Models/FVGN/EPD.py`, `blocks.py`,
 `Models/TransFVGN/TransFVGN_v2.py`): GELU (tanh form) MLPs of two hidden
 layers with a trailing LayerNorm (eps 1e-6) except in the decoder; the
@@ -11,7 +11,12 @@ the receiver, the edge]; the NodeBlock sends the first half of the new
 edge features to the receiver and the second half to the sender, averages
 the neighbours' aggregates and feeds [average, node] to its MLP; both
 streams are residual. The Transolver block is physics attention over
-learned slice tokens plus a pre-LayerNorm MLP of ratio 2.
+learned slice tokens (`physics_attention`) plus a pre-LayerNorm MLP of
+ratio 2 with its residual (`premlp_res`); Gen-FVGN's block (`transolver`)
+adds the attention to its input without a LayerNorm before it, where
+Transolver's own block (arXiv 2402.02366) writes
+`x = net.s(x + net.physics_attention(net.layer_norm(x, name + ".ln_1"),
+name))` and then `net.premlp_res(x, name)`.
 
 `params` maps the parameter names to float32 tensors. `Net(stream=
 "float8")` is the control: the same network computed on a float8 stream;
@@ -91,15 +96,17 @@ class Net:
         y = self.mm(x, self.p[name + ".kernel"])
         return self.s(y + self.p[name + ".bias"]) if bias else y
 
+    def layer_norm(self, x, name):
+        """LayerNorm (eps 1e-6) by the leaves `name.scale`, `name.bias`."""
+        return self.s(F.layer_norm(x, x.shape[-1:], self.p[name + ".scale"],
+                                   self.p[name + ".bias"], eps=1e-6))
+
     def mlp(self, x, name, ln=True):
         s = self.s
         h = s(F.gelu(self.dense(x, name + ".hidden_0"), approximate="tanh"))
         h = s(F.gelu(self.dense(h, name + ".hidden_1"), approximate="tanh"))
         h = self.dense(h, name + ".out")
-        if ln:
-            h = s(F.layer_norm(h, h.shape[-1:], self.p[name + ".ln.scale"],
-                               self.p[name + ".ln.bias"], eps=1e-6))
-        return h
+        return self.layer_norm(h, name + ".ln") if ln else h
 
     def _two_way(self, vs, vr, s, r, n):
         out = vs.new_zeros((n,) + vs.shape[1:])
@@ -120,7 +127,9 @@ class Net:
                                    -1), name + ".node_block.node_mlp")
         return self.s(x + x_new), self.s(e + e_new)
 
-    def transolver(self, x, name):
+    def physics_attention(self, x, name):
+        """The physics attention of the block `name` over x [N, C]: its
+        output after `to_out`, before any residual."""
         c = self.cfg
         heads, g = c["attn_heads"], c["slice_num"]
         d = x.shape[1] // heads
@@ -137,12 +146,20 @@ class Net:
         v = self.dense(tok, a + ".to_v", bias=False)
         att = torch.softmax(q @ k.transpose(-1, -2) * d ** -0.5, -1)
         out = torch.einsum("nhg,hgd->nhd", w, att @ v).reshape(x.shape)
-        x = self.s(x + self.dense(out, a + ".to_out"))
-        h = self.s(F.layer_norm(x, x.shape[-1:], self.p[name + ".ln_2.scale"],
-                                self.p[name + ".ln_2.bias"], eps=1e-6))
+        return self.dense(out, a + ".to_out")
+
+    def premlp_res(self, x, name):
+        """x + MLP(LN_2(x)) of the block `name`: ratio 2, GELU."""
+        h = self.layer_norm(x, name + ".ln_2")
         h = self.s(F.gelu(self.dense(h, name + ".mlp_pre"),
                           approximate="tanh"))
         return self.s(x + self.dense(h, name + ".mlp_post"))
+
+    def transolver(self, x, name):
+        """Gen-FVGN's Transolver block: no LayerNorm before the
+        attention."""
+        return self.premlp_res(self.s(x + self.physics_attention(x, name)),
+                               name)
 
     def encode(self, x, e):
         """The node and edge encoders."""
@@ -152,7 +169,8 @@ class Net:
     def decode(self, x):
         return self.s(self.mlp(x, "decoder.node_decoder", ln=False))
 
-    def __call__(self, x, e, face_node):
-        """x [N, node inputs], e [E, node inputs + 3], face_node [2, E]:
-        the net file's `forward`, [N, outputs]."""
-        return self.net.forward(self, x, e, face_node)
+    def __call__(self, x, e, face_node, pos):
+        """x [N, node inputs], e [E, node inputs + 3], face_node [2, E],
+        pos [N, 2] the nodes' coordinates in x's order: the net file's
+        `forward`, [N, outputs]."""
+        return self.net.forward(self, x, e, face_node, pos)

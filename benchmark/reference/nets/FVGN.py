@@ -21,7 +21,8 @@ def layout(cfg):
     return leaves + weights.decoder_leaves(cfg)
 
 
-def forward(net, x, e, face_node):
+def forward(net, x, e, face_node, pos):
+    """pos: unread; the edge features carry the faces' offsets."""
     s, r = face_node[0], face_node[1]
     x, e = net.encode(x, e)
     for i in range(net.cfg["message_passing_num"]):
@@ -30,7 +31,8 @@ def forward(net, x, e, face_node):
 
 
 def forward_ops(cfg, mesh, batch):
-    ops = flops.encoder_ops(cfg, mesh, batch)
+    ops = ([flops.edge_features_op(cfg, mesh, batch)]
+           + flops.encoder_ops(cfg, mesh, batch))
     for i in range(cfg["message_passing_num"]):
         ops += flops.gn_ops(cfg, mesh, batch, f"gn_{i}")
     return ops + [flops.decoder_op(cfg, mesh, batch)]

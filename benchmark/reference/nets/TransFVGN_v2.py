@@ -30,7 +30,8 @@ def layout(cfg):
     return leaves + weights.decoder_leaves(cfg)
 
 
-def forward(net, x, e, face_node):
+def forward(net, x, e, face_node, pos):
+    """pos: unread; the edge features carry the faces' offsets."""
     s, r = face_node[0], face_node[1]
     x, e = net.encode(x, e)
     for p in range(2):
@@ -42,7 +43,8 @@ def forward(net, x, e, face_node):
 
 
 def forward_ops(cfg, mesh, batch):
-    ops = flops.encoder_ops(cfg, mesh, batch)
+    ops = ([flops.edge_features_op(cfg, mesh, batch)]
+           + flops.encoder_ops(cfg, mesh, batch))
     for p in range(2):
         for i in range(cfg["message_passing_num"]):
             ops += flops.gn_ops(cfg, mesh, batch, f"processor_{p}.gn_{i}")

@@ -3,7 +3,9 @@ reference.
 
 `forward` is the system's step on one graph: the uvp channels standardised
 over the graph's nodes, the theta channels by the running normaliser, the
-edge features [x_s - x_r, pos_s - pos_r, |pos_s - pos_r|], the network,
+edge features [x_s - x_r, pos_s - pos_r, |pos_s - pos_r|], the network
+(which is handed the node inputs, the edge features, the faces and the
+nodes' coordinates, unpadded and in the node inputs' order),
 the soft clamp tanh(y / 10) * 10, the Dirichlet overwrite (uv on wall,
 inflow and corner nodes; p at a pressure point), the IMEX mix of the old
 and new velocities, the FV residual and the state scaled back to
@@ -74,7 +76,7 @@ def forward(net: Net, st: Dict[str, torch.Tensor], uvp, env, mean, std):
     dp = st["pos"][fn[0]] - st["pos"][fn[1]]
     e = torch.cat([x[fn[0]] - x[fn[1]], dp,
                    torch.linalg.vector_norm(dp, dim=-1, keepdim=True)], -1)
-    y = torch.tanh(net(x, e, fn) / 10.0) * 10.0
+    y = torch.tanh(net(x, e, fn, st["pos"]) / 10.0) * 10.0
 
     nt = st["node_type"]
     dirichlet = torch.isin(nt, torch.as_tensor(

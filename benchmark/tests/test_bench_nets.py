@@ -7,16 +7,20 @@ them from these files (where one `if cfg["net"] == ...` chain in each of
 `weights.py`, `reference/model.py` and `flops.py` chose the net): the
 layouts, the weights a seed draws, the step's operations and bytes, and
 the reference's output, on the CPU. A toy net written into a directory of
-its own shows that a net enters by its file alone."""
+its own shows that a net enters by its file alone; a second, which reads
+the nodes' coordinates and no edges, writes Transolver's block (arXiv
+2402.02366) from `Net`'s two halves."""
 
 import hashlib
 import json
 
+import numpy as np
 import pytest
 import torch
+from torch.nn import functional as F
 
 from benchmark.harness import flops, spec, weights
-from benchmark.reference import mesh
+from benchmark.reference import mesh, physics, step
 from benchmark.reference.model import Net
 
 SEED = 2**31 + 5
@@ -75,11 +79,13 @@ def _mesh():
 
 
 def _inputs(cfg, st):
+    """x, e, face_node and the mesh's coordinates, float32."""
     gen = torch.Generator().manual_seed(7)
     k = cfg["node_input_size"]
     return (torch.randn(st.n_nodes, k, generator=gen),
             torch.randn(st.face_node.shape[1], k + 3, generator=gen),
-            torch.as_tensor(st.face_node))
+            torch.as_tensor(st.face_node),
+            torch.as_tensor(st.pos, dtype=torch.float32))
 
 
 @pytest.mark.parametrize("name", sorted(LAYOUTS))
@@ -137,14 +143,15 @@ def layout(cfg):
             + weights.decoder_leaves(cfg))
 
 
-def forward(net, x, e, face_node):
+def forward(net, x, e, face_node, pos):
     x, e = net.encode(x, e)
     x, e = net.gn_block(x, e, face_node[0], face_node[1], "toy_gn")
     return net.decode(x)
 
 
 def forward_ops(cfg, mesh, batch):
-    return (flops.encoder_ops(cfg, mesh, batch)
+    return ([flops.edge_features_op(cfg, mesh, batch)]
+            + flops.encoder_ops(cfg, mesh, batch)
             + flops.gn_ops(cfg, mesh, batch, "toy_gn")
             + [flops.decoder_op(cfg, mesh, batch)])
 '''
@@ -163,10 +170,10 @@ def test_a_new_net_enters_by_its_file_alone(tmp_path, monkeypatch):
     w = weights.draw(cfg, SEED, "cpu")
     assert list(w) == names
     st, m = _mesh()
-    x, e, fn = _inputs(cfg, st)
+    x, e, fn, pos = _inputs(cfg, st)
     net = Net(w, cfg)
     with torch.no_grad():
-        got = net(x, e, fn)
+        got = net(x, e, fn, pos)
         hx, he = net.encode(x, e)
         hx, _ = net.gn_block(hx, he, fn[0], fn[1], "toy_gn")
         assert torch.equal(got, net.decode(hx))
@@ -189,3 +196,187 @@ def test_an_unknown_net_names_the_file_to_add(tmp_path, monkeypatch):
         with pytest.raises(ValueError, match="Nowhere") as err:
             call()
         assert want in str(err.value)
+
+
+POS_TOY = '''"""A toy net that reads the nodes' coordinates and no edges: a lift
+of [x, pos], one Transolver block with a LayerNorm before its attention,
+and a head."""
+
+import torch
+
+from benchmark.harness import flops, weights
+
+
+def layout(cfg):
+    h, k, o = (cfg["hidden_size"], cfg["node_input_size"],
+               cfg["node_output_size"])
+    return ([("lift.kernel", (k + 2, h)), ("lift.bias", (h,)),
+             ("blk.ln_1.scale", (h,)), ("blk.ln_1.bias", (h,))]
+            + weights.transolver_leaves("blk", h, cfg["attn_heads"],
+                                        cfg["slice_num"])
+            + [("head.kernel", (h, o)), ("head.bias", (o,))])
+
+
+def forward(net, x, e, face_node, pos):
+    net.seen = (x, pos)
+    h = net.dense(torch.cat([x, pos], -1), "lift")
+    h = net.s(h + net.physics_attention(net.layer_norm(h, "blk.ln_1"),
+                                        "blk"))
+    return net.dense(net.premlp_res(h, "blk"), "head")
+
+
+def forward_ops(cfg, mesh, batch):
+    n, h, k, o = (mesh["n_nodes"], cfg["hidden_size"],
+                  cfg["node_input_size"], cfg["node_output_size"])
+    return ([flops.Op("lift", batch * 2.0 * n * (k + 2) * h,
+                      batch * n * (k + 2 + h) * 2, flops.PEAK_BF16)]
+            + flops.transolver_ops(cfg, mesh, batch, "blk")
+            + [flops.Op("head", batch * 2.0 * n * h * o,
+                        batch * n * (h + o) * 2, flops.PEAK_BF16)])
+'''
+
+
+@pytest.fixture
+def pos_toy(tmp_path, monkeypatch):
+    """The Config of the coordinates' toy, its file alone in `nets/`."""
+    nets = tmp_path / "nets"
+    nets.mkdir()
+    (nets / "PosToy.py").write_text(POS_TOY)
+    monkeypatch.setattr(spec, "NETS_DIR", nets)
+    return dict(_cfg("transfvgn_v2"), net="PosToy")
+
+
+def _attention_by_hand(p, x, name, heads):
+    """Physics attention as Transolver's `Physics_Attention_Irregular_Mesh`
+    writes it, in float32."""
+    n, c = x.shape
+    d = c // heads
+    a = name + ".attn"
+
+    def lin(v, leaf, bias=True):
+        y = v @ p[f"{a}.{leaf}.kernel"]
+        return y + p[f"{a}.{leaf}.bias"] if bias else y
+
+    fx_mid = lin(x, "in_project_fx").reshape(n, heads, d)
+    x_mid = lin(x, "in_project_x").reshape(n, heads, d)
+    slice_weights = torch.softmax(
+        lin(x_mid, "in_project_slice")
+        / p[a + ".graph_temperature"].reshape(heads, 1), dim=-1)
+    slice_norm = slice_weights.sum(0)
+    slice_token = torch.einsum("nhg,nhd->hgd", slice_weights, fx_mid) \
+        / (slice_norm[:, :, None] + 1e-5)
+    q, k, v = (lin(slice_token, t, bias=False)
+               for t in ("to_q", "to_k", "to_v"))
+    attn = torch.softmax(q @ k.transpose(-1, -2) * d ** -0.5, dim=-1)
+    out_x = torch.einsum("hgd,nhg->nhd", attn @ v, slice_weights)
+    return lin(out_x.reshape(n, c), "to_out")
+
+
+def _pre_ln_block_by_hand(p, x, name, heads):
+    """Transolver's block: x + Attn(LN_1(x)), then + MLP(LN_2(x))."""
+    def ln(v, leaf):
+        return F.layer_norm(v, v.shape[-1:], p[f"{name}.{leaf}.scale"],
+                            p[f"{name}.{leaf}.bias"], eps=1e-6)
+
+    x = x + _attention_by_hand(p, ln(x, "ln_1"), name, heads)
+    h = F.gelu(ln(x, "ln_2") @ p[name + ".mlp_pre.kernel"]
+               + p[name + ".mlp_pre.bias"], approximate="tanh")
+    return x + h @ p[name + ".mlp_post.kernel"] + p[name + ".mlp_post.bias"]
+
+
+def test_a_net_that_reads_coordinates_enters_by_its_file_alone(pos_toy):
+    cfg = pos_toy
+    names = [k for k, _ in weights.layout(cfg)]
+    assert names[:4] == ["lift.kernel", "lift.bias", "blk.ln_1.scale",
+                         "blk.ln_1.bias"]
+    assert names[4:-2] == [k for k, _ in weights.transolver_leaves(
+        "blk", 128, 8, 32)]
+    w = weights.draw(cfg, SEED, "cpu")
+    assert list(w) == names
+
+    st, m = _mesh()
+    x, _, fn, pos = _inputs(cfg, st)
+    with torch.no_grad():
+        got = Net(w, cfg)(x, None, fn, pos)
+        h = torch.cat([x, pos], -1) @ w["lift.kernel"] + w["lift.bias"]
+        h = _pre_ln_block_by_hand(w, h, "blk", 8)
+        want = h @ w["head.kernel"] + w["head.bias"]
+    assert tuple(got.shape) == (25, 3)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+    ops = [o.name for o in flops.forward_ops(cfg, m, 2)]
+    assert ops == (["lift", "blk.attention", "blk.mlp", "head"]
+                   + [o.name for o in flops.fv_ops(m, 2)])
+    step_ops = flops.step_ops(cfg, m, 2, True, len(names))
+    assert not [o.name for o in step_ops if "edge_features" in o.name]
+
+
+def test_the_step_hands_the_net_the_mesh_coordinates(pos_toy):
+    """Through `step.forward`: the coordinates of a renumbered mesh, as
+    the statics hold them, beside the node inputs of the same nodes."""
+    raw = mesh.cavity(4)
+    order = np.random.default_rng(3).permutation(raw.pos.shape[0])
+    st = mesh.statics(raw.renumber(order))
+    stt = step.statics_tensors(st, "cpu")
+    env = step.env_tensors(physics.env_physics(
+        dict(unsteady=1, continuity=1, convection=1, grad_p=1,
+             sigma=[1, 1, 1]),
+        dict(u=1.0, rho=1.0, mu=0.01, source=0.0, aoa=0.0, dt=0.05, L=1.0),
+        st.node_type), "cpu")
+    uvp = torch.cat([stt["pos"], stt["pos"].sum(-1, keepdim=True)], -1)
+    net = Net(weights.draw(pos_toy, SEED, "cpu"), pos_toy)
+    with torch.no_grad():
+        step.forward(net, stt, uvp, env, torch.zeros(9), torch.ones(9))
+    x, pos = net.seen
+    assert pos.dtype == torch.float32 and tuple(pos.shape) == (25, 2)
+    assert torch.equal(pos, stt["pos"])
+    assert torch.equal(pos, torch.as_tensor(raw.pos[order],
+                                            dtype=torch.float32))
+    phi = (pos - pos.mean(0)) / (pos.std(0, unbiased=False) + 1e-8)
+    torch.testing.assert_close(x[:, :2], phi, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["PosToy", "FVGN", "TransFVGN_v2"])
+def test_shifting_the_coordinates_moves_only_a_net_that_reads_them(
+        name, request):
+    cfg = (request.getfixturevalue("pos_toy") if name == "PosToy"
+           else _cfg(name.lower()))
+    st, _ = _mesh()
+    x, e, fn, pos = _inputs(cfg, st)
+    net = Net(weights.draw(cfg, SEED, "cpu"), cfg)
+    with torch.no_grad():
+        a = net(x, e, fn, pos)
+        b = net(x, e, fn, pos + torch.tensor([3.0, -2.0]))
+    assert torch.equal(a, b) == (name != "PosToy")
+
+
+@pytest.mark.parametrize("stream", [None, "float8"])
+def test_transolver_is_its_two_halves(stream):
+    """Gen-FVGN's block, `Net.transolver`, is the attention added to its
+    input, then `premlp_res`: bit for bit, on both streams."""
+    cfg = _cfg("transfvgn_v2")
+    net = Net(weights.draw(cfg, SEED, "cpu"), cfg, stream)
+    x = torch.randn(40, 128, generator=torch.Generator().manual_seed(2))
+    name = "processor_1.transolver"
+    with torch.no_grad():
+        got = net.transolver(x, name)
+        want = net.premlp_res(net.s(x + net.physics_attention(x, name)),
+                              name)
+    assert torch.equal(got, want)
+
+
+def test_a_pre_ln_block_from_the_halves_is_one_by_hand():
+    cfg = _cfg("transfvgn_v2")
+    name = "processor_0.transolver"
+    w = weights.draw(cfg, SEED, "cpu")
+    gen = torch.Generator().manual_seed(4)
+    w[name + ".ln_1.scale"] = 1.0 + 0.02 * torch.randn(128, generator=gen)
+    w[name + ".ln_1.bias"] = 0.02 * torch.randn(128, generator=gen)
+    x = torch.randn(40, 128, generator=gen)
+    net = Net(w, cfg)
+    with torch.no_grad():
+        h = net.s(x + net.physics_attention(
+            net.layer_norm(x, name + ".ln_1"), name))
+        got = net.premlp_res(h, name)
+        want = _pre_ln_block_by_hand(w, x, name, 8)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
