@@ -107,11 +107,12 @@ Transolver block each, 8 heads, 32 slices, bf16 stream) unless named:
     fused_mlp_ln, 1 fused_mlp_noln, 2 fused_premlp_res and 2
     fused_slice_pool launches, 12 seg_nbr_sum, 6 seg_inc_sum and 6
     seg_collect, every GraphNet transfer (a block without its lists raises
-    on the card), no spmm or pair kernel), step 1's gradients against the plain versions, the run-to-run
-    spread (the GraphNet blocks' sums in a fixed order, the FV residual's
-    by atomics), 3 train steps of `make_train_step` (14 + 14, 1 + 1,
-    2 + 2, 2 + 2 launches a step; 24, 12, 12 of the three transfer
-    kernels), one time step of `solve_adam` at
+    on the card), the FV residual's list passes (`FV_FWD`), no spmm or
+    pair kernel), step 1's gradients against the plain versions, the
+    run-to-run spread (every sum in a fixed order), 3 train steps of
+    `make_train_step` (14 + 14, 1 + 1, 2 + 2, 2 + 2 launches a step; 24,
+    12, 12 of the three transfer kernels; `FV_FWD` and `FV_BWD`; no plain
+    FV residual), one time step of `solve_adam` at
     batch 1 (20 inner steps), and on the 100 x 100-node cavity (10,112
     nodes, 19,840 faces: odd multiples of 128, where the slice attention
     takes its plain form, as in JAX) two rollout steps and a train step
@@ -123,7 +124,9 @@ Transolver block each, 8 heads, 32 slices, bf16 stream) unless named:
     batch 8): equal to their plain versions through the lists and to the
     ops/segment.py chain on CPU copies of the same inputs, twice the same
     bits, their times, bounds, plain and library times, and the lists'
-    build. The CLI
+    build; and the FV residual's list passes (`check_fv_csr`) at the same
+    shapes, each pass against its plain stage, timed beside its bound and
+    the stage's time. The CLI
     phase also runs `scripts.solve.main` with no `--engine` (the segment
     engine) on both case directories in the three modes.
 
@@ -190,6 +193,7 @@ stays out). A train step is timed on the host clock, ending in a
 synchronize.
 """
 
+import contextlib
 import copy
 import functools
 import json
@@ -1669,13 +1673,19 @@ def check_segment_forms(n_pad, e_pad, flush_buf, gen, h=128):
 # NodeBlock's directed sums and second hop; its backward: the two
 # neighbour sums again, collect's backward on seg_inc_sum and the directed
 # sums' on seg_collect
+# The FV residual on its list passes (ops/fv_csr.py), a forward: the lists'
+# count, fill and row sort, F1-F4 and the loss pass; its backward: the
+# cell, node and WLSQ passes
+FV_FWD = dict(fv_lists=3, fv_wlsq=1, fv_face=1, fv_cell=1, fv_loss=1,
+              fv_smooth=1)
+FV_BWD = dict(fv_cell_bwd=1, fv_node_bwd=1, fv_wlsq_bwd=1)
 SEG_FWD = dict(fused_mlp_ln=14, fused_mlp_noln=1, fused_premlp_res=2,
                fused_slice_pool=2, fused_mlp_ln_wg=6, seg_nbr_sum=12,
-               seg_inc_sum=6, seg_collect=6)
+               seg_inc_sum=6, seg_collect=6, **FV_FWD)
 SEG_TRAIN = dict(SEG_FWD, fused_mlp_ln_bwd=14, fused_mlp_noln_bwd=1,
                  fused_premlp_res_bwd=2, fused_slice_pool_bwd=2,
                  fused_mlp_ln_bwd_wg=12, seg_nbr_sum=24, seg_inc_sum=12,
-                 seg_collect=12)
+                 seg_collect=12, **FV_BWD)
 
 
 SEG_CSR_N = 200     # the benchmark cells' 201 x 201-node cavity
@@ -1831,6 +1841,227 @@ def check_segment_csr(flush_buf, gen, h=128):
     return rows, build_ms
 
 
+def check_fv_csr(flush_buf, gen):
+    """The segment FV residual's list passes (ops/fv_csr.py) at the
+    benchmark cells' shapes: the 201 x 201-node cavity padded as the
+    segment pool pads it, batch 8, float32, every term of the residual on.
+    Each pass alone: its time, its byte bound (each input read once, each
+    output written once; the lists' entries among the inputs) and the
+    plain chain it replaces (`plain_ms`: fv/integrator.py's stage of the
+    same name on the card, none for a backward pass alone). Each pass's
+    output against a float64 evaluation of the same stage on the pass's
+    own inputs (the passes' plain versions through the lists, in float64):
+    within 1e-6 of its scale (losses relative), or no farther than the
+    plain float32 stage on the same inputs, whose gap is logged beside it;
+    the three backward passes together the same way. The whole residual,
+    forward and backward, against the plain chain within 1e-6 of scale,
+    twice the same bits. Returns {form: row}."""
+    from gen_fvgn_tpu_torch import Config
+    from gen_fvgn_tpu_torch.fv import integrator as fv
+    from gen_fvgn_tpu_torch.meshes.synthetic import (cavity_quad_mesh,
+                                                     synthetic_case)
+    from gen_fvgn_tpu_torch.ops import fv_csr, interp, plain_versions
+    from gen_fvgn_tpu_torch.training.pool import EnvPool
+    cfg = Config(batch_size=BATCH, dataset_size=BATCH)
+    pool = EnvPool([], cfg, seed=0, engine="segment", cases=[synthetic_case(
+        cavity_quad_mesh(SEG_CSR_N), unsteady=1, continuity=1, convection=1,
+        grad_p=1, mu=0.05, sigma=(1, 1, 1))])
+    sm = pool.gather_batch(np.arange(BATCH))
+    b, n, e, c, k, st = fv_csr._sizes(sm)
+    dev = sm.pos.device
+    mask = sm.node_mask[..., None].float()
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    new, hat, old = rnd(b, n, 3) * mask, rnd(b, n, 2) * mask, \
+        rnd(b, n, 2) * mask
+    ins = dict(uvp_new=new, uv_hat=hat, uv_old=old)
+    lists = fv_csr.build_lists(sm)
+    live = int(lists.ptr[-1])
+    mesh = fv_csr._mesh(sm, lists)
+    f32 = lambda *shape: torch.empty(shape, device=dev)
+    grad, rec = f32(b, n, 7, 2), f32(b, e, fv_csr.REC)
+    ucell, sq, roots = f32(b, c, 3), f32(b, c, 4), f32(4, b)
+    losses = [f32(b) for _ in range(4)]
+    rt, den = f32(b, n, 3), f32(b, n)
+    g_loss = [rnd(b) for _ in range(4)]
+    sbuf, cbuf = f32(b, k, fv_csr.REC), f32(b, c, fv_csr.CELL_REC)
+    dphi, dgrad = f32(b, n, 7), f32(b, n, 7, 2)
+    d_new, d_hat, d_old = f32(b, n, 3), f32(b, n, 2), f32(b, n, 2)
+    run = lambda pid, **kw: (lambda: fv_csr.launch(pid, mesh, dev, **kw))
+    cell_kw = dict(grad=grad, face_rec=rec, uvp_cell=ucell, cell_sq=sq,
+                   roots=roots, loss0=losses[0], loss1=losses[1],
+                   loss2=losses[2], loss3=losses[3], **ins)
+    # the plain float32 stages, each fed what the pass reads
+    coll = torch.cat([new, hat, old], dim=-1)
+    faces_of = lambda g: fv.face_values(coll, g, sm)
+    rec_of = lambda f: torch.cat([f.uv_new, f.p_new, f.uv_hat,
+                                  f.nabla_uv_new.reshape(b, e, 4),
+                                  f.nabla_uv_hat.reshape(b, e, 4)], dim=-1)
+    smooth = lambda u: interp.cell_to_node(
+        u, None, sm.cells_node, sm.cells_index, sm.centroid, sm.pos, n,
+        sm.slot_mask)
+    # the float64 yardstick: the passes' plain versions through the lists
+    geo = fv_csr._geo(sm)
+    g64 = geo._replace(**{f: getattr(geo, f).double() for f in geo._fields
+                          if getattr(geo, f).is_floating_point()})
+    phi64 = coll.double().reshape(-1, 7)
+    d64 = lambda t: t.double().reshape(t.shape[0] * t.shape[1], -1)
+    i4, f4 = 4, 4
+    nodes_in = b * n * (7 + 10 + 2) * f4          # phi, grad (5 ch x 2), pos
+    cells_in = b * c * (2 + 1) * f4 + b * c        # centroid, area, mask
+    slots_in = b * k * (3 * i4 + 2 * f4)           # ids, node, face, unv
+    rec_b = b * e * fv_csr.REC * f4
+    # form: (launch, plain stage or None, [(got, plain's output or None,
+    # float64 of the same)] after a launch, bytes)
+    forms = {
+        "lists": (lambda: fv_csr.build_lists(sm), None, None,
+                  nbytes(sm.cells_index, sm.cells_node, sm.cells_face,
+                         sm.slot_mask, sm.stencil, sm.stencil_mask,
+                         sm.face_node, sm.face_mask, lists.ptr)
+                  + live * i4),
+        "F1 wlsq": (run(fv_csr.WLSQ, grad=grad, **ins),
+                    lambda: fv.wlsq_gradients(coll, sm, "2nd"),
+                    lambda p: [(grad, p, fv_csr.wlsq_reference(
+                        lists, g64, phi64).reshape(b, n, 7, 2))],
+                    b * n * (7 + 5 + 10 + 1) * f4 + b * st * (5 + 4) * f4
+                    + 2 * b * st * i4 + b * n * 14 * f4),
+        "F2 face": (run(fv_csr.FACE, grad=grad, face_rec=rec, **ins),
+                    lambda: faces_of(grad),
+                    lambda p: [(rec[..., 0:13], rec_of(p), fv_csr
+                                .face_reference(g64, phi64, d64(grad).reshape(
+                                    -1, 7, 2))[:, 0:13].reshape(b, e, 13))],
+                    nbytes(sm.face_node, sm.face_center, sm.face_type)
+                    + b * n * (5 + 10 + 2 + 2) * f4 + rec_b),
+        "F3 cell + loss": (
+            run(fv_csr.CELL, **cell_kw),
+            lambda: fv.cell_residuals(coll, grad, faces_of(grad), sm),
+            lambda p: (lambda r: [(ucell, p[1], r[0].reshape(b, c, 3))] + [
+                (losses[q], p[0][q], r[3][q]) for q in range(4)])(
+                fv_csr.cell_reference(lists, g64, phi64,
+                                      d64(grad).reshape(-1, 7, 2),
+                                      d64(rec))),
+            slots_in + cells_in + nodes_in + rec_b + b * e * 2 * f4
+            + b * c * 3 * f4),
+        "F4 smooth": (run(fv_csr.SMOOTH, uvp_cell=ucell, rt=rt, den=den),
+                      lambda: smooth(ucell),
+                      lambda p: [(rt, p, fv_csr.smooth_reference(
+                          lists, g64, d64(ucell))[0].reshape(b, n, 3))],
+                      b * n * (1 + 2 + 3 + 1) * f4 + b * k * 2 * i4
+                      + b * c * (2 + 3) * f4),
+        "cell_bwd": (run(fv_csr.CELL_BWD, den=den,
+                         g_loss0=g_loss[0], g_loss1=g_loss[1],
+                         g_loss2=g_loss[2], g_loss3=g_loss[3],
+                         slot_buf=sbuf, cell_buf=cbuf, **cell_kw), None,
+                     None,
+                     slots_in + cells_in + nodes_in + rec_b
+                     + b * e * 2 * f4 + b * k * fv_csr.REC * f4
+                     + b * c * fv_csr.CELL_REC * f4),
+        "node_bwd": (run(fv_csr.NODE_BWD, slot_buf=sbuf, cell_buf=cbuf,
+                         dphi=dphi, dgrad=dgrad), None, None,
+                     b * n * (3 + 2) * f4 + 2 * b * e * i4
+                     + b * e * (1 + 1 + 2) * f4 + b * k * 3 * i4
+                     + b * k * fv_csr.REC * f4 + b * c * (2 + 8) * f4
+                     + b * n * 21 * f4),
+        "wlsq_bwd": (run(fv_csr.WLSQ_BWD, dphi=dphi, dgrad=dgrad,
+                         d_new=d_new, d_hat=d_hat, d_old=d_old), None,
+                     lambda p: (lambda d: [
+                         (d_new, None, d[:, 0:3].reshape(b, n, 3)),
+                         (d_hat, None, d[:, 3:5].reshape(b, n, 2)),
+                         (d_old, None, d[:, 5:7].reshape(b, n, 2))])(
+                         bwd64()),
+                     b * n * (7 + 14 + 15 + 1) * f4 + b * st * (5 + 4) * f4
+                     + 2 * b * st * i4 + b * n * 7 * f4),
+    }
+
+    def bwd64():
+        """The three backward passes' plain versions in float64, fed what
+        the passes read."""
+        sb, cb = fv_csr.cell_bwd_reference(
+            lists, g64, phi64, d64(grad).reshape(-1, 7, 2), d64(rec),
+            roots.double(), [t.double() for t in g_loss], None, None, None)
+        dp, dg = fv_csr.node_bwd_reference(lists, g64, sb, cb)
+        return fv_csr.wlsq_bwd_reference(lists, g64, dg, dp)
+
+    def gap(a, r):
+        a, r = a.double(), r.double()
+        if a.ndim == 1:
+            return float(((a - r).abs() / r.abs().clamp_min(1e-300)).max())
+        return float((a - r).abs().max() / r.abs().max().clamp_min(1e-300))
+
+    rows = {}
+    for form, (go, plain, pairs, moved) in forms.items():
+        go()
+        torch.cuda.synchronize()
+        row = dict(ms=median_ms(go, flush_buf))
+        ref = None
+        if plain is not None:
+            with plain_versions():
+                ref = plain()
+                row["plain_ms"] = median_ms(plain, flush_buf)
+        if pairs is not None:
+            got = pairs(ref)
+            row["gap_of_scale"] = max(gap(a, r64) for a, _, r64 in got)
+            if plain is not None:
+                row["plain_gap_of_scale"] = max(gap(p, r64)
+                                                for _, p, r64 in got)
+        row["bound_ms"], row["bound_by"] = bound(moved, 0.0)
+        rows[form] = row
+        log(f"fv_csr[{form}] B={BATCH} N={n} E={e} C={c} float32: "
+            f"ms={row['ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+            f"({row['bound_by']})"
+            + (f" plain_ms={row['plain_ms']:.4f}" if plain else "")
+            + (f"; gap of scale to float64 {row['gap_of_scale']:.3g}"
+               if pairs else "")
+            + (f" (the plain stage {row['plain_gap_of_scale']:.3g})"
+               if pairs and plain else ""))
+        limit = max(1e-6, row.get("plain_gap_of_scale", 0.0))
+        if row.get("gap_of_scale", 0.0) > limit:
+            raise RuntimeError(f"fv_csr[{form}]: {row['gap_of_scale']:.3g} "
+                               f"of scale from float64, over {limit:.3g}")
+
+    # the whole residual, forward and backward, against the plain chain
+    def whole(plain):
+        xs = [t.clone().requires_grad_(True) for t in (new, hat, old)]
+        with (plain_versions() if plain else contextlib.nullcontext()):
+            ls, r_, u_ = fv.integrate_residuals(*xs, sm)
+        outs = list(ls) + [u_, r_]
+        cots = [torch.ones_like(o) for o in outs[:4]] + [
+            torch.full_like(u_, 0.5), torch.full_like(r_, 0.25)]
+        return [o.detach() for o in outs], torch.autograd.grad(
+            outs, xs, cots, retain_graph=plain), (outs, xs, cots)
+    a1, g1, _ = whole(False)
+    a2, g2, _ = whole(False)
+    ap, gp, graph = whole(True)
+    same = all(torch.equal(x, y) for x, y in zip(a1 + list(g1),
+                                                 a2 + list(g2)))
+    gap_f = max([float(((x - y).abs() / y.abs()).max())
+                 for x, y in zip(a1[:4], ap[:4])]
+                + [float((x - y).abs().max() / y.abs().max())
+                   for x, y in zip(a1[4:], ap[4:])])
+    gap_b = max(float((x - y).abs().max() / y.abs().max())
+                for x, y in zip(g1, gp))
+    outs, xs, cots = graph
+    rows["forward"] = dict(ms=median_ms(lambda: fv_csr.residual(
+        new, hat, old, sm), flush_buf))
+    with plain_versions():
+        rows["forward"]["plain_ms"] = median_ms(
+            lambda: fv.integrate_residuals(new, hat, old, sm), flush_buf)
+    rows["backward"] = dict(
+        ms=sum(rows[f]["ms"] for f in ("cell_bwd", "node_bwd", "wlsq_bwd")),
+        plain_ms=median_ms(lambda: torch.autograd.grad(
+            outs, xs, cots, retain_graph=True), flush_buf, iters=5))
+    rows["whole"] = dict(forward_gap_of_scale=gap_f,
+                         backward_gap_of_scale=gap_b, two_runs_same_bits=same)
+    log(f"fv_csr whole residual: forward {rows['forward']['ms']:.4f} ms "
+        f"(plain {rows['forward']['plain_ms']:.4f}), backward passes "
+        f"{rows['backward']['ms']:.4f} ms (plain autograd "
+        f"{rows['backward']['plain_ms']:.4f}); gaps of scale forward "
+        f"{gap_f:.3g}, backward {gap_b:.3g}; two runs the same bits {same}")
+    if not (gap_f <= 1e-6 and gap_b <= 1e-6 and same):
+        raise RuntimeError("fv_csr: the residual differs from the plain "
+                           "chain or from itself")
+    return rows
+
+
 def drive_segment(card):
     """Phase "segment": the JAX package's default engine through the
     kernels, at the Config defaults, batch 8. On the 101 x 101-node cavity
@@ -1849,6 +2080,7 @@ def drive_segment(card):
     from gen_fvgn_tpu_torch import Config
     from gen_fvgn_tpu_torch.meshes.synthetic import (cavity_quad_mesh,
                                                      synthetic_case)
+    from gen_fvgn_tpu_torch.fv import integrator as fv_integrator
     from gen_fvgn_tpu_torch.solve.instance_opt import solve_adam
     from gen_fvgn_tpu_torch.solve.rollout import make_eval_step
     from gen_fvgn_tpu_torch.training.pool import EnvPool
@@ -1890,8 +2122,8 @@ def drive_segment(card):
     t["rollout_launches"] = counts
 
     # the run-to-run spread: the same eval step and the same step-1
-    # gradients twice with the kernels (the GraphNet blocks' sums run in a
-    # fixed order; the FV residual's float32 sums still add by atomics)
+    # gradients twice with the kernels (the GraphNet blocks' and the FV
+    # residual's sums run in a fixed order)
     eval_step = make_eval_step(cfg, sim)
     a, b = eval_step(ns, batch), eval_step(ns, batch)
     spread_state = float((a.uvp_node_new - b.uvp_node_new).abs().max())
@@ -1910,7 +2142,7 @@ def drive_segment(card):
                        loss_rel=abs(loss_1 - loss_2) / abs(loss_2),
                        grads_same_bits=same_bits)
     log(f"{name} run-to-run spread (the same step twice with the kernels; "
-        f"the FV residual's sums add by atomics): uvp_node max "
+        f"every sum in a fixed order): uvp_node max "
         f"{spread_state:.3g}, "
         f"loss_cont relative {spread_loss:.3g}; step 1 gradients relative "
         f"norm {spread_grad:.3g}, the same bits {same_bits}, loss relative "
@@ -1927,6 +2159,7 @@ def drive_segment(card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    fv_plain = fv_integrator.FV_PLAIN_CALLS
     step_ms = []
     for k in range(3):
         idxs = pool.batch_indices(step_seed=k)[0]
@@ -1953,6 +2186,9 @@ def drive_segment(card):
     if counts != expected:
         raise RuntimeError(f"{name} train: launch counts {counts} != "
                            f"expected {expected}")
+    if fv_integrator.FV_PLAIN_CALLS != fv_plain:
+        raise RuntimeError(f"{name} train: the FV residual took its plain "
+                           f"path")
     moved = max(float((p.detach() - p0).abs().max())
                 for p, p0 in zip(sim.parameters(), start))
     back = pool.gather_batch(idxs).uvp
@@ -3238,7 +3474,10 @@ def main():
         fused_mlp_ln_bwd_wg=register_summary(_cuda_build.BUILD_LOG,
                                              "fused_mlp_bwd_wg"),
         **{k: register_summary(_cuda_build.BUILD_LOG, k)
-           for k in ("seg_nbr_sum", "seg_inc_sum", "seg_collect")})
+           for k in ("seg_nbr_sum", "seg_inc_sum", "seg_collect")},
+        **{k: register_summary(_cuda_build.BUILD_LOG, k + "E6FvMesh")
+           for k in ("fv_wlsq", "fv_face", "fv_cell", "fv_loss", "fv_smooth",
+                     "fv_cell_bwd", "fv_node_bwd", "fv_wlsq_bwd")})
     for name, r in regs.items():
         log(f"registers {name}: {json.dumps(r)}")
 
@@ -3293,6 +3532,8 @@ def main():
         torch.Generator(device="cuda").manual_seed(14))
     seg_csr, seg_build_ms = check_segment_csr(
         flush_buf, torch.Generator(device="cuda").manual_seed(22))
+    fv_rows = check_fv_csr(flush_buf,
+                           torch.Generator(device="cuda").manual_seed(25))
     del flush_buf
     # the net that raised above C = 1024: a Transolver block at hidden 1152
     check_wide_block()
@@ -3497,6 +3738,26 @@ def main():
                    if r["kernel"] == kname},
             lists_build_ms=seg_build_ms, registers=regs[kname],
             measured_on=f"segment GnBlock, B={BATCH}, 201 x 201 nodes"))
+    # the segment FV residual's list passes (ops/fv_csr.py): no TPU kernel;
+    # they replace fv/integrator.py's plain chain (the JAX package's XLA
+    # gathers, scatter-adds and batched product), timed at the cells' shapes
+    fv_forms = dict(fv_lists="lists", fv_wlsq="F1 wlsq", fv_face="F2 face",
+                    fv_cell="F3 cell + loss", fv_loss="F3 cell + loss",
+                    fv_smooth="F4 smooth", fv_cell_bwd="cell_bwd",
+                    fv_node_bwd="node_bwd", fv_wlsq_bwd="wlsq_bwd")
+    for kname, form in fv_forms.items():
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source="gen_fvgn_tpu_torch/csrc/fv_csr.cu",
+            replaces="none: gen_fvgn_tpu/fv/integrator.py's XLA gathers, "
+                     "scatter-adds and batched product",
+            launches=seg_t["train_launches"][kname],
+            launches_per_train_step=SEG_TRAIN[kname],
+            launches_per_rollout_step=SEG_FWD.get(kname, 0),
+            forms={form: fv_rows[form]}, registers=regs.get(kname),
+            measured_on=f"segment FV residual, B={BATCH}, 201 x 201 nodes"))
+    kernels[-len(fv_forms)]["residual"] = {
+        f: fv_rows[f] for f in ("forward", "backward", "whole")}
     {k["name"]: k for k in kernels}["pair_sum"]["node_pair"] = {
         k: npair[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -9,6 +9,12 @@ one padded mesh under a vmap; here every array carries the batch axis
 reduction over the sample's rows. The pressure-outlet loss is total by a
 zero-gradient sqrt, as in JAX.
 
+On CUDA tensors, outside `ops.plain_versions()`, at the forms it covers
+(order "2nd", the conserved form, `ncn_smooth` either way: the Config's
+defaults) the residual runs on `ops/fv_csr.py`'s list passes; every other
+form, and every CPU tensor, takes the plain path below. `FV_KERNEL_CALLS`
+and `FV_PLAIN_CALLS` count the calls by path.
+
 θ_PDE layout: [unsteady, continuity, convection, grad_p/ρ, diffusion,
 source/U, U_in_x, U_in_y, Re].
 """
@@ -19,11 +25,15 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from gen_fvgn_tpu_torch.ops import interp
+from gen_fvgn_tpu_torch.ops import fv_csr, interp, plain_versions_active
 from gen_fvgn_tpu_torch.ops.segment import (gather_rows, safe_sqrt,
                                             segment_sum)
 from gen_fvgn_tpu_torch.ops.wlsq import node_based_wlsq_precomputed
 from gen_fvgn_tpu_torch.utils.types import NodeType
+
+# integrate_residuals calls by path, incremented once a call
+FV_KERNEL_CALLS = 0
+FV_PLAIN_CALLS = 0
 
 
 class FVLosses(NamedTuple):
@@ -72,29 +82,49 @@ def _pressure_outlet_loss(p_face, nabla_uv_face, sample, diffusion_coef,
     return safe_sqrt(torch.sum(resid ** 2, dim=(1, 2)))
 
 
-def integrate_residuals(
-    uvp_new: torch.Tensor,    # [B, Np, 3]
-    uv_hat: torch.Tensor,     # [B, Np, 2]
-    uv_old: torch.Tensor,     # [B, Np, 2]
-    sample,                   # MeshSample, stacked [B, ...] tensors
-    order: str = "2nd",
-    conserved_form: bool = True,
-    ncn_smooth: bool = True,
-) -> Tuple[FVLosses, torch.Tensor, torch.Tensor]:
-    """WLSQ gradient reconstruction + flux/volume integral residual
-    assembly. Returns (losses [B] each, rt_uvp_new [B, Np, 3],
-    uvp_cell_new [B, Nc, 3])."""
-    n_cells = sample.centroid.shape[1]
-    n_nodes = sample.pos.shape[1]
+class FaceValues(NamedTuple):
+    """What the cells read of the faces (`face_values`)."""
+    uv_new: torch.Tensor        # [B, Ef, 2] boundary-fixed
+    p_new: torch.Tensor         # [B, Ef, 1]
+    uv_hat: torch.Tensor        # [B, Ef, 2] boundary-fixed
+    nabla_uv_new: torch.Tensor  # [B, Ef, 2, 2] ∇u, ∇v (new state)
+    nabla_uv_hat: torch.Tensor  # [B, Ef, 2, 2]
 
-    # one 7-channel WLSQ call: [uvp_new(3), uv_hat(2), uv_old(2)]
-    collection = torch.cat([uvp_new, uv_hat, uv_old], dim=-1)    # [B,Np,7]
+
+def wlsq_gradients(collection: torch.Tensor, sample,
+                   order: str) -> torch.Tensor:
+    """The 7 channels' WLSQ gradients [B, Np, 7, 2] (the Hessian is
+    disabled in the reference's live path)."""
     nabla = node_based_wlsq_precomputed(
         collection, sample.stencil, sample.wlsq_S, sample.wlsq_B, order,
         colscale=sample.wlsq_scale, stencil_mask=sample.stencil_mask)
-    grad_phi = nabla[..., 0:2]                                   # [B,Np,7,2]
-    hessian_phi = None      # disabled in the reference's live path
+    return nabla[..., 0:2]
 
+
+def face_values(collection: torch.Tensor, grad_phi: torch.Tensor,
+                sample) -> FaceValues:
+    """node→face of the values (Taylor-corrected) and of the gradients of
+    channels 0:5, and the boundary fix of the fluxing velocities."""
+    phi_face = interp.node_to_face(
+        collection[..., 0:5], grad_phi[:, :, 0:5], None,
+        sample.face_node, sample.face_center, sample.pos)        # [B,Ef,5]
+    nabla_face = interp.node_to_face(
+        grad_phi[:, :, 0:5], None, None,
+        sample.face_node, sample.face_center, sample.pos)        # [B,Ef,5,2]
+    return FaceValues(
+        uv_new=_fix_face_flux_bc(phi_face[..., 0:2], sample),
+        p_new=phi_face[..., 2:3],
+        uv_hat=_fix_face_flux_bc(phi_face[..., 3:5], sample),
+        nabla_uv_new=nabla_face[:, :, 0:2],
+        nabla_uv_hat=nabla_face[:, :, 3:5])
+
+
+def cell_residuals(collection: torch.Tensor, grad_phi: torch.Tensor,
+                   faces: FaceValues, sample, conserved_form: bool = True
+                   ) -> Tuple[FVLosses, torch.Tensor]:
+    """node→cell, the flux and volume integrals and the pooled losses:
+    (losses [B] each, uvp_cell_new [B, Nc, 3])."""
+    n_cells = sample.centroid.shape[1]
     theta = sample.theta                                         # [B, 9]
     unsteady_c, cont_c, conv_c = theta[:, 0], theta[:, 1], theta[:, 2]
     gradp_c, diff_c, source_c = theta[:, 3], theta[:, 4], theta[:, 5]
@@ -102,29 +132,19 @@ def integrate_residuals(
     surface_vec = sample.slot_unv * gather_rows(
         sample.face_area, sample.cells_face)[..., None]          # [B,Ck,2]
 
-    # ---- interpolation ----
     phi_cell = interp.node_to_cell(
-        collection, grad_phi, hessian_phi, sample.cells_node,
+        collection, grad_phi, None, sample.cells_node,
         sample.cells_index, sample.pos, sample.centroid, n_cells,
         sample.slot_mask)                                        # [B,Nc,7]
-    phi_face = interp.node_to_face(
-        collection[..., 0:5], grad_phi[:, :, 0:5], hessian_phi,
-        sample.face_node, sample.face_center, sample.pos)        # [B,Ef,5]
-    nabla_face = interp.node_to_face(
-        grad_phi[:, :, 0:5], None, None,
-        sample.face_node, sample.face_center, sample.pos)        # [B,Ef,5,2]
-
-    uv_face_new = _fix_face_flux_bc(phi_face[..., 0:2], sample)
-    uv_face_hat = _fix_face_flux_bc(phi_face[..., 3:5], sample)
-    p_face_new = phi_face[..., 2:3]
+    uv_face_new, p_face_new = faces.uv_new, faces.p_new
+    uv_face_hat = faces.uv_hat
+    nabla_uv_face_hat = faces.nabla_uv_hat
 
     uvp_cell_new = phi_cell[..., 0:3]
     uv_cell_old = phi_cell[..., 5:7]
-    nabla_uv_face = nabla_face[:, :, 0:2]   # ∇u, ∇v at faces (new state)
-    nabla_uv_face_hat = nabla_face[:, :, 3:5]
 
     loss_press = _pressure_outlet_loss(
-        p_face_new, nabla_uv_face, sample, diff_c, surface_vec)
+        p_face_new, faces.nabla_uv_new, sample, diff_c, surface_vec)
 
     unsteady_cell = ((uvp_cell_new[..., 0:2] - uv_cell_old)
                      / _coef(sample.dt, 3)) * cells_area
@@ -183,13 +203,43 @@ def integrate_residuals(
         loss_mom = _graph_sqnorm_pool(loss_mom_cell, sample.cell_mask) \
             * sample.sigma[:, 0:2]
 
-    if ncn_smooth:
-        rt_uvp_new = interp.cell_to_node(
-            uvp_cell_new, None, sample.cells_node, ci, sample.centroid,
-            sample.pos, n_nodes, sample.slot_mask)
-    else:
-        rt_uvp_new = uvp_new
-
     losses = FVLosses(cont=loss_cont[:, 0], mom_x=loss_mom[:, 0],
                       mom_y=loss_mom[:, 1], press=loss_press)
+    return losses, uvp_cell_new
+
+
+def integrate_residuals(
+    uvp_new: torch.Tensor,    # [B, Np, 3]
+    uv_hat: torch.Tensor,     # [B, Np, 2]
+    uv_old: torch.Tensor,     # [B, Np, 2]
+    sample,                   # MeshSample, stacked [B, ...] tensors
+    order: str = "2nd",
+    conserved_form: bool = True,
+    ncn_smooth: bool = True,
+) -> Tuple[FVLosses, torch.Tensor, torch.Tensor]:
+    """WLSQ gradient reconstruction + flux/volume integral residual
+    assembly. Returns (losses [B] each, rt_uvp_new [B, Np, 3],
+    uvp_cell_new [B, Nc, 3])."""
+    global FV_KERNEL_CALLS, FV_PLAIN_CALLS
+    if (uvp_new.device.type == "cuda" and not plain_versions_active()
+            and order == "2nd" and conserved_form):
+        FV_KERNEL_CALLS += 1
+        losses, rt_uvp_new, uvp_cell_new = fv_csr.residual(
+            uvp_new, uv_hat, uv_old, sample, ncn_smooth)
+        return FVLosses(*losses), rt_uvp_new, uvp_cell_new
+    FV_PLAIN_CALLS += 1
+
+    # one 7-channel WLSQ call: [uvp_new(3), uv_hat(2), uv_old(2)]
+    collection = torch.cat([uvp_new, uv_hat, uv_old], dim=-1)    # [B,Np,7]
+    grad_phi = wlsq_gradients(collection, sample, order)         # [B,Np,7,2]
+    faces = face_values(collection, grad_phi, sample)
+    losses, uvp_cell_new = cell_residuals(collection, grad_phi, faces,
+                                          sample, conserved_form)
+    if ncn_smooth:
+        rt_uvp_new = interp.cell_to_node(
+            uvp_cell_new, None, sample.cells_node, sample.cells_index,
+            sample.centroid, sample.pos, sample.pos.shape[1],
+            sample.slot_mask)
+    else:
+        rt_uvp_new = uvp_new
     return losses, rt_uvp_new, uvp_cell_new

@@ -13,7 +13,8 @@ autograd Functions take the backward's plain versions
 `fused_mlp_noln_bwd_reference`, `fused_premlp_res_bwd_reference`,
 `fused_slice_pool_bwd_reference`); the segment engine's GraphNet blocks
 (`models/gn.py`) build no incidence lists (`segment_csr.incidence_for`) and
-take `ops/segment.py`'s sums and gathers. It is
+take `ops/segment.py`'s sums and gathers, and its FV residual
+(`fv/integrator.py`) takes its plain path, not `ops/fv_csr.py`. It is
 entered only by the eval step's `plain_kernels=True` argument and by
 `chip_smoke.py` (the on-card comparisons of a kernel step with a plain
 step, and of their gradients) and by tests.
@@ -43,7 +44,7 @@ def plain_versions():
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count in this process, by kernel."""
-    from gen_fvgn_tpu_torch.ops import (fused_mlp, fused_slice_attn,
+    from gen_fvgn_tpu_torch.ops import (fused_mlp, fused_slice_attn, fv_csr,
                                         pair_spmm, segment_csr, spmm)
     return dict(spmm=spmm.LAUNCHES,
                 pair_sum=pair_spmm.LAUNCHES_PAIR_SUM,
@@ -60,12 +61,21 @@ def launch_counts() -> dict:
                 fused_mlp_ln_bwd_wg=fused_mlp.LAUNCHES_LN_BWD_WG,
                 seg_nbr_sum=segment_csr.LAUNCHES_NBR_SUM,
                 seg_inc_sum=segment_csr.LAUNCHES_INC_SUM,
-                seg_collect=segment_csr.LAUNCHES_COLLECT)
+                seg_collect=segment_csr.LAUNCHES_COLLECT,
+                fv_lists=fv_csr.LAUNCHES_FV_LISTS,
+                fv_wlsq=fv_csr.LAUNCHES_FV_WLSQ,
+                fv_face=fv_csr.LAUNCHES_FV_FACE,
+                fv_cell=fv_csr.LAUNCHES_FV_CELL,
+                fv_loss=fv_csr.LAUNCHES_FV_LOSS,
+                fv_smooth=fv_csr.LAUNCHES_FV_SMOOTH,
+                fv_cell_bwd=fv_csr.LAUNCHES_FV_CELL_BWD,
+                fv_node_bwd=fv_csr.LAUNCHES_FV_NODE_BWD,
+                fv_wlsq_bwd=fv_csr.LAUNCHES_FV_WLSQ_BWD)
 
 
 def zero_launch_counts() -> None:
     """Every kernel wrapper's launch count set to 0."""
-    from gen_fvgn_tpu_torch.ops import (fused_mlp, fused_slice_attn,
+    from gen_fvgn_tpu_torch.ops import (fused_mlp, fused_slice_attn, fv_csr,
                                         pair_spmm, segment_csr, spmm)
     spmm.LAUNCHES = 0
     pair_spmm.LAUNCHES_PAIR_SUM = pair_spmm.LAUNCHES_PAIR_TRANSPOSE = 0
@@ -77,3 +87,6 @@ def zero_launch_counts() -> None:
     fused_slice_attn.LAUNCHES = fused_slice_attn.LAUNCHES_BWD = 0
     segment_csr.LAUNCHES_NBR_SUM = segment_csr.LAUNCHES_INC_SUM = 0
     segment_csr.LAUNCHES_COLLECT = 0
+    for name in ("LISTS", "WLSQ", "FACE", "CELL", "LOSS", "SMOOTH",
+                 "CELL_BWD", "NODE_BWD", "WLSQ_BWD"):
+        setattr(fv_csr, f"LAUNCHES_FV_{name}", 0)

@@ -26,7 +26,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("spmm.cu", "pair_spmm.cu", "fused_mlp.cu", "fused_premlp.cu",
            "fused_slice_pool.cu", "fused_slice_pool_bwd.cu",
-           "segment_csr.cu")
+           "segment_csr.cu", "fv_csr.cu")
 # included by the sources: in the hash too
 HEADERS = ("lane_reduce.cuh", "mma_sm90.cuh", "slice_pool_tiles.cuh",
            "spmm_rows.cuh")
@@ -134,6 +134,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, cl,            # mask (or null), out, its row stride
         ci, ci, ci, ci,        # rows, width, is_bf16, vec
         vp]                    # stream
+    lib.gfvgn_fv_lists.restype = ci
+    lib.gfvgn_fv_lists.argtypes = [
+        ci, vp,                # step, FvMesh*
+        vp, vp, vp,            # ptr, cursor, ids
+        vp]                    # stream
+    lib.gfvgn_fv_pass.restype = ci
+    lib.gfvgn_fv_pass.argtypes = [ci, vp, vp, vp]  # pass, FvMesh*, FvData*,
+    #                                                stream
     lib.gfvgn_fused_mlp_workspace.restype = ctypes.c_longlong
     lib.gfvgn_fused_mlp_workspace.argtypes = [
         ci, ci, ci,            # width0, width1, H

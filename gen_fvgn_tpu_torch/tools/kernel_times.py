@@ -35,7 +35,13 @@ of
   pass, `fused_mlp_wgrad`, `lane_reduce`);
 * K3 at the encoders' pre-only forms (no first-layer part, a pre, M = 8 x
   nodes and 8 x faces), held against its plain version;
-* the registers and spills of every fused MLP kernel.
+* the registers and spills of every fused MLP kernel;
+* where the tree has them, the segment FV residual's list passes
+  (`check_fv_csr`: the lists' build, F1 `wlsq`, F2 `face`, F3 `cell` with
+  the loss pass, F4 `smooth` and the three backward passes, each timed
+  alone at the benchmark cells' shape, the 201 x 201-node cavity at batch
+  8), each beside its byte bound and the plain stage's time (`plain_ms`),
+  and the whole residual's forward and backward against the plain chain.
 
 Run it by path, not as a module: it imports `chip_smoke` and
 `gen_fvgn_tpu_torch` from the tree it is given. Needs one CUDA card.
@@ -244,6 +250,12 @@ def main(argv):
     times["fused_mlp"] = {k: round(v, 4) for k, v in
                           mlp_times(cs, n_pad, e_pad, flush).items()}
     times["k3_segment_edge_profile"] = k3_profile(e_pad)
+    if hasattr(cs, "check_fv_csr"):
+        fv = cs.check_fv_csr(flush, torch.Generator(device="cuda").manual_seed(
+            25))
+        times["fv_csr"] = {form: {k: round(v, 4) for k, v in r.items()
+                                  if k in ("ms", "bound_ms", "plain_ms")}
+                           for form, r in fv.items()}
     times["registers_fused_mlp"] = {
         _kernel_name(u["function"]): [u["registers"], u["spill_stores"],
                                       u["spill_loads"]]
