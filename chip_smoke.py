@@ -107,11 +107,13 @@ Transolver block each, 8 heads, 32 slices, bf16 stream) unless named:
     fused_mlp_ln, 1 fused_mlp_noln, 2 fused_premlp_res and 2
     fused_slice_pool launches, 12 seg_nbr_sum, 6 seg_inc_sum and 6
     seg_collect, every GraphNet transfer (a block without its lists raises
-    on the card), the FV residual's list passes (`FV_FWD`), no spmm or
+    on the card), the FV residual's list passes (`FV_FWD`; its lists,
+    `FV_LISTS`, built once for the rollout), no spmm or
     pair kernel), step 1's gradients against the plain versions, the
     run-to-run spread (every sum in a fixed order), 3 train steps of
     `make_train_step` (14 + 14, 1 + 1, 2 + 2, 2 + 2 launches a step; 24,
-    12, 12 of the three transfer kernels; `FV_FWD` and `FV_BWD`; no plain
+    12, 12 of the three transfer kernels; `FV_LISTS`, `FV_FWD` and
+    `FV_BWD`; no plain
     FV residual), one time step of `solve_adam` at
     batch 1 (20 inner steps), and on the 100 x 100-node cavity (10,112
     nodes, 19,840 faces: odd multiples of 128, where the slice attention
@@ -1102,29 +1104,35 @@ def zero_counts():
     zero_launch_counts()
 
 
+def tally(keys, *terms):
+    """{k: the sum of n * d[k] over the (n, d) of `terms`} for each k of
+    `keys`: the launches expected of n runs of each unit d."""
+    return {k: sum(n * d.get(k, 0) for n, d in terms) for k in keys}
+
+
 def drive(name, cfg, sim, norm_state, dyn, static, steps, per_step, n_real,
-          batch=BATCH, timing=None):
+          batch=BATCH, timing=None, per_request=None):
     """`steps` rollout steps of `sim` with the counters set to 0 just before
-    and read just after; then step 1 again with the plain versions on the
-    card. `static` None: the segment engine (`rollout` on the stacked
-    MeshSample `dyn`), else the block engine. Returns the counts of the
-    rollout and its records; `timing` (a dict) takes the steps' host-clock
-    ms under "step_ms"."""
+    and read just after (`per_step` launches a step, and `per_request`
+    once: the segment rollout's list build); then step 1 again with the
+    plain versions on the card. `static` None: the segment engine
+    (`rollout` on the stacked MeshSample `dyn`), else the block engine.
+    Returns the counts of the rollout and its records; `timing` (a dict)
+    takes the steps' host-clock ms under "step_ms"."""
+    from gen_fvgn_tpu_torch.ops import plain_versions
     from gen_fvgn_tpu_torch.solve import rollout as seg
     from gen_fvgn_tpu_torch.solve import rollout_block as blk
     if static is None:
-        eval_step = lambda plain=False: seg.make_eval_step(
-            cfg, sim, plain_kernels=plain)
+        eval_step = seg.make_eval_step(cfg, sim)
         run = lambda **kw: seg.rollout(cfg, sim, norm_state, dyn, steps,
                                        **kw)
     else:
-        eval_step = lambda plain=False: functools.partial(
-            blk.make_eval_step_block(cfg, sim, plain_kernels=plain),
-            static=static)
+        eval_step = functools.partial(blk.make_eval_step_block(cfg, sim),
+                                      static=static)
         run = lambda **kw: blk.rollout_block(cfg, sim, norm_state, dyn,
                                              static, steps, **kw)
     n_pad = dyn.uvp.shape[1]
-    eval_step()(norm_state, dyn)                               # warm-up
+    eval_step(norm_state, dyn)                                 # warm-up
     torch.cuda.synchronize()
     zero_counts()
     stamps = [time.perf_counter()]
@@ -1153,7 +1161,7 @@ def drive(name, cfg, sim, norm_state, dyn, static, steps, per_step, n_real,
             f"loss_mom_y={rec['loss_mom_y'].mean():.6g} "
             f"loss_press={rec['loss_press'].mean():.6g} "
             f"max|uvp|={np.abs(un).max():.4g} ms={ms:.2f}")
-    expected = {k: per_step.get(k, 0) * steps for k in counts}
+    expected = tally(counts, (steps, per_step), (1, per_request or {}))
     log(f"{name} rollout: {steps} steps, batch {batch}, median "
         f"{float(np.median(step_ms)):.2f} ms/step (host clock, state copied "
         f"to the host each step); launches {counts}")
@@ -1164,7 +1172,8 @@ def drive(name, cfg, sim, norm_state, dyn, static, steps, per_step, n_real,
         raise RuntimeError(f"{name}: the rollout did not move the state")
 
     # step 1 again with the kernels' plain versions on the card
-    plain = eval_step(plain=True)(norm_state, dyn)
+    with plain_versions():
+        plain = eval_step(norm_state, dyn)
     if launch_counts() != expected:
         raise RuntimeError(f"{name}: the plain step launched a kernel")
     gap = np.abs(plain.uvp_node_new.cpu().numpy() - hist[0]["uvp_node"])
@@ -1364,6 +1373,7 @@ def drive_hidden256(cfg, pool, static, norm_state, n_real, net, per_step,
     the Transolver kernels at C = 256: K5f/K5b with the hidden width 512
     and K6/K7 with 8 heads of 32 and 32 slices. `per_step` gives the
     rollout step's launches, `train_step_counts` the train step's."""
+    from gen_fvgn_tpu_torch.ops import plain_versions
     from gen_fvgn_tpu_torch.solve.rollout_block import make_eval_step_block
     from gen_fvgn_tpu_torch.training.train_block import (
         init_train_state_block, make_train_step_block)
@@ -1390,8 +1400,8 @@ def drive_hidden256(cfg, pool, static, norm_state, n_real, net, per_step,
         raise RuntimeError(f"{name}: rollout launches {counts} != "
                            f"{expected}, or a state not finite with zero "
                            f"padded nodes")
-    plain = make_eval_step_block(hcfg, sim, plain_kernels=True)(
-        norm_state, dyn, static)
+    with plain_versions():
+        plain = make_eval_step_block(hcfg, sim)(norm_state, dyn, static)
     gap = float((plain.uvp_node_new.float() - un).abs().max())
     step_tol = 2e-2                    # as the main path's rollouts
     log(f"{name} rollout step 1 kernels vs plain versions on the card: "
@@ -1673,19 +1683,24 @@ def check_segment_forms(n_pad, e_pad, flush_buf, gen, h=128):
 # NodeBlock's directed sums and second hop; its backward: the two
 # neighbour sums again, collect's backward on seg_inc_sum and the directed
 # sums' on seg_collect
-# The FV residual on its list passes (ops/fv_csr.py), a forward: the lists'
-# count, fill and row sort, F1-F4 and the loss pass; its backward: the
-# cell, node and WLSQ passes
-FV_FWD = dict(fv_lists=3, fv_wlsq=1, fv_face=1, fv_cell=1, fv_loss=1,
-              fv_smooth=1)
+# The FV residual on its list passes (ops/fv_csr.py), a forward: F1-F4 and
+# the loss pass; its backward: the cell, node and WLSQ passes. The lists'
+# count, fill and row sort (`FV_LISTS`) run once a batch (`ops.mesh_lists`):
+# once a train step, once a rollout request, once a solve's time step where
+# it runs unchunked
+FV_LISTS = dict(fv_lists=3)
+FV_FWD = dict(fv_wlsq=1, fv_face=1, fv_cell=1, fv_loss=1, fv_smooth=1)
 FV_BWD = dict(fv_cell_bwd=1, fv_node_bwd=1, fv_wlsq_bwd=1)
+# a forward (a rollout step), and a forward and its backward, on lists
+# built before them; a train step, which builds its batch's lists
 SEG_FWD = dict(fused_mlp_ln=14, fused_mlp_noln=1, fused_premlp_res=2,
                fused_slice_pool=2, fused_mlp_ln_wg=6, seg_nbr_sum=12,
                seg_inc_sum=6, seg_collect=6, **FV_FWD)
-SEG_TRAIN = dict(SEG_FWD, fused_mlp_ln_bwd=14, fused_mlp_noln_bwd=1,
-                 fused_premlp_res_bwd=2, fused_slice_pool_bwd=2,
-                 fused_mlp_ln_bwd_wg=12, seg_nbr_sum=24, seg_inc_sum=12,
-                 seg_collect=12, **FV_BWD)
+SEG_GRAD = dict(SEG_FWD, fused_mlp_ln_bwd=14, fused_mlp_noln_bwd=1,
+                fused_premlp_res_bwd=2, fused_slice_pool_bwd=2,
+                fused_mlp_ln_bwd_wg=12, seg_nbr_sum=24, seg_inc_sum=12,
+                seg_collect=12, **FV_BWD)
+SEG_TRAIN = dict(SEG_GRAD, **FV_LISTS)
 
 
 SEG_CSR_N = 200     # the benchmark cells' 201 x 201-node cavity
@@ -2021,8 +2036,8 @@ def check_fv_csr(flush_buf, gen):
     # the whole residual, forward and backward, against the plain chain
     def whole(plain):
         xs = [t.clone().requires_grad_(True) for t in (new, hat, old)]
-        with (plain_versions() if plain else contextlib.nullcontext()):
-            ls, r_, u_ = fv.integrate_residuals(*xs, sm)
+        ls, r_, u_ = fv.integrate_residuals(
+            *xs, sm, fv_lists=None if plain else lists)
         outs = list(ls) + [u_, r_]
         cots = [torch.ones_like(o) for o in outs[:4]] + [
             torch.full_like(u_, 0.5), torch.full_like(r_, 0.25)]
@@ -2041,10 +2056,9 @@ def check_fv_csr(flush_buf, gen):
                 for x, y in zip(g1, gp))
     outs, xs, cots = graph
     rows["forward"] = dict(ms=median_ms(lambda: fv_csr.residual(
-        new, hat, old, sm), flush_buf))
-    with plain_versions():
-        rows["forward"]["plain_ms"] = median_ms(
-            lambda: fv.integrate_residuals(new, hat, old, sm), flush_buf)
+        new, hat, old, sm, True, lists), flush_buf))
+    rows["forward"]["plain_ms"] = median_ms(
+        lambda: fv.integrate_residuals(new, hat, old, sm), flush_buf)
     rows["backward"] = dict(
         ms=sum(rows[f]["ms"] for f in ("cell_bwd", "node_bwd", "wlsq_bwd")),
         plain_ms=median_ms(lambda: torch.autograd.grad(
@@ -2117,7 +2131,7 @@ def drive_segment(card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counts, hist = drive(f"{name} {cfg.net}", cfg, sim, ns, batch, None, 3,
-                         SEG_FWD, n_real)
+                         SEG_FWD, n_real, per_request=FV_LISTS)
     t["rollout_peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
     t["rollout_launches"] = counts
 
@@ -2208,8 +2222,9 @@ def drive_segment(card):
     solve_s = time.perf_counter() - t0
     counts = launch_counts()
     n_inner = cfg.max_inner_steps
-    expected = {k: n_inner * SEG_TRAIN.get(k, 0) + SEG_FWD.get(k, 0)
-                for k in counts}
+    # one problem, unchunked at batch 1: its lists built once
+    expected = tally(counts, (n_inner, SEG_GRAD), (1, SEG_FWD),
+                     (1, FV_LISTS))
     losses = h[0]["inner_losses"]
     log(f"{name} solve_adam: 1 time step of {n_inner} inner steps at batch "
         f"1: {solve_s:.2f} s ({1e3 * solve_s / n_inner:.2f} ms an inner "
@@ -2229,7 +2244,7 @@ def drive_segment(card):
     state, sim = init_train_state(cfg, seed=0)
     odd_fwd = dict(SEG_FWD, fused_slice_pool=0)
     drive(f"{name} {cfg.net} (10,112 nodes)", cfg, sim, state.norm_state,
-          batch, None, 2, odd_fwd, n_real)
+          batch, None, 2, odd_fwd, n_real, per_request=FV_LISTS)
     hold_step1_grads(f"{name} {cfg.net} train (10,112 nodes)", cfg, sim,
                      state.norm_state, batch, None)
     zero_counts()
@@ -2949,8 +2964,11 @@ def drive_cli(card, per_step, fwd_per_step, root):
                 t["segment_solve_ms_per_time_step"][f"{case} {mode}"] = ms
                 n_train = {"rollout": 0, "adam": 4,
                            "lbfgs": sum(spy.evaluations)}[mode]
-                expected = {k: n_train * SEG_TRAIN.get(k, 0)
-                            + 2 * SEG_FWD.get(k, 0) for k in counts}
+                # the lists once a request, or once a solve's time step
+                # (batch 1, unchunked)
+                n_lists = 1 if mode == "rollout" else 2
+                expected = tally(counts, (n_train, SEG_GRAD), (2, SEG_FWD),
+                                 (n_lists, FV_LISTS))
                 log(f"{name} solve (default engine: segment) {case} {mode}: "
                     f"{[round(x, 2) for x in ms]} ms a time step (host "
                     f"clock, the export included); exports {files}; L-BFGS "

@@ -9,11 +9,12 @@ one padded mesh under a vmap; here every array carries the batch axis
 reduction over the sample's rows. The pressure-outlet loss is total by a
 zero-gradient sqrt, as in JAX.
 
-On CUDA tensors, outside `ops.plain_versions()`, at the forms it covers
-(order "2nd", the conserved form, `ncn_smooth` either way: the Config's
-defaults) the residual runs on `ops/fv_csr.py`'s list passes; every other
-form, and every CPU tensor, takes the plain path below. `FV_KERNEL_CALLS`
-and `FV_PLAIN_CALLS` count the calls by path.
+Given the batch's FV lists (`fv_lists`, of `ops.mesh_lists`, which builds
+them on CUDA tensors outside `ops.plain_versions()` at the forms they
+cover: order "2nd", the conserved form, `ncn_smooth` either way, the
+Config's defaults) the residual runs on `ops/fv_csr.py`'s list passes;
+without them it takes the plain path below. `FV_KERNEL_CALLS` and
+`FV_PLAIN_CALLS` count the calls by path.
 
 θ_PDE layout: [unsteady, continuity, convection, grad_p/ρ, diffusion,
 source/U, U_in_x, U_in_y, Re].
@@ -21,11 +22,11 @@ source/U, U_in_x, U_in_y, Re].
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from gen_fvgn_tpu_torch.ops import fv_csr, interp, plain_versions_active
+from gen_fvgn_tpu_torch.ops import fv_csr, interp
 from gen_fvgn_tpu_torch.ops.segment import (gather_rows, safe_sqrt,
                                             segment_sum)
 from gen_fvgn_tpu_torch.ops.wlsq import node_based_wlsq_precomputed
@@ -216,16 +217,21 @@ def integrate_residuals(
     order: str = "2nd",
     conserved_form: bool = True,
     ncn_smooth: bool = True,
+    fv_lists: Optional[fv_csr.FvLists] = None,
 ) -> Tuple[FVLosses, torch.Tensor, torch.Tensor]:
     """WLSQ gradient reconstruction + flux/volume integral residual
     assembly. Returns (losses [B] each, rt_uvp_new [B, Np, 3],
-    uvp_cell_new [B, Nc, 3])."""
+    uvp_cell_new [B, Nc, 3]). With `fv_lists` (order "2nd", the conserved
+    form) on the list passes of `ops/fv_csr.py`, else on the plain path."""
     global FV_KERNEL_CALLS, FV_PLAIN_CALLS
-    if (uvp_new.device.type == "cuda" and not plain_versions_active()
-            and order == "2nd" and conserved_form):
+    if fv_lists is not None:
+        if order != "2nd" or not conserved_form:
+            raise ValueError(f"the FV lists' passes take order '2nd' in the "
+                             f"conserved form, got {order!r}, "
+                             f"conserved_form={conserved_form}")
         FV_KERNEL_CALLS += 1
         losses, rt_uvp_new, uvp_cell_new = fv_csr.residual(
-            uvp_new, uv_hat, uv_old, sample, ncn_smooth)
+            uvp_new, uv_hat, uv_old, sample, ncn_smooth, fv_lists)
         return FVLosses(*losses), rt_uvp_new, uvp_cell_new
     FV_PLAIN_CALLS += 1
 

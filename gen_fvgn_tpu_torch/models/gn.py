@@ -12,9 +12,10 @@ EdgeBlock's [agg@sender, agg@receiver, edge_attr] (3h wide), the
 NodeBlock's [nbr_avg, node_x] (h/2 + h wide); the residual adds of GnBlock
 are outside the MLPs.
 
-On CUDA tensors the blocks take the batch's incidence lists (`inc`,
-`ops/segment_csr.py`, built once a forward by the simulator) and each
-transfer is one kernel pass over them, with the plain version's bits:
+Given the batch's incidence lists (`inc`, `ops/segment_csr.py`, built by
+`ops.mesh_lists` at the entry point and passed down through the
+simulator) each transfer is one kernel pass over them, with the plain
+version's bits:
 the EdgeBlock's `agg` and the NodeBlock's second hop are `nbr_sum`, the
 NodeBlock's directed sums `inc_sum`, the edge MLP's input `collect`, and
 the degree the lists' lengths. Without lists (CPU tensors, or inside
@@ -124,10 +125,8 @@ class GnBlock(nn.Module):
         self.node_block = NodeBlock(hidden_size, dtype, generator)
 
     def forward(self, node_x, edge_attr, face_node, face_mask, inc=None):
-        """`inc`: the batch's incidence lists; built here where not given
-        (`incidence_for`: None, the plain version, on the CPU)."""
-        if inc is None:
-            inc = csr.incidence_for(face_node, face_mask, node_x.shape[1])
+        """`inc`: the batch's incidence lists, or None (the plain
+        versions)."""
         edge_new = self.edge_block(node_x, edge_attr, face_node, face_mask,
                                    inc)
         node_new = self.node_block(node_x, edge_new, face_node, face_mask,

@@ -10,11 +10,11 @@ modules are built in the block nets' order, so `make_simulator` and
 `make_simulator_block` draw the same weights from the same seed.
 
 forward(node_feats [B, N, 12], edge_feats [B, E, 15], face_node [B, 2, E],
-node_mask [B, N], face_mask [B, E]) -> [B, N, 3]: the batch is the leading
-axis where the JAX nets see one graph under a vmap. On CUDA tensors a
-forward builds the batch's incidence lists once
-(`ops/segment_csr.py::incidence_for`) and every GnBlock runs its transfers
-on them.
+node_mask [B, N], face_mask [B, E], inc=None) -> [B, N, 3]: the batch is
+the leading axis where the JAX nets see one graph under a vmap. `inc`, the
+batch's incidence lists (`ops.mesh_lists(...).inc`, built by the caller),
+goes to every GnBlock, which runs its transfers on them; without it the
+blocks take their plain versions.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ from torch import nn
 from gen_fvgn_tpu_torch.config import Config
 from gen_fvgn_tpu_torch.models.gn import Decoder, Encoder, GnBlock
 from gen_fvgn_tpu_torch.models.transolver import TransolverBlock
-from gen_fvgn_tpu_torch.ops.segment_csr import incidence_for
 from gen_fvgn_tpu_torch.utils.device import resolve_device
 
 
@@ -87,8 +86,7 @@ class FVGNSimulator(_Blocks):
                                generator)
 
     def forward(self, node_feats, edge_feats, face_node, node_mask,
-                face_mask):
-        inc = incidence_for(face_node, face_mask, node_feats.shape[1])
+                face_mask, inc=None):
         node_h, edge_h = self.encoder(node_feats, edge_feats)
         node_h, _ = self._run_blocks(node_h, edge_h, face_node, face_mask,
                                      inc)
@@ -106,8 +104,7 @@ class TransFVGNv1(FVGNSimulator):
             dtype=_stream_dtype(cfg), generator=generator)
 
     def forward(self, node_feats, edge_feats, face_node, node_mask,
-                face_mask):
-        inc = incidence_for(face_node, face_mask, node_feats.shape[1])
+                face_mask, inc=None):
         node_h, edge_h = self.encoder(node_feats, edge_feats)
         node_h, _ = self._run_blocks(node_h, edge_h, face_node, face_mask,
                                      inc)
@@ -132,8 +129,7 @@ class TransFVGNv2(nn.Module):
                                generator)
 
     def forward(self, node_feats, edge_feats, face_node, node_mask,
-                face_mask):
-        inc = incidence_for(face_node, face_mask, node_feats.shape[1])
+                face_mask, inc=None):
         node_h, edge_h = self.encoder(node_feats, edge_feats)
         for i in range(2):
             node_h, edge_h = getattr(self, f"processor_{i}")(

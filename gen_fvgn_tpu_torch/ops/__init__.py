@@ -11,18 +11,28 @@ PyTorch versions: inside it the dispatching callers (`apply_linop`,
 autograd Functions take the backward's plain versions
 (`pair_transpose_reference`, `fused_mlp_ln_bwd_reference`,
 `fused_mlp_noln_bwd_reference`, `fused_premlp_res_bwd_reference`,
-`fused_slice_pool_bwd_reference`); the segment engine's GraphNet blocks
-(`models/gn.py`) build no incidence lists (`segment_csr.incidence_for`) and
-take `ops/segment.py`'s sums and gathers, and its FV residual
-(`fv/integrator.py`) takes its plain path, not `ops/fv_csr.py`. It is
-entered only by the eval step's `plain_kernels=True` argument and by
-`chip_smoke.py` (the on-card comparisons of a kernel step with a plain
-step, and of their gradients) and by tests.
-The kernel wrappers themselves never consult it: on a CUDA tensor they
-launch their kernel or raise.
+`fused_slice_pool_bwd_reference`). It is entered by `chip_smoke.py` (the
+on-card comparisons of a kernel step with a plain step, and of their
+gradients) and by tests.
+
+`mesh_lists(batch, cfg)` is the segment engine's one dispatch: it builds
+the lists its kernels run on (`MeshLists`: the GraphNet blocks' incidence
+lists, `segment_csr.build_incidence`, and the FV residual's,
+`fv_csr.build_lists`), or returns None, the plain versions, for CPU
+tensors and inside `plain_versions()`. The entry points build them once a
+batch (`training.forward.forward_batch` where it is given none, once a
+`solve.rollout.rollout` request, once a `solve.instance_opt` time step
+where it runs unchunked) and pass them down; nothing below rebuilds them.
+The kernel wrappers themselves never consult the switch: on a CUDA tensor
+they launch their kernel or raise.
 """
 
 import contextlib
+from typing import TYPE_CHECKING, NamedTuple, Optional
+
+if TYPE_CHECKING:
+    from gen_fvgn_tpu_torch.ops.fv_csr import FvLists
+    from gen_fvgn_tpu_torch.ops.segment_csr import Incidence
 
 _PLAIN_VERSIONS = False
 
@@ -40,6 +50,29 @@ def plain_versions():
         yield
     finally:
         _PLAIN_VERSIONS = old
+
+
+class MeshLists(NamedTuple):
+    """A batch's lists for the segment engine's kernels, which depend on
+    its topology alone."""
+    inc: "Incidence"            # the GraphNet blocks'
+    fv: Optional["FvLists"]     # the FV residual's; None at the forms its
+    #                             kernels do not cover
+
+
+def mesh_lists(batch, cfg) -> Optional[MeshLists]:
+    """The lists of the stacked MeshSample `batch` on its device, or None
+    (the plain versions) for CPU tensors and inside `plain_versions()`.
+    `fv` is built at order "2nd" in the conserved form (`cfg`), the forms
+    the FV kernels cover, and is None at every other."""
+    if not batch.face_node.is_cuda or _PLAIN_VERSIONS:
+        return None
+    from gen_fvgn_tpu_torch.ops import fv_csr, segment_csr
+    inc = segment_csr.build_incidence(batch.face_node, batch.face_mask,
+                                      batch.uvp.shape[1])
+    fv = (fv_csr.build_lists(batch)
+          if cfg.order == "2nd" and cfg.conserved_form else None)
+    return MeshLists(inc, fv)
 
 
 def launch_counts() -> dict:

@@ -9,7 +9,8 @@ gathers, scatter-adds and a batched product; the port's plain version
 intermediate written and read again only to be summed by an atomic
 `index_add`, and the folded WLSQ solve as a batched float32 GEMV.
 
-* `build_lists`, once a forward: the lists, integer-exact, on the device,
+* `build_lists`, once a batch (`ops.mesh_lists`, the engine's one place
+  that builds them): the lists, integer-exact, on the device,
   with no host synchronisation. Five families of rows, flattened over the
   batch (see `FvLists`): each cell's slots, each node's slots, each face's
   slots, each node's two-way WLSQ stencil entries and each node's faces;
@@ -717,20 +718,19 @@ class _ResidualFn(torch.autograd.Function):
 
 
 def residual(uvp_new: torch.Tensor, uv_hat: torch.Tensor,
-             uv_old: torch.Tensor, sample, ncn_smooth: bool = True,
-             lists: Optional[FvLists] = None):
+             uv_old: torch.Tensor, sample, ncn_smooth: bool,
+             lists: FvLists):
     """`integrate_residuals(uvp_new, uv_hat, uv_old, sample, "2nd",
-    conserved_form=True, ncn_smooth)` through the lists, differentiable in
-    the three states: ((cont, mom_x, mom_y, press) [B] each, rt_uvp_new
-    [B, N, 3], uvp_cell_new [B, C, 3])."""
+    conserved_form=True, ncn_smooth)` through the batch's lists (of
+    `build_lists(sample)`), differentiable in the three states: ((cont,
+    mom_x, mom_y, press) [B] each, rt_uvp_new [B, N, 3], uvp_cell_new
+    [B, C, 3])."""
     if sample.wlsq_S.shape[-1] != K:
         raise ValueError(f"fv_csr takes order '2nd' (k = {K}), got "
                          f"k = {sample.wlsq_S.shape[-1]}")
     for t in (uvp_new, uv_hat, uv_old):
         if t.dtype != torch.float32:
             raise TypeError(f"fv_csr takes float32 states, got {t.dtype}")
-    if lists is None:
-        lists = build_lists(sample)
     outs = _ResidualFn.apply(uvp_new, uv_hat, uv_old, sample, lists,
                              ncn_smooth)
     rt = outs[5] if ncn_smooth else uvp_new

@@ -9,7 +9,8 @@ for CPU tensors) gathers node rows into [B, E, h] face tensors, masks them
 and `index_add`s them back onto nodes; on the card that is a bf16 atomic
 add, and each intermediate is written and read again only to be summed.
 
-* `build_incidence`, once a forward: for each sample and node, the unmasked
+* `build_incidence`, once a batch (`ops.mesh_lists`, the engine's one
+  place that builds it): for each sample and node, the unmasked
   faces where the node is receiver and those where it is sender, each list
   in ascending face order, each entry with the face's row and the
   neighbour's node row (rows flattened over the batch: node b·N + n, face
@@ -49,7 +50,7 @@ are in PERF.md.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -108,16 +109,6 @@ def build_incidence(face_node: torch.Tensor, face_mask: torch.Tensor,
     deg = (torch.diff(recv[0]) + torch.diff(send[0])).to(torch.float32)
     return Incidence(*recv, *send, s, r, mask.contiguous(),
                      deg.reshape(b, n_nodes, 1))
-
-
-def incidence_for(face_node: torch.Tensor, face_mask: torch.Tensor,
-                  n_nodes: int) -> Optional[Incidence]:
-    """The lists the GraphNet blocks run on: built for CUDA tensors, None
-    (the plain version) for CPU tensors and inside `ops.plain_versions()`."""
-    from gen_fvgn_tpu_torch.ops import plain_versions_active
-    if face_node.device.type != "cuda" or plain_versions_active():
-        return None
-    return build_incidence(face_node, face_mask, n_nodes)
 
 
 # ---- the plain versions through the lists (CPU tensors, and the

@@ -36,6 +36,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from gen_fvgn_tpu_torch import ops
 from gen_fvgn_tpu_torch.config import Config
 from gen_fvgn_tpu_torch.graph.packs import DynamicPack, StaticPack
 from gen_fvgn_tpu_torch.parallel import dp as dp_mod
@@ -73,7 +74,9 @@ class _Problem:
     MeshSample on the segment engine (`static` None), or a DynamicPack of
     the case of `static` on the block engine (the rank's rows of the sp
     layout `lay`, where given). The forward does not accumulate the
-    normalizer."""
+    normalizer. Unchunked on the segment engine, every forward runs on the
+    batch's kernel lists (`ops.mesh_lists`), built once here; chunked,
+    `forward_batch` builds each chunk's."""
 
     def __init__(self, cfg, sim, norm_state, data, static=None, lay=None):
         self.cfg, self.sim, self.norm_state = cfg, sim, norm_state
@@ -81,11 +84,14 @@ class _Problem:
         self.params = list(sim.parameters())
         self.b, self.mb = _batch_size(data), cfg.microbatch
         self.chunked = _use_chunks(cfg, self.b)
+        self.lists = (ops.mesh_lists(data, cfg)
+                      if static is None and not self.chunked else None)
 
     def forward(self, dyn):
         if self.static is None:
             return forward_batch(self.sim, self.norm_state, dyn, self.cfg,
-                                 accumulate_normalizer=False)
+                                 accumulate_normalizer=False,
+                                 lists=self.lists)
         with (sp_mod.sp_context(self.lay) if self.lay is not None
               else contextlib.nullcontext()):
             return forward_batch_block(self.sim, self.norm_state, dyn,

@@ -6,8 +6,10 @@ Counterpart of `gen_fvgn_tpu/solve/rollout.py` (`make_eval_step`,
 trained network again and again (no optimizer), each step's new state fed
 back as the next input; the FV residuals are diagnostics only. Every step
 runs under `torch.no_grad()`; states stay on the device between steps and
-only the per-step records are copied to the host. `march` is the time loop
-both engines' rollouts share.
+only the per-step records are copied to the host. A request's topology
+never changes, so `rollout` builds the batch's kernel lists
+(`ops.mesh_lists`) once and every step runs on them. `march` is the time
+loop both engines' rollouts share.
 """
 
 from __future__ import annotations
@@ -16,29 +18,23 @@ from typing import Callable, List, Optional
 
 import torch
 
+from gen_fvgn_tpu_torch import ops
 from gen_fvgn_tpu_torch.config import Config
 from gen_fvgn_tpu_torch.training.forward import ForwardOutputs, forward_batch
 from gen_fvgn_tpu_torch.training.normalizer import NormalizerState
 from gen_fvgn_tpu_torch.utils import spans
 
 
-def make_eval_step(cfg: Config, simulator,
-                   plain_kernels: bool = False) -> Callable:
-    """(norm_state, batch) -> ForwardOutputs without gradients or
-    normalizer accumulation, on the whole stacked MeshSample batch.
-
-    plain_kernels=True runs the step with the kernels' plain PyTorch
-    versions on whatever device the data is on, for the comparison of a
-    kernel step with a plain step on the card and for the tests."""
-    def step(norm_state: NormalizerState, batch) -> ForwardOutputs:
+def make_eval_step(cfg: Config, simulator) -> Callable:
+    """(norm_state, batch, lists=None) -> ForwardOutputs without gradients
+    or normalizer accumulation, on the whole stacked MeshSample batch;
+    `lists`, the batch's `ops.mesh_lists`, are built by the step where not
+    given."""
+    def step(norm_state: NormalizerState, batch,
+             lists: Optional[ops.MeshLists] = None) -> ForwardOutputs:
         with torch.no_grad():
-            if not plain_kernels:
-                return forward_batch(simulator, norm_state, batch, cfg,
-                                     accumulate_normalizer=False)
-            from gen_fvgn_tpu_torch.ops import plain_versions
-            with plain_versions():
-                return forward_batch(simulator, norm_state, batch, cfg,
-                                     accumulate_normalizer=False)
+            return forward_batch(simulator, norm_state, batch, cfg,
+                                 accumulate_normalizer=False, lists=lists)
     return step
 
 
@@ -97,8 +93,10 @@ def rollout(
     export_fn: Optional[Callable] = None,       # (step, uvp_node, uvp_cell, rec)
     wave_source_fn: Optional[Callable] = None,  # t -> [B, Np] p-source signal
 ) -> List[dict]:
-    """n_steps autoregressive steps of the segment engine; the final state
-    is in the last record's "uvp_node"."""
+    """n_steps autoregressive steps of the segment engine, all on the
+    batch's kernel lists, built once; the final state is in the last
+    record's "uvp_node"."""
     step_fn = make_eval_step(cfg, simulator)
-    return march(lambda b: step_fn(norm_state, b), batch, n_steps,
+    lists = ops.mesh_lists(batch, cfg)
+    return march(lambda b: step_fn(norm_state, b, lists), batch, n_steps,
                  export_fn, wave_source_fn)

@@ -32,17 +32,11 @@ def _dyn_rows(dyn: DynamicPack, rows: torch.Tensor) -> DynamicPack:
         for f in dataclasses.fields(DynamicPack)})
 
 
-def make_eval_step_block(cfg: Config, simulator,
-                         plain_kernels: bool = False) -> Callable:
+def make_eval_step_block(cfg: Config, simulator) -> Callable:
     """Forward-only eval step (normalizer not accumulated). Batches above
     cfg.microbatch run as sequential chunks of that size; a batch that does
     not divide is padded with copies of row 0 and the outputs sliced back —
-    exact, because samples are independent.
-
-    plain_kernels=True runs the step with the kernels' plain PyTorch
-    versions on whatever device the data is on. It exists for the
-    comparison of a kernel step with a plain step on the card and for the
-    tests, and nothing else uses it."""
+    exact, because samples are independent."""
     def fwd(norm_state, dyn, static):
         return forward_batch_block(simulator, norm_state, dyn, static, cfg,
                                    accumulate_normalizer=False)
@@ -68,11 +62,7 @@ def make_eval_step_block(cfg: Config, simulator,
     def step(norm_state: NormalizerState, dyn: DynamicPack,
              static: StaticPack) -> ForwardOutputs:
         with torch.no_grad():
-            if not plain_kernels:
-                return run(norm_state, dyn, static)
-            from gen_fvgn_tpu_torch.ops import plain_versions
-            with plain_versions():
-                return run(norm_state, dyn, static)
+            return run(norm_state, dyn, static)
     return step
 
 

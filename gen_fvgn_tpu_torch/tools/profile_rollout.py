@@ -1,8 +1,7 @@
 """The port's main path set up at full width, and a device profile of a
 window of its steps: the pieces that `kernel_times.py`, `pair_probe.py`,
-`dp_check.py` and `chip_smoke.py` time with. A cell's step, traced, is
-`benchmark/run.py --trace 1` (with the program's spans:
-`benchmark/run_spans.py`).
+`dp_check.py` and `chip_smoke.py` time with. A cell's step, traced, with
+the program's spans, is `benchmark/run.py --trace 1`.
 """
 
 from __future__ import annotations

@@ -5,17 +5,20 @@ Counterpart of `gen_fvgn_tpu/training/forward.py`: `ForwardOutputs`, the
 hard Dirichlet overwrite, `relative_edge_features`, `forward_batch`
 (normalization → backbone → BC enforcement → time mixing → FV residual →
 re-dimensionalization over a stacked [B, ...] MeshSample, the batch axis
-written out where the JAX function vmaps), `training_loss` and its
+written out where the JAX function vmaps; the batch's kernel lists,
+`ops.mesh_lists`, built once where the caller gives none and handed to
+the backbone and the residual), `training_loss` and its
 per-sample-weighted form `training_loss_weighted` (the chunked solves).
 The block engine's forward is training/forward_block.py.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
+from gen_fvgn_tpu_torch import ops
 from gen_fvgn_tpu_torch.config import Config
 from gen_fvgn_tpu_torch.fv.integrator import integrate_residuals
 from gen_fvgn_tpu_torch.ops.segment import gather_rows, masked_mean_var
@@ -70,7 +73,13 @@ def forward_batch(
     cfg: Config,
     accumulate_normalizer: bool = True,
     norm_reduce=None,
+    lists: Optional[ops.MeshLists] = None,
 ) -> ForwardOutputs:
+    """`lists`: the batch's `ops.mesh_lists(batch, cfg)`, built here where
+    not given (None again for CPU tensors and inside
+    `ops.plain_versions()`: the plain versions)."""
+    if lists is None:
+        lists = ops.mesh_lists(batch, cfg)
     b = batch.uvp.shape[0]
     theta_nodes = batch.theta[:, None, :].expand(
         batch.uvp.shape[:2] + (batch.theta.shape[-1],))
@@ -95,7 +104,8 @@ def forward_batch(
 
     edge_attr = relative_edge_features(x, batch.pos, batch.face_node)
     uvp_new = simulator(x, edge_attr, batch.face_node, batch.node_mask,
-                        batch.face_mask)                         # [B,Np,3]
+                        batch.face_mask,
+                        None if lists is None else lists.inc)   # [B,Np,3]
 
     # soft clamp in the backbone's output type, then the hard Dirichlet
     # overwrite (which promotes to float32)
@@ -115,7 +125,8 @@ def forward_batch(
     with span("gfvgn.fv.residual"):
         losses, rt_uvp, uvp_cell = integrate_residuals(
             uvp_new, uv_hat, uv_old, batch, order=cfg.order,
-            conserved_form=cfg.conserved_form, ncn_smooth=cfg.ncn_smooth)
+            conserved_form=cfg.conserved_form, ncn_smooth=cfg.ncn_smooth,
+            fv_lists=None if lists is None else lists.fv)
     rt_uvp = enforce_boundary_conditions(rt_uvp, batch.node_type,
                                          batch.target_uv)
 

@@ -16,9 +16,9 @@ their own meshes) and a bucket-tier batch:
   ways; and the gradients with respect to `uvp_new`, `uv_hat` and
   `uv_old` of random cotangents on every output within 1e-6 of their
   scale;
-* `integrate_residuals` takes the plain path on CPU tensors, for the
-  forms the kernels do not cover and inside `ops.plain_versions()`, and
-  the call counters say so.
+* `integrate_residuals` takes the list passes exactly when it is given
+  the batch's FV lists, which `ops.mesh_lists` builds on the card alone
+  and at the forms the kernels cover, and the call counters say so.
 
 On the card (marker `cuda`, skipped without one): the kernels against the
 plain CUDA chain at a small shape and at the benchmark cells' shape (the
@@ -109,7 +109,8 @@ def _plain(new, hat, old, batch, ncn, conserved=True):
 
 
 def _lists_path(new, hat, old, batch, ncn):
-    return fv_csr.residual(new, hat, old, batch, ncn)
+    return fv_csr.residual(new, hat, old, batch, ncn,
+                           fv_csr.build_lists(batch))
 
 
 def _with_grads(fn, batch, ncn, seed):
@@ -204,21 +205,47 @@ def test_loss_gradients_alone_equal_plain_path():
 
 
 def test_dispatch_and_counters():
-    """CPU tensors take the plain path; so do, on the card, the forms the
-    kernels do not cover (checked here through the predicate's arguments:
-    the kernel path needs a CUDA tensor)."""
+    """`integrate_residuals` takes the list passes exactly when it is
+    given the batch's FV lists (`fv_lists`), and the call counters say so:
+    without them the plain path, on the CPU and inside
+    `ops.plain_versions()` alike; with them (built on the CPU, whose passes
+    run their plain versions through them) the list passes, no kernel
+    launched. `ops.mesh_lists` gives CPU tensors no lists, and no FV lists
+    at the forms the passes do not cover (conserved_form=False, another
+    order), where `integrate_residuals` refuses them."""
+    from gen_fvgn_tpu_torch.config import Config
     from gen_fvgn_tpu_torch.fv import integrator
-    from gen_fvgn_tpu_torch.ops import launch_counts, plain_versions
+    from gen_fvgn_tpu_torch.fv.integrator import integrate_residuals
+    from gen_fvgn_tpu_torch.ops import launch_counts, mesh_lists, \
+        plain_versions
+    from test_torch_segment_csr import _ReportsCuda
     batch = batch_of("outflow")
     new, hat, old = states(batch, 1)
-    before = (integrator.FV_KERNEL_CALLS, integrator.FV_PLAIN_CALLS)
+    lists = fv_csr.build_lists(batch)
+    assert mesh_lists(batch, Config()) is None
+    card = batch.replace(face_node=batch.face_node.as_subclass(_ReportsCuda))
+    assert mesh_lists(card, Config()).fv is not None
+    for form in (dict(conserved_form=False), dict(order="1st"),
+                 dict(order="3rd")):
+        assert mesh_lists(card, Config(**form)).fv is None
+    calls = lambda: (integrator.FV_KERNEL_CALLS, integrator.FV_PLAIN_CALLS)
+    before = calls()
     counts = launch_counts()
     _plain(new, hat, old, batch, True)
     _plain(new, hat, old, batch, True, conserved=False)
     with plain_versions():
         _plain(new, hat, old, batch, True)
-    assert (integrator.FV_KERNEL_CALLS, integrator.FV_PLAIN_CALLS) == (
-        before[0], before[1] + 3)
+    assert calls() == (before[0], before[1] + 3)
+    got = integrate_residuals(new, hat, old, batch, "2nd", True, True,
+                              fv_lists=lists)
+    ref = _lists_path(new, hat, old, batch, True)
+    assert calls() == (before[0] + 1, before[1] + 3)
+    for a, r in zip(list(got[0]) + list(got[1:]), list(ref[0]) + list(ref[1:])):
+        assert torch.equal(a, r)
+    with pytest.raises(ValueError):
+        integrate_residuals(new, hat, old, batch, "2nd", False, True,
+                            fv_lists=lists)
+    assert calls() == (before[0] + 1, before[1] + 3)
     after = launch_counts()
     assert {k: after[k] - counts[k] for k in after if k.startswith("fv_")} \
         == {k: 0 for k in after if k.startswith("fv_")}
@@ -227,9 +254,9 @@ def test_dispatch_and_counters():
             "fv_wlsq_bwd"} <= set(after)
     with pytest.raises(ValueError):
         cut = batch.replace(wlsq_S=batch.wlsq_S[..., :2, :2])
-        fv_csr.residual(new, hat, old, cut)
+        fv_csr.residual(new, hat, old, cut, True, lists)
     with pytest.raises(TypeError):
-        fv_csr.residual(new.double(), hat, old, batch)
+        fv_csr.residual(new.double(), hat, old, batch, True, lists)
 
 
 # ---- the card ----

@@ -140,13 +140,16 @@ def test_rollout_scan_equals_rollout_and_callbacks_run():
 
 def test_plain_kernels_argument_gives_the_same_step_on_cpu():
     """On the CPU the kernel wrappers already take their plain versions, so
-    the explicit plain step is the same step."""
+    the step inside `ops.plain_versions()` (the one switch to them) is the
+    same step."""
+    from gen_fvgn_tpu_torch.ops import plain_versions
     from gen_fvgn_tpu_torch.solve.rollout_block import make_eval_step_block
     (jc, _, js, jd), (tc, _, ts, td) = both_sides(6, 128, 1, "bfloat16", 2)
     tree, _ = numpy_params(jc, js, jd)
     sim = torch_simulator(tc, tree)
     ns = torch_norm_state(numpy_norm_stats())
     a = make_eval_step_block(tc, sim)(ns, td, ts)
-    b = make_eval_step_block(tc, sim, plain_kernels=True)(ns, td, ts)
+    with plain_versions():
+        b = make_eval_step_block(tc, sim)(ns, td, ts)
     assert torch.equal(a.uvp_node_new, b.uvp_node_new)
     assert torch.equal(a.loss_cont, b.loss_cont)

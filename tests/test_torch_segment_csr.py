@@ -11,7 +11,10 @@ the degree equals the plain two-way sum of ones; the three forms through
 the lists (their plain versions, which CPU tensors take) equal the plain
 version bit for bit, forward and backward, in bf16 and float32 (±0 counted
 equal; `collect`'s cotangent zero on masked faces, as the nets give it);
-a GnBlock on the lists equals the plain GnBlock's outputs bit for bit.
+a GnBlock on the lists equals the plain GnBlock's outputs bit for bit;
+`ops.mesh_lists` gives CPU tensors no lists, and none inside
+`ops.plain_versions()`, and on (what says it is) the card the incidence
+lists, with the FV lists at the forms their passes cover alone.
 
 On the card (marker `cuda`, skipped without one): the kernels against the
 CPU plain version at the benchmark cells' shapes (201 x 201 nodes, batch
@@ -265,12 +268,55 @@ def test_gn_block_on_lists_equals_plain_block(dtype):
         assert float((g.float() - r32).abs().max()) <= tol
 
 
+class _ReportsCuda(torch.Tensor):
+    """A CPU tensor that says it is on the card: `ops.mesh_lists`'s
+    device test passes, and its builders run on the CPU."""
+    is_cuda = True
+
+
+def _sample_batch():
+    """A stacked MeshSample of CPU tensors (a segment pool's batch)."""
+    from gen_fvgn_tpu_torch.config import Config
+    from gen_fvgn_tpu_torch.meshes.synthetic import (cavity_quad_mesh,
+                                                     synthetic_case)
+    from gen_fvgn_tpu_torch.training.pool import EnvPool
+    cfg = Config(net="FVGN", batch_size=2, dataset_size=2, hidden_size=32,
+                 message_passing_num=1, engine="segment")
+    pool = EnvPool([], cfg, seed=0, engine="segment", device="cpu",
+                   cases=[synthetic_case(cavity_quad_mesh(5), continuity=1)])
+    return pool.gather_batch(np.arange(2))
+
+
 def test_incidence_for_takes_the_plain_version_on_the_cpu():
-    from gen_fvgn_tpu_torch.ops import plain_versions
-    face_node, mask, n = batch_of("quad")
-    assert csr.incidence_for(face_node, mask, n) is None
+    """`ops.mesh_lists`, the segment engine's one choice between its
+    kernels and their plain versions: None for CPU tensors and inside
+    `ops.plain_versions()`, at every form; on (what says it is) the card,
+    the incidence lists of `build_incidence` and the FV lists of
+    `fv_csr.build_lists` at order "2nd" in the conserved form, no FV lists
+    at any other form."""
+    from gen_fvgn_tpu_torch.config import Config
+    from gen_fvgn_tpu_torch.ops import fv_csr, mesh_lists, plain_versions
+    batch = _sample_batch()
+    forms = [Config(), Config(conserved_form=False), Config(order="3rd")]
+    for cfg in forms:
+        assert mesh_lists(batch, cfg) is None
+    card = batch.replace(face_node=batch.face_node.as_subclass(_ReportsCuda))
     with plain_versions():
-        assert csr.incidence_for(face_node, mask, n) is None
+        for cfg in forms:
+            assert mesh_lists(card, cfg) is None
+    want_inc = csr.build_incidence(batch.face_node, batch.face_mask,
+                                   batch.uvp.shape[1])
+    want_fv = fv_csr.build_lists(batch)
+    for cfg in forms:
+        got = mesh_lists(card, cfg)
+        for a, b in zip(got.inc, want_inc):
+            assert torch.equal(a, b)
+        if cfg.order == "2nd" and cfg.conserved_form:
+            assert torch.equal(got.fv.ptr, want_fv.ptr)
+            assert torch.equal(got.fv.ids, want_fv.ids)
+            assert got.fv.sizes == want_fv.sizes
+        else:
+            assert got.fv is None
 
 
 # ---- the card ----
@@ -341,10 +387,12 @@ def test_kernels_refuse_what_they_do_not_take():
                     torch.zeros(b, e, 16, device="cuda"), inc)
 
 
-def _module_runs(module, args, cots, device):
+def _module_runs(module, args, cots, device, inc=None):
+    """The module's outputs and gradients on `device`, on the incidence
+    lists `inc` where given (the plain versions where not)."""
     module = module.to(device)
     ins = [a.to(device).requires_grad_(a.is_floating_point()) for a in args]
-    outs = module(*ins)
+    outs = module(*ins, inc)
     outs = outs if isinstance(outs, tuple) else (outs,)
     params = list(module.parameters())
     grads = torch.autograd.grad(
@@ -395,7 +443,8 @@ def test_gn_block_and_net_through_kernels_match_cpu_path(net):
                 face_node, node_mask, mask]
         cots = [_data((b, n, cfg.node_output_size), bf, 3)]
         limits = [(12, 1)]
-    card = _module_runs(copy.deepcopy(module), args, cots, "cuda")
+    inc = csr.build_incidence(face_node.cuda(), mask.cuda(), n)
+    card = _module_runs(copy.deepcopy(module), args, cots, "cuda", inc)
     cpu = _module_runs(module, args, cots, "cpu")
     for got, ref, (n_max, n_med) in zip(card[0], cpu[0], limits):
         gap = (got - ref).abs()
